@@ -1,0 +1,78 @@
+// Ray-major fused positional encoding + NeRF MLP forward (kernel B3).
+//
+// Replaces the TPU kernel nerf_shared_tpu/ops/pallas/fused_mlp.py
+// _make_ray_kernel (launched by _ray_forward_impl, entry
+// fused_nerf_forward_rays): per-ray encoder coefficients A = [o, dir]·F and
+// B = [d]·F plus depths z [N, S] go in, raw [N, S, out_ch] comes out, and the
+// per-point input and embedded features never exist in device memory.
+//
+// What bounds it on an H100: operations. At the lego width (8x256, skip at
+// 4, viewdirs, multires 10/4) a point costs ~1.19 MFLOP against ~4 bytes of
+// input (one z) and 16 bytes of output, ~6e4 FLOP/byte, so the fp32
+// CUDA-core rate (no TF32: the encoder's sinusoid arguments reach 2^9·|x|)
+// is the roof, not the 3.35 TB/s memory.
+//
+// What the design does about it: the TPU kernel keeps all nine weight
+// matrices resident in VMEM; a Hopper block has 227 KB of shared memory and
+// the fp32 net is ~2.4 MB, so here a block keeps one tile of 64 points'
+// encodings and activations on chip for the whole network and streams the
+// weights layer by layer through a shared staging tile (mlp_tile.cuh), with
+// an 8x8 register tile per thread so each shared-memory load feeds 8 FMAs.
+// Only the used output channels are written. Tensor cores (wgmma, bf16/TF32
+// operands) are not used: that is later work.
+#include "mlp_tile.cuh"
+
+namespace nstt {
+
+__global__ void __launch_bounds__(NTHREADS)
+nerf_rays_kernel(const NetDesc* __restrict__ gdesc, const float* __restrict__ wb,
+                 const float* __restrict__ A, const float* __restrict__ B,
+                 const float* __restrict__ z, float* __restrict__ out,
+                 long long total, int S) {
+  __shared__ NetDesc d;
+  extern __shared__ float4 dyn[];
+  load_desc(d, gdesc);
+  __syncthreads();
+  const int HS = (int)d.hdr[H_HS], ES = (int)(d.hdr[H_P4] + d.hdr[H_V4]);
+  const int OUT = (int)d.hdr[H_OUT];
+  const Smem s = carve(reinterpret_cast<float*>(dyn), HS, ES);
+  for (int i = threadIdx.x; i < TILE_P * HS; i += NTHREADS) s.h[i] = 0.f;
+
+  const long long n_tiles = (total + TILE_P - 1) / TILE_P;
+  for (long long t = blockIdx.x; t < n_tiles; t += gridDim.x) {
+    const long long p0 = t * TILE_P;   // flat point index r*S + s
+    for (int i = threadIdx.x; i < TILE_P * ES; i += NTHREADS) {
+      const int p = i / ES, cc = emb_col(d, i % ES);
+      const long long gp = p0 + p;
+      s.emb[i] = (cc >= 0 && gp < total)
+                     ? emb_value(d, A, B, gp / S, __ldg(z + gp), cc) : 0.f;
+    }
+    __syncthreads();
+    mlp_tile(d, wb, s);
+    for (int i = threadIdx.x; i < TILE_P * OUT; i += NTHREADS) {
+      const int p = i / OUT, o = i % OUT;
+      const long long gp = p0 + p;
+      if (gp < total) out[gp * OUT + o] = s.raw[p * RAW_LD + o];
+    }
+    __syncthreads();
+  }
+}
+
+}  // namespace nstt
+
+extern "C" int nstt_rays_forward(const void* desc_dev, int HS, int ES,
+                                 const float* wb, const float* A, const float* B,
+                                 const float* z, float* out, long long n_rays,
+                                 int S, void* stream) {
+  using namespace nstt;
+  const size_t bytes = smem_floats(HS, ES) * sizeof(float);
+  cudaError_t e = cudaFuncSetAttribute(
+      nerf_rays_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (e != cudaSuccess) return (int)e;
+  const long long total = n_rays * S;
+  const long long n_tiles = (total + TILE_P - 1) / TILE_P;
+  const unsigned grid = (unsigned)(n_tiles < 0x7fffffffLL ? n_tiles : 0x7fffffffLL);
+  nerf_rays_kernel<<<grid, NTHREADS, bytes, (cudaStream_t)stream>>>(
+      (const NetDesc*)desc_dev, wb, A, B, z, out, total, S);
+  return (int)cudaGetLastError();
+}

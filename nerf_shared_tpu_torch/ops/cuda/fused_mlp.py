@@ -1,0 +1,266 @@
+"""Ray-major fused encoder + NeRF MLP (kernel B3), its plain version, and
+the packing shared with B4.
+
+Counterpart of ``fused_nerf_forward_rays`` in
+``nerf_shared_tpu/ops/pallas/fused_mlp.py``. The kernel
+(``csrc/fused_mlp.cu``) takes per-ray encoder coefficients and depths and
+builds the sample points itself: for embedding column c,
+``arg = A[r, c] + z[r, s] * B[r, c]`` with ``A = [o, dir][src] * f`` and
+``B = [d, 0][src] * f``, then identity, sin or cos. For power-of-two
+frequencies this is exactly ``f * (o + z * d)``, the plain version's
+argument. A and B are computed here in PyTorch (exact: one product per
+entry); the network itself runs only in the kernel.
+
+``fused_nerf_forward_rays`` dispatches on the tensors' device: on the CPU it
+is the plain version, on a CUDA device it launches the kernel (through an
+``autograd.Function`` whose backward recomputes through the plain version)
+or raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from nerf_shared_tpu_torch.models.nerf import NeRFConfig, apply_nerf, torch_param_order
+from nerf_shared_tpu_torch.ops.cuda import common
+
+MAX_LAYERS, MAX_W, MAX_EMB, MAX_OUT = 32, 256, 256, 8
+_DESC_WORDS = 16 + MAX_LAYERS * 4 + 5 * 4 + MAX_EMB // 8
+
+LAUNCHES = 0  # kernel launches made by fused_nerf_forward_rays
+
+
+def _round4(n: int) -> int:
+    return (n + 3) // 4 * 4
+
+
+def out_channels(cfg: NeRFConfig) -> int:
+    return 4 if cfg.use_viewdirs else cfg.output_ch
+
+
+def encoder_tables(cfg: NeRFConfig):
+    """Per embedding column (the layout of [γ(pts), γ(dirs)]): the input it
+    reads (0-2 ray, 3-5 view direction), its frequency, and its kind
+    (0 identity, 1 sin, 2 cos)."""
+    src, scale, kind = [], [], []
+    specs = [(0, cfg.pts_embedder)]
+    if cfg.use_viewdirs:
+        specs.append((3, cfg.views_embedder))
+    for row0, ecfg in specs:
+        for d in range(3):
+            src.append(row0 + d), scale.append(1.0), kind.append(0)
+        if ecfg.i_embed == -1:
+            continue
+        for freq in ecfg.freq_bands():
+            for k in (1, 2):
+                for d in range(3):
+                    src.append(row0 + d), scale.append(float(freq)), kind.append(k)
+    return (np.asarray(src, np.int64), np.asarray(scale, np.float32),
+            np.asarray(kind, np.int8))
+
+
+def ray_encoder_args(cfg: NeRFConfig, rays_o, rays_d, viewdirs):
+    """A, B [N, EMB] fp32: the pre-sine argument of sample z on ray r is
+    A[r] + z * B[r]."""
+    src, scale, _ = encoder_tables(cfg)
+    n = rays_o.shape[0]
+    zeros = torch.zeros((n, 3), dtype=torch.float32, device=rays_o.device)
+    vd = viewdirs if viewdirs is not None else zeros
+    x_o = torch.cat([rays_o.float(), vd.float()], dim=-1)
+    x_d = torch.cat([rays_d.float(), zeros], dim=-1)
+    idx = torch.as_tensor(src, device=rays_o.device)
+    sc = torch.as_tensor(scale, device=rays_o.device)
+    return ((x_o[:, idx] * sc).contiguous(), (x_d[:, idx] * sc).contiguous())
+
+
+def check_config(cfg: NeRFConfig):
+    """Raise on an architecture the kernels do not take."""
+    P, V = cfg.input_ch, cfg.input_ch_views
+    if not 1 <= cfg.D <= MAX_LAYERS:
+        raise ValueError(f"kernel takes 1..{MAX_LAYERS} layers, got D={cfg.D}")
+    if not 2 <= cfg.W <= MAX_W:
+        raise ValueError(f"kernel takes widths 2..{MAX_W}, got W={cfg.W}")
+    if _round4(P) + _round4(V) > MAX_EMB:
+        raise ValueError(f"kernel takes <= {MAX_EMB} embedding columns, "
+                         f"got {P} + {V}")
+    if out_channels(cfg) > MAX_OUT:
+        raise ValueError(f"kernel writes <= {MAX_OUT} output channels")
+    if (cfg.D - 1) in cfg.skips:
+        raise ValueError("a skip after the last layer has no head to feed")
+
+
+def pack_network(params: Dict[str, torch.Tensor], cfg: NeRFConfig, device):
+    """(weights, desc, HS, ES): every matrix transposed to [in, out] with its
+    row stride rounded up to 4 floats, concatenated into one fp32 buffer;
+    ``desc`` is the int64 NetDesc of ``csrc/mlp_tile.cuh`` on ``device``."""
+    device = torch.device(device)
+    check_config(cfg)
+    check_params(params, cfg, device)
+    pieces, off = [], 0
+    desc = np.zeros(_DESC_WORDS, np.int64)
+    hdr = desc[:16]
+    layers = desc[16:16 + MAX_LAYERS * 4].reshape(MAX_LAYERS, 4)
+    heads = desc[16 + MAX_LAYERS * 4:16 + MAX_LAYERS * 4 + 20].reshape(5, 4)
+    kind = desc[16 + MAX_LAYERS * 4 + 20:].view(np.int8)
+
+    def add(t):
+        nonlocal off
+        t = t.detach()
+        if t.dim() == 1:
+            t = t[None]
+        ld = _round4(t.shape[1])
+        start = off
+        pieces.append(F.pad(t, (0, ld - t.shape[1])).reshape(-1))
+        off += pieces[-1].numel()
+        return start, t.shape[0], ld
+
+    def matrix(name):
+        w, k, ld = add(params[name + ".weight"].t())
+        b, _, _ = add(params[name + ".bias"])
+        return (w, b, k, ld)
+
+    for i in range(cfg.D):
+        layers[i] = matrix(f"pts_linears.{i}")
+    # head rows: HEAD_ALPHA, HEAD_FEATURE, HEAD_VIEWS, HEAD_RGB, HEAD_OUTPUT
+    if cfg.use_viewdirs:
+        for row, name in enumerate(("alpha_linear", "feature_linear",
+                                    "views_linears.0", "rgb_linear")):
+            heads[row] = matrix(name)
+    else:
+        heads[4] = matrix("output_linear")
+
+    P, V = cfg.input_ch, cfg.input_ch_views
+    skips = sum(1 << (i + 1) for i in cfg.skips if 0 <= i < cfg.D - 1)
+    HS = _round4(cfg.W)
+    hdr[:11] = (cfg.D, cfg.W, P, V, P + V, out_channels(cfg),
+                int(cfg.use_viewdirs), _round4(P), _round4(V), skips, HS)
+    k = encoder_tables(cfg)[2]
+    kind[:k.size] = k
+    wbuf = torch.cat(pieces).contiguous()
+    desc_t = torch.from_numpy(desc).to(device)
+    return wbuf, desc_t, HS, _round4(P) + _round4(V)
+
+
+def plain_nerf_forward_rays(params, cfg: NeRFConfig, rays_o, rays_d, z, viewdirs):
+    """The plain PyTorch version: apply_nerf on o + z·d -> raw [N, S, C]."""
+    pts = rays_o[..., None, :] + rays_d[..., None, :] * z[..., None]
+    return apply_nerf(params, cfg, pts, viewdirs)
+
+
+def param_shapes(cfg: NeRFConfig) -> Dict[str, tuple]:
+    """State-dict name -> shape of every parameter of ``cfg``'s network."""
+    W, V = cfg.W, cfg.input_ch_views
+    lin = {f"pts_linears.{i}": (W, cfg.layer_in(i)) for i in range(cfg.D)}
+    if cfg.use_viewdirs:
+        lin.update({"views_linears.0": (W // 2, W + V),
+                    "feature_linear": (W, W), "alpha_linear": (1, W),
+                    "rgb_linear": (3, W // 2)})
+    else:
+        lin["output_linear"] = (cfg.output_ch, W)
+    out = {}
+    for name, (o, i) in lin.items():
+        out[name + ".weight"], out[name + ".bias"] = (o, i), (o,)
+    return out
+
+
+def check_params(params, cfg: NeRFConfig, device):
+    """Raise unless every parameter the kernels read is a float32 tensor of
+    the right shape on ``device`` (the kernels index by cfg's widths)."""
+    for name, shape in param_shapes(cfg).items():
+        if name not in params:
+            raise ValueError(f"missing parameter {name}")
+        t = params[name]
+        if tuple(t.shape) != shape or t.dtype != torch.float32 or t.device != device:
+            raise ValueError(f"{name}: {tuple(t.shape)} {t.dtype} on {t.device}, "
+                             f"expected {shape} float32 on {device}")
+
+
+def _check_rays(cfg, rays_o, rays_d, z, viewdirs):
+    dev = rays_o.device
+    n, S = z.shape
+    common.check_tensor(rays_o, "rays_o", (n, 3), dev)
+    common.check_tensor(rays_d, "rays_d", (n, 3), dev)
+    common.check_tensor(z, "z", (n, S), dev)
+    if cfg.use_viewdirs:
+        if viewdirs is None:
+            raise ValueError("cfg.use_viewdirs needs viewdirs")
+        common.check_tensor(viewdirs, "viewdirs", (n, 3), dev)
+    elif viewdirs is not None:
+        raise ValueError("viewdirs given to a network without a viewdir head")
+    return n, S
+
+
+_ARGS = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 5 + [
+    ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
+
+
+def _launch(params, cfg, rays_o, rays_d, z, viewdirs) -> torch.Tensor:
+    global LAUNCHES
+    n, S = _check_rays(cfg, rays_o, rays_d, z, viewdirs)
+    C = out_channels(cfg)
+    out = torch.empty((n, S, C), dtype=torch.float32, device=z.device)
+    if n * S == 0:
+        return out
+    fn = common.load("fused_mlp", _ARGS, "nstt_rays_forward")
+    with torch.cuda.device(z.device):
+        wbuf, desc, HS, ES = pack_network(params, cfg, z.device)
+        A, B = ray_encoder_args(cfg, rays_o, rays_d, viewdirs)
+        stream = torch.cuda.current_stream(z.device).cuda_stream
+        rc = fn(desc.data_ptr(), HS, ES, wbuf.data_ptr(), A.data_ptr(),
+                B.data_ptr(), z.data_ptr(), out.data_ptr(), n, S, stream)
+    common.check_launch(rc, "fused_mlp (B3)")
+    LAUNCHES += 1
+    return out
+
+
+class _RaysFn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, cfg, names, rays_o, rays_d, z, viewdirs, *weights):
+        ctx.cfg, ctx.names, ctx.n_lead = cfg, names, 2
+        ctx.save_for_backward(rays_o, rays_d, z, viewdirs, *weights)
+        return _launch(dict(zip(names, weights)), cfg, rays_o, rays_d, z,
+                       viewdirs)
+
+    @staticmethod
+    def backward(ctx, g):
+        cfg, names = ctx.cfg, ctx.names
+
+        def plain(ro, rd, zz, vd, *w):
+            return plain_nerf_forward_rays(dict(zip(names, w)), cfg, ro, rd,
+                                           zz, vd)
+
+        grads = common.remat_grads(ctx, plain, ctx.saved_tensors, (g,))
+        return (None, None, *grads)
+
+
+def fused_nerf_forward_rays(params, cfg: NeRFConfig, rays_o, rays_d, z,
+                            viewdirs: Optional[torch.Tensor]) -> torch.Tensor:
+    """raw [N, S, 4 | output_ch] of the network at pts = o + z·d: the plain
+    version for CPU tensors, kernel B3 for CUDA tensors."""
+    if rays_o.device.type == "cpu":
+        return plain_nerf_forward_rays(params, cfg, rays_o, rays_d, z, viewdirs)
+    if rays_o.device.type != "cuda":
+        raise ValueError(f"fused_nerf_forward_rays: no kernel for {rays_o.device}")
+    names = tuple(torch_param_order(cfg))
+    return _RaysFn.apply(cfg, names, rays_o, rays_d, z, viewdirs,
+                         *[params[k] for k in names])
+
+
+def flops_per_point(cfg: NeRFConfig) -> int:
+    """Multiply-adds x 2 of the network for one sample point."""
+    W, V = cfg.W, cfg.input_ch_views
+    macs = sum(cfg.layer_in(i) * W for i in range(cfg.D))
+    if cfg.use_viewdirs:
+        macs += W * 1 + W * W + (W + V) * (W // 2) + (W // 2) * 3
+    else:
+        macs += W * cfg.output_ch
+    return 2 * macs
+
+
+def network_bytes(params, cfg: NeRFConfig) -> int:
+    return 4 * sum(params[k].numel() for k in torch_param_order(cfg))

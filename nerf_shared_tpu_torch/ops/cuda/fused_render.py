@@ -1,0 +1,116 @@
+"""Fused ray-major MLP + alpha composite (kernel B4) and its plain version.
+
+Counterpart of ``fused_render_rays`` in
+``nerf_shared_tpu/ops/pallas/fused_render.py``: the B3 network followed by
+``raw2outputs`` without sigma noise, in one launch
+(``csrc/fused_render.cu``), so only per-ray maps and, when asked, the
+compositing weights reach device memory. Returns the raw2outputs tuple
+(rgb [N,3], disp [N], acc [N], weights [N,S] or a zero-width placeholder,
+depth [N]).
+
+Comparing it with the plain version at random weights: mask rays whose
+last-sample |sigma| < 1e-2. The last interval is the 1e10 sentinel, so
+relu(sigma_last)·1e10 flips alpha between 0 and 1 under any two fp32-valid
+evaluations of the network.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from nerf_shared_tpu_torch.models.nerf import NeRFConfig, torch_param_order
+from nerf_shared_tpu_torch.ops.compositing import raw2outputs
+from nerf_shared_tpu_torch.ops.cuda import common
+from nerf_shared_tpu_torch.ops.cuda.fused_mlp import (
+    _check_rays,
+    pack_network,
+    plain_nerf_forward_rays,
+    ray_encoder_args,
+)
+
+LAUNCHES = 0  # kernel launches made by fused_render_rays
+
+
+def plain_render_rays(params, cfg: NeRFConfig, rays_o, rays_d, z, viewdirs,
+                      white_bkgd: bool = False):
+    """The plain PyTorch version: plain B3, then raw2outputs."""
+    raw = plain_nerf_forward_rays(params, cfg, rays_o, rays_d, z, viewdirs)
+    return raw2outputs(raw, z, rays_d, white_bkgd=white_bkgd)
+
+
+def _pack8(rgb, disp, acc, depth):
+    zeros = torch.zeros_like(rgb[:, :2])
+    return torch.cat([rgb, disp[:, None], acc[:, None], depth[:, None], zeros], -1)
+
+
+_ARGS = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 7 + [
+    ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+
+
+def _launch(params, cfg, rays_o, rays_d, z, viewdirs, white_bkgd, want_weights):
+    global LAUNCHES
+    n, S = _check_rays(cfg, rays_o, rays_d, z, viewdirs)
+    if not cfg.use_viewdirs and cfg.output_ch < 4:
+        raise ValueError("compositing needs >= 4 raw channels (rgb, sigma)")
+    out8 = torch.empty((n, 8), dtype=torch.float32, device=z.device)
+    weights = torch.empty((n, S if want_weights else 0), dtype=torch.float32,
+                          device=z.device)
+    if n == 0 or S == 0:
+        return out8, weights
+    fn = common.load("fused_render", _ARGS, "nstt_render_rays")
+    with torch.cuda.device(z.device):
+        wbuf, desc, HS, ES = pack_network(params, cfg, z.device)
+        A, B = ray_encoder_args(cfg, rays_o, rays_d, viewdirs)
+        stream = torch.cuda.current_stream(z.device).cuda_stream
+        rc = fn(desc.data_ptr(), HS, ES, wbuf.data_ptr(), A.data_ptr(),
+                B.data_ptr(), z.data_ptr(), rays_d.data_ptr(), out8.data_ptr(),
+                weights.data_ptr() if want_weights else 0, n, S,
+                int(white_bkgd), stream)
+    common.check_launch(rc, "fused_render (B4)")
+    LAUNCHES += 1
+    return out8, weights
+
+
+class _RenderFn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, cfg, names, white_bkgd, want_weights, rays_o, rays_d, z,
+                viewdirs, *weights):
+        ctx.cfg, ctx.names, ctx.n_lead = cfg, names, 4
+        ctx.white_bkgd, ctx.want_weights = white_bkgd, want_weights
+        ctx.save_for_backward(rays_o, rays_d, z, viewdirs, *weights)
+        return _launch(dict(zip(names, weights)), cfg, rays_o, rays_d, z,
+                       viewdirs, white_bkgd, want_weights)
+
+    @staticmethod
+    def backward(ctx, g_out8, g_w):
+        cfg, names = ctx.cfg, ctx.names
+
+        def plain(ro, rd, zz, vd, *w):
+            rgb, disp, acc, wts, depth = plain_render_rays(
+                dict(zip(names, w)), cfg, ro, rd, zz, vd, ctx.white_bkgd)
+            return (_pack8(rgb, disp, acc, depth),
+                    wts if ctx.want_weights else wts[:, :0])
+
+        grads = common.remat_grads(ctx, plain, ctx.saved_tensors, (g_out8, g_w))
+        return (None, None, None, None, *grads)
+
+
+def fused_render_rays(params, cfg: NeRFConfig, rays_o, rays_d, z,
+                      viewdirs: Optional[torch.Tensor], white_bkgd: bool = False,
+                      want_weights: bool = True):
+    """(rgb, disp, acc, weights, depth) of the noise-free composite: the
+    plain version for CPU tensors, kernel B4 for CUDA tensors."""
+    if rays_o.device.type == "cpu":
+        rgb, disp, acc, w, depth = plain_render_rays(
+            params, cfg, rays_o, rays_d, z, viewdirs, white_bkgd)
+        return rgb, disp, acc, (w if want_weights else w[:, :0]), depth
+    if rays_o.device.type != "cuda":
+        raise ValueError(f"fused_render_rays: no kernel for {rays_o.device}")
+    names = tuple(torch_param_order(cfg))
+    out8, w = _RenderFn.apply(cfg, names, bool(white_bkgd), bool(want_weights),
+                              rays_o, rays_d, z, viewdirs,
+                              *[params[k] for k in names])
+    return out8[:, 0:3], out8[:, 3], out8[:, 4], w, out8[:, 5]
