@@ -5,8 +5,8 @@
 
 Phases (any failure exits non-zero and prints no result line):
 
-1. build    nvcc builds every kernel of the serving path from csrc/, in
-            parallel, into build/nerf_shared_tpu_torch/.
+1. build    nvcc builds every kernel (B1-B4) from csrc/, one process per
+            source, in parallel, into build/nerf_shared_tpu_torch/.
 2. kernels  at the lego width (8x256, skip at 4, viewdirs, multires 10/4)
             with seeded weights and rays at the main path's shapes (one ray
             block of --chunk 32768 rays): B3 at S=64 and S=192 and B4 at
@@ -22,18 +22,36 @@ Phases (any failure exits non-zero and prints no result line):
 4. fused    one request through an engine with --fused_composite True: B4
             launched, pixels match phase 3's frame within 1e-3 on rays clear
             of the 1e10 sentinel.
+5. training kernels
+            B1 and B2 at the lego width with seeded weights at both training
+            shapes of configs/lego.txt (1024 rays x 64 coarse samples =
+            65,536 points; x 192 fine = 196,608), and at the odd shapes of
+            phase 2, against their plain versions; median times. Then one
+            full training step (N_rand 1024, 64 + 128 samples) through the
+            kernels and through the plain path with the same draws: loss,
+            every gradient and the post-Adam parameters must agree.
+6. training a 3-D-consistent blender scene (benchmarks/hard_scene.py,
+            800x800 frames -> 400x400 under half_res) trained with
+            configs/lego.txt through apps/train.main for a few hundred
+            steps, resumed for more, then --render_only --render_test.
+            Checks B1 and B2 launched 2 x steps times, train PSNR rising,
+            the held-out PSNR >= 2 dB above an all-white frame, Adam state
+            in the .tar and .ckpt.npz, and the resume on the lr schedule.
 
-``--profile`` adds one dense frame under torch.profiler (device time by
-kernel, device busy share). Before the last line it prints the kernels JSON line and the card's
+``--profile`` adds one dense frame and one training step under
+torch.profiler (device time by kernel, device busy share). Before the last
+line it prints the kernels JSON line and the card's
 ``nvidia-smi --query-gpu=name,power.limit`` line; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
 from __future__ import annotations
 
+import contextlib
 import io
 import json
 import math
+import multiprocessing
 import os
 import shutil
 import statistics
@@ -244,6 +262,424 @@ def phase_kernels(device, n=32768):
     return cases
 
 
+def lego_points(n, S, seed, device):
+    """Points [n, S, 3] on seeded lego-like rays, their unit directions
+    [n, 3] and a seeded cotangent g [n, S, 4] of the raw outputs."""
+    import torch
+
+    o, d, z, vd = lego_rays(n, S, seed, device)
+    z = z[:, :S]
+    pts = (o[:, None, :] + d[:, None, :] * z[..., None]).contiguous()
+    g = torch.randn(n, S, 4, generator=torch.Generator().manual_seed(seed + 1))
+    return pts, vd, g.to(device)
+
+
+def rel_err(got, want):
+    """max |got - want| / max(1e-12, max |want|)."""
+    return float((got - want).abs().max()) / max(1e-12, float(want.abs().max()))
+
+
+def bwd_bound(cfg, params, n):
+    """(bound_ms, bound_by) of B2 on n points: its FLOPs (three forwards
+    less the narrow heads) over the fp32 peak vs its bytes (points,
+    directions, cotangent and weights in; dx and the gradients out)."""
+    from nerf_shared_tpu_torch.ops.cuda.fused_mlp import network_bytes
+    from nerf_shared_tpu_torch.ops.cuda.fused_mlp_bwd import flops_per_point_bwd
+
+    flops = flops_per_point_bwd(cfg) * n
+    nbytes = 4 * (n * 3 + n * 4 + n * 6) + 2 * network_bytes(params, cfg)
+    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def check_train_kernels(cfg, params, pts, vd, g, tol_fwd, tol_bwd, label):
+    """B1 and B2 against their plain versions on one input; returns
+    (B1 max abs err, B2 errors by tensor relative to max |grad|)."""
+    import torch
+
+    from nerf_shared_tpu_torch.models.nerf import apply_nerf
+    from nerf_shared_tpu_torch.ops.cuda import fused_mlp, fused_mlp_bwd
+
+    with torch.no_grad():
+        e1, ok1 = abs_err(fused_mlp.fused_nerf_forward(params, cfg, pts, vd),
+                          apply_nerf(params, cfg, pts, vd), tol_fwd)
+    got = fused_mlp_bwd.fused_mlp_backward(params, cfg, pts, vd, g)
+    want = fused_mlp_bwd.plain_mlp_backward(params, cfg, pts, vd, g)
+    torch.cuda.synchronize()
+    pairs = [(got[0][k], w) for k, w in want[0].items()] + [(got[1], want[1])]
+    names = list(want[0]) + ["dpts"]
+    if vd is not None:
+        pairs.append((got[2], want[2]))
+        names.append("ddirs")
+    errs = {k: rel_err(a, b) for k, (a, b) in zip(names, pairs)}
+    e2 = max(float((a - b).abs().max()) for a, b in pairs)
+    worst = max(errs, key=errs.get)
+    log(f"  {label}: B1 max err {e1:.1e} (tol {tol_fwd:g} x max(1, max|plain|)); "
+        f"B2 max abs err {e2:.1e}, worst {worst} {errs[worst]:.1e} of its max|grad| "
+        f"(tol {tol_bwd:g}) over {len(errs)} tensors")
+    if not ok1:
+        raise AssertionError(f"B1 disagrees with its plain version at {label}")
+    if not errs[worst] <= tol_bwd:
+        raise AssertionError(f"B2 disagrees with its plain version at {label}: {errs}")
+    return e1, e2, errs
+
+
+def phase_train_kernels(device):
+    """Phase 5: B1 and B2 at both training shapes of the lego recipe and at
+    the odd shapes, with times."""
+    import torch
+
+    from nerf_shared_tpu_torch.models.nerf import NeRF, NeRFConfig, apply_nerf
+    from nerf_shared_tpu_torch.ops.cuda import fused_mlp, fused_mlp_bwd
+
+    cfg = NeRFConfig(D=8, W=256, skips=(4,), use_viewdirs=True, multires=10,
+                     multires_views=4)
+    params = {k: v.detach() for k, v in NeRF(
+        cfg, device=device, generator=torch.Generator().manual_seed(5)).params().items()}
+    # B1: as B3 (fp32 sums over <= 283 terms in another order than cuBLAS).
+    # B2: each gradient sums up to 196,608 per-point products in fp32 in
+    # another order than cuBLAS (per-block partials, then a fixed-order sum
+    # over 132 blocks): the error is held relative to max |grad| per tensor
+    tol_fwd, tol_bwd = 2e-4, 1e-3
+    cases = []
+    for S in (64, 192):
+        n_rays = 1024
+        pts, vd, g = lego_points(n_rays, S, seed=S, device=device)
+        e1, e2, errs = check_train_kernels(cfg, params, pts, vd, g, tol_fwd, tol_bwd,
+                                           f"lego N={n_rays * S} S={S}")
+        with torch.no_grad():
+            ms1 = time_ms(lambda: fused_mlp.fused_nerf_forward(params, cfg, pts, vd), 5)
+            plain1 = time_ms(lambda: apply_nerf(params, cfg, pts, vd), 5)
+        ms2 = time_ms(lambda: fused_mlp_bwd.fused_mlp_backward(params, cfg, pts, vd, g), 5)
+        plain2 = time_ms(lambda: fused_mlp_bwd.plain_mlp_backward(params, cfg, pts, vd, g), 5)
+        b1, by1 = bound(cfg, params, n_rays, S)
+        b2, by2 = bwd_bound(cfg, params, n_rays * S)
+        log(f"B1 fused_mlp points N={n_rays * S}: {ms1:.2f} ms, plain {plain1:.2f} ms, "
+            f"bound {b1:.2f} ms ({by1})")
+        log(f"B2 fused_mlp_bwd N={n_rays * S}: {ms2:.2f} ms, plain {plain2:.2f} ms, "
+            f"bound {b2:.2f} ms ({by2})")
+        cases.append(dict(kernel="fused_mlp_points", S=S, n_points=n_rays * S,
+                          max_abs_err=e1, ms=ms1, plain_ms=plain1, bound_ms=b1,
+                          bound_by=by1))
+        cases.append(dict(kernel="fused_mlp_bwd", S=S, n_points=n_rays * S,
+                          max_abs_err=e2, max_rel_err=max(errs.values()), ms=ms2,
+                          plain_ms=plain2, bound_ms=b2, bound_by=by2))
+    archs = [dict(D=3, W=64, skips=(1,), use_viewdirs=False, output_ch=5),
+             dict(D=8, W=256, skips=(4,), multires=15, multires_views=6),
+             dict(D=2, W=30, skips=(0,), i_embed=-1),
+             dict(D=5, W=128, skips=(1, 3), multires=6, multires_views=2)]
+    for i, kw in enumerate(archs):
+        acfg = NeRFConfig(**kw)
+        ap = {k: v.detach() for k, v in NeRF(
+            acfg, device=device, generator=torch.Generator().manual_seed(i)).params().items()}
+        for n_rays, S in ((37, 7), (300, 65)):
+            pts, vd, g = lego_points(n_rays, S, seed=10 + i, device=device)
+            vd = vd if acfg.use_viewdirs else None
+            g = g[..., :fused_mlp.out_channels(acfg)].contiguous() if acfg.use_viewdirs \
+                else torch.cat([g, g[..., :1]], -1).contiguous()
+            check_train_kernels(acfg, ap, pts, vd, g, tol_fwd, tol_bwd,
+                                f"{kw} N={n_rays * S}")
+    return cases, check_train_step(device)
+
+
+def train_step_setup(device, fused):
+    """A lego-recipe training step on a seeded state: (state, step_fn,
+    images, poses, overrides, spec). Two 400x400 seeded images, 64 + 128
+    samples per ray, N_rand 1024 inside the precrop window; the stratified
+    jitter and inverse-CDF draws are pinned."""
+    import torch
+
+    from nerf_shared_tpu_torch.data.poses import pose_spherical
+    from nerf_shared_tpu_torch.models.nerf import NeRFConfig
+    from nerf_shared_tpu_torch.render.renderer import RenderConfig
+    from nerf_shared_tpu_torch.train.pipeline import PixelSamplerSpec
+    from nerf_shared_tpu_torch.train.state import create_train_state
+    from nerf_shared_tpu_torch.train.step import make_train_step
+
+    cfg = NeRFConfig(D=8, W=256, skips=(4,), use_viewdirs=True, multires=10,
+                     multires_views=4, output_ch=5)
+    H = 400
+    focal = 0.5 * H / math.tan(0.5 * 0.6911112)
+    K = [[focal, 0, H / 2], [0, focal, H / 2], [0, 0, 1]]
+    g = torch.Generator().manual_seed(21)
+    images = torch.rand(2, H, H, 3, generator=g).to(device)
+    poses = torch.stack([torch.as_tensor(pose_spherical(a, -30.0, 4.0)[:3, :4])
+                         for a in (0.0, 120.0)]).float().to(device)
+    spec = PixelSamplerSpec.from_K(H, H, K, 1024, single_image=True,
+                                   precrop_iters=500, precrop_frac=0.5)
+    rcfg = RenderConfig(perturb=1.0, N_importance=128, N_samples=64,
+                        use_viewdirs=True, white_bkgd=True, near=2.0, far=6.0,
+                        fused_backward=fused)
+    overrides = {"t_rand": torch.rand(1024, 64, generator=g).to(device),
+                 "u": torch.rand(1024, 128, generator=g).to(device)}
+    state = create_train_state(cfg, cfg, device, seed=3, lrate=5e-4, lrate_decay=500)
+    return state, make_train_step(rcfg, cfg, cfg, spec), images, poses, overrides
+
+
+def check_train_step(device):
+    """One training step through B1 + B2 and through the plain path from
+    the same state and draws; returns the step times (ms, median of 3
+    after one warm-up step each)."""
+    import torch
+
+    from nerf_shared_tpu_torch.ops.cuda import fused_mlp, fused_mlp_bwd
+
+    out = {}
+    for fused in (True, False):
+        state, step, images, poses, ov = train_step_setup(device, fused)
+        before = (fused_mlp.POINT_LAUNCHES, fused_mlp_bwd.LAUNCHES)
+        aux = step(state, images, poses, torch.Generator().manual_seed(9), overrides=ov)
+        torch.cuda.synchronize()
+        launched = (fused_mlp.POINT_LAUNCHES - before[0], fused_mlp_bwd.LAUNCHES - before[1])
+        out[fused] = dict(loss=float(aux["loss"]), launched=launched,
+                          grads=[p.grad.detach().clone() for p in state.parameters()],
+                          params=[p.detach().clone() for p in state.parameters()])
+
+        def again():
+            step(state, images, poses, torch.Generator().manual_seed(9), overrides=ov)
+
+        out[fused]["ms"] = time_ms(again, 3)
+    k, p = out[True], out[False]
+    if k["launched"] != (2, 2) or p["launched"] != (0, 0):
+        raise AssertionError(f"step launches: kernels {k['launched']}, plain {p['launched']}")
+    loss_err = abs(k["loss"] - p["loss"]) / abs(p["loss"])
+    grad_err = max(rel_err(a, b) for a, b in zip(k["grads"], p["grads"]))
+    # Adam's first update is u(g) = lr * g / (|g| + eps) (m and v start at
+    # zero), so three checks of the post-Adam parameters:
+    # - everywhere they differ by u(g_plain) - u(g_kernel), to fp32 rounding;
+    # - where |g_plain| is over 100 eps and over 100 |g_kernel - g_plain|,
+    #   that difference is below lr * 1e-4, so they agree to 1e-6 outright;
+    # - the entries that moved apart by more than 1e-6 (|g| near eps, or a
+    #   sign flip of a gradient near 0) are at most 1 in 100: 307 and 1,656
+    #   of 1,191,688 in two runs on the H100, so a wholesale flip of the
+    #   small gradients fails while the run-to-run spread passes
+    lr, eps = 5e-4, 1e-8
+    n_par, n_sure, moved, adam_err, param_err, moved_g = 0, 0, 0, 0.0, 0.0, 0.0
+
+    def adam1(g):
+        return lr * g / (g.abs() + eps)
+
+    for pk, pp, gk, gp in zip(k["params"], p["params"], k["grads"], p["grads"]):
+        du = adam1(gp) - adam1(gk)
+        adam_err = max(adam_err, float(((pk - pp) - du).abs().max()))
+        far = du.abs() > 1e-6
+        moved += int(far.sum())
+        if bool(far.any()):
+            moved_g = max(moved_g, float(gp[far].abs().max() / gp.abs().max()))
+        sure = (gp.abs() > 100 * eps) & (gp.abs() > 100 * (gk - gp).abs())
+        if bool(sure.any()):
+            param_err = max(param_err, float((pk - pp)[sure].abs().max()))
+        n_sure += int(sure.sum())
+        n_par += gp.numel()
+    moved_tol = n_par // 100
+    log(f"train step (N_rand 1024, 64 + 128 samples): kernels {k['ms']:.2f} ms, plain "
+        f"{p['ms']:.2f} ms; loss rel err {loss_err:.1e} (tol 1e-5), worst gradient "
+        f"{grad_err:.1e} of max|grad| (tol 1e-3); post-Adam params: {param_err:.1e} "
+        f"apart on the {n_sure} of {n_par} entries whose gradient dwarfs eps and the "
+        f"gradient difference (tol 1e-6), {adam_err:.1e} from Adam's update of the "
+        f"two gradients everywhere (tol 1e-6), {moved} entries moved apart by more "
+        f"than 1e-6 (tol {moved_tol}), the largest |grad| among them {moved_g:.1e} "
+        "of its tensor's max")
+    if not (loss_err <= 1e-5 and grad_err <= 1e-3 and param_err <= 1e-6
+            and adam_err <= 1e-6 and moved <= moved_tol):
+        raise AssertionError("the kernel training step disagrees with the plain step")
+    return {"kernel_ms": k["ms"], "plain_ms": p["ms"], "loss_rel_err": loss_err,
+            "grad_rel_err": grad_err, "param_err": param_err, "adam_err": adam_err,
+            "moved": moved, "moved_tol": moved_tol, "moved_max_grad": moved_g,
+            "sure": n_sure, "n_params": n_par}
+
+
+def _render_view(job):
+    """One RGBA view of the hard scene, written as a PNG (pool worker)."""
+    sys.path.insert(0, REPO)
+    import numpy as np
+
+    from benchmarks import hard_scene
+    from nerf_shared_tpu_torch.data.images import imwrite_u8
+
+    path, pose, size, focal = job
+    rgba = hard_scene.render_gt_rgba(np.asarray(pose), size, size, focal)
+    imwrite_u8(path, (np.clip(rgba, 0, 1) * 255).astype(np.uint8))
+
+
+def write_train_scene(root, size=800, n_train=24, n_val=2, n_test=2, workers=8):
+    """A 3-D-consistent blender-format scene: benchmarks/hard_scene.py's
+    textured sphere and rods, seen from a radius-4 orbit at heights 12-50
+    degrees, near 2, far 6; views rendered in a spawn-context pool."""
+    sys.path.insert(0, REPO)
+    import numpy as np
+
+    from benchmarks import hard_scene
+
+    n = n_train + n_val + n_test
+    rng = np.random.default_rng(11)
+    poses = []
+    for i in range(n):
+        th = 2 * np.pi * i / n
+        phi = np.deg2rad(12.0 + 38.0 * rng.random())
+        eye = 4.0 * np.array([np.cos(phi) * np.sin(th), np.sin(phi),
+                              np.cos(phi) * np.cos(th)])
+        poses.append(hard_scene._look_at(eye))
+    focal = 1.1 * size
+    order = np.random.default_rng(5).permutation(n)
+    splits = {"train": order[:n_train], "val": order[n_train:n_train + n_val],
+              "test": order[n_train + n_val:]}
+    jobs = []
+    for split, idxs in splits.items():
+        os.makedirs(os.path.join(root, split), exist_ok=True)
+        frames = []
+        for j, i in enumerate(idxs):
+            rel = f"{split}/r_{j}"
+            jobs.append((os.path.join(root, rel + ".png"), poses[i].tolist(), size, focal))
+            pose = np.eye(4)
+            pose[:3] = poses[i]
+            frames.append({"file_path": rel, "transform_matrix": pose.tolist()})
+        with open(os.path.join(root, f"transforms_{split}.json"), "w") as f:
+            json.dump({"camera_angle_x": float(2 * np.arctan(0.5 * size / focal)),
+                       "near": hard_scene.NEAR, "far": hard_scene.FAR,
+                       "frames": frames}, f)
+    with multiprocessing.get_context("spawn").Pool(workers) as pool:
+        pool.map(_render_view, jobs)
+
+
+class _Tee(io.TextIOBase):
+    """Writes to the real stdout and keeps a copy."""
+
+    def __init__(self, out):
+        self.out, self.buf = out, io.StringIO()
+
+    def write(self, text):
+        self.buf.write(text)
+        return self.out.write(text)
+
+    def flush(self):
+        self.out.flush()
+
+
+def run_train_cli(argv):
+    """apps.train.main(argv) with its stdout kept -> (result, text)."""
+    from nerf_shared_tpu_torch.apps import train
+
+    tee = _Tee(sys.stdout)
+    with contextlib.redirect_stdout(tee):
+        result = train.main(argv)
+    return result, tee.buf.getvalue()
+
+
+def phase_training(device, steps=600, more=200):
+    """Phase 6: train, resume and render_only through the CLI."""
+    import re
+
+    import numpy as np
+    import torch
+
+    from nerf_shared_tpu_torch.config import config_parser
+    from nerf_shared_tpu_torch.data.datasets import load_datasets
+    from nerf_shared_tpu_torch.ops.cuda import fused_mlp, fused_mlp_bwd
+    from nerf_shared_tpu_torch.train.state import lr_at
+
+    scene, logs = os.path.join(WORK, "train_scene"), os.path.join(WORK, "train_logs")
+    t0 = time.perf_counter()
+    write_train_scene(scene)
+    log(f"phase 6: wrote the 28-view 800x800 scene in {time.perf_counter() - t0:.1f} s")
+    base = ["--config", os.path.join(REPO, "configs", "lego.txt"), "--datadir", scene,
+            "--basedir", logs, "--expname", "lego_smoke", "--device", device,
+            "--testskip", "1", "--i_print", "50", "--i_testset", "0",
+            "--i_video", "0", "--i_img", "200", "--i_weights", str(steps)]
+
+    def counts():
+        return {"fused_mlp_points": fused_mlp.POINT_LAUNCHES,
+                "fused_mlp_bwd": fused_mlp_bwd.LAUNCHES, "fused_mlp": fused_mlp.LAUNCHES}
+
+    fused_mlp.POINT_LAUNCHES = fused_mlp_bwd.LAUNCHES = fused_mlp.LAUNCHES = 0
+    t0 = time.perf_counter()
+    state, text = run_train_cli(base + ["--N_iters", str(steps)])
+    first_wall = time.perf_counter() - t0
+    state2, text2 = run_train_cli(base + ["--N_iters", str(steps + more)])
+    wall = time.perf_counter() - t0
+    launches = counts()
+    fused_mlp.LAUNCHES = 0
+    _, text3 = run_train_cli(base + ["--N_iters", str(steps + more), "--render_only",
+                                     "--render_test"])
+    render_launches = fused_mlp.LAUNCHES
+
+    total = steps + more
+    if launches["fused_mlp_points"] != 2 * total or launches["fused_mlp_bwd"] != 2 * total:
+        raise AssertionError(f"expected B1 and B2 launched {2 * total} times: {launches}")
+    train_lines = re.findall(r"\[TRAIN\] Iter: (\d+) Loss: \S+\s+PSNR: (\S+)\s+rays/sec: (\S+)",
+                             text + text2)
+    psnrs = [float(p) for _, p, _ in train_lines]
+    rps = [float(r.replace(",", "")) for _, _, r in train_lines]
+    vals = re.findall(r"\[VAL\] Iter: (\d+) view (\d+) PSNR: (\S+) SSIM: (\S+)", text + text2)
+    if "Reloading from" not in text2:
+        raise AssertionError("the resumed run did not reload its checkpoint")
+    if state2.count != total or state2.step != total:
+        raise AssertionError(f"resume: Adam count {state2.count}, step {state2.step}, "
+                             f"expected {total}")
+    lr = state2.optimizer.param_groups[0]["lr"]
+    if abs(lr - lr_at(5e-4, 500, total - 1)) > 1e-12:
+        raise AssertionError(f"resumed lr {lr} is off the schedule")
+    if not psnrs or psnrs[-1] <= psnrs[0] + 1.0:
+        raise AssertionError(f"train PSNR did not rise: {psnrs}")
+
+    # the held-out view against an all-white frame
+    args = config_parser().parse_args(base)
+    ds = load_datasets(args)
+    it, view, vpsnr, vssim = vals[-1]
+    white = float(np.mean((1.0 - ds.images[int(view)]) ** 2))
+    white_psnr = -10.0 * math.log10(white)
+    log(f"held-out view {view} at step {it}: PSNR {float(vpsnr):.2f} dB, SSIM {vssim}; "
+        f"all-white frame {white_psnr:.2f} dB")
+    if not float(vpsnr) >= white_psnr + 2.0:
+        raise AssertionError("held-out PSNR is not 2 dB above the all-white frame")
+
+    # both checkpoint formats carry Adam state
+    expdir = os.path.join(logs, "lego_smoke")
+    tar = torch.load(os.path.join(expdir, f"{total:06d}.tar"), map_location="cpu",
+                     weights_only=True)
+    st = tar["optimizer_state_dict"]["state"]
+    with np.load(os.path.join(expdir, f"{total:06d}.ckpt.npz")) as z:
+        npz_count = int(z["opt/count"])
+        npz_mu = float(np.abs(z["opt/mu/fine/pts_linears/0/w"]).max())
+    if not (len(st) == len(state2.parameters()) and int(st[0]["step"]) == total
+            and npz_count == total
+            and float(st[0]["exp_avg"].abs().max()) > 0 and npz_mu > 0):
+        raise AssertionError("checkpoints lack Adam state")
+    pngs = sorted(f for f in os.listdir(os.path.join(
+        expdir, f"renderonly_test_{total:06d}")) if f.endswith(".png"))
+    if len(pngs) != len(ds.i_test) or render_launches != 2 * len(ds.i_test) * math.ceil(
+            400 * 400 / args.chunk):
+        raise AssertionError(f"render_only: {len(pngs)} PNGs, {render_launches} B3 launches")
+    ms_step = 1e3 * args.N_rand / statistics.median(rps[1:])
+    log(f"trained {steps} + {more} steps in {wall:.1f} s ({first_wall:.1f} s for the first "
+        f"{steps}, hooks and start-up included); median {statistics.median(rps[1:]):,.0f} "
+        f"rays/s = {ms_step:.1f} ms per step; train PSNR {psnrs[0]:.2f} -> {psnrs[-1]:.2f} "
+        f"dB; launches {launches}; render_only {len(pngs)} views, {render_launches} B3 "
+        "launches")
+    return {"launches": launches, "ms_per_step": ms_step,
+            "rays_per_s": statistics.median(rps[1:]), "train_psnr": psnrs,
+            "val": [(int(a), int(b), float(c), float(d)) for a, b, c, d in vals],
+            "white_psnr": white_psnr, "render_launches": render_launches}
+
+
+def profile_train_step(device, steps=5):
+    """``steps`` consecutive kernel training steps under torch.profiler
+    (after one warm-up step): device busy share of their wall time and the
+    top kernels. Several steps, so the host's run-ahead between steps is
+    part of the window, as it is in training."""
+    import torch
+
+    state, step, images, poses, ov = train_step_setup(device, True)
+    step(state, images, poses, torch.Generator().manual_seed(9), overrides=ov)
+    torch.cuda.synchronize()
+
+    def run():
+        for i in range(steps):
+            step(state, images, poses, torch.Generator().manual_seed(i), overrides=ov)
+
+    _profile(f"{steps} training steps", run)
+
+
 def write_scene(root, size=800, n_train=2, n_val=1, n_test=2):
     """A blender-format scene: an RGBA blob seen from the lego orbit."""
     import numpy as np
@@ -429,18 +865,16 @@ def phase_serving(device, size=800):
             "engine": eng, "pose": pose_a}
 
 
-def profile_frame(eng, pose):
-    """One dense frame under torch.profiler: device time by kernel and the
-    device's busy share of the frame's wall time."""
+def _profile(what, fn):
+    """fn() under torch.profiler: device time by kernel and the device's
+    busy share of the wall time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    eng.render_poses(pose[None])
-    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        eng.render_poses(pose[None])
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     by_name = {}
@@ -451,10 +885,19 @@ def profile_frame(eng, pose):
     if busy <= 0:
         raise AssertionError("the profiler recorded no device time")
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    log(f"profile: frame {wall_ms:.1f} ms wall, device busy {busy:.1f} ms "
+    log(f"profile {what}: {wall_ms:.1f} ms wall, device busy {busy:.1f} ms "
         f"({100 * busy / wall_ms:.1f}%)")
     for name, ms in top:
         log(f"  {ms:9.2f} ms  {100 * ms / busy:5.1f}%  {name[:90]}")
+
+
+def profile_frame(eng, pose):
+    """One dense frame under torch.profiler."""
+    import torch
+
+    eng.render_poses(pose[None])
+    torch.cuda.synchronize()
+    _profile("dense frame", lambda: eng.render_poses(pose[None]))
 
 
 def main() -> int:
@@ -499,29 +942,46 @@ def main() -> int:
     t0 = time.perf_counter()
     served = phase_serving(device)
     log(f"phase 3+4: serving in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    train_cases, step = phase_train_kernels(device)
+    cases += train_cases
+    log(f"phase 5: training kernels in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    trained = phase_training(device)
+    log(f"phase 6: training in {time.perf_counter() - t0:.1f} s")
     if "--profile" in sys.argv[1:]:
         profile_frame(served["engine"], served["pose"])
-    by_path = served["launches"]
+        profile_train_step(device)
+    by_path = dict(served["launches"])
+    by_path["training"] = trained["launches"]
+    by_path["render_only"] = {"fused_mlp": trained["render_launches"]}
 
-    sources = {"fused_mlp": ("nerf_shared_tpu_torch/csrc/fused_mlp.cu",
-                             "nerf_shared_tpu/ops/pallas/fused_mlp.py:280"),
-               "fused_render": ("nerf_shared_tpu_torch/csrc/fused_render.cu",
-                                "nerf_shared_tpu/ops/pallas/fused_render.py:80")}
+    sources = {
+        "fused_mlp_points": ("nerf_shared_tpu_torch/csrc/fused_mlp.cu",
+                             "nerf_shared_tpu/ops/pallas/fused_mlp.py:253"),
+        "fused_mlp_bwd": ("nerf_shared_tpu_torch/csrc/fused_mlp_bwd.cu",
+                          "nerf_shared_tpu/ops/pallas/fused_mlp_bwd.py:176"),
+        "fused_mlp": ("nerf_shared_tpu_torch/csrc/fused_mlp.cu",
+                      "nerf_shared_tpu/ops/pallas/fused_mlp.py:280"),
+        "fused_render": ("nerf_shared_tpu_torch/csrc/fused_render.cu",
+                         "nerf_shared_tpu/ops/pallas/fused_render.py:80")}
     kernels = []
     for name, (src, replaces) in sources.items():
         mine = [c for c in cases if c["kernel"] == name]
         main_case = max(mine, key=lambda c: c["S"])
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": sum(p[name] for p in by_path.values()),
-            "launches_by_path": {k: p[name] for k, p in by_path.items()},
+            "launches": sum(p.get(name, 0) for p in by_path.values()),
+            "launches_by_path": {k: p.get(name, 0) for k, p in by_path.items()},
             "max_abs_err": max(c["max_abs_err"] for c in mine),
             "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
             "bound_ms": main_case["bound_ms"], "bound_by": main_case["bound_by"],
             "library_ms": None,
             "cases": mine,
         })
-    log(json.dumps({"frame_ms": served["frame_ms"]}))
+    log(json.dumps({"frame_ms": served["frame_ms"], "train_step": step,
+                    "training": {k: trained[k] for k in (
+                        "ms_per_step", "rays_per_s", "train_psnr", "val", "white_psnr")}}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

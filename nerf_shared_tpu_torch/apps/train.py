@@ -1,32 +1,48 @@
-"""Entry point of the port: checkpoint -> render engine, and ``render_only``.
+"""Entry point of the port: training, checkpoint -> render engine, and
+``render_only``.
 
-Counterpart of ``run``, ``EvalEngine``, ``build_eval_engine`` and
-``render_only`` in ``nerf_shared_tpu/apps/train.py`` (reference
-main.py:17-147). This slice of the port serves and renders trained fields
-with the dense hierarchical renderer; training is a later slice.
+Counterpart of ``run``, ``train`` (the hierarchical trainer),
+``EvalEngine``, ``build_eval_engine`` and ``render_only`` in
+``nerf_shared_tpu/apps/train.py`` (reference main.py:17-147).
 
 The entry points run on ``--device`` (default ``cuda``) and raise when it
 is ``cuda`` and no CUDA device is present. fp32 matmuls and convolutions
 are pinned to full fp32 (no TF32): the encoder's sinusoid arguments reach
-2^9·|x|.
+2^9·|x|. On ``cuda`` a training step runs its networks through kernels B1
+(forward) and B2 (backward) and the eval hooks render through B3; on the
+CPU the kernels' plain versions run.
 
+    python -m nerf_shared_tpu_torch.apps.train --config configs/lego.txt
     python -m nerf_shared_tpu_torch.apps.train --config configs/lego.txt \
         --render_only --render_test
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
+import time
+import warnings
 
+import numpy as np
 import torch
 
-from nerf_shared_tpu_torch.config import config_parser
+from nerf_shared_tpu_torch.config import config_parser, resolve_fused_backward
 from nerf_shared_tpu_torch.data.datasets import load_datasets
-from nerf_shared_tpu_torch.factory import create_nerf_models, get_renderer, nerf_configs
+from nerf_shared_tpu_torch.factory import (
+    create_nerf_models,
+    get_renderer,
+    get_train_state,
+    nerf_configs,
+)
+from nerf_shared_tpu_torch.train.pipeline import PixelSamplerSpec
+from nerf_shared_tpu_torch.train.step import make_train_step
 from nerf_shared_tpu_torch.utils import checkpoints as ckpt_utils
+from nerf_shared_tpu_torch.utils.logging import copy_log_dir, make_tb_writer, print_statistics
+from nerf_shared_tpu_torch.utils.metrics import ssim, to8b
 
-# flags whose eval paths this slice of the port does not carry: each raises
-# instead of being ignored (name -> (is-set test, what it would need))
+# flags whose paths the port does not carry yet: each raises instead of
+# being ignored (name -> (is-set test, what it would need))
 _NOT_PORTED = {
     "ema_decay": (lambda v: float(v) > 0.0, "EMA eval state (ROADMAP A11)"),
     "barf_anneal": (lambda v: int(v) > 0, "BARF eval annealing (ROADMAP A11)"),
@@ -36,7 +52,13 @@ _NOT_PORTED = {
     "proposal": (bool, "the proposal sampler (ROADMAP A11)"),
     "model_type": (lambda v: v != "nerf", "grid model families (ROADMAP A15)"),
     "precision": (lambda v: v != "fp32", "bf16 operands in the CUDA kernels"),
-    "mesh_shape": (lambda v: bool(v), "multi-GPU renders (ROADMAP A16)"),
+    "mesh_shape": (lambda v: bool(v), "multi-GPU renders and training (ROADMAP A16)"),
+    "train_occ": (bool, "the occupancy-gated trainer (ROADMAP A14)"),
+    "refine_poses": (bool, "pose refinement (ROADMAP A11)"),
+    "appearance": (bool, "per-image appearance corrections (ROADMAP A11)"),
+    "loss_sampling": (bool, "loss-guided pixel sampling (ROADMAP A11)"),
+    "distortion_loss_weight": (lambda v: float(v) > 0.0,
+                               "the distortion loss (ROADMAP A11)"),
 }
 
 
@@ -68,18 +90,151 @@ def check_ported(args):
                 "nerf_shared_tpu_torch yet")
 
 
-def run(args) -> None:
+def run(args):
+    """render_only, or train (returning its TrainState)."""
     if args.render_only:
         render_only(args)
-        return
+        return None
     if not args.training:
         print("--training not set; nothing to do (see --render_only)")
-        return
-    train(args)
+        return None
+    return train(args)
+
+
+def collapse_warning(last: int, psnr: float, args, already_warned: bool):
+    """The white-background transparency trap: past precrop, training PSNR
+    stuck below 10 dB (density frozen in relu's dead zone; nothing
+    unfreezes it). Returns a warning string once, or None."""
+    if already_warned or not bool(getattr(args, "white_bkgd", False)):
+        return None
+    precrop_end = int(getattr(args, "precrop_iters", 0))
+    if last < precrop_end + 1500 or last > 30_000 or psnr >= 10.0:
+        return None
+    return (f"training PSNR is stuck at {psnr:.1f} dB well past precrop — "
+            "this looks like the white-background transparency trap "
+            "(density frozen in the relu dead zone; the run will likely "
+            "never recover). Restart with --warmup_noise 2000, a longer "
+            "--precrop_iters, or a different --jax_seed.")
 
 
 def train(args):
-    raise NotImplementedError("training is a later slice of the port")
+    """The hierarchical trainer (reference main.py:55-143): seeded state
+    or the newest checkpoint, then one step per iteration with the print,
+    checkpoint, test-set, validation-image and render-path hooks, and a
+    final checkpoint. Returns the TrainState."""
+    check_ported(args)
+    device = resolve_device(args.device)
+    pin_fp32()
+    ds = load_datasets(args)
+    H, W, _ = ds.hwf
+    copy_log_dir(args)
+    tb_writer = make_tb_writer(args)
+    ccfg, fcfg = nerf_configs(args)
+    state = get_train_state(args, device)
+    start = ckpt_utils.restore_train_state(state, args)
+    renderer = get_renderer(args, ds.bds_dict, device)
+    spec = PixelSamplerSpec.from_K(
+        H, W, ds.K, args.N_rand, single_image=args.no_batching,
+        precrop_iters=args.precrop_iters, precrop_frac=args.precrop_frac,
+        exact_epochs=bool(args.exact_epochs))
+    images_tr = torch.as_tensor(ds.images[ds.i_train], device=device)
+    poses_tr = torch.as_tensor(ds.poses[ds.i_train][:, :3, :4], device=device)
+
+    fused_bwd = resolve_fused_backward(args, device)
+    if fused_bwd:
+        print("train path: kernels B1 (forward) + B2 (backward) "
+              "(auto; --fused_backward false for autograd of the plain network)")
+    # the eval hooks render through renderer.cfg (B3 on the card); the
+    # training step's networks go through fused_train_op or apply_nerf,
+    # never B3 or B4
+    rcfg = dataclasses.replace(renderer.cfg, use_pallas=False,
+                               fused_composite=False, fused_backward=fused_bwd)
+    step_fn = make_train_step(rcfg, ccfg, fcfg, spec, acc_reg=args.acc_loss_weight)
+    # --warmup_noise: sigma noise >= 1 for the first N steps, the escape
+    # from the white-background transparency trap
+    warm_fn = None
+    if args.warmup_noise > 0:
+        warm_fn = make_train_step(
+            dataclasses.replace(rcfg, raw_noise_std=max(1.0, rcfg.raw_noise_std)),
+            ccfg, fcfg, spec, acc_reg=args.acc_loss_weight)
+
+    generator = torch.Generator()
+    N_iters = args.N_iters + 1
+    print(f"Begin: {len(ds.i_train)} train views, {len(ds.i_test)} test views, "
+          f"device {device}")
+    t0 = t_train_start = time.perf_counter()
+    rays_done, warned = 0, False
+    for i in range(start + 1, N_iters):
+        # each step's draws depend on (seed, step) only, so a resumed run
+        # draws what an uninterrupted one would
+        generator.manual_seed((int(args.jax_seed) << 32) + i)
+        fn = warm_fn if warm_fn is not None and i <= args.warmup_noise else step_fn
+        aux = fn(state, images_tr, poses_tr, generator)
+        rays_done += args.N_rand
+        hooked = False
+
+        if args.i_print > 0 and i % args.i_print == 0:
+            # the fetch waits for the queued steps: read the clock after it
+            loss_v, psnr_v = float(aux["loss"]), float(aux["psnr"])
+            dt = time.perf_counter() - t0
+            print_statistics(loss_v, psnr_v, i, tb_writer, extra={
+                "rays/sec": f"{rays_done / dt if dt > 0 else 0.0:,.0f}",
+                "elapsed": f"{time.perf_counter() - t_train_start:.0f}s"})
+            msg = collapse_warning(i, psnr_v, args, warned)
+            if msg:
+                warned = True
+                warnings.warn(msg, UserWarning, stacklevel=1)
+                print(f"[RECIPE WARNING] {msg}")
+            t0, rays_done = time.perf_counter(), 0
+
+        if args.i_weights > 0 and i % args.i_weights == 0:
+            paths = ckpt_utils.save_checkpoints(args.basedir, args.expname, state, i,
+                                                fmt=args.ckpt_format)
+            print(f"Saved checkpoints at {paths}")
+
+        if args.i_testset > 0 and i % args.i_testset == 0:
+            testsavedir = os.path.join(args.basedir, args.expname, f"testset_{i:06d}")
+            renderer.render_from_batch_poses(
+                H, W, ds.K, args.chunk, ds.poses[ds.i_test], state.coarse,
+                state.fine, retraw=False, save_directory=testsavedir)
+            print(f"Saved test set renders to {testsavedir}")
+            hooked = True
+
+        if args.i_img > 0 and i % args.i_img == 0 and len(ds.i_val):
+            val_i = int(ds.i_val[(i // args.i_img) % len(ds.i_val)])
+            rgb = renderer.render_from_batch_poses(
+                H, W, ds.K, args.chunk, ds.poses[val_i][None, :3, :4], state.coarse,
+                state.fine, retraw=False)[0]
+            val_mse = float(np.mean((rgb - ds.images[val_i]) ** 2))
+            val_psnr = -10.0 * np.log10(val_mse) if val_mse > 0 else np.inf
+            val_ssim = float(ssim(rgb, ds.images[val_i]))
+            print(f"[VAL] Iter: {i} view {val_i} PSNR: {val_psnr:.3f} "
+                  f"SSIM: {val_ssim:.4f} "
+                  f"elapsed: {time.perf_counter() - t_train_start:.0f}s", flush=True)
+            if tb_writer is not None:
+                tb_writer.add_scalar("Val/PSNR", val_psnr, i)
+                tb_writer.add_scalar("Val/SSIM", val_ssim, i)
+                tb_writer.add_image("Val/rgb", to8b(rgb), i, dataformats="HWC")
+            hooked = True
+
+        if args.i_video > 0 and i % args.i_video == 0:
+            videodir = os.path.join(args.basedir, args.expname, f"video_{i:06d}")
+            rposes = ds.render_poses
+            rposes = rposes[:, :3, :4] if rposes.ndim == 3 else rposes
+            renderer.render_from_batch_poses(H, W, ds.K, args.chunk, rposes,
+                                             state.coarse, state.fine, retraw=False,
+                                             save_directory=videodir)
+            print(f"Saved render-path frames to {videodir} (PNG; mp4/gif export "
+                  "is not ported)")
+            hooked = True
+        if hooked:
+            # rays/sec counts training only: restart its window after the
+            # renders (they end in a device -> host copy)
+            t0, rays_done = time.perf_counter(), 0
+
+    ckpt_utils.save_checkpoints(args.basedir, args.expname, state, N_iters - 1,
+                                fmt=args.ckpt_format)
+    return state
 
 
 class EvalEngine:
@@ -159,7 +314,7 @@ def render_only(args, return_rgbs: bool = False, ds=None):
 
 
 def main(argv=None):
-    run(config_parser().parse_args(argv))
+    return run(config_parser().parse_args(argv))
 
 
 if __name__ == "__main__":

@@ -83,6 +83,15 @@ class ConfigArgumentParser(argparse.ArgumentParser):
         return out
 
 
+def resolve_fused_backward(args, device) -> bool:
+    """--fused_backward auto resolution: ON for the MLP family on a CUDA
+    device unless the flag says false; the CPU always trains through the
+    plain versions."""
+    fb = getattr(args, "fused_backward", None)
+    return ((fb is None or bool(fb)) and str(device).split(":")[0] == "cuda"
+            and getattr(args, "model_type", "nerf") == "nerf")
+
+
 def config_parser() -> ConfigArgumentParser:
     """Build the flag set of the reference (config_parser.py:2-116) + TPU flags."""
     parser = ConfigArgumentParser()
@@ -550,14 +559,13 @@ def config_parser() -> ConfigArgumentParser:
                              'per density refresh (0 = whole grid); the '
                              'scaling valve for grids above 64^3')
     parser.add_argument("--fused_backward", type=_str2bool, default=None,
-                        help='train with the fully fused Pallas forward+'
-                             'backward kernel (fp32, in-kernel remat; '
-                             '~1.7x step throughput on v5e). TPU only. '
-                             'Default: auto — ON for the MLP family on '
-                             'TPU (parity-validated vs the torch '
-                             'reference at 5k/15k/30k/200k, BASELINE.md), '
-                             'OFF elsewhere; pass an explicit true/false '
-                             'to override.')
+                        help='train through the hand-written CUDA kernels: '
+                             'B1 (fused encoder + MLP forward) and B2 (fused '
+                             'backward, forward rematerialised per tile, '
+                             'fp32). Default: auto — ON for the MLP family '
+                             'on --device cuda; on the CPU the kernels\' '
+                             'plain versions (apply_nerf and autograd) run '
+                             'whatever the flag says')
     parser.add_argument("--remat", type=_str2bool, default=False,
                         help='rematerialize MLP activations in backward '
                              '(jax.checkpoint) to train much larger ray '

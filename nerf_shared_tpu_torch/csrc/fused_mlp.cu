@@ -1,10 +1,22 @@
-// Ray-major fused positional encoding + NeRF MLP forward (kernel B3).
+// Fused positional encoding + NeRF MLP forward: point-major (kernel B1) and
+// ray-major (kernel B3).
 //
-// Replaces the TPU kernel nerf_shared_tpu/ops/pallas/fused_mlp.py
-// _make_ray_kernel (launched by _ray_forward_impl, entry
+// B1 replaces the TPU kernel nerf_shared_tpu/ops/pallas/fused_mlp.py
+// _make_kernel (launched by _fused_forward_impl; entries fused_nerf_forward
+// and fused_mlp_bwd.fused_train_op, the forward of every training step):
+// points [N, 3] and per-ray view directions [N / S, 3] go in, raw [N, C]
+// comes out. The TPU kernel reads a padded [N, 8] (pts, dirs, 0, 0) input
+// and forms the encoding as x @ F + phase; here each embedding column reads
+// its input and forms f * x, rounded as the plain embed rounds it, so for
+// power-of-two f the sinusoid arguments are bit for bit the plain
+// version's, and the directions are broadcast per ray inside the kernel.
+//
+// B3 replaces _make_ray_kernel (launched by _ray_forward_impl, entry
 // fused_nerf_forward_rays): per-ray encoder coefficients A = [o, dir]·F and
 // B = [d]·F plus depths z [N, S] go in, raw [N, S, out_ch] comes out, and the
 // per-point input and embedded features never exist in device memory.
+//
+// Both share mlp_tile.cuh and differ only in how a tile is encoded.
 //
 // What bounds it on an H100: operations. At the lego width (8x256, skip at
 // 4, viewdirs, multires 10/4) a point costs ~1.19 MFLOP against ~4 bytes of
@@ -58,7 +70,55 @@ nerf_rays_kernel(const NetDesc* __restrict__ gdesc, const float* __restrict__ wb
   }
 }
 
+__global__ void __launch_bounds__(NTHREADS)
+nerf_points_kernel(const NetDesc* __restrict__ gdesc, const float* __restrict__ wb,
+                   const float* __restrict__ enc, const float* __restrict__ pts,
+                   const float* __restrict__ vd, float* __restrict__ out,
+                   long long total, int S) {
+  __shared__ NetDesc d;
+  extern __shared__ float4 dyn[];
+  load_desc(d, gdesc);
+  __syncthreads();
+  const int HS = (int)d.hdr[H_HS], ES = (int)(d.hdr[H_P4] + d.hdr[H_V4]);
+  const int OUT = (int)d.hdr[H_OUT];
+  const Smem s = carve(reinterpret_cast<float*>(dyn), HS, ES);
+  for (int i = threadIdx.x; i < TILE_P * HS; i += NTHREADS) s.h[i] = 0.f;
+
+  const long long n_tiles = (total + TILE_P - 1) / TILE_P;
+  for (long long t = blockIdx.x; t < n_tiles; t += gridDim.x) {
+    const long long p0 = t * TILE_P;
+    encode_points(d, enc, pts, vd, p0, total, S, s.emb, ES);
+    __syncthreads();
+    mlp_tile(d, wb, s);
+    for (int i = threadIdx.x; i < TILE_P * OUT; i += NTHREADS) {
+      const int p = i / OUT, o = i % OUT;
+      const long long gp = p0 + p;
+      if (gp < total) out[gp * OUT + o] = s.raw[p * RAW_LD + o];
+    }
+    __syncthreads();
+  }
+}
+
 }  // namespace nstt
+
+static unsigned grid_for(long long total) {
+  const long long n_tiles = (total + nstt::TILE_P - 1) / nstt::TILE_P;
+  return (unsigned)(n_tiles < 0x7fffffffLL ? n_tiles : 0x7fffffffLL);
+}
+
+extern "C" int nstt_points_forward(const void* desc_dev, int HS, int ES,
+                                   const float* wb, const float* enc,
+                                   const float* pts, const float* vd, float* out,
+                                   long long total, int S, void* stream) {
+  using namespace nstt;
+  const size_t bytes = smem_floats(HS, ES) * sizeof(float);
+  cudaError_t e = cudaFuncSetAttribute(
+      nerf_points_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (e != cudaSuccess) return (int)e;
+  nerf_points_kernel<<<grid_for(total), NTHREADS, bytes, (cudaStream_t)stream>>>(
+      (const NetDesc*)desc_dev, wb, enc, pts, vd, out, total, S);
+  return (int)cudaGetLastError();
+}
 
 extern "C" int nstt_rays_forward(const void* desc_dev, int HS, int ES,
                                  const float* wb, const float* A, const float* B,
@@ -70,9 +130,7 @@ extern "C" int nstt_rays_forward(const void* desc_dev, int HS, int ES,
       nerf_rays_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (e != cudaSuccess) return (int)e;
   const long long total = n_rays * S;
-  const long long n_tiles = (total + TILE_P - 1) / TILE_P;
-  const unsigned grid = (unsigned)(n_tiles < 0x7fffffffLL ? n_tiles : 0x7fffffffLL);
-  nerf_rays_kernel<<<grid, NTHREADS, bytes, (cudaStream_t)stream>>>(
+  nerf_rays_kernel<<<grid_for(total), NTHREADS, bytes, (cudaStream_t)stream>>>(
       (const NetDesc*)desc_dev, wb, A, B, z, out, total, S);
   return (int)cudaGetLastError();
 }

@@ -1,5 +1,5 @@
-// The NeRF MLP on one tile of 64 sample points, shared by fused_mlp.cu (B3)
-// and fused_render.cu (B4).
+// The NeRF MLP on one tile of 64 sample points, shared by fused_mlp.cu (B1,
+// B3), fused_render.cu (B4) and fused_mlp_bwd.cu (B2).
 //
 // A block of 256 threads owns one tile. The tile's encoded inputs (emb) and
 // its activations (h) stay in shared memory from the first layer to the
@@ -92,6 +92,32 @@ __device__ __forceinline__ float emb_value(const NetDesc& d,
   return k == 0 ? arg : (k == 1 ? sinf(arg) : cosf(arg));
 }
 
+// Encoded inputs of the points p0 .. p0 + TILE_P - 1 into emb [TILE_P][ES]
+// (point-major, B1 and B2): pts [total, 3], viewdirs [total / S, 3] shared
+// by the S samples of a ray. enc holds, per compact column, its frequency
+// (enc[cc]) and its input (enc[MAX_EMB + cc]: 0-2 point, 3-5 direction).
+// The argument f*x is rounded once, as the plain embed's x * f is; points
+// past total encode to zero.
+__device__ inline void encode_points(const NetDesc& d, const float* __restrict__ enc,
+                                     const float* __restrict__ pts,
+                                     const float* __restrict__ vd, long long p0,
+                                     long long total, int S, float* emb, int ES) {
+  for (int i = threadIdx.x; i < TILE_P * ES; i += NTHREADS) {
+    const int p = i / ES, cc = emb_col(d, i % ES);
+    const long long gp = p0 + p;
+    float v = 0.f;
+    if (cc >= 0 && gp < total) {
+      const int src = (int)__ldg(enc + MAX_EMB + cc);
+      const float x = src < 3 ? __ldg(pts + gp * 3 + src)
+                              : __ldg(vd + (gp / S) * 3 + (src - 3));
+      const int k = d.kind[cc];
+      const float arg = __fmul_rn(__ldg(enc + cc), x);
+      v = k == 0 ? x : (k == 1 ? sinf(arg) : cosf(arg));
+    }
+    emb[i] = v;
+  }
+}
+
 __device__ __forceinline__ int acc_col(int lane, int j) {
   return j < 4 ? lane * 4 + j : 128 + lane * 4 + (j - 4);
 }
@@ -105,14 +131,16 @@ __device__ __forceinline__ void zero_acc(float (&acc)[8][8]) {
 
 // acc[i][j] += sum_k src[(row0+i)*ss + k] * Wg[k*ld + col_j], k < K.
 // src columns up to K rounded up to 4 must be finite (they meet zero
-// weight rows). Ends with a barrier: src may be overwritten afterwards.
+// weight rows). KCT weight rows are staged at a time through wt
+// [KCT][MAXW]. Ends with a barrier: src may be overwritten afterwards.
+template <int KCT = KC>
 __device__ __forceinline__ void gemm_acc(float (&acc)[8][8],
                                          const float* src, int ss, int K,
                                          const float* __restrict__ Wg, int ld,
                                          float* wt) {
   const int tid = threadIdx.x, lane = tid & 31, row0 = (tid >> 5) * 8;
-  for (int k0 = 0; k0 < K; k0 += KC) {
-    for (int idx = tid; idx < KC * (MAXW / 4); idx += NTHREADS) {
+  for (int k0 = 0; k0 < K; k0 += KCT) {
+    for (int idx = tid; idx < KCT * (MAXW / 4); idx += NTHREADS) {
       const int r = idx / (MAXW / 4), c = (idx % (MAXW / 4)) * 4;
       const int k = k0 + r;
       float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
@@ -121,7 +149,7 @@ __device__ __forceinline__ void gemm_acc(float (&acc)[8][8],
       *reinterpret_cast<float4*>(wt + r * MAXW + c) = v;
     }
     __syncthreads();
-    const int kn = min(KC, K - k0);
+    const int kn = min(KCT, K - k0);
     for (int kk = 0; kk < kn; kk += 4) {
       float4 a[8];
 #pragma unroll

@@ -1,7 +1,7 @@
-"""Model / renderer factories — the args -> objects glue layer.
+"""Model / renderer / train-state factories — the args -> objects glue.
 
-Counterpart of ``nerf_configs`` and ``get_renderer`` in
-``nerf_shared_tpu/factory.py`` (reference utils.py:119-161), for the MLP
+Counterpart of ``nerf_configs``, ``get_renderer`` and ``get_train_state``
+in ``nerf_shared_tpu/factory.py`` (reference utils.py:119-172), for the MLP
 family.
 """
 
@@ -13,6 +13,7 @@ import torch
 
 from nerf_shared_tpu_torch.models.nerf import NeRF, NeRFConfig
 from nerf_shared_tpu_torch.render.renderer import Renderer
+from nerf_shared_tpu_torch.train.state import TrainState, create_train_state
 
 
 def nerf_configs(args) -> Tuple[NeRFConfig, Optional[NeRFConfig]]:
@@ -65,3 +66,12 @@ def get_renderer(args, bds_dict, device) -> Renderer:
         and bool(getattr(args, "fused_composite", False)),
         **bds_dict,
     )
+
+
+def get_train_state(args, device) -> TrainState:
+    """Seeded coarse + fine networks (from --jax_seed) and one Adam over
+    them at --lrate with the --lrate_decay schedule (reference
+    utils.py:163-172, main.py:107-112)."""
+    ccfg, fcfg = nerf_configs(args)
+    return create_train_state(ccfg, fcfg, device, seed=int(args.jax_seed),
+                              lrate=args.lrate, lrate_decay=args.lrate_decay)

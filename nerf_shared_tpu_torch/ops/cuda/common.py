@@ -20,11 +20,12 @@ import threading
 from pathlib import Path
 from typing import Callable, Dict, Iterable, Sequence
 
+import numpy as np
 import torch
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "nerf_shared_tpu_torch"
-KERNELS = ("fused_mlp", "fused_render")
+KERNELS = ("fused_mlp", "fused_render", "fused_mlp_bwd")
 # no --use_fast_math: __sinf is wrong at the encoder's 2^9·|x| arguments
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -88,6 +89,19 @@ def load(name: str, argtypes: Sequence, symbol: str) -> Callable:
     fn.argtypes = list(argtypes)
     fn.restype = ctypes.c_int
     return fn
+
+
+def upload(array: np.ndarray, device) -> torch.Tensor:
+    """A small host table (descriptor, encoder table) on ``device``. On a
+    CUDA device the copy goes through pinned memory and does not block: a
+    plain ``.to(device)`` from pageable memory synchronises the stream,
+    which would stall the launch queue once per kernel call. The caching
+    host allocator keeps the pinned block until the copy has run."""
+    t = torch.from_numpy(np.ascontiguousarray(array))
+    device = torch.device(device)
+    if device.type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
 
 
 def check_launch(rc: int, what: str):

@@ -1,20 +1,26 @@
-"""Ray-major fused encoder + NeRF MLP (kernel B3), its plain version, and
-the packing shared with B4.
+"""Fused encoder + NeRF MLP forward: point-major (kernel B1) and ray-major
+(kernel B3), their plain versions, and the packing shared with B2 and B4.
 
-Counterpart of ``fused_nerf_forward_rays`` in
-``nerf_shared_tpu/ops/pallas/fused_mlp.py``. The kernel
-(``csrc/fused_mlp.cu``) takes per-ray encoder coefficients and depths and
-builds the sample points itself: for embedding column c,
-``arg = A[r, c] + z[r, s] * B[r, c]`` with ``A = [o, dir][src] * f`` and
-``B = [d, 0][src] * f``, then identity, sin or cos. For power-of-two
-frequencies this is exactly ``f * (o + z * d)``, the plain version's
-argument. A and B are computed here in PyTorch (exact: one product per
-entry); the network itself runs only in the kernel.
+B1 (``fused_nerf_forward``) is the counterpart of ``fused_nerf_forward`` in
+``nerf_shared_tpu/ops/pallas/fused_mlp.py`` and the forward of every
+training step: points [..., S, 3] and view directions [..., 3] in, raw
+[..., S, C] out. The kernel encodes each point itself (f·x, rounded as the
+plain ``embed`` rounds it) and broadcasts the directions per ray, so no
+[N, 8] input is built.
 
-``fused_nerf_forward_rays`` dispatches on the tensors' device: on the CPU it
-is the plain version, on a CUDA device it launches the kernel (through an
-``autograd.Function`` whose backward recomputes through the plain version)
-or raises.
+B3 (``fused_nerf_forward_rays``) is the counterpart of
+``fused_nerf_forward_rays``. The kernel (``csrc/fused_mlp.cu``) takes
+per-ray encoder coefficients and depths and builds the sample points
+itself: for embedding column c, ``arg = A[r, c] + z[r, s] * B[r, c]`` with
+``A = [o, dir][src] * f`` and ``B = [d, 0][src] * f``, then identity, sin or
+cos. For power-of-two frequencies this is exactly ``f * (o + z * d)``, the
+plain version's argument. A and B are computed here in PyTorch (exact: one
+product per entry); the network itself runs only in the kernel.
+
+Both entries dispatch on the tensors' device: on the CPU they are the plain
+version, on a CUDA device they launch the kernel or raise. B1's gradient is
+kernel B2 (``fused_mlp_bwd.fused_train_op``); B3's backward recomputes
+through the plain version.
 """
 
 from __future__ import annotations
@@ -24,7 +30,6 @@ from typing import Dict, Optional
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from nerf_shared_tpu_torch.models.nerf import NeRFConfig, apply_nerf, torch_param_order
 from nerf_shared_tpu_torch.ops.cuda import common
@@ -32,7 +37,8 @@ from nerf_shared_tpu_torch.ops.cuda import common
 MAX_LAYERS, MAX_W, MAX_EMB, MAX_OUT = 32, 256, 256, 8
 _DESC_WORDS = 16 + MAX_LAYERS * 4 + 5 * 4 + MAX_EMB // 8
 
-LAUNCHES = 0  # kernel launches made by fused_nerf_forward_rays
+LAUNCHES = 0        # B3 launches made by fused_nerf_forward_rays
+POINT_LAUNCHES = 0  # B1 launches made by fused_nerf_forward and fused_train_op
 
 
 def _round4(n: int) -> int:
@@ -73,8 +79,8 @@ def ray_encoder_args(cfg: NeRFConfig, rays_o, rays_d, viewdirs):
     vd = viewdirs if viewdirs is not None else zeros
     x_o = torch.cat([rays_o.float(), vd.float()], dim=-1)
     x_d = torch.cat([rays_d.float(), zeros], dim=-1)
-    idx = torch.as_tensor(src, device=rays_o.device)
-    sc = torch.as_tensor(scale, device=rays_o.device)
+    idx = common.upload(src, rays_o.device)
+    sc = common.upload(scale, rays_o.device)
     return ((x_o[:, idx] * sc).contiguous(), (x_d[:, idx] * sc).contiguous())
 
 
@@ -94,35 +100,49 @@ def check_config(cfg: NeRFConfig):
         raise ValueError("a skip after the last layer has no head to feed")
 
 
+def packed_layout(cfg: NeRFConfig):
+    """(layout, size): where ``pack_network`` puts each parameter. layout
+    maps a state-dict name to (float offset, rows, cols, row stride): a
+    weight [out, in] is stored transposed as rows = in, cols = out; a bias
+    as one row. Row strides are cols rounded up to 4, so every matrix
+    starts 16-byte aligned. B2 writes its gradients in the same layout."""
+    names = [f"pts_linears.{i}" for i in range(cfg.D)]
+    names += (["alpha_linear", "feature_linear", "views_linears.0", "rgb_linear"]
+              if cfg.use_viewdirs else ["output_linear"])
+    shapes = param_shapes(cfg)
+    layout, off = {}, 0
+    for name in names:
+        out_ch, in_ch = shapes[name + ".weight"]
+        for key, rows in ((name + ".weight", in_ch), (name + ".bias", 1)):
+            layout[key] = (off, rows, out_ch, _round4(out_ch))
+            off += rows * _round4(out_ch)
+    return layout, off
+
+
 def pack_network(params: Dict[str, torch.Tensor], cfg: NeRFConfig, device):
     """(weights, desc, HS, ES): every matrix transposed to [in, out] with its
-    row stride rounded up to 4 floats, concatenated into one fp32 buffer;
-    ``desc`` is the int64 NetDesc of ``csrc/mlp_tile.cuh`` on ``device``."""
+    row stride rounded up to 4 floats, concatenated into one fp32 buffer
+    (``packed_layout``); ``desc`` is the int64 NetDesc of
+    ``csrc/mlp_tile.cuh`` on ``device``."""
     device = torch.device(device)
     check_config(cfg)
     check_params(params, cfg, device)
-    pieces, off = [], 0
+    layout, size = packed_layout(cfg)
+    wbuf = torch.zeros(size, dtype=torch.float32, device=device)
+    for name, (off, rows, cols, ld) in layout.items():
+        t = params[name].detach()
+        t = t.t() if t.dim() == 2 else t[None]
+        wbuf[off:off + rows * ld].view(rows, ld)[:, :cols] = t
+
     desc = np.zeros(_DESC_WORDS, np.int64)
     hdr = desc[:16]
     layers = desc[16:16 + MAX_LAYERS * 4].reshape(MAX_LAYERS, 4)
     heads = desc[16 + MAX_LAYERS * 4:16 + MAX_LAYERS * 4 + 20].reshape(5, 4)
     kind = desc[16 + MAX_LAYERS * 4 + 20:].view(np.int8)
 
-    def add(t):
-        nonlocal off
-        t = t.detach()
-        if t.dim() == 1:
-            t = t[None]
-        ld = _round4(t.shape[1])
-        start = off
-        pieces.append(F.pad(t, (0, ld - t.shape[1])).reshape(-1))
-        off += pieces[-1].numel()
-        return start, t.shape[0], ld
-
     def matrix(name):
-        w, k, ld = add(params[name + ".weight"].t())
-        b, _, _ = add(params[name + ".bias"])
-        return (w, b, k, ld)
+        w, k, _, ld = layout[name + ".weight"]
+        return (w, layout[name + ".bias"][0], k, ld)
 
     for i in range(cfg.D):
         layers[i] = matrix(f"pts_linears.{i}")
@@ -141,9 +161,18 @@ def pack_network(params: Dict[str, torch.Tensor], cfg: NeRFConfig, device):
                 int(cfg.use_viewdirs), _round4(P), _round4(V), skips, HS)
     k = encoder_tables(cfg)[2]
     kind[:k.size] = k
-    wbuf = torch.cat(pieces).contiguous()
-    desc_t = torch.from_numpy(desc).to(device)
-    return wbuf, desc_t, HS, _round4(P) + _round4(V)
+    return wbuf, common.upload(desc, device), HS, _round4(P) + _round4(V)
+
+
+def encoder_buffer(cfg: NeRFConfig, device) -> torch.Tensor:
+    """The point-major encoder table of B1 and B2, float32 [2 * MAX_EMB]:
+    per compact embedding column its frequency, then its input (0-2 the
+    point, 3-5 the view direction)."""
+    src, scale, _ = encoder_tables(cfg)
+    buf = np.zeros(2 * MAX_EMB, np.float32)
+    buf[:scale.size] = scale
+    buf[MAX_EMB:MAX_EMB + src.size] = src
+    return common.upload(buf, device)
 
 
 def plain_nerf_forward_rays(params, cfg: NeRFConfig, rays_o, rays_d, z, viewdirs):
@@ -249,6 +278,63 @@ def fused_nerf_forward_rays(params, cfg: NeRFConfig, rays_o, rays_d, z,
     names = tuple(torch_param_order(cfg))
     return _RaysFn.apply(cfg, names, rays_o, rays_d, z, viewdirs,
                          *[params[k] for k in names])
+
+
+def check_points(cfg: NeRFConfig, pts, viewdirs):
+    """(N, S): raise unless pts is a contiguous float32 [..., S, 3] and
+    viewdirs (with a viewdir head) a contiguous float32 [..., 3] on the
+    same device, one direction per ray of S samples."""
+    dev = pts.device
+    if pts.dim() < 2 or pts.shape[-1] != 3:
+        raise ValueError(f"pts has shape {tuple(pts.shape)}, expected [..., S, 3]")
+    common.check_tensor(pts, "pts", tuple(pts.shape), dev)
+    if cfg.use_viewdirs:
+        if viewdirs is None:
+            raise ValueError("cfg.use_viewdirs needs viewdirs")
+        common.check_tensor(viewdirs, "viewdirs", tuple(pts.shape[:-2]) + (3,), dev)
+    elif viewdirs is not None:
+        raise ValueError("viewdirs given to a network without a viewdir head")
+    S = pts.shape[-2]
+    return pts.numel() // 3, S
+
+
+_POINT_ARGS = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 5 + [
+    ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
+
+
+def launch_points(params, cfg: NeRFConfig, pts, viewdirs) -> torch.Tensor:
+    """Kernel B1 on CUDA tensors -> raw [..., S, C]; no autograd."""
+    global POINT_LAUNCHES
+    n, S = check_points(cfg, pts, viewdirs)
+    C = out_channels(cfg)
+    out = torch.empty(pts.shape[:-1] + (C,), dtype=torch.float32, device=pts.device)
+    if n == 0:
+        return out
+    fn = common.load("fused_mlp", _POINT_ARGS, "nstt_points_forward")
+    with torch.cuda.device(pts.device):
+        wbuf, desc, HS, ES = pack_network(params, cfg, pts.device)
+        enc = encoder_buffer(cfg, pts.device)
+        stream = torch.cuda.current_stream(pts.device).cuda_stream
+        rc = fn(desc.data_ptr(), HS, ES, wbuf.data_ptr(), enc.data_ptr(),
+                pts.data_ptr(), viewdirs.data_ptr() if viewdirs is not None else 0,
+                out.data_ptr(), n, S, stream)
+    common.check_launch(rc, "fused_mlp points (B1)")
+    POINT_LAUNCHES += 1
+    return out
+
+
+def fused_nerf_forward(params, cfg: NeRFConfig, pts,
+                       viewdirs: Optional[torch.Tensor]) -> torch.Tensor:
+    """raw [..., S, 4 | output_ch] of the network at pts [..., S, 3] with
+    view directions [..., 3]: ``apply_nerf`` (the plain version) for CPU
+    tensors, kernel B1 for CUDA tensors, differentiated by kernel B2
+    (``fused_mlp_bwd.fused_train_op``)."""
+    if pts.device.type == "cpu":
+        return apply_nerf(params, cfg, pts, viewdirs)
+    if pts.device.type != "cuda":
+        raise ValueError(f"fused_nerf_forward: no kernel for {pts.device}")
+    from nerf_shared_tpu_torch.ops.cuda.fused_mlp_bwd import fused_train_op
+    return fused_train_op(params, cfg, pts, viewdirs)
 
 
 def flops_per_point(cfg: NeRFConfig) -> int:

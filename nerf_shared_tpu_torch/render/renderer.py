@@ -5,14 +5,21 @@ render_utils.py:13-319), with the same return keys (rgb_map / disp_map /
 acc_map / raw / weights / z_vals / rgb0 / disp0 / acc0 / z_std) and the same
 dispatch seams:
 
-- ``_apply_model_rays``: the network on (o, d, z). Under ``use_pallas`` this
-  is kernel B3 (ops/cuda/fused_mlp.py), which builds the sample points
-  itself; otherwise the plain ``apply_nerf`` on o + z·d.
+- ``_apply_model``: the network on sample points. Under ``fused_backward``
+  (the training path) this is ``fused_train_op``: kernel B1 forward, kernel
+  B2 backward (ops/cuda/fused_mlp_bwd.py); otherwise the plain
+  ``apply_nerf``.
+- ``_apply_model_rays``: the network on (o, d, z). Under ``use_pallas``
+  this is kernel B3 (ops/cuda/fused_mlp.py), which builds the sample
+  points itself; otherwise ``_apply_model`` on o + z·d.
 - ``_fused_render_eligible`` / ``_apply_render_fused``: kernel B4
   (ops/cuda/fused_render.py), network + composite in one launch, when
   ``fused_composite`` is on and nothing downstream needs per-sample raw
   values or sigma noise. The CUDA kernels take any sample count, so the
   JAX package's S % 8 condition is gone.
+
+The trainer keeps B3 and B4 off its step by clearing ``use_pallas`` and
+``fused_composite`` in the step's config (``apps/train.py``).
 
 Models are passed into every call (a ``NeRF`` module, a (params, cfg)
 tuple, or None). A full image is rendered by a plain Python loop over ray
@@ -34,10 +41,18 @@ from nerf_shared_tpu_torch.data.images import imwrite_u8
 from nerf_shared_tpu_torch.models.nerf import NeRF, apply_nerf
 from nerf_shared_tpu_torch.ops.compositing import raw2outputs
 from nerf_shared_tpu_torch.ops.cuda.fused_mlp import fused_nerf_forward_rays
+from nerf_shared_tpu_torch.ops.cuda.fused_mlp_bwd import fused_train_op
 from nerf_shared_tpu_torch.ops.cuda.fused_render import fused_render_rays
 from nerf_shared_tpu_torch.ops.rays import get_rays, ndc_rays
 from nerf_shared_tpu_torch.ops.sampling import sample_along_rays, sample_pdf
 from nerf_shared_tpu_torch.utils.metrics import to8b
+
+
+def _apply_model(params, mcfg, pts, viewdirs, rcfg):
+    """The network on points [N, S, 3] -> raw [N, S, C]."""
+    if rcfg.fused_backward:
+        return fused_train_op(params, mcfg, pts, viewdirs)
+    return apply_nerf(params, mcfg, pts, viewdirs)
 
 
 def _apply_model_rays(params, mcfg, rays_o, rays_d, z_vals, viewdirs, rcfg):
@@ -46,13 +61,13 @@ def _apply_model_rays(params, mcfg, rays_o, rays_d, z_vals, viewdirs, rcfg):
         return fused_nerf_forward_rays(params, mcfg, rays_o, rays_d, z_vals,
                                        viewdirs)
     pts = rays_o[..., None, :] + rays_d[..., None, :] * z_vals[..., :, None]
-    return apply_nerf(params, mcfg, pts, viewdirs)
+    return _apply_model(params, mcfg, pts, viewdirs, rcfg)
 
 
 def _fused_render_eligible(rcfg, noise, need_raw):
-    """Network + composite as one kernel launch applies on the kernel path
-    when nothing downstream needs per-sample raw values or sigma noise
-    (any sample count)."""
+    """Network + composite as one kernel launch applies on the kernel
+    render path when nothing downstream needs per-sample raw values or
+    sigma noise (any sample count)."""
     return (rcfg.use_pallas and rcfg.fused_composite
             and rcfg.raw_noise_std == 0.0 and noise is None
             and not need_raw)
@@ -83,6 +98,9 @@ class RenderConfig:
     # under fused_composite). On CPU tensors the kernels' plain versions run
     use_pallas: bool = False
     fused_composite: bool = False
+    # train through fused_train_op: kernel B1 forward + kernel B2 backward
+    # (on CPU tensors apply_nerf and autograd)
+    fused_backward: bool = False
 
 
 def render_rays(
@@ -96,8 +114,11 @@ def render_rays(
     retweights: bool = False,
     overrides: Optional[Dict[str, torch.Tensor]] = None,
     generator: Optional[torch.Generator] = None,
+    retraw_coarse: bool = False,
 ) -> Dict[str, torch.Tensor]:
-    """Render a flat ray batch (reference render_utils.py:67-174)."""
+    """Render a flat ray batch (reference render_utils.py:67-174).
+    ``retraw_coarse`` also returns the coarse pass's raw outputs as 'raw0'
+    (the density-sparsity regularizer reads them)."""
     overrides = overrides or {}
     rays_o, rays_d = ray_batch[:, 0:3], ray_batch[:, 3:6]
     viewdirs = ray_batch[:, -3:] if ray_batch.shape[-1] > 8 else None
@@ -114,7 +135,7 @@ def render_rays(
     ret: Dict[str, torch.Tensor] = {}
     # with N_importance == 0 the coarse pass is the final pass and owns the
     # retraw / 'raw' contract
-    coarse_needs_raw = retraw and rcfg.N_importance == 0
+    coarse_needs_raw = retraw_coarse or (retraw and rcfg.N_importance == 0)
     raw = None
     if rcfg.N_importance == 0 and _fused_render_eligible(
             rcfg, overrides.get("noise_coarse"), coarse_needs_raw):
@@ -128,6 +149,8 @@ def render_rays(
             raw, z_vals, rays_d, raw_noise_std=rcfg.raw_noise_std,
             white_bkgd=rcfg.white_bkgd, noise=overrides.get("noise_coarse"),
             generator=generator)
+        if retraw_coarse:
+            ret["raw0"] = raw
 
     if rcfg.N_importance > 0:
         rgb_map_0, disp_map_0, acc_map_0 = rgb_map, disp_map, acc_map

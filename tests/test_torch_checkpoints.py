@@ -111,3 +111,124 @@ def test_resume_rules(tmp_path, jax_state):
     _assert_sd_equal(coarse_sd, params_from_jax(params["coarse"]))
     args.no_reload = True
     assert tckpt.load_checkpoint(args) == (None, None, 0)
+
+
+# --- training checkpoints: Adam state both ways -------------------------------
+
+
+def _trained_states(n_steps=2, seed=0):
+    """A JAX TrainState and a port TrainState on the same weights after
+    the same n_steps Adam updates (seeded numpy gradients), so both carry
+    non-zero moments and count n_steps."""
+    from nerf_shared_tpu_torch.factory import get_train_state as t_get_train_state
+
+    args = jax_parser().parse_args(ARGV)
+    jstate = get_train_state(args)
+    tstate = t_get_train_state(torch_parser().parse_args(ARGV), "cpu")
+    params = jax.device_get(jstate.params)
+    with torch.no_grad():
+        for branch, m in tstate.branches():
+            m.load_state_dict(params_from_jax(params[branch]))
+    rng = np.random.default_rng(seed)
+    for _ in range(n_steps):
+        grads = jax.tree_util.tree_map(
+            lambda p: rng.standard_normal(p.shape).astype(np.float32), params)
+        jstate = jstate.apply_gradients(jax.tree_util.tree_map(np.asarray, grads))
+        for branch, m in tstate.branches():
+            g = params_from_jax(grads[branch])
+            for k, p in m.named_parameters():
+                p.grad = g[k].clone()
+        tstate.apply_gradients()
+    return jstate, tstate
+
+
+def _adam_by_name(tstate):
+    """(branch, name) -> (exp_avg, exp_avg_sq) of a port TrainState."""
+    out = {}
+    for branch, m in tstate.branches():
+        for k, p in m.named_parameters():
+            st = tstate.optimizer.state[p]
+            out[(branch, k)] = (st["exp_avg"], st["exp_avg_sq"])
+    return out
+
+
+def _assert_adam_matches_jax(tstate, jstate, atol, rtol=0.0):
+    part = jckpt._adam_parts(jax.device_get(jstate.opt_state))[0]
+    assert tstate.count == int(part.count)
+    got = _adam_by_name(tstate)
+    for branch in ("coarse", "fine"):
+        mu, nu = params_from_jax(part.mu[branch]), params_from_jax(part.nu[branch])
+        for k in mu:
+            torch.testing.assert_close(got[(branch, k)][0], mu[k], rtol=rtol, atol=atol)
+            torch.testing.assert_close(got[(branch, k)][1], nu[k], rtol=rtol, atol=atol)
+
+
+@pytest.mark.parametrize("fmt", ["native", "tar"])
+def test_jax_adam_state_resumes_in_the_port(tmp_path, fmt):
+    """A JAX checkpoint with moments -> the port's restore: weights and
+    moments bit for bit (same fp32 values, transposed), count and step."""
+    from nerf_shared_tpu_torch.factory import get_train_state as t_get_train_state
+
+    jstate, _ = _trained_states()
+    jckpt.save_checkpoints(str(tmp_path), "x", jstate, 2, fmt=fmt)
+    args = torch_parser().parse_args(ARGV + ["--basedir", str(tmp_path)])
+    tstate = t_get_train_state(args, "cpu")
+    assert tckpt.restore_train_state(tstate, args) == 2
+    assert tstate.step == 2
+    params = jax.device_get(jstate.params)
+    _assert_sd_equal(tstate.coarse.state_dict(), params_from_jax(params["coarse"]))
+    _assert_sd_equal(tstate.fine.state_dict(), params_from_jax(params["fine"]))
+    _assert_adam_matches_jax(tstate, jstate, atol=0)
+
+
+@pytest.mark.parametrize("fmt", ["native", "tar"])
+def test_port_adam_state_resumes_in_jax(tmp_path, fmt):
+    """The port's save_checkpoints -> the JAX load_checkpoint: weights and
+    moments bit for bit, count and step; and the two states' Adam after the
+    same updates agree (1e-5 relative + 1e-7, about one fp32 ulp of the
+    unit-scale gradients: torch and optax round the moment updates in other
+    places)."""
+    jstate, tstate = _trained_states()
+    _assert_adam_matches_jax(tstate, jstate, atol=1e-7, rtol=1e-5)
+    paths = tckpt.save_checkpoints(str(tmp_path), "x", tstate, 2, fmt=fmt)
+    assert [os.path.basename(p) for p in paths] == [
+        "000002.ckpt.npz" if fmt == "native" else "000002.tar"]
+    fresh = get_train_state(jax_parser().parse_args(ARGV))
+    args = jax_parser().parse_args(ARGV + ["--basedir", str(tmp_path)])
+    loaded, start = jckpt.load_checkpoint(fresh, args)
+    assert start == 2 and int(loaded.step) == 2
+    back = tstate.__class__.__new__(tstate.__class__)
+    back.coarse, back.fine, back.optimizer, back.count = (
+        tstate.coarse, tstate.fine, tstate.optimizer, tstate.count)
+    _assert_adam_matches_jax(back, loaded, atol=0)
+    params = jax.device_get(loaded.params)
+    _assert_sd_equal(tstate.coarse.state_dict(), params_from_jax(params["coarse"]))
+
+
+def test_file_without_adam_state_resumes_with_a_fresh_adam(tmp_path):
+    """As the JAX load_checkpoint: weights and global step restored, Adam
+    at count 0 (the learning rate restarts at --lrate)."""
+    from nerf_shared_tpu_torch.factory import get_train_state as t_get_train_state
+
+    _, tstate = _trained_states()
+    tckpt.save_tar(str(tmp_path / "x" / "000004.tar"), tstate.coarse.state_dict(),
+                   tstate.fine.state_dict(), 4)
+    args = torch_parser().parse_args(ARGV + ["--basedir", str(tmp_path)])
+    fresh = t_get_train_state(args, "cpu")
+    assert tckpt.restore_train_state(fresh, args) == 4
+    assert fresh.step == 4 and fresh.count == 0 and not fresh.optimizer.state
+    assert fresh.lr() == fresh.lrate
+    _assert_sd_equal(fresh.coarse.state_dict(), tstate.coarse.state_dict())
+    jstate = get_train_state(jax_parser().parse_args(ARGV))
+    loaded, start = jckpt.load_checkpoint(
+        jstate, jax_parser().parse_args(ARGV + ["--basedir", str(tmp_path)]))
+    part = jckpt._adam_parts(jax.device_get(loaded.opt_state))[0]
+    assert start == 4 and int(part.count) == 0
+
+
+def test_save_checkpoints_refuses_unknown_formats(tmp_path):
+    _, tstate = _trained_states(n_steps=0)
+    with pytest.raises(ValueError, match="format"):
+        tckpt.save_checkpoints(str(tmp_path), "x", tstate, 0, fmt="npz")
+    paths = tckpt.save_checkpoints(str(tmp_path), "x", tstate, 0, fmt="both")
+    assert [os.path.basename(p) for p in paths] == ["000000.ckpt.npz", "000000.tar"]

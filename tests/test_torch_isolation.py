@@ -34,7 +34,9 @@ def test_package_has_the_slice_modules():
               "data.datasets", "ops.embedding", "ops.rays", "ops.sampling",
               "ops.compositing", "models.nerf", "ops.cuda.fused_mlp",
               "ops.cuda.fused_render", "render.renderer", "utils.checkpoints",
-              "utils.metrics", "factory", "apps.train", "apps.serve"):
+              "utils.metrics", "factory", "apps.train", "apps.serve",
+              "ops.permute", "ops.cuda.fused_mlp_bwd", "train.state",
+              "train.pipeline", "train.step", "utils.logging"):
         assert f"nerf_shared_tpu_torch.{m}" in mods, m
 
 
