@@ -5,23 +5,26 @@
 
 Phases (any failure exits non-zero and prints no result line):
 
-1. build    nvcc builds every kernel (B1-B4) from csrc/, one process per
+1. build    nvcc builds every kernel (B1-B5) from csrc/, one process per
             source, in parallel, into build/nerf_shared_tpu_torch/.
 2. kernels  at the lego width (8x256, skip at 4, viewdirs, multires 10/4)
             with seeded weights and rays at the main path's shapes (one ray
             block of --chunk 32768 rays): B3 at S=64 and S=192 and B4 at
             S=192 against their plain PyTorch versions, one gradient through
-            each autograd.Function, and median times.
+            each autograd.Function, and median times. B5 (the composite) at
+            32768 rays x S = 64, 192, 48 (guided) and 32 (froxel K) and at
+            odd shapes (S=1, S=21 with 37 rays, opaque and empty rays), with
+            and without a white background, and its gradient.
 3. serving  a synthetic 800x800 blender scene loaded with configs/lego.txt
             (half_res: 400x400 frames), a .tar of seeded random lego-width
             weights, and the port's HTTP service on port 0: three render
             requests (GET and POST) and /metrics. Checks HTTP 200, decodable
             400x400x3 PNGs, a finite float frame that matches the plain
-            renderer on a band of rays, and B3 launched exactly
+            renderer on a band of rays, and B3 and B5 each launched exactly
             2 x ceil(160000 / chunk) times per frame.
 4. fused    one request through an engine with --fused_composite True: B4
-            launched, pixels match phase 3's frame within 1e-3 on rays clear
-            of the 1e10 sentinel.
+            and B5 (the coarse pass) launched, pixels match phase 3's frame
+            within 1e-3 on rays clear of the 1e10 sentinel.
 5. training kernels
             B1 and B2 at the lego width with seeded weights at both training
             shapes of configs/lego.txt (1024 rays x 64 coarse samples =
@@ -37,9 +40,21 @@ Phases (any failure exits non-zero and prints no result line):
             Checks B1 and B2 launched 2 x steps times, train PSNR rising,
             the held-out PSNR >= 2 dB above an all-white frame, Adam state
             in the .tar and .ckpt.npz, and the resume on the lr schedule.
+7. fast     phase 6's checkpoint served over HTTP with configs/lego.txt
+            through the fast engines: --render_guided 48, --render_gate
+            1e-3, --occ_grid 128 --occ_keep 32 --occ_fine 16 (froxels) and
+            the same with --occ_mode grid. Per engine: two requests of
+            one pose giving the same finite 400x400 frame, /info's engine
+            name, the B1/B3/B5 launches (exact where
+            fixed: guided 10 B3 + 10 B5, a 128^3 grid build 128 B1), the
+            frame against the same engine through the plain versions on the
+            same grid within 1e-3 (rays whose difference is a flip of the
+            1e10 sentinel excepted, at most 1 in 1000), latency, occupied
+            fraction and PSNR against the dense frame and the held-out view.
 
-``--profile`` adds one dense frame and one training step under
-torch.profiler (device time by kernel, device busy share). Before the last
+``--profile`` adds one dense frame, five training steps and one frame of
+each fast engine under torch.profiler (device time by kernel, device busy
+share). Before the last
 line it prints the kernels JSON line and the card's
 ``nvidia-smi --query-gpu=name,power.limit`` line; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -89,6 +104,29 @@ def time_ms(fn, reps):
         torch.cuda.synchronize()
         ts.append(start.elapsed_time(end))
     return statistics.median(ts)
+
+
+def device_ms(fn, reps, kernel=None):
+    """Device milliseconds per call of ``fn`` under torch.profiler over
+    ``reps`` calls after a warm-up: the time of the CUDA kernels whose name
+    contains ``kernel``, or of every CUDA kernel when it is None. For a
+    launch shorter than the host's per-call cost, where CUDA events around
+    the call measure the host."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == DeviceType.CUDA and (kernel is None or kernel in e.name))
+    if us <= 0:
+        raise AssertionError(f"the profiler recorded no device time for {kernel}")
+    return us / 1e3 / reps
 
 
 def lego_rays(n, S, seed, device):
@@ -259,6 +297,109 @@ def phase_kernels(device, n=32768):
             "scaled by max(1, max|grad|))")
         if not ok:
             raise AssertionError(f"{name} gradient disagrees")
+    return cases
+
+
+def composite_inputs(n, S, seed, device):
+    """Seeded composite inputs at a ray block's shape: raw [n, S, 4] ~ N(0, 2),
+    depths and directions of lego_rays (S > 64: its sorted union)."""
+    import torch
+
+    _, d, z, _ = lego_rays(n, max(S, 64), seed, device)
+    if S < 64:
+        z = z[:, torch.linspace(0, 63, S).round().long()].contiguous()
+    elif S > 64:
+        z = z[:, :S].contiguous()
+    g = torch.Generator().manual_seed(seed)
+    raw = (torch.randn(n, S, 4, generator=g) * 2).to(device)
+    return raw, z, d
+
+
+def check_composite(device, n=32768):
+    """B5 against its plain version: rgb, acc and weights within 1e-5
+    absolute, depth and disp within 1e-5 relative (the same fp32 formula;
+    the transmittance is a product in another association order), at the
+    main path's shapes and the odd ones, with its times and its gradient."""
+    import torch
+
+    from nerf_shared_tpu_torch.ops.cuda import composite
+
+    tol = 1e-5
+
+    def errors(got, want):
+        ab = {k: float((got[i] - want[i]).abs().max()) if got[i].numel() else 0.0
+              for k, i in (("rgb", 0), ("acc", 2), ("weights", 3))}
+        rel = {k: float(((got[i] - want[i]).abs() / want[i].abs().clamp(min=1e-12)).max())
+               for k, i in (("disp", 1), ("depth", 4))}
+        return ab, rel
+
+    def check(label, raw, z, d):
+        worst = 0.0
+        for wb in (False, True):
+            with torch.no_grad():
+                got = composite.composite_fused(raw, z, d, white_bkgd=wb)
+                want = composite.plain_composite(raw, z, d, white_bkgd=wb)
+            torch.cuda.synchronize()
+            ab, rel = errors(got, want)
+            log(f"  B5 {label} white_bkgd={wb}: abs {', '.join(f'{k} {v:.1e}' for k, v in ab.items())}; "
+                f"rel {', '.join(f'{k} {v:.1e}' for k, v in rel.items())} (tol {tol:g})")
+            if max(ab.values()) > tol or max(rel.values()) > tol:
+                raise AssertionError(f"B5 disagrees with its plain version at {label}")
+            worst = max(worst, *ab.values())
+        return worst
+
+    cases = []
+    for S, what in ((64, "coarse"), (192, "dense fine"), (48, "guided fine"),
+                    (32, "froxel K")):
+        raw, z, d = composite_inputs(n, S, seed=100 + S, device=device)
+        err = check(f"{n} rays S={S} ({what})", raw, z, d)
+        # device time (the profiler): a launch is shorter than the host's cost
+        # of one call, which CUDA events around the call would measure
+        with torch.no_grad():
+            ms = device_ms(lambda: composite.composite_fused(raw, z, d, True), 20,
+                           "composite_kernel")
+            plain_ms = device_ms(lambda: composite.plain_composite(raw, z, d, True), 20)
+            call_ms = time_ms(lambda: composite.composite_fused(raw, z, d, True), 20)
+        t_bytes = composite.bytes_moved(n, S) / PEAK_BYTES
+        t_ops = 40 * n * S / PEAK_FP32_FLOPS  # ~40 fp32 operations a sample
+        bms, by = 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+        log(f"B5 composite S={S}: {ms:.4f} ms on the device ({call_ms:.4f} ms a call "
+            f"by CUDA events), plain {plain_ms:.4f} ms on the device, bound {bms:.4f} ms "
+            f"({by})")
+        cases.append(dict(kernel="composite", S=S, n_rays=n, max_abs_err=err, ms=ms,
+                          plain_ms=plain_ms, call_ms=call_ms, bound_ms=bms, bound_by=by))
+    for S in (1, 21):
+        raw, z, d = composite_inputs(37, S, seed=S, device=device)
+        check(f"37 rays S={S}", raw, z, d)
+    R, S = 16, 24
+    raw = torch.zeros(R, S, 4, device=device)
+    raw[: R // 2, 0, 3] = 1e4       # opaque first sample
+    raw[R // 2:, :, 3] = -100.0     # empty rays
+    z = torch.linspace(2, 6, S, device=device).expand(R, S).contiguous()
+    d = torch.tensor([[0.0, 0.0, -1.0]], device=device).expand(R, 3).contiguous()
+    check("opaque and empty rays", raw, z, d)
+    acc = composite.composite_fused(raw, z, d, white_bkgd=True)[2]
+    if not (acc[: R // 2].min() > 0.999999 and acc[R // 2:].max() < 1e-6):
+        raise AssertionError(f"B5 opaque / empty rays: acc {acc.tolist()}")
+
+    # the gradient through the autograd.Function (remat through the plain
+    # version) against autograd of the plain version
+    raw, z, d = composite_inputs(256, 48, seed=5, device=device)
+    g = torch.Generator().manual_seed(6)
+    cot = [torch.randn(256, 3, generator=g).to(device),
+           torch.randn(256, 48, generator=g).to(device)]
+
+    def grads(fn):
+        leaves = [t.clone().requires_grad_(True) for t in (raw, z, d)]
+        rgb, _, _, w, _ = fn(*leaves, white_bkgd=True)
+        ((rgb * cot[0]).sum() + (w * cot[1]).sum()).backward()
+        return [t.grad for t in leaves]
+
+    gerr = max(rel_err(a, b) for a, b in zip(grads(composite.composite_fused),
+                                             grads(composite.plain_composite)))
+    log(f"B5 gradient wrt raw, z, rays_d: max err {gerr:.1e} of max|grad| (tol 1e-5)")
+    if not gerr <= 1e-5:
+        raise AssertionError("B5 gradient disagrees")
     return cases
 
 
@@ -575,7 +716,7 @@ def phase_training(device, steps=600, more=200):
 
     from nerf_shared_tpu_torch.config import config_parser
     from nerf_shared_tpu_torch.data.datasets import load_datasets
-    from nerf_shared_tpu_torch.ops.cuda import fused_mlp, fused_mlp_bwd
+    from nerf_shared_tpu_torch.ops.cuda import composite, fused_mlp
     from nerf_shared_tpu_torch.train.state import lr_at
 
     scene, logs = os.path.join(WORK, "train_scene"), os.path.join(WORK, "train_logs")
@@ -587,21 +728,17 @@ def phase_training(device, steps=600, more=200):
             "--testskip", "1", "--i_print", "50", "--i_testset", "0",
             "--i_video", "0", "--i_img", "200", "--i_weights", str(steps)]
 
-    def counts():
-        return {"fused_mlp_points": fused_mlp.POINT_LAUNCHES,
-                "fused_mlp_bwd": fused_mlp_bwd.LAUNCHES, "fused_mlp": fused_mlp.LAUNCHES}
-
-    fused_mlp.POINT_LAUNCHES = fused_mlp_bwd.LAUNCHES = fused_mlp.LAUNCHES = 0
+    zero_counts()
     t0 = time.perf_counter()
     state, text = run_train_cli(base + ["--N_iters", str(steps)])
     first_wall = time.perf_counter() - t0
     state2, text2 = run_train_cli(base + ["--N_iters", str(steps + more)])
     wall = time.perf_counter() - t0
-    launches = counts()
-    fused_mlp.LAUNCHES = 0
+    launches = launch_counts()
+    zero_counts()
     _, text3 = run_train_cli(base + ["--N_iters", str(steps + more), "--render_only",
                                      "--render_test"])
-    render_launches = fused_mlp.LAUNCHES
+    render_launches = {"fused_mlp": fused_mlp.LAUNCHES, "composite": composite.LAUNCHES}
 
     total = steps + more
     if launches["fused_mlp_points"] != 2 * total or launches["fused_mlp_bwd"] != 2 * total:
@@ -647,19 +784,21 @@ def phase_training(device, steps=600, more=200):
         raise AssertionError("checkpoints lack Adam state")
     pngs = sorted(f for f in os.listdir(os.path.join(
         expdir, f"renderonly_test_{total:06d}")) if f.endswith(".png"))
-    if len(pngs) != len(ds.i_test) or render_launches != 2 * len(ds.i_test) * math.ceil(
-            400 * 400 / args.chunk):
-        raise AssertionError(f"render_only: {len(pngs)} PNGs, {render_launches} B3 launches")
+    per_view = 2 * len(ds.i_test) * math.ceil(400 * 400 / args.chunk)
+    if len(pngs) != len(ds.i_test) or render_launches != {"fused_mlp": per_view,
+                                                          "composite": per_view}:
+        raise AssertionError(f"render_only: {len(pngs)} PNGs, launches {render_launches}")
     ms_step = 1e3 * args.N_rand / statistics.median(rps[1:])
     log(f"trained {steps} + {more} steps in {wall:.1f} s ({first_wall:.1f} s for the first "
         f"{steps}, hooks and start-up included); median {statistics.median(rps[1:]):,.0f} "
         f"rays/s = {ms_step:.1f} ms per step; train PSNR {psnrs[0]:.2f} -> {psnrs[-1]:.2f} "
-        f"dB; launches {launches}; render_only {len(pngs)} views, {render_launches} B3 "
-        "launches")
+        f"dB; launches {launches}; render_only {len(pngs)} views, launches "
+        f"{render_launches}")
     return {"launches": launches, "ms_per_step": ms_step,
             "rays_per_s": statistics.median(rps[1:]), "train_psnr": psnrs,
             "val": [(int(a), int(b), float(c), float(d)) for a, b, c, d in vals],
-            "white_psnr": white_psnr, "render_launches": render_launches}
+            "white_psnr": white_psnr, "render_launches": render_launches,
+            "base_argv": base}
 
 
 def profile_train_step(device, steps=5):
@@ -712,13 +851,15 @@ def http(url, body=None):
 
 
 class Served:
-    """The port's HTTP service on port 0, as apps/serve.main builds it."""
+    """The port's HTTP service on port 0, as apps/serve.main builds it (on
+    ``ds`` when given, so several services share one loaded dataset)."""
 
-    def __init__(self, argv):
+    def __init__(self, argv, ds=None):
         from nerf_shared_tpu_torch.apps.serve import RenderService, make_server, serve_parser
+        from nerf_shared_tpu_torch.apps.train import build_eval_engine
 
         self.args = serve_parser().parse_args(argv)
-        self.service = RenderService(self.args)
+        self.service = RenderService(self.args, build_eval_engine(self.args, ds=ds))
         self.server = make_server(self.service, "127.0.0.1", 0)
         self.thread = threading.Thread(target=self.server.serve_forever, daemon=True)
         self.thread.start()
@@ -752,7 +893,7 @@ def phase_serving(device, size=800):
     from nerf_shared_tpu_torch.data.images import png_decode
     from nerf_shared_tpu_torch.data.poses import pose_spherical
     from nerf_shared_tpu_torch.models.nerf import NeRF, NeRFConfig
-    from nerf_shared_tpu_torch.ops.cuda import fused_mlp, fused_render
+    from nerf_shared_tpu_torch.ops.cuda import composite, fused_mlp, fused_render
     from nerf_shared_tpu_torch.render.renderer import Renderer
     from nerf_shared_tpu_torch.utils.checkpoints import save_tar
     from nerf_shared_tpu_torch.utils.metrics import to8b
@@ -780,8 +921,7 @@ def phase_serving(device, size=800):
 
     pose_a = pose_spherical(30.0, -30.0, 4.0)
     try:
-        fused_mlp.LAUNCHES = 0
-        fused_render.LAUNCHES = 0
+        zero_counts()
         t0 = time.perf_counter()
         replies = [
             http(served.base + "/render?theta=30&phi=-30&radius=4"),
@@ -790,7 +930,8 @@ def phase_serving(device, size=800):
         ]
         wall = time.perf_counter() - t0
         launches = {"fused_mlp": fused_mlp.LAUNCHES,
-                    "fused_render": fused_render.LAUNCHES}
+                    "fused_render": fused_render.LAUNCHES,
+                    "composite": composite.LAUNCHES}
         code, ctype, metrics = http(served.base + "/metrics")
         health = json.loads(http(served.base + "/health")[2])
         info = json.loads(http(served.base + "/info")[2])
@@ -815,8 +956,9 @@ def phase_serving(device, size=800):
         raise AssertionError(f"POST npy frame is not a finite {H}x{H}x3 image")
     if not np.array_equal(to8b(frame), png_a):
         raise AssertionError("PNG and npy renders of one pose differ")
-    if launches != {"fused_mlp": 3 * per_frame, "fused_render": 0}:
-        raise AssertionError(f"expected {3 * per_frame} B3 launches, got {launches}")
+    if launches != {"fused_mlp": 3 * per_frame, "fused_render": 0,
+                    "composite": 3 * per_frame}:
+        raise AssertionError(f"expected {3 * per_frame} B3 and B5 launches, got {launches}")
 
     # the frame against the plain renderer on a band of 4000 rays
     plain = Renderer(**{**dataclasses.asdict(eng.renderer.cfg), "perturb": 0.0,
@@ -839,12 +981,12 @@ def phase_serving(device, size=800):
     # phase 4: the same request through an engine with --fused_composite
     served = Served(argv + ["--fused_composite", "True"])
     try:
-        fused_mlp.LAUNCHES = 0
-        fused_render.LAUNCHES = 0
+        zero_counts()
         status, _, body = http(served.base + "/render",
                                {"c2w": pose_a.tolist(), "fmt": "npy"})
         fused_launches = {"fused_mlp": fused_mlp.LAUNCHES,
-                          "fused_render": fused_render.LAUNCHES}
+                          "fused_render": fused_render.LAUNCHES,
+                          "composite": composite.LAUNCHES}
     finally:
         served.close()
     fused_frame = np.load(io.BytesIO(body))
@@ -854,7 +996,8 @@ def phase_serving(device, size=800):
         f"{int(mask.sum())}/{mask.size} masked pixels (tol 1e-3)")
     if status != 200 or not np.isfinite(fused_frame).all():
         raise AssertionError("fused-composite request failed")
-    if fused_launches != {"fused_mlp": per_frame // 2, "fused_render": per_frame // 2}:
+    if fused_launches != {"fused_mlp": per_frame // 2, "fused_render": per_frame // 2,
+                          "composite": per_frame // 2}:
         raise AssertionError(f"fused-composite launches: {fused_launches}")
     if not ferr <= 1e-3:
         raise AssertionError("fused-composite frame disagrees with phase 3")
@@ -863,6 +1006,220 @@ def phase_serving(device, size=800):
                          "fused_composite": [x * 1e3 for x in
                                              served.service._latencies]},
             "engine": eng, "pose": pose_a}
+
+
+FAST_ENGINES = (
+    ("guided", ["--render_guided", "48"], "dense"),
+    ("gated", ["--render_gate", "1e-3"], "gated"),
+    ("occ_froxel", ["--occ_grid", "128", "--occ_keep", "32", "--occ_fine", "16"],
+     "occ-froxel"),
+    ("occ_grid", ["--occ_grid", "128", "--occ_keep", "32", "--occ_fine", "16",
+                  "--occ_mode", "grid"], "occ-grid"),
+)
+
+
+def launch_counts():
+    from nerf_shared_tpu_torch.ops.cuda import composite, fused_mlp, fused_mlp_bwd, fused_render
+
+    return {"fused_mlp_points": fused_mlp.POINT_LAUNCHES, "fused_mlp": fused_mlp.LAUNCHES,
+            "fused_render": fused_render.LAUNCHES, "fused_mlp_bwd": fused_mlp_bwd.LAUNCHES,
+            "composite": composite.LAUNCHES}
+
+
+def zero_counts():
+    from nerf_shared_tpu_torch.ops.cuda import composite, fused_mlp, fused_mlp_bwd, fused_render
+
+    fused_mlp.POINT_LAUNCHES = fused_mlp.LAUNCHES = fused_render.LAUNCHES = 0
+    fused_mlp_bwd.LAUNCHES = composite.LAUNCHES = 0
+
+
+def engine_maps(eng, kernels, c2w, guided=None):
+    """(rgb [H,W,3], acc [H,W], z, active) of one pose through ``eng``'s
+    path, as render_from_batch_poses dispatches it, with the kernels or
+    through the plain versions (``kernels`` False); ``guided`` overrides the
+    config's. z is the fine pass's sample depths [H,W,S] on the dense
+    (guided) path, else None; active is the share of rays that reach the
+    fine pass (gated) or keep an occupied sample (occupancy), else None."""
+    import dataclasses
+
+    import torch
+
+    from nerf_shared_tpu_torch.apps.train import _occ_render_args
+    from nerf_shared_tpu_torch.render.renderer import Renderer
+
+    a = eng.args
+    cfg = dataclasses.asdict(eng.renderer.cfg)
+    cfg.update(perturb=0.0, raw_noise_std=0.0,
+               use_pallas=kernels and cfg["use_pallas"],
+               fused_composite=kernels and cfg["fused_composite"])
+    if guided is not None:
+        cfg["guided"] = guided
+    r = Renderer(**cfg)
+    with torch.no_grad():
+        if eng.occ_grid is not None:
+            o = _occ_render_args(a)
+            _, out = r.render_image_occ(
+                eng.H, eng.W, eng.K, c2w, eng.fine, eng.occ_grid, chunk=a.chunk,
+                n_candidates=o["occ_candidates"], n_keep=o["occ_keep"],
+                mode=o["occ_mode"], tile=o["occ_tile"], select=o["occ_select"],
+                n_fine=o["occ_fine"])
+            rgb, acc, z = out["rgb_map"], out["acc_map"], None
+            active = float((out["n_active"] > 0).float().mean())
+        elif a.render_gate > 0.0:
+            _, out = r.render_image_gated(eng.H, eng.W, eng.K, c2w, eng.coarse,
+                                          eng.fine, chunk=a.chunk,
+                                          threshold=a.render_gate)
+            rgb, acc, z = out["rgb_map"], out["acc_map"], None
+            active = out["active_fraction"]
+        else:
+            rgb, _, acc, extras = r.render(eng.H, eng.W, eng.K, eng.coarse, eng.fine,
+                                           chunk=a.chunk, c2w=c2w, retraw=False,
+                                           retweights=True)
+            z, active = extras["z_vals"].cpu().numpy(), None
+    return rgb.float().cpu().numpy(), acc.float().cpu().numpy(), z, active
+
+
+def plain_fine_pass(eng, c2w, z):
+    """(rgb [H,W,3], acc [H,W]) of ``eng``'s fine network at the depths z
+    [H,W,S] through the plain versions (network and raw2outputs)."""
+    import torch
+
+    from nerf_shared_tpu_torch.ops.compositing import raw2outputs
+    from nerf_shared_tpu_torch.ops.cuda.fused_mlp import plain_nerf_forward_rays
+
+    dev = eng.device
+    rays, _ = eng.renderer._pack_rays(eng.H, eng.W, eng.K, None,
+                                      torch.as_tensor(c2w, device=dev), dev)
+    z = torch.as_tensor(z, device=dev).reshape(rays.shape[0], -1)
+    params, cfg = eng.fine.params(), eng.fine.cfg
+    rgb, acc = [], []
+    with torch.no_grad():
+        for i in range(0, rays.shape[0], eng.args.chunk):
+            rb, zz = rays[i:i + eng.args.chunk], z[i:i + eng.args.chunk].contiguous()
+            ro, rd, vd = (rb[:, 0:3].contiguous(), rb[:, 3:6].contiguous(),
+                          rb[:, -3:].contiguous())
+            raw = plain_nerf_forward_rays(params, cfg, ro, rd, zz, vd)
+            out = raw2outputs(raw, zz, rd, white_bkgd=eng.renderer.cfg.white_bkgd)
+            rgb.append(out[0])
+            acc.append(out[2])
+    return (torch.cat(rgb).reshape(eng.H, eng.W, 3).cpu().numpy(),
+            torch.cat(acc).reshape(eng.H, eng.W).cpu().numpy())
+
+
+def psnr(a, b):
+    import numpy as np
+
+    mse = float(np.mean((np.asarray(a, np.float64) - b) ** 2))
+    return -10.0 * math.log10(mse) if mse > 0 else float("inf")
+
+
+def phase_fast_serving(device, base_argv, profile=False):
+    """Phase 7: the fast engines over HTTP on phase 6's checkpoint (with
+    ``profile``, one more frame of each engine under torch.profiler)."""
+    import numpy as np
+
+    from nerf_shared_tpu_torch.apps.serve import serve_parser
+    from nerf_shared_tpu_torch.data.datasets import load_datasets
+
+    argv = base_argv + ["--port", "0"]
+    ds = load_datasets(serve_parser().parse_args(argv))
+    view = int(ds.i_test[0])
+    pose, gt = ds.poses[view][:3, :4], ds.images[view]
+    per_frame = None
+    results, dense, bad = {}, None, []
+    for name, flags, engine in FAST_ENGINES:
+        zero_counts()
+        t0 = time.perf_counter()
+        served = Served(argv + flags, ds=ds)
+        build_s = time.perf_counter() - t0
+        build = launch_counts()
+        eng = served.service.engine
+        try:
+            zero_counts()
+            status, _, body = http(served.base + "/render",
+                                   {"c2w": pose.tolist(), "fmt": "npy"})
+            launches = launch_counts()
+            status2, _, body2 = http(served.base + "/render",
+                                     {"c2w": pose.tolist(), "fmt": "npy"})
+            info = json.loads(http(served.base + "/info")[2])
+        finally:
+            served.close()
+        frame = np.load(io.BytesIO(body))
+        # the first request of an engine meets its shapes for the first time
+        first_ms, ms = (t * 1e3 for t in served.service._latencies[:2])
+        again = float(np.abs(np.load(io.BytesIO(body2)) - frame).max()) if status2 == 200 else None
+        if again is None or not again <= 1e-6:
+            raise AssertionError(f"{name}: a second request of the pose gave {status2}, "
+                                 f"max difference {again}")
+        if per_frame is None:
+            per_frame = math.ceil(eng.H * eng.W / eng.args.chunk)
+        if status != 200 or frame.shape != (eng.H, eng.W, 3) or not np.isfinite(frame).all():
+            raise AssertionError(f"{name}: no finite {eng.H}x{eng.W} frame ({status})")
+        if info["engine"] != engine or info["occ_fine"] != eng.args.occ_fine:
+            raise AssertionError(f"{name}: /info {info}")
+        if launches["fused_render"] or launches["fused_mlp_bwd"]:
+            raise AssertionError(f"{name}: B2 or B4 launched: {launches}")
+        b1, b3, b5 = (launches[k] for k in ("fused_mlp_points", "fused_mlp", "composite"))
+        if name == "guided" and (b1, b3, b5) != (0, 2 * per_frame, 2 * per_frame):
+            raise AssertionError(f"guided: expected {2 * per_frame} B3 and B5: {launches}")
+        if name == "gated" and not (b3 == 0 and b1 >= per_frame and b5 == b1):
+            raise AssertionError(f"gated: expected B1 and B5 once per stage block: {launches}")
+        if name.startswith("occ"):
+            if build["fused_mlp_points"] != 128 or sum(build.values()) != 128:
+                raise AssertionError(f"{name}: the 128^3 grid build launched {build}")
+            if not (b1 == 0 and b3 > 0 and b5 == b3):
+                raise AssertionError(f"{name}: expected B3 + B5 pairs: {launches}")
+
+        # the same engine through the plain versions on the same grid. Rays
+        # whose acc moved as a flip of the last sample's 1e10 interval moves
+        # it (|d rgb| <= |d acc|, |d acc| > 1e-3) are set apart. The guided
+        # path places all its fine samples by inverse CDF, whose 1e-5 floor
+        # on a CDF step is a discontinuity: 1e-7 differences of the coarse
+        # weights move samples by up to ~6e-2 on a 400x400 lego frame. There the
+        # fine pass is held through the plain versions at the kernel run's
+        # own depths, and the unpinned comparison is printed beside it
+        c2w = np.asarray(pose, np.float32)
+        rgb_k, acc_k, z_k, active = engine_maps(eng, True, c2w)
+        rgb_p, acc_p, z_p, _ = engine_maps(eng, False, c2w)
+        same = float(np.abs(rgb_k - frame).max())
+        pinned = ""
+        if z_k is not None:
+            moved = np.abs(z_k - z_p).max(-1) > 1e-5
+            pinned = (f" at the kernel run's depths (unpinned: max err "
+                      f"{float(np.abs(rgb_k - rgb_p).max()):.2e}, {int(moved.sum())} rays "
+                      f"with samples moved > 1e-5, by up to {np.abs(z_k - z_p).max():.1e})")
+            rgb_p, acc_p = plain_fine_pass(eng, c2w, z_k)
+        d_rgb, d_acc = np.abs(rgb_k - rgb_p).max(-1), np.abs(acc_k - acc_p)
+        flip = (d_acc > 1e-3) & (d_rgb <= d_acc + 1e-5)
+        err = float(d_rgb[~flip].max())
+        if dense is None:
+            dense = engine_maps(eng, True, c2w, guided=0)[0]
+        occ = eng.occ_grid.occupied_fraction() if eng.occ_grid is not None else None
+        log(f"{name}: engine {info['engine']}, {ms:.1f} ms per frame ({first_ms:.1f} ms the "
+            f"first, second request's frame {again:.1e} from the first; engine build "
+            f"{build_s:.1f} s, launches {build}); request launches B1 {b1}, B3 {b3}, "
+            f"B5 {b5}; vs plain versions{pinned} max err {err:.2e} over "
+            f"{int((~flip).sum())}/{flip.size} rays ({int(flip.sum())} sentinel flips "
+            f"set apart; tol 1e-3); HTTP frame vs direct render {same:.1e}; "
+            f"occupied {occ}; active rays {active}; PSNR vs dense {psnr(frame, dense):.2f} dB, vs held-out "
+            f"view {view} {psnr(frame, gt):.2f} dB")
+        if not (err <= 1e-3 and same <= 1e-6 and flip.sum() <= flip.size // 1000):
+            bad.append(name)
+        if profile:
+            _profile(f"{name} frame", lambda: eng.render_poses(pose[None]))
+        results[name] = {
+            "engine": info["engine"], "frame_ms": ms, "first_frame_ms": first_ms,
+            "build_s": build_s,
+            "build_launches": build, "launches": launches, "max_err": err,
+            "sentinel_flips": int(flip.sum()), "occupied_fraction": occ,
+            "active_fraction": active,
+            "psnr_vs_dense": psnr(frame, dense), "psnr_vs_gt": psnr(frame, gt)}
+    results["dense_psnr_vs_gt"] = psnr(dense, gt)
+    log(f"dense frame of the same checkpoint vs held-out view {view}: "
+        f"{results['dense_psnr_vs_gt']:.2f} dB")
+    if bad:
+        raise AssertionError(f"the kernels' frame disagrees with the plain versions: {bad}")
+    return results
 
 
 def _profile(what, fn):
@@ -937,7 +1294,7 @@ def main() -> int:
                 log(f"  ptxas {name}: {line.strip()}")
 
     t0 = time.perf_counter()
-    cases = phase_kernels(device)
+    cases = phase_kernels(device) + check_composite(device)
     log(f"phase 2: kernels vs plain versions in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     served = phase_serving(device)
@@ -949,12 +1306,19 @@ def main() -> int:
     t0 = time.perf_counter()
     trained = phase_training(device)
     log(f"phase 6: training in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    fast = phase_fast_serving(device, trained["base_argv"],
+                              profile="--profile" in sys.argv[1:])
+    log(f"phase 7: fast serving in {time.perf_counter() - t0:.1f} s")
     if "--profile" in sys.argv[1:]:
         profile_frame(served["engine"], served["pose"])
         profile_train_step(device)
     by_path = dict(served["launches"])
     by_path["training"] = trained["launches"]
-    by_path["render_only"] = {"fused_mlp": trained["render_launches"]}
+    by_path["render_only"] = trained["render_launches"]
+    for name, *_ in FAST_ENGINES:  # the engine's build (the grid) and its request
+        r = fast[name]
+        by_path[name] = {k: r["build_launches"][k] + r["launches"][k] for k in r["launches"]}
 
     sources = {
         "fused_mlp_points": ("nerf_shared_tpu_torch/csrc/fused_mlp.cu",
@@ -964,7 +1328,9 @@ def main() -> int:
         "fused_mlp": ("nerf_shared_tpu_torch/csrc/fused_mlp.cu",
                       "nerf_shared_tpu/ops/pallas/fused_mlp.py:280"),
         "fused_render": ("nerf_shared_tpu_torch/csrc/fused_render.cu",
-                         "nerf_shared_tpu/ops/pallas/fused_render.py:80")}
+                         "nerf_shared_tpu/ops/pallas/fused_render.py:80"),
+        "composite": ("nerf_shared_tpu_torch/csrc/composite.cu",
+                      "nerf_shared_tpu/ops/pallas/composite.py:37")}
     kernels = []
     for name, (src, replaces) in sources.items():
         mine = [c for c in cases if c["kernel"] == name]
@@ -979,7 +1345,7 @@ def main() -> int:
             "library_ms": None,
             "cases": mine,
         })
-    log(json.dumps({"frame_ms": served["frame_ms"], "train_step": step,
+    log(json.dumps({"frame_ms": served["frame_ms"], "train_step": step, "fast": fast,
                     "training": {k: trained[k] for k in (
                         "ms_per_step", "rays_per_s", "train_psnr", "val", "white_psnr")}}))
     print(json.dumps({"kernels": kernels}))

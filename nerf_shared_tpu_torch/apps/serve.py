@@ -22,6 +22,10 @@ through the package's own encoder (data/images.png_encode).
 Usage:
   python -m nerf_shared_tpu_torch.apps.serve --config configs/lego.txt \
       [--port 8080] [--device cuda]
+  # through a fast engine (/info's "engine"): the occupancy grid with
+  # froxels, or --render_guided 48, or --render_gate 1e-3
+  python -m nerf_shared_tpu_torch.apps.serve --config configs/lego.txt \
+      --occ_grid 128 --occ_keep 32 --occ_fine 16
 """
 
 from __future__ import annotations
@@ -110,6 +114,7 @@ class RenderService:
             "engine": eng.engine_name,
             "height": int(eng.H),
             "width": int(eng.W),
+            "occ_fine": int(getattr(self.args, "occ_fine", 0)),
             "device": str(dev),
             "n_devices": torch.cuda.device_count() if dev.type == "cuda" else 1,
         }

@@ -9,8 +9,14 @@ The entry points run on ``--device`` (default ``cuda``) and raise when it
 is ``cuda`` and no CUDA device is present. fp32 matmuls and convolutions
 are pinned to full fp32 (no TF32): the encoder's sinusoid arguments reach
 2^9·|x|. On ``cuda`` a training step runs its networks through kernels B1
-(forward) and B2 (backward) and the eval hooks render through B3; on the
-CPU the kernels' plain versions run.
+(forward) and B2 (backward) and the eval hooks render through B3 and B5;
+on the CPU the kernels' plain versions run.
+
+Render engines (``EvalEngine.engine_name``): ``dense`` (guided with
+``--render_guided``), ``gated`` (``--render_gate``), ``occ-froxel`` and
+``occ-grid`` (``--occ_grid`` with ``--occ_mode``; the grid is built from
+the checkpoint's fine network through kernel B1, and during training
+rebuilt for each render hook).
 
     python -m nerf_shared_tpu_torch.apps.train --config configs/lego.txt
     python -m nerf_shared_tpu_torch.apps.train --config configs/lego.txt \
@@ -27,7 +33,11 @@ import warnings
 import numpy as np
 import torch
 
-from nerf_shared_tpu_torch.config import config_parser, resolve_fused_backward
+from nerf_shared_tpu_torch.config import (
+    config_parser,
+    resolve_fused_backward,
+    resolved_occ_alpha_thresh,
+)
 from nerf_shared_tpu_torch.data.datasets import load_datasets
 from nerf_shared_tpu_torch.factory import (
     create_nerf_models,
@@ -46,9 +56,6 @@ from nerf_shared_tpu_torch.utils.metrics import ssim, to8b
 _NOT_PORTED = {
     "ema_decay": (lambda v: float(v) > 0.0, "EMA eval state (ROADMAP A11)"),
     "barf_anneal": (lambda v: int(v) > 0, "BARF eval annealing (ROADMAP A11)"),
-    "occ_grid": (lambda v: int(v) > 0, "occupancy / froxel renders (ROADMAP A13)"),
-    "render_gate": (lambda v: float(v) > 0.0, "gated renders (ROADMAP A13)"),
-    "render_guided": (lambda v: int(v) > 0, "guided renders (ROADMAP A13)"),
     "proposal": (bool, "the proposal sampler (ROADMAP A11)"),
     "model_type": (lambda v: v != "nerf", "grid model families (ROADMAP A15)"),
     "precision": (lambda v: v != "fp32", "bf16 operands in the CUDA kernels"),
@@ -88,6 +95,51 @@ def check_ported(args):
             raise NotImplementedError(
                 f"--{flag} {value}: {what} is not ported to "
                 "nerf_shared_tpu_torch yet")
+
+
+def _grid_select(args) -> str:
+    """The candidate selection forwarded to occupancy renders: only grid
+    mode takes --occ_select (froxel mode raises on anything but 'sort' and
+    weights by density itself)."""
+    if getattr(args, "occ_mode", "froxel") == "grid":
+        return getattr(args, "occ_select", "sort")
+    return "sort"
+
+
+def _occ_aabb(renderer, ds, H, W, K):
+    """The occupancy grid's box: the camera-frustum hull of the dataset's
+    poses, or for NDC scenes the NDC cube with margins (z' spans [-1, 1])."""
+    if renderer.cfg.ndc:
+        return (np.array([-1.05, -1.05, -1.001], np.float32),
+                np.array([1.05, 1.05, 1.001], np.float32))
+    from nerf_shared_tpu_torch.render.occupancy import aabb_from_poses
+
+    return aabb_from_poses(H, W, K, ds.poses, renderer.cfg.near, renderer.cfg.far)
+
+
+def _build_occ_grid(args, renderer, ds, H, W, K, coarse, fine):
+    """The occupancy grid of the checkpoint's density field
+    (render/occupancy.py), or None when --occ_grid is off."""
+    if getattr(args, "occ_grid", 0) <= 0:
+        return None
+    from nerf_shared_tpu_torch.render.occupancy import build_occupancy_grid
+
+    lo, hi = _occ_aabb(renderer, ds, H, W, K)
+    model = fine if fine is not None else coarse
+    params = model.params()
+    gen = torch.Generator(device=next(iter(params.values())).device).manual_seed(0)
+    grid = build_occupancy_grid(
+        params, model.cfg, renderer.cfg, lo, hi, resolution=args.occ_grid,
+        alpha_threshold=resolved_occ_alpha_thresh(args), generator=gen)
+    print(f"Occupancy grid {args.occ_grid}^3: {grid.occupied_fraction():.1%} occupied")
+    return grid
+
+
+def _occ_render_args(args) -> dict:
+    """render_from_batch_poses' occupancy arguments from the flags."""
+    return dict(occ_candidates=args.occ_candidates, occ_keep=args.occ_keep,
+                occ_mode=args.occ_mode, occ_tile=args.occ_tile,
+                occ_select=_grid_select(args), occ_fine=args.occ_fine)
 
 
 def run(args):
@@ -144,11 +196,13 @@ def train(args):
     if fused_bwd:
         print("train path: kernels B1 (forward) + B2 (backward) "
               "(auto; --fused_backward false for autograd of the plain network)")
-    # the eval hooks render through renderer.cfg (B3 on the card); the
-    # training step's networks go through fused_train_op or apply_nerf,
-    # never B3 or B4
+    # the eval hooks render through renderer.cfg (B3 and B5 on the card);
+    # the training step's networks go through fused_train_op or apply_nerf,
+    # never B3 or B4, and it composites through raw2outputs, not B5. Guided
+    # sampling is a render-time preset: training keeps the full hierarchy
     rcfg = dataclasses.replace(renderer.cfg, use_pallas=False,
-                               fused_composite=False, fused_backward=fused_bwd)
+                               fused_composite=False, fused_backward=fused_bwd,
+                               guided=0)
     step_fn = make_train_step(rcfg, ccfg, fcfg, spec, acc_reg=args.acc_loss_weight)
     # --warmup_noise: sigma noise >= 1 for the first N steps, the escape
     # from the white-background transparency trap
@@ -157,6 +211,23 @@ def train(args):
         warm_fn = make_train_step(
             dataclasses.replace(rcfg, raw_noise_std=max(1.0, rcfg.raw_noise_std)),
             ccfg, fcfg, spec, acc_reg=args.acc_loss_weight)
+
+    # with --occ_grid the render hooks go through a grid rebuilt from the
+    # current fine network at hook time
+    occ_maint = None
+    if getattr(args, "occ_grid", 0) > 0 and fcfg is not None:
+        from nerf_shared_tpu_torch.render.occupancy import OccupancyMaintainer
+
+        lo, hi = _occ_aabb(renderer, ds, H, W, ds.K)
+        occ_maint = OccupancyMaintainer(
+            renderer.cfg, fcfg, lo, hi, resolution=args.occ_grid,
+            alpha_threshold=resolved_occ_alpha_thresh(args))
+
+    def hook_kw(step):
+        if occ_maint is None:
+            return {}
+        return dict(occ_grid=occ_maint.get(state.fine.params(), step),
+                    **_occ_render_args(args))
 
     generator = torch.Generator()
     N_iters = args.N_iters + 1
@@ -196,7 +267,8 @@ def train(args):
             testsavedir = os.path.join(args.basedir, args.expname, f"testset_{i:06d}")
             renderer.render_from_batch_poses(
                 H, W, ds.K, args.chunk, ds.poses[ds.i_test], state.coarse,
-                state.fine, retraw=False, save_directory=testsavedir)
+                state.fine, retraw=False, save_directory=testsavedir,
+                **hook_kw(i))
             print(f"Saved test set renders to {testsavedir}")
             hooked = True
 
@@ -204,7 +276,7 @@ def train(args):
             val_i = int(ds.i_val[(i // args.i_img) % len(ds.i_val)])
             rgb = renderer.render_from_batch_poses(
                 H, W, ds.K, args.chunk, ds.poses[val_i][None, :3, :4], state.coarse,
-                state.fine, retraw=False)[0]
+                state.fine, retraw=False, **hook_kw(i))[0]
             val_mse = float(np.mean((rgb - ds.images[val_i]) ** 2))
             val_psnr = -10.0 * np.log10(val_mse) if val_mse > 0 else np.inf
             val_ssim = float(ssim(rgb, ds.images[val_i]))
@@ -223,7 +295,7 @@ def train(args):
             rposes = rposes[:, :3, :4] if rposes.ndim == 3 else rposes
             renderer.render_from_batch_poses(H, W, ds.K, args.chunk, rposes,
                                              state.coarse, state.fine, retraw=False,
-                                             save_directory=videodir)
+                                             save_directory=videodir, **hook_kw(i))
             print(f"Saved render-path frames to {videodir} (PNG; mp4/gif export "
                   "is not ported)")
             hooked = True
@@ -239,36 +311,46 @@ def train(args):
 
 class EvalEngine:
     """Everything needed to render novel views from a checkpoint: dataset
-    geometry, the restored models and the renderer. Built once and reused
-    across poses by render_only and by apps/serve.py."""
+    geometry, the restored models, the renderer and the optional occupancy
+    grid. Built once and reused across poses by render_only and by
+    apps/serve.py."""
 
-    def __init__(self, ds, H, W, K, renderer, ccfg, fcfg, coarse, fine, start,
-                 args, device):
+    def __init__(self, ds, H, W, K, renderer, ccfg, fcfg, coarse, fine,
+                 occ_grid, start, args, device):
         self.ds = ds
         self.H, self.W, self.K = H, W, K
         self.renderer = renderer
         self.ccfg, self.fcfg = ccfg, fcfg
         self.coarse, self.fine = coarse, fine
+        self.occ_grid = occ_grid
         self.start = start
         self.args = args
         self.device = device
 
     def render_poses(self, poses, save_directory=None, generator=None):
-        """Render a [N, 3+, 4] pose batch; returns float rgbs [N, H, W, 3]."""
+        """Render a [N, 3+, 4] pose batch through the engine's path
+        (occupancy / gated / dense); returns float rgbs [N, H, W, 3]."""
+        a = self.args
         return self.renderer.render_from_batch_poses(
-            self.H, self.W, self.K, self.args.chunk, poses, self.coarse,
-            self.fine, retraw=False, save_directory=save_directory,
-            generator=generator,
-            save_depth=getattr(self.args, "render_depth", False))
+            self.H, self.W, self.K, a.chunk, poses, self.coarse, self.fine,
+            retraw=False, save_directory=save_directory, generator=generator,
+            save_depth=getattr(a, "render_depth", False),
+            gate_threshold=a.render_gate, occ_grid=self.occ_grid,
+            **_occ_render_args(a))
 
     @property
     def engine_name(self):
+        if self.occ_grid is not None:
+            return "occ-" + self.args.occ_mode
+        if self.args.render_gate > 0.0:
+            return "gated"
         return "dense"
 
 
 def build_eval_engine(args, ds=None) -> EvalEngine:
     """Load the newest checkpoint (or seeded init weights when there is
-    none) and assemble the dense render engine on ``--device``."""
+    none) and assemble the render engine on ``--device``: the renderer,
+    and with --occ_grid the occupancy grid of the fine network."""
     check_ported(args)
     device = resolve_device(args.device)
     pin_fp32()
@@ -292,8 +374,9 @@ def build_eval_engine(args, ds=None) -> EvalEngine:
     if fine is not None:
         fine.eval()
     renderer = get_renderer(args, ds.bds_dict, device)
-    return EvalEngine(ds, H, W, K, renderer, ccfg, fcfg, coarse, fine, start,
-                      args, device)
+    occ_grid = _build_occ_grid(args, renderer, ds, H, W, K, coarse, fine)
+    return EvalEngine(ds, H, W, K, renderer, ccfg, fcfg, coarse, fine, occ_grid,
+                      start, args, device)
 
 
 def render_only(args, return_rgbs: bool = False, ds=None):

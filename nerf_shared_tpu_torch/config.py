@@ -92,6 +92,16 @@ def resolve_fused_backward(args, device) -> bool:
             and getattr(args, "model_type", "nerf") == "nerf")
 
 
+def resolved_occ_alpha_thresh(args) -> float:
+    """--occ_alpha_thresh auto default: 1e-2 for the hashgrid family (its
+    softplus density floor keeps empty space at a small positive sigma, so
+    1e-3 never prunes), else 1e-3."""
+    v = getattr(args, "occ_alpha_thresh", None)
+    if v is not None:
+        return float(v)
+    return 1e-2 if getattr(args, "model_type", "nerf") == "hashgrid" else 1e-3
+
+
 def config_parser() -> ConfigArgumentParser:
     """Build the flag set of the reference (config_parser.py:2-116) + TPU flags."""
     parser = ConfigArgumentParser()

@@ -49,7 +49,8 @@ def get_renderer(args, bds_dict, device) -> Renderer:
     """Renderer from flags + dataset bounds; NDC only for LLFF without
     no_ndc (reference utils.py:141-161). ``--use_pallas`` (the default)
     means the hand-written CUDA kernels; on the CPU their plain versions
-    run whatever the flag says."""
+    run whatever the flag says. ``--render_guided`` sets the guided fine
+    pass (it raises with N_importance 0)."""
     use_kernels = (bool(getattr(args, "use_pallas", True))
                    and torch.device(device).type == "cuda")
     return Renderer(
@@ -64,6 +65,7 @@ def get_renderer(args, bds_dict, device) -> Renderer:
         use_pallas=use_kernels,
         fused_composite=use_kernels
         and bool(getattr(args, "fused_composite", False)),
+        guided=int(getattr(args, "render_guided", 0)),
         **bds_dict,
     )
 

@@ -25,7 +25,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "nerf_shared_tpu_torch"
-KERNELS = ("fused_mlp", "fused_render", "fused_mlp_bwd")
+KERNELS = ("fused_mlp", "fused_render", "fused_mlp_bwd", "composite")
 # no --use_fast_math: __sinf is wrong at the encoder's 2^9·|x| arguments
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -123,6 +123,13 @@ def check_tensor(t: torch.Tensor, name: str, shape: Sequence, device):
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def pack8(rgb, disp, acc, depth):
+    """The [N, 8] per-ray record the compositing kernels (B4, B5) write:
+    r, g, b, disp, acc, depth, 0, 0."""
+    zeros = torch.zeros_like(rgb[:, :2])
+    return torch.cat([rgb, disp[:, None], acc[:, None], depth[:, None], zeros], -1)
 
 
 def remat_grads(ctx, plain_fn, inputs, grad_outputs):

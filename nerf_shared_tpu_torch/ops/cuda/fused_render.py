@@ -41,11 +41,6 @@ def plain_render_rays(params, cfg: NeRFConfig, rays_o, rays_d, z, viewdirs,
     return raw2outputs(raw, z, rays_d, white_bkgd=white_bkgd)
 
 
-def _pack8(rgb, disp, acc, depth):
-    zeros = torch.zeros_like(rgb[:, :2])
-    return torch.cat([rgb, disp[:, None], acc[:, None], depth[:, None], zeros], -1)
-
-
 _ARGS = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 7 + [
     ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 
@@ -91,7 +86,7 @@ class _RenderFn(torch.autograd.Function):
         def plain(ro, rd, zz, vd, *w):
             rgb, disp, acc, wts, depth = plain_render_rays(
                 dict(zip(names, w)), cfg, ro, rd, zz, vd, ctx.white_bkgd)
-            return (_pack8(rgb, disp, acc, depth),
+            return (common.pack8(rgb, disp, acc, depth),
                     wts if ctx.want_weights else wts[:, :0])
 
         grads = common.remat_grads(ctx, plain, ctx.saved_tensors, (g_out8, g_w))

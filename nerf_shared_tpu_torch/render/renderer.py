@@ -1,4 +1,5 @@
-"""The volume-rendering engine of the port: dense hierarchical rendering.
+"""The volume-rendering engine of the port: dense hierarchical rendering,
+the guided fine pass, and the facade over the fast engines.
 
 Counterpart of ``nerf_shared_tpu/render/renderer.py`` (reference
 render_utils.py:13-319), with the same return keys (rgb_map / disp_map /
@@ -7,25 +8,33 @@ dispatch seams:
 
 - ``_apply_model``: the network on sample points. Under ``fused_backward``
   (the training path) this is ``fused_train_op``: kernel B1 forward, kernel
-  B2 backward (ops/cuda/fused_mlp_bwd.py); otherwise the plain
-  ``apply_nerf``.
+  B2 backward (ops/cuda/fused_mlp_bwd.py); under ``use_pallas`` it is
+  ``fused_nerf_forward`` (kernel B1: the gated renderer and the occupancy
+  grid's probe come through here); otherwise the plain ``apply_nerf``.
 - ``_apply_model_rays``: the network on (o, d, z). Under ``use_pallas``
   this is kernel B3 (ops/cuda/fused_mlp.py), which builds the sample
   points itself; otherwise ``_apply_model`` on o + z·d.
+- ``_composite``: raw -> pixel maps, for every render path (dense, guided,
+  gated, occupancy grid, froxels). Under ``use_pallas`` without sigma noise
+  this is kernel B5 (ops/cuda/composite.py), which reads B3's ray-major raw
+  as it is; otherwise ``raw2outputs``.
 - ``_fused_render_eligible`` / ``_apply_render_fused``: kernel B4
   (ops/cuda/fused_render.py), network + composite in one launch, when
   ``fused_composite`` is on and nothing downstream needs per-sample raw
   values or sigma noise. The CUDA kernels take any sample count, so the
   JAX package's S % 8 condition is gone.
 
-The trainer keeps B3 and B4 off its step by clearing ``use_pallas`` and
+The trainer keeps B3, B4 and B5 off its step by clearing ``use_pallas`` and
 ``fused_composite`` in the step's config (``apps/train.py``).
 
 Models are passed into every call (a ``NeRF`` module, a (params, cfg)
 tuple, or None). A full image is rendered by a plain Python loop over ray
 blocks of ``chunk`` rays; no padding is needed. Random draws come from an
-optional ``torch.Generator``; ``overrides`` pins them (``t_rand``, ``u``,
-``noise_coarse``, ``noise_fine``) for tests.
+optional ``torch.Generator`` on the rays' device; ``overrides`` pins them
+(``t_rand``, ``u``, ``noise_coarse``, ``noise_fine``) for tests. The fast
+engines live in render/gated.py, render/occupancy.py and render/froxels.py;
+``Renderer.render_image_gated``, ``render_image_occ`` and the engine
+arguments of ``render_from_batch_poses`` reach them.
 """
 
 from __future__ import annotations
@@ -40,7 +49,11 @@ import torch
 from nerf_shared_tpu_torch.data.images import imwrite_u8
 from nerf_shared_tpu_torch.models.nerf import NeRF, apply_nerf
 from nerf_shared_tpu_torch.ops.compositing import raw2outputs
-from nerf_shared_tpu_torch.ops.cuda.fused_mlp import fused_nerf_forward_rays
+from nerf_shared_tpu_torch.ops.cuda.composite import composite_fused
+from nerf_shared_tpu_torch.ops.cuda.fused_mlp import (
+    fused_nerf_forward,
+    fused_nerf_forward_rays,
+)
 from nerf_shared_tpu_torch.ops.cuda.fused_mlp_bwd import fused_train_op
 from nerf_shared_tpu_torch.ops.cuda.fused_render import fused_render_rays
 from nerf_shared_tpu_torch.ops.rays import get_rays, ndc_rays
@@ -52,6 +65,10 @@ def _apply_model(params, mcfg, pts, viewdirs, rcfg):
     """The network on points [N, S, 3] -> raw [N, S, C]."""
     if rcfg.fused_backward:
         return fused_train_op(params, mcfg, pts, viewdirs)
+    if rcfg.use_pallas:
+        return fused_nerf_forward(
+            params, mcfg, pts.contiguous(),
+            None if viewdirs is None else viewdirs.contiguous())
     return apply_nerf(params, mcfg, pts, viewdirs)
 
 
@@ -62,6 +79,14 @@ def _apply_model_rays(params, mcfg, rays_o, rays_d, z_vals, viewdirs, rcfg):
                                        viewdirs)
     pts = rays_o[..., None, :] + rays_d[..., None, :] * z_vals[..., :, None]
     return _apply_model(params, mcfg, pts, viewdirs, rcfg)
+
+
+def split_rays(ray_batch):
+    """(rays_o, rays_d, viewdirs or None), contiguous, of a packed
+    [N, 8 | 11] ray batch (o, d, near, far[, viewdirs])."""
+    rays_o, rays_d = ray_batch[:, 0:3].contiguous(), ray_batch[:, 3:6].contiguous()
+    viewdirs = ray_batch[:, -3:].contiguous() if ray_batch.shape[-1] > 8 else None
+    return rays_o, rays_d, viewdirs
 
 
 def _fused_render_eligible(rcfg, noise, need_raw):
@@ -80,6 +105,19 @@ def _apply_render_fused(params, mcfg, rays_o, rays_d, z_vals, viewdirs, rcfg,
                              want_weights=want_weights)
 
 
+def _composite(raw, z_vals, rays_d, rcfg, noise=None, generator=None):
+    """raw -> (rgb, disp, acc, weights, depth), the one compositing seam of
+    every render path: kernel B5 under ``use_pallas`` when no sigma noise
+    is drawn or given, ``raw2outputs`` otherwise (the trainer's step clears
+    ``use_pallas``, so training composites through the plain version)."""
+    if rcfg.use_pallas and rcfg.raw_noise_std == 0.0 and noise is None:
+        return composite_fused(raw.contiguous(), z_vals.contiguous(),
+                               rays_d.contiguous(), white_bkgd=rcfg.white_bkgd)
+    return raw2outputs(raw, z_vals, rays_d, raw_noise_std=rcfg.raw_noise_std,
+                       white_bkgd=rcfg.white_bkgd, noise=noise,
+                       generator=generator)
+
+
 @dataclasses.dataclass(frozen=True)
 class RenderConfig:
     """Render hyperparameters (reference render_utils.py:14-30)."""
@@ -94,13 +132,25 @@ class RenderConfig:
     lindisp: bool = False
     near: float = 0.0
     far: float = 1.0
-    # evaluate the network with the hand-written CUDA kernels (B3; B4 too
+    # evaluate the network and the composite with the hand-written CUDA
+    # kernels (B1 on points, B3 on rays, B5 composite; B4 instead of B3 + B5
     # under fused_composite). On CPU tensors the kernels' plain versions run
     use_pallas: bool = False
     fused_composite: bool = False
     # train through fused_train_op: kernel B1 forward + kernel B2 backward
     # (on CPU tensors apply_nerf and autograd)
     fused_backward: bool = False
+    # render-time guided sampling: when > 0 the fine pass evaluates only
+    # this many samples placed by the coarse histogram, not the dense
+    # N_samples + N_importance union. Needs the hierarchy: N_importance > 0
+    guided: int = 0
+
+    def __post_init__(self):
+        if self.guided > 0 and self.N_importance <= 0:
+            raise ValueError(
+                f"guided={self.guided} places the fine samples by the coarse "
+                "histogram and needs N_importance > 0 (with N_importance 0 "
+                "there is no fine pass to guide)")
 
 
 def render_rays(
@@ -120,12 +170,8 @@ def render_rays(
     ``retraw_coarse`` also returns the coarse pass's raw outputs as 'raw0'
     (the density-sparsity regularizer reads them)."""
     overrides = overrides or {}
-    rays_o, rays_d = ray_batch[:, 0:3], ray_batch[:, 3:6]
-    viewdirs = ray_batch[:, -3:] if ray_batch.shape[-1] > 8 else None
+    rays_o, rays_d, viewdirs = split_rays(ray_batch)
     near, far = ray_batch[:, 6:7], ray_batch[:, 7:8]
-    rays_o, rays_d = rays_o.contiguous(), rays_d.contiguous()
-    if viewdirs is not None:
-        viewdirs = viewdirs.contiguous()
 
     z_vals = sample_along_rays(
         near, far, rcfg.N_samples, lindisp=rcfg.lindisp, perturb=rcfg.perturb,
@@ -145,10 +191,8 @@ def render_rays(
     else:
         raw = _apply_model_rays(params_coarse, ccfg, rays_o, rays_d, z_vals,
                                 viewdirs, rcfg)
-        rgb_map, disp_map, acc_map, weights, _ = raw2outputs(
-            raw, z_vals, rays_d, raw_noise_std=rcfg.raw_noise_std,
-            white_bkgd=rcfg.white_bkgd, noise=overrides.get("noise_coarse"),
-            generator=generator)
+        rgb_map, disp_map, acc_map, weights, _ = _composite(
+            raw, z_vals, rays_d, rcfg, overrides.get("noise_coarse"), generator)
         if retraw_coarse:
             ret["raw0"] = raw
 
@@ -156,12 +200,17 @@ def render_rays(
         rgb_map_0, disp_map_0, acc_map_0 = rgb_map, disp_map, acc_map
         z_vals_mid = 0.5 * (z_vals[..., 1:] + z_vals[..., :-1])
         z_samples = sample_pdf(
-            z_vals_mid, weights[..., 1:-1], rcfg.N_importance,
+            z_vals_mid, weights[..., 1:-1],
+            rcfg.guided if rcfg.guided > 0 else rcfg.N_importance,
             det=(rcfg.perturb == 0.0), u=overrides.get("u"),
             generator=generator,
         ).detach()  # reference render_utils.py:145
-        z_vals, _ = torch.sort(torch.cat([z_vals, z_samples], dim=-1), dim=-1)
-        z_vals = z_vals.contiguous()
+        if rcfg.guided > 0:
+            # guided: the fine set is the histogram-placed samples alone
+            z_vals = torch.sort(z_samples, dim=-1).values.contiguous()
+        else:
+            z_vals = torch.sort(torch.cat([z_vals, z_samples], dim=-1),
+                                dim=-1).values.contiguous()
 
         fine_params = params_coarse if params_fine is None else params_fine
         fine_cfg = ccfg if fcfg is None else fcfg
@@ -173,10 +222,9 @@ def render_rays(
         else:
             raw = _apply_model_rays(fine_params, fine_cfg, rays_o, rays_d,
                                     z_vals, viewdirs, rcfg)
-            rgb_map, disp_map, acc_map, weights, _ = raw2outputs(
-                raw, z_vals, rays_d, raw_noise_std=rcfg.raw_noise_std,
-                white_bkgd=rcfg.white_bkgd, noise=overrides.get("noise_fine"),
-                generator=generator)
+            rgb_map, disp_map, acc_map, weights, _ = _composite(
+                raw, z_vals, rays_d, rcfg, overrides.get("noise_fine"),
+                generator)
         ret["rgb0"] = rgb_map_0
         ret["disp0"] = disp_map_0
         ret["acc0"] = acc_map_0
@@ -284,25 +332,120 @@ class Renderer:
         return self.render(H, W, K, coarse_model, fine_model, chunk=chunk,
                            c2w=c2w, retraw=retraw, generator=generator)
 
+    def _pose(self, c2w, model):
+        """c2w as a float32 [3, 4] tensor on ``model``'s device."""
+        return torch.as_tensor(np.asarray(c2w, np.float32)[:3, :4],
+                               device=_model_device(model))
+
+    def render_image_gated(self, H, W, K, c2w, coarse_model, fine_model,
+                           chunk: int = 1024 * 32,
+                           generator: Optional[torch.Generator] = None,
+                           threshold: float = 1e-3):
+        """Full-image render that skips the fine pass of rays whose coarse
+        opacity is below ``threshold`` (render/gated.py): returns
+        (rgb [H,W,3], extras dict with [H,W] maps and active_fraction)."""
+        from nerf_shared_tpu_torch.render.gated import render_flat_rays_gated
+
+        pc, ccfg = _model_parts(coarse_model)
+        pf, fcfg = _model_parts(fine_model)
+        c2w = self._pose(c2w, coarse_model)
+        rays_flat, sh = self._pack_rays(H, W, K, None, c2w, c2w.device)
+        ret = render_flat_rays_gated(
+            rays_flat, (pc, ccfg), (pf, fcfg) if pf is not None else None,
+            self.cfg, ccfg, fcfg, chunk=chunk, generator=generator,
+            threshold=threshold)
+        out = {k: v.reshape(list(sh[:-1]) + list(v.shape[1:]))
+               for k, v in ret.items() if k != "active_fraction"}
+        out["active_fraction"] = ret["active_fraction"]
+        return out["rgb_map"], out
+
+    def render_image_occ(self, H, W, K, c2w, fine_model, occ_grid,
+                         chunk: int = 1024 * 32,
+                         generator: Optional[torch.Generator] = None,
+                         n_candidates: int = 128, n_keep: int = 64,
+                         select: str = "sort", gate_rays: bool = False,
+                         mode: str = "froxel", tile: int = 8, n_fine: int = 0):
+        """Full-image render through an occupancy grid: only the n_keep
+        chosen grid-occupied candidate depths per ray reach the network;
+        ``n_fine > 0`` adds a hierarchical refinement pass on top
+        (occupancy.refine_hierarchical).
+
+        ``mode``: 'froxel' (default) resamples the grid once per frame into
+        camera froxels (render/froxels.py); 'grid' looks every candidate up
+        in the world grid (render/occupancy.py) and alone takes ``select``
+        and ``gate_rays``. Returns (rgb [H,W,3], extras dict)."""
+        c2w = self._pose(c2w, fine_model)
+        if mode == "froxel":
+            if select != "sort" or gate_rays:
+                raise ValueError(
+                    "select/gate_rays only apply to mode='grid'; "
+                    "mode='froxel' (the default) ignores them — pass "
+                    "mode='grid' to keep the gated world-grid semantics. "
+                    "(froxel bin selection is contribution-weighted "
+                    "automatically when the grid carries density)")
+            from nerf_shared_tpu_torch.render.froxels import render_image_froxels
+
+            out = render_image_froxels(
+                fine_model, occ_grid, self.cfg, H, W, K, c2w,
+                generator=generator, n_depth=n_candidates, n_keep=n_keep,
+                tile=tile, chunk=chunk, n_fine=n_fine)
+            return out["rgb_map"], out
+        if mode != "grid":
+            raise ValueError(f"occupancy mode {mode!r}: use 'froxel' or 'grid'")
+        from nerf_shared_tpu_torch.render.occupancy import render_flat_rays_occ
+
+        rays_flat, sh = self._pack_rays(H, W, K, None, c2w, c2w.device)
+        ret = render_flat_rays_occ(
+            rays_flat, fine_model, occ_grid, self.cfg, chunk=chunk,
+            generator=generator, n_candidates=n_candidates, n_keep=n_keep,
+            select=select, gate_rays=gate_rays, n_fine=n_fine)
+        out = {k: (v.reshape(list(sh[:-1]) + list(v.shape[1:]))
+                   if torch.is_tensor(v) else v) for k, v in ret.items()}
+        return out["rgb_map"], out
+
     @torch.no_grad()
     def render_from_batch_poses(self, H, W, K, chunk, batch_c2w, coarse_model,
                                 fine_model, retraw=True,
                                 save_directory: Optional[str] = None,
-                                generator=None, save_depth: bool = False):
+                                generator=None, save_depth: bool = False,
+                                gate_threshold: float = 0.0, occ_grid=None,
+                                occ_candidates: int = 128, occ_keep: int = 64,
+                                occ_mode: str = "froxel", occ_tile: int = 8,
+                                occ_select: str = "sort", occ_fine: int = 0):
         """Render poses at perturb 0 without sigma noise; PNGs (and with
         ``save_depth`` NNN_disp.png + disp.npy) go to ``save_directory``.
         Returns float rgbs [N, H, W, 3] as numpy (reference
-        render_utils.py:293-319; video export is not ported)."""
+        render_utils.py:293-319; video export is not ported).
+
+        The engine: with ``occ_grid`` the occupancy render
+        (``render_image_occ`` with the ``occ_*`` arguments, through the
+        fine model), else with ``gate_threshold > 0`` the gated render,
+        else the dense hierarchical render (guided when the config says)."""
         eval_renderer = Renderer(**{**dataclasses.asdict(self.cfg),
                                     "perturb": 0.0, "raw_noise_std": 0.0})
         if save_directory is not None:
             os.makedirs(save_directory, exist_ok=True)
         rgbs, disps = [], []
         for i, c2w in enumerate(np.asarray(batch_c2w)):
-            rgb, disp, _, _ = eval_renderer.render_from_pose(
-                H, W, K, chunk=chunk, c2w=c2w[:3, :4],
-                coarse_model=coarse_model, fine_model=fine_model,
-                retraw=retraw, generator=generator)
+            if occ_grid is not None:
+                rgb, out = eval_renderer.render_image_occ(
+                    H, W, K, c2w,
+                    fine_model if fine_model is not None else coarse_model,
+                    occ_grid, chunk=chunk, generator=generator,
+                    n_candidates=occ_candidates, n_keep=occ_keep,
+                    mode=occ_mode, tile=occ_tile, select=occ_select,
+                    n_fine=occ_fine)
+                disp = out["disp_map"]
+            elif gate_threshold > 0.0:
+                rgb, out = eval_renderer.render_image_gated(
+                    H, W, K, c2w, coarse_model, fine_model, chunk=chunk,
+                    generator=generator, threshold=gate_threshold)
+                disp = out["disp_map"]
+            else:
+                rgb, disp, _, _ = eval_renderer.render_from_pose(
+                    H, W, K, chunk=chunk, c2w=c2w[:3, :4],
+                    coarse_model=coarse_model, fine_model=fine_model,
+                    retraw=retraw, generator=generator)
             rgbs.append(rgb.float().cpu().numpy())
             if save_directory is not None:
                 imwrite_u8(os.path.join(save_directory, f"{i:03d}.png"),

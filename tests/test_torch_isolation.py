@@ -36,7 +36,9 @@ def test_package_has_the_slice_modules():
               "ops.cuda.fused_render", "render.renderer", "utils.checkpoints",
               "utils.metrics", "factory", "apps.train", "apps.serve",
               "ops.permute", "ops.cuda.fused_mlp_bwd", "train.state",
-              "train.pipeline", "train.step", "utils.logging"):
+              "train.pipeline", "train.step", "utils.logging",
+              "ops.cuda.composite", "render.gated", "render.occupancy",
+              "render.froxels"):
         assert f"nerf_shared_tpu_torch.{m}" in mods, m
 
 

@@ -75,8 +75,8 @@ def test_cuda_default_raises_without_a_card(slice_cfg, monkeypatch):
 
 
 @pytest.mark.parametrize("flag,value", [
-    ("--ema_decay", "0.999"), ("--barf_anneal", "100"), ("--occ_grid", "16"),
-    ("--render_gate", "0.001"), ("--render_guided", "16"),
+    ("--ema_decay", "0.999"), ("--barf_anneal", "100"), ("--train_occ", "True"),
+    ("--refine_poses", "True"), ("--appearance", "True"),
     ("--proposal", "True"), ("--model_type", "triplane"),
     ("--precision", "bf16"), ("--mesh_shape", "2"),
 ])
