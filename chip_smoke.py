@@ -5,8 +5,8 @@
 
 Phases (any failure exits non-zero and prints no result line):
 
-1. build    nvcc builds every kernel (B1-B5) from csrc/, one process per
-            source, in parallel, into build/nerf_shared_tpu_torch/.
+1. build    nvcc builds every kernel (B1-B5, P1-P2) from csrc/, one process
+            per source, in parallel, into build/nerf_shared_tpu_torch/.
 2. kernels  at the lego width (8x256, skip at 4, viewdirs, multires 10/4)
             with seeded weights and rays at the main path's shapes (one ray
             block of --chunk 32768 rays): B3 at S=64 and S=192 and B4 at
@@ -51,10 +51,33 @@ Phases (any failure exits non-zero and prints no result line):
             same grid within 1e-3 (rays whose difference is a flip of the
             1e10 sentinel excepted, at most 1 in 1000), latency, occupied
             fraction and PSNR against the dense frame and the held-out view.
+8. gather   P1 (row gather) and P2 (row scatter-add) against their plain
+            versions: at the probe's shape (3,145,728 rows of 16 from
+            65,536), the split L8/F8 hashgrid's per-level shapes (196,608
+            and 65,536 rows of 64 from 4,096 and 16,384), the vertex
+            L16/F2/T2^19 layout's one gather at a lego step's 262,144 points
+            (33,554,432 rows of 2 from 8,388,608), triplane G256/C16
+            (262,144 rows of 16 from 196,608), and odd shapes (R prime, R =
+            0, T = 1, w in 1, 2, 3, 16, 64, all indices equal). P1 exact, P2
+            within 1e-5 of the largest |entry|. TableGather forward and
+            backward against plain autograd. Times with the plain versions'
+            and the library calls' (index_select, index_add_), then the
+            ported probe's eight rows.
+9. grid     the split L8/F8/T14 hashgrid (--hash_max_res 512) trained with
+            configs/lego.txt on phase 6's scene, resumed, --render_only, and
+            served over HTTP (two requests): exact P1 / P2 / B5 launches per
+            step and per frame, none of B1-B4, Adam groups in the
+            checkpoint, the held-out PSNR >= 2 dB above an all-white frame,
+            the frame against the same engine through the plain versions
+            within 1e-3 (the fine pass at the kernel run's own depths).
+            Then the triplane at its defaults for 100 steps with one
+            upsample milestone (128 -> 256) and one served frame.
 
-``--profile`` adds one dense frame, five training steps and one frame of
-each fast engine under torch.profiler (device time by kernel, device busy
-share). Before the last
+``--profile`` adds one dense frame, five training steps, one frame of
+each fast engine, five hashgrid training steps and a hashgrid and a
+triplane frame under torch.profiler (device time by kernel, device busy
+share). ``--phases 8,9`` runs the build and the listed phases alone (no
+result lines; for iterating on a phase). Before the last
 line it prints the kernels JSON line and the card's
 ``nvidia-smi --query-gpu=name,power.limit`` line; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -127,6 +150,30 @@ def device_ms(fn, reps, kernel=None):
     if us <= 0:
         raise AssertionError(f"the profiler recorded no device time for {kernel}")
     return us / 1e3 / reps
+
+
+def queued_ms(fn, reps=20, rounds=3):
+    """Device milliseconds per call of ``fn``: CUDA events around ``reps``
+    calls queued behind a ~30 ms spin kernel, so the host's per-call cost
+    stays off the clock while it enqueues ahead (a call that waits for the
+    card, as the plain versions' range checks do, counts that wait);
+    median of ``rounds``. The profiler recorded only part of long sessions
+    of short launches on the H100 (times below the bytes bound, or none)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    ts = []
+    for _ in range(rounds):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda._sleep(50_000_000)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        ts.append(start.elapsed_time(end) / reps)
+    return statistics.median(ts)
 
 
 def lego_rays(n, S, seed, device):
@@ -819,6 +866,40 @@ def profile_train_step(device, steps=5):
     _profile(f"{steps} training steps", run)
 
 
+def profile_grid_step(device, steps=5):
+    """``steps`` consecutive split-hashgrid training steps (the phase-9
+    recipe, on train_step_setup's two seeded 400x400 images and pinned
+    draws) under torch.profiler, after one warm-up step."""
+    import torch
+
+    from nerf_shared_tpu_torch.models.hashgrid import HashGridConfig
+    from nerf_shared_tpu_torch.render.renderer import RenderConfig
+    from nerf_shared_tpu_torch.train.pipeline import PixelSamplerSpec
+    from nerf_shared_tpu_torch.train.state import create_train_state
+    from nerf_shared_tpu_torch.train.step import make_train_step
+
+    _, _, images, poses, ov = train_step_setup(device, False)
+    cfg = HashGridConfig(L=8, F=8, log2_T=14, max_res=512, layout="split",
+                         aabb_min=(-4.72,) * 3, aabb_max=(4.72,) * 3)
+    state = create_train_state(cfg, cfg, device, seed=3, lrate=5e-4, lrate_decay=500)
+    H = 400
+    focal = 0.5 * H / math.tan(0.5 * 0.6911112)
+    spec = PixelSamplerSpec.from_K(H, H, [[focal, 0, H / 2], [0, focal, H / 2], [0, 0, 1]],
+                                   1024, single_image=True, precrop_iters=500,
+                                   precrop_frac=0.5)
+    rcfg = RenderConfig(perturb=1.0, N_importance=128, N_samples=64, use_viewdirs=True,
+                        white_bkgd=True, near=2.0, far=6.0)
+    step = make_train_step(rcfg, cfg, cfg, spec)
+    step(state, images, poses, torch.Generator().manual_seed(9), overrides=ov)
+    torch.cuda.synchronize()
+
+    def run():
+        for i in range(steps):
+            step(state, images, poses, torch.Generator().manual_seed(i), overrides=ov)
+
+    _profile(f"{steps} hashgrid training steps", run)
+
+
 def write_scene(root, size=800, n_train=2, n_val=1, n_test=2):
     """A blender-format scene: an RGBA blob seen from the lego orbit."""
     import numpy as np
@@ -1019,18 +1100,22 @@ FAST_ENGINES = (
 
 
 def launch_counts():
-    from nerf_shared_tpu_torch.ops.cuda import composite, fused_mlp, fused_mlp_bwd, fused_render
+    from nerf_shared_tpu_torch.ops.cuda import (
+        composite, fused_mlp, fused_mlp_bwd, fused_render, gather)
 
     return {"fused_mlp_points": fused_mlp.POINT_LAUNCHES, "fused_mlp": fused_mlp.LAUNCHES,
             "fused_render": fused_render.LAUNCHES, "fused_mlp_bwd": fused_mlp_bwd.LAUNCHES,
-            "composite": composite.LAUNCHES}
+            "composite": composite.LAUNCHES, "gather": gather.LAUNCHES["gather"],
+            "scatter_add": gather.LAUNCHES["scatter_add"]}
 
 
 def zero_counts():
-    from nerf_shared_tpu_torch.ops.cuda import composite, fused_mlp, fused_mlp_bwd, fused_render
+    from nerf_shared_tpu_torch.ops.cuda import (
+        composite, fused_mlp, fused_mlp_bwd, fused_render, gather)
 
     fused_mlp.POINT_LAUNCHES = fused_mlp.LAUNCHES = fused_render.LAUNCHES = 0
     fused_mlp_bwd.LAUNCHES = composite.LAUNCHES = 0
+    gather.LAUNCHES.update(gather=0, scatter_add=0)
 
 
 def engine_maps(eng, kernels, c2w, guided=None):
@@ -1079,13 +1164,40 @@ def engine_maps(eng, kernels, c2w, guided=None):
     return rgb.float().cpu().numpy(), acc.float().cpu().numpy(), z, active
 
 
+@contextlib.contextmanager
+def plain_gathers():
+    """The grid families' table reads through plain indexing instead of P1
+    (for holding a grid frame against its plain version; forward only)."""
+    from nerf_shared_tpu_torch.models import hashgrid, triplane
+
+    def plain(table, idx):
+        return table[idx.reshape(-1).long()].reshape(*idx.shape, table.shape[1])
+
+    saved = hashgrid.table_gather, triplane.table_gather
+    hashgrid.table_gather = triplane.table_gather = plain
+    try:
+        yield
+    finally:
+        hashgrid.table_gather, triplane.table_gather = saved
+
+
 def plain_fine_pass(eng, c2w, z):
     """(rgb [H,W,3], acc [H,W]) of ``eng``'s fine network at the depths z
     [H,W,S] through the plain versions (network and raw2outputs)."""
     import torch
 
+    from nerf_shared_tpu_torch.models.nerf import NeRFConfig
     from nerf_shared_tpu_torch.ops.compositing import raw2outputs
     from nerf_shared_tpu_torch.ops.cuda.fused_mlp import plain_nerf_forward_rays
+    from nerf_shared_tpu_torch.render.renderer import _apply_model
+
+    def grid_forward(params, cfg, ro, rd, zz, vd):
+        pts = ro[:, None, :] + rd[:, None, :] * zz[..., None]
+        with plain_gathers():
+            return _apply_model(params, cfg, pts, vd, eng.renderer.cfg)
+
+    forward = (plain_nerf_forward_rays if isinstance(eng.fine.cfg, NeRFConfig)
+               else grid_forward)
 
     dev = eng.device
     rays, _ = eng.renderer._pack_rays(eng.H, eng.W, eng.K, None,
@@ -1098,7 +1210,7 @@ def plain_fine_pass(eng, c2w, z):
             rb, zz = rays[i:i + eng.args.chunk], z[i:i + eng.args.chunk].contiguous()
             ro, rd, vd = (rb[:, 0:3].contiguous(), rb[:, 3:6].contiguous(),
                           rb[:, -3:].contiguous())
-            raw = plain_nerf_forward_rays(params, cfg, ro, rd, zz, vd)
+            raw = forward(params, cfg, ro, rd, zz, vd)
             out = raw2outputs(raw, zz, rd, white_bkgd=eng.renderer.cfg.white_bkgd)
             rgb.append(out[0])
             acc.append(out[2])
@@ -1222,6 +1334,352 @@ def phase_fast_serving(device, base_argv, profile=False):
     return results
 
 
+def gather_inputs(R, T, w, seed, device, same=False):
+    """Seeded table [T, w], int32 indices [R] and updates [R, w] on the
+    card. ``same``: every index T // 2 and integer updates in [-8, 8], whose
+    fp32 sums (|sum| <= 8 R < 2^24) are exact in any order."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    table = torch.randn(T, w, generator=g).to(device)
+    if same:
+        idx = torch.full((R,), T // 2, dtype=torch.int32)
+        upd = torch.randint(-8, 9, (R, w), generator=g).float()
+    else:
+        idx = torch.randint(0, T, (R,), generator=g, dtype=torch.int32)
+        upd = torch.randn(R, w, generator=g)
+    return table, idx.to(device), upd.to(device)
+
+
+def check_gather(label, R, T, w, seed, device, same=False):
+    """P1 and P2 against their plain versions on one input: P1 exactly, P2
+    within 1e-5 of the largest |entry| (fp32 atomics add in another order),
+    exactly with ``same`` (integer updates). Returns (inputs, P1 max err,
+    P2 max err over the largest |entry|)."""
+    import torch
+
+    from nerf_shared_tpu_torch.ops.cuda import gather
+
+    table, idx, upd = gather_inputs(R, T, w, seed, device, same)
+    with torch.no_grad():
+        got, want = gather.gather_rows(table, idx), gather.plain_gather_rows(table, idx)
+        s_got = gather.scatter_add_rows(idx, upd, T)
+        s_want = gather.plain_scatter_add_rows(idx, upd, T)
+    torch.cuda.synchronize()
+    e1 = float((got - want).abs().max()) if R else 0.0
+    scale = max(1.0, float(s_want.abs().max()))
+    e2 = float((s_got - s_want).abs().max()) / scale
+    tol = 0.0 if same else 1e-5
+    log(f"  {label} R={R} T={T} w={w}: P1 max err {e1:.1e} (exact), P2 max err "
+        f"{e2:.1e} of max|out| {scale:.3g} (tol {tol:g})")
+    if got.shape != (R, w) or s_got.shape != (T, w) or e1 != 0.0 or not e2 <= tol:
+        raise AssertionError(f"P1 / P2 disagree with their plain versions at {label}")
+    return (table, idx, upd), e1, e2
+
+
+def phase_gather(device):
+    """Phase 8: P1 and P2 at the probe's and the grid paths' shapes and at
+    odd shapes, the autograd pair, times, and the ported probe."""
+    import torch
+
+    from nerf_shared_tpu_torch.benchmarks import scatter_probe
+    from nerf_shared_tpu_torch.models.hashgrid import HashGridConfig
+    from nerf_shared_tpu_torch.ops.cuda import gather
+
+    split = HashGridConfig(L=8, F=8, log2_T=14, max_res=512, layout="split")
+    shapes = [("probe", 3_145_728, 65_536, 16)]
+    for R, what in ((196_608, "fine"), (65_536, "coarse")):
+        for rows in sorted(set(split.level_table_rows)):
+            shapes.append((f"split L8/F8 level table ({what} pass)", R, rows,
+                           split.row_width))
+    shapes += [("vertex L16/F2/T2^19, one gather of a step's 262,144 points",
+                262_144 * 16 * 8, 16 << 19, 2),
+               ("triplane G256/C16, one of 12 gathers", 262_144, 3 * 256 * 256, 16)]
+    timed = {"probe", "split L8/F8 level table (fine pass)",
+             "triplane G256/C16, one of 12 gathers",
+             "vertex L16/F2/T2^19, one gather of a step's 262,144 points"}
+    cases = []
+    for i, (label, R, T, w) in enumerate(shapes):
+        (table, idx, upd), e1, e2 = check_gather(label, R, T, w, 40 + i, device)
+        if label not in timed:
+            continue
+        with torch.no_grad():
+            t = {"p1": queued_ms(lambda: gather.gather_rows(table, idx)),
+                 "p1_plain": queued_ms(lambda: gather.plain_gather_rows(table, idx)),
+                 "p1_library": queued_ms(lambda: torch.index_select(table, 0, idx)),
+                 "p2": queued_ms(lambda: gather.scatter_add_rows(idx, upd, T)),
+                 "p2_plain": queued_ms(lambda: gather.plain_scatter_add_rows(idx, upd, T)),
+                 "p2_library": queued_ms(lambda: torch.zeros(
+                     (T, w), device=device).index_add_(0, idx, upd))}
+        # bytes bounds: P1 reads the distinct rows its indices name, P2
+        # writes the whole [T, w] output
+        distinct = int(torch.unique(idx).numel())
+        bms = {"p1": 1e3 * gather.bytes_moved(R, distinct, w) / PEAK_BYTES,
+               "p2": 1e3 * gather.bytes_moved(R, T, w) / PEAK_BYTES}
+        log(f"P1 / P2 {label}: P1 {t['p1']:.4f} ms (plain {t['p1_plain']:.4f}, "
+            f"index_select {t['p1_library']:.4f}, bound {bms['p1']:.4f} for {distinct} "
+            f"distinct rows), P2 {t['p2']:.4f} ms (plain {t['p2_plain']:.4f}, zeros + "
+            f"index_add_ {t['p2_library']:.4f}, bound {bms['p2']:.4f}); bytes bounds; "
+            "device time of calls queued behind a spin kernel")
+        for k, e in (("gather", e1), ("scatter_add", e2)):
+            p = "p1" if k == "gather" else "p2"
+            cases.append(dict(kernel=k, shape=label, R=R, T=T, w=w, max_abs_err=e,
+                              ms=t[p], plain_ms=t[p + "_plain"],
+                              library_ms=t[p + "_library"], bound_ms=bms[p],
+                              bound_by="bytes"))
+    # odd shapes: R prime, R = 0, T = 1, every width, all indices equal
+    for i, w in enumerate((1, 2, 3, 16, 64)):
+        check_gather("odd", 1237, 977, w, 60 + i, device)
+    check_gather("odd", 1_000_003, 4099, 3, 70, device)
+    check_gather("empty", 0, 5, 16, 71, device)
+    check_gather("empty", 0, 5, 3, 72, device)
+    check_gather("one row", 1000, 1, 16, 73, device)
+    # every row onto one (the worst contention). Sums of n N(0, 1) rows in
+    # two orders differ by ~eps sqrt(n) of the result (2.1e-5 at n =
+    # 262,144 on the H100, over the 1e-5 bar), so these take integer
+    # updates, whose sums are exact in any order: P2 must match exactly
+    check_gather("all indices equal", 262_144, 4096, 64, 74, device, same=True)
+    check_gather("all indices equal", 262_144, 4096, 2, 75, device, same=True)
+
+    # the autograd pair against plain autograd
+    table, idx, upd = gather_inputs(196_608, 16_384, 64, 80, device)
+    t1, t2 = table.clone().requires_grad_(True), table.clone().requires_grad_(True)
+    rows = gather.table_gather(t1, idx)
+    (rows * upd).sum().backward()
+    want = t2[idx.long()]
+    (want * upd).sum().backward()
+    e_rows = float((rows - want).detach().abs().max())
+    e_grad = float((t1.grad - t2.grad).abs().max()) / max(1.0, float(t2.grad.abs().max()))
+    log(f"TableGather: rows max err {e_rows:.1e} (exact), table gradient {e_grad:.1e} of "
+        "its max (tol 1e-5)")
+    if not (e_rows == 0.0 and e_grad <= 1e-5):
+        raise AssertionError("TableGather disagrees with plain autograd")
+
+    probe = scatter_probe.run(3_145_728, 65_536, 16, reps=5, device=device, out=log)
+    p1, p2 = probe[6], probe[7]
+    if not (p1["max_err"] == 0.0 and p2["max_err"] <= 1e-5 * max(1.0, p2["max_abs"])):
+        raise AssertionError(f"the probe's kernel rows disagree: {p1} {p2}")
+    return cases, probe
+
+
+GRID_ARGS = ["--model_type", "hashgrid", "--hash_layout", "split", "--hash_levels", "8",
+             "--hash_feat", "8", "--hash_log2_size", "14", "--hash_max_res", "512"]
+
+
+def phase_grid(device, steps=400, more=200, tri_steps=100, profile=False):
+    """Phase 9: the split hashgrid through train, resume, render_only and
+    the HTTP service, then the triplane with one upsample milestone."""
+    import re
+
+    import numpy as np
+
+    from nerf_shared_tpu_torch.apps.serve import serve_parser
+    from nerf_shared_tpu_torch.data.datasets import load_datasets
+    from nerf_shared_tpu_torch.train.state import lr_at
+
+    scene, logs = os.path.join(WORK, "train_scene"), os.path.join(WORK, "grid_logs")
+    if not os.path.isdir(scene):
+        write_train_scene(scene)
+    lego = os.path.join(REPO, "configs", "lego.txt")
+    total = steps + more
+    base = ["--config", lego, "--datadir", scene, "--basedir", logs, "--expname",
+            "hashgrid_smoke", "--device", device, "--testskip", "1", "--i_print", "50",
+            "--i_testset", "0", "--i_video", "0", "--i_img", str(total),
+            "--i_weights", str(steps)] + GRID_ARGS
+    ds = load_datasets(serve_parser().parse_args(base + ["--port", "0"]))
+    H, W = ds.hwf[0], ds.hwf[1]
+    blocks = math.ceil(H * W / 32768)
+    frame = {"gather": 2 * 8 * blocks, "composite": 2 * blocks}  # per dense frame
+
+    zero_counts()
+    t0 = time.perf_counter()
+    _, text = run_train_cli(base + ["--N_iters", str(steps)])
+    first = launch_counts()
+    state, text2 = run_train_cli(base + ["--N_iters", str(total)])
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    want = {"gather": 16 * total + frame["gather"], "scatter_add": 16 * total,
+            "composite": frame["composite"]}
+    others = {k: v for k, v in launches.items() if k not in want}
+    if ({k: launches[k] for k in want} != want or any(others.values())
+            or first["gather"] != 16 * steps):
+        raise AssertionError(f"hashgrid training launches {launches} (first run {first}), "
+                             f"expected {want} and no B1-B4")
+    if "Reloading from" not in text2 or state.count != total or state.step != total:
+        raise AssertionError(f"hashgrid resume: count {state.count}, step {state.step}")
+    lrs = {g["label"]: g["lr"] for g in state.optimizer.param_groups}
+    if (abs(lrs["net"] - lr_at(5e-4, 500, total - 1)) > 1e-12
+            or abs(lrs["grid"] - lr_at(2e-2, 500, total - 1)) > 1e-12):
+        raise AssertionError(f"resumed lrs {lrs} are off the schedule")
+    expdir = os.path.join(logs, "hashgrid_smoke")
+    with np.load(os.path.join(expdir, f"{total:06d}.ckpt.npz")) as z:
+        groups = (int(z["opt/n_groups"]), int(z["opt/g0/count"]), int(z["opt/g1/count"]))
+        mu = float(np.abs(z["opt/g0/mu/fine/tables/0"]).max())
+    if groups != (2, total, total) or not mu > 0 or any(
+            f.endswith(".tar") for f in os.listdir(expdir)):
+        raise AssertionError(f"hashgrid checkpoint: groups {groups}, grid mu {mu}")
+    rps = [float(r.replace(",", "")) for r in re.findall(
+        r"\[TRAIN\] Iter: \d+ .*?rays/sec: (\S+)", text + text2)]
+    psnrs = [float(p) for p in re.findall(r"\[TRAIN\] Iter: \d+ Loss: \S+\s+PSNR: (\S+)",
+                                          text + text2)]
+    it, view, vpsnr, vssim = re.findall(
+        r"\[VAL\] Iter: (\d+) view (\d+) PSNR: (\S+) SSIM: (\S+)", text2)[-1]
+    white_psnr = -10.0 * math.log10(float(np.mean((1.0 - ds.images[int(view)]) ** 2)))
+    ms_step = 1e3 * 1024 / statistics.median(rps[1:])
+    log(f"hashgrid: {steps} + {more} steps in {wall:.1f} s; median "
+        f"{statistics.median(rps[1:]):,.0f} rays/s = {ms_step:.2f} ms per step; train PSNR "
+        f"{psnrs[0]:.2f} -> {psnrs[-1]:.2f} dB; held-out view {view} at step {it}: "
+        f"{float(vpsnr):.2f} dB (SSIM {vssim}), all-white {white_psnr:.2f} dB; "
+        f"launches {launches}")
+    if not float(vpsnr) >= white_psnr + 2.0:
+        raise AssertionError("hashgrid held-out PSNR is not 2 dB above all-white")
+
+    zero_counts()
+    _, text3 = run_train_cli(base + ["--N_iters", str(total), "--render_only",
+                                     "--render_test"])
+    render_launches = launch_counts()
+    n_test = len(ds.i_test)
+    if (render_launches["gather"] != n_test * frame["gather"]
+            or render_launches["composite"] != n_test * frame["composite"]
+            or sum(render_launches.values()) != n_test * sum(frame.values())):
+        raise AssertionError(f"hashgrid render_only launches {render_launches}")
+
+    served = serve_grid(base + ["--port", "0"], ds, frame, profile=profile)
+    vertex_gb = check_vertex_chunk(device)
+    tri = phase_triplane(device, scene, lego, ds, tri_steps, blocks, profile)
+    by_path = {"hashgrid_training": launches, "hashgrid_render_only": render_launches,
+               "hashgrid_serving": served["launches"], **tri["launches"]}
+    return {"ms_per_step": ms_step, "rays_per_s": statistics.median(rps[1:]),
+            "train_psnr": psnrs, "val": (int(it), int(view), float(vpsnr), float(vssim)),
+            "white_psnr": white_psnr, "frame_ms": served["frame_ms"],
+            "frame_err": served["err"], "triplane": tri["summary"],
+            "vertex_chunk_peak_gb": vertex_gb,
+            "launches_by_path": by_path}
+
+
+def check_vertex_chunk(device, n=32768):
+    """One serving block (32768 rays, 64 + 128 samples, perturb 0) through
+    a seeded hashgrid at the family's defaults (vertex layout, L16 / F2 /
+    T 2^19): its fused gather holds 6,291,456 x 16 x 8 int32 indices (3.2
+    GB) and as many [2]-float rows (6.4 GB). Returns the peak device memory
+    in GB; fails unless the maps are finite and one P1 and one B5 launch a
+    pass."""
+    import torch
+
+    from nerf_shared_tpu_torch.models.hashgrid import HashGrid, HashGridConfig
+    from nerf_shared_tpu_torch.render.renderer import RenderConfig, render_rays
+
+    cfg = HashGridConfig(aabb_min=(-4.72,) * 3, aabb_max=(4.72,) * 3)
+    model = HashGrid(cfg, device=device, generator=torch.Generator().manual_seed(2))
+    o, d, _, vd = lego_rays(n, 64, seed=12, device=device)
+    rays = torch.cat([o, d, torch.full_like(o[:, :1], 2.0), torch.full_like(o[:, :1], 6.0),
+                      vd], -1)
+    rcfg = RenderConfig(perturb=0.0, N_importance=128, N_samples=64, white_bkgd=True,
+                        near=2.0, far=6.0, use_pallas=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        ret = render_rays(model.params(), model.params(), rays, rcfg, cfg, cfg)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    launches = launch_counts()
+    log(f"vertex L16/F2/T2^19 hashgrid, one {n}-ray block (64 + 128 samples): {ms:.1f} ms, "
+        f"peak device memory {peak:.2f} GB, launches {launches}")
+    if not (bool(torch.isfinite(ret["rgb_map"]).all())
+            and (launches["gather"], launches["composite"]) == (2, 2)):
+        raise AssertionError("the vertex-layout block failed")
+    return peak
+
+
+def serve_grid(argv, ds, frame, profile=False):
+    """Two requests of one held-out pose through the dense engine of a grid
+    checkpoint; the frame against the same engine through the plain
+    versions. Returns launches (both requests), frame ms and the error."""
+    import numpy as np
+
+    view = int(ds.i_test[0])
+    pose = ds.poses[view][:3, :4]
+    served = Served(argv, ds=ds)
+    eng = served.service.engine
+    try:
+        zero_counts()
+        status, _, body = http(served.base + "/render", {"c2w": pose.tolist(), "fmt": "npy"})
+        one = launch_counts()
+        status2, _, body2 = http(served.base + "/render",
+                                 {"c2w": pose.tolist(), "fmt": "npy"})
+        launches = launch_counts()
+        info = json.loads(http(served.base + "/info")[2])
+    finally:
+        served.close()
+    img, img2 = np.load(io.BytesIO(body)), np.load(io.BytesIO(body2))
+    first_ms, ms = (t * 1e3 for t in served.service._latencies[:2])
+    want = {k: frame.get(k, 0) for k in one}
+    if (status, status2) != (200, 200) or one != want:
+        raise AssertionError(f"grid frame: HTTP {status} {status2}, launches {one}, "
+                             f"expected {want}")
+    if img.shape != (eng.H, eng.W, 3) or not np.isfinite(img).all() or not np.array_equal(
+            img, img2) or info["model_type"] != eng.args.model_type:
+        raise AssertionError(f"grid frame: {img.shape}, /info {info}")
+    c2w = np.asarray(pose, np.float32)
+    rgb_k, acc_k, z_k, _ = engine_maps(eng, True, c2w)
+    with plain_gathers():
+        before = launch_counts()["gather"]
+        rgb_u, _, _, _ = engine_maps(eng, False, c2w)
+        rgb_p, acc_p = plain_fine_pass(eng, c2w, z_k)
+        if launch_counts()["gather"] != before:
+            raise AssertionError("the plain grid frame launched P1")
+    d_rgb, d_acc = np.abs(rgb_k - rgb_p).max(-1), np.abs(acc_k - acc_p)
+    flip = (d_acc > 1e-3) & (d_rgb <= d_acc + 1e-5)
+    err = float(d_rgb[~flip].max())
+    same = float(np.abs(rgb_k - img).max())
+    log(f"{eng.args.model_type} frame over HTTP: {ms:.1f} ms ({first_ms:.1f} ms the first), "
+        f"launches {one} a frame; vs plain versions at the kernel run's depths max err "
+        f"{err:.2e} over {int((~flip).sum())}/{flip.size} rays ({int(flip.sum())} sentinel "
+        f"flips set apart; tol 1e-3; unpinned {float(np.abs(rgb_k - rgb_u).max()):.2e}); "
+        f"HTTP frame vs direct render {same:.1e}; vs held-out view {view} "
+        f"{psnr(img, ds.images[view]):.2f} dB")
+    if not (err <= 1e-3 and same <= 1e-6 and flip.sum() <= flip.size // 1000):
+        raise AssertionError("the grid frame disagrees with the plain versions")
+    if profile:
+        _profile(f"{eng.args.model_type} frame", lambda: eng.render_poses(pose[None]))
+    return {"launches": {k: launches[k] for k in launches}, "frame_ms": [first_ms, ms],
+            "err": err}
+
+
+def phase_triplane(device, scene, lego, ds, steps, blocks, profile=False):
+    """The triplane at its defaults (G 256, C 16, vertex) for ``steps``
+    steps from G 128 with one upsample milestone at steps // 2, then one
+    served frame."""
+    import re
+
+    logs = os.path.join(WORK, "triplane_logs")
+    half = steps // 2
+    base = ["--config", lego, "--datadir", scene, "--basedir", logs, "--expname",
+            "triplane_smoke", "--device", device, "--testskip", "1", "--i_print", "25",
+            "--i_testset", "0", "--i_video", "0", "--i_img", "0", "--i_weights",
+            str(steps), "--model_type", "triplane", "--triplane_res", "128",
+            "--triplane_upsample", f"{half}:256", "--N_iters", str(steps)]
+    zero_counts()
+    state, text = run_train_cli(base)
+    launches = launch_counts()
+    want = {"gather": 24 * steps, "scatter_add": 24 * steps}
+    if ({k: launches[k] for k in want} != want or sum(launches.values()) != 48 * steps
+            or f"[UPSAMPLE] step {half}: planes -> 256^2" not in text
+            or state.coarse.cfg.G != 256 or state.count != steps):
+        raise AssertionError(f"triplane training: launches {launches}, G {state.coarse.cfg.G}")
+    rps = [float(r.replace(",", "")) for r in re.findall(
+        r"\[TRAIN\] Iter: \d+ .*?rays/sec: (\S+)", text)]
+    frame = {"gather": 2 * 12 * blocks, "composite": 2 * blocks}
+    served = serve_grid(base[:-2] + ["--port", "0"], ds, frame, profile=profile)
+    summary = {"rays_per_s": rps, "frame_ms": served["frame_ms"], "frame_err": served["err"]}
+    log(f"triplane: {steps} steps, rays/s {rps}; launches {launches}")
+    return {"summary": summary, "launches": {"triplane_training": launches,
+                                             "triplane_serving": served["launches"]}}
+
+
 def _profile(what, fn):
     """fn() under torch.profiler: device time by kernel and the device's
     busy share of the wall time."""
@@ -1293,6 +1751,19 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"  ptxas {name}: {line.strip()}")
 
+    only = None
+    if "--phases" in sys.argv[1:]:
+        only = {int(p) for p in sys.argv[sys.argv.index("--phases") + 1].split(",")}
+        profile = "--profile" in sys.argv[1:]
+        if 8 in only:
+            phase_gather(device)
+        if 9 in only:
+            phase_grid(device, profile=profile)
+            if profile:
+                profile_grid_step(device)
+        log(f"phases {sorted(only)} done (no result lines with --phases)")
+        return 0
+
     t0 = time.perf_counter()
     cases = phase_kernels(device) + check_composite(device)
     log(f"phase 2: kernels vs plain versions in {time.perf_counter() - t0:.1f} s")
@@ -1310,15 +1781,24 @@ def main() -> int:
     fast = phase_fast_serving(device, trained["base_argv"],
                               profile="--profile" in sys.argv[1:])
     log(f"phase 7: fast serving in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    gather_cases, probe = phase_gather(device)
+    cases += gather_cases
+    log(f"phase 8: gather kernels and the probe in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    grid = phase_grid(device, profile="--profile" in sys.argv[1:])
+    log(f"phase 9: grid families in {time.perf_counter() - t0:.1f} s")
     if "--profile" in sys.argv[1:]:
         profile_frame(served["engine"], served["pose"])
         profile_train_step(device)
+        profile_grid_step(device)
     by_path = dict(served["launches"])
     by_path["training"] = trained["launches"]
     by_path["render_only"] = trained["render_launches"]
     for name, *_ in FAST_ENGINES:  # the engine's build (the grid) and its request
         r = fast[name]
         by_path[name] = {k: r["build_launches"][k] + r["launches"][k] for k in r["launches"]}
+    by_path.update(grid["launches_by_path"])
 
     sources = {
         "fused_mlp_points": ("nerf_shared_tpu_torch/csrc/fused_mlp.cu",
@@ -1330,11 +1810,18 @@ def main() -> int:
         "fused_render": ("nerf_shared_tpu_torch/csrc/fused_render.cu",
                          "nerf_shared_tpu/ops/pallas/fused_render.py:80"),
         "composite": ("nerf_shared_tpu_torch/csrc/composite.cu",
-                      "nerf_shared_tpu/ops/pallas/composite.py:37")}
+                      "nerf_shared_tpu/ops/pallas/composite.py:37"),
+        "gather": ("nerf_shared_tpu_torch/csrc/gather.cu",
+                   "benchmarks/scatter_probe.py:104"),
+        "scatter_add": ("nerf_shared_tpu_torch/csrc/gather.cu",
+                        "benchmarks/scatter_probe.py:134")}
     kernels = []
     for name, (src, replaces) in sources.items():
         mine = [c for c in cases if c["kernel"] == name]
-        main_case = max(mine, key=lambda c: c["S"])
+        # the main path's shape: the largest sample count, or for P1 / P2 a
+        # split L8/F8 level table in the fine pass
+        main_case = (max(mine, key=lambda c: c["S"]) if "S" in mine[0] else next(
+            c for c in mine if c["shape"].startswith("split")))
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "launches": sum(p.get(name, 0) for p in by_path.values()),
@@ -1342,12 +1829,14 @@ def main() -> int:
             "max_abs_err": max(c["max_abs_err"] for c in mine),
             "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
             "bound_ms": main_case["bound_ms"], "bound_by": main_case["bound_by"],
-            "library_ms": None,
+            "library_ms": main_case.get("library_ms"),
             "cases": mine,
         })
     log(json.dumps({"frame_ms": served["frame_ms"], "train_step": step, "fast": fast,
                     "training": {k: trained[k] for k in (
-                        "ms_per_step", "rays_per_s", "train_psnr", "val", "white_psnr")}}))
+                        "ms_per_step", "rays_per_s", "train_psnr", "val", "white_psnr")},
+                    "grid": {k: v for k, v in grid.items() if k != "launches_by_path"},
+                    "probe": probe}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -10,7 +10,13 @@ is ``cuda`` and no CUDA device is present. fp32 matmuls and convolutions
 are pinned to full fp32 (no TF32): the encoder's sinusoid arguments reach
 2^9·|x|. On ``cuda`` a training step runs its networks through kernels B1
 (forward) and B2 (backward) and the eval hooks render through B3 and B5;
-on the CPU the kernels' plain versions run.
+on the CPU the kernels' plain versions run. The grid families
+(``--model_type hashgrid`` / ``triplane``) train and render through the
+table kernels P1 (gather) and P2 (its scatter-add backward) and composite
+through B5; B1-B4 are the MLP family's. Their box is resolved from the
+train cameras in every entry point (``_resolve_triplane_aabb``), a resume
+adopts the checkpoint's plane resolution, and ``--triplane_upsample``
+grows the planes at its milestones.
 
 Render engines (``EvalEngine.engine_name``): ``dense`` (guided with
 ``--render_guided``), ``gated`` (``--render_gate``), ``occ-froxel`` and
@@ -35,17 +41,22 @@ import torch
 
 from nerf_shared_tpu_torch.config import (
     config_parser,
+    recipe_warnings,
     resolve_fused_backward,
     resolved_occ_alpha_thresh,
 )
 from nerf_shared_tpu_torch.data.datasets import load_datasets
 from nerf_shared_tpu_torch.factory import (
+    GRID_FAMILIES,
     create_nerf_models,
     get_renderer,
     get_train_state,
+    grid_lrate,
     nerf_configs,
 )
+from nerf_shared_tpu_torch.models.triplane import upsample_triplane
 from nerf_shared_tpu_torch.train.pipeline import PixelSamplerSpec
+from nerf_shared_tpu_torch.train.state import fresh_state_at, make_model
 from nerf_shared_tpu_torch.train.step import make_train_step
 from nerf_shared_tpu_torch.utils import checkpoints as ckpt_utils
 from nerf_shared_tpu_torch.utils.logging import copy_log_dir, make_tb_writer, print_statistics
@@ -57,7 +68,6 @@ _NOT_PORTED = {
     "ema_decay": (lambda v: float(v) > 0.0, "EMA eval state (ROADMAP A11)"),
     "barf_anneal": (lambda v: int(v) > 0, "BARF eval annealing (ROADMAP A11)"),
     "proposal": (bool, "the proposal sampler (ROADMAP A11)"),
-    "model_type": (lambda v: v != "nerf", "grid model families (ROADMAP A15)"),
     "precision": (lambda v: v != "fp32", "bf16 operands in the CUDA kernels"),
     "mesh_shape": (lambda v: bool(v), "multi-GPU renders and training (ROADMAP A16)"),
     "train_occ": (bool, "the occupancy-gated trainer (ROADMAP A14)"),
@@ -142,6 +152,73 @@ def _occ_render_args(args) -> dict:
                 occ_select=_grid_select(args), occ_fine=args.occ_fine)
 
 
+def _resolve_triplane_aabb(args, ds, H, W):
+    """Fill args.triplane_aabb (when 0 = auto) the same way in every entry
+    point: grid-family parameters are decoded against this box, so
+    training, resume and render_only must derive the same value. NDC
+    scenes use the NDC box (factory.nerf_configs); otherwise the box bounds
+    the train cameras' frustums."""
+    if (getattr(args, "model_type", "nerf") not in GRID_FAMILIES
+            or getattr(args, "triplane_aabb", 0.0)):
+        return
+    if args.dataset_type == "llff" and not args.no_ndc:
+        print("grid aabb half-extent: NDC cube")
+        return
+    from nerf_shared_tpu_torch.render.occupancy import aabb_from_poses
+
+    lo, hi = aabb_from_poses(H, W, ds.K, ds.poses[ds.i_train],
+                             float(ds.bds_dict["near"]), float(ds.bds_dict["far"]))
+    args.triplane_aabb = float(max(np.abs(lo).max(), np.abs(hi).max()))
+    print(f"grid aabb half-extent: {args.triplane_aabb:.2f}")
+
+
+def _sync_triplane_res(args, ccfg, fcfg):
+    """Adopt the plane resolution of the checkpoint a run will load (a
+    resume after an upsample carries larger planes than --triplane_res, and
+    G sets the sampling coordinates). No-op for the other families and for
+    matching resolutions. Returns (ccfg, fcfg)."""
+    ckpts = ckpt_utils.find_checkpoints(args.basedir, args.expname, args.ft_path)
+    if (getattr(ccfg, "G", None) is None or not ckpts or args.no_reload
+            or not ckpts[-1].endswith(".npz")):
+        return ccfg, fcfg
+    with np.load(ckpts[-1]) as z:
+        if "params/coarse/planes" not in z.files:
+            return ccfg, fcfg
+        g = int(z["params/coarse/planes"].shape[1])
+    if g == ccfg.G:
+        return ccfg, fcfg
+    print(f"triplane resolution from checkpoint: {g}^2 planes")
+    return (dataclasses.replace(ccfg, G=g),
+            dataclasses.replace(fcfg, G=g) if fcfg is not None else None)
+
+
+def _upsample_milestones(args, start):
+    """--triplane_upsample 'step:G,...' -> the sorted milestones not yet
+    applied (a milestone fires at steps i > its step, so one at exactly
+    ``start`` is kept; the loop skips any that would not grow the planes)."""
+    spec = getattr(args, "triplane_upsample", "")
+    if not spec or getattr(args, "model_type", "nerf") != "triplane":
+        return []
+    ms = sorted((int(p.split(":")[0]), int(p.split(":")[1])) for p in spec.split(","))
+    return [(s, g) for s, g in ms if s >= start]
+
+
+def _upsample_state(state, new_G, args):
+    """The TrainState with both branches' planes grown to new_G and a fresh
+    Adam whose schedule continues at state.step; returns (state, ccfg,
+    fcfg)."""
+    mods = []
+    for _, m in state.branches():
+        params, cfg = upsample_triplane(m.params(), m.cfg, new_G)
+        new = make_model(cfg, params["planes"].device)
+        new.load_state_dict(params, strict=True)
+        mods.append(new)
+    fine = mods[1] if len(mods) > 1 else None
+    new_state = fresh_state_at(mods[0], fine, state.step, lrate=args.lrate,
+                               lrate_decay=args.lrate_decay, grid_lrate=grid_lrate(args))
+    return new_state, mods[0].cfg, fine.cfg if fine is not None else None
+
+
 def run(args):
     """render_only, or train (returning its TrainState)."""
     if args.render_only:
@@ -179,10 +256,14 @@ def train(args):
     pin_fp32()
     ds = load_datasets(args)
     H, W, _ = ds.hwf
+    for msg in recipe_warnings(args, n_train_views=len(ds.i_train), render_h=H):
+        warnings.warn(msg, UserWarning, stacklevel=2)
+        print(f"[RECIPE WARNING] {msg}")
     copy_log_dir(args)
     tb_writer = make_tb_writer(args)
-    ccfg, fcfg = nerf_configs(args)
-    state = get_train_state(args, device)
+    _resolve_triplane_aabb(args, ds, H, W)
+    ccfg, fcfg = _sync_triplane_res(args, *nerf_configs(args))
+    state = get_train_state(args, device, cfgs=(ccfg, fcfg))
     start = ckpt_utils.restore_train_state(state, args)
     renderer = get_renderer(args, ds.bds_dict, device)
     spec = PixelSamplerSpec.from_K(
@@ -203,25 +284,34 @@ def train(args):
     rcfg = dataclasses.replace(renderer.cfg, use_pallas=False,
                                fused_composite=False, fused_backward=fused_bwd,
                                guided=0)
-    step_fn = make_train_step(rcfg, ccfg, fcfg, spec, acc_reg=args.acc_loss_weight)
-    # --warmup_noise: sigma noise >= 1 for the first N steps, the escape
-    # from the white-background transparency trap
-    warm_fn = None
-    if args.warmup_noise > 0:
-        warm_fn = make_train_step(
-            dataclasses.replace(rcfg, raw_noise_std=max(1.0, rcfg.raw_noise_std)),
-            ccfg, fcfg, spec, acc_reg=args.acc_loss_weight)
 
-    # with --occ_grid the render hooks go through a grid rebuilt from the
-    # current fine network at hook time
-    occ_maint = None
-    if getattr(args, "occ_grid", 0) > 0 and fcfg is not None:
+    def make_steps(ccfg, fcfg):
+        """(step, warm-up step or None). --warmup_noise: sigma noise >= 1
+        for the first N steps, the escape from the white-background
+        transparency trap."""
+        kw = dict(acc_reg=args.acc_loss_weight, tv_reg=args.tv_loss_weight)
+        warm = None
+        if args.warmup_noise > 0:
+            warm = make_train_step(
+                dataclasses.replace(rcfg, raw_noise_std=max(1.0, rcfg.raw_noise_std)),
+                ccfg, fcfg, spec, **kw)
+        return make_train_step(rcfg, ccfg, fcfg, spec, **kw), warm
+
+    def make_occ_maint(fcfg):
+        """With --occ_grid the render hooks go through a grid rebuilt from
+        the current fine network at hook time."""
+        if getattr(args, "occ_grid", 0) <= 0 or fcfg is None:
+            return None
         from nerf_shared_tpu_torch.render.occupancy import OccupancyMaintainer
 
         lo, hi = _occ_aabb(renderer, ds, H, W, ds.K)
-        occ_maint = OccupancyMaintainer(
+        return OccupancyMaintainer(
             renderer.cfg, fcfg, lo, hi, resolution=args.occ_grid,
             alpha_threshold=resolved_occ_alpha_thresh(args))
+
+    step_fn, warm_fn = make_steps(ccfg, fcfg)
+    occ_maint = make_occ_maint(fcfg)
+    upsample_ms = _upsample_milestones(args, start)
 
     def hook_kw(step):
         if occ_maint is None:
@@ -236,6 +326,16 @@ def train(args):
     t0 = t_train_start = time.perf_counter()
     rays_done, warned = 0, False
     for i in range(start + 1, N_iters):
+        while upsample_ms and i > upsample_ms[0][0]:
+            _, new_G = upsample_ms.pop(0)
+            if new_G <= ccfg.G:
+                print(f"[UPSAMPLE] skip {new_G}^2: planes already {ccfg.G}^2")
+                continue
+            state, ccfg, fcfg = _upsample_state(state, new_G, args)
+            step_fn, warm_fn = make_steps(ccfg, fcfg)
+            occ_maint = make_occ_maint(fcfg)
+            print(f"[UPSAMPLE] step {i - 1}: planes -> {new_G}^2 "
+                  "(optimizer restarted at the continued schedule)")
         # each step's draws depend on (seed, step) only, so a resumed run
         # draws what an uninterrupted one would
         generator.manual_seed((int(args.jax_seed) << 32) + i)
@@ -363,8 +463,9 @@ def build_eval_engine(args, ds=None) -> EvalEngine:
         K = ds.K.copy()
         K[:2] = K[:2] / args.render_factor
 
-    ccfg, fcfg = nerf_configs(args)
-    coarse, fine = create_nerf_models(args, device)
+    _resolve_triplane_aabb(args, ds, int(ds.hwf[0]), int(ds.hwf[1]))
+    ccfg, fcfg = _sync_triplane_res(args, *nerf_configs(args))
+    coarse, fine = create_nerf_models(args, device, cfgs=(ccfg, fcfg))
     coarse_sd, fine_sd, start = ckpt_utils.load_checkpoint(args)
     if coarse_sd is not None:
         coarse.load_state_dict(coarse_sd, strict=True)

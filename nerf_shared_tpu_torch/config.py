@@ -102,6 +102,68 @@ def resolved_occ_alpha_thresh(args) -> float:
     return 1e-2 if getattr(args, "model_type", "nerf") == "hashgrid" else 1e-3
 
 
+def resolved_hash_sigma_bias(args) -> float:
+    """--hash_sigma_bias auto default: 0.01 under --train_occ (a 0.1
+    softplus floor sits above the occupancy binarize threshold, the grid
+    never prunes, and the occ trainer silently loses its speedup), else
+    the NGP-ish 0.1."""
+    v = getattr(args, "hash_sigma_bias", None)
+    if v is not None:
+        return float(v)
+    return 0.01 if getattr(args, "train_occ", False) else 0.1
+
+
+def recipe_warnings(args, n_train_views=None, render_h=None):
+    """Warnings for flag combinations measured (with the JAX package) to
+    lose quality or throughput; the same texts as its
+    ``config.recipe_warnings``. Returns a list of strings."""
+    out = []
+    model = getattr(args, "model_type", "nerf")
+    train_occ = bool(getattr(args, "train_occ", False))
+    if model == "hashgrid":
+        max_res = int(getattr(args, "hash_max_res", 2048))
+        if train_occ and max_res < 1024:
+            out.append(
+                f"--train_occ with --hash_max_res {max_res}: the "
+                "render-resolution ladder fit helps the HIERARCHICAL "
+                "estimator but starves the occ trainer — coarse top "
+                "levels keep ambient density high, the grid never prunes, "
+                "and quality collapses (measured 15.77 dB @ 200k vs 18.9 "
+                "dB @ 20k with max_res 2048 — BASELINE.md r4). Keep the "
+                "full NGP ladder (--hash_max_res 2048) for --train_occ.")
+        if (not train_occ and render_h and
+                max_res > 2 * int(render_h)):
+            out.append(
+                f"hierarchical/proposal hashgrid at {render_h}p with "
+                f"--hash_max_res {max_res}: levels finer than the render "
+                "resolution are subpixel AND heavily hash-collided; "
+                "capping the ladder near the render resolution "
+                f"(--hash_max_res {int(render_h) + (-int(render_h)) % 128}) "
+                "measured +0.37 dB at equal wall (BASELINE.md r4 "
+                "ladder-fit probe).")
+        sb = resolved_hash_sigma_bias(args)
+        if train_occ and sb > 2.0 * resolved_occ_alpha_thresh(args):
+            out.append(
+                f"--train_occ with hash_sigma_bias {sb:g} above ~2x the "
+                f"occupancy threshold {resolved_occ_alpha_thresh(args):g}: "
+                "empty space starts AT the floor and unlearns it slowly, "
+                "so the grid may stay ~100% occupied and the occ trainer "
+                "loses its speedup (BASELINE.md r4). Use ~0.01, or raise "
+                "--occ_alpha_thresh.")
+    if (bool(getattr(args, "loss_sampling", False))
+            and int(getattr(args, "N_iters", 0)) > 100_000
+            and n_train_views is not None and int(n_train_views) < 20):
+        out.append(
+            f"--loss_sampling over a {int(getattr(args, 'N_iters', 0)):,}"
+            f"-step schedule on a {int(n_train_views)}-view dataset: the "
+            "error-EMA map amplifies the few-view overfit drift past "
+            "~100k steps (measured: final 21.74 dB vs 23.05 uniform at "
+            "200k, while PEAK quality arrives 2.5x sooner — BASELINE.md "
+            "r4). Either stop near the peak (~30-50k) or disable "
+            "--loss_sampling for long schedules on few-view scenes.")
+    return out
+
+
 def config_parser() -> ConfigArgumentParser:
     """Build the flag set of the reference (config_parser.py:2-116) + TPU flags."""
     parser = ConfigArgumentParser()
@@ -239,8 +301,9 @@ def config_parser() -> ConfigArgumentParser:
                              'multiresolution hash encoding + tiny decoder '
                              '(instant-NGP family, models/hashgrid.py). '
                              'Grid families reach quality in 10-100x fewer '
-                             'steps and train via XLA (the Pallas MLP '
-                             'kernels are nerf-family only)')
+                             'steps; their table reads and gradients go '
+                             'through the gather kernels P1/P2 (the MLP '
+                             'kernels B1-B4 are nerf-family only)')
     parser.add_argument("--triplane_res", type=int, default=256,
                         help='triplane: feature-plane resolution G')
     parser.add_argument("--triplane_feat", type=int, default=16,
@@ -577,9 +640,11 @@ def config_parser() -> ConfigArgumentParser:
                              'plain versions (apply_nerf and autograd) run '
                              'whatever the flag says')
     parser.add_argument("--remat", type=_str2bool, default=False,
-                        help='rematerialize MLP activations in backward '
-                             '(jax.checkpoint) to train much larger ray '
-                             'batches per chip')
+                        help='rematerialize the grid families\' encode and '
+                             'decoder in backward (torch.utils.checkpoint) '
+                             'to train larger ray batches; the MLP '
+                             'family\'s backward kernel B2 rematerialises '
+                             'its forward itself')
     parser.add_argument("--debug_nans", type=_str2bool, default=False,
                         help='enable jax_debug_nans: re-run NaN-producing '
                              'ops un-jitted and raise at the source '

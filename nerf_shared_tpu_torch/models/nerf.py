@@ -94,16 +94,22 @@ class NeRF(nn.Module):
     def reset_parameters(self, generator: torch.Generator):
         for m in self.modules():
             if isinstance(m, nn.Linear):
-                bound = 1.0 / math.sqrt(m.in_features)
-                for p in (m.weight, m.bias):
-                    p.copy_(torch.empty(p.shape).uniform_(
-                        -bound, bound, generator=generator))
+                linear_init_(m, generator)
 
     def params(self) -> Dict[str, torch.Tensor]:
         return dict(self.named_parameters())
 
     def forward(self, pts, viewdirs=None):
         return apply_nerf(self.params(), self.cfg, pts, viewdirs)
+
+
+@torch.no_grad()
+def linear_init_(m: nn.Linear, generator: torch.Generator):
+    """torch.nn.Linear's default init from ``generator``: weight and bias
+    ~ U(-1/sqrt(fan_in), 1/sqrt(fan_in)), drawn on the CPU."""
+    bound = 1.0 / math.sqrt(m.in_features)
+    for p in (m.weight, m.bias):
+        p.copy_(torch.empty(p.shape).uniform_(-bound, bound, generator=generator))
 
 
 def _dense(params: Params, name: str, x: torch.Tensor) -> torch.Tensor:
@@ -178,4 +184,29 @@ def params_from_jax(params) -> "collections.OrderedDict[str, torch.Tensor]":
             put(name, params[name])
     else:
         put("output_linear", params["output_linear"])
+    return sd
+
+
+def params_tree_from_jax(tree) -> "collections.OrderedDict[str, torch.Tensor]":
+    """A JAX parameter pytree of nested dicts and lists (numpy leaves;
+    ``{"w": [in, out], "b": [out]}`` pairs are dense layers) -> a state
+    dict with dotted names ('rgb.0.weight', 'tables.3', 'planes') and
+    weights transposed to [out, in]. The grid families' converter."""
+    sd = collections.OrderedDict()
+
+    def walk(node, prefix):
+        items = node.items() if isinstance(node, dict) else enumerate(node)
+        for k, v in items:
+            name = f"{prefix}{k}"
+            if isinstance(v, dict) and set(v) == {"w", "b"}:
+                sd[name + ".weight"] = torch.from_numpy(
+                    np.array(np.asarray(v["w"], np.float32).T, order="C"))
+                sd[name + ".bias"] = torch.from_numpy(
+                    np.array(np.asarray(v["b"], np.float32), order="C"))
+            elif isinstance(v, (dict, list, tuple)):
+                walk(v, name + ".")
+            else:
+                sd[name] = torch.from_numpy(np.array(np.asarray(v, np.float32), order="C"))
+
+    walk(tree, "")
     return sd

@@ -25,7 +25,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "nerf_shared_tpu_torch"
-KERNELS = ("fused_mlp", "fused_render", "fused_mlp_bwd", "composite")
+KERNELS = ("fused_mlp", "fused_render", "fused_mlp_bwd", "composite", "gather")
 # no --use_fast_math: __sinf is wrong at the encoder's 2^9·|x| arguments
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

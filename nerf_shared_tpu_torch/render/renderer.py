@@ -6,30 +6,36 @@ render_utils.py:13-319), with the same return keys (rgb_map / disp_map /
 acc_map / raw / weights / z_vals / rgb0 / disp0 / acc0 / z_std) and the same
 dispatch seams:
 
-- ``_apply_model``: the network on sample points. Under ``fused_backward``
-  (the training path) this is ``fused_train_op``: kernel B1 forward, kernel
-  B2 backward (ops/cuda/fused_mlp_bwd.py); under ``use_pallas`` it is
-  ``fused_nerf_forward`` (kernel B1: the gated renderer and the occupancy
-  grid's probe come through here); otherwise the plain ``apply_nerf``.
-- ``_apply_model_rays``: the network on (o, d, z). Under ``use_pallas``
-  this is kernel B3 (ops/cuda/fused_mlp.py), which builds the sample
-  points itself; otherwise ``_apply_model`` on o + z·d.
+- ``_apply_model``: the network on sample points. It dispatches on the
+  config type first: a grid family (``HashGridConfig``, ``TriplaneConfig``)
+  runs ``apply_hashgrid`` / ``apply_triplane``, whose table reads are
+  kernel P1 (backward P2) on CUDA tensors, under ``torch.utils.checkpoint``
+  with ``remat``; it never reaches B1-B4. For the MLP family, under
+  ``fused_backward`` (the training path) this is ``fused_train_op``: kernel
+  B1 forward, kernel B2 backward (ops/cuda/fused_mlp_bwd.py); under
+  ``use_pallas`` it is ``fused_nerf_forward`` (kernel B1: the gated
+  renderer and the occupancy grid's probe come through here); otherwise
+  the plain ``apply_nerf``.
+- ``_apply_model_rays``: the network on (o, d, z). For the MLP family under
+  ``use_pallas`` this is kernel B3 (ops/cuda/fused_mlp.py), which builds
+  the sample points itself; otherwise ``_apply_model`` on o + z·d.
 - ``_composite``: raw -> pixel maps, for every render path (dense, guided,
   gated, occupancy grid, froxels). Under ``use_pallas`` without sigma noise
   this is kernel B5 (ops/cuda/composite.py), which reads B3's ray-major raw
   as it is; otherwise ``raw2outputs``.
 - ``_fused_render_eligible`` / ``_apply_render_fused``: kernel B4
   (ops/cuda/fused_render.py), network + composite in one launch, when
-  ``fused_composite`` is on and nothing downstream needs per-sample raw
-  values or sigma noise. The CUDA kernels take any sample count, so the
-  JAX package's S % 8 condition is gone.
+  ``fused_composite`` is on, the network is the MLP family and nothing
+  downstream needs per-sample raw values or sigma noise. The CUDA kernels
+  take any sample count, so the JAX package's S % 8 condition is gone.
 
 The trainer keeps B3, B4 and B5 off its step by clearing ``use_pallas`` and
 ``fused_composite`` in the step's config (``apps/train.py``).
 
-Models are passed into every call (a ``NeRF`` module, a (params, cfg)
-tuple, or None). A full image is rendered by a plain Python loop over ray
-blocks of ``chunk`` rays; no padding is needed. Random draws come from an
+Models are passed into every call (a field module: ``NeRF``, ``HashGrid``
+or ``Triplane``; a (params, cfg) tuple; or None). A full image is rendered
+by a plain Python loop over ray blocks of ``chunk`` rays; no padding is
+needed. Random draws come from an
 optional ``torch.Generator`` on the rays' device; ``overrides`` pins them
 (``t_rand``, ``u``, ``noise_coarse``, ``noise_fine``) for tests. The fast
 engines live in render/gated.py, render/occupancy.py and render/froxels.py;
@@ -45,9 +51,12 @@ from typing import Dict, Optional
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 from nerf_shared_tpu_torch.data.images import imwrite_u8
-from nerf_shared_tpu_torch.models.nerf import NeRF, apply_nerf
+from nerf_shared_tpu_torch.models.hashgrid import HashGrid, HashGridConfig, apply_hashgrid
+from nerf_shared_tpu_torch.models.nerf import NeRF, NeRFConfig, apply_nerf
+from nerf_shared_tpu_torch.models.triplane import Triplane, TriplaneConfig, apply_triplane
 from nerf_shared_tpu_torch.ops.compositing import raw2outputs
 from nerf_shared_tpu_torch.ops.cuda.composite import composite_fused
 from nerf_shared_tpu_torch.ops.cuda.fused_mlp import (
@@ -63,6 +72,18 @@ from nerf_shared_tpu_torch.utils.metrics import to8b
 
 def _apply_model(params, mcfg, pts, viewdirs, rcfg):
     """The network on points [N, S, 3] -> raw [N, S, C]."""
+    if not isinstance(mcfg, NeRFConfig):
+        if isinstance(mcfg, HashGridConfig):
+            apply = apply_hashgrid
+        elif isinstance(mcfg, TriplaneConfig):
+            apply = apply_triplane
+        else:
+            raise TypeError(f"unknown model config type {type(mcfg).__name__}")
+        if rcfg.remat and torch.is_grad_enabled():
+            return torch.utils.checkpoint.checkpoint(
+                lambda p, x, d: apply(p, mcfg, x, d), params, pts, viewdirs,
+                use_reentrant=False)
+        return apply(params, mcfg, pts, viewdirs)
     if rcfg.fused_backward:
         return fused_train_op(params, mcfg, pts, viewdirs)
     if rcfg.use_pallas:
@@ -74,7 +95,7 @@ def _apply_model(params, mcfg, pts, viewdirs, rcfg):
 
 def _apply_model_rays(params, mcfg, rays_o, rays_d, z_vals, viewdirs, rcfg):
     """The network on the samples o + z·d of each ray -> raw [N, S, C]."""
-    if rcfg.use_pallas:
+    if rcfg.use_pallas and isinstance(mcfg, NeRFConfig):
         return fused_nerf_forward_rays(params, mcfg, rays_o, rays_d, z_vals,
                                        viewdirs)
     pts = rays_o[..., None, :] + rays_d[..., None, :] * z_vals[..., :, None]
@@ -89,11 +110,12 @@ def split_rays(ray_batch):
     return rays_o, rays_d, viewdirs
 
 
-def _fused_render_eligible(rcfg, noise, need_raw):
-    """Network + composite as one kernel launch applies on the kernel
-    render path when nothing downstream needs per-sample raw values or
-    sigma noise (any sample count)."""
+def _fused_render_eligible(rcfg, mcfg, noise, need_raw):
+    """Network + composite as one kernel launch (B4) applies on the kernel
+    render path to the MLP family when nothing downstream needs per-sample
+    raw values or sigma noise (any sample count)."""
     return (rcfg.use_pallas and rcfg.fused_composite
+            and isinstance(mcfg, NeRFConfig)
             and rcfg.raw_noise_std == 0.0 and noise is None
             and not need_raw)
 
@@ -144,6 +166,8 @@ class RenderConfig:
     # this many samples placed by the coarse histogram, not the dense
     # N_samples + N_importance union. Needs the hierarchy: N_importance > 0
     guided: int = 0
+    # recompute the grid families' apply in backward (torch.utils.checkpoint)
+    remat: bool = False
 
     def __post_init__(self):
         if self.guided > 0 and self.N_importance <= 0:
@@ -184,7 +208,7 @@ def render_rays(
     coarse_needs_raw = retraw_coarse or (retraw and rcfg.N_importance == 0)
     raw = None
     if rcfg.N_importance == 0 and _fused_render_eligible(
-            rcfg, overrides.get("noise_coarse"), coarse_needs_raw):
+            rcfg, ccfg, overrides.get("noise_coarse"), coarse_needs_raw):
         rgb_map, disp_map, acc_map, weights, _ = _apply_render_fused(
             params_coarse, ccfg, rays_o, rays_d, z_vals, viewdirs, rcfg,
             want_weights=True)
@@ -214,7 +238,7 @@ def render_rays(
 
         fine_params = params_coarse if params_fine is None else params_fine
         fine_cfg = ccfg if fcfg is None else fcfg
-        if _fused_render_eligible(rcfg, overrides.get("noise_fine"),
+        if _fused_render_eligible(rcfg, fine_cfg, overrides.get("noise_fine"),
                                   need_raw=retraw):
             rgb_map, disp_map, acc_map, weights, _ = _apply_render_fused(
                 fine_params, fine_cfg, rays_o, rays_d, z_vals, viewdirs, rcfg,
@@ -242,12 +266,12 @@ def render_rays(
 
 
 def _model_parts(model):
-    """(params, cfg) of a NeRF module, a (params, cfg) tuple, or None."""
+    """(params, cfg) of a field module, a (params, cfg) tuple, or None."""
     if model is None:
         return None, None
     if isinstance(model, tuple):
         return model
-    if isinstance(model, NeRF):
+    if isinstance(model, (NeRF, HashGrid, Triplane)):
         return model.params(), model.cfg
     raise TypeError(f"not a model: {type(model).__name__}")
 

@@ -5,7 +5,9 @@ path of ``make_fused_train_step`` in ``nerf_shared_tpu/train/step.py``.
 Loss semantics are the reference's (main.py:85-104): MSE of the fine render
 against the target pixels plus the coarse render's MSE when the hierarchy
 is on, and ``acc_reg`` > 0 adds acc_reg * mean(log(1 + 2 sigma^2)) over the
-sampled densities of both passes.
+sampled densities of both passes. ``tv_reg`` > 0 adds the total variation
+of the triplane feature planes of both branches (a no-op for the other
+families).
 
 PyTorch runs eagerly, so a step is a sequence of launches, not one compiled
 program: there is no superstep scan and no sharded variant (ROADMAP A16).
@@ -45,12 +47,13 @@ def pack_ray_batch(rays_o, rays_d, rcfg: RenderConfig, H: int, W: int,
 
 
 def nerf_loss(params: Dict, ray_batch, target, rcfg: RenderConfig, ccfg, fcfg,
-              acc_reg: float = 0.0, dist_reg: float = 0.0,
+              acc_reg: float = 0.0, dist_reg: float = 0.0, tv_reg: float = 0.0,
               overrides: Optional[Dict[str, torch.Tensor]] = None,
               generator: Optional[torch.Generator] = None):
     """(loss, aux): loss = mse(fine, target) [+ mse(coarse, target)]
-    [+ acc_reg * sparsity]; ``params`` is {"coarse": state dict, "fine":
-    state dict or absent}; ``overrides`` pins the render's draws."""
+    [+ acc_reg * sparsity] [+ tv_reg * tv]; ``params`` is {"coarse": state
+    dict, "fine": state dict or absent}; ``overrides`` pins the render's
+    draws."""
     if dist_reg > 0.0:
         raise NotImplementedError(
             "the distortion loss is not ported to nerf_shared_tpu_torch yet: "
@@ -73,6 +76,17 @@ def nerf_loss(params: Dict, ray_batch, target, rcfg: RenderConfig, ccfg, fcfg,
                 torch.log1p(2.0 * F.relu(ret["raw0"][..., 3]) ** 2))
         loss = loss + acc_reg * sparsity
         aux["acc_mean"] = torch.mean(ret["acc_map"])
+    if tv_reg > 0.0:
+        # total variation over the feature planes [3, G, G, W] (TensoRF /
+        # DVGO practice against floaters)
+        tv = 0.0
+        for branch in ("coarse", "fine"):
+            pl = (params.get(branch) or {}).get("planes")
+            if pl is not None:
+                tv = tv + torch.mean((pl[:, 1:] - pl[:, :-1]) ** 2) \
+                    + torch.mean((pl[:, :, 1:] - pl[:, :, :-1]) ** 2)
+        loss = loss + tv_reg * tv
+        aux["tv"] = torch.as_tensor(tv)
     aux["loss"] = loss
     return loss, aux
 
@@ -88,7 +102,7 @@ _STEP_NOT_PORTED = {
 
 
 def make_train_step(rcfg: RenderConfig, ccfg, fcfg, spec: PixelSamplerSpec,
-                    acc_reg: float = 0.0, **not_ported):
+                    acc_reg: float = 0.0, tv_reg: float = 0.0, **not_ported):
     """``train_step(state, images, poses, generator, draws=None,
     overrides=None) -> aux``: one iteration on ``state`` in place.
 
@@ -113,7 +127,7 @@ def make_train_step(rcfg: RenderConfig, ccfg, fcfg, spec: PixelSamplerSpec,
         render_gen.manual_seed(int(torch.randint(0, 1 << 62, (), generator=generator)))
         params = {b: m.params() for b, m in state.branches()}
         loss, aux = nerf_loss(params, ray_batch, target, rcfg, ccfg, fcfg,
-                              acc_reg=acc_reg, overrides=overrides,
+                              acc_reg=acc_reg, tv_reg=tv_reg, overrides=overrides,
                               generator=render_gen)
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()

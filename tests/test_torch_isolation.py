@@ -38,7 +38,8 @@ def test_package_has_the_slice_modules():
               "ops.permute", "ops.cuda.fused_mlp_bwd", "train.state",
               "train.pipeline", "train.step", "utils.logging",
               "ops.cuda.composite", "render.gated", "render.occupancy",
-              "render.froxels"):
+              "render.froxels", "ops.cuda.gather", "models.hashgrid",
+              "models.triplane", "benchmarks.scatter_probe"):
         assert f"nerf_shared_tpu_torch.{m}" in mods, m
 
 

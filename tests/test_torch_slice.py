@@ -77,7 +77,7 @@ def test_cuda_default_raises_without_a_card(slice_cfg, monkeypatch):
 @pytest.mark.parametrize("flag,value", [
     ("--ema_decay", "0.999"), ("--barf_anneal", "100"), ("--train_occ", "True"),
     ("--refine_poses", "True"), ("--appearance", "True"),
-    ("--proposal", "True"), ("--model_type", "triplane"),
+    ("--proposal", "True"), ("--loss_sampling", "True"),
     ("--precision", "bf16"), ("--mesh_shape", "2"),
 ])
 def test_unported_flags_raise(slice_cfg, flag, value):

@@ -222,7 +222,7 @@ def test_three_adam_updates_match_optax():
     _assert_params_match(jstate.params, tstate, atol=1e-7, rtol=1e-5)
 
 
-@pytest.mark.parametrize("kw,match", [(dict(grid_lrate=2e-2), "A15"),
+@pytest.mark.parametrize("kw,match", [(dict(n_refine_poses=1, n_appearance=1), "A11"),
                                       (dict(n_refine_poses=3), "A11"),
                                       (dict(n_appearance=3), "A11")])
 def test_unported_parameter_groups_raise(kw, match):
