@@ -57,12 +57,20 @@ Phases (any failure exits non-zero and prints no result line):
             and 65,536 rows of 64 from 4,096 and 16,384), the vertex
             L16/F2/T2^19 layout's one gather at a lego step's 262,144 points
             (33,554,432 rows of 2 from 8,388,608), triplane G256/C16
-            (262,144 rows of 16 from 196,608), and odd shapes (R prime, R =
-            0, T = 1, w in 1, 2, 3, 16, 64, all indices equal). P1 exact, P2
-            within 1e-5 of the largest |entry|. TableGather forward and
-            backward against plain autograd. Times with the plain versions'
-            and the library calls' (index_select, index_add_), then the
-            ported probe's eight rows.
+            (262,144 rows of 16 from 196,608), on uniform indices; then on
+            main-path indices, built from seeded lego rays by the port's own
+            index math (hashgrid_indices, triplane_indices): split levels 0,
+            3 and 7 of a fine pass (196,608 rows of 64), the vertex
+            layout's fine-pass gather (25,165,824 rows of 2 from 2^23) and
+            one triplane plane gather (262,144 rows of 16); and odd shapes
+            (R prime, R = 0, T = 1, w in 1, 2, 3, 4, 8, 16, 32, 64, buffers
+            unaligned for the vector paths, all indices equal). P1 exact,
+            P2 within 1e-5 of the largest |entry| (exact on integer
+            updates). TableGather forward and backward against plain
+            autograd. Timed: each kernel in turns with its library call
+            (index_select; zeros + index_add_), median and min-max of 10
+            samples, beside its plain version and its bytes bound over the
+            distinct rows touched. Then the ported probe's eight rows.
 9. grid     the split L8/F8/T14 hashgrid (--hash_max_res 512) trained with
             configs/lego.txt on phase 6's scene, resumed, --render_only, and
             served over HTTP (two requests): exact P1 / P2 / B5 launches per
@@ -70,14 +78,17 @@ Phases (any failure exits non-zero and prints no result line):
             checkpoint, the held-out PSNR >= 2 dB above an all-white frame,
             the frame against the same engine through the plain versions
             within 1e-3 (the fine pass at the kernel run's own depths).
-            Then the triplane at its defaults for 100 steps with one
-            upsample milestone (128 -> 256) and one served frame.
+            Then the hashgrid at its defaults (vertex L16/F2/T2^19) for 30
+            steps (exactly 2 P1 + 2 P2 a step), and the triplane at its
+            defaults for 100 steps with one upsample milestone (128 -> 256)
+            and one served frame. Step and frame ms of each.
 
 ``--profile`` adds one dense frame, five training steps, one frame of
-each fast engine, five hashgrid training steps and a hashgrid and a
-triplane frame under torch.profiler (device time by kernel, device busy
-share). ``--phases 8,9`` runs the build and the listed phases alone (no
-result lines; for iterating on a phase). Before the last
+each fast engine, five split and five vertex hashgrid training steps and
+a hashgrid and a triplane frame under torch.profiler (device time by
+kernel, device busy share, P1's and P2's shares). ``--phases 8,9`` runs
+the build and the listed phases alone (no result lines; for iterating on
+a phase). Before the last
 line it prints the kernels JSON line and the card's
 ``nvidia-smi --query-gpu=name,power.limit`` line; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -866,10 +877,11 @@ def profile_train_step(device, steps=5):
     _profile(f"{steps} training steps", run)
 
 
-def profile_grid_step(device, steps=5):
-    """``steps`` consecutive split-hashgrid training steps (the phase-9
-    recipe, on train_step_setup's two seeded 400x400 images and pinned
-    draws) under torch.profiler, after one warm-up step."""
+def profile_grid_step(device, steps=5, vertex=False):
+    """``steps`` consecutive hashgrid training steps (the phase-9 split
+    recipe, or with ``vertex`` the family's defaults: vertex L16/F2/T2^19;
+    on train_step_setup's two seeded 400x400 images and pinned draws) under
+    torch.profiler, after one warm-up step."""
     import torch
 
     from nerf_shared_tpu_torch.models.hashgrid import HashGridConfig
@@ -879,8 +891,9 @@ def profile_grid_step(device, steps=5):
     from nerf_shared_tpu_torch.train.step import make_train_step
 
     _, _, images, poses, ov = train_step_setup(device, False)
-    cfg = HashGridConfig(L=8, F=8, log2_T=14, max_res=512, layout="split",
-                         aabb_min=(-4.72,) * 3, aabb_max=(4.72,) * 3)
+    box = dict(aabb_min=(-4.72,) * 3, aabb_max=(4.72,) * 3)
+    cfg = (HashGridConfig(**box) if vertex else
+           HashGridConfig(L=8, F=8, log2_T=14, max_res=512, layout="split", **box))
     state = create_train_state(cfg, cfg, device, seed=3, lrate=5e-4, lrate_decay=500)
     H = 400
     focal = 0.5 * H / math.tan(0.5 * 0.6911112)
@@ -897,7 +910,8 @@ def profile_grid_step(device, steps=5):
         for i in range(steps):
             step(state, images, poses, torch.Generator().manual_seed(i), overrides=ov)
 
-    _profile(f"{steps} hashgrid training steps", run)
+    _profile(f"{steps} hashgrid training steps ({cfg.layout} L{cfg.L}/F{cfg.F}/"
+             f"T2^{cfg.log2_T})", run)
 
 
 def write_scene(root, size=800, n_train=2, n_val=1, n_test=2):
@@ -1334,24 +1348,37 @@ def phase_fast_serving(device, base_argv, profile=False):
     return results
 
 
-def gather_inputs(R, T, w, seed, device, same=False):
+def gather_inputs(R, T, w, seed, device, same=False, idx=None, offset=0):
     """Seeded table [T, w], int32 indices [R] and updates [R, w] on the
     card. ``same``: every index T // 2 and integer updates in [-8, 8], whose
-    fp32 sums (|sum| <= 8 R < 2^24) are exact in any order."""
+    fp32 sums (|sum| <= 8 R < 2^24) are exact in any order. ``idx``: these
+    indices (int32 on the card) in place of uniform draws, with the table
+    and updates drawn on the card. ``offset``: table and updates start
+    ``offset`` floats into their buffers (unaligned for the vector paths)."""
     import torch
 
+    if idx is not None:
+        gd = torch.Generator(device=device).manual_seed(seed)
+        return (torch.randn(T, w, generator=gd, device=device), idx,
+                torch.randn(R, w, generator=gd, device=device))
     g = torch.Generator().manual_seed(seed)
-    table = torch.randn(T, w, generator=g).to(device)
+    table = torch.randn(T, w, generator=g)
     if same:
         idx = torch.full((R,), T // 2, dtype=torch.int32)
         upd = torch.randint(-8, 9, (R, w), generator=g).float()
     else:
         idx = torch.randint(0, T, (R,), generator=g, dtype=torch.int32)
         upd = torch.randn(R, w, generator=g)
-    return table, idx.to(device), upd.to(device)
+
+    def place(t):
+        buf = torch.zeros(t.numel() + offset, device=device)
+        buf[offset:] = t.reshape(-1).to(device)
+        return buf[offset:].view(t.shape)
+
+    return place(table), idx.to(device), place(upd)
 
 
-def check_gather(label, R, T, w, seed, device, same=False):
+def check_gather(label, R, T, w, seed, device, same=False, idx=None, offset=0):
     """P1 and P2 against their plain versions on one input: P1 exactly, P2
     within 1e-5 of the largest |entry| (fp32 atomics add in another order),
     exactly with ``same`` (integer updates). Returns (inputs, P1 max err,
@@ -1360,7 +1387,7 @@ def check_gather(label, R, T, w, seed, device, same=False):
 
     from nerf_shared_tpu_torch.ops.cuda import gather
 
-    table, idx, upd = gather_inputs(R, T, w, seed, device, same)
+    table, idx, upd = gather_inputs(R, T, w, seed, device, same, idx, offset)
     with torch.no_grad():
         got, want = gather.gather_rows(table, idx), gather.plain_gather_rows(table, idx)
         s_got = gather.scatter_add_rows(idx, upd, T)
@@ -1370,16 +1397,104 @@ def check_gather(label, R, T, w, seed, device, same=False):
     scale = max(1.0, float(s_want.abs().max()))
     e2 = float((s_got - s_want).abs().max()) / scale
     tol = 0.0 if same else 1e-5
-    log(f"  {label} R={R} T={T} w={w}: P1 max err {e1:.1e} (exact), P2 max err "
-        f"{e2:.1e} of max|out| {scale:.3g} (tol {tol:g})")
+    log(f"  {label} R={R} T={T} w={w}{f' offset {offset}' if offset else ''}: P1 max err "
+        f"{e1:.1e} (exact), P2 max err {e2:.1e} of max|out| {scale:.3g} (tol {tol:g})")
     if got.shape != (R, w) or s_got.shape != (T, w) or e1 != 0.0 or not e2 <= tol:
         raise AssertionError(f"P1 / P2 disagree with their plain versions at {label}")
     return (table, idx, upd), e1, e2
 
 
+def in_turns(a, b, rounds=5):
+    """Device ms per call of ``a`` and ``b`` (queued_ms, 20 calls a sample)
+    timed in turns a, b, b, a over ``rounds`` rounds: (median, min, max)
+    of each one's 2 x rounds samples."""
+    sa, sb = [], []
+    for _ in range(rounds):
+        for fn, out in ((a, sa), (b, sb), (b, sb), (a, sa)):
+            out.append(queued_ms(fn, rounds=1))
+    return tuple((statistics.median(s), min(s), max(s)) for s in (sa, sb))
+
+
+def main_path_indices(device):
+    """The indices the grid families' encode builds for one training step
+    of seeded lego rays (1024 rays), through the port's own index math:
+    [(label, idx int32 [R] on the card, T, w)]. Split L8/F8/T2^14 levels 0,
+    3, 7 and the vertex L16/F2/T2^19 fused gather on the fine pass (64 +
+    128 samples a ray); one triplane G256/C16 plane gather (plane xy,
+    corner 00) on 64 + 192 samples a ray."""
+    from nerf_shared_tpu_torch.models.hashgrid import HashGridConfig, hashgrid_indices
+    from nerf_shared_tpu_torch.models.triplane import TriplaneConfig, triplane_indices
+
+    box = dict(aabb_min=(-4.72,) * 3, aabb_max=(4.72,) * 3)
+
+    def points(S, seed):
+        o, d, z, _ = lego_rays(1024, S, seed, device)
+        return o[:, None, :] + d[:, None, :] * z[..., None]
+
+    fine = points(192, 20)
+    split = HashGridConfig(L=8, F=8, log2_T=14, max_res=512, layout="split", **box)
+    levels = hashgrid_indices(split, fine)
+    cases = [(f"split L8/F8 level {lv}, fine pass, main-path indices", levels[lv],
+              split.level_table_rows[lv], split.row_width) for lv in (0, 3, 7)]
+    vertex = HashGridConfig(**box)
+    cases.append(("vertex L16/F2/T2^19, fine pass, main-path indices",
+                  hashgrid_indices(vertex, fine).reshape(-1), vertex.L * vertex.T, vertex.F))
+    tri = TriplaneConfig(**box)
+    cases.append(("triplane G256/C16, plane xy corner 00, main-path indices",
+                  triplane_indices(tri, points(256, 21))[0, 0].reshape(-1).contiguous(),
+                  3 * tri.G * tri.G, tri.C))
+    return cases
+
+
+def time_gather(label, inputs, T, w, errs, main=False):
+    """P1 and P2 on one input, each in turns with its library call
+    (index_select; zeros + index_add_), plus the plain versions' time and
+    the bytes bounds. Returns the two kernels' case records."""
+    import torch
+
+    from nerf_shared_tpu_torch.ops.cuda import gather
+
+    table, idx, upd = inputs
+    R, device = idx.shape[0], table.device
+    with torch.no_grad():
+        p1, lib1 = in_turns(lambda: gather.gather_rows(table, idx),
+                            lambda: torch.index_select(table, 0, idx))
+        p2, lib2 = in_turns(lambda: gather.scatter_add_rows(idx, upd, T),
+                            lambda: torch.zeros((T, w), device=device).index_add_(0, idx, upd))
+        plain = (queued_ms(lambda: gather.plain_gather_rows(table, idx)),
+                 queued_ms(lambda: gather.plain_scatter_add_rows(idx, upd, T)))
+    # bytes bounds: P1 reads the distinct rows its indices name, P2 writes
+    # the whole [T, w] output
+    distinct = int(torch.unique(idx).numel())
+    bms = {"p1": 1e3 * gather.bytes_moved(R, distinct, w) / PEAK_BYTES,
+           "p2": 1e3 * gather.bytes_moved(R, T, w) / PEAK_BYTES}
+
+    def spread(t):
+        return f"{t[0]:.4f} [{t[1]:.4f}-{t[2]:.4f}]"
+
+    def verdict(k, lib):
+        return ("beats" if k[2] < lib[1] else "loses to" if k[1] > lib[2] else "ties")
+
+    log(f"P1 / P2 {label} (R={R} T={T} w={w}, {distinct} distinct rows): "
+        f"P1 {spread(p1)} ms vs index_select {spread(lib1)} ({verdict(p1, lib1)} it), "
+        f"bound {bms['p1']:.4f}, plain {plain[0]:.4f}; P2 {spread(p2)} ms vs zeros + "
+        f"index_add_ {spread(lib2)} ({verdict(p2, lib2)} it), bound {bms['p2']:.4f}, "
+        f"plain {plain[1]:.4f}; median [min-max] ms of 10 samples in turns")
+    cases = []
+    for k, t, lib, pl, e, b in (("gather", p1, lib1, plain[0], errs[0], bms["p1"]),
+                                ("scatter_add", p2, lib2, plain[1], errs[1], bms["p2"])):
+        cases.append(dict(
+            kernel=k, shape=label, R=R, T=T, w=w, distinct_rows=distinct, main=main,
+            max_abs_err=e, ms=t[0], ms_min=t[1], ms_max=t[2], plain_ms=pl,
+            library_ms=lib[0], library_min=lib[1], library_max=lib[2], bound_ms=b,
+            bound_by="bytes", vs_library=verdict(t, lib)))
+    return cases
+
+
 def phase_gather(device):
-    """Phase 8: P1 and P2 at the probe's and the grid paths' shapes and at
-    odd shapes, the autograd pair, times, and the ported probe."""
+    """Phase 8: P1 and P2 at the probe's and the grid paths' shapes on
+    uniform and main-path indices and at odd shapes, the autograd pair,
+    times in turns with the library calls, and the ported probe."""
     import torch
 
     from nerf_shared_tpu_torch.benchmarks import scatter_probe
@@ -1400,46 +1515,35 @@ def phase_gather(device):
              "vertex L16/F2/T2^19, one gather of a step's 262,144 points"}
     cases = []
     for i, (label, R, T, w) in enumerate(shapes):
-        (table, idx, upd), e1, e2 = check_gather(label, R, T, w, 40 + i, device)
-        if label not in timed:
-            continue
-        with torch.no_grad():
-            t = {"p1": queued_ms(lambda: gather.gather_rows(table, idx)),
-                 "p1_plain": queued_ms(lambda: gather.plain_gather_rows(table, idx)),
-                 "p1_library": queued_ms(lambda: torch.index_select(table, 0, idx)),
-                 "p2": queued_ms(lambda: gather.scatter_add_rows(idx, upd, T)),
-                 "p2_plain": queued_ms(lambda: gather.plain_scatter_add_rows(idx, upd, T)),
-                 "p2_library": queued_ms(lambda: torch.zeros(
-                     (T, w), device=device).index_add_(0, idx, upd))}
-        # bytes bounds: P1 reads the distinct rows its indices name, P2
-        # writes the whole [T, w] output
-        distinct = int(torch.unique(idx).numel())
-        bms = {"p1": 1e3 * gather.bytes_moved(R, distinct, w) / PEAK_BYTES,
-               "p2": 1e3 * gather.bytes_moved(R, T, w) / PEAK_BYTES}
-        log(f"P1 / P2 {label}: P1 {t['p1']:.4f} ms (plain {t['p1_plain']:.4f}, "
-            f"index_select {t['p1_library']:.4f}, bound {bms['p1']:.4f} for {distinct} "
-            f"distinct rows), P2 {t['p2']:.4f} ms (plain {t['p2_plain']:.4f}, zeros + "
-            f"index_add_ {t['p2_library']:.4f}, bound {bms['p2']:.4f}); bytes bounds; "
-            "device time of calls queued behind a spin kernel")
-        for k, e in (("gather", e1), ("scatter_add", e2)):
-            p = "p1" if k == "gather" else "p2"
-            cases.append(dict(kernel=k, shape=label, R=R, T=T, w=w, max_abs_err=e,
-                              ms=t[p], plain_ms=t[p + "_plain"],
-                              library_ms=t[p + "_library"], bound_ms=bms[p],
-                              bound_by="bytes"))
-    # odd shapes: R prime, R = 0, T = 1, every width, all indices equal
-    for i, w in enumerate((1, 2, 3, 16, 64)):
+        inputs, e1, e2 = check_gather(label, R, T, w, 40 + i, device)
+        if label in timed:
+            cases += time_gather(f"{label}, uniform indices", inputs, T, w, (e1, e2))
+        del inputs
+    # the indices the grid families build on seeded lego rays
+    for i, (label, idx, T, w) in enumerate(main_path_indices(device)):
+        inputs, e1, e2 = check_gather(label, idx.shape[0], T, w, 50 + i, device, idx=idx)
+        cases += time_gather(label, inputs, T, w, (e1, e2), main=label.startswith(
+            "split L8/F8 level 3"))
+        del inputs, idx
+    # odd shapes: R prime, R = 0, T = 1, every width the kernels take, all
+    # indices equal, and buffers unaligned for the vector paths
+    for i, w in enumerate((1, 2, 3, 4, 8, 16, 32, 64)):
         check_gather("odd", 1237, 977, w, 60 + i, device)
     check_gather("odd", 1_000_003, 4099, 3, 70, device)
     check_gather("empty", 0, 5, 16, 71, device)
     check_gather("empty", 0, 5, 3, 72, device)
     check_gather("one row", 1000, 1, 16, 73, device)
+    for i, w in enumerate((2, 4, 16, 64)):
+        check_gather("unaligned", 100_003, 4099, w, 76 + i, device, offset=1)
     # every row onto one (the worst contention). Sums of n N(0, 1) rows in
     # two orders differ by ~eps sqrt(n) of the result (2.1e-5 at n =
     # 262,144 on the H100, over the 1e-5 bar), so these take integer
     # updates, whose sums are exact in any order: P2 must match exactly
     check_gather("all indices equal", 262_144, 4096, 64, 74, device, same=True)
     check_gather("all indices equal", 262_144, 4096, 2, 75, device, same=True)
+    check_gather("all indices equal", 262_144, 4096, 16, 83, device, same=True)
+    check_gather("all indices equal", 262_144, 4096, 1, 84, device, same=True)
+    check_gather("all indices equal", 262_144, 4096, 3, 85, device, same=True)
 
     # the autograd pair against plain autograd
     table, idx, upd = gather_inputs(196_608, 16_384, 64, 80, device)
@@ -1546,15 +1650,46 @@ def phase_grid(device, steps=400, more=200, tri_steps=100, profile=False):
 
     served = serve_grid(base + ["--port", "0"], ds, frame, profile=profile)
     vertex_gb = check_vertex_chunk(device)
+    vertex = phase_vertex(device, scene, lego)
     tri = phase_triplane(device, scene, lego, ds, tri_steps, blocks, profile)
     by_path = {"hashgrid_training": launches, "hashgrid_render_only": render_launches,
-               "hashgrid_serving": served["launches"], **tri["launches"]}
+               "hashgrid_serving": served["launches"],
+               "hashgrid_vertex_training": vertex["launches"], **tri["launches"]}
     return {"ms_per_step": ms_step, "rays_per_s": statistics.median(rps[1:]),
             "train_psnr": psnrs, "val": (int(it), int(view), float(vpsnr), float(vssim)),
             "white_psnr": white_psnr, "frame_ms": served["frame_ms"],
             "frame_err": served["err"], "triplane": tri["summary"],
             "vertex_chunk_peak_gb": vertex_gb,
+            "vertex_ms_per_step": vertex["ms_per_step"],
             "launches_by_path": by_path}
+
+
+def phase_vertex(device, scene, lego, steps=30):
+    """The hashgrid at its defaults (vertex layout, L16/F2/T2^19) trained
+    ``steps`` steps with configs/lego.txt on phase 6's scene: one fused P1
+    and one P2 a pass, so exactly 2 + 2 a step and nothing else."""
+    import re
+
+    logs = os.path.join(WORK, "vertex_logs")
+    argv = ["--config", lego, "--datadir", scene, "--basedir", logs, "--expname",
+            "hashgrid_vertex_smoke", "--device", device, "--testskip", "1", "--i_print", "5",
+            "--i_testset", "0", "--i_video", "0", "--i_img", "0", "--i_weights", "0",
+            "--model_type", "hashgrid", "--N_iters", str(steps)]
+    zero_counts()
+    state, text = run_train_cli(argv)
+    launches = launch_counts()
+    want = {"gather": 2 * steps, "scatter_add": 2 * steps}
+    if ({k: launches[k] for k in want} != want or sum(launches.values()) != 4 * steps
+            or state.count != steps):
+        raise AssertionError(f"vertex hashgrid training: launches {launches}, expected "
+                             f"{want} and nothing else; Adam count {state.count}")
+    rps = [float(r.replace(",", "")) for r in re.findall(
+        r"\[TRAIN\] Iter: \d+ .*?rays/sec: (\S+)", text)]
+    ms_step = 1e3 * 1024 / statistics.median(rps[1:])
+    log(f"hashgrid at its defaults (vertex L16/F2/T2^19): {steps} steps, median "
+        f"{statistics.median(rps[1:]):,.0f} rays/s = {ms_step:.2f} ms per step; launches "
+        f"{launches}")
+    return {"ms_per_step": ms_step, "launches": launches}
 
 
 def check_vertex_chunk(device, n=32768):
@@ -1674,8 +1809,11 @@ def phase_triplane(device, scene, lego, ds, steps, blocks, profile=False):
         r"\[TRAIN\] Iter: \d+ .*?rays/sec: (\S+)", text)]
     frame = {"gather": 2 * 12 * blocks, "composite": 2 * blocks}
     served = serve_grid(base[:-2] + ["--port", "0"], ds, frame, profile=profile)
-    summary = {"rays_per_s": rps, "frame_ms": served["frame_ms"], "frame_err": served["err"]}
-    log(f"triplane: {steps} steps, rays/s {rps}; launches {launches}")
+    ms_step = 1e3 * 1024 / statistics.median(rps[1:])
+    summary = {"rays_per_s": rps, "ms_per_step": ms_step, "frame_ms": served["frame_ms"],
+               "frame_err": served["err"]}
+    log(f"triplane: {steps} steps, rays/s {rps}, median {ms_step:.2f} ms per step; "
+        f"launches {launches}")
     return {"summary": summary, "launches": {"triplane_training": launches,
                                              "triplane_serving": served["launches"]}}
 
@@ -1704,6 +1842,11 @@ def _profile(what, fn):
         f"({100 * busy / wall_ms:.1f}%)")
     for name, ms in top:
         log(f"  {ms:9.2f} ms  {100 * ms / busy:5.1f}%  {name[:90]}")
+    table = {k: sum(ms for name, ms in by_name.items() if prefix in name)
+             for k, prefix in (("P1", "p1_gather_rows"), ("P2", "p2_scatter_add_rows"))}
+    if any(table.values()):
+        log("  " + ", ".join(f"{k} {ms:.2f} ms = {100 * ms / busy:.1f}% of device time"
+                             for k, ms in table.items()))
 
 
 def profile_frame(eng, pose):
@@ -1761,6 +1904,7 @@ def main() -> int:
             phase_grid(device, profile=profile)
             if profile:
                 profile_grid_step(device)
+                profile_grid_step(device, vertex=True)
         log(f"phases {sorted(only)} done (no result lines with --phases)")
         return 0
 
@@ -1792,6 +1936,7 @@ def main() -> int:
         profile_frame(served["engine"], served["pose"])
         profile_train_step(device)
         profile_grid_step(device)
+        profile_grid_step(device, vertex=True)
     by_path = dict(served["launches"])
     by_path["training"] = trained["launches"]
     by_path["render_only"] = trained["render_launches"]
@@ -1818,10 +1963,10 @@ def main() -> int:
     kernels = []
     for name, (src, replaces) in sources.items():
         mine = [c for c in cases if c["kernel"] == name]
-        # the main path's shape: the largest sample count, or for P1 / P2 a
-        # split L8/F8 level table in the fine pass
+        # the main path's shape: the largest sample count, or for P1 / P2
+        # split L8/F8 level 3 in the fine pass on main-path indices
         main_case = (max(mine, key=lambda c: c["S"]) if "S" in mine[0] else next(
-            c for c in mine if c["shape"].startswith("split")))
+            c for c in mine if c["main"]))
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "launches": sum(p.get(name, 0) for p in by_path.values()),

@@ -1,0 +1,35 @@
+#!/usr/bin/env bash
+# Parent / change A/B of chip_smoke.py on one card: runs the same phases
+# in two unpacked trees in turns (parent, change, change, parent), writes
+# each run's whole output to OUT/ab_<n>_<tree>.txt and prints each run's
+# exit code and its summary lines (kernel times of phase 8, step and frame
+# ms, profiled device shares). Exits non-zero if any run failed.
+#
+#   mkdir -p build/parent build/change
+#   git archive <parent commit> | tar -x -C build/parent
+#   git archive $(git write-tree) | tar -x -C build/change
+#   bash nerf_shared_tpu_torch/benchmarks/ab_smoke.sh build/parent build/change \
+#       build/ab --phases 8,9 --profile
+set -u
+if [ $# -lt 3 ]; then
+  echo "usage: ab_smoke.sh PARENT_DIR CHANGE_DIR OUT_DIR [chip_smoke.py arguments]" >&2
+  exit 2
+fi
+parent=$1 change=$2 out=$3
+shift 3
+mkdir -p "$out"
+out=$(cd "$out" && pwd)
+failed=0
+n=0
+for which in parent change change parent; do
+  n=$((n + 1))
+  dir=$parent
+  [ "$which" = change ] && dir=$change
+  log="$out/ab_${n}_${which}.txt"
+  (cd "$dir" && python3 chip_smoke.py "$@") > "$log" 2>&1
+  rc=$?
+  [ $rc -ne 0 ] && failed=1
+  echo "== run $n: $which ($dir), rc=$rc"
+  grep -E "^P1 / P2 |ms per step|^triplane: |frame over HTTP|^profile |of device time|nstt::" "$log"
+done
+exit $failed

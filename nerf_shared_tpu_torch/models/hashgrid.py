@@ -16,6 +16,7 @@ packed in one [8F] row: one gather of [P, L] rows) and "split" (cell rows in
 one table per level, direct levels sized N^3: one gather per level). The
 corner sum slices the packed row by static column ranges and adds the
 corners in the JAX order, so features agree to fp32 rounding.
+``hashgrid_indices`` returns the rows an encode gathers.
 
 Hash arithmetic: JAX hashes in uint32 with wraparound. Here the products
 are taken in int64 (coordinates <= 2048 and primes < 2^32 fit), XORed, and
@@ -171,6 +172,50 @@ def _level_index(cfg: HashGridConfig, l: int, c, n: int, rows: int) -> torch.Ten
     return (c[..., 0] + c[..., 1] * n + c[..., 2] * (n * n)).to(torch.int32)
 
 
+def _level_cells(cfg: HashGridConfig, x: torch.Tensor):
+    """Per level of points x [P, 3]: (resolution n, cell x0 [P, 3] int32,
+    fraction within the cell [P, 3]); edge-clamped outside the AABB."""
+    lo = torch.tensor(cfg.aabb_min, dtype=x.dtype, device=x.device)
+    hi = torch.tensor(cfg.aabb_max, dtype=x.dtype, device=x.device)
+    u = (x - lo) / (hi - lo)                                   # [P, 3]
+    cells = []
+    for n in cfg.resolutions:
+        xs = u * float(n)
+        x0 = torch.clamp(torch.floor(xs).to(torch.int32), 0, n - 1)
+        cells.append((n, x0, torch.clamp(xs - x0.to(x.dtype), 0.0, 1.0)))
+    return cells
+
+
+def _corner_offsets(device) -> torch.Tensor:
+    # made once an encode: each host-to-device copy syncs the stream
+    return torch.tensor(_CORNERS, dtype=torch.int64, device=device)  # [8, 3]
+
+
+def _indices(cfg: HashGridConfig, cells, off: torch.Tensor):
+    """int32 table rows of each level's cells: [P] per level ("split", into
+    the level's own table), or [P, L] ("cell") / [P, L, 8] ("vertex") into
+    the fused [L*T, w] table; ``off`` the [8, 3] corner offsets."""
+    parts = []
+    for l, (n, x0, _) in enumerate(cells):
+        c = x0.to(torch.int64)
+        if cfg.layout == "split":
+            parts.append(_level_index(cfg, l, c, n, cfg.level_table_rows[l]))
+        elif cfg.layout == "cell":
+            parts.append(_level_index(cfg, l, c, n, cfg.T) + l * cfg.T)
+        else:
+            corners = c[:, None, :] + off                    # [P, 8, 3] in [0, N]
+            parts.append(_level_index(cfg, l, corners, n + 1, cfg.T) + l * cfg.T)
+    return parts if cfg.layout == "split" else torch.stack(parts, 1)
+
+
+def hashgrid_indices(cfg: HashGridConfig, pts: torch.Tensor):
+    """The table rows the encode of pts [..., 3] gathers, as int32 over the
+    P flattened points: a list of L [P] tensors ("split"), or one [P, L]
+    ("cell") or [P, L, 8] ("vertex") tensor into the fused table."""
+    _check_layout(cfg)
+    return _indices(cfg, _level_cells(cfg, pts.reshape(-1, 3)), _corner_offsets(pts.device))
+
+
 def hashgrid_features(params: Mapping[str, torch.Tensor], cfg: HashGridConfig,
                       pts: torch.Tensor) -> torch.Tensor:
     """pts [..., 3] -> concatenated per-level features [..., L*F],
@@ -178,38 +223,25 @@ def hashgrid_features(params: Mapping[str, torch.Tensor], cfg: HashGridConfig,
     _check_layout(cfg)
     lead = pts.shape[:-1]
     x = pts.reshape(-1, 3)
-    lo = torch.tensor(cfg.aabb_min, dtype=x.dtype, device=x.device)
-    hi = torch.tensor(cfg.aabb_max, dtype=x.dtype, device=x.device)
-    u = (x - lo) / (hi - lo)                                   # [P, 3]
-    off = torch.tensor(_CORNERS, dtype=torch.int64, device=x.device)  # [8, 3]
+    cells = _level_cells(cfg, x)
+    off = _corner_offsets(x.device)
     offf = off.to(x.dtype)
-
-    weights, idx_parts = [], []
-    for l, n in enumerate(cfg.resolutions):
-        xs = u * float(n)
-        x0 = torch.clamp(torch.floor(xs).to(torch.int32), 0, n - 1)
-        frac = torch.clamp(xs - x0.to(x.dtype), 0.0, 1.0)     # [P, 3]
+    weights = []
+    for _, _, frac in cells:
         t = offf * frac[:, None, :] + (1.0 - offf) * (1.0 - frac[:, None, :])
         weights.append(t[..., 0] * t[..., 1] * t[..., 2])    # [P, 8]
-        c = x0.to(torch.int64)
-        if cfg.layout == "split":
-            idx_parts.append(_level_index(cfg, l, c, n, cfg.level_table_rows[l]))
-        elif cfg.layout == "cell":
-            idx_parts.append(_level_index(cfg, l, c, n, cfg.T) + l * cfg.T)
-        else:
-            corners = c[:, None, :] + off                    # [P, 8, 3] in [0, N]
-            idx_parts.append(_level_index(cfg, l, corners, n + 1, cfg.T) + l * cfg.T)
+    idx = _indices(cfg, cells, off)
 
     Fc = cfg.F
     feats = []
     if cfg.layout == "split":
         for l in range(cfg.L):
-            g = table_gather(params[f"tables.{l}"], idx_parts[l])          # [P, 8F]
+            g = table_gather(params[f"tables.{l}"], idx[l])                # [P, 8F]
             feats.append(sum(g[:, c * Fc:(c + 1) * Fc] * weights[l][:, c:c + 1]
                              for c in range(8)))
     else:
         # one gather over the fused table for every level, as in JAX
-        g = table_gather(params["tables"], torch.stack(idx_parts, 1))  # [P, L, (8,) w]
+        g = table_gather(params["tables"], idx)                        # [P, L, (8,) w]
         for l in range(cfg.L):
             if cfg.layout == "cell":
                 feats.append(sum(g[:, l, c * Fc:(c + 1) * Fc] * weights[l][:, c:c + 1]

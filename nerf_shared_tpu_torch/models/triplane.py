@@ -11,7 +11,8 @@ plane's rows offset by p·G·G. Layouts: "vertex" (shared corners, W = C: four
 gathers a plane, twelve a point, with ``mode="clip"`` semantics and the
 corner cell clamped to [0, G-2]) and "cell" (the 4 corners packed in one
 [4C] row: one gather a plane, the cell clamped to [0, G-1]).
-``upsample_triplane`` grows the planes (both layouts, plain torch).
+``upsample_triplane`` grows the planes (both layouts, plain torch);
+``triplane_indices`` returns the rows an encode gathers.
 """
 
 from __future__ import annotations
@@ -91,23 +92,52 @@ class Triplane(nn.Module):
         return apply_triplane(self.params(), self.cfg, pts, viewdirs)
 
 
-def _sample_plane(table, p: int, G: int, a, b):
-    """Bilinear sample of plane p (rows p·G·G.. of the [3·G·G, C] table) at
-    cell-center coords (a, b) in [0, G-1]: four gathers, each index
-    clipped into the plane (``jnp.take(..., mode="clip")``)."""
+_PLANES = ((0, 1), (0, 2), (1, 2))   # the xy, xz and yz planes' axes
+
+
+def _plane_coords(cfg: TriplaneConfig, pts: torch.Tensor) -> torch.Tensor:
+    """pts [..., 3] -> plane coordinates [..., 3]: cell-grid coordinates
+    in [0, G) for "cell", cell-center coordinates for "vertex"."""
+    lo = torch.tensor(cfg.aabb_min, dtype=pts.dtype, device=pts.device)
+    hi = torch.tensor(cfg.aabb_max, dtype=pts.dtype, device=pts.device)
+    u = (pts - lo) / (hi - lo) * cfg.G
+    return u if cfg.layout == "cell" else u - 0.5
+
+
+def _vertex_cell(G: int, a, b):
+    """Corner cell (a0, b0) int32, clamped to [0, G-2], and the fractions
+    [..., 1] of cell-center coords (a, b) clamped into [0, G-1]."""
     a = torch.clamp(a, 0.0, G - 1.0)
     b = torch.clamp(b, 0.0, G - 1.0)
     a0 = torch.clamp(torch.floor(a).to(torch.int32), 0, G - 2)
     b0 = torch.clamp(torch.floor(b).to(torch.int32), 0, G - 2)
-    fa = (a - a0.to(a.dtype))[..., None]
-    fb = (b - b0.to(b.dtype))[..., None]
+    return a0, b0, (a - a0.to(a.dtype))[..., None], (b - b0.to(b.dtype))[..., None]
+
+
+def _vertex_rows(p: int, G: int, a0, b0):
+    """int32 rows of corners 00, 01, 10, 11 of cell (a0, b0) in plane p
+    (rows p·G·G.. of the [3·G·G, C] table), each clipped into the plane
+    (``jnp.take(..., mode="clip")``)."""
     base = a0 * G + b0
+    return tuple(torch.clamp(i, 0, G * G - 1) + p * G * G
+                 for i in (base, base + 1, base + G, base + G + 1))
 
-    def rows(i):
-        return table_gather(table, torch.clamp(i, 0, G * G - 1) + p * G * G)
 
-    p00, p01 = rows(base), rows(base + 1)
-    p10, p11 = rows(base + G), rows(base + G + 1)
+def _packed_cell(G: int, a, b):
+    """Cell (a0, b0) int32 of cell-grid coords (a, b), clamped to [0, G-1],
+    and the fractions [..., 1] within it."""
+    a0 = torch.clamp(torch.floor(a).to(torch.int32), 0, G - 1)
+    b0 = torch.clamp(torch.floor(b).to(torch.int32), 0, G - 1)
+    fa = torch.clamp(a - a0.to(a.dtype), 0.0, 1.0)[..., None]
+    fb = torch.clamp(b - b0.to(b.dtype), 0.0, 1.0)[..., None]
+    return a0, b0, fa, fb
+
+
+def _sample_plane(table, p: int, G: int, a, b):
+    """Bilinear sample of plane p at cell-center coords (a, b): four
+    gathers."""
+    a0, b0, fa, fb = _vertex_cell(G, a, b)
+    p00, p01, p10, p11 = (table_gather(table, i) for i in _vertex_rows(p, G, a0, b0))
     top = p00 * (1 - fb) + p01 * fb
     bot = p10 * (1 - fb) + p11 * fb
     return top * (1 - fa) + bot * fa
@@ -116,34 +146,39 @@ def _sample_plane(table, p: int, G: int, a, b):
 def _sample_plane_packed(table, p: int, G: int, C: int, a, b):
     """Bilinear sample of packed plane p at cell-grid coords (a, b) in
     [0, G): one gather of the cell's [4C] row (corner slots 00, 01, 10, 11)."""
-    a0 = torch.clamp(torch.floor(a).to(torch.int32), 0, G - 1)
-    b0 = torch.clamp(torch.floor(b).to(torch.int32), 0, G - 1)
-    fa = torch.clamp(a - a0.to(a.dtype), 0.0, 1.0)[..., None]
-    fb = torch.clamp(b - b0.to(b.dtype), 0.0, 1.0)[..., None]
+    a0, b0, fa, fb = _packed_cell(G, a, b)
     g = table_gather(table, a0 * G + b0 + p * G * G)          # [..., 4C]
     top = g[..., 0 * C:1 * C] * (1 - fb) + g[..., 1 * C:2 * C] * fb
     bot = g[..., 2 * C:3 * C] * (1 - fb) + g[..., 3 * C:4 * C] * fb
     return top * (1 - fa) + bot * fa
 
 
+def triplane_indices(cfg: TriplaneConfig, pts: torch.Tensor) -> torch.Tensor:
+    """The table rows the encode of pts [..., 3] gathers, int32: [3, 4,
+    ...] for "vertex" (planes xy, xz, yz; corners 00, 01, 10, 11), [3, ...]
+    for "cell", into the [3·G·G, width] table."""
+    G, u = cfg.G, _plane_coords(cfg, pts)
+    if cfg.layout == "cell":
+        return torch.stack([a0 * G + b0 + p * G * G for p, (a0, b0, _, _) in enumerate(
+            _packed_cell(G, u[..., i], u[..., j]) for i, j in _PLANES)])
+    return torch.stack([torch.stack(_vertex_rows(p, G, *_vertex_cell(G, u[..., i], u[..., j])[:2]))
+                        for p, (i, j) in enumerate(_PLANES)])
+
+
 def triplane_features(params, cfg: TriplaneConfig, pts: torch.Tensor) -> torch.Tensor:
     """pts [..., 3] -> summed plane features [..., C], edge-clamped
     outside the AABB."""
-    lo = torch.tensor(cfg.aabb_min, dtype=pts.dtype, device=pts.device)
-    hi = torch.tensor(cfg.aabb_max, dtype=pts.dtype, device=pts.device)
     G = cfg.G
     table = params["planes"].reshape(3 * G * G, cfg.width)
-    if cfg.layout == "cell":
-        u = (pts - lo) / (hi - lo) * G
-        x, y, z = u[..., 0], u[..., 1], u[..., 2]
-        f = _sample_plane_packed(table, 0, G, cfg.C, x, y)
-        f = f + _sample_plane_packed(table, 1, G, cfg.C, x, z)
-        return f + _sample_plane_packed(table, 2, G, cfg.C, y, z)
-    u = (pts - lo) / (hi - lo) * G - 0.5
-    x, y, z = u[..., 0], u[..., 1], u[..., 2]
-    f = _sample_plane(table, 0, G, x, y)
-    f = f + _sample_plane(table, 1, G, x, z)
-    return f + _sample_plane(table, 2, G, y, z)
+    u = _plane_coords(cfg, pts)
+    f = None
+    for p, (i, j) in enumerate(_PLANES):
+        if cfg.layout == "cell":
+            s = _sample_plane_packed(table, p, G, cfg.C, u[..., i], u[..., j])
+        else:
+            s = _sample_plane(table, p, G, u[..., i], u[..., j])
+        f = s if f is None else f + s
+    return f
 
 
 def apply_triplane(params, cfg: TriplaneConfig, pts: torch.Tensor,

@@ -13,8 +13,9 @@ Tables are contiguous float32 [T, w], indices int32 [R] in [0, T) (the
 callers clamp cells and mask hashes; the plain version asserts it and the
 kernel clamps, so it never reads outside the table). On CPU tensors the
 plain versions run; on CUDA tensors the kernels of ``csrc/gather.cu`` or an
-error. P2's atomics add in an order that changes from run to run, so it
-agrees with its plain version to fp32 rounding, not bit for bit.
+error. P2 sums equal indices on chip before its atomics, which add in an
+order that changes from run to run, so it agrees with its plain version to
+fp32 rounding, not bit for bit.
 """
 
 from __future__ import annotations

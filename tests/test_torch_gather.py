@@ -12,6 +12,8 @@ the autograd pair around the launch:
 - both against ``jnp.take`` / ``.at[].add`` with duplicate indices;
 - what the Pallas P2 does with duplicates inside one block (it keeps one
   of them, so it is not a scatter-add there; the port's P2 is);
+- every width the kernels instantiate, and duplicate-heavy index patterns
+  shaped like the grid paths' (runs of equal rows; repeats 128 rows apart);
 - ``TableGather``'s gradient against autograd through plain indexing, the
   CPU dispatch and the input guards.
 
@@ -120,8 +122,13 @@ def test_plain_p2_matches_probe_pallas_scatter_on_block_unique_indices(rows, T, 
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=_scatter_tol(want))
 
 
+# every width kernel P1 / P2 instantiates (1, 2, 4 a row a thread; 16, 64
+# w / 4 lanes a row) and one the generic kernels take (3)
+WIDTHS = (1, 2, 3, 4, 16, 64)
+
+
 @pytest.mark.parametrize("rows,T,width", [(300, 17, 2), (512, 64, 16), (33, 1, 5),
-                                          (1, 9, 64)])
+                                          (1, 9, 64)] + [(777, 53, w) for w in WIDTHS])
 def test_plain_p1_p2_match_jnp_with_duplicates(rows, T, width):
     table, idx, upd = _case(rows, T, width, seed=T)
     got = gather.plain_gather_rows(torch.from_numpy(table), torch.from_numpy(idx))
@@ -130,6 +137,69 @@ def test_plain_p1_p2_match_jnp_with_duplicates(rows, T, width):
     want = np.asarray(jnp.zeros((T, width)).at[jnp.asarray(idx)].add(jnp.asarray(upd)))
     got = gather.plain_scatter_add_rows(torch.from_numpy(idx), torch.from_numpy(upd), T)
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=_scatter_tol(want))
+
+
+def _jnp_pair(table, idx, upd, T):
+    """jnp.take and the scatter-add XLA derives for its transpose."""
+    want_rows = np.asarray(jnp.take(jnp.asarray(table), jnp.asarray(idx), axis=0))
+    want_sum = np.asarray(jnp.zeros((T, upd.shape[1])).at[jnp.asarray(idx)].add(
+        jnp.asarray(upd)))
+    return want_rows, want_sum
+
+
+def _run_indices(rows, T, seed):
+    """Indices in runs of equal values, the way a split level's fine pass
+    gives them (consecutive samples of a ray in one cell): run lengths
+    geometric with mean 4, values drawn from T."""
+    rng = np.random.default_rng(seed)
+    out = []
+    while len(out) < rows:
+        out += [int(rng.integers(0, T))] * int(rng.geometric(0.25))
+    return np.asarray(out[:rows], np.int32)
+
+
+def _strided_indices(rows, T, seed, stride=128):
+    """Equal indices ``stride`` rows apart, the vertex layout's [P, L, 8]
+    order: point p's slot k repeats point p - 1's while both sit in one
+    cell (runs of mean 3 over p), all slots distinct within a point."""
+    rng = np.random.default_rng(seed)
+    points = -(-rows // stride)
+    slots = np.stack([rng.choice(T, stride, replace=False) for _ in range(points)])
+    keep = rng.random(points) < 2 / 3
+    for p in range(1, points):
+        if keep[p]:
+            slots[p] = slots[p - 1]
+    return slots.reshape(-1)[:rows].astype(np.int32)
+
+
+@pytest.mark.parametrize("width", WIDTHS)
+@pytest.mark.parametrize("pattern", ["runs", "strided"])
+def test_plain_p1_p2_match_jnp_on_main_path_index_patterns(width, pattern):
+    """Duplicate-heavy indices shaped like the grid paths': runs of equal
+    rows (split levels, triplane planes), which P2's warp merge folds, and
+    repeats 128 rows apart (vertex layout), which its tile merge folds."""
+    rows, T = 2048, 300
+    table, _, upd = _case(rows, T, width, seed=width + 11)
+    idx = (_run_indices if pattern == "runs" else _strided_indices)(rows, T, seed=width)
+    assert len(np.unique(idx)) < rows // 2
+    want_rows, want_sum = _jnp_pair(table, idx, upd, T)
+    got = gather.plain_gather_rows(torch.from_numpy(table), torch.from_numpy(idx))
+    np.testing.assert_array_equal(got.numpy(), want_rows)
+    got = gather.plain_scatter_add_rows(torch.from_numpy(idx), torch.from_numpy(upd), T)
+    np.testing.assert_allclose(got.numpy(), want_sum, rtol=0, atol=_scatter_tol(want_sum))
+
+
+@pytest.mark.parametrize("width", WIDTHS)
+def test_wrappers_take_the_plain_versions_on_cpu_tensors(width):
+    """On CPU tensors gather_rows and scatter_add_rows are the plain
+    versions, bit for bit, and launch nothing."""
+    rows, T = 300, 29
+    table, idx, upd = (torch.from_numpy(a) for a in _case(rows, T, width, seed=3))
+    before = dict(gather.LAUNCHES)
+    assert torch.equal(gather.gather_rows(table, idx), gather.plain_gather_rows(table, idx))
+    assert torch.equal(gather.scatter_add_rows(idx, upd, T),
+                       gather.plain_scatter_add_rows(idx, upd, T))
+    assert gather.LAUNCHES == before
 
 
 def test_probe_pallas_scatter_drops_duplicates_within_a_block():

@@ -93,6 +93,75 @@ def test_hash_matches_numpy_uint32(rows):
     np.testing.assert_array_equal(got.numpy().astype(np.uint32), want)
 
 
+def _np_hash(c, rows):
+    """NGP's hash in numpy uint32 with wraparound, masked to rows - 1."""
+    cu = c.astype(np.uint32)
+    with np.errstate(over="ignore"):
+        h = ((cu[..., 0] * np.uint32(1)) ^ (cu[..., 1] * np.uint32(2654435761))
+             ^ (cu[..., 2] * np.uint32(805459861)))
+    return (h & np.uint32(rows - 1)).astype(np.int32)
+
+
+def _np_hashgrid_indices(cfg, pts):
+    """A numpy transcription of the index math of the JAX package's
+    hashgrid_features (nerf_shared_tpu/models/hashgrid.py:222): float32
+    cell coordinates, int32 direct indices, uint32 hashes."""
+    x = pts.reshape(-1, 3).astype(np.float32)
+    lo = np.asarray(cfg.aabb_min, np.float32)
+    hi = np.asarray(cfg.aabb_max, np.float32)
+    u = (x - lo) / (hi - lo)
+    res = np.asarray(cfg.resolutions, np.float32)
+    xs = u[:, None, :] * res[None, :, None]
+    nmax = np.asarray(cfg.resolutions, np.int32) - 1
+    x0 = np.clip(np.floor(xs).astype(np.int32), 0, nmax[None, :, None])  # [P, L, 3]
+    if cfg.layout == "split":
+        out = []
+        for lv, (n, rows, hashed) in enumerate(zip(cfg.resolutions, cfg.level_table_rows,
+                                                    cfg.level_hashed)):
+            c = x0[:, lv]
+            out.append(_np_hash(c, rows) if hashed else
+                       c[:, 0] + c[:, 1] * n + c[:, 2] * (n * n))
+        return out
+    use_hash = np.asarray(cfg.level_hashed)
+    level_off = np.arange(cfg.L, dtype=np.int32) * cfg.T
+    if cfg.layout == "cell":
+        stride = np.asarray(cfg.resolutions, np.int32)
+        direct = x0[..., 0] + x0[..., 1] * stride + x0[..., 2] * (stride * stride)
+        return np.where(use_hash, _np_hash(x0, cfg.T), direct) + level_off
+    corners = x0[:, :, None, :] + np.asarray(jhash._CORNERS, np.int32)   # [P, L, 8, 3]
+    stride = np.asarray([n + 1 for n in cfg.resolutions], np.int32)[:, None]
+    direct = (corners[..., 0] + corners[..., 1] * stride
+              + corners[..., 2] * (stride * stride))
+    return (np.where(use_hash[:, None], _np_hash(corners, cfg.T), direct)
+            + level_off[:, None])
+
+
+@pytest.mark.parametrize("layout", ["vertex", "cell", "split"])
+@pytest.mark.parametrize("kw", [HASH_KW, dict(L=16, log2_T=19, F=2, max_res=2048,
+                                              aabb_min=(-4.5,) * 3, aabb_max=(4.5,) * 3),
+                                dict(L=8, F=8, log2_T=14, max_res=512,
+                                     aabb_min=(-4.5,) * 3, aabb_max=(4.5,) * 3)],
+                         ids=["tiny", "L16-F2-T19", "L8-F8-T14"])
+def test_hashgrid_indices_match_numpy_uint32_transcription(layout, kw):
+    """hashgrid_indices, the rows every encode gathers, bit for bit against
+    the JAX index math in numpy, points inside and outside the AABB."""
+    cfg = thash.HashGridConfig(layout=layout, **kw)
+    pts = _pts((40, 9), seed=7, lim=1.07 * kw["aabb_max"][0])
+    got = thash.hashgrid_indices(cfg, torch.from_numpy(pts))
+    want = _np_hashgrid_indices(jhash.HashGridConfig(layout=layout, **kw), pts)
+    if layout == "split":
+        assert len(got) == cfg.L
+        for lv, (g, w) in enumerate(zip(got, want)):
+            assert g.dtype == torch.int32 and g.shape == (360,)
+            np.testing.assert_array_equal(g.numpy(), w, err_msg=f"level {lv}")
+            assert 0 <= int(g.min()) and int(g.max()) < cfg.level_table_rows[lv]
+    else:
+        assert got.dtype == torch.int32
+        assert got.shape == ((360, cfg.L) if layout == "cell" else (360, cfg.L, 8))
+        np.testing.assert_array_equal(got.numpy(), want)
+        assert 0 <= int(got.min()) and int(got.max()) < cfg.L * cfg.T
+
+
 def test_config_properties_match_jax():
     for layout in ("vertex", "cell", "split"):
         for kw in (HASH_KW, dict(L=8, F=8, log2_T=14, max_res=512),
@@ -177,6 +246,44 @@ def test_hashgrid_rejects_unknown_layout():
 
 
 # --- triplane ------------------------------------------------------------------
+
+
+def _np_triplane_indices(cfg, pts):
+    """A numpy transcription of the rows the JAX package's
+    triplane_features gathers (nerf_shared_tpu/models/triplane.py:109-167),
+    offset by p·G·G into the [3·G·G, width] table: [3, 4, ...] vertex
+    (``jnp.take(..., mode="clip")`` clips each corner into the plane),
+    [3, ...] cell."""
+    lo = np.asarray(cfg.aabb_min, np.float32)
+    hi = np.asarray(cfg.aabb_max, np.float32)
+    G = cfg.G
+    u = (pts - lo) / (hi - lo) * np.float32(G)
+    planes = []
+    for p, (i, j) in enumerate(((0, 1), (0, 2), (1, 2))):
+        if cfg.layout == "cell":
+            a0 = np.clip(np.floor(u[..., i]).astype(np.int32), 0, G - 1)
+            b0 = np.clip(np.floor(u[..., j]).astype(np.int32), 0, G - 1)
+            planes.append(a0 * G + b0 + p * G * G)
+            continue
+        a = np.clip(u[..., i] - np.float32(0.5), 0.0, G - 1.0)
+        b = np.clip(u[..., j] - np.float32(0.5), 0.0, G - 1.0)
+        a0 = np.clip(np.floor(a).astype(np.int32), 0, G - 2)
+        b0 = np.clip(np.floor(b).astype(np.int32), 0, G - 2)
+        base = a0 * G + b0
+        planes.append(np.stack([np.clip(k, 0, G * G - 1) + p * G * G
+                                for k in (base, base + 1, base + G, base + G + 1)]))
+    return np.stack(planes)
+
+
+@pytest.mark.parametrize("layout", ["vertex", "cell"])
+def test_triplane_indices_match_numpy_transcription(layout):
+    cfg = ttri.TriplaneConfig(layout=layout, **TRI_KW)
+    pts = _pts((30, 7), seed=8)
+    got = ttri.triplane_indices(cfg, torch.from_numpy(pts))
+    assert got.dtype == torch.int32
+    assert got.shape == ((3, 4, 30, 7) if layout == "vertex" else (3, 30, 7))
+    np.testing.assert_array_equal(got.numpy(), _np_triplane_indices(cfg, pts))
+    assert 0 <= int(got.min()) and int(got.max()) < 3 * cfg.G * cfg.G
 
 
 @pytest.mark.parametrize("layout", ["vertex", "cell"])
