@@ -6,12 +6,23 @@
 Phases (any failure exits non-zero and prints no result line):
 
 1. build    nvcc builds every kernel (B1-B5, P1-P2) from csrc/, one process
-            per source, in parallel, into build/nerf_shared_tpu_torch/.
+            per source, in parallel, into build/nerf_shared_tpu_torch/;
+            cuobjdump counts the tensor-core MMA instructions (HGMMA) of
+            B3's and B4's libraries, which must have some.
 2. kernels  at the lego width (8x256, skip at 4, viewdirs, multires 10/4)
             with seeded weights and rays at the main path's shapes (one ray
             block of --chunk 32768 rays): B3 at S=64 and S=192 and B4 at
-            S=192 against their plain PyTorch versions, one gradient through
-            each autograd.Function, and median times. B5 (the composite) at
+            S=192 against their plain PyTorch versions (2e-4 of max(1,
+            max|plain|), and B3's raw and B4's rgb, acc and weights also
+            within 5e-6, fp32 accuracy, which one TF32 product alone does
+            not reach), the other architectures at S = 1, 7, 65, B4 at
+            S = 7 and 65 run 200 times each with every run bit-identical
+            to the first (tiles there hold a ray's end and the next ray's
+            start), one gradient through
+            each autograd.Function, and times in turns with the plain
+            versions (median and min-max of 10 samples) beside two bounds:
+            the split-fp32 design's (3 TF32 products a multiply-add on the
+            tensor cores) and the fp32 CUDA cores'. B5 (the composite) at
             32768 rays x S = 64, 192, 48 (guided) and 32 (froxel K) and at
             odd shapes (S=1, S=21 with 37 rays, opaque and empty rays), with
             and without a white background, and its gradient.
@@ -49,7 +60,12 @@ Phases (any failure exits non-zero and prints no result line):
             fixed: guided 10 B3 + 10 B5, a 128^3 grid build 128 B1), the
             frame against the same engine through the plain versions on the
             same grid within 1e-3 (rays whose difference is a flip of the
-            1e10 sentinel excepted, at most 1 in 1000), latency, occupied
+            1e10 sentinel excepted, at most 1 in 1000; guided and the
+            --occ_fine pass, whose inverse-CDF samples move with the
+            coarse pass's rounding, held at the kernel run's own depths,
+            and the occupancy engines also as they are over the rays whose
+            samples did not move (at most 3/4 of the live rays moved) and
+            by their coarse pass alone as it is), latency, occupied
             fraction and PSNR against the dense frame and the held-out view.
 8. gather   P1 (row gather) and P2 (row scatter-add) against their plain
             versions: at the probe's shape (3,145,728 rows of 16 from
@@ -86,9 +102,10 @@ Phases (any failure exits non-zero and prints no result line):
 ``--profile`` adds one dense frame, five training steps, one frame of
 each fast engine, five split and five vertex hashgrid training steps and
 a hashgrid and a triplane frame under torch.profiler (device time by
-kernel, device busy share, P1's and P2's shares). ``--phases 8,9`` runs
-the build and the listed phases alone (no result lines; for iterating on
-a phase). Before the last
+kernel, device busy share, P1's and P2's shares). ``--phases 2,3,4,7``
+runs the build and the listed phases alone (phase 7 runs phase 6 for its
+checkpoint; 3 and 4 run together; no result lines; for iterating on a
+phase and for nerf_shared_tpu_torch/benchmarks/ab_smoke.sh). Before the last
 line it prints the kernels JSON line and the card's
 ``nvidia-smi --query-gpu=name,power.limit`` line; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -113,9 +130,20 @@ import urllib.request
 REPO = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(REPO, "build", "chip_smoke")
 # the card's peaks used for bounds (NVIDIA H100 SXM data sheet): fp32 on
-# the CUDA cores (the port's fp32 path uses no TF32) and HBM bandwidth
+# the CUDA cores, dense TF32 on the tensor cores (B3 and B4 run split fp32,
+# three TF32 products a multiply-add; the fp32 path uses no plain TF32) and
+# HBM bandwidth
 PEAK_FP32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES = 3.35e12
+# B3's and B4's fp32-accuracy gate, beside the 2e-4 tolerance, as a share
+# of max(1, max|plain|): split fp32 reads ~3.6e-7 at the lego width on an
+# H100; one TF32 product a multiply-add alone (plain TF32) misses it by
+# several times in tests/test_torch_tc_mlp.py's emulation of the kernel
+FP32_TOL = 5e-6
+# B3's and B4's design, named in the kernels line
+TC_DESIGN = ("split fp32 (3xTF32) on wgmma.m64nNk8 tensor cores, 128-point tiles, "
+             "bulk-copy weight ring with mbarriers (csrc/mlp_tile_tc.cuh)")
 
 
 def log(msg):
@@ -210,22 +238,52 @@ def lego_rays(n, S, seed, device):
             z.to(**to).contiguous(), vd.to(**to).contiguous())
 
 
-def bound(cfg, params, n, S):
+def bound(cfg, params, n, S, products=1, peak=PEAK_FP32_FLOPS):
     """(bound_ms, bound_by) of the network on n rays x S samples: its FLOPs
-    over the fp32 peak vs its bytes (rays, depths, weights in; raw out)
-    over the memory rate."""
+    times ``products`` (TF32 products a multiply-add) over ``peak`` vs its
+    bytes (rays, depths, weights in; raw out) over the memory rate."""
     from nerf_shared_tpu_torch.ops.cuda.fused_mlp import flops_per_point, network_bytes
 
-    flops = flops_per_point(cfg) * n * S
+    flops = flops_per_point(cfg) * n * S * products
     nbytes = 4 * (n * 9 + n * S + n * S * 4) + network_bytes(params, cfg)
-    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def abs_err(got, want, tol):
-    """(max |got - want|, whether it is within tol * max(1, max|want|))."""
+def mlp_bounds(cfg, params, n, S):
+    """B3's and B4's two bounds: (design ms, by), (fp32 CUDA-core ms, by)."""
+    return (bound(cfg, params, n, S, products=3, peak=PEAK_TF32_FLOPS),
+            bound(cfg, params, n, S))
+
+
+def spread(t):
+    return f"{t[0]:.4f} [{t[1]:.4f}-{t[2]:.4f}]"
+
+
+def abs_err(got, want, tol, fp32=False):
+    """(max |got - want|, whether it is within min(tol, FP32_TOL if
+    ``fp32``) * max(1, max|want|))."""
     err = float((got - want).abs().max())
-    return err, err <= tol * max(1.0, float(want.abs().max()))
+    return err, err <= min(tol, FP32_TOL if fp32 else tol) * max(1.0, float(want.abs().max()))
+
+
+def render_errs(got, want, mask, tol):
+    """abs_err of B4's outputs (rgb, disp, acc, weights, depth) over the
+    rays ``mask`` marks: rgb, acc and weights also within FP32_TOL (disp
+    and depth pass through a division and the depth scale)."""
+    return [abs_err(g[mask], w[mask], tol, fp32=i in (0, 2, 3))
+            for i, (g, w) in enumerate(zip(got, want))]
+
+
+def rays_at(n, S, seed, device):
+    """lego_rays with S samples a ray: the first S of 64 for S <= 64, else
+    64 more depths 0.01 past the first S - 64 merged in."""
+    import torch
+
+    o, d, z, vd = lego_rays(n, 64, seed=seed, device=device)
+    z = z[:, :S].contiguous() if S <= 64 else torch.sort(torch.cat(
+        [z, z[:, :S - 64] + 0.01], -1), -1).values.contiguous()
+    return o, d, z, vd
 
 
 def check_other_shapes(device, tol):
@@ -249,22 +307,70 @@ def check_other_shapes(device, tol):
                 cfg, device=device,
                 generator=torch.Generator().manual_seed(i)).params().items()}
             for S in (1, 7, 65):
-                o, d, z, vd = lego_rays(37, 64, seed=i, device=device)
-                z = z[:, :S].contiguous() if S <= 64 else torch.sort(torch.cat(
-                    [z, z[:, :S - 64] + 0.01], -1), -1).values.contiguous()
+                o, d, z, vd = rays_at(37, S, seed=i, device=device)
                 vd = vd if cfg.use_viewdirs else None
                 raw_p = fused_mlp.plain_nerf_forward_rays(params, cfg, o, d, z, vd)
                 e3, ok3 = abs_err(fused_mlp.fused_nerf_forward_rays(
-                    params, cfg, o, d, z, vd), raw_p, tol)
+                    params, cfg, o, d, z, vd), raw_p, tol, fp32=True)
                 mask = raw_p[:, -1, 3].abs() >= 1e-2
                 got = fused_render.fused_render_rays(params, cfg, o, d, z, vd)
                 want = fused_render.plain_render_rays(params, cfg, o, d, z, vd)
-                checked = [abs_err(g[mask], w[mask], tol) for g, w in zip(got, want)]
+                checked = render_errs(got, want, mask, tol)
                 e4 = max(e for e, _ in checked)
                 log(f"  {kw} S={S}: B3 max err {e3:.1e}, B4 max err {e4:.1e} "
-                    f"over {int(mask.sum())}/37 masked rays (tol {tol:g})")
+                    f"over {int(mask.sum())}/37 masked rays (tol {tol:g}; B3 and B4's "
+                    f"rgb, acc, weights {FP32_TOL:g})")
                 if not (ok3 and all(ok for _, ok in checked)):
                     raise AssertionError(f"kernels disagree at {kw} S={S}")
+
+
+def check_render_repeats(device, params, cfg, tol, n=32768, runs=200):
+    """B4 at S = 7 and 65 on n rays, ``runs`` times each: its tiles there
+    hold the end of one ray and the start of the next, whose transmittance
+    carry passes between tiles through shared memory. Every run's outputs
+    (weights too) must be bit-identical to the first run's, and the first
+    within tolerance of the plain version."""
+    import torch
+
+    from nerf_shared_tpu_torch.ops.cuda import fused_mlp, fused_render
+
+    with torch.no_grad():
+        for S in (7, 65):
+            o, d, z, vd = rays_at(n, S, seed=S, device=device)
+            first = fused_render.fused_render_rays(params, cfg, o, d, z, vd,
+                                                   white_bkgd=True, want_weights=True)
+            want = fused_render.plain_render_rays(params, cfg, o, d, z, vd,
+                                                  white_bkgd=True)
+            raw = fused_mlp.plain_nerf_forward_rays(params, cfg, o, d, z, vd)
+            mask = raw[:, -1, 3].abs() >= 1e-2
+            checked = render_errs(first, want, mask, tol)
+            differ = 0
+            for _ in range(runs - 1):
+                got = fused_render.fused_render_rays(params, cfg, o, d, z, vd,
+                                                     white_bkgd=True, want_weights=True)
+                differ += int(any(not torch.equal(g, f) for g, f in zip(got, first)))
+            log(f"  B4 {n} rays S={S}: {runs} runs, {differ} not bit-identical to the "
+                f"first; max err {max(e for e, _ in checked):.1e} over "
+                f"{int(mask.sum())}/{n} masked rays")
+            if differ or not all(ok for _, ok in checked):
+                raise AssertionError(f"B4 at S={S}: {differ} of {runs} runs differ from "
+                                     "the first, or the first disagrees with plain")
+
+
+def mlp_case(kernel, label, cfg, params, n, S, err, tol, t, tp):
+    """Log and record a B3 / B4 timing: t and tp are the kernel's and the
+    plain version's (median, min, max) ms in turns."""
+    (bms, by), (fms, fby) = mlp_bounds(cfg, params, n, S)
+    verdict = ("beats" if t[2] < tp[1] else "loses to" if t[1] > tp[2] else "ties")
+    log(f"{label}: max err {err:.3e} (tol {tol:g}, scaled by max(1, max|plain|)), "
+        f"{spread(t)} ms vs plain {spread(tp)} ms ({verdict} it; median [min-max] of "
+        f"10 samples in turns); bound {bms:.2f} ms split fp32 on the tensor cores "
+        f"({by}), {fms:.2f} ms fp32 on the CUDA cores ({fby}); "
+        f"{100 * bms / t[0]:.1f}% of the design's bound")
+    return dict(kernel=kernel, S=S, n_rays=n, max_abs_err=err, ms=t[0], ms_min=t[1],
+                ms_max=t[2], plain_ms=tp[0], plain_min=tp[1], plain_max=tp[2],
+                bound_ms=bms, bound_by=by, bound_fp32_cuda_cores_ms=fms,
+                vs_plain=verdict, design=TC_DESIGN)
 
 
 def phase_kernels(device, n=32768):
@@ -288,19 +394,15 @@ def phase_kernels(device, n=32768):
             got = fused_mlp.fused_nerf_forward_rays(params, cfg, o, d, z, vd)
             want = fused_mlp.plain_nerf_forward_rays(params, cfg, o, d, z, vd)
             torch.cuda.synchronize()
-            err, ok = abs_err(got, want, tol)
-            ms = time_ms(lambda: fused_mlp.fused_nerf_forward_rays(
-                params, cfg, o, d, z, vd), 5)
-            plain_ms = time_ms(lambda: fused_mlp.plain_nerf_forward_rays(
-                params, cfg, o, d, z, vd), 5)
-            bms, by = bound(cfg, params, n, S)
-            log(f"B3 fused_mlp S={S}: max err {err:.3e} (tol {tol:g}, scaled by "
-                f"max(1, max|plain|)), {ms:.2f} ms, plain {plain_ms:.2f} ms, "
-                f"bound {bms:.2f} ms ({by})")
+            err, ok = abs_err(got, want, tol, fp32=True)
             if not ok:
-                raise AssertionError(f"B3 S={S} disagrees with its plain version")
-            cases.append(dict(kernel="fused_mlp", S=S, n_rays=n, max_abs_err=err,
-                              ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by))
+                raise AssertionError(f"B3 S={S} disagrees with its plain version "
+                                     f"(max err {err:.3e}; tol {tol:g}, fp32 {FP32_TOL:g})")
+            t, tp = in_turns(lambda: fused_mlp.fused_nerf_forward_rays(
+                params, cfg, o, d, z, vd), lambda: fused_mlp.plain_nerf_forward_rays(
+                params, cfg, o, d, z, vd), reps=3)
+            cases.append(mlp_case("fused_mlp", f"B3 fused_mlp S={S}", cfg, params, n, S,
+                                  err, tol, t, tp))
 
         S = 192
         o, d, z, vd = lego_rays(n, S, seed=7, device=device)
@@ -310,24 +412,23 @@ def phase_kernels(device, n=32768):
                                               white_bkgd=True)
         raw = fused_mlp.plain_nerf_forward_rays(params, cfg, o, d, z, vd)
         mask = raw[:, -1, 3].abs() >= 1e-2  # clear of the 1e10 sentinel flip
-        checked = [abs_err(g[mask], w[mask], tol) for g, w in zip(got, want)]
+        checked = render_errs(got, want, mask, tol)
         errs = [e for e, _ in checked]
         err = max(errs)
-        ms = time_ms(lambda: fused_render.fused_render_rays(
-            params, cfg, o, d, z, vd, white_bkgd=True, want_weights=False), 5)
-        plain_ms = time_ms(lambda: fused_render.plain_render_rays(
-            params, cfg, o, d, z, vd, white_bkgd=True), 5)
-        bms, by = bound(cfg, params, n, S)
-        log(f"B4 fused_render S={S}: max err {err:.3e} over {int(mask.sum())}/"
-            f"{n} masked rays (rgb, disp, acc, weights, depth: "
-            f"{', '.join(f'{e:.1e}' for e in errs)}; tol {tol:g}), {ms:.2f} ms, "
-            f"plain {plain_ms:.2f} ms, bound {bms:.2f} ms ({by})")
+        log(f"B4 fused_render S={S}: {int(mask.sum())}/{n} masked rays (rgb, disp, "
+            f"acc, weights, depth: {', '.join(f'{e:.1e}' for e in errs)}; tol {tol:g}, "
+            f"rgb, acc, weights {FP32_TOL:g})")
         if not (all(ok for _, ok in checked) and int(mask.sum()) >= n // 20):
             raise AssertionError("B4 disagrees with its plain version")
-        cases.append(dict(kernel="fused_render", S=S, n_rays=n, max_abs_err=err,
-                          ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by))
+        t, tp = in_turns(lambda: fused_render.fused_render_rays(
+            params, cfg, o, d, z, vd, white_bkgd=True, want_weights=False),
+            lambda: fused_render.plain_render_rays(
+                params, cfg, o, d, z, vd, white_bkgd=True), reps=3)
+        cases.append(mlp_case("fused_render", f"B4 fused_render S={S}", cfg, params, n,
+                              S, err, tol, t, tp))
 
     check_other_shapes(device, tol)
+    check_render_repeats(device, params, cfg, tol)
 
     # one gradient through each autograd.Function (backward recomputes
     # through the plain version) against autograd of the plain version
@@ -1132,13 +1233,16 @@ def zero_counts():
     gather.LAUNCHES.update(gather=0, scatter_add=0)
 
 
-def engine_maps(eng, kernels, c2w, guided=None):
-    """(rgb [H,W,3], acc [H,W], z, active) of one pose through ``eng``'s
-    path, as render_from_batch_poses dispatches it, with the kernels or
-    through the plain versions (``kernels`` False); ``guided`` overrides the
-    config's. z is the fine pass's sample depths [H,W,S] on the dense
-    (guided) path, else None; active is the share of rays that reach the
-    fine pass (gated) or keep an occupied sample (occupancy), else None."""
+def engine_maps(eng, kernels, c2w, guided=None, occ_fine=None):
+    """(rgb [H,W,3], acc [H,W], z, live, active) of one pose through
+    ``eng``'s path, as render_from_batch_poses dispatches it, with the
+    kernels or through the plain versions (``kernels`` False); ``guided``
+    and ``occ_fine`` override the config's. z is the fine pass's sample
+    depths [H,W,S] on the dense (guided) path and the occupancy engines'
+    --occ_fine pass, else None; live [H,W] marks the rays that keep an
+    occupied sample (occupancy), else None; active is the share of rays
+    that reach the fine pass (gated) or keep an occupied sample
+    (occupancy), else None."""
     import dataclasses
 
     import torch
@@ -1161,21 +1265,23 @@ def engine_maps(eng, kernels, c2w, guided=None):
                 eng.H, eng.W, eng.K, c2w, eng.fine, eng.occ_grid, chunk=a.chunk,
                 n_candidates=o["occ_candidates"], n_keep=o["occ_keep"],
                 mode=o["occ_mode"], tile=o["occ_tile"], select=o["occ_select"],
-                n_fine=o["occ_fine"])
-            rgb, acc, z = out["rgb_map"], out["acc_map"], None
-            active = float((out["n_active"] > 0).float().mean())
+                n_fine=o["occ_fine"] if occ_fine is None else occ_fine)
+            rgb, acc, live = out["rgb_map"], out["acc_map"], out["n_active"] > 0
+            z = out["z_vals"].cpu().numpy() if "z_vals" in out else None
+            active = float(live.float().mean())
+            live = live.cpu().numpy()
         elif a.render_gate > 0.0:
             _, out = r.render_image_gated(eng.H, eng.W, eng.K, c2w, eng.coarse,
                                           eng.fine, chunk=a.chunk,
                                           threshold=a.render_gate)
-            rgb, acc, z = out["rgb_map"], out["acc_map"], None
+            rgb, acc, z, live = out["rgb_map"], out["acc_map"], None, None
             active = out["active_fraction"]
         else:
             rgb, _, acc, extras = r.render(eng.H, eng.W, eng.K, eng.coarse, eng.fine,
                                            chunk=a.chunk, c2w=c2w, retraw=False,
                                            retweights=True)
-            z, active = extras["z_vals"].cpu().numpy(), None
-    return rgb.float().cpu().numpy(), acc.float().cpu().numpy(), z, active
+            z, live, active = extras["z_vals"].cpu().numpy(), None, None
+    return rgb.float().cpu().numpy(), acc.float().cpu().numpy(), z, live, active
 
 
 @contextlib.contextmanager
@@ -1195,14 +1301,17 @@ def plain_gathers():
         hashgrid.table_gather, triplane.table_gather = saved
 
 
-def plain_fine_pass(eng, c2w, z):
+def plain_fine_pass(eng, c2w, z, live=None):
     """(rgb [H,W,3], acc [H,W]) of ``eng``'s fine network at the depths z
-    [H,W,S] through the plain versions (network and raw2outputs)."""
+    [H,W,S] through the plain versions (network and raw2outputs); with
+    ``live`` [H,W], the other rays' densities masked as the occupancy
+    engines mask rays that keep no occupied sample."""
     import torch
 
     from nerf_shared_tpu_torch.models.nerf import NeRFConfig
     from nerf_shared_tpu_torch.ops.compositing import raw2outputs
     from nerf_shared_tpu_torch.ops.cuda.fused_mlp import plain_nerf_forward_rays
+    from nerf_shared_tpu_torch.render.occupancy import _masked_sigma
     from nerf_shared_tpu_torch.render.renderer import _apply_model
 
     def grid_forward(params, cfg, ro, rd, zz, vd):
@@ -1217,6 +1326,8 @@ def plain_fine_pass(eng, c2w, z):
     rays, _ = eng.renderer._pack_rays(eng.H, eng.W, eng.K, None,
                                       torch.as_tensor(c2w, device=dev), dev)
     z = torch.as_tensor(z, device=dev).reshape(rays.shape[0], -1)
+    if live is not None:
+        live = torch.as_tensor(live, device=dev).reshape(-1, 1)
     params, cfg = eng.fine.params(), eng.fine.cfg
     rgb, acc = [], []
     with torch.no_grad():
@@ -1225,6 +1336,8 @@ def plain_fine_pass(eng, c2w, z):
             ro, rd, vd = (rb[:, 0:3].contiguous(), rb[:, 3:6].contiguous(),
                           rb[:, -3:].contiguous())
             raw = forward(params, cfg, ro, rd, zz, vd)
+            if live is not None:
+                raw = _masked_sigma(raw, live[i:i + eng.args.chunk].expand_as(zz))
             out = raw2outputs(raw, zz, rd, white_bkgd=eng.renderer.cfg.white_bkgd)
             rgb.append(out[0])
             acc.append(out[2])
@@ -1237,6 +1350,64 @@ def psnr(a, b):
 
     mse = float(np.mean((np.asarray(a, np.float64) - b) ** 2))
     return -10.0 * math.log10(mse) if mse > 0 else float("inf")
+
+
+def held(rgb_a, acc_a, rgb_b, acc_b, rays=None):
+    """(max rgb error, rays held, sentinel flips) of frame a against frame b
+    over the rays ``rays`` marks ([H,W]; all when None). Rays whose acc
+    moved as a flip of the last sample's 1e10 interval moves it
+    (|d rgb| <= |d acc|, |d acc| > 1e-3) are set apart and counted."""
+    import numpy as np
+
+    d_rgb, d_acc = np.abs(rgb_a - rgb_b).max(-1), np.abs(acc_a - acc_b)
+    rays = np.ones(d_rgb.shape, bool) if rays is None else rays
+    flip = rays & (d_acc > 1e-3) & (d_rgb <= d_acc + 1e-5)
+    keep = rays & ~flip
+    return float(d_rgb[keep].max(initial=0.0)), int(keep.sum()), int(flip.sum())
+
+
+def frame_checks(eng, c2w, kern):
+    """The checks of one phase 7 frame: ``kern`` is engine_maps' tuple
+    with the kernels. Returns ({label: held(...)}, moved, live, note); the
+    first check is the frame's main one.
+
+    The gated engine places no sample from the network's output: its frame
+    is held against the plain versions' as it is. The guided path and the
+    occupancy engines' --occ_fine pass place fine samples by inverse CDF,
+    whose 1e-5 floor on a CDF step is a discontinuity (1e-7 differences of
+    the coarse weights move samples by up to ~6e-2 on a 400x400 lego
+    frame). Their frame is held through the plain versions at the kernel
+    run's own depths (every ray). The occupancy engines' frame is also held
+    against the plain run as it is over the rays whose samples did not move
+    by more than 1e-5, with the rays that moved at most three quarters of
+    the live rays, and their coarse pass alone (--occ_fine 0), whose
+    samples come from the grid and never move, as it is. (Guided's 48 fine
+    samples crowd where the coarse weights peak, so there a 1e-5 shift can
+    be a large share of a sample interval: the unmoved rays read 1.01e-3 on
+    an H100; only the moved share is printed.)"""
+    import numpy as np
+
+    rgb_k, acc_k, z_k, live_k, _ = kern
+    rgb_p, acc_p, z_p, _, _ = engine_maps(eng, False, c2w)
+    if z_k is None:
+        return {"frame": held(rgb_k, acc_k, rgb_p, acc_p)}, None, None, ""
+    checks = {"at the kernel run's depths": held(
+        rgb_k, acc_k, *plain_fine_pass(eng, c2w, z_k, live_k))}
+    shift = np.abs(z_k - z_p).max(-1)
+    still = shift <= 1e-5
+    n_moved = int((~still).sum())
+    live = still.size if live_k is None else int(live_k.sum())
+    moved = None
+    if eng.occ_grid is not None:
+        moved = n_moved
+        checks["as it is, unmoved rays"] = held(rgb_k, acc_k, rgb_p, acc_p, still)
+        coarse = [engine_maps(eng, k, c2w, occ_fine=0) for k in (True, False)]
+        checks["coarse pass alone"] = held(coarse[0][0], coarse[0][1],
+                                           coarse[1][0], coarse[1][1])
+    note = (f" ({n_moved} of {live} live rays with samples moved > 1e-5, by up to "
+            f"{shift.max():.1e}{'; at most 3/4 allowed' if moved is not None else ''}; "
+            f"over all rays as it is {float(np.abs(rgb_k - rgb_p).max()):.2e})")
+    return checks, moved, live, note
 
 
 def phase_fast_serving(device, base_argv, profile=False):
@@ -1296,40 +1467,29 @@ def phase_fast_serving(device, base_argv, profile=False):
             if not (b1 == 0 and b3 > 0 and b5 == b3):
                 raise AssertionError(f"{name}: expected B3 + B5 pairs: {launches}")
 
-        # the same engine through the plain versions on the same grid. Rays
-        # whose acc moved as a flip of the last sample's 1e10 interval moves
-        # it (|d rgb| <= |d acc|, |d acc| > 1e-3) are set apart. The guided
-        # path places all its fine samples by inverse CDF, whose 1e-5 floor
-        # on a CDF step is a discontinuity: 1e-7 differences of the coarse
-        # weights move samples by up to ~6e-2 on a 400x400 lego frame. There the
-        # fine pass is held through the plain versions at the kernel run's
-        # own depths, and the unpinned comparison is printed beside it
+        # the same engine through the plain versions on the same grid (see
+        # frame_checks)
         c2w = np.asarray(pose, np.float32)
-        rgb_k, acc_k, z_k, active = engine_maps(eng, True, c2w)
-        rgb_p, acc_p, z_p, _ = engine_maps(eng, False, c2w)
+        kern = engine_maps(eng, True, c2w)
+        rgb_k, active = kern[0], kern[4]
+        checks, moved, n_live, depth_note = frame_checks(eng, c2w, kern)
         same = float(np.abs(rgb_k - frame).max())
-        pinned = ""
-        if z_k is not None:
-            moved = np.abs(z_k - z_p).max(-1) > 1e-5
-            pinned = (f" at the kernel run's depths (unpinned: max err "
-                      f"{float(np.abs(rgb_k - rgb_p).max()):.2e}, {int(moved.sum())} rays "
-                      f"with samples moved > 1e-5, by up to {np.abs(z_k - z_p).max():.1e})")
-            rgb_p, acc_p = plain_fine_pass(eng, c2w, z_k)
-        d_rgb, d_acc = np.abs(rgb_k - rgb_p).max(-1), np.abs(acc_k - acc_p)
-        flip = (d_acc > 1e-3) & (d_rgb <= d_acc + 1e-5)
-        err = float(d_rgb[~flip].max())
+        err, _, flips = next(iter(checks.values()))
         if dense is None:
             dense = engine_maps(eng, True, c2w, guided=0)[0]
         occ = eng.occ_grid.occupied_fraction() if eng.occ_grid is not None else None
+        size = rgb_k.shape[0] * rgb_k.shape[1]
         log(f"{name}: engine {info['engine']}, {ms:.1f} ms per frame ({first_ms:.1f} ms the "
             f"first, second request's frame {again:.1e} from the first; engine build "
             f"{build_s:.1f} s, launches {build}); request launches B1 {b1}, B3 {b3}, "
-            f"B5 {b5}; vs plain versions{pinned} max err {err:.2e} over "
-            f"{int((~flip).sum())}/{flip.size} rays ({int(flip.sum())} sentinel flips "
-            f"set apart; tol 1e-3); HTTP frame vs direct render {same:.1e}; "
-            f"occupied {occ}; active rays {active}; PSNR vs dense {psnr(frame, dense):.2f} dB, vs held-out "
-            f"view {view} {psnr(frame, gt):.2f} dB")
-        if not (err <= 1e-3 and same <= 1e-6 and flip.sum() <= flip.size // 1000):
+            f"B5 {b5}; vs plain versions (tol 1e-3, sentinel flips set apart): "
+            + "; ".join(f"{label} max err {e:.2e} over {n}/{size} rays ({f} flips)"
+                        for label, (e, n, f) in checks.items())
+            + f"{depth_note}; HTTP frame vs direct render {same:.1e}; "
+            f"occupied {occ}; active rays {active}; PSNR vs dense {psnr(frame, dense):.2f} dB, "
+            f"vs held-out view {view} {psnr(frame, gt):.2f} dB")
+        if not (all(e <= 1e-3 and f <= size // 1000 for e, _, f in checks.values())
+                and same <= 1e-6 and (moved is None or 4 * moved <= 3 * n_live)):
             bad.append(name)
         if profile:
             _profile(f"{name} frame", lambda: eng.render_poses(pose[None]))
@@ -1337,7 +1497,8 @@ def phase_fast_serving(device, base_argv, profile=False):
             "engine": info["engine"], "frame_ms": ms, "first_frame_ms": first_ms,
             "build_s": build_s,
             "build_launches": build, "launches": launches, "max_err": err,
-            "sentinel_flips": int(flip.sum()), "occupied_fraction": occ,
+            "sentinel_flips": flips, "checks": {k: v[0] for k, v in checks.items()},
+            "moved_rays": moved, "live_rays": n_live, "occupied_fraction": occ,
             "active_fraction": active,
             "psnr_vs_dense": psnr(frame, dense), "psnr_vs_gt": psnr(frame, gt)}
     results["dense_psnr_vs_gt"] = psnr(dense, gt)
@@ -1404,14 +1565,14 @@ def check_gather(label, R, T, w, seed, device, same=False, idx=None, offset=0):
     return (table, idx, upd), e1, e2
 
 
-def in_turns(a, b, rounds=5):
-    """Device ms per call of ``a`` and ``b`` (queued_ms, 20 calls a sample)
-    timed in turns a, b, b, a over ``rounds`` rounds: (median, min, max)
-    of each one's 2 x rounds samples."""
+def in_turns(a, b, rounds=5, reps=20):
+    """Device ms per call of ``a`` and ``b`` (queued_ms, ``reps`` calls a
+    sample) timed in turns a, b, b, a over ``rounds`` rounds: (median, min,
+    max) of each one's 2 x rounds samples."""
     sa, sb = [], []
     for _ in range(rounds):
         for fn, out in ((a, sa), (b, sb), (b, sb), (a, sa)):
-            out.append(queued_ms(fn, rounds=1))
+            out.append(queued_ms(fn, reps=reps, rounds=1))
     return tuple((statistics.median(s), min(s), max(s)) for s in (sa, sb))
 
 
@@ -1468,9 +1629,6 @@ def time_gather(label, inputs, T, w, errs, main=False):
     distinct = int(torch.unique(idx).numel())
     bms = {"p1": 1e3 * gather.bytes_moved(R, distinct, w) / PEAK_BYTES,
            "p2": 1e3 * gather.bytes_moved(R, T, w) / PEAK_BYTES}
-
-    def spread(t):
-        return f"{t[0]:.4f} [{t[1]:.4f}-{t[2]:.4f}]"
 
     def verdict(k, lib):
         return ("beats" if k[2] < lib[1] else "loses to" if k[1] > lib[2] else "ties")
@@ -1759,24 +1917,22 @@ def serve_grid(argv, ds, frame, profile=False):
             img, img2) or info["model_type"] != eng.args.model_type:
         raise AssertionError(f"grid frame: {img.shape}, /info {info}")
     c2w = np.asarray(pose, np.float32)
-    rgb_k, acc_k, z_k, _ = engine_maps(eng, True, c2w)
+    rgb_k, acc_k, z_k, _, _ = engine_maps(eng, True, c2w)
     with plain_gathers():
         before = launch_counts()["gather"]
-        rgb_u, _, _, _ = engine_maps(eng, False, c2w)
+        rgb_u = engine_maps(eng, False, c2w)[0]
         rgb_p, acc_p = plain_fine_pass(eng, c2w, z_k)
         if launch_counts()["gather"] != before:
             raise AssertionError("the plain grid frame launched P1")
-    d_rgb, d_acc = np.abs(rgb_k - rgb_p).max(-1), np.abs(acc_k - acc_p)
-    flip = (d_acc > 1e-3) & (d_rgb <= d_acc + 1e-5)
-    err = float(d_rgb[~flip].max())
+    err, n_held, flips = held(rgb_k, acc_k, rgb_p, acc_p)
     same = float(np.abs(rgb_k - img).max())
     log(f"{eng.args.model_type} frame over HTTP: {ms:.1f} ms ({first_ms:.1f} ms the first), "
         f"launches {one} a frame; vs plain versions at the kernel run's depths max err "
-        f"{err:.2e} over {int((~flip).sum())}/{flip.size} rays ({int(flip.sum())} sentinel "
+        f"{err:.2e} over {n_held}/{acc_k.size} rays ({flips} sentinel "
         f"flips set apart; tol 1e-3; unpinned {float(np.abs(rgb_k - rgb_u).max()):.2e}); "
         f"HTTP frame vs direct render {same:.1e}; vs held-out view {view} "
         f"{psnr(img, ds.images[view]):.2f} dB")
-    if not (err <= 1e-3 and same <= 1e-6 and flip.sum() <= flip.size // 1000):
+    if not (err <= 1e-3 and same <= 1e-6 and flips <= acc_k.size // 1000):
         raise AssertionError("the grid frame disagrees with the plain versions")
     if profile:
         _profile(f"{eng.args.model_type} frame", lambda: eng.render_poses(pose[None]))
@@ -1849,6 +2005,32 @@ def _profile(what, fn):
                              for k, ms in table.items()))
 
 
+def check_tensor_cores():
+    """B3 and B4 run on the tensor cores: every tensor-core kernel
+    (``*_tc_kernel``) in their libraries' SASS holds MMA instructions
+    (HGMMA, Hopper's warpgroup MMA, or HMMA). Raises when one holds none.
+    (The wrappers launch only those kernels: their C entries are the
+    ``_tc`` ones.)"""
+    from nerf_shared_tpu_torch.ops.cuda import common
+
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    for name in ("fused_mlp", "fused_render"):
+        sass = subprocess.run([tool, "-sass", str(common.build([name])[name])],
+                              capture_output=True, text=True, check=True).stdout
+        kernels = {}
+        current = None
+        for line in sass.splitlines():
+            if "Function :" in line:
+                current = line.split("Function :")[1].strip()
+                kernels[current] = 0
+            elif current and ("HGMMA" in line or "HMMA" in line):
+                kernels[current] += 1
+        log(f"  SASS {name}: HGMMA / HMMA instructions by kernel {kernels}")
+        if any("_tc_kernel" in k and n == 0 for k, n in kernels.items()):
+            raise AssertionError(f"{name}: a tensor-core kernel holds no MMA")
+
+
 def profile_frame(eng, pose):
     """One dense frame under torch.profiler."""
     import torch
@@ -1893,50 +2075,58 @@ def main() -> int:
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  ptxas {name}: {line.strip()}")
+    check_tensor_cores()
 
     only = None
     if "--phases" in sys.argv[1:]:
         only = {int(p) for p in sys.argv[sys.argv.index("--phases") + 1].split(",")}
-        profile = "--profile" in sys.argv[1:]
-        if 8 in only:
-            phase_gather(device)
-        if 9 in only:
-            phase_grid(device, profile=profile)
-            if profile:
-                profile_grid_step(device)
-                profile_grid_step(device, vertex=True)
+    profile = "--profile" in sys.argv[1:]
+
+    def want(*phases):
+        return only is None or any(p in only for p in phases)
+
+    cases = []
+    if want(2):
+        t0 = time.perf_counter()
+        cases += phase_kernels(device) + check_composite(device)
+        log(f"phase 2: kernels vs plain versions in {time.perf_counter() - t0:.1f} s")
+    if want(3, 4):
+        t0 = time.perf_counter()
+        served = phase_serving(device)
+        log(f"phase 3+4: serving in {time.perf_counter() - t0:.1f} s")
+    if want(5):
+        t0 = time.perf_counter()
+        train_cases, step = phase_train_kernels(device)
+        cases += train_cases
+        log(f"phase 5: training kernels in {time.perf_counter() - t0:.1f} s")
+    if want(6, 7):
+        t0 = time.perf_counter()
+        trained = phase_training(device)
+        log(f"phase 6: training in {time.perf_counter() - t0:.1f} s")
+    if want(7):
+        t0 = time.perf_counter()
+        fast = phase_fast_serving(device, trained["base_argv"], profile=profile)
+        log(f"phase 7: fast serving in {time.perf_counter() - t0:.1f} s")
+    if want(8):
+        t0 = time.perf_counter()
+        gather_cases, probe = phase_gather(device)
+        cases += gather_cases
+        log(f"phase 8: gather kernels and the probe in {time.perf_counter() - t0:.1f} s")
+    if want(9):
+        t0 = time.perf_counter()
+        grid = phase_grid(device, profile=profile)
+        log(f"phase 9: grid families in {time.perf_counter() - t0:.1f} s")
+    if profile:
+        if want(3, 4):
+            profile_frame(served["engine"], served["pose"])
+        if want(5, 6):
+            profile_train_step(device)
+        if want(9):
+            profile_grid_step(device)
+            profile_grid_step(device, vertex=True)
+    if only is not None:
         log(f"phases {sorted(only)} done (no result lines with --phases)")
         return 0
-
-    t0 = time.perf_counter()
-    cases = phase_kernels(device) + check_composite(device)
-    log(f"phase 2: kernels vs plain versions in {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    served = phase_serving(device)
-    log(f"phase 3+4: serving in {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    train_cases, step = phase_train_kernels(device)
-    cases += train_cases
-    log(f"phase 5: training kernels in {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    trained = phase_training(device)
-    log(f"phase 6: training in {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    fast = phase_fast_serving(device, trained["base_argv"],
-                              profile="--profile" in sys.argv[1:])
-    log(f"phase 7: fast serving in {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    gather_cases, probe = phase_gather(device)
-    cases += gather_cases
-    log(f"phase 8: gather kernels and the probe in {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    grid = phase_grid(device, profile="--profile" in sys.argv[1:])
-    log(f"phase 9: grid families in {time.perf_counter() - t0:.1f} s")
-    if "--profile" in sys.argv[1:]:
-        profile_frame(served["engine"], served["pose"])
-        profile_train_step(device)
-        profile_grid_step(device)
-        profile_grid_step(device, vertex=True)
     by_path = dict(served["launches"])
     by_path["training"] = trained["launches"]
     by_path["render_only"] = trained["render_launches"]
@@ -1975,6 +2165,9 @@ def main() -> int:
             "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
             "bound_ms": main_case["bound_ms"], "bound_by": main_case["bound_by"],
             "library_ms": main_case.get("library_ms"),
+            **({"design": main_case["design"],
+                "bound_fp32_cuda_cores_ms": main_case["bound_fp32_cuda_cores_ms"]}
+               if "design" in main_case else {}),
             "cases": mine,
         })
     log(json.dumps({"frame_ms": served["frame_ms"], "train_step": step, "fast": fast,

@@ -76,6 +76,9 @@ _NOT_PORTED = {
     "loss_sampling": (bool, "loss-guided pixel sampling (ROADMAP A11)"),
     "distortion_loss_weight": (lambda v: float(v) > 0.0,
                                "the distortion loss (ROADMAP A11)"),
+    "multihost": (bool, "multi-host training over torch.distributed (ROADMAP A16)"),
+    "debug_nans": (bool, "NaN checks at the source: torch.autograd anomaly "
+                   "mode and a finite check after every kernel (ROADMAP C2)"),
 }
 
 

@@ -646,15 +646,15 @@ def config_parser() -> ConfigArgumentParser:
                              'family\'s backward kernel B2 rematerialises '
                              'its forward itself')
     parser.add_argument("--debug_nans", type=_str2bool, default=False,
-                        help='enable jax_debug_nans: re-run NaN-producing '
-                             'ops un-jitted and raise at the source '
-                             '(the reference DEBUG NaN scan, made exact)')
+                        help='raise at the source of the first NaN (the '
+                             'JAX package\'s NaN checks); not ported to '
+                             'the PyTorch package: True raises')
     parser.add_argument("--ckpt_format", type=str, default='both',
                         choices=['native', 'tar', 'both'],
                         help='checkpoint format: native .npz, reference-'
                              'compatible .tar, or both')
     parser.add_argument("--multihost", type=_str2bool, default=False,
-                        help='initialize jax.distributed (coordinator from '
-                             'cluster env vars) and build the mesh over ALL '
-                             "hosts' devices; a no-op on a single host")
+                        help='join a multi-host cluster and train over '
+                             "all hosts' devices; not ported to the PyTorch "
+                             'package yet (ROADMAP A16): True raises')
     return parser

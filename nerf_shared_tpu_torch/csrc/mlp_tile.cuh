@@ -1,5 +1,5 @@
-// The NeRF MLP on one tile of 64 sample points, shared by fused_mlp.cu (B1,
-// B3), fused_render.cu (B4) and fused_mlp_bwd.cu (B2).
+// The NeRF MLP on one tile of 64 sample points, shared by fused_mlp.cu (B1)
+// and fused_mlp_bwd.cu (B2). B3 and B4 run mlp_tile_tc.cuh.
 //
 // A block of 256 threads owns one tile. The tile's encoded inputs (emb) and
 // its activations (h) stay in shared memory from the first layer to the
@@ -9,7 +9,7 @@
 // fp32 accumulator (points row0..row0+7, columns lane*4..lane*4+3 and
 // 128+lane*4..128+lane*4+3), so every weight value read from shared memory
 // feeds 8 FMAs and every activation value 8 more. fp32 on the CUDA cores:
-// no TF32, no tensor cores (a later PR's work).
+// no TF32, no tensor cores.
 //
 // Layer widths up to MAXW = 256; the encoded input up to MAX_EMB columns.
 // Weight matrices are packed [K][ld] (input-major, ld = N rounded up to 4),

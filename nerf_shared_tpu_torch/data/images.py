@@ -8,9 +8,8 @@ no imaging package (imageio, PIL, cv2) is installed, so it carries its own
   all five scanline filters (None, Sub, Up, Average, Paeth);
 - write: the same colour types with filter 0 on every row.
 
-``resize_area`` is the numpy box filter of the JAX package's
-``_box_resize`` (exact area average for integer factors, bilinear
-otherwise).
+``resize_area`` is the exact area average of the JAX package's native
+resizer (``native/imageops.cpp``) at any factor, in numpy.
 """
 
 from __future__ import annotations
@@ -129,26 +128,29 @@ def imwrite_u8(path: str, img_u8: np.ndarray) -> None:
         f.write(png_encode(img_u8))
 
 
+def _area_taps(n_in: int, n_out: int):
+    """(index, weight), each [taps, n_out]: output pixel o averages the input
+    pixels [o * n_in / n_out, (o + 1) * n_in / n_out) weighted by how much
+    of each the interval covers (0 for taps past its end)."""
+    scale = n_in / n_out
+    lo = np.arange(n_out) * scale
+    hi = (np.arange(n_out) + 1) * scale
+    idx = np.floor(lo).astype(np.int64)[None] + np.arange(int(np.ceil(scale)) + 1)[:, None]
+    weight = np.clip(np.minimum(idx + 1, hi) - np.maximum(idx, lo), 0.0, None)
+    return np.minimum(idx, n_in - 1), weight
+
+
 def resize_area(img: np.ndarray, out_h: int, out_w: int) -> np.ndarray:
-    """Area-average resize: exact box filter for integer factors, bilinear
-    otherwise (the JAX package's numpy fallback)."""
+    """Area-average resize at any factor: every output pixel is the exact
+    average of the input area it covers, partial pixels weighted by their
+    covered fraction (cv2.INTER_AREA for downscaling), summed in float64
+    and cast back to the input's dtype."""
     h, w = img.shape[:2]
-    if h % out_h == 0 and w % out_w == 0:
-        fh, fw = h // out_h, w // out_w
-        return img.reshape(out_h, fh, out_w, fw, -1).mean(axis=(1, 3)).reshape(
-            out_h, out_w, *img.shape[2:]
-        ).astype(img.dtype, copy=False)
-    ys = np.clip((np.arange(out_h) + 0.5) * h / out_h - 0.5, 0, h - 1)
-    xs = np.clip((np.arange(out_w) + 0.5) * w / out_w - 0.5, 0, w - 1)
-    y0, x0 = np.floor(ys).astype(int), np.floor(xs).astype(int)
-    y1, x1 = np.minimum(y0 + 1, h - 1), np.minimum(x0 + 1, w - 1)
-    wy, wx = (ys - y0)[:, None, None], (xs - x0)[None, :, None]
-    img2 = img if img.ndim == 3 else img[..., None]
-    out = (
-        img2[y0][:, x0] * (1 - wy) * (1 - wx)
-        + img2[y0][:, x1] * (1 - wy) * wx
-        + img2[y1][:, x0] * wy * (1 - wx)
-        + img2[y1][:, x1] * wy * wx
-    )
-    out = out if img.ndim == 3 else out[..., 0]
-    return out.astype(img.dtype, copy=False)
+    x = img.reshape(h, w, -1).astype(np.float64)
+    iy, wy = _area_taps(h, out_h)
+    ix, wx = _area_taps(w, out_w)
+    rows = sum(wk[:, None, None] * x[ik] for ik, wk in zip(iy, wy))
+    rows /= wy.sum(0)[:, None, None]
+    out = sum(wk[None, :, None] * rows[:, ik] for ik, wk in zip(ix, wx))
+    out /= wx.sum(0)[None, :, None]
+    return out.reshape(out_h, out_w, *img.shape[2:]).astype(img.dtype, copy=False)

@@ -15,7 +15,9 @@ itself: for embedding column c, ``arg = A[r, c] + z[r, s] * B[r, c]`` with
 ``A = [o, dir][src] * f`` and ``B = [d, 0][src] * f``, then identity, sin or
 cos. For power-of-two frequencies this is exactly ``f * (o + z * d)``, the
 plain version's argument. A and B are computed here in PyTorch (exact: one
-product per entry); the network itself runs only in the kernel.
+product per entry); the network itself runs only in the kernel, on the
+tensor cores in split fp32 (``csrc/mlp_tile_tc.cuh``) over the weights that
+``pack_network_tc`` lays out. B1 and B2 read ``pack_network``'s layout.
 
 Both entries dispatch on the tensors' device: on the CPU they are the plain
 version, on a CUDA device they launch the kernel or raise. B1's gradient is
@@ -164,6 +166,156 @@ def pack_network(params: Dict[str, torch.Tensor], cfg: NeRFConfig, device):
     return wbuf, common.upload(desc, device), HS, _round4(P) + _round4(V)
 
 
+# --- the tensor-core kernels' pack (B3, B4: csrc/mlp_tile_tc.cuh) ------------
+
+MAX_GEMMS, SLICE_K = MAX_LAYERS + 2, 8
+SRC_PTS, SRC_H, SRC_DIRS = 0, 1, 2
+_TC_DESC_WORDS = 16 + MAX_GEMMS * 8 + 3 * 4 + MAX_EMB // 8
+
+
+def _round(n: int, m: int) -> int:
+    return (n + m - 1) // m * m
+
+
+def padded_width(n: int) -> int:
+    """A GEMM's padded output width: a power of two >= 32, so that each of
+    the two warpgroups runs one wgmma of N = 16, 32, 64 or 128."""
+    return max(32, 1 << (n - 1).bit_length())
+
+
+def tf32_split(w: torch.Tensor):
+    """(big, small): big = w rounded to TF32 (10 mantissa bits, to nearest,
+    ties away from zero, as cvt.rna.tf32.f32), small = w - big rounded the
+    same way. big + small is w within ~2^-22 |w|."""
+    def rna(x):
+        bits = x.contiguous().view(torch.int32)
+        return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+    big = rna(w)
+    return big, rna(w - big)
+
+
+def tc_gemms(cfg: NeRFConfig):
+    """The tensor-core GEMMs in the kernel's order: (name, segments, N,
+    relu). Segments are (source, K) in the order of the weight's input
+    columns: SRC_PTS the embedded points, SRC_H the previous activations,
+    SRC_DIRS the embedded view directions."""
+    P, V, W = cfg.input_ch, cfg.input_ch_views, cfg.W
+    gemms = []
+    for i in range(cfg.D):
+        segs = [(SRC_PTS, P)] if i == 0 or (i - 1) in cfg.skips else []
+        segs += [(SRC_H, W)] if i > 0 else []
+        gemms.append((f"pts_linears.{i}", segs, W, True))
+    if cfg.use_viewdirs:
+        gemms += [("feature_linear", [(SRC_H, W)], W, False),
+                  ("views_linears.0", [(SRC_H, W), (SRC_DIRS, V)], W // 2, True)]
+    return gemms
+
+
+def tc_narrow_heads(cfg: NeRFConfig):
+    """The narrow heads, run in fp32 on the CUDA cores: (descriptor row,
+    name, K, N)."""
+    if cfg.use_viewdirs:
+        return [(0, "alpha_linear", cfg.W, 1), (1, "rgb_linear", cfg.W // 2, 3)]
+    return [(2, "output_linear", cfg.W, cfg.output_ch)]
+
+
+def slice_floats(Np: int) -> int:
+    """Floats of one 8-row weight slice of an Np-wide GEMM: its big plane,
+    then its small plane, each 8 x Np."""
+    return 16 * Np
+
+
+def slice_index(Np: int, device=None) -> torch.Tensor:
+    """int64 [8, Np]: where weight (row k, column n) of a slice sits in one
+    plane: wgmma's K-major layout without swizzle, core matrices of 8
+    columns x 4 rows (a column's 4 k-values contiguous), the two k-halves
+    of a column group 32 floats apart, column groups 64 floats apart."""
+    k = torch.arange(SLICE_K, device=device)[:, None]
+    n = torch.arange(Np, device=device)[None, :]
+    return (n // 8) * 64 + (k // 4) * 32 + (n % 8) * 4 + k % 4
+
+
+def tc_layout(cfg: NeRFConfig):
+    """(layout, size): where ``pack_network_tc`` puts each matrix. A GEMM
+    maps to (weight offset, bias offset, Kp, Np): its [Kp, Np] weight (each
+    input segment's rows padded to a multiple of 8, N padded by
+    ``padded_width``) as Kp / 8 consecutive slices of ``slice_floats(Np)``,
+    its bias as Np floats; a narrow head to (weight offset, bias offset, K,
+    N), its weight [N, K] as torch stores it. Every block starts 64-byte
+    aligned; padding is zero."""
+    layout, off = {}, 0
+
+    def take(n):
+        nonlocal off
+        start, off = off, off + _round(n, 16)
+        return start
+
+    for name, segs, N, _ in tc_gemms(cfg):
+        Kp, Np = sum(_round(k, SLICE_K) for _, k in segs), padded_width(N)
+        layout[name] = (take(Kp // SLICE_K * slice_floats(Np)), take(Np), Kp, Np)
+    for _, name, K, N in tc_narrow_heads(cfg):
+        layout[name] = (take(N * K), take(N), K, N)
+    return layout, off
+
+
+def tc_strides(cfg: NeRFConfig):
+    """(HS, SLOT): the shared-memory row stride in floats of the
+    activations, 4 mod 8 so that a warp's A-fragment loads touch 32
+    distinct banks, and the floats of a weight ring slot (the widest
+    GEMM's slice)."""
+    wn = padded_width(cfg.W)
+    return wn + 4, slice_floats(wn)
+
+
+def pack_network_tc(params: Dict[str, torch.Tensor], cfg: NeRFConfig, device):
+    """(weights, desc, HS, SLOT) for the tensor-core kernels B3 and B4:
+    the fp32 buffer laid out by ``tc_layout`` (GEMM weights split by
+    ``tf32_split`` into their two planes), the int64 ``Desc`` of
+    ``csrc/mlp_tile_tc.cuh`` on ``device`` and the strides of
+    ``tc_strides``."""
+    device = torch.device(device)
+    check_config(cfg)
+    check_params(params, cfg, device)
+    layout, size = tc_layout(cfg)
+    wbuf = torch.zeros(size, dtype=torch.float32, device=device)
+    desc = np.zeros(_TC_DESC_WORDS, np.int64)
+    hdr = desc[:16]
+    gemm = desc[16:16 + MAX_GEMMS * 8].reshape(MAX_GEMMS, 8)
+    narrow = desc[16 + MAX_GEMMS * 8:16 + MAX_GEMMS * 8 + 12].reshape(3, 4)
+    kind = desc[16 + MAX_GEMMS * 8 + 12:].view(np.int8)
+
+    for g, (name, segs, N, relu) in enumerate(tc_gemms(cfg)):
+        w_off, b_off, Kp, Np = layout[name]
+        wt = params[name + ".weight"].detach().t()
+        block = torch.zeros((Kp, Np), dtype=torch.float32, device=device)
+        row = col = 0
+        for _, k in segs:
+            block[row:row + k, :N] = wt[col:col + k]
+            row, col = row + _round(k, SLICE_K), col + k
+        slices = wbuf[w_off:w_off + Kp // SLICE_K * slice_floats(Np)].view(
+            Kp // SLICE_K, 2, 8 * Np)
+        at = slice_index(Np, device).reshape(-1)
+        for plane, part in enumerate(tf32_split(block)):
+            slices[:, plane, at] = part.view(-1, 8 * Np)
+        wbuf[b_off:b_off + N] = params[name + ".bias"].detach()
+        src = [s for s, _ in segs] + [-1]
+        ns = [_round(k, SLICE_K) // SLICE_K for _, k in segs] + [0]
+        gemm[g] = (w_off, b_off, Np, ns[0], src[0], ns[1], src[1], int(relu))
+    for row, name, K, N in tc_narrow_heads(cfg):
+        w_off, b_off, _, _ = layout[name]
+        wbuf[w_off:w_off + N * K] = params[name + ".weight"].detach().reshape(-1)
+        wbuf[b_off:b_off + N] = params[name + ".bias"].detach()
+        narrow[row] = (w_off, b_off, K, N)
+
+    HS, SLOT = tc_strides(cfg)
+    hdr[:9] = (cfg.D, cfg.W, cfg.input_ch, cfg.input_ch_views, out_channels(cfg),
+               int(cfg.use_viewdirs), HS, SLOT, len(tc_gemms(cfg)))
+    k = encoder_tables(cfg)[2]
+    kind[:k.size] = k
+    return wbuf, common.upload(desc, device), HS, SLOT
+
+
 def encoder_buffer(cfg: NeRFConfig, device) -> torch.Tensor:
     """The point-major encoder table of B1 and B2, float32 [2 * MAX_EMB]:
     per compact embedding column its frequency, then its input (0-2 the
@@ -235,12 +387,12 @@ def _launch(params, cfg, rays_o, rays_d, z, viewdirs) -> torch.Tensor:
     out = torch.empty((n, S, C), dtype=torch.float32, device=z.device)
     if n * S == 0:
         return out
-    fn = common.load("fused_mlp", _ARGS, "nstt_rays_forward")
+    fn = common.load("fused_mlp", _ARGS, "nstt_rays_forward_tc")
     with torch.cuda.device(z.device):
-        wbuf, desc, HS, ES = pack_network(params, cfg, z.device)
+        wbuf, desc, HS, SLOT = pack_network_tc(params, cfg, z.device)
         A, B = ray_encoder_args(cfg, rays_o, rays_d, viewdirs)
         stream = torch.cuda.current_stream(z.device).cuda_stream
-        rc = fn(desc.data_ptr(), HS, ES, wbuf.data_ptr(), A.data_ptr(),
+        rc = fn(desc.data_ptr(), HS, SLOT, wbuf.data_ptr(), A.data_ptr(),
                 B.data_ptr(), z.data_ptr(), out.data_ptr(), n, S, stream)
     common.check_launch(rc, "fused_mlp (B3)")
     LAUNCHES += 1

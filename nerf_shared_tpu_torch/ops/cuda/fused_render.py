@@ -3,8 +3,9 @@
 Counterpart of ``fused_render_rays`` in
 ``nerf_shared_tpu/ops/pallas/fused_render.py``: the B3 network followed by
 ``raw2outputs`` without sigma noise, in one launch
-(``csrc/fused_render.cu``), so only per-ray maps and, when asked, the
-compositing weights reach device memory. Returns the raw2outputs tuple
+(``csrc/fused_render.cu``: B3's split-fp32 tensor-core tile, then the
+cumprod composite with the transmittance carried across tiles), so only
+per-ray maps and, when asked, the compositing weights reach device memory. Returns the raw2outputs tuple
 (rgb [N,3], disp [N], acc [N], weights [N,S] or a zero-width placeholder,
 depth [N]).
 
@@ -26,7 +27,7 @@ from nerf_shared_tpu_torch.ops.compositing import raw2outputs
 from nerf_shared_tpu_torch.ops.cuda import common
 from nerf_shared_tpu_torch.ops.cuda.fused_mlp import (
     _check_rays,
-    pack_network,
+    pack_network_tc,
     plain_nerf_forward_rays,
     ray_encoder_args,
 )
@@ -55,12 +56,12 @@ def _launch(params, cfg, rays_o, rays_d, z, viewdirs, white_bkgd, want_weights):
                           device=z.device)
     if n == 0 or S == 0:
         return out8, weights
-    fn = common.load("fused_render", _ARGS, "nstt_render_rays")
+    fn = common.load("fused_render", _ARGS, "nstt_render_rays_tc")
     with torch.cuda.device(z.device):
-        wbuf, desc, HS, ES = pack_network(params, cfg, z.device)
+        wbuf, desc, HS, SLOT = pack_network_tc(params, cfg, z.device)
         A, B = ray_encoder_args(cfg, rays_o, rays_d, viewdirs)
         stream = torch.cuda.current_stream(z.device).cuda_stream
-        rc = fn(desc.data_ptr(), HS, ES, wbuf.data_ptr(), A.data_ptr(),
+        rc = fn(desc.data_ptr(), HS, SLOT, wbuf.data_ptr(), A.data_ptr(),
                 B.data_ptr(), z.data_ptr(), rays_d.data_ptr(), out8.data_ptr(),
                 weights.data_ptr() if want_weights else 0, n, S,
                 int(white_bkgd), stream)

@@ -237,11 +237,11 @@ def _render_ray_block(params_fine, rcfg: RenderConfig, fcfg, ro, rd, vd, lo,
     raw = _apply_model_rays(params_fine, fcfg, ro, rd, z, vd, rcfg)
     rgb, disp, acc, weights, _ = _composite(_masked_sigma(raw, va), z, rd, rcfg,
                                             generator=generator)
+    out = {"n_active": va.sum(-1)}
     if n_fine > 0:
-        rgb, disp, acc = refine_hierarchical(params_fine, fcfg, rcfg, ro, rd, vd,
-                                             z, va, weights, n_fine, generator)
-    return {"rgb_map": rgb, "disp_map": disp, "acc_map": acc,
-            "n_active": va.sum(-1)}
+        rgb, disp, acc, out["z_vals"] = refine_hierarchical(
+            params_fine, fcfg, rcfg, ro, rd, vd, z, va, weights, n_fine, generator)
+    return {"rgb_map": rgb, "disp_map": disp, "acc_map": acc, **out}
 
 
 def _map_ray_blocks(params_fine, rcfg, fcfg, parts, generator, block: int,
@@ -273,7 +273,8 @@ def _render_tiles_scatter(params_fine, parts, idx, rcfg, fcfg, H: int, W: int,
     sel = [p[idx].reshape((-1,) + p.shape[2:]) for p in parts]
     out = _map_ray_blocks(params_fine, rcfg, fcfg, sel, generator, block, n_fine)
     Ht, Wt = -(-H // tile), -(-W // tile)
-    full = background_maps((parts[0].shape[0], t2), rcfg, parts[0].device)
+    full = background_maps((parts[0].shape[0], t2), rcfg, parts[0].device,
+                           n_samples=out["z_vals"].shape[-1] if "z_vals" in out else 0)
     res = {}
     for k, v in out.items():
         trailing = tuple(v.shape[1:])
@@ -308,7 +309,8 @@ def render_image_froxels(
     """Render one pose with froxel-gated sampling: build (or reuse) the
     frame's FroxelGrid, select K depth bins per pixel tile, and evaluate the
     network only at one sample inside each selected bin. Returns [H, W, ...]
-    maps (rgb / disp / acc / n_active).
+    maps (rgb / disp / acc / n_active; with ``n_fine`` also the fine pass's
+    ``z_vals``).
 
     ``skip_empty`` (default) renders only tiles with an occupied bin, in
     the tile-major layout, after one host fetch of the tile activity; the
@@ -347,7 +349,8 @@ def render_image_froxels(
     active = froxels.bits.reshape(-1, C).any(-1).cpu().numpy()  # host fetch
     n_act = int(active.sum())
     if n_act == 0:
-        return background_maps((H, W), rcfg, dev)
+        return background_maps((H, W), rcfg, dev,
+                               n_samples=n_keep + n_fine if n_fine > 0 else 0)
     order = np.argsort(~active, kind="stable")
     n_pad = min(active.shape[0], -(-n_act // 512) * 512)
     idx = torch.as_tensor(order[:n_pad], device=dev)

@@ -13,7 +13,7 @@ decides which sample points reach the network:
      estimated contribution). Only those K points reach the network (kernel
      B3); padding slots composite with sigma -1e10, so they contribute
      nothing (kernel B5). ``n_fine > 0`` adds a hierarchical refinement pass
-     on top (``refine_hierarchical``).
+     on top (``refine_hierarchical``), whose depths come back as ``z_vals``.
 
 The [rays, K] rectangle is kept as in the JAX package; ``gate_rays`` drops
 rays with no occupied candidate first (one host fetch of the active count).
@@ -300,18 +300,24 @@ def _topk_weighted_occupied(z_cand, sig_c, occ_c, n_keep, far):
     return torch.where(valid, z_sel, far), valid
 
 
-def background_maps(shape, rcfg: RenderConfig, device) -> Dict[str, torch.Tensor]:
+def background_maps(shape, rcfg: RenderConfig, device,
+                    n_samples: int = 0) -> Dict[str, torch.Tensor]:
     """The maps of rays that reach no occupied sample, of leading ``shape``:
     the background colour, disp 1e10, acc 0 and no kept samples (what
-    compositing all-padding rays gives)."""
+    compositing all-padding rays gives); with ``n_samples`` also their
+    ``z_vals``, all at far."""
     bg = 1.0 if rcfg.white_bkgd else 0.0
     shape = tuple(shape)
-    return {
+    out = {
         "rgb_map": torch.full(shape + (3,), bg, dtype=torch.float32, device=device),
         "disp_map": torch.full(shape, 1e10, dtype=torch.float32, device=device),
         "acc_map": torch.zeros(shape, dtype=torch.float32, device=device),
         "n_active": torch.zeros(shape, dtype=torch.int64, device=device),
     }
+    if n_samples:
+        out["z_vals"] = torch.full(shape + (n_samples,), float(rcfg.far),
+                                   dtype=torch.float32, device=device)
+    return out
 
 
 def _masked_sigma(raw, keep):
@@ -328,7 +334,8 @@ def refine_hierarchical(params, fcfg, rcfg, rays_o, rays_d, viewdirs,
     and the network re-evaluated at the union (the reference's fine-pass
     semantics, render_utils.py:137-155). Coarse padding at z = far re-enters
     unmasked; rays with no occupied candidate keep the background through a
-    full sigma mask. Returns (rgb, disp, acc)."""
+    full sigma mask. Returns (rgb, disp, acc, z_vals), z_vals the depths the
+    fine pass evaluated."""
     z_mid = 0.5 * (z_sel[..., 1:] + z_sel[..., :-1])
     z_samples = sample_pdf(z_mid, weights[..., 1:-1], n_fine,
                            det=(rcfg.perturb == 0.0), generator=generator).detach()
@@ -337,14 +344,14 @@ def refine_hierarchical(params, fcfg, rcfg, rays_o, rays_d, viewdirs,
     live = valid.any(-1, keepdim=True).expand_as(z_all)
     rgb, disp, acc, _, _ = _composite(_masked_sigma(raw, live), z_all, rays_d,
                                       rcfg, generator=generator)
-    return rgb, disp, acc
+    return rgb, disp, acc, z_all
 
 
 def _render_occ_block(params_fine, occ: OccupancyGrid, rb, rcfg: RenderConfig,
                       fcfg, n_candidates: int, n_keep: int, select: str,
                       n_fine: int = 0, generator=None) -> Dict[str, torch.Tensor]:
     """Candidate triage + top-K selection + masked render of one ray block;
-    ``n_fine > 0`` adds refine_hierarchical."""
+    ``n_fine > 0`` adds refine_hierarchical and its depths (``z_vals``)."""
     rays_o, rays_d, viewdirs = split_rays(rb)
     near, far = rb[:, 6:7], rb[:, 7:8]
     z_cand = sample_along_rays(near, far, n_candidates, lindisp=rcfg.lindisp,
@@ -366,12 +373,12 @@ def _render_occ_block(params_fine, occ: OccupancyGrid, rb, rcfg: RenderConfig,
                             rcfg)
     rgb, disp, acc, weights, _ = _composite(_masked_sigma(raw, valid), z_sel,
                                             rays_d, rcfg, generator=generator)
+    out = {"n_active": valid.sum(-1)}
     if n_fine > 0:
-        rgb, disp, acc = refine_hierarchical(
+        rgb, disp, acc, out["z_vals"] = refine_hierarchical(
             params_fine, fcfg, rcfg, rays_o, rays_d, viewdirs, z_sel, valid,
             weights, n_fine, generator)
-    return {"rgb_map": rgb, "disp_map": disp, "acc_map": acc,
-            "n_active": valid.sum(-1)}
+    return {"rgb_map": rgb, "disp_map": disp, "acc_map": acc, **out}
 
 
 def _occ_render_blocks(params_fine, occ, rays, rcfg, fcfg, n_candidates,
@@ -436,7 +443,8 @@ def render_flat_rays_occ(
     mask = counts > 0
     order = torch.argsort((~mask).to(torch.int8), stable=True)  # active first
     n_active = int(mask.sum())  # the one host fetch
-    out = background_maps((n,), rcfg, rays_flat.device)
+    out = background_maps((n,), rcfg, rays_flat.device,
+                          n_samples=n_keep + n_fine if n_fine > 0 else 0)
     out["active_ray_fraction"] = n_active / max(n, 1)
     if n_active == 0:
         return out
@@ -444,6 +452,6 @@ def render_flat_rays_occ(
     ret = _occ_render_blocks(pf, occ, rays_flat[idx], rcfg, fcfg, n_candidates,
                              n_keep, block, select, n_fine, generator)
     scatter = order[:n_active]
-    for k in ("rgb_map", "disp_map", "acc_map", "n_active"):
-        out[k] = out[k].index_put((scatter,), ret[k][:n_active])
+    for k, v in ret.items():
+        out[k] = out[k].index_put((scatter,), v[:n_active])
     return out

@@ -13,10 +13,11 @@ import pytest
 from nerf_shared_tpu.config import config_parser as jax_parser
 from nerf_shared_tpu.data import blender as jblender
 from nerf_shared_tpu.data import datasets as jdatasets
+from nerf_shared_tpu.data import images as jimages
 from nerf_shared_tpu_torch.config import config_parser as torch_parser
 from nerf_shared_tpu_torch.data import blender as tblender
 from nerf_shared_tpu_torch.data import datasets as tdatasets
-from nerf_shared_tpu_torch.data.images import png_decode, png_encode
+from nerf_shared_tpu_torch.data.images import png_decode, png_encode, resize_area
 from tests.test_e2e import _write_scene
 
 CONFIGS = sorted(glob.glob(os.path.join(os.path.dirname(__file__), "..",
@@ -102,6 +103,33 @@ def test_png_refuses_what_it_cannot_read():
         png_decode(b"GIF89a")
     with pytest.raises(TypeError):
         png_encode(np.zeros((2, 2), np.float32))
+
+
+def _hard_scene_frame(size):
+    from benchmarks.hard_scene import render_gt_rgba
+
+    c2w = np.eye(4)[:3].copy()
+    c2w[2, 3] = 4.0
+    return render_gt_rgba(c2w, size, size, 1.1 * size)
+
+
+@pytest.mark.parametrize("shape,out", [((801, 801, 4), (400, 400)),
+                                       ((803, 600, 3), (401, 300)),
+                                       ((375, 500, 3), (187, 250)),
+                                       ((800, 800, 4), (400, 400)),
+                                       ("hard_scene", (200, 200))])
+def test_resize_area_matches_jax_at_any_factor(shape, out):
+    """The exact area average of the JAX package's native resizer, within
+    1e-6, at odd and integer factors (half_res on an odd frame)."""
+    if shape == "hard_scene":
+        img = _hard_scene_frame(401)
+    else:
+        img = np.random.default_rng(sum(shape)).random(shape).astype(np.float32)
+    assert jimages._native is not None and jimages._native.available()
+    got = resize_area(img, *out)
+    want = jimages.resize_area(img, *out)
+    assert got.dtype == np.float32 and got.shape == want.shape == out + img.shape[2:]
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
 
 
 @pytest.fixture(scope="module")

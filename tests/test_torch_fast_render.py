@@ -218,6 +218,41 @@ def test_render_flat_rays_occ_matches_jax(gate_rays, n_fine, select):
         assert np.float32(got["active_ray_fraction"]) == want["active_ray_fraction"]
 
 
+@pytest.mark.parametrize("mode,gate_rays,p", [
+    ("grid", False, 0.1), ("grid", True, 0.1), ("froxel", False, 0.1),
+    ("froxel", False, 0.0)])
+def test_occ_fine_depths_are_the_ones_rendered(mode, gate_rays, p):
+    """With n_fine the occupancy renders return the depths their fine pass
+    evaluated (``z_vals``): the plain network and raw2outputs at those
+    depths, with rays that kept no occupied candidate masked, give back
+    their colour and opacity. (An empty grid: every ray is background.)"""
+    from nerf_shared_tpu_torch.ops.compositing import raw2outputs
+    from nerf_shared_tpu_torch.ops.cuda.fused_mlp import plain_nerf_forward_rays
+
+    _, (tp, tcfg) = _model(seed=4)
+    H = W = 24
+    K, c2w = _cam(H, W)
+    _, tg = _grids(lo=-1.0, hi=1.0, p=p)
+    r = TR.Renderer(**BASE)
+    n_keep, n_fine = 4, 4
+    _, out = r.render_image_occ(H, W, K, c2w, (tp, tcfg), tg, chunk=100,
+                                n_candidates=16, n_keep=n_keep, mode=mode, tile=4,
+                                gate_rays=gate_rays, n_fine=n_fine)
+    z = out["z_vals"].reshape(H * W, -1)
+    assert z.shape[1] == n_keep + n_fine and torch.isfinite(z).all()
+    assert (z[:, 1:] >= z[:, :-1]).all()
+    rays, _ = r._pack_rays(H, W, K, None, torch.from_numpy(c2w))
+    ro, rd, vd = rays[:, 0:3], rays[:, 3:6], rays[:, -3:]
+    live = (out["n_active"].reshape(-1) > 0)[:, None].expand_as(z)
+    assert bool(live.any()) == (p > 0)
+    raw = TO._masked_sigma(plain_nerf_forward_rays(tp, tcfg, ro, rd, z, vd), live)
+    rgb, _, acc, _, _ = raw2outputs(raw, z, rd, white_bkgd=True)
+    np.testing.assert_allclose(rgb.numpy(), out["rgb_map"].reshape(-1, 3).numpy(),
+                               rtol=0, atol=1e-6)
+    np.testing.assert_allclose(acc.numpy(), out["acc_map"].reshape(-1).numpy(),
+                               rtol=0, atol=1e-6)
+
+
 def test_all_occupied_grid_is_dense_and_empty_grid_is_background():
     _, (tp, tcfg) = _model()
     rb = torch.from_numpy(_rays(20))

@@ -416,7 +416,8 @@ def test_fused_backward_resolves_on_for_the_mlp_family_on_cuda():
 
 @pytest.mark.parametrize("flag", [["--train_occ", "True"], ["--refine_poses", "True"],
                                   ["--appearance", "True"], ["--loss_sampling", "True"],
-                                  ["--distortion_loss_weight", "0.01"]])
+                                  ["--distortion_loss_weight", "0.01"],
+                                  ["--multihost", "True"], ["--debug_nans", "True"]])
 def test_training_flags_not_ported_raise(flag):
     args = config_parser().parse_args(["--device", "cpu"] + flag)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
