@@ -8,7 +8,9 @@ Phases (any failure exits non-zero and prints no result line):
 1. build    nvcc builds every kernel (B1-B5, P1-P2) from csrc/, one process
             per source, in parallel, into build/nerf_shared_tpu_torch/;
             cuobjdump counts the tensor-core MMA instructions (HGMMA) of
-            B3's and B4's libraries, which must have some.
+            each kernel of B1's, B3's and B4's libraries: B1's
+            nerf_points_tc_kernel, B3's nerf_rays_tc_kernel and B4's
+            nerf_render_tc_kernel must have some.
 2. kernels  at the lego width (8x256, skip at 4, viewdirs, multires 10/4)
             with seeded weights and rays at the main path's shapes (one ray
             block of --chunk 32768 rays): B3 at S=64 and S=192 and B4 at
@@ -40,7 +42,11 @@ Phases (any failure exits non-zero and prints no result line):
             B1 and B2 at the lego width with seeded weights at both training
             shapes of configs/lego.txt (1024 rays x 64 coarse samples =
             65,536 points; x 192 fine = 196,608), and at the odd shapes of
-            phase 2, against their plain versions; median times. Then one
+            phase 2 (the four architectures at 37 x 7 and 300 x 65 points),
+            against their plain versions (B1 within 2e-4 and FP32_TOL of
+            max(1, max|plain|), as B3); B1 timed in turns with the plain
+            chain (median and min-max of 10 samples) beside both bounds,
+            as B3, and its weight pack's time; B2's median times. Then one
             full training step (N_rand 1024, 64 + 128 samples) through the
             kernels and through the plain path with the same draws: loss,
             every gradient and the post-Adam parameters must agree.
@@ -67,6 +73,9 @@ Phases (any failure exits non-zero and prints no result line):
             samples did not move (at most 3/4 of the live rays moved) and
             by their coarse pass alone as it is), latency, occupied
             fraction and PSNR against the dense frame and the held-out view.
+            The 128^3 grid build timed through B1 and through the plain
+            version in turns; each engine's frame ms and the build's on one
+            line.
 8. gather   P1 (row gather) and P2 (row scatter-add) against their plain
             versions: at the probe's shape (3,145,728 rows of 16 from
             65,536), the split L8/F8 hashgrid's per-level shapes (196,608
@@ -99,6 +108,8 @@ Phases (any failure exits non-zero and prints no result line):
             defaults for 100 steps with one upsample milestone (128 -> 256)
             and one served frame. Step and frame ms of each.
 
+``--parent-tree`` (with ``--phases``) marks the parent side of an A/B:
+phase 1 logs a tensor-core kernel that tree predates instead of failing.
 ``--profile`` adds one dense frame, five training steps, one frame of
 each fast engine, five split and five vertex hashgrid training steps and
 a hashgrid and a triplane frame under torch.profiler (device time by
@@ -130,20 +141,22 @@ import urllib.request
 REPO = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(REPO, "build", "chip_smoke")
 # the card's peaks used for bounds (NVIDIA H100 SXM data sheet): fp32 on
-# the CUDA cores, dense TF32 on the tensor cores (B3 and B4 run split fp32,
+# the CUDA cores, dense TF32 on the tensor cores (B1, B3 and B4 run split fp32,
 # three TF32 products a multiply-add; the fp32 path uses no plain TF32) and
 # HBM bandwidth
 PEAK_FP32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES = 3.35e12
-# B3's and B4's fp32-accuracy gate, beside the 2e-4 tolerance, as a share
-# of max(1, max|plain|): split fp32 reads ~3.6e-7 at the lego width on an
-# H100; one TF32 product a multiply-add alone (plain TF32) misses it by
-# several times in tests/test_torch_tc_mlp.py's emulation of the kernel
+# B1's, B3's and B4's fp32-accuracy gate, beside the 2e-4 tolerance, as a
+# share of max(1, max|plain|): split fp32 reads ~3.6e-7 at the lego width
+# on an H100; one TF32 product a multiply-add alone (plain TF32) misses it
+# by several times in tests/test_torch_tc_mlp.py's emulation of the kernel
 FP32_TOL = 5e-6
-# B3's and B4's design, named in the kernels line
+# B3's and B4's design, and B1's, named in the kernels line
 TC_DESIGN = ("split fp32 (3xTF32) on wgmma.m64nNk8 tensor cores, 128-point tiles, "
              "bulk-copy weight ring with mbarriers (csrc/mlp_tile_tc.cuh)")
+B1_DESIGN = (TC_DESIGN + "; point-major encoder (f·x); each 8-row slice summed on the "
+             "tensor cores from zero and added in fp32 on the CUDA cores")
 
 
 def log(msg):
@@ -254,6 +267,20 @@ def mlp_bounds(cfg, params, n, S):
     """B3's and B4's two bounds: (design ms, by), (fp32 CUDA-core ms, by)."""
     return (bound(cfg, params, n, S, products=3, peak=PEAK_TF32_FLOPS),
             bound(cfg, params, n, S))
+
+
+def points_bounds(cfg, params, n, S):
+    """B1's two bounds on n rays x S points, as mlp_bounds: its bytes are
+    the points and the rays' directions in, raw out, and the weights."""
+    from nerf_shared_tpu_torch.ops.cuda.fused_mlp import flops_per_point, network_bytes
+
+    nbytes = 4 * (n * 3 + n * S * 3 + n * S * 4) + network_bytes(params, cfg)
+    out = []
+    for products, peak in ((3, PEAK_TF32_FLOPS), (1, PEAK_FP32_FLOPS)):
+        t_ops = flops_per_point(cfg) * n * S * products / peak
+        t_bytes = nbytes / PEAK_BYTES
+        out.append((1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"))
+    return tuple(out)
 
 
 def spread(t):
@@ -593,8 +620,9 @@ def bwd_bound(cfg, params, n):
 
 
 def check_train_kernels(cfg, params, pts, vd, g, tol_fwd, tol_bwd, label):
-    """B1 and B2 against their plain versions on one input; returns
-    (B1 max abs err, B2 errors by tensor relative to max |grad|)."""
+    """B1 and B2 against their plain versions on one input, B1 also within
+    FP32_TOL; returns (B1 max abs err, B2 max abs err, B2 errors by tensor
+    relative to max |grad|)."""
     import torch
 
     from nerf_shared_tpu_torch.models.nerf import apply_nerf
@@ -602,7 +630,7 @@ def check_train_kernels(cfg, params, pts, vd, g, tol_fwd, tol_bwd, label):
 
     with torch.no_grad():
         e1, ok1 = abs_err(fused_mlp.fused_nerf_forward(params, cfg, pts, vd),
-                          apply_nerf(params, cfg, pts, vd), tol_fwd)
+                          apply_nerf(params, cfg, pts, vd), tol_fwd, fp32=True)
     got = fused_mlp_bwd.fused_mlp_backward(params, cfg, pts, vd, g)
     want = fused_mlp_bwd.plain_mlp_backward(params, cfg, pts, vd, g)
     torch.cuda.synchronize()
@@ -614,7 +642,8 @@ def check_train_kernels(cfg, params, pts, vd, g, tol_fwd, tol_bwd, label):
     errs = {k: rel_err(a, b) for k, (a, b) in zip(names, pairs)}
     e2 = max(float((a - b).abs().max()) for a, b in pairs)
     worst = max(errs, key=errs.get)
-    log(f"  {label}: B1 max err {e1:.1e} (tol {tol_fwd:g} x max(1, max|plain|)); "
+    log(f"  {label}: B1 max err {e1:.1e} (tol {tol_fwd:g}, fp32 {FP32_TOL:g}, "
+        f"x max(1, max|plain|)); "
         f"B2 max abs err {e2:.1e}, worst {worst} {errs[worst]:.1e} of its max|grad| "
         f"(tol {tol_bwd:g}) over {len(errs)} tensors")
     if not ok1:
@@ -636,7 +665,8 @@ def phase_train_kernels(device):
                      multires_views=4)
     params = {k: v.detach() for k, v in NeRF(
         cfg, device=device, generator=torch.Generator().manual_seed(5)).params().items()}
-    # B1: as B3 (fp32 sums over <= 283 terms in another order than cuBLAS).
+    # B1: as B3 (fp32 sums over <= 283 terms in another order than cuBLAS;
+    # split fp32 on the tensor cores, so also FP32_TOL).
     # B2: each gradient sums up to 196,608 per-point products in fp32 in
     # another order than cuBLAS (per-block partials, then a fixed-order sum
     # over 132 blocks): the error is held relative to max |grad| per tensor
@@ -648,19 +678,26 @@ def phase_train_kernels(device):
         e1, e2, errs = check_train_kernels(cfg, params, pts, vd, g, tol_fwd, tol_bwd,
                                            f"lego N={n_rays * S} S={S}")
         with torch.no_grad():
-            ms1 = time_ms(lambda: fused_mlp.fused_nerf_forward(params, cfg, pts, vd), 5)
-            plain1 = time_ms(lambda: apply_nerf(params, cfg, pts, vd), 5)
+            t1, tp1 = in_turns(lambda: fused_mlp.fused_nerf_forward(params, cfg, pts, vd),
+                               lambda: apply_nerf(params, cfg, pts, vd), reps=10)
+            pack_ms = time_ms(lambda: fused_mlp.pack_network_tc(params, cfg, pts.device), 5)
         ms2 = time_ms(lambda: fused_mlp_bwd.fused_mlp_backward(params, cfg, pts, vd, g), 5)
         plain2 = time_ms(lambda: fused_mlp_bwd.plain_mlp_backward(params, cfg, pts, vd, g), 5)
-        b1, by1 = bound(cfg, params, n_rays, S)
+        (b1, by1), (f1, fby1) = points_bounds(cfg, params, n_rays, S)
         b2, by2 = bwd_bound(cfg, params, n_rays * S)
-        log(f"B1 fused_mlp points N={n_rays * S}: {ms1:.2f} ms, plain {plain1:.2f} ms, "
-            f"bound {b1:.2f} ms ({by1})")
+        verdict = "beats" if t1[2] < tp1[1] else "loses to" if t1[1] > tp1[2] else "ties"
+        log(f"B1 fused_mlp points N={n_rays * S}: {spread(t1)} ms vs plain {spread(tp1)} ms "
+            f"({verdict} it; median [min-max] of 10 samples in turns); bound "
+            f"{b1:.2f} ms split fp32 on the tensor cores ({by1}), {f1:.2f} ms fp32 on "
+            f"the CUDA cores ({fby1}); {100 * b1 / t1[0]:.1f}% of the design's bound; "
+            f"its weight pack (pack_network_tc) {pack_ms:.3f} ms a call")
         log(f"B2 fused_mlp_bwd N={n_rays * S}: {ms2:.2f} ms, plain {plain2:.2f} ms, "
             f"bound {b2:.2f} ms ({by2})")
         cases.append(dict(kernel="fused_mlp_points", S=S, n_points=n_rays * S,
-                          max_abs_err=e1, ms=ms1, plain_ms=plain1, bound_ms=b1,
-                          bound_by=by1))
+                          max_abs_err=e1, ms=t1[0], ms_min=t1[1], ms_max=t1[2],
+                          plain_ms=tp1[0], plain_min=tp1[1], plain_max=tp1[2],
+                          bound_ms=b1, bound_by=by1, bound_fp32_cuda_cores_ms=f1,
+                          vs_plain=verdict, pack_ms=pack_ms, design=B1_DESIGN))
         cases.append(dict(kernel="fused_mlp_bwd", S=S, n_points=n_rays * S,
                           max_abs_err=e2, max_rel_err=max(errs.values()), ms=ms2,
                           plain_ms=plain2, bound_ms=b2, bound_by=by2))
@@ -1410,6 +1447,48 @@ def frame_checks(eng, c2w, kern):
     return checks, moved, live, note
 
 
+def time_grid_build(eng):
+    """ms of the occupancy engines' 128^3 grid build (probes through B1 and
+    through the plain apply_nerf), in turns kernel, plain, plain, kernel,
+    host clock to a synchronize: ((median, min, max) kernels, the same
+    plain, B1 launches a kernel build, share of cells the two builds
+    mark differently)."""
+    import dataclasses
+
+    import torch
+
+    from nerf_shared_tpu_torch.apps.train import resolved_occ_alpha_thresh
+    from nerf_shared_tpu_torch.ops.cuda import fused_mlp
+    from nerf_shared_tpu_torch.render.occupancy import build_occupancy_grid
+
+    grid0 = eng.occ_grid
+    params = eng.fine.params()
+
+    def build(kernels):
+        rcfg = dataclasses.replace(eng.renderer.cfg, use_pallas=kernels)
+        gen = torch.Generator(device=grid0.grid.device).manual_seed(0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            grid = build_occupancy_grid(
+                params, eng.fine.cfg, rcfg, grid0.aabb_min.cpu().numpy(),
+                grid0.aabb_max.cpu().numpy(), resolution=grid0.resolution,
+                alpha_threshold=resolved_occ_alpha_thresh(eng.args), generator=gen)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3, grid.grid
+
+    times = {True: [], False: []}
+    before = fused_mlp.POINT_LAUNCHES
+    grids = {}
+    for kernels in (True, False, False, True):
+        ms, grids[kernels] = build(kernels)
+        times[kernels].append(ms)
+    launches = (fused_mlp.POINT_LAUNCHES - before) // 2
+    differ = float((grids[True] != grids[False]).float().mean())
+    return (tuple((statistics.median(t), min(t), max(t)) for t in (times[True], times[False]))
+            + (launches, differ))
+
+
 def phase_fast_serving(device, base_argv, profile=False):
     """Phase 7: the fast engines over HTTP on phase 6's checkpoint (with
     ``profile``, one more frame of each engine under torch.profiler)."""
@@ -1493,6 +1572,16 @@ def phase_fast_serving(device, base_argv, profile=False):
             bad.append(name)
         if profile:
             _profile(f"{name} frame", lambda: eng.render_poses(pose[None]))
+        if name == "occ_froxel":
+            tk, tp, n_b1, differ = time_grid_build(eng)
+            log(f"grid build {eng.occ_grid.resolution}^3: {spread(tk)} ms through B1 "
+                f"({n_b1} launches) vs {spread(tp)} ms through the plain version "
+                f"(median [min-max] of 2 builds in turns); {differ:.2e} of the cells "
+                "marked differently by the two builds")
+            results["grid_build"] = {"ms": tk[0], "ms_min": tk[1], "ms_max": tk[2],
+                                     "plain_ms": tp[0], "plain_min": tp[1],
+                                     "plain_max": tp[2], "launches": n_b1,
+                                     "cells_differ": differ}
         results[name] = {
             "engine": info["engine"], "frame_ms": ms, "first_frame_ms": first_ms,
             "build_s": build_s,
@@ -1504,6 +1593,9 @@ def phase_fast_serving(device, base_argv, profile=False):
     results["dense_psnr_vs_gt"] = psnr(dense, gt)
     log(f"dense frame of the same checkpoint vs held-out view {view}: "
         f"{results['dense_psnr_vs_gt']:.2f} dB")
+    log("phase 7 times: " + ", ".join(f"{name} frame {results[name]['frame_ms']:.1f} ms"
+                                      for name, *_ in FAST_ENGINES)
+        + f"; 128^3 grid build {results['grid_build']['ms']:.1f} ms")
     if bad:
         raise AssertionError(f"the kernels' frame disagrees with the plain versions: {bad}")
     return results
@@ -2005,17 +2097,24 @@ def _profile(what, fn):
                              for k, ms in table.items()))
 
 
-def check_tensor_cores():
-    """B3 and B4 run on the tensor cores: every tensor-core kernel
-    (``*_tc_kernel``) in their libraries' SASS holds MMA instructions
-    (HGMMA, Hopper's warpgroup MMA, or HMMA). Raises when one holds none.
-    (The wrappers launch only those kernels: their C entries are the
-    ``_tc`` ones.)"""
+# the tensor-core kernels of each library (B1 and B3, B4)
+TC_KERNELS = {"fused_mlp": ("nerf_points_tc_kernel", "nerf_rays_tc_kernel"),
+              "fused_render": ("nerf_render_tc_kernel",)}
+
+
+def check_tensor_cores(parent=False):
+    """B1, B3 and B4 run on the tensor cores: each of their kernels
+    (TC_KERNELS) is in its library's SASS and holds HGMMA instructions
+    (Hopper's warpgroup MMA), and so does every other ``*_tc_kernel``
+    there. Raises otherwise. (The wrappers launch only those kernels: their
+    C entries are the ``_tc`` ones.) ``parent``: the tree is the parent
+    side of an A/B (ab_smoke.sh), which may predate a kernel of TC_KERNELS;
+    one it lacks is logged, one it has is held as above."""
     from nerf_shared_tpu_torch.ops.cuda import common
 
     tool = shutil.which("cuobjdump") or os.path.join(
         os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
-    for name in ("fused_mlp", "fused_render"):
+    for name, wanted in TC_KERNELS.items():
         sass = subprocess.run([tool, "-sass", str(common.build([name])[name])],
                               capture_output=True, text=True, check=True).stdout
         kernels = {}
@@ -2024,11 +2123,16 @@ def check_tensor_cores():
             if "Function :" in line:
                 current = line.split("Function :")[1].strip()
                 kernels[current] = 0
-            elif current and ("HGMMA" in line or "HMMA" in line):
+            elif current and "HGMMA" in line:
                 kernels[current] += 1
-        log(f"  SASS {name}: HGMMA / HMMA instructions by kernel {kernels}")
+        log(f"  SASS {name}: HGMMA instructions by kernel {kernels}")
+        for want in wanted:
+            if parent and not any(want in k for k in kernels):
+                log(f"  SASS {name}: {want} is not in the parent tree")
+            elif not any(want in k and n > 0 for k, n in kernels.items()):
+                raise AssertionError(f"{name}: {want} is missing or holds no HGMMA")
         if any("_tc_kernel" in k and n == 0 for k, n in kernels.items()):
-            raise AssertionError(f"{name}: a tensor-core kernel holds no MMA")
+            raise AssertionError(f"{name}: a tensor-core kernel holds no HGMMA")
 
 
 def profile_frame(eng, pose):
@@ -2075,11 +2179,11 @@ def main() -> int:
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  ptxas {name}: {line.strip()}")
-    check_tensor_cores()
-
     only = None
     if "--phases" in sys.argv[1:]:
         only = {int(p) for p in sys.argv[sys.argv.index("--phases") + 1].split(",")}
+    # the parent side of an A/B (ab_smoke.sh); only with --phases
+    check_tensor_cores(parent=only is not None and "--parent-tree" in sys.argv[1:])
     profile = "--profile" in sys.argv[1:]
 
     def want(*phases):

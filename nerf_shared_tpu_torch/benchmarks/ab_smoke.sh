@@ -5,8 +5,10 @@
 # exit code and its summary lines (kernel times of phases 2, 5 and 8, step
 # and frame ms, profiled device shares). The change tree's chip_smoke.py
 # drives both trees (it is copied into the parent tree first), so both run
-# the same phases and measurements over their own kernels and wrappers.
-# Exits non-zero if any run failed.
+# the same phases and measurements over their own kernels and wrappers;
+# the parent's runs get --parent-tree, so phase 1 does not require the
+# tensor-core kernels the parent predates. Exits non-zero if any run
+# failed.
 #
 #   mkdir -p build/parent build/change
 #   git archive <parent commit> | tar -x -C build/parent
@@ -27,13 +29,13 @@ failed=0
 n=0
 for which in parent change change parent; do
   n=$((n + 1))
-  dir=$parent
-  [ "$which" = change ] && dir=$change
+  dir=$parent extra=--parent-tree
+  [ "$which" = change ] && dir=$change extra=
   log="$out/ab_${n}_${which}.txt"
-  (cd "$dir" && python3 chip_smoke.py "$@") > "$log" 2>&1
+  (cd "$dir" && python3 chip_smoke.py "$@" $extra) > "$log" 2>&1
   rc=$?
   [ $rc -ne 0 ] && failed=1
   echo "== run $n: $which ($dir), rc=$rc"
-  grep -E "^B[1-5] |^P1 / P2 |ms per step|^triplane: |frame over HTTP|^served 3 frames|^fused-composite frame|ms per frame \(|^profile |of device time|nstt::|HMMA" "$log"
+  grep -E "^B[1-5] |^P1 / P2 |ms per step|^triplane: |frame over HTTP|^served 3 frames|^fused-composite frame|ms per frame \(|^profile |of device time|nstt::|HGMMA|^grid build|^phase 7 times|^train step" "$log"
 done
 exit $failed

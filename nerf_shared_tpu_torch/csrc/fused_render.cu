@@ -47,7 +47,8 @@ nerf_render_tc_kernel(const Desc* __restrict__ gdesc, const float* __restrict__ 
   extern __shared__ float4 dyn[];
   load_desc(d, gdesc);
   __syncthreads();
-  const Smem s = carve(reinterpret_cast<float*>(dyn), (int)d.hdr[H_HS]);
+  const Smem s = carve(reinterpret_cast<float*>(dyn), (int)d.hdr[H_HS], RayEnc::ROW);
+  const RayEnc e{A, B, z, S};
   const long long r0 = blockIdx.x * rays_per_block;
   const long long r1 = min(n_rays, r0 + rays_per_block);
   const long long pbeg = r0 * S, pend = r1 * S;
@@ -56,8 +57,8 @@ nerf_render_tc_kernel(const Desc* __restrict__ gdesc, const float* __restrict__ 
 
   for (long long t = 0; t < n_tiles; ++t) {
     const long long p0 = pbeg + t * TP;
-    tile_rows(d, z, p0, pend, S, s);
-    tile_network(d, wb, A, B, s, ring);
+    tile_rows(d, e, p0, pend, s);
+    tile_network(d, wb, e, s, ring);
 
     // per point: rgb sigmoids in place, alpha -> col 4, depth -> col 6
     if (threadIdx.x < TP) {
@@ -149,7 +150,7 @@ extern "C" int nstt_render_rays_tc(const void* desc_dev, int HS, int SLOT,
   using namespace nstt::tc;
   int R, sms;
   size_t bytes;
-  int rc = plan((const void*)nerf_render_tc_kernel, HS, SLOT, &R, &bytes, &sms);
+  int rc = plan((const void*)nerf_render_tc_kernel, HS, SLOT, RayEnc::ROW, &R, &bytes, &sms);
   if (rc != 0) return rc;
   // whole rays a block, a multiple of the rays that fill whole tiles
   const long long chunk = TP / gcd_ll(S, TP);

@@ -1,15 +1,17 @@
-// The NeRF MLP on one tile of 64 sample points, shared by fused_mlp.cu (B1)
-// and fused_mlp_bwd.cu (B2). B3 and B4 run mlp_tile_tc.cuh.
+// The pieces of the fp32 CUDA-core tile of 64 sample points that the MLP
+// backward (fused_mlp_bwd.cu, B2) is built from: the descriptor of
+// pack_network's layout, the point-major encoder, and a GEMM with its
+// epilogue. The forward kernels B1, B3 and B4 run mlp_tile_tc.cuh.
 //
 // A block of 256 threads owns one tile. The tile's encoded inputs (emb) and
-// its activations (h) stay in shared memory from the first layer to the
-// head; only the weights move, streamed from L2 / device memory KC rows at
-// a time into a shared staging tile that all eight warps read. Each warp
-// computes 8 points x 256 output columns of a layer: a thread holds an 8x8
-// fp32 accumulator (points row0..row0+7, columns lane*4..lane*4+3 and
-// 128+lane*4..128+lane*4+3), so every weight value read from shared memory
-// feeds 8 FMAs and every activation value 8 more. fp32 on the CUDA cores:
-// no TF32, no tensor cores.
+// its activations stay in shared memory; only the weights move, streamed
+// from L2 / device memory KC rows at a time into a shared staging tile that
+// all eight warps read. Each warp computes 8 points x 256 output columns
+// of a layer: a thread holds an 8x8 fp32 accumulator (points
+// row0..row0+7, columns lane*4..lane*4+3 and 128+lane*4..128+lane*4+3), so
+// every weight value read from shared memory feeds 8 FMAs and every
+// activation value 8 more. fp32 on the CUDA cores: no TF32, no tensor
+// cores.
 //
 // Layer widths up to MAXW = 256; the encoded input up to MAX_EMB columns.
 // Weight matrices are packed [K][ld] (input-major, ld = N rounded up to 4),
@@ -26,7 +28,6 @@ constexpr int KC = 32;          // weight rows staged per step
 constexpr int NTHREADS = 256;   // 8 warps x 8 points
 constexpr int MAX_LAYERS = 32;
 constexpr int MAX_EMB = 256;
-constexpr int RAW_LD = 8;       // raw outputs per point kept in shared memory
 
 // hdr[] indices
 enum { H_D, H_W, H_P, H_V, H_EMB, H_OUT, H_VIEWDIRS, H_P4, H_V4, H_SKIPS, H_HS };
@@ -43,27 +44,6 @@ struct NetDesc {
   signed char kind[MAX_EMB];    // per embedding column: 0 identity, 1 sin, 2 cos
 };
 
-struct Smem {
-  float* wt;    // [KC][MAXW]     staged weight rows
-  float* h;     // [TILE_P][HS]   activations
-  float* emb;   // [TILE_P][ES]   encoded input: pts block, then dirs block
-  float* raw;   // [TILE_P][RAW_LD]
-};
-
-__host__ __device__ inline size_t smem_floats(int HS, int ES) {
-  return (size_t)KC * MAXW + (size_t)TILE_P * HS + (size_t)TILE_P * ES
-       + (size_t)TILE_P * RAW_LD;
-}
-
-__device__ inline Smem carve(float* base, int HS, int ES) {
-  Smem s;
-  s.wt = base;
-  s.h = s.wt + KC * MAXW;
-  s.emb = s.h + TILE_P * HS;
-  s.raw = s.emb + TILE_P * ES;
-  return s;
-}
-
 __device__ inline void load_desc(NetDesc& d, const NetDesc* __restrict__ g) {
   const long long* src = reinterpret_cast<const long long*>(g);
   long long* dst = reinterpret_cast<long long*>(&d);
@@ -79,21 +59,8 @@ __device__ __forceinline__ int emb_col(const NetDesc& d, int c) {
   return c < V ? P + c : -1;
 }
 
-// Encoded input of compact column cc for depth zz on ray r: the pre-sine
-// argument A + z*B, rounded exactly as f*(o + z*d) is for power-of-two f
-// (no FMA contraction), then identity, sin or cos.
-__device__ __forceinline__ float emb_value(const NetDesc& d,
-                                           const float* __restrict__ A,
-                                           const float* __restrict__ B,
-                                           long long r, float zz, int cc) {
-  const long long i = r * d.hdr[H_EMB] + cc;
-  const float arg = __fadd_rn(__ldg(A + i), __fmul_rn(zz, __ldg(B + i)));
-  const int k = d.kind[cc];
-  return k == 0 ? arg : (k == 1 ? sinf(arg) : cosf(arg));
-}
-
 // Encoded inputs of the points p0 .. p0 + TILE_P - 1 into emb [TILE_P][ES]
-// (point-major, B1 and B2): pts [total, 3], viewdirs [total / S, 3] shared
+// (point-major): pts [total, 3], viewdirs [total / S, 3] shared
 // by the S samples of a ray. enc holds, per compact column, its frequency
 // (enc[cc]) and its input (enc[MAX_EMB + cc]: 0-2 point, 3-5 direction).
 // The argument f*x is rounded once, as the plain embed's x * f is; points
@@ -190,78 +157,6 @@ __device__ __forceinline__ void epilogue(const float (&acc)[8][8],
       }
     }
   }
-}
-
-// A narrow output layer (N <= RAW_LD): one warp per (point, output), the
-// lanes split K and reduce with shuffles. Writes raw[p][col_off + o].
-__device__ __forceinline__ void narrow(const float* src, int ss, int K,
-                                       const float* __restrict__ Wg, int ld,
-                                       const float* __restrict__ bias, int N,
-                                       float* raw, int col_off) {
-  const int lane = threadIdx.x & 31;
-  for (int pair = threadIdx.x >> 5; pair < TILE_P * N; pair += NTHREADS / 32) {
-    const int p = pair / N, o = pair % N;
-    float s = 0.f;
-    for (int k = lane; k < K; k += 32)
-      s = fmaf(src[p * ss + k], __ldg(Wg + (size_t)k * ld + o), s);
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
-    if (lane == 0) raw[p * RAW_LD + col_off + o] = s + __ldg(bias + o);
-  }
-}
-
-// The whole network on the tile in s.emb -> s.raw (cols 0..2 rgb logits,
-// col 3 sigma; or output_ch columns without viewdirs). Ends with a barrier.
-__device__ inline void mlp_tile(const NetDesc& d, const float* __restrict__ wb,
-                                const Smem& s) {
-  const int D = (int)d.hdr[H_D], W = (int)d.hdr[H_W], P = (int)d.hdr[H_P];
-  const int V = (int)d.hdr[H_V], P4 = (int)d.hdr[H_P4], HS = (int)d.hdr[H_HS];
-  const int ES = P4 + (int)d.hdr[H_V4];
-  const unsigned long long skips = (unsigned long long)d.hdr[H_SKIPS];
-  float acc[8][8];
-
-  for (int l = 0; l < D; ++l) {
-    const long long* L = d.layer[l];
-    const int ld = (int)L[M_LD];
-    const float* Wl = wb + L[M_W];
-    zero_acc(acc);
-    if (l == 0) {
-      gemm_acc(acc, s.emb, ES, P, Wl, ld, s.wt);
-    } else {
-      int koff = 0;
-      if ((skips >> l) & 1ull) {   // input is [pts_emb, h]
-        gemm_acc(acc, s.emb, ES, P, Wl, ld, s.wt);
-        koff = P;
-      }
-      gemm_acc(acc, s.h, HS, W, Wl + (size_t)koff * ld, ld, s.wt);
-    }
-    epilogue(acc, wb + L[M_B], W, true, s.h, HS);
-    __syncthreads();
-  }
-
-  if (d.hdr[H_VIEWDIRS]) {
-    const long long* Ha = d.head[HEAD_ALPHA];
-    narrow(s.h, HS, W, wb + Ha[M_W], (int)Ha[M_LD], wb + Ha[M_B], 1, s.raw, 3);
-    const long long* Hf = d.head[HEAD_FEATURE];
-    zero_acc(acc);
-    gemm_acc(acc, s.h, HS, W, wb + Hf[M_W], (int)Hf[M_LD], s.wt);
-    epilogue(acc, wb + Hf[M_B], W, false, s.h, HS);
-    __syncthreads();
-    const long long* Hv = d.head[HEAD_VIEWS];
-    const int ldv = (int)Hv[M_LD];
-    zero_acc(acc);
-    gemm_acc(acc, s.h, HS, W, wb + Hv[M_W], ldv, s.wt);
-    gemm_acc(acc, s.emb + P4, ES, V, wb + Hv[M_W] + (size_t)W * ldv, ldv, s.wt);
-    epilogue(acc, wb + Hv[M_B], W / 2, true, s.h, HS);
-    __syncthreads();
-    const long long* Hr = d.head[HEAD_RGB];
-    narrow(s.h, HS, W / 2, wb + Hr[M_W], (int)Hr[M_LD], wb + Hr[M_B], 3, s.raw, 0);
-  } else {
-    const long long* Ho = d.head[HEAD_OUTPUT];
-    narrow(s.h, HS, W, wb + Ho[M_W], (int)Ho[M_LD], wb + Ho[M_B],
-           (int)d.hdr[H_OUT], s.raw, 0);
-  }
-  __syncthreads();
 }
 
 }  // namespace nstt

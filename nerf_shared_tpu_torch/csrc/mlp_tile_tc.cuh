@@ -1,7 +1,8 @@
 // The NeRF MLP on the tensor cores at fp32 accuracy, on one tile of 128
 // sample points: the network of the ray-major kernels B3 (fused_mlp.cu
-// nerf_rays_tc_kernel) and B4 (fused_render.cu nerf_render_tc_kernel). B1
-// and B2 keep the CUDA-core tile of mlp_tile.cuh.
+// nerf_rays_tc_kernel) and B4 (fused_render.cu nerf_render_tc_kernel) and
+// of the point-major kernel B1 (fused_mlp.cu nerf_points_tc_kernel). B2
+// keeps the CUDA-core tile of mlp_tile.cuh.
 //
 // Split fp32 (3xTF32). Every trunk and head GEMM runs on Hopper's
 // warpgroup MMA, wgmma.mma_async.m64nNk8 with tf32 operands and fp32
@@ -15,8 +16,15 @@
 // would halve the bytes read from L2, stalled the weight ring in every
 // build tried (PERF.md, Findings), and a split in registers, as mma.sync
 // allows, left that design at 186 ms against this one's 132 ms for a
-// 32768-ray block of 192 samples (H100, same measure). The encoder (sin /
-// cos of A + z·B), the bias adds, the ReLUs and the narrow heads (alpha,
+// 32768-ray block of 192 samples (H100, same measure). The tensor cores
+// add each product to their fp32 accumulator without rounding to nearest
+// (the dropped bits bias a running sum toward zero: sigma's error 6.9e-8
+// rms, mean -3.4e-8 at the lego width against 5.4e-9 for cuBLAS fp32,
+// benchmarks/mlp_accuracy.py on an H100). B3 and B4 keep the running sum
+// there (mma_slice); B1, whose forward places the training step's fine
+// samples, sums each slice on the tensor cores from zero and adds it in
+// fp32 on the CUDA cores (mma_slice_rn): 3.4e-9 rms, unbiased. The encoder (sin / cos of A + z·B or of f·x), the
+// bias adds, the ReLUs and the narrow heads (alpha,
 // rgb, output_ch <= 8: a warp per point and output, lanes splitting K, fp32
 // on the CUDA cores) are the fp32 arithmetic of mlp_tile.cuh.
 //
@@ -25,8 +33,11 @@
 // 128 fp32 accumulators a thread at the lego width. The activations h
 // stay in shared memory for the whole network; the encoded inputs are not
 // stored but formed where a GEMM reads them (layer 0, the skip layer, the
-// views layer), from each point's ray and depth kept for the tile, which
-// leaves the shared memory to the weight ring.
+// views layer), from a few floats a point kept for the tile, which leaves
+// the shared memory to the weight ring. What those floats are and how a
+// column is formed from them is the encoder, a template parameter of the
+// tile: RayEnc (B3, B4: the point's ray and depth, A + z·B) or PointEnc
+// (B1: the point and its ray's direction, f·x).
 //
 // Weights stream through a ring of R >= 2 slots, each one 8-row slice of a
 // GEMM's weights (both planes), filled by the tensor memory accelerator
@@ -89,23 +100,22 @@ struct Desc {
 struct Smem {
   float* h;          // [TP][HS]   activations
   float* raw;        // [TP][RAW_LD]
-  long long* ray;    // [TP]       the point's row of A / B (r * EMB), -1 past the end
-  float* z;          // [TP]       the point's depth
+  float* rows;       // [TP x ROW] the encoder's record of each point
   float* ring;       // [R][SLOT]  weight slices
 };
 
-// SLOT: floats of the largest slice, 16 * max Np (two planes of 8 x Np)
-__host__ __device__ inline size_t smem_floats(int HS, int SLOT, int R) {
-  return (size_t)TP * (HS + RAW_LD + 3) + (size_t)R * SLOT;
+// SLOT: floats of the largest slice, 16 * max Np (two planes of 8 x Np);
+// ROW: the encoder's floats a point
+__host__ __device__ inline size_t smem_floats(int HS, int SLOT, int R, int ROW) {
+  return (size_t)TP * (HS + RAW_LD + ROW) + (size_t)R * SLOT;
 }
 
-__device__ inline Smem carve(float* base, int HS) {
+__device__ inline Smem carve(float* base, int HS, int ROW) {
   Smem s;
   s.h = base;
   s.raw = s.h + TP * HS;
-  s.ray = reinterpret_cast<long long*>(s.raw + TP * RAW_LD);
-  s.z = reinterpret_cast<float*>(s.ray + TP);
-  s.ring = s.z + TP;
+  s.rows = s.raw + TP * RAW_LD;
+  s.ring = s.rows + TP * ROW;
   return s;
 }
 
@@ -134,29 +144,32 @@ __device__ __forceinline__ unsigned smem_addr(const void* p) {
   return (unsigned)__cvta_generic_to_shared(p);
 }
 
-// d[0 .. N/2) += a (64 x 8, registers) * b (8 x N, shared memory): one
-// wgmma.mma_async of the warpgroup; completes at wgmma_wait.
+// d[0 .. N/2) = a (64 x 8, registers) * b (8 x N, shared memory) + d
+// (scale_d 1) or + 0 (scale_d 0): one wgmma.mma_async of the warpgroup;
+// completes at wgmma_wait. The tensor cores add the products to d without
+// rounding to nearest: a running sum of many of them drifts (PERF.md,
+// Findings), which mma_slice_rn avoids.
 template <int N>
 struct Wgmma;
 
 template <>
 struct Wgmma<16> {
   __device__ __forceinline__ static void run(float* d, const unsigned (&a)[4],
-                                             unsigned long long b) {
+                                             unsigned long long b, int scale_d = 1) {
     asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 {"
       "%0, %1, %2, %3, %4, %5, %6, %7"
       "}, {%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
   }
 };
 
 template <>
 struct Wgmma<32> {
   __device__ __forceinline__ static void run(float* d, const unsigned (&a)[4],
-                                             unsigned long long b) {
+                                             unsigned long long b, int scale_d = 1) {
     asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
@@ -164,14 +177,14 @@ struct Wgmma<32> {
       "}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
   }
 };
 
 template <>
 struct Wgmma<64> {
   __device__ __forceinline__ static void run(float* d, const unsigned (&a)[4],
-                                             unsigned long long b) {
+                                             unsigned long long b, int scale_d = 1) {
     asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
@@ -182,14 +195,14 @@ struct Wgmma<64> {
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
   }
 };
 
 template <>
 struct Wgmma<128> {
   __device__ __forceinline__ static void run(float* d, const unsigned (&a)[4],
-                                             unsigned long long b) {
+                                             unsigned long long b, int scale_d = 1) {
     asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
@@ -206,7 +219,7 @@ struct Wgmma<128> {
         "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
   }
 };
 
@@ -221,9 +234,19 @@ __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
 }
 
-__device__ __forceinline__ void wgmma_commit_wait() {
+__device__ __forceinline__ void wgmma_commit() {
   asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+}
+
+// wait until at most `pending` committed groups are still running
+template <int pending>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" :: "n"(pending) : "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit_wait() {
+  wgmma_commit();
+  wgmma_wait<0>();
 }
 
 // keep the compiler from moving accumulator accesses across the MMAs
@@ -232,6 +255,12 @@ __device__ __forceinline__ void fence_acc(float (&acc)[2][NACC]) {
   for (int m = 0; m < 2; ++m)
 #pragma unroll
     for (int i = 0; i < NACC; ++i) asm volatile("" : "+f"(acc[m][i]) :: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void fence_part(float (&p)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(p[i]) :: "memory");
 }
 
 __device__ __forceinline__ void mbar_init(unsigned long long* bar, unsigned count) {
@@ -365,51 +394,117 @@ __device__ __forceinline__ void release(Ring& r) {
   }
 }
 
+// ---- the encoders ------------------------------------------------------------
+
+// Each encoder keeps a record of ROW floats for every point of the tile
+// (row(), called for tile row p and flat point gp, rows at or past pend
+// are empty) and forms the encoded input of compact embedding column cc
+// from it (value(): the pre-sine argument, then identity, sin or cos by
+// the descriptor's kind; finite on an empty row).
+
+// Ray-major (B3, B4): the point of flat index gp = r * S + s is o + z·d on
+// ray r, given as per-ray coefficients A = [o, dir]·F, B = [d, 0]·F
+// [rays][EMB] and depths z [rays * S]. The record is the ray's row of A /
+// B (r * EMB, an int64; -1 when empty) and the depth; the argument A + z·B
+// is rounded exactly as f·(o + z·d) is for power-of-two f (no FMA
+// contraction).
+struct RayEnc {
+  static constexpr int ROW = 3;
+  const float* A;
+  const float* B;
+  const float* z;
+  int S;
+
+  __device__ __forceinline__ void row(const Desc& d, float* rows, int p, long long gp,
+                                      long long pend) const {
+    reinterpret_cast<long long*>(rows)[p] =
+        gp < pend ? gp / S * (d.hdr[H_P] + d.hdr[H_V]) : -1;
+    rows[2 * TP + p] = gp < pend ? __ldg(z + gp) : 0.f;
+  }
+
+  __device__ __forceinline__ float value(const Desc& d, const float* rows, int p,
+                                         int cc) const {
+    const long long ray = reinterpret_cast<const long long*>(rows)[p];
+    if (ray < 0) return 0.f;
+    const float arg = __fadd_rn(__ldg(A + ray + cc), __fmul_rn(rows[2 * TP + p], __ldg(B + ray + cc)));
+    const int k = d.kind[cc];
+    return k == 0 ? arg : (k == 1 ? sinf(arg) : cosf(arg));
+  }
+};
+
+// Point-major (B1): points pts [total][3] and one view direction vd
+// [total / S][3] for each ray of S points (null without a viewdir head).
+// The record is the point and its ray's direction (zeros when empty), 7
+// floats apart, so that a warp's reads of 8 rows x 3 inputs fall in
+// distinct banks. Column cc reads input enc[MAX_EMB + cc] (0-2 the point,
+// 3-5 the direction) and its argument is f·x with f = enc[cc], rounded
+// once, as the plain embed's x * f is; identity columns give x itself.
+struct PointEnc {
+  static constexpr int ROW = 7;
+  const float* pts;
+  const float* vd;
+  const float* enc;
+  int S;
+
+  __device__ __forceinline__ void row(const Desc&, float* rows, int p, long long gp,
+                                      long long pend) const {
+    float* x = rows + p * ROW;
+    const bool in = gp < pend;
+    for (int i = 0; i < 3; ++i) x[i] = in ? __ldg(pts + gp * 3 + i) : 0.f;
+    for (int i = 0; i < 3; ++i) x[3 + i] = in && vd ? __ldg(vd + gp / S * 3 + i) : 0.f;
+  }
+
+  __device__ __forceinline__ float value(const Desc& d, const float* rows, int p,
+                                         int cc) const {
+    const float x = rows[p * ROW + (int)__ldg(enc + MAX_EMB + cc)];
+    const int k = d.kind[cc];
+    if (k == 0) return x;
+    const float arg = __fmul_rn(__ldg(enc + cc), x);
+    return k == 1 ? sinf(arg) : cosf(arg);
+  }
+};
+
 // ---- the tile ---------------------------------------------------------------
 
 // Encoded input of the point in tile row p at embedding column c of a
-// segment (pts: compact columns [0, P); dirs: [P, P + V)), 0 on padding
-// and past the end: the pre-sine argument A + z*B, rounded exactly as
-// f*(o + z*d) is for power-of-two f (no FMA contraction), then identity,
-// sin or cos.
-__device__ __forceinline__ float emb_at(const Desc& d, const Smem& s,
-                                        const float* __restrict__ A,
-                                        const float* __restrict__ B, int p, int c,
-                                        int base, int width) {
-  const long long ray = s.ray[p];
-  if (ray < 0 || c >= width) return 0.f;
-  const int cc = base + c;
-  const float arg = __fadd_rn(__ldg(A + ray + cc), __fmul_rn(s.z[p], __ldg(B + ray + cc)));
-  const int k = d.kind[cc];
-  return k == 0 ? arg : (k == 1 ? sinf(arg) : cosf(arg));
+// segment (pts: compact columns [0, P); dirs: [P, P + V)), 0 on padding.
+template <class Enc>
+__device__ __forceinline__ float emb_at(const Desc& d, const Enc& e, const Smem& s, int p,
+                                        int c, int base, int width) {
+  return c < width ? e.value(d, s.rows, p, base + c) : 0.f;
 }
 
-// The warp's A fragments of one k-slice for both m64 blocks (rows
-// 64 m + 16 (warp % 4) + g (+ 8), columns k0 + t (+ 4)), split.
-__device__ __forceinline__ void a_frags(const Desc& d, const Smem& s,
-                                        const float* __restrict__ A,
-                                        const float* __restrict__ B, int src, int k0,
-                                        int HS, unsigned (&ab)[2][4], unsigned (&as)[2][4]) {
+// The warp's A fragments of one k-slice for m64 block m (rows 64 m + 16
+// (warp % 4) + g (+ 8), columns k0 + t (+ 4)), split.
+template <class Enc>
+__device__ __forceinline__ void a_frag(const Desc& d, const Enc& e, const Smem& s, int src,
+                                       int k0, int HS, int m, unsigned (&ab)[4],
+                                       unsigned (&as)[4]) {
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int r0 = 16 * ((threadIdx.x >> 5) & 3) + g;
-  const int P = (int)d.hdr[H_P], V = (int)d.hdr[H_V];
-#pragma unroll
-  for (int m = 0; m < 2; ++m) {
-    const int r = 64 * m + r0;
-    float v[4];
-    if (src == SRC_H) {
-      const float* a = s.h + r * HS + k0 + t;
-      v[0] = a[0]; v[1] = a[8 * HS]; v[2] = a[4]; v[3] = a[8 * HS + 4];
-    } else {
-      const int base = src == SRC_PTS ? 0 : P, width = src == SRC_PTS ? P : V;
-      v[0] = emb_at(d, s, A, B, r, k0 + t, base, width);
-      v[1] = emb_at(d, s, A, B, r + 8, k0 + t, base, width);
-      v[2] = emb_at(d, s, A, B, r, k0 + t + 4, base, width);
-      v[3] = emb_at(d, s, A, B, r + 8, k0 + t + 4, base, width);
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) split(v[i], ab[m][i], as[m][i]);
+  const int r = 64 * m + 16 * ((threadIdx.x >> 5) & 3) + g;
+  float v[4];
+  if (src == SRC_H) {
+    const float* a = s.h + r * HS + k0 + t;
+    v[0] = a[0]; v[1] = a[8 * HS]; v[2] = a[4]; v[3] = a[8 * HS + 4];
+  } else {
+    const int P = (int)d.hdr[H_P], V = (int)d.hdr[H_V];
+    const int base = src == SRC_PTS ? 0 : P, width = src == SRC_PTS ? P : V;
+    v[0] = emb_at(d, e, s, r, k0 + t, base, width);
+    v[1] = emb_at(d, e, s, r + 8, k0 + t, base, width);
+    v[2] = emb_at(d, e, s, r, k0 + t + 4, base, width);
+    v[3] = emb_at(d, e, s, r + 8, k0 + t + 4, base, width);
   }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) split(v[i], ab[i], as[i]);
+}
+
+// the same for both m64 blocks
+template <class Enc>
+__device__ __forceinline__ void a_frags(const Desc& d, const Enc& e, const Smem& s, int src,
+                                        int k0, int HS, unsigned (&ab)[2][4],
+                                        unsigned (&as)[2][4]) {
+#pragma unroll
+  for (int m = 0; m < 2; ++m) a_frag(d, e, s, src, k0, HS, m, ab[m], as[m]);
 }
 
 // acc[m] += slice products for both m64 blocks: the warpgroup's N columns
@@ -428,6 +523,44 @@ __device__ __forceinline__ void mma_slice(float (&acc)[2][NACC], const unsigned 
   }
   wgmma_commit_wait();
   fence_acc(acc);
+}
+
+// The same products as mma_slice, for B1, summed on the tensor cores per
+// slice and m64 block from zero (the two small products first, then
+// big·big) and added to acc on the CUDA cores, rounded to nearest. The
+// tensor cores add without rounding to nearest, so a running sum over the
+// whole K drifts toward zero; a slice's sum is ~1/6 of a column's total at
+// K = 256, so what they drop there is that much smaller, and acc's own sum
+// over the slices is unbiased. frag(m, ab, as) forms block m's A
+// fragments; each of the G groups of N columns (tile_network: one group,
+// the warpgroup's columns) waits for its MMAs and takes N / 2 registers a
+// thread beside acc. The kernel sits at the 255-register cap, and ptxas's
+// spills swing with the shape of this code: this form spills 96 bytes
+// (chip_smoke.py phase 1) and runs B1 in 6.2 ms at 196,608 lego points on
+// an H100; the same arithmetic without the G loop spilled more and ran
+// far slower (PERF.md, Findings).
+template <int N, int G, class Frag>
+__device__ __forceinline__ void mma_slice_rn(float (&acc)[2][NACC], const Frag& frag,
+                                             const float* big, const float* small) {
+  float part[N / 2];
+  unsigned ab[4], as[4];
+#pragma unroll
+  for (int m = 0; m < 2; ++m) {
+    frag(m, ab, as);
+#pragma unroll
+    for (int h = 0; h < G; ++h) {
+      const unsigned long long bb = b_desc(big + h * N * 8), bs = b_desc(small + h * N * 8);
+      fence_part(part);
+      wgmma_fence();
+      Wgmma<N>::run(part, as, bb, 0);
+      Wgmma<N>::run(part, ab, bs);
+      Wgmma<N>::run(part, ab, bb);
+      wgmma_commit_wait();
+      fence_part(part);
+#pragma unroll
+      for (int i = 0; i < N / 2; ++i) acc[m][h * (N / 2) + i] += part[i];
+    }
+  }
 }
 
 // h[row][col] = act(acc + bias[col]) over the thread's accumulators: the
@@ -477,23 +610,19 @@ __device__ __forceinline__ void narrow(const long long* Nh, const float* __restr
   }
 }
 
-// Each tile row's point p0 + p (flat index r * S + sample): its row of
-// A / B and its depth; rows at or past pend are marked empty.
-__device__ inline void tile_rows(const Desc& d, const float* __restrict__ z, long long p0,
-                                 long long pend, int S, const Smem& s) {
-  const long long emb = d.hdr[H_P] + d.hdr[H_V];
-  for (int p = threadIdx.x; p < TP; p += NTHREADS) {
-    const long long gp = p0 + p;
-    s.ray[p] = gp < pend ? gp / S * emb : -1;
-    s.z[p] = gp < pend ? __ldg(z + gp) : 0.f;
-  }
+// Each tile row's record: the encoder's for point p0 + p; rows at or past
+// pend are empty.
+template <class Enc>
+__device__ inline void tile_rows(const Desc& d, const Enc& e, long long p0, long long pend,
+                                 const Smem& s) {
+  for (int p = threadIdx.x; p < TP; p += NTHREADS) e.row(d, s.rows, p, p0 + p, pend);
 }
 
 // The whole network on the tile whose rows tile_rows set -> s.raw (cols
 // 0..2 rgb logits, col 3 sigma; or output_ch columns without viewdirs).
 // Starts and ends with a barrier.
-__device__ inline void tile_network(const Desc& d, const float* __restrict__ wb,
-                                    const float* __restrict__ A, const float* __restrict__ B,
+template <class Enc, bool kSliceSums = false>
+__device__ inline void tile_network(const Desc& d, const float* __restrict__ wb, const Enc& e,
                                     const Smem& s, Ring& r) {
   const int D = (int)d.hdr[H_D], NG = (int)d.hdr[H_NG], HS = (int)d.hdr[H_HS];
   const bool viewdirs = d.hdr[H_VIEWDIRS] != 0;
@@ -513,16 +642,30 @@ __device__ inline void tile_network(const Desc& d, const float* __restrict__ wb,
     for (int i = 0; i < ns; ++i) {
       const float* slice = acquire(r, d, wb);
       const bool first = i < ns0;
-      unsigned ab[2][4], as[2][4];
-      a_frags(d, s, A, B, first ? src0 : src1, (first ? i : i - ns0) * SLICE_K, HS, ab, as);
+      const int src = first ? src0 : src1, k0 = (first ? i : i - ns0) * SLICE_K;
       // the warpgroup's columns: n0 / 8 column groups of 256 bytes in
-      const unsigned long long bb = b_desc(slice + n0 * 8);
-      const unsigned long long bs = b_desc(slice + 8 * np + n0 * 8);
-      switch (nh) {
-        case 128: mma_slice<128>(acc, ab, as, bb, bs); break;
-        case 64: mma_slice<64>(acc, ab, as, bb, bs); break;
-        case 32: mma_slice<32>(acc, ab, as, bb, bs); break;
-        default: mma_slice<16>(acc, ab, as, bb, bs); break;
+      const float* big = slice + n0 * 8;
+      const float* small = slice + 8 * np + n0 * 8;
+      if (kSliceSums) {
+        const auto frag = [&](int m, unsigned (&fb)[4], unsigned (&fs)[4]) {
+          a_frag(d, e, s, src, k0, HS, m, fb, fs);
+        };
+        switch (nh) {
+          case 128: mma_slice_rn<128, 1>(acc, frag, big, small); break;
+          case 64: mma_slice_rn<64, 1>(acc, frag, big, small); break;
+          case 32: mma_slice_rn<32, 1>(acc, frag, big, small); break;
+          default: mma_slice_rn<16, 1>(acc, frag, big, small); break;
+        }
+      } else {
+        unsigned ab[2][4], as[2][4];
+        a_frags(d, e, s, src, k0, HS, ab, as);
+        const unsigned long long bb = b_desc(big), bs = b_desc(small);
+        switch (nh) {
+          case 128: mma_slice<128>(acc, ab, as, bb, bs); break;
+          case 64: mma_slice<64>(acc, ab, as, bb, bs); break;
+          case 32: mma_slice<32>(acc, ab, as, bb, bs); break;
+          default: mma_slice<16>(acc, ab, as, bb, bs); break;
+        }
       }
       release(r);
     }
@@ -540,9 +683,10 @@ __device__ inline void tile_network(const Desc& d, const float* __restrict__ wb,
   __syncthreads();
 }
 
-// The ring depth that fits the block's shared memory and the bytes it
-// needs; 0 on success.
-inline int plan(const void* kernel, int HS, int SLOT, int* R, size_t* bytes, int* sms) {
+// The ring depth that fits the block's shared memory (its encoder keeping
+// ROW floats a point) and the bytes it needs; 0 on success.
+inline int plan(const void* kernel, int HS, int SLOT, int ROW, int* R, size_t* bytes,
+                int* sms) {
   int dev, optin;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess)
@@ -553,10 +697,10 @@ inline int plan(const void* kernel, int HS, int SLOT, int* R, size_t* bytes, int
   if (e == cudaSuccess) e = cudaFuncGetAttributes(&fa, kernel);
   if (e != cudaSuccess) return (int)e;
   const long long avail = (long long)optin - (long long)fa.sharedSizeBytes;
-  const long long r = (avail - 4LL * smem_floats(HS, SLOT, 0)) / (4LL * SLOT);
+  const long long r = (avail - 4LL * smem_floats(HS, SLOT, 0, ROW)) / (4LL * SLOT);
   if (r < 2) return (int)cudaErrorInvalidConfiguration;
   *R = (int)(r < MAX_SLOTS ? r : MAX_SLOTS);
-  *bytes = 4 * smem_floats(HS, SLOT, *R);
+  *bytes = 4 * smem_floats(HS, SLOT, *R, ROW);
   return 0;
 }
 

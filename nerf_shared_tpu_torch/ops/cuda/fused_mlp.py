@@ -5,8 +5,8 @@ B1 (``fused_nerf_forward``) is the counterpart of ``fused_nerf_forward`` in
 ``nerf_shared_tpu/ops/pallas/fused_mlp.py`` and the forward of every
 training step: points [..., S, 3] and view directions [..., 3] in, raw
 [..., S, C] out. The kernel encodes each point itself (f·x, rounded as the
-plain ``embed`` rounds it) and broadcasts the directions per ray, so no
-[N, 8] input is built.
+plain ``embed`` rounds it, from ``encoder_buffer``'s table) and broadcasts
+the directions per ray, so no [N, 8] input is built.
 
 B3 (``fused_nerf_forward_rays``) is the counterpart of
 ``fused_nerf_forward_rays``. The kernel (``csrc/fused_mlp.cu``) takes
@@ -15,9 +15,12 @@ itself: for embedding column c, ``arg = A[r, c] + z[r, s] * B[r, c]`` with
 ``A = [o, dir][src] * f`` and ``B = [d, 0][src] * f``, then identity, sin or
 cos. For power-of-two frequencies this is exactly ``f * (o + z * d)``, the
 plain version's argument. A and B are computed here in PyTorch (exact: one
-product per entry); the network itself runs only in the kernel, on the
-tensor cores in split fp32 (``csrc/mlp_tile_tc.cuh``) over the weights that
-``pack_network_tc`` lays out. B1 and B2 read ``pack_network``'s layout.
+product per entry).
+
+Both run the network only in the kernel, on the tensor cores in split fp32
+(``csrc/mlp_tile_tc.cuh``, one tile with a point-major and a ray-major
+encoder) over the weights that ``pack_network_tc`` lays out. B2 reads
+``pack_network``'s layout.
 
 Both entries dispatch on the tensors' device: on the CPU they are the plain
 version, on a CUDA device they launch the kernel or raise. B1's gradient is
@@ -122,9 +125,9 @@ def packed_layout(cfg: NeRFConfig):
 
 
 def pack_network(params: Dict[str, torch.Tensor], cfg: NeRFConfig, device):
-    """(weights, desc, HS, ES): every matrix transposed to [in, out] with its
-    row stride rounded up to 4 floats, concatenated into one fp32 buffer
-    (``packed_layout``); ``desc`` is the int64 NetDesc of
+    """(weights, desc, HS, ES) for kernel B2: every matrix transposed to
+    [in, out] with its row stride rounded up to 4 floats, concatenated into
+    one fp32 buffer (``packed_layout``); ``desc`` is the int64 NetDesc of
     ``csrc/mlp_tile.cuh`` on ``device``."""
     device = torch.device(device)
     check_config(cfg)
@@ -166,7 +169,7 @@ def pack_network(params: Dict[str, torch.Tensor], cfg: NeRFConfig, device):
     return wbuf, common.upload(desc, device), HS, _round4(P) + _round4(V)
 
 
-# --- the tensor-core kernels' pack (B3, B4: csrc/mlp_tile_tc.cuh) ------------
+# --- the tensor-core kernels' pack (B1, B3, B4: csrc/mlp_tile_tc.cuh) --------
 
 MAX_GEMMS, SLICE_K = MAX_LAYERS + 2, 8
 SRC_PTS, SRC_H, SRC_DIRS = 0, 1, 2
@@ -226,13 +229,13 @@ def slice_floats(Np: int) -> int:
     return 16 * Np
 
 
-def slice_index(Np: int, device=None) -> torch.Tensor:
+def slice_index(Np: int) -> torch.Tensor:
     """int64 [8, Np]: where weight (row k, column n) of a slice sits in one
     plane: wgmma's K-major layout without swizzle, core matrices of 8
     columns x 4 rows (a column's 4 k-values contiguous), the two k-halves
     of a column group 32 floats apart, column groups 64 floats apart."""
-    k = torch.arange(SLICE_K, device=device)[:, None]
-    n = torch.arange(Np, device=device)[None, :]
+    k = torch.arange(SLICE_K)[:, None]
+    n = torch.arange(Np)[None, :]
     return (n // 8) * 64 + (k // 4) * 32 + (n % 8) * 4 + k % 4
 
 
@@ -268,17 +271,22 @@ def tc_strides(cfg: NeRFConfig):
     return wn + 4, slice_floats(wn)
 
 
-def pack_network_tc(params: Dict[str, torch.Tensor], cfg: NeRFConfig, device):
-    """(weights, desc, HS, SLOT) for the tensor-core kernels B3 and B4:
-    the fp32 buffer laid out by ``tc_layout`` (GEMM weights split by
-    ``tf32_split`` into their two planes), the int64 ``Desc`` of
-    ``csrc/mlp_tile_tc.cuh`` on ``device`` and the strides of
-    ``tc_strides``."""
-    device = torch.device(device)
-    check_config(cfg)
-    check_params(params, cfg, device)
+def tc_sources(cfg: NeRFConfig):
+    """(src, plane, desc): where each float of ``pack_network_tc``'s buffer
+    comes from, which depends on the architecture alone. src [size] int64
+    is 1 + the entry's index in the parameters flattened in
+    ``torch_param_order`` (0: padding, zero); plane [size] int8 is 1 for
+    a GEMM weight's big plane, 2 for its small plane, 0 for a value kept
+    as it is (biases, narrow heads); desc is the int64 ``Desc`` of
+    ``csrc/mlp_tile_tc.cuh``."""
     layout, size = tc_layout(cfg)
-    wbuf = torch.zeros(size, dtype=torch.float32, device=device)
+    shapes = param_shapes(cfg)
+    start, off = {}, 1
+    for name in torch_param_order(cfg):
+        start[name] = off
+        off += int(np.prod(shapes[name]))
+    src = np.zeros(size, np.int64)
+    plane = np.zeros(size, np.int8)
     desc = np.zeros(_TC_DESC_WORDS, np.int64)
     hdr = desc[:16]
     gemm = desc[16:16 + MAX_GEMMS * 8].reshape(MAX_GEMMS, 8)
@@ -287,33 +295,71 @@ def pack_network_tc(params: Dict[str, torch.Tensor], cfg: NeRFConfig, device):
 
     for g, (name, segs, N, relu) in enumerate(tc_gemms(cfg)):
         w_off, b_off, Kp, Np = layout[name]
-        wt = params[name + ".weight"].detach().t()
-        block = torch.zeros((Kp, Np), dtype=torch.float32, device=device)
+        n_in = shapes[name + ".weight"][1]
+        # block [Kp, Np]: row k of segment (row0, col0) is input column
+        # col0 + k of the weight [N, n_in]
+        block = np.zeros((Kp, Np), np.int64)
         row = col = 0
         for _, k in segs:
-            block[row:row + k, :N] = wt[col:col + k]
+            block[row:row + k, :N] = (start[name + ".weight"] + col
+                                      + np.arange(k)[:, None] + n_in * np.arange(N)[None, :])
             row, col = row + _round(k, SLICE_K), col + k
-        slices = wbuf[w_off:w_off + Kp // SLICE_K * slice_floats(Np)].view(
-            Kp // SLICE_K, 2, 8 * Np)
-        at = slice_index(Np, device).reshape(-1)
-        for plane, part in enumerate(tf32_split(block)):
-            slices[:, plane, at] = part.view(-1, 8 * Np)
-        wbuf[b_off:b_off + N] = params[name + ".bias"].detach()
-        src = [s for s, _ in segs] + [-1]
+        at = slice_index(Np).reshape(-1).numpy()
+        n_sl = Kp // SLICE_K
+        for pl in (1, 2):
+            dst = (w_off + np.arange(n_sl)[:, None] * slice_floats(Np)
+                   + (pl - 1) * 8 * Np + at[None, :])
+            src[dst] = block.reshape(n_sl, 8 * Np)
+            plane[dst] = pl
+        src[b_off:b_off + N] = start[name + ".bias"] + np.arange(N)
+        seg_src = [s for s, _ in segs] + [-1]
         ns = [_round(k, SLICE_K) // SLICE_K for _, k in segs] + [0]
-        gemm[g] = (w_off, b_off, Np, ns[0], src[0], ns[1], src[1], int(relu))
+        gemm[g] = (w_off, b_off, Np, ns[0], seg_src[0], ns[1], seg_src[1], int(relu))
     for row, name, K, N in tc_narrow_heads(cfg):
         w_off, b_off, _, _ = layout[name]
-        wbuf[w_off:w_off + N * K] = params[name + ".weight"].detach().reshape(-1)
-        wbuf[b_off:b_off + N] = params[name + ".bias"].detach()
+        src[w_off:w_off + N * K] = start[name + ".weight"] + np.arange(N * K)
+        src[b_off:b_off + N] = start[name + ".bias"] + np.arange(N)
         narrow[row] = (w_off, b_off, K, N)
-
     HS, SLOT = tc_strides(cfg)
     hdr[:9] = (cfg.D, cfg.W, cfg.input_ch, cfg.input_ch_views, out_channels(cfg),
                int(cfg.use_viewdirs), HS, SLOT, len(tc_gemms(cfg)))
     k = encoder_tables(cfg)[2]
     kind[:k.size] = k
-    return wbuf, common.upload(desc, device), HS, SLOT
+    return src, plane, desc
+
+
+_TC_STATIC: Dict[tuple, tuple] = {}
+
+
+def _tc_static(cfg: NeRFConfig, device: torch.device):
+    """``tc_sources`` on ``device``, made once per architecture and device
+    (it holds no parameter value)."""
+    key = (cfg, str(device))
+    if key not in _TC_STATIC:
+        src, plane, desc = tc_sources(cfg)
+        _TC_STATIC[key] = (torch.from_numpy(src).to(device),
+                           torch.from_numpy(plane).to(device), common.upload(desc, device))
+    return _TC_STATIC[key]
+
+
+def pack_network_tc(params: Dict[str, torch.Tensor], cfg: NeRFConfig, device):
+    """(weights, desc, HS, SLOT) for the tensor-core kernels B1, B3 and B4:
+    the fp32 buffer laid out by ``tc_layout`` (GEMM weights split by
+    ``tf32_split`` into their two planes), the int64 ``Desc`` of
+    ``csrc/mlp_tile_tc.cuh`` on ``device`` and the strides of
+    ``tc_strides``. The buffer is made from the parameters on every call,
+    in a few launches: one gather by ``tc_sources`` and the split."""
+    device = torch.device(device)
+    check_config(cfg)
+    check_params(params, cfg, device)
+    src, plane, desc = _tc_static(cfg, device)
+    flat = torch.cat([torch.zeros(1, dtype=torch.float32, device=device)]
+                     + [params[k].detach().reshape(-1) for k in torch_param_order(cfg)])
+    v = flat[src]
+    big, small = tf32_split(v)
+    wbuf = torch.where(plane == 1, big, torch.where(plane == 2, small, v))
+    HS, SLOT = tc_strides(cfg)
+    return wbuf, desc, HS, SLOT
 
 
 def encoder_buffer(cfg: NeRFConfig, device) -> torch.Tensor:
@@ -462,12 +508,12 @@ def launch_points(params, cfg: NeRFConfig, pts, viewdirs) -> torch.Tensor:
     out = torch.empty(pts.shape[:-1] + (C,), dtype=torch.float32, device=pts.device)
     if n == 0:
         return out
-    fn = common.load("fused_mlp", _POINT_ARGS, "nstt_points_forward")
+    fn = common.load("fused_mlp", _POINT_ARGS, "nstt_points_forward_tc")
     with torch.cuda.device(pts.device):
-        wbuf, desc, HS, ES = pack_network(params, cfg, pts.device)
+        wbuf, desc, HS, SLOT = pack_network_tc(params, cfg, pts.device)
         enc = encoder_buffer(cfg, pts.device)
         stream = torch.cuda.current_stream(pts.device).cuda_stream
-        rc = fn(desc.data_ptr(), HS, ES, wbuf.data_ptr(), enc.data_ptr(),
+        rc = fn(desc.data_ptr(), HS, SLOT, wbuf.data_ptr(), enc.data_ptr(),
                 pts.data_ptr(), viewdirs.data_ptr() if viewdirs is not None else 0,
                 out.data_ptr(), n, S, stream)
     common.check_launch(rc, "fused_mlp points (B1)")

@@ -4,6 +4,7 @@ package (CPU)."""
 import glob
 import os
 import struct
+import subprocess
 import zlib
 
 import imageio.v2 as imageio
@@ -113,14 +114,42 @@ def _hard_scene_frame(size):
     return render_gt_rgba(c2w, size, size, 1.1 * size)
 
 
+@pytest.fixture(scope="module")
+def native_resizer(tmp_path_factory):
+    """The JAX package's native image library, built by this module alone.
+
+    The library is not part of a checkout, and the JAX package's loader
+    builds it in place on first use: test processes that start together
+    each run that build, and one may load another's half-written file and
+    keep the failure for its lifetime. So the library is built here with
+    the Makefile's own rule into a directory of this module's, appears
+    under its final name only when whole (``os.replace``), and the loader
+    is pointed at it until the module ends."""
+    native = os.path.join(os.path.dirname(__file__), "..", "native")
+    build = tmp_path_factory.mktemp("native")
+    subprocess.run(["make", "-B", "-s", "-C", str(build), "-f",
+                    os.path.abspath(os.path.join(native, "Makefile")),
+                    "VPATH=" + os.path.abspath(native), "libimageops.so"],
+                   check=True, capture_output=True, timeout=300)
+    so = str(build / "lib" / "libimageops.so")
+    os.mkdir(os.path.dirname(so))
+    os.replace(str(build / "libimageops.so"), so)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jimages._native, "_SO_PATH", so)
+        mp.setattr(jimages._native, "_TRIED", False)
+        mp.setattr(jimages._native, "_LIB", None)
+        yield jimages._native
+
+
 @pytest.mark.parametrize("shape,out", [((801, 801, 4), (400, 400)),
                                        ((803, 600, 3), (401, 300)),
                                        ((375, 500, 3), (187, 250)),
                                        ((800, 800, 4), (400, 400)),
                                        ("hard_scene", (200, 200))])
-def test_resize_area_matches_jax_at_any_factor(shape, out):
+def test_resize_area_matches_jax_at_any_factor(native_resizer, shape, out):
     """The exact area average of the JAX package's native resizer, within
     1e-6, at odd and integer factors (half_res on an odd frame)."""
+    assert native_resizer.available()
     if shape == "hard_scene":
         img = _hard_scene_frame(401)
     else:

@@ -1,4 +1,4 @@
-"""The split-fp32 (3xTF32) tensor-core numerics of kernels B3 and B4
+"""The split-fp32 (3xTF32) tensor-core numerics of kernels B1, B3 and B4
 (csrc/mlp_tile_tc.cuh) on the CPU.
 
 A CUDA kernel cannot run here, so these tests hold its arithmetic and its
@@ -7,13 +7,14 @@ pack:
 - a plain-torch emulation of the kernel's GEMMs (tf32 round-to-nearest by
   integer bit operations, the big / small split of every operand, three
   products a multiply-add accumulated in fp32 slice by slice over K padded
-  to 8) walks ``pack_network_tc``'s buffer and descriptor, and is held
-  against the plain fp32 version and against the JAX package's Pallas ray
-  and render kernels (interpret mode) within B3's 2e-4 x max(1, max|raw|),
-  at the lego width and at chip_smoke.py's ``check_other_shapes``
-  architectures; the same emulation with one TF32 product a multiply-add
-  (plain TF32) misses chip_smoke.py's fp32-accuracy gate, which split
-  fp32 meets;
+  to 8) walks ``pack_network_tc``'s buffer and descriptor, fed by either
+  of the tile's encoders: ray-major (B3, B4: A + z·B) or point-major (B1:
+  f·x from ``encoder_buffer``'s table). It is held against the plain fp32
+  version and against the JAX package's Pallas point, ray and render
+  kernels (interpret mode) within B3's 2e-4 x max(1, max|raw|), at the
+  lego width and at chip_smoke.py's ``check_other_shapes`` architectures;
+  the same emulation with one TF32 product a multiply-add (plain TF32)
+  misses chip_smoke.py's fp32-accuracy gate, which split fp32 meets;
 - the pack round-trips to the parameters, and every padded entry is zero;
 - B4's tiling: the composite walked in flat tiles that span rays, with the
   transmittance carried from tile to tile, is raw2outputs.
@@ -29,6 +30,7 @@ import pytest
 import torch
 
 from nerf_shared_tpu.models import nerf as jnerf
+from nerf_shared_tpu.ops.pallas.fused_mlp import fused_nerf_forward as j_b1
 from nerf_shared_tpu.ops.pallas.fused_mlp import fused_nerf_forward_rays as j_b3
 from nerf_shared_tpu.ops.pallas.fused_render import fused_render_rays as j_b4
 from nerf_shared_tpu_torch.models import nerf as tnerf
@@ -84,7 +86,10 @@ def mm3(a: torch.Tensor, w_big: torch.Tensor, w_small: torch.Tensor,
     """a [M, K] @ w [K, N] as the kernel forms it from the split planes of
     w: a split here, and for each 8-row slice of K in order, small·big' +
     big·small' + big·big' added to an fp32 accumulator (``products`` 1:
-    big·big' alone, plain TF32). K must be a multiple of 8."""
+    big·big' alone, plain TF32). K must be a multiple of 8. The sums round
+    to nearest, as B1's slice sums are added on the CUDA cores; B3's and
+    B4's running sum stays on the tensor cores, which drop low bits, so on
+    the card they read about ten times further from float64 than this."""
     acc = torch.zeros(a.shape[0], w_big.shape[1], dtype=torch.float32)
     for k in range(0, a.shape[1], 8):
         ab, as_ = split(a[:, k:k + 8])
@@ -153,21 +158,16 @@ def _planes(flat, w_off, Kp, Np):
     return [v[:, plane, at].reshape(Kp, Np) for plane in (0, 1)]
 
 
-def emulate_tc(wbuf, desc, A, B, z, products=3):
-    """raw [N, S, OUT] of csrc/mlp_tile_tc.cuh on the pack: the encoder and
-    bias adds in fp32, the GEMMs through mm3 (with ``products``), the
-    narrow heads in fp32."""
-    hdr, gemm, narrow, kind = _desc(desc)
+def tc_network(wbuf, desc, emb, products=3):
+    """raw [M, OUT] of csrc/mlp_tile_tc.cuh on the pack from the encoded
+    inputs emb [M, P + V]: the bias adds in fp32, the GEMMs through mm3
+    (with ``products``), the narrow heads in fp32."""
+    hdr, gemm, narrow, _ = _desc(desc)
     D, W, P, V, OUT, VD, HS, SLOT, NG = (int(v) for v in hdr[:9])
     P8, V8 = (P + 7) // 8 * 8, (V + 7) // 8 * 8
-    n, S = z.shape
-    arg = A[:, None, :] + z[..., None] * B[:, None, :]
-    k = torch.from_numpy(kind[:P + V].astype(np.int64))
-    emb = torch.where(k == 0, arg, torch.where(k == 1, torch.sin(arg), torch.cos(arg)))
-    emb = emb.reshape(n * S, P + V)
     srcs = {fused_mlp.SRC_PTS: torch.nn.functional.pad(emb[:, :P], (0, P8 - P)),
             fused_mlp.SRC_DIRS: torch.nn.functional.pad(emb[:, P:], (0, V8 - V))}
-    raw = torch.zeros(n * S, 8)
+    raw = torch.zeros(emb.shape[0], 8)
 
     def head(row, x, col):
         w_off, b_off, K, N = (int(v) for v in narrow[row])
@@ -187,13 +187,59 @@ def emulate_tc(wbuf, desc, A, B, z, products=3):
             head(0, h, 3) if VD else head(2, h, 0)
     if VD:
         head(1, h, 0)
-    return raw[:, :OUT].reshape(n, S, OUT)
+    return raw[:, :OUT]
+
+
+def _kinds(desc, width):
+    k = torch.from_numpy(_desc(desc)[3][:width].astype(np.int64))
+    return lambda x, arg: torch.where(k == 0, x, torch.where(k == 1, torch.sin(arg),
+                                                             torch.cos(arg)))
+
+
+def emulate_tc(wbuf, desc, A, B, z, products=3):
+    """raw [N, S, OUT] of the tile with the ray-major encoder (RayEnc, B3
+    and B4): the argument A + z·B in fp32, then identity, sin or cos."""
+    hdr = _desc(desc)[0]
+    P, V, OUT = int(hdr[2]), int(hdr[3]), int(hdr[4])
+    n, S = z.shape
+    arg = A[:, None, :] + z[..., None] * B[:, None, :]
+    emb = _kinds(desc, P + V)(arg, arg).reshape(n * S, P + V)
+    return tc_network(wbuf, desc, emb, products).reshape(n, S, OUT)
+
+
+def emulate_tc_points(wbuf, desc, enc, pts, vd, products=3):
+    """raw [N, S, OUT] of the tile with the point-major encoder (PointEnc,
+    B1) on pts [N, S, 3] and per-ray directions vd [N, 3] (None without a
+    viewdir head): each row keeps its point and its ray's direction,
+    column cc reads input x = row[enc[MAX_EMB + cc]] and its argument is
+    enc[cc] * x, rounded once; identity columns give x."""
+    hdr = _desc(desc)[0]
+    P, V, OUT = int(hdr[2]), int(hdr[3]), int(hdr[4])
+    n, S = pts.shape[:2]
+    dirs = torch.zeros_like(pts) if vd is None else vd[:, None, :].expand_as(pts)
+    rows = torch.cat([pts, dirs], -1).reshape(n * S, 6)
+    m = fused_mlp.MAX_EMB
+    x = rows[:, enc[m:m + P + V].long()]
+    emb = _kinds(desc, P + V)(x, x * enc[:P + V])
+    return tc_network(wbuf, desc, emb, products).reshape(n, S, OUT)
 
 
 def _tc_raw(tp, tcfg, ro, rd, z, vd, products=3):
     wbuf, desc, _, _ = fused_mlp.pack_network_tc(tp, tcfg, "cpu")
     A, B = fused_mlp.ray_encoder_args(tcfg, _t(ro), _t(rd), _t(vd))
     return emulate_tc(wbuf, desc, A, B, _t(z), products)
+
+
+def _tc_points_raw(tp, tcfg, pts, vd, products=3):
+    wbuf, desc, _, _ = fused_mlp.pack_network_tc(tp, tcfg, "cpu")
+    enc = fused_mlp.encoder_buffer(tcfg, "cpu")
+    return emulate_tc_points(wbuf, desc, enc, _t(pts), _t(vd), products)
+
+
+def _points(n, S, seed):
+    """pts [n, S, 3] along _rays' rays and their unit directions [n, 3]."""
+    ro, rd, z = _rays(n, S, seed)
+    return (ro[:, None] + rd[:, None] * z[..., None]).astype(np.float32), rd
 
 
 def _check(got, want):
@@ -231,6 +277,58 @@ def test_fp32_gate_separates_split_fp32_from_plain_tf32(seed):
     err3, err1 = (float((_tc_raw(tp, tcfg, ro, rd, z, rd, products=p) - want).abs().max())
                   / scale for p in (3, 1))
     assert err3 < FP32_TOL / 10 and err1 > 2 * FP32_TOL, (err3, err1)
+
+
+@pytest.mark.parametrize("kw", [LEGO] + OTHER, ids=["lego", "no_viewdirs",
+                                                    "stonehenge", "identity_w30",
+                                                    "two_skips"])
+def test_point_major_tile_matches_plain_and_pallas_b1(kw):
+    """B1's numerics: the point-major encoder over the same pack as B3,
+    against apply_nerf and the Pallas point-major kernel B1."""
+    jcfg, jp, tcfg, tp = _models(seed=7, **kw)
+    pts, rd = _points(5, 7, seed=8)
+    vd = rd if tcfg.use_viewdirs else None
+    got = _tc_points_raw(tp, tcfg, pts, vd)
+    _check(got, tnerf.apply_nerf(tp, tcfg, _t(pts), _t(vd)))
+    _check(got, j_b1(jp, jcfg, jnp.asarray(pts), None if vd is None else jnp.asarray(vd)))
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_fp32_gate_separates_split_fp32_from_plain_tf32_point_major(seed):
+    """The fp32-accuracy gate on B1's raw, as on B3's: split fp32 far
+    inside it, plain TF32 outside it, through the point-major encoder."""
+    tcfg = tnerf.NeRFConfig(**LEGO)
+    tp = {k: v.detach() for k, v in tnerf.NeRF(
+        tcfg, generator=torch.Generator().manual_seed(seed)).params().items()}
+    pts, rd = _points(8, 16, seed=seed)
+    want = tnerf.apply_nerf(tp, tcfg, _t(pts), _t(rd))
+    scale = max(1.0, float(want.abs().max()))
+    err3, err1 = (float((_tc_points_raw(tp, tcfg, pts, rd, products=p) - want).abs().max())
+                  / scale for p in (3, 1))
+    assert err3 < FP32_TOL / 10 and err1 > 2 * FP32_TOL, (err3, err1)
+
+
+@pytest.mark.parametrize("kw", [LEGO] + OTHER, ids=["lego", "no_viewdirs",
+                                                    "stonehenge", "identity_w30",
+                                                    "two_skips"])
+def test_point_major_encoder_is_embed_bit_for_bit(kw):
+    """Every column of the point-major encoder, sines and cosines included,
+    is the plain embed's value bit for bit at every architecture."""
+    from nerf_shared_tpu_torch.ops.embedding import embed
+
+    tcfg = tnerf.NeRFConfig(**kw)
+    pts, rd = _points(4, 9, seed=1)
+    wbuf, desc, _, _ = fused_mlp.pack_network_tc(
+        {k: v.detach() for k, v in tnerf.NeRF(tcfg).params().items()}, tcfg, "cpu")
+    enc = fused_mlp.encoder_buffer(tcfg, "cpu")
+    P, V = tcfg.input_ch, tcfg.input_ch_views
+    m = fused_mlp.MAX_EMB
+    x = torch.cat([_t(pts), _t(rd)[:, None].expand(-1, 9, -1)], -1)[..., enc[m:m + P + V].long()]
+    got = _kinds(desc, P + V)(x, x * enc[:P + V])
+    want = [embed(_t(pts), tcfg.pts_embedder)]
+    if tcfg.use_viewdirs:
+        want.append(embed(_t(rd)[:, None].expand(-1, 9, -1), tcfg.views_embedder))
+    torch.testing.assert_close(got, torch.cat(want, -1), rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("white_bkgd", [True, False])

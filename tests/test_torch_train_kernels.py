@@ -9,8 +9,9 @@ A CUDA kernel cannot run here, so these tests hold what surrounds it:
 - the CPU dispatch of fused_nerf_forward, fused_mlp_backward and
   fused_train_op, and the guards;
 - the packed forward and backward weights, descriptors and encoder table
-  the kernels read, driven through a numpy transcription of the kernels'
-  arithmetic (csrc/mlp_tile.cuh encode_points, csrc/fused_mlp_bwd.cu).
+  B2 reads, driven through a numpy transcription of its arithmetic
+  (csrc/mlp_tile.cuh encode_points, csrc/fused_mlp_bwd.cu); B1's
+  tensor-core arithmetic is emulated in tests/test_torch_tc_mlp.py.
 
 The kernels themselves are held against the plain versions on the card by
 chip_smoke.py (phase 5).
@@ -86,8 +87,10 @@ def test_plain_b1_matches_pallas_forward(use_vd, n, S):
 
 
 def test_b1_encoder_arguments_match_embed_bit_for_bit():
-    """encode_points forms f·x from the encoder table, rounded once: for
-    every column that is exactly the plain embed's x * f."""
+    """B1's point-major encoder (csrc/mlp_tile_tc.cuh PointEnc) and B2's
+    encode_points (csrc/mlp_tile.cuh) form f·x from the encoder table,
+    rounded once: for every column that is exactly the plain embed's
+    x * f."""
     _, _, tcfg, _ = _models(multires=10, multires_views=4)
     pts, vd, _ = _points(n=4, S=5)
     enc = fused_mlp.encoder_buffer(tcfg, "cpu")
