@@ -6,11 +6,12 @@
 Phases (any failure exits non-zero and prints no result line):
 
 1. build    nvcc builds every kernel (B1-B5, P1-P2) from csrc/, one process
-            per source, in parallel, into build/nerf_shared_tpu_torch/;
-            cuobjdump counts the tensor-core MMA instructions (HGMMA) of
-            each kernel of B1's, B3's and B4's libraries: B1's
-            nerf_points_tc_kernel, B3's nerf_rays_tc_kernel and B4's
-            nerf_render_tc_kernel must have some.
+            per source, in parallel, into build/nerf_shared_tpu_torch/,
+            and logs ptxas's registers and spills per kernel; cuobjdump
+            counts the tensor-core MMA instructions of each kernel of B1's,
+            B3's, B4's and B2's libraries: B1's nerf_points_tc_kernel, B3's
+            nerf_rays_tc_kernel and B4's nerf_render_tc_kernel must have
+            warpgroup MMAs (HGMMA), B2's nerf_dw_kernel warp MMAs (HMMA).
 2. kernels  at the lego width (8x256, skip at 4, viewdirs, multires 10/4)
             with seeded weights and rays at the main path's shapes (one ray
             block of --chunk 32768 rays): B3 at S=64 and S=192 and B4 at
@@ -46,8 +47,14 @@ Phases (any failure exits non-zero and prints no result line):
             against their plain versions (B1 within 2e-4 and FP32_TOL of
             max(1, max|plain|), as B3); B1 timed in turns with the plain
             chain (median and min-max of 10 samples) beside both bounds,
-            as B3, and its weight pack's time; B2's median times. Then one
-            full training step (N_rand 1024, 64 + 128 samples) through the
+            as B3, and its weight pack's time; B2 (within 1e-3 of each
+            gradient's max) timed the same way, with its two kernels' and
+            its reduction's device ms under the profiler, its host packs'
+            ms and both bounds (the design's: the tile kernel's FLOPs on the
+            fp32 CUDA cores plus the dW products' in split fp32 on the
+            tensor cores; all FLOPs on the fp32 CUDA cores), and 20 runs at
+            196,608 points bit-identical to the first. Then one full
+            training step (N_rand 1024, 64 + 128 samples) through the
             kernels and through the plain path with the same draws: loss,
             every gradient and the post-Adam parameters must agree.
 6. training a 3-D-consistent blender scene (benchmarks/hard_scene.py,
@@ -157,6 +164,13 @@ TC_DESIGN = ("split fp32 (3xTF32) on wgmma.m64nNk8 tensor cores, 128-point tiles
              "bulk-copy weight ring with mbarriers (csrc/mlp_tile_tc.cuh)")
 B1_DESIGN = (TC_DESIGN + "; point-major encoder (f·x); each 8-row slice summed on the "
              "tensor cores from zero and added in fp32 on the CUDA cores")
+B2_DESIGN = ("tile kernel: 64-point tiles, forward remat + input gradients fp32 on the "
+             "CUDA cores (csrc/mlp_tile.cuh), H and dZ written to device buffers; "
+             "nerf_dw_kernel: dW = H^T·dZ in split fp32 (3xTF32) on mma.sync.m16n8k8, "
+             "128x128 output tiles over split-K point ranges, 3-stage cp.async ring, "
+             "each k8 step summed on the tensor cores from zero and added in fp32 on "
+             "the CUDA cores, narrow heads and biases fp32; fixed-order reduction of "
+             "the ranges' partials (csrc/fused_mlp_bwd.cu)")
 
 
 def log(msg):
@@ -179,29 +193,6 @@ def time_ms(fn, reps):
         torch.cuda.synchronize()
         ts.append(start.elapsed_time(end))
     return statistics.median(ts)
-
-
-def device_ms(fn, reps, kernel=None):
-    """Device milliseconds per call of ``fn`` under torch.profiler over
-    ``reps`` calls after a warm-up: the time of the CUDA kernels whose name
-    contains ``kernel``, or of every CUDA kernel when it is None. For a
-    launch shorter than the host's per-call cost, where CUDA events around
-    the call measure the host."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == DeviceType.CUDA and (kernel is None or kernel in e.name))
-    if us <= 0:
-        raise AssertionError(f"the profiler recorded no device time for {kernel}")
-    return us / 1e3 / reps
 
 
 def queued_ms(fn, reps=20, rounds=3):
@@ -539,12 +530,12 @@ def check_composite(device, n=32768):
                     (32, "froxel K")):
         raw, z, d = composite_inputs(n, S, seed=100 + S, device=device)
         err = check(f"{n} rays S={S} ({what})", raw, z, d)
-        # device time (the profiler): a launch is shorter than the host's cost
-        # of one call, which CUDA events around the call would measure
+        # device time (queued_ms): a launch is shorter than the host's cost of
+        # one call, which CUDA events around the call would measure; the
+        # profiler, which timed this before, at times recorded none of it
         with torch.no_grad():
-            ms = device_ms(lambda: composite.composite_fused(raw, z, d, True), 20,
-                           "composite_kernel")
-            plain_ms = device_ms(lambda: composite.plain_composite(raw, z, d, True), 20)
+            ms = queued_ms(lambda: composite.composite_fused(raw, z, d, True))
+            plain_ms = queued_ms(lambda: composite.plain_composite(raw, z, d, True))
             call_ms = time_ms(lambda: composite.composite_fused(raw, z, d, True), 20)
         t_bytes = composite.bytes_moved(n, S) / PEAK_BYTES
         t_ops = 40 * n * S / PEAK_FP32_FLOPS  # ~40 fp32 operations a sample
@@ -606,17 +597,75 @@ def rel_err(got, want):
     return float((got - want).abs().max()) / max(1e-12, float(want.abs().max()))
 
 
-def bwd_bound(cfg, params, n):
-    """(bound_ms, bound_by) of B2 on n points: its FLOPs (three forwards
-    less the narrow heads) over the fp32 peak vs its bytes (points,
-    directions, cotangent and weights in; dx and the gradients out)."""
-    from nerf_shared_tpu_torch.ops.cuda.fused_mlp import network_bytes
+def bwd_bounds(cfg, params, n):
+    """B2's two bounds on n points, ((ms, by) of the design, (ms, by) on
+    the fp32 CUDA cores): operations, the tile kernel's FLOPs (two forwards
+    less the narrow heads) over the fp32 peak plus the dW products' (one
+    forward's, flops_per_point) x 3 TF32 products over the TF32 peak for
+    the design, all of B2's FLOPs over the fp32 peak for the other; vs the
+    bytes of the function (points, directions, cotangent and weights in; dx
+    and the gradients out). The H and dZ buffers (19,856 bytes a point at
+    the lego width) are the design's own traffic, not the function's, and
+    overlap the arithmetic of both kernels."""
+    from nerf_shared_tpu_torch.ops.cuda.fused_mlp import flops_per_point, network_bytes
     from nerf_shared_tpu_torch.ops.cuda.fused_mlp_bwd import flops_per_point_bwd
 
-    flops = flops_per_point_bwd(cfg) * n
+    total, dw = flops_per_point_bwd(cfg) * n, flops_per_point(cfg) * n
     nbytes = 4 * (n * 3 + n * 4 + n * 6) + 2 * network_bytes(params, cfg)
-    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES
-    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+    t_bytes = nbytes / PEAK_BYTES
+    out = []
+    for t_ops in ((total - dw) / PEAK_FP32_FLOPS + 3 * dw / PEAK_TF32_FLOPS,
+                  total / PEAK_FP32_FLOPS):
+        out.append((1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"))
+    return tuple(out)
+
+
+def kernels_ms(fn, reps, names):
+    """Device ms per call of ``fn`` of each CUDA kernel whose name holds one
+    of ``names``, under torch.profiler over ``reps`` calls after a warm-up;
+    None for a name no kernel launched (a parent tree's)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = {k: 0.0 for k in names}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            for k in names:
+                if k in e.name:
+                    us[k] += e.time_range.elapsed_us()
+    return {k: (v / 1e3 / reps if v > 0 else None) for k, v in us.items()}
+
+
+def check_b2_repeats(params, cfg, pts, vd, g, runs=20):
+    """B2 ``runs`` times on one input: every gradient, dpts and ddirs bit-
+    identical to the first run (no atomics, fixed-order sums)."""
+    import torch
+
+    from nerf_shared_tpu_torch.ops.cuda import fused_mlp_bwd
+
+    def flat(out):
+        grads, dpts, ddirs = out
+        return [grads[k] for k in sorted(grads)] + [dpts] + (
+            [ddirs] if ddirs is not None else [])
+
+    first = flat(fused_mlp_bwd.fused_mlp_backward(params, cfg, pts, vd, g))
+    differ = 0
+    for _ in range(runs - 1):
+        got = flat(fused_mlp_bwd.fused_mlp_backward(params, cfg, pts, vd, g))
+        differ += int(not all(torch.equal(a, b) for a, b in zip(got, first)))
+    torch.cuda.synchronize()
+    log(f"B2 {runs} runs at N={pts.numel() // 3}: {differ} differ from the first "
+        "(bit for bit)")
+    if differ:
+        raise AssertionError(f"B2: {differ} of {runs} runs differ from the first")
+    return runs - differ
 
 
 def check_train_kernels(cfg, params, pts, vd, g, tol_fwd, tol_bwd, label):
@@ -667,9 +716,10 @@ def phase_train_kernels(device):
         cfg, device=device, generator=torch.Generator().manual_seed(5)).params().items()}
     # B1: as B3 (fp32 sums over <= 283 terms in another order than cuBLAS;
     # split fp32 on the tensor cores, so also FP32_TOL).
-    # B2: each gradient sums up to 196,608 per-point products in fp32 in
-    # another order than cuBLAS (per-block partials, then a fixed-order sum
-    # over 132 blocks): the error is held relative to max |grad| per tensor
+    # B2: each gradient sums up to 196,608 per-point products in another
+    # order than cuBLAS (split fp32 on the tensor cores in k8 slices over
+    # point ranges, then a fixed-order sum over the ranges): the error is
+    # held relative to max |grad| per tensor
     tol_fwd, tol_bwd = 2e-4, 1e-3
     cases = []
     for S in (64, 192):
@@ -681,26 +731,51 @@ def phase_train_kernels(device):
             t1, tp1 = in_turns(lambda: fused_mlp.fused_nerf_forward(params, cfg, pts, vd),
                                lambda: apply_nerf(params, cfg, pts, vd), reps=10)
             pack_ms = time_ms(lambda: fused_mlp.pack_network_tc(params, cfg, pts.device), 5)
-        ms2 = time_ms(lambda: fused_mlp_bwd.fused_mlp_backward(params, cfg, pts, vd, g), 5)
-        plain2 = time_ms(lambda: fused_mlp_bwd.plain_mlp_backward(params, cfg, pts, vd, g), 5)
+            pack2_ms = time_ms(lambda: (fused_mlp.pack_network(params, cfg, pts.device),
+                                        fused_mlp_bwd.pack_backward(params, cfg, pts.device)), 5)
+        t2, tp2 = in_turns(lambda: fused_mlp_bwd.fused_mlp_backward(params, cfg, pts, vd, g),
+                           lambda: fused_mlp_bwd.plain_mlp_backward(params, cfg, pts, vd, g),
+                           reps=5)
+        parts = kernels_ms(lambda: fused_mlp_bwd.fused_mlp_backward(params, cfg, pts, vd, g),
+                           3, ("nerf_bwd_kernel", "nerf_dw_kernel", "grad_reduce_kernel"))
         (b1, by1), (f1, fby1) = points_bounds(cfg, params, n_rays, S)
-        b2, by2 = bwd_bound(cfg, params, n_rays * S)
+        (b2, by2), (f2, fby2) = bwd_bounds(cfg, params, n_rays * S)
         verdict = "beats" if t1[2] < tp1[1] else "loses to" if t1[1] > tp1[2] else "ties"
+        verdict2 = "beats" if t2[2] < tp2[1] else "loses to" if t2[1] > tp2[2] else "ties"
         log(f"B1 fused_mlp points N={n_rays * S}: {spread(t1)} ms vs plain {spread(tp1)} ms "
             f"({verdict} it; median [min-max] of 10 samples in turns); bound "
             f"{b1:.2f} ms split fp32 on the tensor cores ({by1}), {f1:.2f} ms fp32 on "
             f"the CUDA cores ({fby1}); {100 * b1 / t1[0]:.1f}% of the design's bound; "
             f"its weight pack (pack_network_tc) {pack_ms:.3f} ms a call")
-        log(f"B2 fused_mlp_bwd N={n_rays * S}: {ms2:.2f} ms, plain {plain2:.2f} ms, "
-            f"bound {b2:.2f} ms ({by2})")
+
+        def fmt(v):
+            return "absent" if v is None else f"{v:.4f}"
+
+        log(f"B2 fused_mlp_bwd N={n_rays * S}: {spread(t2)} ms vs plain {spread(tp2)} ms "
+            f"({verdict2} it; median [min-max] of 10 samples in turns); device ms by "
+            f"kernel (profiler, 3 calls): nerf_bwd_kernel (tile) "
+            f"{fmt(parts['nerf_bwd_kernel'])}, nerf_dw_kernel {fmt(parts['nerf_dw_kernel'])}, "
+            f"grad_reduce_kernel {fmt(parts['grad_reduce_kernel'])}; bound {b2:.2f} ms "
+            f"design (tile FLOPs fp32 on the CUDA cores + dW FLOPs split fp32 on the "
+            f"tensor cores; {by2}; the H and dZ traffic overlaps both), {f2:.2f} ms fp32 "
+            f"on the CUDA cores ({fby2}); {100 * b2 / t2[0]:.1f}% of the design's bound; "
+            f"its packs (pack_network + pack_backward) {pack2_ms:.3f} ms a call")
         cases.append(dict(kernel="fused_mlp_points", S=S, n_points=n_rays * S,
                           max_abs_err=e1, ms=t1[0], ms_min=t1[1], ms_max=t1[2],
                           plain_ms=tp1[0], plain_min=tp1[1], plain_max=tp1[2],
                           bound_ms=b1, bound_by=by1, bound_fp32_cuda_cores_ms=f1,
                           vs_plain=verdict, pack_ms=pack_ms, design=B1_DESIGN))
-        cases.append(dict(kernel="fused_mlp_bwd", S=S, n_points=n_rays * S,
-                          max_abs_err=e2, max_rel_err=max(errs.values()), ms=ms2,
-                          plain_ms=plain2, bound_ms=b2, bound_by=by2))
+        b2_case = dict(kernel="fused_mlp_bwd", S=S, n_points=n_rays * S,
+                       max_abs_err=e2, max_rel_err=max(errs.values()), ms=t2[0],
+                       ms_min=t2[1], ms_max=t2[2], plain_ms=tp2[0], plain_min=tp2[1],
+                       plain_max=tp2[2], bound_ms=b2, bound_by=by2,
+                       bound_fp32_cuda_cores_ms=f2, vs_plain=verdict2,
+                       tile_ms=parts["nerf_bwd_kernel"], dw_ms=parts["nerf_dw_kernel"],
+                       reduce_ms=parts["grad_reduce_kernel"], pack_ms=pack2_ms,
+                       design=B2_DESIGN)
+        if S == 192:
+            b2_case["identical_runs"] = check_b2_repeats(params, cfg, pts, vd, g)
+        cases.append(b2_case)
     archs = [dict(D=3, W=64, skips=(1,), use_viewdirs=False, output_ch=5),
              dict(D=8, W=256, skips=(4,), multires=15, multires_views=6),
              dict(D=2, W=30, skips=(0,), i_embed=-1),
@@ -2097,42 +2172,62 @@ def _profile(what, fn):
                              for k, ms in table.items()))
 
 
-# the tensor-core kernels of each library (B1 and B3, B4)
-TC_KERNELS = {"fused_mlp": ("nerf_points_tc_kernel", "nerf_rays_tc_kernel"),
-              "fused_render": ("nerf_render_tc_kernel",)}
+# the tensor-core kernels of each library and their MMA instruction: B1,
+# B3 and B4 on warpgroup MMAs (HGMMA), B2's dW kernel on warp MMAs (HMMA)
+TC_KERNELS = {"fused_mlp": ("HGMMA", ("nerf_points_tc_kernel", "nerf_rays_tc_kernel")),
+              "fused_render": ("HGMMA", ("nerf_render_tc_kernel",)),
+              "fused_mlp_bwd": ("HMMA", ("nerf_dw_kernel",))}
+
+
+def demangled(name):
+    """The nested name of an Itanium-mangled symbol (nstt::nerf_dw_kernel),
+    or the symbol as it is."""
+    i = 2 if name.startswith("_Z") else 0
+    if name[i:i + 1] == "N":
+        i += 1
+    parts = []
+    while i < len(name) and name[i].isdigit():
+        j = i
+        while j < len(name) and name[j].isdigit():
+            j += 1
+        k = int(name[i:j])
+        parts.append(name[j:j + k])
+        i = j + k
+    return "::".join(parts) or name
 
 
 def check_tensor_cores(parent=False):
-    """B1, B3 and B4 run on the tensor cores: each of their kernels
-    (TC_KERNELS) is in its library's SASS and holds HGMMA instructions
-    (Hopper's warpgroup MMA), and so does every other ``*_tc_kernel``
-    there. Raises otherwise. (The wrappers launch only those kernels: their
-    C entries are the ``_tc`` ones.) ``parent``: the tree is the parent
-    side of an A/B (ab_smoke.sh), which may predate a kernel of TC_KERNELS;
-    one it lacks is logged, one it has is held as above."""
+    """B1, B3, B4 and B2's dW products run on the tensor cores: each kernel
+    of TC_KERNELS is in its library's SASS and holds its MMA instruction
+    (HGMMA: Hopper's warpgroup MMA; HMMA: the warp MMA), and so does every
+    other ``*_tc_kernel`` there. Raises otherwise. (The wrappers launch
+    only those kernels: B1's, B3's and B4's C entries are the ``_tc`` ones,
+    and B2's entry launches nerf_dw_kernel.) ``parent``: the tree is the
+    parent side of an A/B (ab_smoke.sh), which may predate a kernel of
+    TC_KERNELS; one it lacks is logged, one it has is held as above."""
     from nerf_shared_tpu_torch.ops.cuda import common
 
     tool = shutil.which("cuobjdump") or os.path.join(
         os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
-    for name, wanted in TC_KERNELS.items():
+    for name, (op, wanted) in TC_KERNELS.items():
         sass = subprocess.run([tool, "-sass", str(common.build([name])[name])],
                               capture_output=True, text=True, check=True).stdout
         kernels = {}
         current = None
         for line in sass.splitlines():
             if "Function :" in line:
-                current = line.split("Function :")[1].strip()
+                current = demangled(line.split("Function :")[1].strip())
                 kernels[current] = 0
-            elif current and "HGMMA" in line:
+            elif current and op in line:   # "HGMMA" does not hold "HMMA"
                 kernels[current] += 1
-        log(f"  SASS {name}: HGMMA instructions by kernel {kernels}")
+        log(f"  SASS {name}: {op} instructions by kernel {kernels}")
         for want in wanted:
             if parent and not any(want in k for k in kernels):
                 log(f"  SASS {name}: {want} is not in the parent tree")
             elif not any(want in k and n > 0 for k, n in kernels.items()):
-                raise AssertionError(f"{name}: {want} is missing or holds no HGMMA")
+                raise AssertionError(f"{name}: {want} is missing or holds no {op}")
         if any("_tc_kernel" in k and n == 0 for k, n in kernels.items()):
-            raise AssertionError(f"{name}: a tensor-core kernel holds no HGMMA")
+            raise AssertionError(f"{name}: a tensor-core kernel holds no {op}")
 
 
 def profile_frame(eng, pose):
@@ -2176,9 +2271,12 @@ def main() -> int:
     log(f"phase 1: built {', '.join(common.KERNELS)} in "
         f"{time.perf_counter() - t0:.1f} s")
     for name, text in common.BUILD_LOG.items():
+        kernel = "?"
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  ptxas {name}: {line.strip()}")
+            if "Compiling entry function" in line and "'" in line:
+                kernel = demangled(line.split("'")[1])
+            elif "registers" in line or "spill" in line:
+                log(f"  ptxas {name} {kernel}: {line.strip()}")
     only = None
     if "--phases" in sys.argv[1:]:
         only = {int(p) for p in sys.argv[sys.argv.index("--phases") + 1].split(",")}

@@ -1,5 +1,7 @@
 """Probe: how far the tensor-core MLP kernels B1 and B3 and the plain fp32
-chain are from a float64 forward of the same network, on the card.
+chain are from a float64 forward of the same network, and how far B2's
+weight and bias gradients and the plain fp32 backward are from a float64
+backward, on the card.
 
     python -m nerf_shared_tpu_torch.benchmarks.mlp_accuracy [--rays 1024 --samples 64]
 
@@ -9,9 +11,11 @@ sum in fp32 on the CUDA cores, B3 keeps the running sum in the tensor
 cores' accumulator, which drops low bits at every MMA. The mean error
 shows that drift as a bias. Inputs: seeded lego-width weights and points
 on seeded rays through the lego volume; B3 reads the rays and depths
-that give the same fp32 points. Prints one JSON line per path (rgb and
-sigma: max, rms and mean of the error) and the card's name and power
-limit.
+that give the same fp32 points. Prints one JSON line per forward path
+(rgb and sigma: max, rms and mean of the error), one per backward path
+(each parameter's gradient: max, rms and mean of the error, the mean
+showing any bias of the tensor cores' sum in B2's dW products, with the
+cotangent of the raw outputs seeded) and the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -24,7 +28,7 @@ import subprocess
 import torch
 
 from nerf_shared_tpu_torch.models.nerf import NeRF, NeRFConfig, apply_nerf
-from nerf_shared_tpu_torch.ops.cuda import fused_mlp
+from nerf_shared_tpu_torch.ops.cuda import fused_mlp, fused_mlp_bwd
 
 
 def rays(n: int, S: int, seed: int, device):
@@ -46,6 +50,16 @@ def errors(got: torch.Tensor, want: torch.Tensor) -> dict:
         x = e[..., cols]
         out[name] = {"max": float(x.abs().max()), "rms": float(x.pow(2).mean().sqrt()),
                      "mean": float(x.mean())}
+    return out
+
+
+def grad_errors(got: dict, want: dict) -> dict:
+    """Per parameter: max, rms and mean of got - want, and max |want|."""
+    out = {}
+    for k, w in want.items():
+        e = got[k].double() - w
+        out[k] = {"max": float(e.abs().max()), "rms": float(e.pow(2).mean().sqrt()),
+                  "mean": float(e.mean()), "scale": float(w.abs().max())}
     return out
 
 
@@ -78,6 +92,22 @@ def main(argv=None) -> int:
         for name, got in paths.items():
             print(json.dumps({"path": name, "points": pts.shape[0] * pts.shape[1],
                               **errors(got, want)}))
+    g = torch.randn(pts.shape[:-1] + (4,), generator=torch.Generator().manual_seed(
+        args.seed + 1)).to(dev)
+    want, _, _ = fused_mlp_bwd.plain_mlp_backward(p64, cfg, pts.double(), d.double(),
+                                                  g.double())
+    backward = {
+        "plain fp32 backward (autograd, cuBLAS)":
+            fused_mlp_bwd.plain_mlp_backward(params, cfg, pts, d, g)[0],
+        "B2 (dW split fp32 on the tensor cores, k8 slice sums in fp32)":
+            fused_mlp_bwd.fused_mlp_backward(params, cfg, pts, d, g)[0],
+    }
+    for name, got in backward.items():
+        errs = grad_errors(got, want)
+        worst = {q: max(v[q] / v["scale"] if q != "mean" else abs(v[q]) / v["scale"]
+                        for v in errs.values()) for q in ("max", "rms", "mean")}
+        print(json.dumps({"path": name, "points": pts.shape[0] * pts.shape[1],
+                          "worst_of_max_grad": worst, "grads": errs}))
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip().splitlines()[0])

@@ -11,43 +11,50 @@
 //
 // What bounds it on an H100: operations. A point costs about three forward
 // passes (rematerialised forward, input gradients through every layer, the
-// weight-gradient products H^T·dZ), ~3.6 MFLOP at the lego width, all fp32
-// on the CUDA cores.
+// weight-gradient products H^T·dZ), ~3.6 MFLOP at the lego width.
 //
-// What the design does about it, and the two budgets that shape it:
+// The TPU kernel runs its grid in order and carries the weight gradients
+// in revisited VMEM blocks. Hopper's blocks run in no order and carry
+// nothing, so B2 is two kernels and a reduction:
 //
-// - Activations. The TPU kernel keeps a 512-point tile's activations in
-//   VMEM. Backward needs, per point, the encoding (92 floats at the lego
-//   width), eight trunk outputs (8 x 256), the feature (256) and hv (128):
-//   ~9.9 KB, so a 64-point tile (TILE_P) needs ~646 KB, far above a block's
-//   227 KB of shared memory. Here a block keeps two [64][256] activation
-//   buffers (X: the running gradient, Y: the layer input or relu mask), the
-//   encoding and its gradient, the cotangent tile and a 16-row weight
-//   staging tile in shared memory (~199 KB at the lego width), and writes
-//   each layer's output to a private scratch in device memory during the
-//   forward, reading it back once in the backward (~0.64 MB per tile per
-//   block; 132 blocks x 10 x 64 KB = 86 MB, about L2-sized).
-// - Weight gradients across blocks. On the TPU the grid runs in order and
-//   the gradients accumulate in revisited VMEM blocks. Here nothing carries
-//   between blocks: one persistent block per SM walks its tiles in order
-//   and accumulates into its own fp32 partial copy of all gradients in
-//   device memory (2.38 MB per block at the lego width: a read-modify-write
-//   of ~4.8 MB per tile, ~15 GB for the 196,608-point fine pass); a second
-//   kernel then sums the partials over the blocks in a fixed order. The
-//   result does not depend on scheduling, so it is the same on every run.
-//   Per-tile atomics into the 595,844 gradient addresses were the other way
-//   and are both slower and run-to-run different.
-// - Input gradients through a layer are dZ·W, products with the weights in
-//   PyTorch's [out][in] layout (a second packed copy, split at the skip and
-//   view-direction concatenations), through the same 8x8-per-thread
-//   register tile as the forward (mlp_tile.cuh gemm_acc). The weight
-//   gradients are an outer-product accumulation over the tile's 64 points,
-//   8x8 per thread, 128x128 per pass.
-// - dx as the TPU kernel computes it (fused_mlp_bwd.py:299-300): through
-//   identity columns 1, through sin(f·x) f·cos(f·x), through cos(f·x)
-//   -f·sin(f·x), summed per input coordinate.
+// 1. nerf_bwd_kernel, one persistent block per SM walking 64-point tiles
+//    (TILE_P): the forward again and the input gradients through every
+//    layer down to dx, fp32 on the CUDA cores through the 8x8-per-thread
+//    register tile of mlp_tile.cuh (gemm_acc), two thirds of the FLOPs. A
+//    tile's activations (~9.9 KB a point at the lego width) do not fit a
+//    block's 227 KB of shared memory, which keeps two [64][256] buffers (X:
+//    the running gradient, Y: the layer input or relu mask), the encoding
+//    and its gradient, the cotangent tile and a 16-row weight staging tile
+//    (~199 KB). Each weight matrix's layer input H and its post-mask
+//    cotangent dZ go to two device buffers, one point-major segment per
+//    activation (BwdDesc hseg / zseg; ops/cuda/fused_mlp_bwd.py act_layout,
+//    ~19.8 KB a point); the backward reads each layer's input back from H.
+//    Input-gradient products dZ·W use the weights in PyTorch's [out][in]
+//    layout (a second packed copy, split at the skip and view-direction
+//    concatenations). dx as the TPU kernel computes it
+//    (fused_mlp_bwd.py:299-300): through identity columns 1, through
+//    sin(f·x) f·cos(f·x), through cos(f·x) -f·sin(f·x), summed per input
+//    coordinate.
+// 2. nerf_dw_kernel: dW = H^T·dZ and db = sum dZ for every matrix, one
+//    third of the FLOPs, as a GEMM over the points (K = up to 196,608). A
+//    block owns one 128 x 128 output tile of one product over one range of
+//    points (split K), streams H and dZ chunks of 32 points through a
+//    three-stage cp.async ring in shared memory, and runs
+//    mma.sync.m16n8k8 with tf32 operands in split fp32 (3xTF32: both
+//    operands split in registers into big = tf32(x) and small = tf32(x -
+//    big), small·big' + big·small' + big·big'). The tensor cores add into
+//    their accumulator without rounding to nearest, which drifts toward
+//    zero over a long sum, so each k8 step's three products are summed on
+//    the tensor cores from zero and added to the fp32 accumulator on the
+//    CUDA cores. The narrow heads (alpha, rgb, output: N <= 8) and the
+//    bias sums run in fp32 on the CUDA cores in the same kernel. No
+//    atomics: each range writes its own partial copy of the gradients.
+// 3. grad_reduce_kernel sums the ranges' partials in a fixed order, so the
+//    result is the same on every run.
 //
-// fp32 throughout, no tensor cores: wgmma, TMA and bf16 are later work.
+// The 14.7 GB of per-block partial read-modify-write of the first design
+// (one fp32 copy of all gradients per block, updated every tile) becomes
+// ~7.8 GB of streaming writes and reads of H and dZ at 196,608 points.
 #include "mlp_tile.cuh"
 
 namespace nstt {
@@ -58,9 +65,18 @@ constexpr int G_LD = 8;      // cotangent tile row: rgb 0-2, alpha 3, alpha 4
 // PyTorch-layout ([out][in]) weight segments for the input-gradient
 // products: {float offset, row stride}; offset -1 where there is none.
 enum { BW_ALPHA, BW_FEATURE, BW_VIEWS_F, BW_VIEWS_D, BW_RGB, BW_OUTPUT };
+// Activation segments of the H and dZ buffers: {floats a point before the
+// segment, row stride}; for n_pad points segment s starts at float
+// n_pad * seg[s][0]. H: the embedding, h_l at 1 + l, the feature, hv;
+// dZ: dz_l at l, dfeature, dhv, the cotangent tile.
+constexpr int N_SEG = MAX_LAYERS + 3;
+enum { HS_EMB = 0, HS_FEATURE = MAX_LAYERS + 1, HS_HV = MAX_LAYERS + 2 };
+enum { ZS_DFEATURE = MAX_LAYERS, ZS_DHV = MAX_LAYERS + 1, ZS_GR = MAX_LAYERS + 2 };
 struct BwdDesc {
   long long seg[MAX_LAYERS][2][2];   // layer l: [0] embedding part, [1] h part
   long long head[6][2];
+  long long hseg[N_SEG][2];
+  long long zseg[N_SEG][2];
 };
 
 // ops/cuda/fused_mlp_bwd.py smem_bytes mirrors this (plus the two
@@ -92,78 +108,22 @@ __device__ __forceinline__ void put(const float (&acc)[8][8], int N, float* dst,
   }
 }
 
-__device__ __forceinline__ void copy_tile(float* __restrict__ dst,
-                                          const float* __restrict__ src, int HS) {
-  for (int i = threadIdx.x; i < TILE_P * HS / 4; i += NTHREADS)
-    reinterpret_cast<float4*>(dst)[i] = reinterpret_cast<const float4*>(src)[i];
-}
-
-__device__ __forceinline__ float4 ld4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-
-// C[m*ldc + n] (+)= sum_p A[p*as + m] * B[p*bs + n] for m < M, n < N, p over
-// the tile: the block's partial gradient in device memory, read back unless
-// this is the block's first tile. A, B in shared memory, rows padded to a
-// multiple of 4 with finite values; C rows padded to ldc (a multiple of 4).
-// Thread (ty, tx) of 16x16 owns rows m0+ty*8..+7 and columns
-// n0+tx*4..+3, n0+64+tx*4..+3 of each 128x128 pass.
-__device__ void outer_acc(float* __restrict__ C, int ldc, int M, int N,
-                          const float* A, int as, const float* B, int bs,
-                          bool first) {
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
-  for (int m0 = 0; m0 < M; m0 += 128) {
-    for (int n0 = 0; n0 < N; n0 += 128) {
-      const int ma = m0 + ty * 8, na = n0 + tx * 4, nb = n0 + 64 + tx * 4;
-      float acc[8][8];
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const float4 c0 = (!first && ma + i < M && na < N)
-                              ? ld4(C + (size_t)(ma + i) * ldc + na) : zero;
-        const float4 c1 = (!first && ma + i < M && nb < N)
-                              ? ld4(C + (size_t)(ma + i) * ldc + nb) : zero;
-        acc[i][0] = c0.x; acc[i][1] = c0.y; acc[i][2] = c0.z; acc[i][3] = c0.w;
-        acc[i][4] = c1.x; acc[i][5] = c1.y; acc[i][6] = c1.z; acc[i][7] = c1.w;
-      }
-      if (ma < M) {
-        for (int p = 0; p < TILE_P; ++p) {
-          const float* Ap = A + p * as;
-          const float* Bp = B + p * bs;
-          const float4 a0 = ld4(Ap + ma);
-          const float4 a1 = ma + 4 < M ? ld4(Ap + ma + 4) : zero;
-          const float4 b0 = na < N ? ld4(Bp + na) : zero;
-          const float4 b1 = nb < N ? ld4(Bp + nb) : zero;
-          const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-          const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-          for (int i = 0; i < 8; ++i)
-#pragma unroll
-            for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        if (ma + i >= M) continue;
-        if (na < N)
-          *reinterpret_cast<float4*>(C + (size_t)(ma + i) * ldc + na) =
-              make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
-        if (nb < N)
-          *reinterpret_cast<float4*>(C + (size_t)(ma + i) * ldc + nb) =
-              make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]);
-      }
-    }
+// TILE_P rows of `cols` floats (a multiple of 4) from src (row stride ss)
+// to dst (row stride ds); 16-byte aligned rows.
+__device__ __forceinline__ void copy_rows(float* dst, int ds, const float* src,
+                                          int ss, int cols) {
+  const int q = cols / 4;
+  for (int i = threadIdx.x; i < TILE_P * q; i += NTHREADS) {
+    const int p = i / q, c = (i % q) * 4;
+    *reinterpret_cast<float4*>(dst + (size_t)p * ds + c) =
+        *reinterpret_cast<const float4*>(src + (size_t)p * ss + c);
   }
 }
 
-// db[n] (+)= sum_p B[p*bs + n], n < N.
-__device__ void bias_acc(float* __restrict__ db, int N, const float* B, int bs,
-                         bool first) {
-  for (int n = threadIdx.x; n < N; n += NTHREADS) {
-    float s = 0.f;
-    for (int p = 0; p < TILE_P; ++p) s += B[p * bs + n];
-    db[n] = first ? s : db[n] + s;
-  }
+// Row p0 of segment s of an H or dZ buffer.
+__device__ __forceinline__ float* seg_rows(float* buf, const long long (&s)[2],
+                                           long long n_pad, long long p0) {
+  return buf + s[0] * n_pad + p0 * s[1];
 }
 
 __global__ void __launch_bounds__(NTHREADS)
@@ -171,8 +131,8 @@ nerf_bwd_kernel(const NetDesc* __restrict__ gdesc, const BwdDesc* __restrict__ g
                 const float* __restrict__ wb, const float* __restrict__ wbt,
                 const float* __restrict__ enc, const float* __restrict__ pts,
                 const float* __restrict__ vd, const float* __restrict__ g, int C,
-                float* __restrict__ dx, float* __restrict__ part,
-                float* __restrict__ act, long long wsize, long long total, int S) {
+                float* __restrict__ dx, float* hbuf, float* zbuf, long long total,
+                long long n_pad, int S) {
   __shared__ NetDesc d;
   __shared__ BwdDesc bd;
   extern __shared__ float4 dyn[];
@@ -187,6 +147,7 @@ nerf_bwd_kernel(const NetDesc* __restrict__ gdesc, const BwdDesc* __restrict__ g
   const int D = (int)d.hdr[H_D], W = (int)d.hdr[H_W], P = (int)d.hdr[H_P];
   const int V = (int)d.hdr[H_V], P4 = (int)d.hdr[H_P4], HS = (int)d.hdr[H_HS];
   const int ES = P4 + (int)d.hdr[H_V4], OUT = (int)d.hdr[H_OUT];
+  const int W2S = (W / 2 + 3) / 4 * 4;
   const bool views = d.hdr[H_VIEWDIRS] != 0;
   const unsigned long long skips = (unsigned long long)d.hdr[H_SKIPS];
 
@@ -198,14 +159,13 @@ nerf_bwd_kernel(const NetDesc* __restrict__ gdesc, const BwdDesc* __restrict__ g
   float* gr = demb + TILE_P * ES;     // cotangent tile [TILE_P][G_LD]
   for (int i = threadIdx.x; i < 2 * TILE_P * HS; i += NTHREADS) X[i] = 0.f;
 
-  float* my_act = act + (size_t)blockIdx.x * (D + 2) * TILE_P * HS;
-  float* my_part = part + (size_t)blockIdx.x * wsize;
   float acc[8][8];
-  bool first = true;
-
   const long long n_tiles = (total + TILE_P - 1) / TILE_P;
   for (long long t = blockIdx.x; t < n_tiles; t += gridDim.x) {
     const long long p0 = t * TILE_P;
+    // H or dZ rows of this tile in segment s
+    auto hrows = [&](int s) { return seg_rows(hbuf, bd.hseg[s], n_pad, p0); };
+    auto zrows = [&](int s) { return seg_rows(zbuf, bd.zseg[s], n_pad, p0); };
     encode_points(d, enc, pts, vd, p0, total, S, emb, ES);
     for (int i = threadIdx.x; i < TILE_P * ES; i += NTHREADS) demb[i] = 0.f;
     for (int i = threadIdx.x; i < TILE_P * G_LD; i += NTHREADS) {
@@ -223,8 +183,10 @@ nerf_bwd_kernel(const NetDesc* __restrict__ gdesc, const BwdDesc* __restrict__ g
       gr[i] = v;
     }
     __syncthreads();
+    copy_rows(hrows(HS_EMB), ES, emb, ES, ES);
+    copy_rows(zrows(ZS_GR), G_LD, gr, G_LD, G_LD);
 
-    // ---- forward, each layer's output kept in the block's scratch ----
+    // ---- forward, each layer's output kept in H ----
     for (int l = 0; l < D; ++l) {
       const long long* L = d.layer[l];
       const int ld = (int)L[M_LD];
@@ -242,7 +204,7 @@ nerf_bwd_kernel(const NetDesc* __restrict__ gdesc, const BwdDesc* __restrict__ g
       }
       epilogue(acc, wb + L[M_B], W, true, X, HS);
       __syncthreads();
-      copy_tile(my_act + (size_t)l * TILE_P * HS, X, HS);
+      copy_rows(hrows(1 + l), HS, X, HS, HS);
     }
     if (views) {
       const long long* Hf = d.head[HEAD_FEATURE];
@@ -250,7 +212,7 @@ nerf_bwd_kernel(const NetDesc* __restrict__ gdesc, const BwdDesc* __restrict__ g
       gemm_acc<KC_BWD>(acc, X, HS, W, wb + Hf[M_W], (int)Hf[M_LD], wt);
       epilogue(acc, wb + Hf[M_B], W, false, X, HS);
       __syncthreads();
-      copy_tile(my_act + (size_t)D * TILE_P * HS, X, HS);
+      copy_rows(hrows(HS_FEATURE), HS, X, HS, HS);
       const long long* Hv = d.head[HEAD_VIEWS];
       const int ldv = (int)Hv[M_LD];
       zero_acc(acc);
@@ -258,31 +220,22 @@ nerf_bwd_kernel(const NetDesc* __restrict__ gdesc, const BwdDesc* __restrict__ g
       gemm_acc<KC_BWD>(acc, emb + P4, ES, V, wb + Hv[M_W] + (size_t)W * ldv, ldv, wt);
       epilogue(acc, wb + Hv[M_B], W / 2, true, X, HS);
       __syncthreads();
+      copy_rows(hrows(HS_HV), W2S, X, HS, W2S);
     }
     // X: hv (viewdirs) or the last trunk output
-    copy_tile(Y, X, HS);
+    copy_rows(Y, HS, X, HS, HS);
     __syncthreads();
 
     // ---- head ----
     if (views) {
       // rgb = hv @ Wrgb + b; dhv = (g_rgb Wrgb^T) * (hv > 0)
-      const long long* Hr = d.head[HEAD_RGB];
-      outer_acc(my_part + Hr[M_W], (int)Hr[M_LD], W / 2, 3, Y, HS, gr, G_LD, first);
-      bias_acc(my_part + Hr[M_B], 3, gr, G_LD, first);
       zero_acc(acc);
       gemm_acc<KC_BWD>(acc, gr, G_LD, 3, wbt + bd.head[BW_RGB][0],
                        (int)bd.head[BW_RGB][1], wt);
       put<PUT_MASK>(acc, W / 2, X, HS, Y);
       __syncthreads();
+      copy_rows(zrows(ZS_DHV), W2S, X, HS, W2S);
       // hv = relu([feature, emb_dirs] @ Wv + b)
-      copy_tile(Y, my_act + (size_t)D * TILE_P * HS, HS);
-      __syncthreads();
-      const long long* Hv = d.head[HEAD_VIEWS];
-      const int ldv = (int)Hv[M_LD];
-      outer_acc(my_part + Hv[M_W], ldv, W, W / 2, Y, HS, X, HS, first);
-      outer_acc(my_part + Hv[M_W] + (size_t)W * ldv, ldv, V, W / 2, emb + P4, ES,
-                X, HS, first);
-      bias_acc(my_part + Hv[M_B], W / 2, X, HS, first);
       zero_acc(acc);
       gemm_acc<KC_BWD>(acc, X, HS, W / 2, wbt + bd.head[BW_VIEWS_D][0],
                        (int)bd.head[BW_VIEWS_D][1], wt);
@@ -292,15 +245,10 @@ nerf_bwd_kernel(const NetDesc* __restrict__ gdesc, const BwdDesc* __restrict__ g
                        (int)bd.head[BW_VIEWS_F][1], wt);
       put<PUT_STORE>(acc, W, X, HS, nullptr);   // dfeature
       __syncthreads();
+      copy_rows(zrows(ZS_DFEATURE), HS, X, HS, HS);
       // feature = h @ Wf + b and alpha = h @ Wa + b, h the last trunk output
-      copy_tile(Y, my_act + (size_t)(D - 1) * TILE_P * HS, HS);
+      copy_rows(Y, HS, hrows(D), HS, HS);
       __syncthreads();
-      const long long* Hf = d.head[HEAD_FEATURE];
-      const long long* Ha = d.head[HEAD_ALPHA];
-      outer_acc(my_part + Hf[M_W], (int)Hf[M_LD], W, W, Y, HS, X, HS, first);
-      bias_acc(my_part + Hf[M_B], W, X, HS, first);
-      outer_acc(my_part + Ha[M_W], (int)Ha[M_LD], W, 1, Y, HS, gr + 4, G_LD, first);
-      bias_acc(my_part + Ha[M_B], 1, gr + 4, G_LD, first);
       zero_acc(acc);
       gemm_acc<KC_BWD>(acc, X, HS, W, wbt + bd.head[BW_FEATURE][0],
                        (int)bd.head[BW_FEATURE][1], wt);
@@ -309,9 +257,6 @@ nerf_bwd_kernel(const NetDesc* __restrict__ gdesc, const BwdDesc* __restrict__ g
       put<PUT_STORE>(acc, W, X, HS, nullptr);
       __syncthreads();
     } else {
-      const long long* Ho = d.head[HEAD_OUTPUT];
-      outer_acc(my_part + Ho[M_W], (int)Ho[M_LD], W, OUT, Y, HS, gr, G_LD, first);
-      bias_acc(my_part + Ho[M_B], OUT, gr, G_LD, first);
       zero_acc(acc);
       gemm_acc<KC_BWD>(acc, gr, G_LD, OUT, wbt + bd.head[BW_OUTPUT][0],
                        (int)bd.head[BW_OUTPUT][1], wt);
@@ -321,21 +266,15 @@ nerf_bwd_kernel(const NetDesc* __restrict__ gdesc, const BwdDesc* __restrict__ g
 
     // ---- trunk: X = dh_l, Y = h_l ----
     for (int l = D - 1; l >= 0; --l) {
-      const long long* L = d.layer[l];
-      const int ld = (int)L[M_LD];
       for (int i = threadIdx.x; i < TILE_P * HS; i += NTHREADS)
         if (!(Y[i] > 0.f)) X[i] = 0.f;   // dz_l
       __syncthreads();
-      bias_acc(my_part + L[M_B], W, X, HS, first);
+      copy_rows(zrows(l), HS, X, HS, HS);
       if (l > 0) {
-        copy_tile(Y, my_act + (size_t)(l - 1) * TILE_P * HS, HS);
+        copy_rows(Y, HS, hrows(l), HS, HS);   // h_{l-1}
         __syncthreads();
       }
       const bool from_emb = l == 0 || ((skips >> l) & 1ull);
-      if (from_emb) outer_acc(my_part + L[M_W], ld, P, W, emb, ES, X, HS, first);
-      if (l > 0)
-        outer_acc(my_part + L[M_W] + (size_t)(from_emb ? P : 0) * ld, ld, W, W,
-                  Y, HS, X, HS, first);
       if (from_emb) {
         zero_acc(acc);
         gemm_acc<KC_BWD>(acc, X, HS, W, wbt + bd.seg[l][0][0], (int)bd.seg[l][0][1], wt);
@@ -370,11 +309,248 @@ nerf_bwd_kernel(const NetDesc* __restrict__ gdesc, const BwdDesc* __restrict__ g
       dx[gp * 6 + dim] = s;
     }
     __syncthreads();
-    first = false;
   }
 }
 
-// out[i] = sum over blocks b, in order, of part[b * n + i]
+// ---- nerf_dw_kernel ---------------------------------------------------------
+
+constexpr int DW_BM = 128;       // output tile rows (of a product's input width)
+constexpr int DW_BN = 128;       // output tile columns (of its output width)
+constexpr int DW_KC = 32;        // points a staged chunk
+constexpr int DW_STAGES = 3;     // chunks in flight
+constexpr int DW_LD = DW_BM + 8; // staged row stride: 8 mod 32 floats, so the
+                                 // fragment loads of a warp hit 32 banks
+// ops/cuda/fused_mlp_bwd.py dw_jobs / dw_tiles: a product's fields and an
+// output tile's
+enum { J_KIND, J_HSLOT, J_HCOL, J_M, J_ZSLOT, J_ZCOL, J_N, J_W, J_LD, J_B, J_WORDS };
+enum { T_JOB, T_M0, T_N0, T_WORDS };
+enum { DW_WIDE, DW_NARROW };
+
+// x rounded to tf32 (10 mantissa bits) to nearest, ties away from zero:
+// cvt.rna.tf32.f32 for finite x, whose carry out of bit 12 rounds the
+// magnitude. Two integer operations; cvt.rna compiles to four here (it
+// tests for NaN first), and splitting is most of the kernel's ALU work.
+__device__ __forceinline__ unsigned tf32_bits(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// x = big + small (+ ~2^-22 |x|), both tf32
+__device__ __forceinline__ void split_tf32(float x, unsigned& big, unsigned& small) {
+  big = tf32_bits(x);
+  small = tf32_bits(x - __uint_as_float(big));
+}
+
+// d = a (16 x 8, row) * b (8 x 8, col) + c on the tensor cores, tf32 in,
+// fp32 out
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const unsigned (&a)[4],
+                                         const unsigned (&b)[2], const float (&c)[4]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %11, %12, %13};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]),
+        "f"(c[0]), "f"(c[1]), "f"(c[2]), "f"(c[3]));
+}
+
+// 16 bytes global -> shared, asynchronously; bytes 0 fills zeros
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, int bytes) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
+               "r"(bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Chunk rows k0 .. k0 + DW_KC of `cols` floats (a multiple of 4, at most
+// 128) from src (row stride ld) into dst (row stride DW_LD); rows at or
+// past total are zero. Thread t copies 16 bytes at column 4 (t % 32) of
+// rows t / 32 + 8 i: no division in the loop.
+static_assert(DW_BM == 128 && DW_BN == 128 && NTHREADS == 256 && DW_KC % 8 == 0,
+              "stage_chunk's thread map");
+__device__ __forceinline__ void stage_chunk(float* dst, const float* src, long long ld,
+                                            int cols, long long k0, long long total) {
+  const int c = (threadIdx.x & 31) * 4;
+  if (c >= cols) return;
+#pragma unroll
+  for (int i = 0; i < DW_KC / 8; ++i) {
+    const int r = (threadIdx.x >> 5) + 8 * i;
+    const long long k = k0 + r;
+    const bool in = k < total;
+    cp_async16(dst + r * DW_LD + c, in ? src + k * ld + c : src, in ? 16 : 0);
+  }
+}
+
+// dW_j[m][n] = sum_p H[p][hcol + m] dZ[p][zcol + n] and db_j[n] = sum_p
+// dZ[p][zcol + n] over the points of range blockIdx.y, for the output tile
+// blockIdx.x, into part + blockIdx.y * wsize (the packed gradient layout;
+// the tile's padding columns of the row stride written as zero). Wide
+// products: 8 warps as 4 (rows) x 2 (columns), a warp 32 x 64 of the tile
+// as 2 x 8 m16n8 fragments, split fp32 on mma.sync, each k8 step's three
+// products summed from zero and added in fp32. Narrow products (N <= 8):
+// a thread a row, fp32 fma in point order. Bias sums: a thread a column,
+// in point order.
+__global__ void __launch_bounds__(NTHREADS, 2)
+nerf_dw_kernel(const BwdDesc* __restrict__ gbd, const long long* __restrict__ jobs,
+               const long long* __restrict__ tiles, const float* __restrict__ hbuf,
+               const float* __restrict__ zbuf, float* __restrict__ part,
+               long long wsize, long long total, long long n_pad) {
+  extern __shared__ float4 dyn[];
+  float* Hs = reinterpret_cast<float*>(dyn);            // [STAGES][KC][LD]
+  float* Zs = Hs + DW_STAGES * DW_KC * DW_LD;           // [STAGES][KC][LD]
+  const long long* T = tiles + (size_t)blockIdx.x * T_WORDS;
+  const long long* J = jobs + (size_t)T[T_JOB] * J_WORDS;
+  const int m0 = (int)T[T_M0], n0 = (int)T[T_N0];
+  const bool wide = J[J_KIND] == DW_WIDE;
+  const int M = (int)J[J_M], N = (int)J[J_N], zcol = (int)J[J_ZCOL];
+  const int ldg = (int)J[J_LD];
+  const long long b_off = m0 == 0 ? J[J_B] : -1;
+  const int hslot = (int)J[J_HSLOT], zslot = (int)J[J_ZSLOT];
+  const long long hld = gbd->hseg[hslot][1], zld = gbd->zseg[zslot][1];
+  const float* hsrc = hbuf + gbd->hseg[hslot][0] * n_pad + J[J_HCOL] + m0;
+  // wide: the tile's dZ columns; narrow: the whole cotangent row
+  const float* zsrc = zbuf + gbd->zseg[zslot][0] * n_pad + (wide ? zcol + n0 : 0);
+  const int hcols = min(DW_BM, (M + 3) / 4 * 4 - m0);
+  const int zcols = wide ? min(DW_BN, (N + 3) / 4 * 4 - n0) : (int)zld;
+  const int bn = wide ? min(DW_BN, N - n0) : N;   // this tile's columns
+
+  // this range's chunks (ops/cuda/fused_mlp_bwd.py split_ranges)
+  const long long n_chunks_all = n_pad / DW_KC;
+  const long long c_begin = blockIdx.y * n_chunks_all / gridDim.y;
+  const long long c_end = (blockIdx.y + 1) * n_chunks_all / gridDim.y;
+  const int n_chunks = (int)(c_end - c_begin);
+
+  // columns never staged stay zero
+  for (int i = threadIdx.x; i < 2 * DW_STAGES * DW_KC * DW_LD; i += NTHREADS) Hs[i] = 0.f;
+  __syncthreads();
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, tg = lane & 3;
+  const int wm = (warp >> 1) * 32, wn = (warp & 1) * 64;
+  // a warp whose 32 x 64 block lies past the product's rows or columns
+  // (the embedding products' M of 3-93, views' N of 128) skips the MMAs
+  const bool warp_on = m0 + wm < M && n0 + wn < N;
+  float acc[2][8][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[i][j][q] = 0.f;
+  float bsum = 0.f;
+  // narrow: thread tid < DW_BM owns row m0 + tid; bias: thread tid owns
+  // column tid (wide) or, for a narrow product, thread DW_BM + c column c
+  const int bcol = wide ? tid : tid - DW_BM;
+  const bool does_bias = b_off >= 0 && bcol >= 0 && bcol < bn;
+
+  auto stage = [&](int c) {
+    const long long k0 = (c_begin + c) * DW_KC;
+    const int st = c % DW_STAGES;
+    stage_chunk(Hs + st * DW_KC * DW_LD, hsrc, hld, hcols, k0, total);
+    stage_chunk(Zs + st * DW_KC * DW_LD, zsrc, zld, zcols, k0, total);
+  };
+#pragma unroll
+  for (int c = 0; c < DW_STAGES - 1; ++c) {
+    if (c < n_chunks) stage(c);
+    cp_async_commit();
+  }
+  for (int c = 0; c < n_chunks; ++c) {
+    cp_async_wait<DW_STAGES - 2>();
+    __syncthreads();
+    if (c + DW_STAGES - 1 < n_chunks) stage(c + DW_STAGES - 1);
+    cp_async_commit();
+    const float* hk = Hs + (c % DW_STAGES) * DW_KC * DW_LD;
+    const float* zk = Zs + (c % DW_STAGES) * DW_KC * DW_LD;
+    if (does_bias) {
+      const int zc = wide ? bcol : zcol + bcol;
+      for (int r = 0; r < DW_KC; ++r) bsum += zk[r * DW_LD + zc];
+    }
+    if (wide && warp_on) {
+#pragma unroll
+      for (int ks = 0; ks < DW_KC; ks += 8) {
+        // A = H^T (m16 x k8): a0 (m g, k tg), a1 (g + 8, tg), a2 (g, tg + 4),
+        // a3 (g + 8, tg + 4); B = dZ (k8 x n8): b0 (k tg, n g), b1 (tg + 4, g)
+        const float* h0 = hk + (ks + tg) * DW_LD;
+        const float* h4 = h0 + 4 * DW_LD;
+        unsigned ab[2][4], as[2][4];
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int r = wm + i * 16 + g;
+          split_tf32(h0[r], ab[i][0], as[i][0]);
+          split_tf32(h0[r + 8], ab[i][1], as[i][1]);
+          split_tf32(h4[r], ab[i][2], as[i][2]);
+          split_tf32(h4[r + 8], ab[i][3], as[i][3]);
+        }
+        const float* z0 = zk + (ks + tg) * DW_LD;
+        const float* z4 = z0 + 4 * DW_LD;
+        // no branch inside: columns and rows past the product's are zero
+        // in shared memory or not stored, and ptxas interleaves the 16
+        // independent three-MMA chains
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int col = wn + j * 8 + g;
+          unsigned bb[2], bs[2];
+          split_tf32(z0[col], bb[0], bs[0]);
+          split_tf32(z4[col], bb[1], bs[1]);
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            const float zero[4] = {0.f, 0.f, 0.f, 0.f};
+            float s[4];
+            mma_tf32(s, as[i], bb, zero);
+            mma_tf32(s, ab[i], bs, s);
+            mma_tf32(s, ab[i], bb, s);
+#pragma unroll
+            for (int q = 0; q < 4; ++q) acc[i][j][q] += s[q];
+          }
+        }
+      }
+    } else if (tid < DW_BM && m0 + tid < M) {
+      for (int r = 0; r < DW_KC; ++r) {
+        const float h = hk[r * DW_LD + tid];
+        const float* z = zk + r * DW_LD + zcol;
+#pragma unroll
+        for (int q = 0; q < 8; ++q)
+          if (q < N) acc[0][q >> 2][q & 3] = fmaf(h, z[q], acc[0][q >> 2][q & 3]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  // ---- epilogue: this range's partial gradients ----
+  float* out = part + (size_t)blockIdx.y * wsize;
+  float* dw = out + J[J_W];
+  const int n_end = min(ldg, n0 + (wide ? DW_BN : ldg));   // columns of this tile
+  if (wide) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int m = m0 + wm + i * 16 + g + (q >> 1) * 8;
+          const int n = n0 + wn + j * 8 + 2 * tg + (q & 1);
+          if (m < M && n < n_end) dw[(size_t)m * ldg + n] = n < N ? acc[i][j][q] : 0.f;
+        }
+      }
+    }
+  } else if (tid < DW_BM && m0 + tid < M) {
+#pragma unroll
+    for (int q = 0; q < 8; ++q)
+      if (q < ldg) dw[(size_t)(m0 + tid) * ldg + q] = q < N ? acc[0][q >> 2][q & 3] : 0.f;
+  }
+  if (b_off >= 0) {
+    const int c = wide ? tid : tid - DW_BM;
+    if (c >= 0 && n0 + c < n_end) out[b_off + n0 + c] = c < bn ? bsum : 0.f;
+  }
+}
+
+// out[i] = sum over ranges b, in order, of part[b * n + i]
 __global__ void grad_reduce_kernel(const float* __restrict__ part, int G,
                                    long long n, float* __restrict__ out) {
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
@@ -387,27 +563,40 @@ __global__ void grad_reduce_kernel(const float* __restrict__ part, int G,
 
 }  // namespace nstt
 
-// grid: blocks of the main kernel (at most one per tile); part [grid][wsize]
-// and act [grid][D + 2][TILE_P][HS] are the wrapper's scratch.
+// grid: blocks of the tile kernel (at most one per 64-point tile); hbuf,
+// zbuf: H and dZ for n_pad points (act_layout); jobs [n_jobs][J_WORDS] and
+// tiles [n_dw_tiles][T_WORDS] of nerf_dw_kernel, run over `splits` point
+// ranges into part [splits][wsize]; grads [wsize] their fixed-order sum.
 extern "C" int nstt_mlp_backward(const void* desc_dev, const void* bdesc_dev,
                                  int HS, int ES, const float* wb,
                                  const float* wbt, const float* enc,
                                  const float* pts, const float* vd,
-                                 const float* g, int C, float* dx, float* part,
-                                 float* act, float* grads, long long wsize,
-                                 long long total, int S, int grid, void* stream) {
+                                 const float* g, int C, float* dx, float* hbuf,
+                                 float* zbuf, int n_dw_tiles, const long long* jobs,
+                                 const long long* tiles, float* part, float* grads,
+                                 long long wsize, long long total, long long n_pad,
+                                 int S, int grid, int splits, void* stream) {
   using namespace nstt;
+  cudaStream_t st = (cudaStream_t)stream;
   const size_t bytes = bwd_smem_floats(HS, ES) * sizeof(float);
   cudaError_t e = cudaFuncSetAttribute(
       nerf_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (e != cudaSuccess) return (int)e;
-  nerf_bwd_kernel<<<grid, NTHREADS, bytes, (cudaStream_t)stream>>>(
+  nerf_bwd_kernel<<<grid, NTHREADS, bytes, st>>>(
       (const NetDesc*)desc_dev, (const BwdDesc*)bdesc_dev, wb, wbt, enc, pts, vd,
-      g, C, dx, part, act, wsize, total, S);
+      g, C, dx, hbuf, zbuf, total, n_pad, S);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  const size_t dw_bytes = 2 * (size_t)DW_STAGES * DW_KC * DW_LD * sizeof(float);
+  e = cudaFuncSetAttribute(nerf_dw_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)dw_bytes);
+  if (e != cudaSuccess) return (int)e;
+  nerf_dw_kernel<<<dim3((unsigned)n_dw_tiles, (unsigned)splits), NTHREADS, dw_bytes, st>>>(
+      (const BwdDesc*)bdesc_dev, jobs, tiles, hbuf, zbuf, part, wsize, total, n_pad);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   const long long rblocks = (wsize + 255) / 256;
-  grad_reduce_kernel<<<(unsigned)(rblocks < 4096 ? rblocks : 4096), 256, 0,
-                       (cudaStream_t)stream>>>(part, grid, wsize, grads);
+  grad_reduce_kernel<<<(unsigned)(rblocks < 4096 ? rblocks : 4096), 256, 0, st>>>(
+      part, splits, wsize, grads);
   return (int)cudaGetLastError();
 }

@@ -124,20 +124,43 @@ def packed_layout(cfg: NeRFConfig):
     return layout, off
 
 
-def pack_network(params: Dict[str, torch.Tensor], cfg: NeRFConfig, device):
-    """(weights, desc, HS, ES) for kernel B2: every matrix transposed to
-    [in, out] with its row stride rounded up to 4 floats, concatenated into
-    one fp32 buffer (``packed_layout``); ``desc`` is the int64 NetDesc of
-    ``csrc/mlp_tile.cuh`` on ``device``."""
-    device = torch.device(device)
-    check_config(cfg)
-    check_params(params, cfg, device)
+def param_starts(cfg: NeRFConfig) -> Dict[str, int]:
+    """1 + the index of each parameter's first entry in the parameters
+    flattened in ``torch_param_order`` after one leading zero: the source
+    numbering of the packs' gathers (``flat_params``; 0 reads the zero)."""
+    shapes = param_shapes(cfg)
+    start, off = {}, 1
+    for name in torch_param_order(cfg):
+        start[name] = off
+        off += int(np.prod(shapes[name]))
+    return start
+
+
+def flat_params(params: Dict[str, torch.Tensor], cfg: NeRFConfig, device) -> torch.Tensor:
+    """[0, every parameter flattened in ``torch_param_order``]: what the
+    packs gather from, by ``param_starts``' numbering."""
+    return torch.cat([torch.zeros(1, dtype=torch.float32, device=device)]
+                     + [params[k].detach().reshape(-1) for k in torch_param_order(cfg)])
+
+
+def net_sources(cfg: NeRFConfig):
+    """(src, desc): where each float of ``pack_network``'s buffer comes
+    from, by ``param_starts``' numbering (0: padding, zero), and the int64
+    NetDesc of ``csrc/mlp_tile.cuh``. Both depend on the architecture
+    alone."""
     layout, size = packed_layout(cfg)
-    wbuf = torch.zeros(size, dtype=torch.float32, device=device)
+    shapes = param_shapes(cfg)
+    start = param_starts(cfg)
+    src = np.zeros(size, np.int64)
     for name, (off, rows, cols, ld) in layout.items():
-        t = params[name].detach()
-        t = t.t() if t.dim() == 2 else t[None]
-        wbuf[off:off + rows * ld].view(rows, ld)[:, :cols] = t
+        block = src[off:off + rows * ld].reshape(rows, ld)
+        if name.endswith(".weight"):
+            # stored transposed: entry (r, c) is weight [c, r] of [out, in]
+            n_in = shapes[name][1]
+            block[:, :cols] = (start[name] + np.arange(rows)[:, None]
+                               + n_in * np.arange(cols)[None, :])
+        else:
+            block[0, :cols] = start[name] + np.arange(cols)
 
     desc = np.zeros(_DESC_WORDS, np.int64)
     hdr = desc[:16]
@@ -161,12 +184,40 @@ def pack_network(params: Dict[str, torch.Tensor], cfg: NeRFConfig, device):
 
     P, V = cfg.input_ch, cfg.input_ch_views
     skips = sum(1 << (i + 1) for i in cfg.skips if 0 <= i < cfg.D - 1)
-    HS = _round4(cfg.W)
     hdr[:11] = (cfg.D, cfg.W, P, V, P + V, out_channels(cfg),
-                int(cfg.use_viewdirs), _round4(P), _round4(V), skips, HS)
+                int(cfg.use_viewdirs), _round4(P), _round4(V), skips, _round4(cfg.W))
     k = encoder_tables(cfg)[2]
     kind[:k.size] = k
-    return wbuf, common.upload(desc, device), HS, _round4(P) + _round4(V)
+    return src, desc
+
+
+_NET_STATIC: Dict[tuple, tuple] = {}
+
+
+def _net_static(cfg: NeRFConfig, device: torch.device):
+    """``net_sources`` on ``device``, made once per architecture and device
+    (it holds no parameter value)."""
+    key = (cfg, str(device))
+    if key not in _NET_STATIC:
+        src, desc = net_sources(cfg)
+        _NET_STATIC[key] = (torch.from_numpy(src).to(device), common.upload(desc, device))
+    return _NET_STATIC[key]
+
+
+def pack_network(params: Dict[str, torch.Tensor], cfg: NeRFConfig, device):
+    """(weights, desc, HS, ES) for kernel B2: every matrix transposed to
+    [in, out] with its row stride rounded up to 4 floats, concatenated into
+    one fp32 buffer (``packed_layout``; padding zero); ``desc`` is the
+    int64 NetDesc of ``csrc/mlp_tile.cuh`` on ``device``. The buffer is
+    one gather of the parameters by ``net_sources``' map, made once per
+    architecture."""
+    device = torch.device(device)
+    check_config(cfg)
+    check_params(params, cfg, device)
+    src, desc = _net_static(cfg, device)
+    wbuf = flat_params(params, cfg, device)[src]
+    P, V = cfg.input_ch, cfg.input_ch_views
+    return wbuf, desc, _round4(cfg.W), _round4(P) + _round4(V)
 
 
 # --- the tensor-core kernels' pack (B1, B3, B4: csrc/mlp_tile_tc.cuh) --------
@@ -281,10 +332,7 @@ def tc_sources(cfg: NeRFConfig):
     ``csrc/mlp_tile_tc.cuh``."""
     layout, size = tc_layout(cfg)
     shapes = param_shapes(cfg)
-    start, off = {}, 1
-    for name in torch_param_order(cfg):
-        start[name] = off
-        off += int(np.prod(shapes[name]))
+    start = param_starts(cfg)
     src = np.zeros(size, np.int64)
     plane = np.zeros(size, np.int8)
     desc = np.zeros(_TC_DESC_WORDS, np.int64)
@@ -353,9 +401,7 @@ def pack_network_tc(params: Dict[str, torch.Tensor], cfg: NeRFConfig, device):
     check_config(cfg)
     check_params(params, cfg, device)
     src, plane, desc = _tc_static(cfg, device)
-    flat = torch.cat([torch.zeros(1, dtype=torch.float32, device=device)]
-                     + [params[k].detach().reshape(-1) for k in torch_param_order(cfg)])
-    v = flat[src]
+    v = flat_params(params, cfg, device)[src]
     big, small = tf32_split(v)
     wbuf = torch.where(plane == 1, big, torch.where(plane == 2, small, v))
     HS, SLOT = tc_strides(cfg)

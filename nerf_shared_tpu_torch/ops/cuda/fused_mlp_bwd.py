@@ -8,29 +8,38 @@ Counterpart of ``nerf_shared_tpu/ops/pallas/fused_mlp_bwd.py``:
   parameter (a name -> tensor dict in the state-dict layout), the points
   (``dpts`` [..., S, 3]) and the view directions (``ddirs`` [..., 3],
   summed over the samples of each ray; None without a viewdir head). On a
-  CUDA tensor it launches ``csrc/fused_mlp_bwd.cu``, which rematerialises
-  the forward per tile and sums the weight gradients over tiles in fp32; on
-  a CPU tensor it is ``plain_mlp_backward``, autograd of ``apply_nerf``.
+  CUDA tensor it launches ``csrc/fused_mlp_bwd.cu``; on a CPU tensor it is
+  ``plain_mlp_backward``, autograd of ``apply_nerf``.
 - ``fused_train_op(params, cfg, pts, viewdirs)``: an ``autograd.Function``
   whose forward launches B1 and whose backward launches B2, the training
   path's network evaluation (``render/renderer.py`` under
   ``RenderConfig.fused_backward``). On CPU tensors it is ``apply_nerf``.
 
-The wrapper packs a second copy of the weights in PyTorch's [out, in]
-layout for the input-gradient products, split where the network
-concatenates (the skip input, the view-direction input), and allocates the
-kernel's scratch: a private partial copy of all gradients per block and a
-per-block store of one tile's activations.
+B2 is two kernels and a reduction, launched by one C entry:
+
+1. the tile kernel rematerialises the forward per 64-point tile, takes the
+   input gradients through every layer down to dx, and writes each weight
+   matrix's layer input H and post-mask cotangent dZ to two device buffers
+   (``act_layout``: one point-major segment per activation);
+2. ``nerf_dw_kernel`` forms every dW = H^T·dZ on the tensor cores in split
+   fp32 and every db = sum dZ in fp32, one output tile (``dw_tiles``) over
+   one range of points (``split_ranges``) a block;
+3. a fixed-order sum of the ranges' partial gradients.
+
+The wrapper packs the forward weights (``fused_mlp.pack_network``) and a
+second copy in PyTorch's [out, in] layout for the input-gradient products,
+split where the network concatenates (the skip input, the view-direction
+input), both by one gather through a source map made once per
+architecture, and allocates the H, dZ and partial buffers.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from nerf_shared_tpu_torch.models.nerf import NeRFConfig, apply_nerf, torch_param_order
 from nerf_shared_tpu_torch.ops.cuda import common
@@ -39,17 +48,38 @@ from nerf_shared_tpu_torch.ops.cuda.fused_mlp import (
     _round4,
     check_points,
     encoder_buffer,
+    flat_params,
     flops_per_point,
     launch_points,
     out_channels,
     pack_network,
     packed_layout,
+    param_shapes,
+    param_starts,
 )
 
 LAUNCHES = 0      # B2 launches made by fused_mlp_backward and fused_train_op
-TILE_P = 64       # points per tile (csrc/mlp_tile.cuh)
+TILE_P = 64       # points per tile of the tile kernel (csrc/mlp_tile.cuh)
 MAX_SMEM = 232448  # shared memory one block may use on sm_90
 BW_ALPHA, BW_FEATURE, BW_VIEWS_F, BW_VIEWS_D, BW_RGB, BW_OUTPUT = range(6)
+G_LD = 8          # cotangent tile row: rgb 0-2, alpha 3, alpha 4 (csrc G_LD)
+
+# Activation segments (csrc/fused_mlp_bwd.cu BwdDesc hseg / zseg): H slots are the
+# embedding [emb_pts, emb_dirs], h_l at 1 + l, the feature and hv; dZ slots
+# are dz_l at l, dfeature, dhv and the cotangent tile.
+N_SEG = MAX_LAYERS + 3
+H_EMB, H_FEATURE, H_HV = 0, MAX_LAYERS + 1, MAX_LAYERS + 2
+Z_DFEATURE, Z_DHV, Z_GR = MAX_LAYERS, MAX_LAYERS + 1, MAX_LAYERS + 2
+
+# nerf_dw_kernel: output tile rows (of the input width) x columns (of the
+# output width), points a staged chunk, chunks in flight, blocks an SM
+DW_BM, DW_BN, DW_KC, DW_STAGES, DW_BLOCKS_PER_SM = 128, 128, 32, 3, 2
+DW_LD = DW_BM + 8  # staged row stride, 8 mod 32 floats: conflict-free fragments
+DW_WIDE, DW_NARROW = 0, 1
+# job fields (csrc J_*): kind, H slot, H column, rows M, dZ slot, dZ column,
+# columns N, float offset of row 0 of dW in the packed gradients, its row
+# stride, offset of db (-1: another job of the matrix writes it)
+J_WORDS, T_WORDS = 10, 3
 
 
 def plain_mlp_backward(params, cfg: NeRFConfig, pts, viewdirs, g):
@@ -67,42 +97,193 @@ def plain_mlp_backward(params, cfg: NeRFConfig, pts, viewdirs, g):
     return dict(zip(names, gs[:n])), gs[n], (gs[n + 1] if vd is not None else None)
 
 
-def pack_backward(params, cfg: NeRFConfig, device):
-    """(wbt, bdesc): the weights in PyTorch's [out, in] layout, split where
-    the input is a concatenation, each segment's rows padded to a multiple
-    of 4 floats; bdesc is the int64 BwdDesc of csrc/fused_mlp_bwd.cu
-    ({offset, row stride} per segment, -1 where there is none)."""
+def act_layout(cfg: NeRFConfig):
+    """(hseg, zseg, h_floats, z_floats): the H and dZ buffers the tile
+    kernel writes and nerf_dw_kernel reads. Each is a run of point-major
+    segments; slot s of hseg / zseg is {floats a point before it, its row
+    stride} (-1, -1 where the network has none), so for n_pad points the
+    segment starts at float n_pad * hseg[s, 0] and point p's row at
+    + p * hseg[s, 1]. h_floats / z_floats: floats a point of each buffer.
+    Strides are multiples of 4 floats, so every row is 16-byte aligned."""
+    W = cfg.W
+    HS = _round4(W)
+    W2S = _round4(W // 2)
+    ES = _round4(cfg.input_ch) + _round4(cfg.input_ch_views)
+    hseg = np.full((N_SEG, 2), -1, np.int64)
+    zseg = np.full((N_SEG, 2), -1, np.int64)
+    h_list = [(H_EMB, ES)] + [(1 + l, HS) for l in range(cfg.D)]
+    z_list = [(l, HS) for l in range(cfg.D)]
+    if cfg.use_viewdirs:
+        h_list += [(H_FEATURE, HS), (H_HV, W2S)]
+        z_list += [(Z_DFEATURE, HS), (Z_DHV, W2S)]
+    z_list.append((Z_GR, G_LD))
+    sizes = []
+    for table, entries in ((hseg, h_list), (zseg, z_list)):
+        off = 0
+        for slot, ld in entries:
+            table[slot] = (off, ld)
+            off += ld
+        sizes.append(off)
+    return hseg, zseg, sizes[0], sizes[1]
+
+
+def dw_jobs(cfg: NeRFConfig) -> np.ndarray:
+    """int64 [jobs, J_WORDS]: the weight-gradient products, one for each
+    input segment of each matrix (the skip layer's and the views layer's
+    weights are two), dW rows = that segment's columns of H, dW columns =
+    the matrix's dZ. Wide products run on the tensor cores; the narrow
+    heads (alpha, rgb, output: N <= 8) on the CUDA cores. The first
+    product of a matrix also sums its bias gradient."""
+    layout, _ = packed_layout(cfg)
+    P, V, W, D = cfg.input_ch, cfg.input_ch_views, cfg.W, cfg.D
+    P4 = _round4(P)
+    jobs = []
+
+    def add(kind, hslot, hcol, M, zslot, zcol, N, name, row0, bias):
+        w_off, _, _, ld = layout[name + ".weight"]
+        b_off = layout[name + ".bias"][0] if bias else -1
+        jobs.append((kind, hslot, hcol, M, zslot, zcol, N, w_off + row0 * ld, ld, b_off))
+
+    for l in range(D):
+        name = f"pts_linears.{l}"
+        from_emb = l == 0 or (l - 1) in cfg.skips
+        if from_emb:
+            add(DW_WIDE, H_EMB, 0, P, l, 0, W, name, 0, True)
+        if l > 0:
+            add(DW_WIDE, 1 + (l - 1), 0, W, l, 0, W, name, P if from_emb else 0,
+                not from_emb)
+    last = 1 + (D - 1)
+    if cfg.use_viewdirs:
+        add(DW_WIDE, last, 0, W, Z_DFEATURE, 0, W, "feature_linear", 0, True)
+        add(DW_NARROW, last, 0, W, Z_GR, 4, 1, "alpha_linear", 0, True)
+        add(DW_WIDE, H_FEATURE, 0, W, Z_DHV, 0, W // 2, "views_linears.0", 0, True)
+        add(DW_WIDE, H_EMB, P4, V, Z_DHV, 0, W // 2, "views_linears.0", W, False)
+        add(DW_NARROW, H_HV, 0, W // 2, Z_GR, 0, 3, "rgb_linear", 0, True)
+    else:
+        add(DW_NARROW, last, 0, W, Z_GR, 0, cfg.output_ch, "output_linear", 0, True)
+    return np.asarray(jobs, np.int64)
+
+
+def dw_tiles(jobs: np.ndarray) -> np.ndarray:
+    """int64 [tiles, T_WORDS]: (job, m0, n0) of every output tile of
+    nerf_dw_kernel, DW_BM rows x DW_BN columns (a narrow job: DW_BM rows x
+    all its columns), in job order."""
+    tiles = []
+    for j, (kind, _, _, M, _, _, N, *_) in enumerate(jobs):
+        n_step = DW_BN if kind == DW_WIDE else max(int(N), 1)
+        for m0 in range(0, int(M), DW_BM):
+            for n0 in range(0, int(N), n_step):
+                tiles.append((j, m0, n0))
+    return np.asarray(tiles, np.int64)
+
+
+def dw_splits(n_pad: int, n_tiles: int, sms: int) -> int:
+    """How many point ranges nerf_dw_kernel splits the sum over points
+    into: about DW_BLOCKS_PER_SM x 2 blocks an SM over all tiles, at most
+    one range a staged chunk."""
+    want = max(1, (2 * DW_BLOCKS_PER_SM * sms) // max(1, n_tiles))
+    return max(1, min(want, n_pad // DW_KC))
+
+
+def split_ranges(n_pad: int, splits: int) -> List[Tuple[int, int]]:
+    """[start, end) points of each range, in DW_KC-point chunks: range s
+    holds chunks [s * C // splits, (s + 1) * C // splits) of the C =
+    n_pad / DW_KC (csrc nerf_dw_kernel)."""
+    C = n_pad // DW_KC
+    return [(s * C // splits * DW_KC, (s + 1) * C // splits * DW_KC)
+            for s in range(splits)]
+
+
+def dw_smem_bytes() -> int:
+    """Shared memory of one nerf_dw_kernel block: DW_STAGES chunks of H
+    and dZ, DW_KC rows of DW_LD floats each."""
+    return 4 * DW_STAGES * 2 * DW_KC * DW_LD
+
+
+def reduce_partials(part: torch.Tensor, splits: int) -> torch.Tensor:
+    """The plain version of csrc grad_reduce_kernel: out[i] = sum over
+    ranges s = 0, 1, ... in that order of part[s, i], in fp32."""
+    part = part.reshape(splits, -1)
+    out = part[0].clone()
+    for s in range(1, splits):
+        out = out + part[s]
+    return out
+
+
+def bwd_sources(cfg: NeRFConfig):
+    """(src, bdesc): where each float of ``pack_backward``'s buffer comes
+    from, by ``fused_mlp.param_starts``' numbering (0: padding, zero), and
+    the int64 BwdDesc of csrc/fused_mlp_bwd.cu ({offset, row stride} of
+    each weight segment, -1 where there is none; then ``act_layout``'s
+    segments). Both depend on the architecture alone."""
     P, W = cfg.input_ch, cfg.W
+    shapes = param_shapes(cfg)
+    start = param_starts(cfg)
     seg = np.full((MAX_LAYERS, 2, 2), -1, np.int64)
     head = np.full((6, 2), -1, np.int64)
     pieces, off = [], 0
 
-    def add(t):
+    def add(name, col0, k):
+        """Columns col0 .. col0 + k of weight ``name`` [out, in], each row
+        padded to a multiple of 4."""
         nonlocal off
-        t = t.detach()
-        ld = _round4(t.shape[1])
-        pieces.append(F.pad(t, (0, ld - t.shape[1])).reshape(-1))
-        start, off = off, off + pieces[-1].numel()
-        return start, ld
+        n_out, n_in = shapes[name]
+        ld = _round4(k)
+        block = np.zeros((n_out, ld), np.int64)
+        block[:, :k] = (start[name] + col0 + np.arange(k)[None, :]
+                        + n_in * np.arange(n_out)[:, None])
+        pieces.append(block.reshape(-1))
+        begin, off = off, off + block.size
+        return begin, ld
 
     for i in range(cfg.D):
-        w = params[f"pts_linears.{i}.weight"]
+        name = f"pts_linears.{i}.weight"
         if i == 0:
-            seg[0, 0] = add(w)
+            seg[0, 0] = add(name, 0, P)
         elif (i - 1) in cfg.skips:
-            seg[i, 0], seg[i, 1] = add(w[:, :P]), add(w[:, P:])
+            seg[i, 0], seg[i, 1] = add(name, 0, P), add(name, P, W)
         else:
-            seg[i, 1] = add(w)
+            seg[i, 1] = add(name, 0, W)
     if cfg.use_viewdirs:
-        wv = params["views_linears.0.weight"]
-        head[BW_ALPHA] = add(params["alpha_linear.weight"])
-        head[BW_FEATURE] = add(params["feature_linear.weight"])
-        head[BW_VIEWS_F], head[BW_VIEWS_D] = add(wv[:, :W]), add(wv[:, W:])
-        head[BW_RGB] = add(params["rgb_linear.weight"])
+        head[BW_ALPHA] = add("alpha_linear.weight", 0, W)
+        head[BW_FEATURE] = add("feature_linear.weight", 0, W)
+        head[BW_VIEWS_F] = add("views_linears.0.weight", 0, W)
+        head[BW_VIEWS_D] = add("views_linears.0.weight", W, cfg.input_ch_views)
+        head[BW_RGB] = add("rgb_linear.weight", 0, W // 2)
     else:
-        head[BW_OUTPUT] = add(params["output_linear.weight"])
-    bdesc = np.concatenate([seg.reshape(-1), head.reshape(-1)])
-    return torch.cat(pieces).contiguous(), common.upload(bdesc, device)
+        head[BW_OUTPUT] = add("output_linear.weight", 0, W)
+    hseg, zseg, _, _ = act_layout(cfg)
+    bdesc = np.concatenate([seg.reshape(-1), head.reshape(-1), hseg.reshape(-1),
+                            zseg.reshape(-1)])
+    return np.concatenate(pieces), bdesc
+
+
+_BWD_STATIC: Dict[tuple, tuple] = {}
+
+
+def _bwd_static(cfg: NeRFConfig, device: torch.device):
+    """(src, bdesc, dw_desc, n_jobs, n_tiles) on ``device``, made once per
+    architecture and device (they hold no parameter value). dw_desc is
+    ``dw_jobs`` then ``dw_tiles``, flattened."""
+    key = (cfg, str(device))
+    if key not in _BWD_STATIC:
+        src, bdesc = bwd_sources(cfg)
+        jobs = dw_jobs(cfg)
+        tiles = dw_tiles(jobs)
+        dw = np.concatenate([jobs.reshape(-1), tiles.reshape(-1)])
+        _BWD_STATIC[key] = (torch.from_numpy(src).to(device), common.upload(bdesc, device),
+                            common.upload(dw, device), len(jobs), len(tiles))
+    return _BWD_STATIC[key]
+
+
+def pack_backward(params, cfg: NeRFConfig, device):
+    """(wbt, bdesc): the weights in PyTorch's [out, in] layout, split where
+    the input is a concatenation, each segment's rows padded to a multiple
+    of 4 floats (zero), as one gather through ``bwd_sources``' map;
+    bdesc is the int64 BwdDesc of csrc/fused_mlp_bwd.cu."""
+    device = torch.device(device)
+    src, bdesc, _, _, _ = _bwd_static(cfg, device)
+    return flat_params(params, cfg, device)[src], bdesc
 
 
 def unpack_grads(grads: torch.Tensor, cfg: NeRFConfig) -> Dict[str, torch.Tensor]:
@@ -116,23 +297,35 @@ def unpack_grads(grads: torch.Tensor, cfg: NeRFConfig) -> Dict[str, torch.Tensor
 
 
 def smem_bytes(cfg: NeRFConfig) -> int:
-    """Shared memory of one B2 block: csrc/fused_mlp_bwd.cu bwd_smem_floats
-    plus the NetDesc and BwdDesc it keeps in static shared memory."""
+    """Shared memory of one tile-kernel block: csrc/fused_mlp_bwd.cu
+    bwd_smem_floats plus the NetDesc and BwdDesc it keeps in static shared
+    memory."""
     HS = _round4(cfg.W)
     ES = _round4(cfg.input_ch) + _round4(cfg.input_ch_views)
-    floats = 16 * 256 + 2 * TILE_P * HS + 2 * TILE_P * ES + TILE_P * 8
-    desc_bytes = 8 * (16 + MAX_LAYERS * 4 + 20) + 256 + 8 * (MAX_LAYERS * 4 + 12)
-    return 4 * floats + desc_bytes
+    floats = 16 * 256 + 2 * TILE_P * HS + 2 * TILE_P * ES + TILE_P * G_LD
+    net_desc = 8 * (16 + MAX_LAYERS * 4 + 20) + 256
+    bwd_desc = 8 * (MAX_LAYERS * 4 + 12 + 4 * N_SEG)
+    return 4 * floats + net_desc + bwd_desc
 
 
-_ARGS = ([ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 2
-         + [ctypes.c_void_p] * 6 + [ctypes.c_int] + [ctypes.c_void_p] * 4
-         + [ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-            ctypes.c_void_p])
+# csrc/fused_mlp_bwd.cu nstt_mlp_backward: descriptors, HS, ES; wb, wbt,
+# enc, pts, vd, g; C; dx, hbuf, zbuf; dW tiles; jobs, tiles, part, grads;
+# wsize, total, n_pad; S, grid, splits; stream
+_ARGS = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 6
+         + [ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int]
+         + [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 3 + [ctypes.c_int] * 3
+         + [ctypes.c_void_p])
 
 
 def launch_backward(params, cfg: NeRFConfig, pts, viewdirs, g):
-    """Kernel B2 on CUDA tensors -> (grads, dpts, ddirs)."""
+    """Kernel B2 on CUDA tensors -> (grads, dpts, ddirs).
+
+    Scratch, all ``torch.empty``: H and dZ for n_pad = n rounded up to 64
+    points (``act_layout``: 19,856 bytes a point at the lego width, ~3.9 GB
+    at 196,608 points; the plain path's autograd keeps every layer's
+    output too), and one partial copy of the packed gradients per point
+    range (``dw_splits`` of them, 2.38 MB each at the lego width). Every
+    float of a partial copy is written, padding as zero."""
     global LAUNCHES
     dev = pts.device
     n, S = check_points(cfg, pts, viewdirs)
@@ -149,19 +342,27 @@ def launch_backward(params, cfg: NeRFConfig, pts, viewdirs, g):
     with torch.cuda.device(dev):
         wbuf, desc, HS, ES = pack_network(params, cfg, dev)
         wbt, bdesc = pack_backward(params, cfg, dev)
+        _, _, dw_desc, n_jobs, n_tiles = _bwd_static(cfg, dev)
         enc = encoder_buffer(cfg, dev)
-        n_tiles = -(-n // TILE_P)
-        grid = min(n_tiles, torch.cuda.get_device_properties(dev).multi_processor_count)
-        part = torch.empty(grid * wsize, dtype=torch.float32, device=dev)
-        act = torch.empty(grid * (cfg.D + 2) * TILE_P * HS, dtype=torch.float32,
-                          device=dev)
+        n_pt_tiles = -(-n // TILE_P)
+        n_pad = n_pt_tiles * TILE_P
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        grid = min(n_pt_tiles, sms)
+        splits = dw_splits(n_pad, n_tiles, sms)
+        _, _, h_floats, z_floats = act_layout(cfg)
+        hbuf = torch.empty(n_pad * h_floats, dtype=torch.float32, device=dev)
+        zbuf = torch.empty(n_pad * z_floats, dtype=torch.float32, device=dev)
+        part = torch.empty(splits * wsize, dtype=torch.float32, device=dev)
         grads = torch.empty(wsize, dtype=torch.float32, device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
+        tiles_ptr = dw_desc.data_ptr() + 8 * n_jobs * J_WORDS
         rc = fn(desc.data_ptr(), bdesc.data_ptr(), HS, ES, wbuf.data_ptr(),
                 wbt.data_ptr(), enc.data_ptr(), pts.data_ptr(),
                 viewdirs.data_ptr() if viewdirs is not None else 0,
-                g.data_ptr(), out_channels(cfg), dx.data_ptr(), part.data_ptr(),
-                act.data_ptr(), grads.data_ptr(), wsize, n, S, grid, stream)
+                g.data_ptr(), out_channels(cfg), dx.data_ptr(), hbuf.data_ptr(),
+                zbuf.data_ptr(), n_tiles, dw_desc.data_ptr(), tiles_ptr,
+                part.data_ptr(), grads.data_ptr(), wsize, n, n_pad, S, grid, splits,
+                stream)
     common.check_launch(rc, "fused_mlp_bwd (B2)")
     LAUNCHES += 1
     dpts = dx[:, :3].reshape(pts.shape)
@@ -214,12 +415,23 @@ def fused_train_op(params, cfg: NeRFConfig, pts, viewdirs: Optional[torch.Tensor
                           *[params[k] for k in names])
 
 
-def flops_per_point_bwd(cfg: NeRFConfig) -> int:
-    """Multiply-adds x 2 of B2 for one point, counted from the layer shapes:
-    the forward again without the narrow output layers (their outputs are
-    not needed), the input-gradient product of every layer and the
-    weight-gradient product of every layer."""
+def flops_per_point_dw(cfg: NeRFConfig) -> int:
+    """Multiply-adds x 2 of nerf_dw_kernel for one point: the weight-
+    gradient product of every layer, one forward's worth
+    (``flops_per_point``)."""
+    return flops_per_point(cfg)
+
+
+def flops_per_point_tile(cfg: NeRFConfig) -> int:
+    """Multiply-adds x 2 of the tile kernel for one point: the forward
+    again without the narrow output layers (their outputs are not needed)
+    and the input-gradient product of every layer."""
     W = cfg.W
     narrow = W * 1 + (W // 2) * 3 if cfg.use_viewdirs else W * cfg.output_ch
-    macs = flops_per_point(cfg) // 2
-    return 2 * (3 * macs - narrow)
+    return 2 * (2 * (flops_per_point(cfg) // 2) - narrow)
+
+
+def flops_per_point_bwd(cfg: NeRFConfig) -> int:
+    """Multiply-adds x 2 of B2 for one point, counted from the layer
+    shapes: the tile kernel's and nerf_dw_kernel's."""
+    return flops_per_point_tile(cfg) + flops_per_point_dw(cfg)
