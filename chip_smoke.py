@@ -21,13 +21,14 @@ Phases (any failure exits non-zero and prints no result line):
             not reach), the other architectures at S = 1, 7, 65, B4 at
             S = 7 and 65 run 200 times each with every run bit-identical
             to the first (tiles there hold a ray's end and the next ray's
-            start), one gradient through
+            start), B3 and B4 at S = 128 (the fern recipe's fine pass, 64
+            + 64 samples) on NDC rays, one gradient through
             each autograd.Function, and times in turns with the plain
             versions (median and min-max of 10 samples) beside two bounds:
             the split-fp32 design's (3 TF32 products a multiply-add on the
             tensor cores) and the fp32 CUDA cores'. B5 (the composite) at
-            32768 rays x S = 64, 192, 48 (guided) and 32 (froxel K) and at
-            odd shapes (S=1, S=21 with 37 rays, opaque and empty rays), with
+            32768 rays x S = 64, 192, 48 (guided), 32 (froxel K) and 128
+            (fern, NDC rays) and at odd shapes (S=1, S=21 with 37 rays, opaque and empty rays), with
             and without a white background, and its gradient.
 3. serving  a synthetic 800x800 blender scene loaded with configs/lego.txt
             (half_res: 400x400 frames), a .tar of seeded random lego-width
@@ -42,7 +43,9 @@ Phases (any failure exits non-zero and prints no result line):
 5. training kernels
             B1 and B2 at the lego width with seeded weights at both training
             shapes of configs/lego.txt (1024 rays x 64 coarse samples =
-            65,536 points; x 192 fine = 196,608), and at the odd shapes of
+            65,536 points; x 192 fine = 196,608) and the fine pass of
+            configs/fern.txt (1024 NDC rays x 128 = 131,072), and at the odd
+            shapes of
             phase 2 (the four architectures at 37 x 7 and 300 x 65 points),
             against their plain versions (B1 within 2e-4 and FP32_TOL of
             max(1, max|plain|), as B3); B1 timed in turns with the plain
@@ -54,9 +57,11 @@ Phases (any failure exits non-zero and prints no result line):
             fp32 CUDA cores plus the dW products' in split fp32 on the
             tensor cores; all FLOPs on the fp32 CUDA cores), and 20 runs at
             196,608 points bit-identical to the first. Then one full
-            training step (N_rand 1024, 64 + 128 samples) through the
-            kernels and through the plain path with the same draws: loss,
-            every gradient and the post-Adam parameters must agree.
+            training step of each recipe (lego: N_rand 1024, 64 + 128
+            samples; fern: N_rand 1024, 64 + 64 samples, NDC, the batching
+            sampler, sigma noise 1.0) through the kernels and through the
+            plain path with the same draws (noise included): loss, every
+            gradient and the post-Adam parameters must agree.
 6. training a 3-D-consistent blender scene (benchmarks/hard_scene.py,
             800x800 frames -> 400x400 under half_res) trained with
             configs/lego.txt through apps/train.main for a few hundred
@@ -114,12 +119,31 @@ Phases (any failure exits non-zero and prints no result line):
             steps (exactly 2 P1 + 2 P2 a step), and the triplane at its
             defaults for 100 steps with one upsample milestone (128 -> 256)
             and one served frame. Step and frame ms of each.
+10. llff    benchmarks/hard_scene.py's forward-facing capture written in
+            the LLFF disk format (poses_bounds.npy + 20 1512x2016 PNGs),
+            minify_images x4 (378x504, fern's frame size), configs/fern.txt
+            (8x256 MLPs, 64 + 64 samples, NDC, batching, sigma noise 1.0,
+            --factor 4) trained through apps/train.main, resumed, and
+            checked: B1 and B2 launched 2 x steps times and no other
+            kernel, train PSNR rising, Adam state, the lr schedule. Then
+            --render_only --render_test on the llffhold 8 views (B3 and B5
+            each 2 x ceil(H W / chunk) a frame; held-out PSNR >= 2 dB above
+            the better of an all-white and the training images' mean-colour
+            frame; the first view against the plain versions at the kernel
+            run's fine depths within 1e-3), the 120-pose spiral at
+            --render_factor 4 as video.gif (GIF89a, 120 image descriptors
+            counted by walking its blocks), apps/eval_cli.py (3 views, its
+            mean PSNR within 1e-6 dB of render_only's float frames'), the
+            checkpoint served over HTTP (POST of a held-out c2w: a 378x504x3
+            PNG equal to render_only's) and through --fused_composite (B4).
+            Prints step ms, frame ms and held-out PSNR on one line.
 
 ``--parent-tree`` (with ``--phases``) marks the parent side of an A/B:
 phase 1 logs a tensor-core kernel that tree predates instead of failing.
 ``--profile`` adds one dense frame, five training steps, one frame of
-each fast engine, five split and five vertex hashgrid training steps and
-a hashgrid and a triplane frame under torch.profiler (device time by
+each fast engine, five split and five vertex hashgrid training steps, a
+hashgrid and a triplane frame, and five fern training steps and a fern
+frame under torch.profiler (device time by
 kernel, device busy share, P1's and P2's shares). ``--phases 2,3,4,7``
 runs the build and the listed phases alone (phase 7 runs phase 6 for its
 checkpoint; 3 and 4 run together; no result lines; for iterating on a
@@ -154,6 +178,9 @@ WORK = os.path.join(REPO, "build", "chip_smoke")
 PEAK_FP32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES = 3.35e12
+# the fern recipe's frame (configs/fern.txt at factor 8, or phase 10's
+# 1512x2016 capture at factor 4) and its focal there (1.2 W)
+FERN_H, FERN_W, FERN_FOCAL = 378, 504, 1.2 * 504
 # B1's, B3's and B4's fp32-accuracy gate, beside the 2e-4 tolerance, as a
 # share of max(1, max|plain|): split fp32 reads ~3.6e-7 at the lego width
 # on an H100; one TF32 product a multiply-add alone (plain TF32) misses it
@@ -240,6 +267,32 @@ def lego_rays(n, S, seed, device):
     to = dict(device=device, dtype=torch.float32)
     return (o.to(**to).contiguous(), d.to(**to).contiguous(),
             z.to(**to).contiguous(), vd.to(**to).contiguous())
+
+
+def fern_rays(n, S, seed, device):
+    """Seeded NDC rays like a fern-recipe frame's (configs/fern.txt on phase
+    10's 378x504 forward-facing capture, focal 1.2 W): pixels of cameras
+    clustered near the origin looking down -z, warped by ndc_rays (near
+    plane 1), view directions from the world rays, depths in [0, 1] (the
+    perturb-0 linspace of 64; S > 64: that union S - 64 uniform draws,
+    sorted, as the fine pass's)."""
+    import torch
+
+    from nerf_shared_tpu_torch.ops.rays import ndc_rays
+
+    g = torch.Generator().manual_seed(seed)
+    x, y = torch.rand(n, generator=g) * FERN_W, torch.rand(n, generator=g) * FERN_H
+    d = torch.stack([(x - FERN_W / 2) / FERN_FOCAL, -(y - FERN_H / 2) / FERN_FOCAL,
+                     -torch.ones(n)], -1)
+    o = 0.2 * (torch.rand(n, 3, generator=g) - 0.5)
+    vd = d / torch.linalg.norm(d, dim=-1, keepdim=True)
+    o, d = ndc_rays(FERN_H, FERN_W, FERN_FOCAL, 1.0, o, d)
+    z = torch.linspace(0.0, 1.0, 64).expand(n, 64)
+    if S > 64:
+        z = torch.sort(torch.cat([z, torch.rand(n, S - 64, generator=g)], -1), -1).values
+    to = dict(device=device, dtype=torch.float32)
+    return (o.to(**to).contiguous(), d.to(**to).contiguous(),
+            z[:, :S].to(**to).contiguous(), vd.to(**to).contiguous())
 
 
 def bound(cfg, params, n, S, products=1, peak=PEAK_FP32_FLOPS):
@@ -391,6 +444,60 @@ def mlp_case(kernel, label, cfg, params, n, S, err, tol, t, tp):
                 vs_plain=verdict, design=TC_DESIGN)
 
 
+def b3_case(label, params, cfg, rays, tol):
+    """B3 on one ray block against its plain version (tol and FP32_TOL),
+    timed in turns with it: its mlp_case."""
+    import torch
+
+    from nerf_shared_tpu_torch.ops.cuda import fused_mlp
+
+    o, d, z, vd = rays
+    n, S = z.shape
+    with torch.no_grad():
+        got = fused_mlp.fused_nerf_forward_rays(params, cfg, o, d, z, vd)
+        want = fused_mlp.plain_nerf_forward_rays(params, cfg, o, d, z, vd)
+        torch.cuda.synchronize()
+        err, ok = abs_err(got, want, tol, fp32=True)
+        if not ok:
+            raise AssertionError(f"{label} disagrees with its plain version "
+                                 f"(max err {err:.3e}; tol {tol:g}, fp32 {FP32_TOL:g})")
+        t, tp = in_turns(lambda: fused_mlp.fused_nerf_forward_rays(
+            params, cfg, o, d, z, vd), lambda: fused_mlp.plain_nerf_forward_rays(
+            params, cfg, o, d, z, vd), reps=3)
+    return mlp_case("fused_mlp", label, cfg, params, n, S, err, tol, t, tp)
+
+
+def b4_case(label, params, cfg, rays, tol, white_bkgd):
+    """B4 on one ray block against its plain version over the rays clear of
+    the 1e10 sentinel flip (at least 1 in 20 of them), timed in turns with
+    it: its mlp_case."""
+    import torch
+
+    from nerf_shared_tpu_torch.ops.cuda import fused_mlp, fused_render
+
+    o, d, z, vd = rays
+    n, S = z.shape
+    with torch.no_grad():
+        got = fused_render.fused_render_rays(params, cfg, o, d, z, vd,
+                                             white_bkgd=white_bkgd, want_weights=True)
+        want = fused_render.plain_render_rays(params, cfg, o, d, z, vd,
+                                              white_bkgd=white_bkgd)
+        raw = fused_mlp.plain_nerf_forward_rays(params, cfg, o, d, z, vd)
+        mask = raw[:, -1, 3].abs() >= 1e-2  # clear of the 1e10 sentinel flip
+        checked = render_errs(got, want, mask, tol)
+        errs = [e for e, _ in checked]
+        log(f"{label}: {int(mask.sum())}/{n} masked rays (rgb, disp, acc, weights, "
+            f"depth: {', '.join(f'{e:.1e}' for e in errs)}; tol {tol:g}, rgb, acc, "
+            f"weights {FP32_TOL:g})")
+        if not (all(ok for _, ok in checked) and int(mask.sum()) >= n // 20):
+            raise AssertionError(f"{label} disagrees with its plain version")
+        t, tp = in_turns(lambda: fused_render.fused_render_rays(
+            params, cfg, o, d, z, vd, white_bkgd=white_bkgd, want_weights=False),
+            lambda: fused_render.plain_render_rays(
+                params, cfg, o, d, z, vd, white_bkgd=white_bkgd), reps=3)
+    return mlp_case("fused_render", label, cfg, params, n, S, max(errs), tol, t, tp)
+
+
 def phase_kernels(device, n=32768):
     import torch
 
@@ -404,46 +511,17 @@ def phase_kernels(device, n=32768):
     # fp32 sums over up to 283 terms in another order than cuBLAS, through
     # 10 layers; sin/cos see bit-identical arguments (see fused_mlp.py)
     tol = 2e-4
-    cases = []
-
-    with torch.no_grad():
-        for S in (64, 192):
-            o, d, z, vd = lego_rays(n, S, seed=S, device=device)
-            got = fused_mlp.fused_nerf_forward_rays(params, cfg, o, d, z, vd)
-            want = fused_mlp.plain_nerf_forward_rays(params, cfg, o, d, z, vd)
-            torch.cuda.synchronize()
-            err, ok = abs_err(got, want, tol, fp32=True)
-            if not ok:
-                raise AssertionError(f"B3 S={S} disagrees with its plain version "
-                                     f"(max err {err:.3e}; tol {tol:g}, fp32 {FP32_TOL:g})")
-            t, tp = in_turns(lambda: fused_mlp.fused_nerf_forward_rays(
-                params, cfg, o, d, z, vd), lambda: fused_mlp.plain_nerf_forward_rays(
-                params, cfg, o, d, z, vd), reps=3)
-            cases.append(mlp_case("fused_mlp", f"B3 fused_mlp S={S}", cfg, params, n, S,
-                                  err, tol, t, tp))
-
-        S = 192
-        o, d, z, vd = lego_rays(n, S, seed=7, device=device)
-        got = fused_render.fused_render_rays(params, cfg, o, d, z, vd,
-                                             white_bkgd=True, want_weights=True)
-        want = fused_render.plain_render_rays(params, cfg, o, d, z, vd,
-                                              white_bkgd=True)
-        raw = fused_mlp.plain_nerf_forward_rays(params, cfg, o, d, z, vd)
-        mask = raw[:, -1, 3].abs() >= 1e-2  # clear of the 1e10 sentinel flip
-        checked = render_errs(got, want, mask, tol)
-        errs = [e for e, _ in checked]
-        err = max(errs)
-        log(f"B4 fused_render S={S}: {int(mask.sum())}/{n} masked rays (rgb, disp, "
-            f"acc, weights, depth: {', '.join(f'{e:.1e}' for e in errs)}; tol {tol:g}, "
-            f"rgb, acc, weights {FP32_TOL:g})")
-        if not (all(ok for _, ok in checked) and int(mask.sum()) >= n // 20):
-            raise AssertionError("B4 disagrees with its plain version")
-        t, tp = in_turns(lambda: fused_render.fused_render_rays(
-            params, cfg, o, d, z, vd, white_bkgd=True, want_weights=False),
-            lambda: fused_render.plain_render_rays(
-                params, cfg, o, d, z, vd, white_bkgd=True), reps=3)
-        cases.append(mlp_case("fused_render", f"B4 fused_render S={S}", cfg, params, n,
-                              S, err, tol, t, tp))
+    cases = [b3_case(f"B3 fused_mlp S={S}", params, cfg,
+                     lego_rays(n, S, seed=S, device=device), tol) for S in (64, 192)]
+    cases.append(b4_case("B4 fused_render S=192", params, cfg,
+                         lego_rays(n, 192, seed=7, device=device), tol, white_bkgd=True))
+    # the fern recipe's fine pass (64 + 64 samples) on NDC rays, black
+    # background (configs/fern.txt; phase 10's frames)
+    fern = fern_rays(n, 128, seed=128, device=device)
+    cases.append(b3_case("B3 fused_mlp S=128 (fern fine pass, NDC rays)", params, cfg,
+                         fern, tol))
+    cases.append(b4_case("B4 fused_render S=128 (fern fine pass, NDC rays)", params, cfg,
+                         fern, tol, white_bkgd=False))
 
     check_other_shapes(device, tol)
     check_render_repeats(device, params, cfg, tol)
@@ -477,12 +555,13 @@ def phase_kernels(device, n=32768):
     return cases
 
 
-def composite_inputs(n, S, seed, device):
+def composite_inputs(n, S, seed, device, ndc=False):
     """Seeded composite inputs at a ray block's shape: raw [n, S, 4] ~ N(0, 2),
-    depths and directions of lego_rays (S > 64: its sorted union)."""
+    depths and directions of lego_rays (S > 64: its sorted union), or with
+    ``ndc`` of fern_rays."""
     import torch
 
-    _, d, z, _ = lego_rays(n, max(S, 64), seed, device)
+    _, d, z, _ = (fern_rays if ndc else lego_rays)(n, max(S, 64), seed, device)
     if S < 64:
         z = z[:, torch.linspace(0, 63, S).round().long()].contiguous()
     elif S > 64:
@@ -527,8 +606,8 @@ def check_composite(device, n=32768):
 
     cases = []
     for S, what in ((64, "coarse"), (192, "dense fine"), (48, "guided fine"),
-                    (32, "froxel K")):
-        raw, z, d = composite_inputs(n, S, seed=100 + S, device=device)
+                    (32, "froxel K"), (128, "fern fine, NDC rays")):
+        raw, z, d = composite_inputs(n, S, seed=100 + S, device=device, ndc=S == 128)
         err = check(f"{n} rays S={S} ({what})", raw, z, d)
         # device time (queued_ms): a launch is shorter than the host's cost of
         # one call, which CUDA events around the call would measure; the
@@ -540,7 +619,7 @@ def check_composite(device, n=32768):
         t_bytes = composite.bytes_moved(n, S) / PEAK_BYTES
         t_ops = 40 * n * S / PEAK_FP32_FLOPS  # ~40 fp32 operations a sample
         bms, by = 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
-        log(f"B5 composite S={S}: {ms:.4f} ms on the device ({call_ms:.4f} ms a call "
+        log(f"B5 composite S={S} ({what}): {ms:.4f} ms on the device ({call_ms:.4f} ms a call "
             f"by CUDA events), plain {plain_ms:.4f} ms on the device, bound {bms:.4f} ms "
             f"({by})")
         cases.append(dict(kernel="composite", S=S, n_rays=n, max_abs_err=err, ms=ms,
@@ -580,12 +659,13 @@ def check_composite(device, n=32768):
     return cases
 
 
-def lego_points(n, S, seed, device):
-    """Points [n, S, 3] on seeded lego-like rays, their unit directions
-    [n, 3] and a seeded cotangent g [n, S, 4] of the raw outputs."""
+def lego_points(n, S, seed, device, rays=None):
+    """Points [n, S, 3] on seeded lego-like rays (or ``rays``' rays, e.g.
+    fern_rays), their unit directions [n, 3] and a seeded cotangent g
+    [n, S, 4] of the raw outputs."""
     import torch
 
-    o, d, z, vd = lego_rays(n, S, seed, device)
+    o, d, z, vd = (rays or lego_rays)(n, S, seed, device)
     z = z[:, :S]
     pts = (o[:, None, :] + d[:, None, :] * z[..., None]).contiguous()
     g = torch.randn(n, S, 4, generator=torch.Generator().manual_seed(seed + 1))
@@ -722,11 +802,14 @@ def phase_train_kernels(device):
     # held relative to max |grad| per tensor
     tol_fwd, tol_bwd = 2e-4, 1e-3
     cases = []
-    for S in (64, 192):
+    # both passes of the lego recipe (64 + 128 samples) and the fern recipe's
+    # fine pass (64 + 64) on NDC rays
+    for S, rays, what in ((64, lego_rays, "lego"), (192, lego_rays, "lego"),
+                          (128, fern_rays, "fern, NDC rays")):
         n_rays = 1024
-        pts, vd, g = lego_points(n_rays, S, seed=S, device=device)
+        pts, vd, g = lego_points(n_rays, S, seed=S, device=device, rays=rays)
         e1, e2, errs = check_train_kernels(cfg, params, pts, vd, g, tol_fwd, tol_bwd,
-                                           f"lego N={n_rays * S} S={S}")
+                                           f"{what} N={n_rays * S} S={S}")
         with torch.no_grad():
             t1, tp1 = in_turns(lambda: fused_mlp.fused_nerf_forward(params, cfg, pts, vd),
                                lambda: apply_nerf(params, cfg, pts, vd), reps=10)
@@ -791,14 +874,18 @@ def phase_train_kernels(device):
                 else torch.cat([g, g[..., :1]], -1).contiguous()
             check_train_kernels(acfg, ap, pts, vd, g, tol_fwd, tol_bwd,
                                 f"{kw} N={n_rays * S}")
-    return cases, check_train_step(device)
+    return cases, {recipe: check_train_step(device, recipe) for recipe in ("lego", "fern")}
 
 
-def train_step_setup(device, fused):
-    """A lego-recipe training step on a seeded state: (state, step_fn,
-    images, poses, overrides, spec). Two 400x400 seeded images, 64 + 128
-    samples per ray, N_rand 1024 inside the precrop window; the stratified
-    jitter and inverse-CDF draws are pinned."""
+def train_step_setup(device, fused, recipe="lego"):
+    """A training step of ``recipe`` on a seeded state: (state, step_fn,
+    images, poses, overrides). "lego": two 400x400 seeded images, 64 + 128
+    samples per ray, N_rand 1024 inside the precrop window of the
+    single-image sampler; the stratified jitter and inverse-CDF draws are
+    pinned. "fern" (configs/fern.txt): two 378x504 seeded images of
+    forward-facing cameras, the batching sampler, NDC rays, 64 + 64
+    samples, black background, sigma noise 1.0, its draws pinned too."""
+    import numpy as np
     import torch
 
     from nerf_shared_tpu_torch.data.poses import pose_spherical
@@ -810,35 +897,50 @@ def train_step_setup(device, fused):
 
     cfg = NeRFConfig(D=8, W=256, skips=(4,), use_viewdirs=True, multires=10,
                      multires_views=4, output_ch=5)
-    H = 400
-    focal = 0.5 * H / math.tan(0.5 * 0.6911112)
-    K = [[focal, 0, H / 2], [0, focal, H / 2], [0, 0, 1]]
     g = torch.Generator().manual_seed(21)
-    images = torch.rand(2, H, H, 3, generator=g).to(device)
-    poses = torch.stack([torch.as_tensor(pose_spherical(a, -30.0, 4.0)[:3, :4])
-                         for a in (0.0, 120.0)]).float().to(device)
-    spec = PixelSamplerSpec.from_K(H, H, K, 1024, single_image=True,
-                                   precrop_iters=500, precrop_frac=0.5)
-    rcfg = RenderConfig(perturb=1.0, N_importance=128, N_samples=64,
-                        use_viewdirs=True, white_bkgd=True, near=2.0, far=6.0,
-                        fused_backward=fused)
-    overrides = {"t_rand": torch.rand(1024, 64, generator=g).to(device),
-                 "u": torch.rand(1024, 128, generator=g).to(device)}
+    if recipe == "lego":
+        H = W = 400
+        focal = 0.5 * H / math.tan(0.5 * 0.6911112)
+        poses = [pose_spherical(a, -30.0, 4.0) for a in (0.0, 120.0)]
+        spec_kw = dict(single_image=True, precrop_iters=500, precrop_frac=0.5)
+        rcfg = RenderConfig(perturb=1.0, N_importance=128, N_samples=64,
+                            use_viewdirs=True, white_bkgd=True, near=2.0, far=6.0,
+                            fused_backward=fused)
+    else:
+        H, W, focal = FERN_H, FERN_W, FERN_FOCAL
+        poses = [np.eye(4), np.eye(4)]
+        poses[1][:3, 3] = [0.1, -0.05, 0.02]
+        spec_kw = dict(single_image=False)
+        rcfg = RenderConfig(perturb=1.0, N_importance=64, N_samples=64,
+                            use_viewdirs=True, white_bkgd=False, ndc=True, near=0.0,
+                            far=1.0, raw_noise_std=1.0, fused_backward=fused)
+    K = [[focal, 0, W / 2], [0, focal, H / 2], [0, 0, 1]]
+    images = torch.rand(2, H, W, 3, generator=g).to(device)
+    poses = torch.stack([torch.as_tensor(p[:3, :4]) for p in poses]).float().to(device)
+    spec = PixelSamplerSpec.from_K(H, W, K, 1024, **spec_kw)
+    S, Si = rcfg.N_samples, rcfg.N_importance
+    overrides = {"t_rand": torch.rand(1024, S, generator=g),
+                 "u": torch.rand(1024, Si, generator=g)}
+    if rcfg.raw_noise_std > 0:
+        overrides["noise_coarse"] = torch.randn(1024, S, generator=g)
+        overrides["noise_fine"] = torch.randn(1024, S + Si, generator=g)
+    overrides = {k: v.to(device) for k, v in overrides.items()}
     state = create_train_state(cfg, cfg, device, seed=3, lrate=5e-4, lrate_decay=500)
     return state, make_train_step(rcfg, cfg, cfg, spec), images, poses, overrides
 
 
-def check_train_step(device):
-    """One training step through B1 + B2 and through the plain path from
-    the same state and draws; returns the step times (ms, median of 3
-    after one warm-up step each)."""
+def check_train_step(device, recipe="lego"):
+    """One training step of ``recipe`` (train_step_setup) through B1 + B2
+    and through the plain path from the same state and draws; returns the
+    step times (ms, median of 3 after one warm-up step each) and the
+    errors."""
     import torch
 
     from nerf_shared_tpu_torch.ops.cuda import fused_mlp, fused_mlp_bwd
 
     out = {}
     for fused in (True, False):
-        state, step, images, poses, ov = train_step_setup(device, fused)
+        state, step, images, poses, ov = train_step_setup(device, fused, recipe)
         before = (fused_mlp.POINT_LAUNCHES, fused_mlp_bwd.LAUNCHES)
         aux = step(state, images, poses, torch.Generator().manual_seed(9), overrides=ov)
         torch.cuda.synchronize()
@@ -884,7 +986,9 @@ def check_train_step(device):
         n_sure += int(sure.sum())
         n_par += gp.numel()
     moved_tol = n_par // 100
-    log(f"train step (N_rand 1024, 64 + 128 samples): kernels {k['ms']:.2f} ms, plain "
+    what = ("64 + 128 samples" if recipe == "lego" else
+            "64 + 64 samples, NDC, batching, sigma noise 1.0 pinned")
+    log(f"train step {recipe} (N_rand 1024, {what}): kernels {k['ms']:.2f} ms, plain "
         f"{p['ms']:.2f} ms; loss rel err {loss_err:.1e} (tol 1e-5), worst gradient "
         f"{grad_err:.1e} of max|grad| (tol 1e-3); post-Adam params: {param_err:.1e} "
         f"apart on the {n_sure} of {n_par} entries whose gradient dwarfs eps and the "
@@ -894,7 +998,8 @@ def check_train_step(device):
         "of its tensor's max")
     if not (loss_err <= 1e-5 and grad_err <= 1e-3 and param_err <= 1e-6
             and adam_err <= 1e-6 and moved <= moved_tol):
-        raise AssertionError("the kernel training step disagrees with the plain step")
+        raise AssertionError(f"the kernel training step ({recipe}) disagrees with the "
+                             "plain step")
     return {"kernel_ms": k["ms"], "plain_ms": p["ms"], "loss_rel_err": loss_err,
             "grad_rel_err": grad_err, "param_err": param_err, "adam_err": adam_err,
             "moved": moved, "moved_tol": moved_tol, "moved_max_grad": moved_g,
@@ -1072,14 +1177,15 @@ def phase_training(device, steps=600, more=200):
             "base_argv": base}
 
 
-def profile_train_step(device, steps=5):
-    """``steps`` consecutive kernel training steps under torch.profiler
-    (after one warm-up step): device busy share of their wall time and the
-    top kernels. Several steps, so the host's run-ahead between steps is
-    part of the window, as it is in training."""
+def profile_train_step(device, steps=5, recipe="lego"):
+    """``steps`` consecutive kernel training steps of ``recipe``
+    (train_step_setup) under torch.profiler (after one warm-up step):
+    device busy share of their wall time and the top kernels. Several
+    steps, so the host's run-ahead between steps is part of the window, as
+    it is in training."""
     import torch
 
-    state, step, images, poses, ov = train_step_setup(device, True)
+    state, step, images, poses, ov = train_step_setup(device, True, recipe)
     step(state, images, poses, torch.Generator().manual_seed(9), overrides=ov)
     torch.cuda.synchronize()
 
@@ -1087,7 +1193,7 @@ def profile_train_step(device, steps=5):
         for i in range(steps):
             step(state, images, poses, torch.Generator().manual_seed(i), overrides=ov)
 
-    _profile(f"{steps} training steps", run)
+    _profile(f"{steps} {recipe} training steps", run)
 
 
 def profile_grid_step(device, steps=5, vertex=False):
@@ -2141,6 +2247,271 @@ def phase_triplane(device, scene, lego, ds, steps, blocks, profile=False):
                                              "triplane_serving": served["launches"]}}
 
 
+def _render_llff_view(job):
+    """One view of the forward-facing hard scene, written as a PNG (pool
+    worker)."""
+    sys.path.insert(0, REPO)
+    import numpy as np
+
+    from benchmarks import hard_scene
+    from nerf_shared_tpu_torch.data.images import imwrite_u8
+
+    path, c2w, H, W, focal = job
+    img = hard_scene.render_gt(np.asarray(c2w, np.float32), H, W, focal)
+    imwrite_u8(path, (img * 255).astype(np.uint8))
+
+
+def write_llff_scene(root, H=1512, W=2016, n=20, focal_mult=1.2, workers=8):
+    """benchmarks/hard_scene.py's forward-facing capture in the LLFF disk
+    format, as its write_llff_dataset lays it out: n cameras on a jittered
+    5 x 4 grid at z ~ 4 looking at the origin (seed 23), focal 1.2 W, the
+    poses as [down, right, back | eye | H, W, focal] columns with the
+    views' [near, far] bounds in poses_bounds.npy, and images/imageNNN.png
+    (here through the port's PNG codec; views rendered in a spawn-context
+    pool)."""
+    sys.path.insert(0, REPO)
+    import numpy as np
+
+    from benchmarks import hard_scene
+
+    rng = np.random.default_rng(23)
+    focal = W * focal_mult
+    os.makedirs(os.path.join(root, "images"), exist_ok=True)
+    rows, jobs = [], []
+    for i in range(n):
+        gx = (i % 5 - 2) * 0.35 + 0.08 * rng.standard_normal()
+        gy = (i // 5 - 1.5) * 0.3 + 0.08 * rng.standard_normal()
+        eye = np.array([gx, gy, 4.0 + 0.25 * rng.standard_normal()])
+        c2w = hard_scene._look_at(eye)
+        jobs.append((os.path.join(root, "images", f"image{i:03d}.png"), c2w.tolist(),
+                     H, W, focal))
+        disk = np.stack([-c2w[:, 1], c2w[:, 0], c2w[:, 2], c2w[:, 3]], axis=1)
+        hwf = np.array([[H], [W], [focal]], np.float64)
+        d = np.linalg.norm(eye)
+        rows.append(np.concatenate([np.concatenate([disk, hwf], axis=1).ravel(),
+                                    [max(d - 1.8, 0.5), d + 1.8]]))
+    np.save(os.path.join(root, "poses_bounds.npy"), np.stack(rows).astype(np.float64))
+    with multiprocessing.get_context("spawn").Pool(workers) as pool:
+        pool.map(_render_llff_view, jobs, chunksize=1)
+
+
+def gif_image_count(data):
+    """The image descriptors of a GIF89a stream, counted by walking its
+    blocks (header, screen descriptor and global table, then extension and
+    image blocks with their sub-blocks, to the trailer)."""
+    if data[:6] != b"GIF89a":
+        raise AssertionError(f"not a GIF89a stream: {data[:6]!r}")
+    packed = data[10]
+    pos = 13 + (3 * (2 << (packed & 7)) if packed & 0x80 else 0)
+    count = 0
+    while data[pos] != 0x3B:
+        if data[pos] == 0x21:      # extension: introducer, label, sub-blocks
+            pos += 2
+        elif data[pos] == 0x2C:    # image: descriptor, local table, code size
+            count += 1
+            packed = data[pos + 9]
+            pos += 11 + (3 * (2 << (packed & 7)) if packed & 0x80 else 0)
+        else:
+            raise AssertionError(f"GIF: unknown block 0x{data[pos]:02x} at byte {pos}")
+        while data[pos]:
+            pos += data[pos] + 1
+        pos += 1
+    return count
+
+
+def expect_launches(label, got, want):
+    """Raise unless launch_counts() ``got`` holds exactly ``want``'s counts
+    and no launch of any other kernel."""
+    full = {k: want.get(k, 0) for k in got}
+    if got != full:
+        raise AssertionError(f"{label}: expected launches {full}, got {got}")
+
+
+def phase_llff(device, steps=600, more=200):
+    """Phase 10: configs/fern.txt on a generated forward-facing capture:
+    minify, train, resume, render the held-out views and the spiral video,
+    evaluate, serve."""
+    import re
+
+    import numpy as np
+    import torch
+
+    from nerf_shared_tpu_torch.apps import eval_cli
+    from nerf_shared_tpu_torch.apps import train as tapp
+    from nerf_shared_tpu_torch.config import config_parser
+    from nerf_shared_tpu_torch.data.datasets import load_datasets
+    from nerf_shared_tpu_torch.data.images import minify_images, png_decode
+    from nerf_shared_tpu_torch.train.state import lr_at
+    from nerf_shared_tpu_torch.utils.metrics import img2mse, mse2psnr
+
+    scene, logs = os.path.join(WORK, "llff_scene"), os.path.join(WORK, "llff_logs")
+    t0 = time.perf_counter()
+    write_llff_scene(scene)
+    scene_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    minify_images(scene, 4)
+    minify_s = time.perf_counter() - t0
+    log(f"phase 10: wrote the 20-view 1512x2016 LLFF scene in {scene_s:.1f} s; "
+        f"minify_images x4 -> 378x504 in {minify_s:.1f} s")
+    total = steps + more
+    base = ["--config", os.path.join(REPO, "configs", "fern.txt"), "--datadir", scene,
+            "--basedir", logs, "--expname", "fern_smoke", "--device", device,
+            "--factor", "4", "--i_print", "50", "--i_img", "0", "--i_testset", "0",
+            "--i_video", "0", "--i_weights", str(steps)]
+    after = base + ["--N_iters", str(total)]
+
+    # train and resume: B1 and B2 twice a step, no render kernel
+    zero_counts()
+    t0 = time.perf_counter()
+    _, text = run_train_cli(base + ["--N_iters", str(steps)])
+    state2, text2 = run_train_cli(after)
+    train_s = time.perf_counter() - t0
+    launches = {"llff_training": launch_counts()}
+    expect_launches("fern training", launches["llff_training"],
+                    {"fused_mlp_points": 2 * total, "fused_mlp_bwd": 2 * total})
+    train_lines = re.findall(r"\[TRAIN\] Iter: (\d+) Loss: \S+\s+PSNR: (\S+)\s+rays/sec: (\S+)",
+                             text + text2)
+    psnrs = [float(p) for _, p, _ in train_lines]
+    rps = [float(r.replace(",", "")) for _, _, r in train_lines]
+    if "Reloading from" not in text2 or state2.count != total or state2.step != total:
+        raise AssertionError(f"resume: reloaded {'Reloading from' in text2}, Adam count "
+                             f"{state2.count}, step {state2.step}, expected {total}")
+    lr, a = state2.optimizer.param_groups[0]["lr"], config_parser().parse_args(after)
+    if abs(lr - lr_at(a.lrate, a.lrate_decay, total - 1)) > 1e-12:
+        raise AssertionError(f"resumed lr {lr} is off the schedule")
+    if not psnrs or psnrs[-1] <= psnrs[0] + 1.0:
+        raise AssertionError(f"train PSNR did not rise: {psnrs}")
+    expdir = os.path.join(logs, "fern_smoke")
+    tar = torch.load(os.path.join(expdir, f"{total:06d}.tar"), map_location="cpu",
+                     weights_only=True)
+    st = tar["optimizer_state_dict"]["state"]
+    with np.load(os.path.join(expdir, f"{total:06d}.ckpt.npz")) as z:
+        npz_count = int(z["opt/count"])
+    if not (len(st) == len(state2.parameters()) and int(st[0]["step"]) == total
+            and npz_count == total and float(st[0]["exp_avg"].abs().max()) > 0):
+        raise AssertionError("checkpoints lack Adam state")
+    ms_step = 1e3 * a.N_rand / statistics.median(rps[1:])
+
+    # the held-out views (llffhold 8): B3 and B5 twice a ray block
+    args = config_parser().parse_args(after + ["--render_only", "--render_test"])
+    ds = load_datasets(args)
+    H, W = ds.hwf[:2]
+    if (H, W) != (FERN_H, FERN_W) or list(ds.i_test) != [0, 8, 16]:
+        raise AssertionError(f"fern frames {H}x{W}, test views {ds.i_test}")
+    per_frame = 2 * math.ceil(H * W / args.chunk)
+    zero_counts()
+    t0 = time.perf_counter()
+    outdir, rgbs = tapp.render_only(args, return_rgbs=True, ds=ds)
+    render_s = time.perf_counter() - t0
+    launches["llff_render_test"] = launch_counts()
+    expect_launches("render_only --render_test", launches["llff_render_test"],
+                    {"fused_mlp": 3 * per_frame, "composite": 3 * per_frame})
+
+    def view_psnr(a, b):  # as apps/eval_cli.py computes it
+        a, b = (torch.from_numpy(np.ascontiguousarray(x, np.float32)) for x in (a, b))
+        return min(float(mse2psnr(img2mse(a, b))), 120.0)
+
+    gts = ds.images[ds.i_test]
+    held_out = [view_psnr(r, g) for r, g in zip(rgbs, gts)]
+    mean_rgb = ds.images[ds.i_train].reshape(-1, 3).mean(0)
+    white = float(np.mean([view_psnr(np.ones_like(g), g) for g in gts]))
+    flat = float(np.mean([view_psnr(np.broadcast_to(mean_rgb, g.shape), g) for g in gts]))
+    if not np.isfinite(rgbs).all() or not np.mean(held_out) >= max(white, flat) + 2.0:
+        raise AssertionError(f"held-out PSNR {held_out} is not 2 dB above the flat "
+                             f"frames (white {white:.2f}, mean colour {flat:.2f} dB)")
+
+    # the first view against the plain versions at the kernel run's fine depths
+    eng = tapp.build_eval_engine(args, ds=ds)
+    c2w = np.asarray(ds.poses[ds.i_test[0]][:3, :4], np.float32)
+    rgb_k, acc_k, z_k, _, _ = engine_maps(eng, True, c2w)
+    same = float(np.abs(rgb_k - rgbs[0]).max())
+    err, n_held, flips = held(rgb_k, acc_k, *plain_fine_pass(eng, c2w, z_k))
+    log(f"fern view {ds.i_test[0]} vs the plain versions at the kernel run's depths: max "
+        f"err {err:.2e} over {n_held}/{H * W} rays ({flips} sentinel flips set apart; "
+        f"tol 1e-3, at most 1 in 1000 flips); the engine's frame vs render_only's {same:.1e}")
+    if not (err <= 1e-3 and flips <= H * W // 1000 and same <= 1e-6):
+        raise AssertionError("the fern frame disagrees with the plain versions")
+
+    # the 120-pose spiral at --render_factor 4 as video.gif
+    args_sp = config_parser().parse_args(after + ["--render_only", "--render_factor", "4"])
+    zero_counts()
+    t0 = time.perf_counter()
+    outdir_sp = tapp.render_only(args_sp, ds=load_datasets(args_sp))
+    spiral_s = time.perf_counter() - t0
+    launches["llff_spiral"] = launch_counts()
+    per_small = 2 * math.ceil((H // 4) * (W // 4) / args.chunk)
+    expect_launches("spiral", launches["llff_spiral"],
+                    {"fused_mlp": 120 * per_small, "composite": 120 * per_small})
+    with open(os.path.join(outdir_sp, "video.gif"), "rb") as f:
+        video = f.read()
+    n_gif = gif_image_count(video)
+    if n_gif != 120:
+        raise AssertionError(f"video.gif holds {n_gif} images, not 120")
+
+    # the evaluation CLI on the same checkpoint
+    zero_counts()
+    report = eval_cli.main(after + ["--eval_out", os.path.join(logs, "eval.json")])
+    launches["llff_eval"] = launch_counts()
+    gap = abs(report["mean_psnr"] - float(np.mean(held_out)))
+    log(f"eval_cli: {report['n_views']} views, mean PSNR {report['mean_psnr']:.4f} dB, "
+        f"SSIM {report['mean_ssim']:.4f}; {gap:.1e} dB from render_only's float frames")
+    if report["n_views"] != 3 or not gap <= 1e-6:
+        raise AssertionError(f"eval_cli report {report}")
+
+    # serve the checkpoint: one held-out pose over HTTP, twice; then through
+    # B4 (--fused_composite)
+    served = Served(after + ["--port", "0"], ds=ds)
+    try:
+        zero_counts()
+        status, _, body = http(served.base + "/render", {"c2w": c2w.tolist()})
+        launches["llff_serving"] = launch_counts()
+        status2, _, body2 = http(served.base + "/render", {"c2w": c2w.tolist()})
+    finally:
+        served.close()
+    frame_ms = served.service._latencies[1] * 1e3
+    with open(os.path.join(outdir, "000.png"), "rb") as f:
+        want_png = png_decode(f.read())
+    png = png_decode(body)
+    if status != 200 or status2 != 200 or png.shape != (H, W, 3) or not (
+            np.array_equal(png, want_png) and body2 == body):
+        raise AssertionError(f"served fern frame: {status} {png.shape}, equal to "
+                             f"render_only's PNG: {np.array_equal(png, want_png)}")
+    expect_launches("served fern frame", launches["llff_serving"],
+                    {"fused_mlp": per_frame, "composite": per_frame})
+    mask = frame_mask(eng, c2w)
+    served = Served(after + ["--port", "0", "--fused_composite", "True"], ds=ds)
+    try:
+        zero_counts()
+        status, _, body = http(served.base + "/render", {"c2w": c2w.tolist(), "fmt": "npy"})
+        launches["llff_fused_composite"] = launch_counts()
+    finally:
+        served.close()
+    fused = np.load(io.BytesIO(body))
+    ferr = float(np.abs(fused - rgbs[0])[mask].max())
+    log(f"fern fused-composite frame: {served.service._latencies[0] * 1e3:.0f} ms, max err "
+        f"vs render_only {ferr:.2e} over {int(mask.sum())}/{mask.size} pixels clear of "
+        "the sentinel (tol 1e-3)")
+    expect_launches("fused-composite fern frame", launches["llff_fused_composite"],
+                    {"fused_mlp": per_frame // 2, "fused_render": per_frame // 2,
+                     "composite": per_frame // 2})
+    if status != 200 or not ferr <= 1e-3:
+        raise AssertionError("the fused-composite fern frame disagrees")
+
+    log(f"phase 10 fern: step {ms_step:.1f} ms (median of {len(rps) - 1} [TRAIN] windows, "
+        f"N_rand {a.N_rand}, {a.N_samples} + {a.N_importance} samples), frame "
+        f"{frame_ms:.1f} ms ({W}x{H}, served, "
+        f"{per_frame} launches), held-out PSNR {np.mean(held_out):.2f} dB over 3 views "
+        f"(white {white:.2f}, mean colour {flat:.2f} dB); train PSNR {psnrs[0]:.2f} -> "
+        f"{psnrs[-1]:.2f} dB; {steps} + {more} steps in {train_s:.1f} s, 3 test views in "
+        f"{render_s:.1f} s, 120-frame spiral in {spiral_s:.1f} s")
+    return {"ms_per_step": ms_step, "frame_ms": frame_ms,
+            "held_out_psnr": held_out, "white_psnr": white, "mean_colour_psnr": flat,
+            "train_psnr": psnrs, "eval": {k: report[k] for k in ("mean_psnr", "mean_ssim")},
+            "scene_s": scene_s, "minify_s": minify_s, "train_s": train_s,
+            "render_test_s": render_s, "spiral_s": spiral_s, "launches_by_path": launches,
+            "engine": eng, "pose": c2w}
+
+
 def _profile(what, fn):
     """fn() under torch.profiler: device time by kernel and the device's
     busy share of the wall time."""
@@ -2318,6 +2689,10 @@ def main() -> int:
         t0 = time.perf_counter()
         grid = phase_grid(device, profile=profile)
         log(f"phase 9: grid families in {time.perf_counter() - t0:.1f} s")
+    if want(10):
+        t0 = time.perf_counter()
+        llff = phase_llff(device)
+        log(f"phase 10: LLFF (fern recipe) in {time.perf_counter() - t0:.1f} s")
     if profile:
         if want(3, 4):
             profile_frame(served["engine"], served["pose"])
@@ -2326,6 +2701,9 @@ def main() -> int:
         if want(9):
             profile_grid_step(device)
             profile_grid_step(device, vertex=True)
+        if want(10):
+            profile_train_step(device, recipe="fern")
+            _profile("fern frame", lambda: llff["engine"].render_poses(llff["pose"][None]))
     if only is not None:
         log(f"phases {sorted(only)} done (no result lines with --phases)")
         return 0
@@ -2336,6 +2714,7 @@ def main() -> int:
         r = fast[name]
         by_path[name] = {k: r["build_launches"][k] + r["launches"][k] for k in r["launches"]}
     by_path.update(grid["launches_by_path"])
+    by_path.update(llff["launches_by_path"])
 
     sources = {
         "fused_mlp_points": ("nerf_shared_tpu_torch/csrc/fused_mlp.cu",
@@ -2376,6 +2755,8 @@ def main() -> int:
                     "training": {k: trained[k] for k in (
                         "ms_per_step", "rays_per_s", "train_psnr", "val", "white_psnr")},
                     "grid": {k: v for k, v in grid.items() if k != "launches_by_path"},
+                    "llff": {k: v for k, v in llff.items()
+                             if k not in ("launches_by_path", "engine", "pose")},
                     "probe": probe}))
     print(json.dumps({"kernels": kernels}))
     print(smi)

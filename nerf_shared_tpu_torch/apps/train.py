@@ -398,9 +398,9 @@ def train(args):
             rposes = rposes[:, :3, :4] if rposes.ndim == 3 else rposes
             renderer.render_from_batch_poses(H, W, ds.K, args.chunk, rposes,
                                              state.coarse, state.fine, retraw=False,
-                                             save_directory=videodir, **hook_kw(i))
-            print(f"Saved render-path frames to {videodir} (PNG; mp4/gif export "
-                  "is not ported)")
+                                             save_directory=videodir,
+                                             b_combine_as_video=True, **hook_kw(i))
+            print(f"Saved render-path video to {videodir}")
             hooked = True
         if hooked:
             # rays/sec counts training only: restart its window after the
@@ -430,16 +430,19 @@ class EvalEngine:
         self.args = args
         self.device = device
 
-    def render_poses(self, poses, save_directory=None, generator=None):
+    def render_poses(self, poses, save_directory=None, generator=None,
+                     b_combine_as_video=False):
         """Render a [N, 3+, 4] pose batch through the engine's path
-        (occupancy / gated / dense); returns float rgbs [N, H, W, 3]."""
+        (occupancy / gated / dense); returns float rgbs [N, H, W, 3]. With
+        ``b_combine_as_video`` the frames also go to
+        ``save_directory``/video.gif."""
         a = self.args
         return self.renderer.render_from_batch_poses(
             self.H, self.W, self.K, a.chunk, poses, self.coarse, self.fine,
             retraw=False, save_directory=save_directory, generator=generator,
             save_depth=getattr(a, "render_depth", False),
             gate_threshold=a.render_gate, occ_grid=self.occ_grid,
-            **_occ_render_args(a))
+            b_combine_as_video=b_combine_as_video, **_occ_render_args(a))
 
     @property
     def engine_name(self):
@@ -485,15 +488,17 @@ def build_eval_engine(args, ds=None) -> EvalEngine:
 
 def render_only(args, return_rgbs: bool = False, ds=None):
     """Reload the newest weights and render render_poses (or the test set
-    with --render_test) to PNGs. Returns the output directory, and with
-    ``return_rgbs`` also the float renders."""
+    with --render_test) to PNGs and video.gif (reference utils.py:330-358).
+    Returns the output directory, and with ``return_rgbs`` also the float
+    renders (apps/eval_cli.py computes its metrics on these). ``ds`` takes a
+    dataset its caller has loaded already."""
     eng = build_eval_engine(args, ds=ds)
     suffix = "test" if args.render_test else "path"
     outdir = os.path.join(args.basedir, args.expname,
                           f"renderonly_{suffix}_{eng.start:06d}")
     poses = eng.ds.render_poses
     poses = poses[:, :3, :4] if poses.ndim == 3 else poses
-    rgbs = eng.render_poses(poses, save_directory=outdir)
+    rgbs = eng.render_poses(poses, save_directory=outdir, b_combine_as_video=True)
     print(f"Done rendering {rgbs.shape[0]} views to {outdir}")
     if return_rgbs:
         return outdir, rgbs

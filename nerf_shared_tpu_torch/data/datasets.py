@@ -1,8 +1,11 @@
 """Dataset dispatch + per-type bounds/intrinsics rules.
 
 Counterpart of ``nerf_shared_tpu/data/datasets.py`` (reference
-utils.py:216-313). This slice of the port reads the blender format; the
-other dataset types raise ``NotImplementedError`` naming their ROADMAP item.
+utils.py:216-313): the four dataset types (llff, blender, LINEMOD,
+deepvoxels), the llffhold test split, the NDC-vs-scene near/far rules,
+white-background alpha-compositing, the deepvoxels hemisphere bounds, the
+pinhole K from the focal when the loader gives none, and the render_test
+pose swap.
 """
 
 from __future__ import annotations
@@ -12,19 +15,13 @@ from typing import Tuple
 
 import numpy as np
 
-from nerf_shared_tpu_torch.data import blender
-
-# dataset types the JAX package reads that the port does not yet
-_NOT_PORTED = {
-    "llff": "ROADMAP A10 (LLFF loader + NDC render path)",
-    "LINEMOD": "ROADMAP A10 (LINEMOD loader)",
-    "deepvoxels": "ROADMAP A10 (deepvoxels loader)",
-}
+from nerf_shared_tpu_torch.data import blender, deepvoxels, linemod, llff
 
 
 @dataclasses.dataclass
 class Dataset:
-    """Everything the renderer needs, as plain numpy host arrays."""
+    """Everything the trainer and the renderer need, as plain numpy host
+    arrays."""
 
     images: np.ndarray        # [N, H, W, 3] float32
     poses: np.ndarray         # [N, 3|4, 4] float32
@@ -48,23 +45,54 @@ class Dataset:
 
 def load_datasets(args) -> Dataset:
     """Dispatch on args.dataset_type (reference utils.py:216-313)."""
-    if args.dataset_type in _NOT_PORTED:
-        raise NotImplementedError(
-            f"dataset_type {args.dataset_type!r} is not ported to "
-            f"nerf_shared_tpu_torch yet: {_NOT_PORTED[args.dataset_type]}")
-    if args.dataset_type != "blender":
-        raise ValueError(f"Unknown dataset type {args.dataset_type!r}")
+    K = None
 
-    images, poses, render_poses, hwf, i_split, near, far = (
-        blender.load_blender_data(args.datadir, args.half_res, args.testskip)
-    )
-    i_train, i_val, i_test = i_split
-    images = _composite_background(images, args.white_bkgd)
+    if args.dataset_type == "llff":
+        images, poses, bds, render_poses, i_test = llff.load_llff_data(
+            args.datadir, args.factor, recenter=True, bd_factor=0.75,
+            spherify=args.spherify)
+        hwf = poses[0, :3, -1]
+        poses = poses[:, :3, :4]
+        if not isinstance(i_test, (list, np.ndarray)):
+            i_test = [i_test]
+        if args.llffhold > 0:
+            i_test = np.arange(images.shape[0])[:: args.llffhold]
+        i_val = np.asarray(i_test)
+        i_train = np.array([i for i in np.arange(images.shape[0])
+                            if (i not in i_test and i not in i_val)])
+        if args.no_ndc:
+            near, far = float(bds.min()) * 0.9, float(bds.max()) * 1.0
+        else:
+            near, far = 0.0, 1.0
+
+    elif args.dataset_type == "blender":
+        images, poses, render_poses, hwf, i_split, near, far = (
+            blender.load_blender_data(args.datadir, args.half_res, args.testskip))
+        i_train, i_val, i_test = i_split
+        images = _composite_background(images, args.white_bkgd)
+
+    elif args.dataset_type == "LINEMOD":
+        images, poses, render_poses, hwf, K, i_split, near, far = (
+            linemod.load_LINEMOD_data(args.datadir, args.half_res, args.testskip))
+        i_train, i_val, i_test = i_split
+        images = _composite_background(images, args.white_bkgd)
+
+    elif args.dataset_type == "deepvoxels":
+        images, poses, render_poses, hwf, i_split = deepvoxels.load_dv_data(
+            scene=args.shape, basedir=args.datadir, testskip=args.testskip)
+        i_train, i_val, i_test = i_split
+        # bounds from the capture hemisphere radius (reference utils.py:283-285)
+        hemi_R = float(np.mean(np.linalg.norm(poses[:, :3, -1], axis=-1)))
+        near, far = hemi_R - 1.0, hemi_R + 1.0
+
+    else:
+        raise ValueError(f"Unknown dataset type {args.dataset_type!r}")
 
     H, W, focal = hwf
     H, W = int(H), int(W)
-    K = np.array(
-        [[focal, 0, 0.5 * W], [0, focal, 0.5 * H], [0, 0, 1]], np.float64)
+    if K is None:
+        K = np.array([[focal, 0, 0.5 * W], [0, focal, 0.5 * H], [0, 0, 1]])
+    K = np.asarray(K, np.float64)
 
     if args.render_test:
         render_poses = np.array(poses[np.asarray(i_test)])

@@ -8,12 +8,16 @@ no imaging package (imageio, PIL, cv2) is installed, so it carries its own
   all five scanline filters (None, Sub, Up, Average, Paeth);
 - write: the same colour types with filter 0 on every row.
 
-``resize_area`` is the exact area average of the JAX package's native
-resizer (``native/imageops.cpp``) at any factor, in numpy.
+It reads no JPEG: ``minify_images`` and the LLFF loader raise on JPEG
+sources (``require_png``). ``gif_encode`` writes render-path videos as
+GIF89a (the JAX package writes mp4 through imageio's ffmpeg backend and
+falls back to GIF). ``resize_area`` is the exact area average of the JAX
+package's native resizer (``native/imageops.cpp``) at any factor, in numpy.
 """
 
 from __future__ import annotations
 
+import os
 import struct
 import zlib
 
@@ -154,3 +158,129 @@ def resize_area(img: np.ndarray, out_h: int, out_w: int) -> np.ndarray:
     out = sum(wk[None, :, None] * rows[:, ik] for ik, wk in zip(ix, wx))
     out /= wx.sum(0)[None, :, None]
     return out.reshape(out_h, out_w, *img.shape[2:]).astype(img.dtype, copy=False)
+
+
+IMAGE_EXTS = (".jpg", ".jpeg", ".png")
+
+
+def image_files(imgdir: str):
+    """The sorted image file names (JPEG or PNG) of a directory."""
+    return sorted(f for f in os.listdir(imgdir) if f.lower().endswith(IMAGE_EXTS))
+
+
+def require_png(files, where: str) -> None:
+    """Raise if any of ``files`` is a JPEG: the port's codec reads PNG only."""
+    jpegs = [f for f in files if not f.lower().endswith(".png")]
+    if jpegs:
+        raise NotImplementedError(
+            f"{where} holds {len(jpegs)} JPEG file(s) (e.g. {jpegs[0]}): the port "
+            "reads PNG only; a JPEG decoder is not ported to nerf_shared_tpu_torch "
+            "yet (ROADMAP A10). Convert the images to PNG, or use a dataset that "
+            "ships PNG images_N/ directories")
+
+
+def minify_images(basedir: str, factor: int) -> str:
+    """Create (once) and return the images_{factor}/ cache directory with all
+    of images/ area-downsampled by ``factor`` (``resize_area``) as 8-bit PNG,
+    truncated as ``(clip(x, 0, 1) * 255).astype(uint8)``; an existing
+    directory is returned untouched. The directory appears whole or not at
+    all. JPEG sources raise (``require_png``)."""
+    srcdir = os.path.join(basedir, "images")
+    outdir = os.path.join(basedir, f"images_{factor}")
+    if os.path.exists(outdir):
+        return outdir
+    files = image_files(srcdir)
+    require_png(files, srcdir)
+    tmpdir = outdir + ".partial"
+    os.makedirs(tmpdir, exist_ok=True)
+    for f in files:
+        img = imread_float(os.path.join(srcdir, f))
+        h, w = img.shape[:2]
+        small = resize_area(img, int(round(h / factor)), int(round(w / factor)))
+        imwrite_u8(os.path.join(tmpdir, os.path.splitext(f)[0] + ".png"),
+                   (np.clip(small, 0, 1) * 255).astype(np.uint8))
+    os.replace(tmpdir, outdir)
+    return outdir
+
+
+# GIF: one global palette, the 6 x 7 x 6 colour cube (252 colours; entries
+# 252-255 are black and unused). Each channel goes to its nearest level, so
+# a pixel is off its input by at most GIF_MAX_ERROR levels a channel
+_GIF_LEVELS = (np.round(np.arange(6) * 255 / 5), np.round(np.arange(7) * 255 / 6),
+               np.round(np.arange(6) * 255 / 5))
+_GIF_LUT = [np.abs(np.arange(256)[:, None] - lv[None]).argmin(1).astype(np.uint8)
+            for lv in _GIF_LEVELS]
+GIF_PALETTE = np.zeros((256, 3), np.uint8)
+GIF_PALETTE[:252] = np.stack(np.meshgrid(*_GIF_LEVELS, indexing="ij"), -1).reshape(-1, 3)
+GIF_MAX_ERROR = (25, 21, 25)
+# LZW: every pixel is a literal 9-bit code, with a clear code before each run
+# of _GIF_RUN literals, so the decoder's table (258 + run - 1 entries) never
+# reaches 512 and the code width never changes
+_GIF_CLEAR, _GIF_END, _GIF_RUN = 256, 257, 250
+
+
+def gif_palette_indices(frames_u8: np.ndarray) -> np.ndarray:
+    """uint8 [..., 3] RGB -> uint8 [...] indices into GIF_PALETTE."""
+    f = np.asarray(frames_u8)
+    r, g, b = (_GIF_LUT[c][f[..., c]].astype(np.uint16) for c in range(3))
+    return (r * 42 + g * 6 + b).astype(np.uint8)
+
+
+def _gif_sub_blocks(data: bytes) -> bytes:
+    """``data`` as GIF sub-blocks (a length byte, then up to 255 bytes) and
+    the zero-length terminator."""
+    arr = np.frombuffer(data, np.uint8)
+    n = len(arr) // 255
+    full = np.concatenate([np.full((n, 1), 255, np.uint8),
+                           arr[:n * 255].reshape(n, 255)], 1).tobytes()
+    rest = arr[n * 255:].tobytes()
+    return full + (bytes([len(rest)]) + rest if rest else b"") + b"\x00"
+
+
+def _gif_lzw(indices: np.ndarray) -> bytes:
+    """The LZW stream of one frame's palette indices, min code size 8:
+    literal 9-bit codes, a clear code before every _GIF_RUN of them, the end
+    code last, packed least significant bit first."""
+    px = indices.reshape(-1).astype(np.uint16)
+    runs = -(-len(px) // _GIF_RUN)
+    codes = np.empty(len(px) + runs + 1, np.uint16)
+    clear = np.arange(runs) * (_GIF_RUN + 1)
+    literal = np.ones(len(codes), bool)
+    literal[clear] = False
+    literal[-1] = False
+    codes[clear] = _GIF_CLEAR
+    codes[literal] = px
+    codes[-1] = _GIF_END
+    bits = ((codes[:, None] >> np.arange(9, dtype=np.uint16)) & 1).astype(np.uint8)
+    return np.packbits(bits.reshape(-1), bitorder="little").tobytes()
+
+
+def gif_encode(frames_u8: np.ndarray, fps: float = 30.0) -> bytes:
+    """uint8 frames [N, H, W, 3] -> an animated GIF89a that loops forever,
+    each frame shown round(100 / fps) centiseconds.
+
+    Colours: the fixed 6 x 7 x 6 cube (``GIF_PALETTE``, 252 colours), each
+    channel rounded to its nearest level, so every decoded pixel is within
+    25 levels of the input on red and blue and 21 on green
+    (``GIF_MAX_ERROR``); ``GIF_PALETTE[gif_palette_indices(frames)]`` is the
+    decoded video exactly. The pixel data is uncompressed LZW (9 bits a
+    pixel, see ``_gif_lzw``)."""
+    frames = np.asarray(frames_u8)
+    if frames.dtype != np.uint8 or frames.ndim != 4 or frames.shape[-1] != 3:
+        raise ValueError(f"gif_encode takes uint8 [N, H, W, 3], got {frames.dtype} "
+                         f"{frames.shape}")
+    _, h, w, _ = frames.shape
+    if not (0 < h < 65536 and 0 < w < 65536):
+        raise ValueError(f"gif_encode: a {w}x{h} frame does not fit a GIF")
+    delay = int(round(100.0 / fps))
+    out = [b"GIF89a",
+           # logical screen: global colour table of 256 entries, 8 bits a colour
+           struct.pack("<HHBBB", w, h, 0xF7, 0, 0), GIF_PALETTE.tobytes(),
+           # NETSCAPE2.0 application block: loop forever
+           b"\x21\xff\x0bNETSCAPE2.0\x03\x01" + struct.pack("<H", 0) + b"\x00"]
+    for idx in gif_palette_indices(frames):
+        out += [struct.pack("<BBBBHBB", 0x21, 0xF9, 4, 0, delay, 0, 0),
+                struct.pack("<BHHHHB", 0x2C, 0, 0, w, h, 0), b"\x08",
+                _gif_sub_blocks(_gif_lzw(idx))]
+    out.append(b"\x3b")
+    return b"".join(out)

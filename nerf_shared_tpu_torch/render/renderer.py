@@ -53,7 +53,7 @@ import numpy as np
 import torch
 import torch.utils.checkpoint
 
-from nerf_shared_tpu_torch.data.images import imwrite_u8
+from nerf_shared_tpu_torch.data.images import gif_encode, imwrite_u8
 from nerf_shared_tpu_torch.models.hashgrid import HashGrid, HashGridConfig, apply_hashgrid
 from nerf_shared_tpu_torch.models.nerf import NeRF, NeRFConfig, apply_nerf
 from nerf_shared_tpu_torch.models.triplane import Triplane, TriplaneConfig, apply_triplane
@@ -435,11 +435,14 @@ class Renderer:
                                 gate_threshold: float = 0.0, occ_grid=None,
                                 occ_candidates: int = 128, occ_keep: int = 64,
                                 occ_mode: str = "froxel", occ_tile: int = 8,
-                                occ_select: str = "sort", occ_fine: int = 0):
+                                occ_select: str = "sort", occ_fine: int = 0,
+                                b_combine_as_video: bool = False):
         """Render poses at perturb 0 without sigma noise; PNGs (and with
-        ``save_depth`` NNN_disp.png + disp.npy) go to ``save_directory``.
-        Returns float rgbs [N, H, W, 3] as numpy (reference
-        render_utils.py:293-319; video export is not ported).
+        ``save_depth`` NNN_disp.png + disp.npy) go to ``save_directory``,
+        and with ``b_combine_as_video`` the frames as video.gif at 30 fps
+        (data/images.gif_encode; the JAX package writes video.mp4 when
+        imageio has an ffmpeg backend, else video.gif). Returns float rgbs
+        [N, H, W, 3] as numpy (reference render_utils.py:293-319).
 
         The engine: with ``occ_grid`` the occupancy render
         (``render_image_occ`` with the ``occ_*`` arguments, through the
@@ -484,4 +487,7 @@ class Renderer:
                                to8b(viz / dmax if dmax > 0 else viz))
         if save_depth and disps and save_directory is not None:
             np.save(os.path.join(save_directory, "disp.npy"), np.stack(disps))
+        if b_combine_as_video and rgbs and save_directory is not None:
+            with open(os.path.join(save_directory, "video.gif"), "wb") as f:
+                f.write(gif_encode(to8b(np.stack(rgbs)), fps=30))
         return np.stack(rgbs) if rgbs else np.zeros((0, H, W, 3), np.float32)

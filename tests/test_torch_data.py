@@ -202,6 +202,11 @@ def test_load_datasets_matches_jax(scene, white_bkgd, render_test):
 
 
 def test_unported_dataset_types_raise():
-    args = torch_parser().parse_args(["--dataset_type", "llff"])
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
+    """Every dataset type of the JAX package is ported (llff, LINEMOD and
+    deepvoxels: tests/test_torch_llff.py); a type neither package reads
+    raises ValueError in both."""
+    args = torch_parser().parse_args(["--dataset_type", "colmap"])
+    with pytest.raises(ValueError, match="Unknown dataset type 'colmap'"):
         tdatasets.load_datasets(args)
+    with pytest.raises(ValueError, match="Unknown dataset type 'colmap'"):
+        jdatasets.load_datasets(jax_parser().parse_args(["--dataset_type", "colmap"]))

@@ -300,7 +300,7 @@ def test_cli_trains_resumes_and_renders_a_grid_family(family, tmp_path, capsys):
     outdir, rgbs = tapp.render_only(config_parser().parse_args(
         argv + ["--render_only", "--render_test", "--N_iters", "6"]), return_rgbs=True)
     assert rgbs.shape == (2, 16, 16, 3) and np.isfinite(rgbs).all()
-    assert sorted(os.listdir(outdir)) == ["000.png", "001.png"]
+    assert sorted(os.listdir(outdir)) == ["000.png", "001.png", "video.gif"]
 
 
 def test_occupancy_render_of_a_hashgrid_matches_jax():

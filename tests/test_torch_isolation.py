@@ -39,7 +39,8 @@ def test_package_has_the_slice_modules():
               "train.pipeline", "train.step", "utils.logging",
               "ops.cuda.composite", "render.gated", "render.occupancy",
               "render.froxels", "ops.cuda.gather", "models.hashgrid",
-              "models.triplane", "benchmarks.scatter_probe"):
+              "models.triplane", "benchmarks.scatter_probe", "data.llff",
+              "data.deepvoxels", "data.linemod", "apps.eval_cli"):
         assert f"nerf_shared_tpu_torch.{m}" in mods, m
 
 

@@ -435,8 +435,9 @@ def test_collapse_warning_matches_jax(last, psnr, warned):
 
 
 def test_cli_trains_checkpoints_resumes_and_renders(tmp_path, capsys):
-    """train -> .tar + .ckpt.npz with Adam state -> resume (Reloading, the
-    Adam count and lr continue) -> render_only, on the CPU."""
+    """train -> .tar + .ckpt.npz with Adam state and the i_video hook's
+    video.gif -> resume (Reloading, the Adam count and lr continue) ->
+    render_only (PNGs and video.gif), on the CPU."""
     root = str(tmp_path)
     datadir, logdir = os.path.join(root, "scene"), os.path.join(root, "logs")
     os.makedirs(datadir)
@@ -447,10 +448,11 @@ def test_cli_trains_checkpoints_resumes_and_renders(tmp_path, capsys):
     state = tapp.main(argv)
     out = capsys.readouterr().out
     assert out.count("[TRAIN]") == 2 and out.count("[VAL]") == 2
-    assert "mp4/gif export is not ported" in out
+    assert "Saved render-path video to" in out
     expdir = os.path.join(logdir, "cli")
     assert {"000006.tar", "000006.ckpt.npz", "args.txt", "config.txt",
             "testset_000006", "video_000006"} <= set(os.listdir(expdir))
+    assert "video.gif" in os.listdir(os.path.join(expdir, "video_000006"))
     tar = torch.load(os.path.join(expdir, "000006.tar"), weights_only=True)
     assert int(tar["optimizer_state_dict"]["state"][0]["step"]) == 6
     with np.load(os.path.join(expdir, "000006.ckpt.npz")) as z:
@@ -468,7 +470,7 @@ def test_cli_trains_checkpoints_resumes_and_renders(tmp_path, capsys):
         argv + ["--render_only", "--render_test", "--N_iters", "9"]), return_rgbs=True)
     assert outdir.endswith("renderonly_test_000009")
     assert rgbs.shape == (2, 16, 16, 3) and np.isfinite(rgbs).all()
-    assert sorted(os.listdir(outdir)) == ["000.png", "001.png"]
+    assert sorted(os.listdir(outdir)) == ["000.png", "001.png", "video.gif"]
 
 
 def test_cuda_without_a_card_raises(tmp_path):
