@@ -16,7 +16,11 @@ table kernels P1 (gather) and P2 (its scatter-add backward) and composite
 through B5; B1-B4 are the MLP family's. Their box is resolved from the
 train cameras in every entry point (``_resolve_triplane_aabb``), a resume
 adopts the checkpoint's plane resolution, and ``--triplane_upsample``
-grows the planes at its milestones.
+grows the planes at its milestones. ``--refine_poses`` and
+``--appearance`` train per-image pose twists and exposure corrections with
+the field (train/step.py); ``--barf_anneal`` anneals the encoding, and
+every eval render mid-anneal (the hooks, ``render_only``, the service)
+sees the step's masked encoder (``_eval_models``).
 
 Render engines (``EvalEngine.engine_name``): ``dense`` (guided with
 ``--render_guided``), ``gated`` (``--render_gate``), ``occ-froxel`` and
@@ -66,13 +70,10 @@ from nerf_shared_tpu_torch.utils.metrics import ssim, to8b
 # being ignored (name -> (is-set test, what it would need))
 _NOT_PORTED = {
     "ema_decay": (lambda v: float(v) > 0.0, "EMA eval state (ROADMAP A11)"),
-    "barf_anneal": (lambda v: int(v) > 0, "BARF eval annealing (ROADMAP A11)"),
     "proposal": (bool, "the proposal sampler (ROADMAP A11)"),
     "precision": (lambda v: v != "fp32", "bf16 operands in the CUDA kernels"),
     "mesh_shape": (lambda v: bool(v), "multi-GPU renders and training (ROADMAP A16)"),
     "train_occ": (bool, "the occupancy-gated trainer (ROADMAP A14)"),
-    "refine_poses": (bool, "pose refinement (ROADMAP A11)"),
-    "appearance": (bool, "per-image appearance corrections (ROADMAP A11)"),
     "loss_sampling": (bool, "loss-guided pixel sampling (ROADMAP A11)"),
     "distortion_loss_weight": (lambda v: float(v) > 0.0,
                                "the distortion loss (ROADMAP A11)"),
@@ -108,6 +109,47 @@ def check_ported(args):
             raise NotImplementedError(
                 f"--{flag} {value}: {what} is not ported to "
                 "nerf_shared_tpu_torch yet")
+
+
+def check_barf(args):
+    """The JAX trainer's guards on --barf_anneal: the MLP family with the
+    positional encoding only."""
+    if int(getattr(args, "barf_anneal", 0)) <= 0:
+        return
+    if getattr(args, "model_type", "nerf") != "nerf":
+        raise SystemExit("--barf_anneal anneals the positional "
+                         "encoding — MLP family only (grid families "
+                         "have no frequency bands to anneal)")
+    if int(getattr(args, "i_embed", 0)) == -1:
+        raise SystemExit("--barf_anneal needs the positional encoding "
+                         "(--i_embed 0); identity embedding has no "
+                         "frequency bands")
+
+
+def _barf_progress(args, step):
+    """Annealing progress in [0, 1] at ``step``, or None when --barf_anneal
+    is off."""
+    end = int(getattr(args, "barf_anneal", 0))
+    if end <= 0:
+        return None
+    start = int(getattr(args, "barf_anneal_start", 0))
+    return min(1.0, max(0.0, (step - start) / max(1, end - start)))
+
+
+@torch.no_grad()
+def _eval_models(args, step, coarse, fine):
+    """What the eval renders at ``step`` see: the models as they are, or
+    mid-anneal (--barf_anneal, progress < 1) (params, cfg) pairs with the
+    step's BARF mask, the encoder the training step saw (the untrained
+    high-frequency weights, still at their init under the mask, would
+    otherwise add noise). Never used for checkpoints."""
+    p = _barf_progress(args, step)
+    if p is None or p >= 1.0:
+        return coarse, fine
+    from nerf_shared_tpu_torch.models.nerf import anneal_nerf_params
+
+    return tuple(None if m is None else (anneal_nerf_params(m.params(), m.cfg, p), m.cfg)
+                 for m in (coarse, fine))
 
 
 def _grid_select(args) -> str:
@@ -218,7 +260,9 @@ def _upsample_state(state, new_G, args):
         mods.append(new)
     fine = mods[1] if len(mods) > 1 else None
     new_state = fresh_state_at(mods[0], fine, state.step, lrate=args.lrate,
-                               lrate_decay=args.lrate_decay, grid_lrate=grid_lrate(args))
+                               lrate_decay=args.lrate_decay, grid_lrate=grid_lrate(args),
+                               aux=state.aux, pose_lrate=args.pose_lrate,
+                               appearance_lrate=args.appearance_lrate)
     return new_state, mods[0].cfg, fine.cfg if fine is not None else None
 
 
@@ -255,6 +299,7 @@ def train(args):
     checkpoint, test-set, validation-image and render-path hooks, and a
     final checkpoint. Returns the TrainState."""
     check_ported(args)
+    check_barf(args)
     device = resolve_device(args.device)
     pin_fp32()
     ds = load_datasets(args)
@@ -266,7 +311,22 @@ def train(args):
     tb_writer = make_tb_writer(args)
     _resolve_triplane_aabb(args, ds, H, W)
     ccfg, fcfg = _sync_triplane_res(args, *nerf_configs(args))
-    state = get_train_state(args, device, cfgs=(ccfg, fcfg))
+    if int(getattr(args, "barf_anneal", 0)) > 0:
+        print(f"BARF annealing: frequency bands ramp over steps "
+              f"[{int(getattr(args, 'barf_anneal_start', 0))}, "
+              f"{int(args.barf_anneal)}]")
+    refine_poses = bool(getattr(args, "refine_poses", False))
+    appearance = bool(getattr(args, "appearance", False))
+    state = get_train_state(args, device, cfgs=(ccfg, fcfg),
+                            n_refine_poses=len(ds.i_train) if refine_poses else 0,
+                            n_appearance=len(ds.i_train) if appearance else 0)
+    if refine_poses:
+        print(f"pose refinement: {len(ds.i_train)} learnable se(3) "
+              f"corrections (lr {getattr(args, 'pose_lrate', 1e-3)})")
+    if appearance:
+        print(f"appearance: {len(ds.i_train)} per-image exposure/WB "
+              f"corrections (lr {getattr(args, 'appearance_lrate', 1e-3)}); "
+              "eval renders the canonical (uncorrected) radiance")
     start = ckpt_utils.restore_train_state(state, args)
     renderer = get_renderer(args, ds.bds_dict, device)
     spec = PixelSamplerSpec.from_K(
@@ -292,7 +352,11 @@ def train(args):
         """(step, warm-up step or None). --warmup_noise: sigma noise >= 1
         for the first N steps, the escape from the white-background
         transparency trap."""
-        kw = dict(acc_reg=args.acc_loss_weight, tv_reg=args.tv_loss_weight)
+        kw = dict(acc_reg=args.acc_loss_weight, tv_reg=args.tv_loss_weight,
+                  pose_anchor=bool(getattr(args, "pose_anchor", True)),
+                  pose_start=int(getattr(args, "refine_poses_from", 500)),
+                  barf_end=int(getattr(args, "barf_anneal", 0)),
+                  barf_start=int(getattr(args, "barf_anneal_start", 0)))
         warm = None
         if args.warmup_noise > 0:
             warm = make_train_step(
@@ -369,17 +433,18 @@ def train(args):
         if args.i_testset > 0 and i % args.i_testset == 0:
             testsavedir = os.path.join(args.basedir, args.expname, f"testset_{i:06d}")
             renderer.render_from_batch_poses(
-                H, W, ds.K, args.chunk, ds.poses[ds.i_test], state.coarse,
-                state.fine, retraw=False, save_directory=testsavedir,
-                **hook_kw(i))
+                H, W, ds.K, args.chunk, ds.poses[ds.i_test],
+                *_eval_models(args, i, state.coarse, state.fine), retraw=False,
+                save_directory=testsavedir, **hook_kw(i))
             print(f"Saved test set renders to {testsavedir}")
             hooked = True
 
         if args.i_img > 0 and i % args.i_img == 0 and len(ds.i_val):
             val_i = int(ds.i_val[(i // args.i_img) % len(ds.i_val)])
             rgb = renderer.render_from_batch_poses(
-                H, W, ds.K, args.chunk, ds.poses[val_i][None, :3, :4], state.coarse,
-                state.fine, retraw=False, **hook_kw(i))[0]
+                H, W, ds.K, args.chunk, ds.poses[val_i][None, :3, :4],
+                *_eval_models(args, i, state.coarse, state.fine), retraw=False,
+                **hook_kw(i))[0]
             val_mse = float(np.mean((rgb - ds.images[val_i]) ** 2))
             val_psnr = -10.0 * np.log10(val_mse) if val_mse > 0 else np.inf
             val_ssim = float(ssim(rgb, ds.images[val_i]))
@@ -397,8 +462,9 @@ def train(args):
             rposes = ds.render_poses
             rposes = rposes[:, :3, :4] if rposes.ndim == 3 else rposes
             renderer.render_from_batch_poses(H, W, ds.K, args.chunk, rposes,
-                                             state.coarse, state.fine, retraw=False,
-                                             save_directory=videodir,
+                                             *_eval_models(args, i, state.coarse,
+                                                           state.fine),
+                                             retraw=False, save_directory=videodir,
                                              b_combine_as_video=True, **hook_kw(i))
             print(f"Saved render-path video to {videodir}")
             hooked = True
@@ -477,6 +543,11 @@ def build_eval_engine(args, ds=None) -> EvalEngine:
         coarse.load_state_dict(coarse_sd, strict=True)
         if fine is not None and fine_sd:
             fine.load_state_dict(fine_sd, strict=True)
+    # mid-anneal (--barf_anneal) the engine renders the checkpoint step's
+    # masked encoder, as the training hooks do
+    for m, pair in zip((coarse, fine), _eval_models(args, start, coarse, fine)):
+        if isinstance(pair, tuple):
+            m.load_state_dict(pair[0], strict=True)
     coarse.eval()
     if fine is not None:
         fine.eval()

@@ -117,12 +117,19 @@ def grid_lrate(args) -> Optional[float]:
     return None
 
 
-def get_train_state(args, device, cfgs=None) -> TrainState:
+def get_train_state(args, device, cfgs=None, n_refine_poses: int = 0,
+                    n_appearance: int = 0) -> TrainState:
     """Seeded coarse + fine fields (from --jax_seed) and Adam at --lrate
     (and --grid_lrate for the grid group) with the --lrate_decay schedule
     (reference utils.py:163-172, main.py:107-112); ``cfgs`` as in
-    ``create_nerf_models``."""
+    ``create_nerf_models``. ``n_refine_poses`` / ``n_appearance`` add the
+    per-image pose twists / appearance corrections at --pose_lrate /
+    --appearance_lrate."""
     ccfg, fcfg = cfgs if cfgs is not None else nerf_configs(args)
     return create_train_state(ccfg, fcfg, device, seed=int(args.jax_seed),
                               lrate=args.lrate, lrate_decay=args.lrate_decay,
-                              grid_lrate=grid_lrate(args))
+                              grid_lrate=grid_lrate(args),
+                              n_refine_poses=n_refine_poses,
+                              pose_lrate=float(getattr(args, "pose_lrate", 1e-3)),
+                              n_appearance=n_appearance,
+                              appearance_lrate=float(getattr(args, "appearance_lrate", 1e-3)))

@@ -11,6 +11,8 @@ package (``utils/checkpoints.params_to_state_dict``) loads with
 ``load_state_dict(strict=True)``. ``apply_nerf`` is the plain forward on a
 name -> tensor mapping (the module's own parameters, or any state dict);
 ``params_from_jax`` carries the JAX package's weight pytree over.
+``anneal_nerf_params`` is BARF's coarse-to-fine annealing of the encoding,
+applied to the weights that read each encoded channel.
 """
 
 from __future__ import annotations
@@ -145,6 +147,63 @@ def apply_nerf(params: Params, cfg: NeRFConfig, pts: torch.Tensor,
         dirs = viewdirs[..., None, :].expand(pts.shape)
         emb = torch.cat([emb, embed(dirs, cfg.views_embedder)], dim=-1)
     return apply_mlp(params, cfg, emb)
+
+
+def barf_freq_weights(progress, n_freqs: int) -> torch.Tensor:
+    """BARF coarse-to-fine frequency weights (Lin et al. 2021, eq. 14):
+    alpha = progress * n_freqs; band k gets 0 while alpha < k, a raised
+    cosine on alpha in [k, k + 1], and 1 after. ``progress`` is a float or
+    a float32 tensor in [0, 1]; the weights are float32 on the CPU."""
+    k = torch.arange(n_freqs, dtype=torch.float32)
+    alpha = torch.as_tensor(progress * n_freqs, dtype=torch.float32).cpu()
+    x = torch.clamp(alpha - k, 0.0, 1.0)
+    return 0.5 * (1.0 - torch.cos(math.pi * x))
+
+
+def _anneal_channel_mask(ecfg: EmbedderConfig, progress) -> Optional[torch.Tensor]:
+    """Per-channel weights over embed's layout ([x, then sin / cos blocks
+    frequency-major]), or None when there is nothing to anneal (identity
+    embedding, no frequencies)."""
+    if ecfg.i_embed == -1 or ecfg.multires <= 0:
+        return None
+    per = torch.repeat_interleave(barf_freq_weights(progress, ecfg.multires),
+                                  2 * ecfg.input_dims)
+    if ecfg.include_input:
+        per = torch.cat([torch.ones(ecfg.input_dims), per])
+    return per
+
+
+def anneal_nerf_params(params: Params, cfg: NeRFConfig, progress) -> Dict[str, torch.Tensor]:
+    """BARF annealing in parameter space: the weights that read encoded
+    channel i are scaled by its mask m_i, which equals masking the
+    encoding, (γ(x)∘m)·Wᵀ = γ(x)·(W∘m)ᵀ, forward and backward (the stored
+    weights' gradient carries the same m_i, so masked bands get none). So
+    the kernels B1 / B2 / B3 anneal without any change.
+
+    Weights are [out, in] here (the JAX package's are [in, out]), so the
+    mask scales COLUMNS: of pts_linears.0, of the input-point columns of
+    every skip successor (its input is [input_pts, h]) and of the direction
+    columns of views_linears.0 (its input is [feature, γ(dirs)]). Returns a
+    new name -> tensor dict; the other entries are the given tensors."""
+    out = dict(params)
+
+    def scale(name, mask):
+        w = params[name]
+        out[name] = w * mask.to(device=w.device, dtype=w.dtype)
+
+    mp = _anneal_channel_mask(cfg.pts_embedder, progress)
+    if mp is not None:
+        scale("pts_linears.0.weight", mp)
+        for i in cfg.skips:
+            if i + 1 < cfg.D:
+                rest = params[f"pts_linears.{i + 1}.weight"].shape[1] - mp.shape[0]
+                scale(f"pts_linears.{i + 1}.weight", torch.cat([mp, torch.ones(rest)]))
+    if cfg.use_viewdirs and "views_linears.0.weight" in params:
+        mv = _anneal_channel_mask(cfg.views_embedder, progress)
+        if mv is not None:
+            rest = params["views_linears.0.weight"].shape[1] - mv.shape[0]
+            scale("views_linears.0.weight", torch.cat([torch.ones(rest), mv]))
+    return out
 
 
 def torch_param_order(cfg: NeRFConfig) -> list:

@@ -18,7 +18,9 @@ dispatch seams:
   the plain ``apply_nerf``.
 - ``_apply_model_rays``: the network on (o, d, z). For the MLP family under
   ``use_pallas`` this is kernel B3 (ops/cuda/fused_mlp.py), which builds
-  the sample points itself; otherwise ``_apply_model`` on o + z·d.
+  the sample points itself, unless ``fused_backward`` sends the network
+  through B1 / B2 (the pose app's step composites through B5 that way);
+  otherwise ``_apply_model`` on o + z·d.
 - ``_composite``: raw -> pixel maps, for every render path (dense, guided,
   gated, occupancy grid, froxels). Under ``use_pallas`` without sigma noise
   this is kernel B5 (ops/cuda/composite.py), which reads B3's ray-major raw
@@ -95,7 +97,7 @@ def _apply_model(params, mcfg, pts, viewdirs, rcfg):
 
 def _apply_model_rays(params, mcfg, rays_o, rays_d, z_vals, viewdirs, rcfg):
     """The network on the samples o + z·d of each ray -> raw [N, S, C]."""
-    if rcfg.use_pallas and isinstance(mcfg, NeRFConfig):
+    if rcfg.use_pallas and not rcfg.fused_backward and isinstance(mcfg, NeRFConfig):
         return fused_nerf_forward_rays(params, mcfg, rays_o, rays_d, z_vals,
                                        viewdirs)
     pts = rays_o[..., None, :] + rays_d[..., None, :] * z_vals[..., :, None]
@@ -114,7 +116,7 @@ def _fused_render_eligible(rcfg, mcfg, noise, need_raw):
     """Network + composite as one kernel launch (B4) applies on the kernel
     render path to the MLP family when nothing downstream needs per-sample
     raw values or sigma noise (any sample count)."""
-    return (rcfg.use_pallas and rcfg.fused_composite
+    return (rcfg.use_pallas and rcfg.fused_composite and not rcfg.fused_backward
             and isinstance(mcfg, NeRFConfig)
             and rcfg.raw_noise_std == 0.0 and noise is None
             and not need_raw)
@@ -160,7 +162,8 @@ class RenderConfig:
     use_pallas: bool = False
     fused_composite: bool = False
     # train through fused_train_op: kernel B1 forward + kernel B2 backward
-    # (on CPU tensors apply_nerf and autograd)
+    # (on CPU tensors apply_nerf and autograd); it takes the MLP off B3 and
+    # B4 whatever use_pallas says (B5 still composites under use_pallas)
     fused_backward: bool = False
     # render-time guided sampling: when > 0 the fine pass evaluates only
     # this many samples placed by the coarse histogram, not the dense

@@ -145,10 +145,19 @@ def sample_ray_batch(generator: Optional[torch.Generator], images: torch.Tensor,
                      draws: Optional[Dict] = None):
     """Draw N_rand rays and their target pixels: (rays_o [N, 3], rays_d
     [N, 3], target [N, 3]) on the images' device."""
-    img_idx, y, x = sample_pixels(generator, images.shape[0], step, spec, draws)
+    pixels = sample_pixels(generator, images.shape[0], step, spec, draws)
+    return pixel_rays(images, poses, spec, *pixels)
+
+
+def pixel_rays(images: torch.Tensor, poses: torch.Tensor, spec: PixelSamplerSpec,
+               img_idx: torch.Tensor, y: torch.Tensor, x: torch.Tensor):
+    """The rays and target pixels of drawn pixels (sample_pixels' host
+    tensors): (rays_o, rays_d, target) on the images' device. ``poses`` may
+    carry a gradient (the pose-refined poses of train/step.py): the rays
+    are differentiable in them."""
     dev = images.device
     y, x = y.to(dev, non_blocking=True), x.to(dev, non_blocking=True)
-    dirs = _pixel_dirs(x.float(), y.float(), spec)
+    dirs = _pixel_dirs(x.to(poses.dtype), y.to(poses.dtype), spec)
     if img_idx.dim() == 0:
         pose = poses[int(img_idx)]
         rays_d = dirs @ pose[:3, :3].t()

@@ -19,12 +19,20 @@ Adam's own count, which torch keeps per parameter (``step``).
 
 ``fresh_state_at`` restarts Adam over new parameters (a triplane upsample)
 while ``count`` continues: the schedule goes on, Adam's own step restarts at
-0 with zeroed moments, so bias correction stays on. The pose-twist and
-appearance groups raise (ROADMAP A11).
+0 with zeroed moments, so bias correction stays on.
+
+With ``n_refine_poses`` / ``n_appearance`` (--refine_poses, --appearance)
+the state also holds the per-image pose twists [n, 6]
+(train/pose_refine.py) and the appearance gains and offsets [n, 3]
+(train/appearance.py), each group with its own Adam rate (``pose_lrate``,
+``appearance_lrate``) on the same decay, as the JAX package's "pose" and
+"appearance" groups. They are the ``aux`` parameters, after the fields in
+the optimizer's order.
 """
 
 from __future__ import annotations
 
+import collections
 from typing import Optional
 
 import torch
@@ -34,6 +42,10 @@ from nerf_shared_tpu_torch.models.nerf import NeRF, NeRFConfig, torch_param_orde
 from nerf_shared_tpu_torch.models.triplane import Triplane, TriplaneConfig
 
 GRID_KEYS = ("tables", "planes")   # parameters of the "grid" Adam group
+# the per-image groups: aux parameter names (their native checkpoint keys
+# with "/" for ".") and each group's label
+AUX_GROUPS = {"pose_twists": "pose", "appearance.gain": "appearance",
+              "appearance.offset": "appearance"}
 
 
 def lr_at(lrate: float, lrate_decay: int, count: int) -> float:
@@ -71,10 +83,14 @@ class TrainState:
     "net" and "grid" groups."""
 
     def __init__(self, coarse, fine, lrate: float, lrate_decay: int,
-                 grid_lrate: Optional[float] = None):
+                 grid_lrate: Optional[float] = None, aux=None,
+                 pose_lrate: float = 1e-3, appearance_lrate: float = 1e-3):
         self.coarse, self.fine = coarse, fine
         self.lrate, self.lrate_decay = float(lrate), lrate_decay
         self.grid_lrate = None if grid_lrate is None else float(grid_lrate)
+        # name (an AUX_GROUPS key) -> leaf tensor of the per-image groups
+        self.aux = collections.OrderedDict(
+            (k, aux[k]) for k in AUX_GROUPS if aux is not None and k in aux)
         self.step = 0
         self.count = 0
         if self.grid_lrate is None:
@@ -87,8 +103,23 @@ class TrainState:
                        "label": label, "base_lr": rate}
                       for label, rate in (("net", self.lrate),
                                           ("grid", self.grid_lrate))]
+        for label, rate in (("pose", pose_lrate), ("appearance", appearance_lrate)):
+            mine = [p for k, p in self.aux.items() if AUX_GROUPS[k] == label]
+            if mine:
+                groups.append({"params": mine, "label": label, "base_lr": float(rate)})
         self.optimizer = torch.optim.Adam(groups, lr=self.lrate,
                                           betas=(0.9, 0.999), eps=1e-8)
+
+    @property
+    def pose_twists(self) -> Optional[torch.Tensor]:
+        return self.aux.get("pose_twists")
+
+    @property
+    def appearance(self) -> Optional[dict]:
+        if "appearance.gain" not in self.aux:
+            return None
+        return {"gain": self.aux["appearance.gain"],
+                "offset": self.aux["appearance.offset"]}
 
     def branches(self):
         """(name, module) of the trained fields, coarse first."""
@@ -124,38 +155,55 @@ class TrainState:
         self.step += 1
 
 
+def init_aux(n_refine_poses: int, n_appearance: int, device) -> dict:
+    """Identity pose twists and appearance corrections as leaf tensors
+    (AUX_GROUPS names); empty when both counts are 0."""
+    from nerf_shared_tpu_torch.train.appearance import init_appearance
+    from nerf_shared_tpu_torch.train.pose_refine import init_pose_twists
+
+    aux = {}
+    if n_refine_poses > 0:
+        aux["pose_twists"] = init_pose_twists(n_refine_poses, device)
+    if n_appearance > 0:
+        for k, v in init_appearance(n_appearance, device).items():
+            aux[f"appearance.{k}"] = v
+    return {k: v.requires_grad_(True) for k, v in aux.items()}
+
+
 def create_train_state(coarse_cfg, fine_cfg, device, seed: int = 0,
                        lrate: float = 5e-4, lrate_decay: int = 250,
                        grid_lrate: Optional[float] = None,
-                       n_refine_poses: int = 0, n_appearance: int = 0) -> TrainState:
+                       n_refine_poses: int = 0, pose_lrate: float = 1e-3,
+                       n_appearance: int = 0,
+                       appearance_lrate: float = 1e-3) -> TrainState:
     """Seeded fields (one torch.Generator from ``seed``, coarse then fine)
     and a fresh Adam; the grid group's rate defaults to 2e-2 whenever a
-    branch is a grid family."""
-    if n_refine_poses:
-        raise NotImplementedError(
-            "the pose-twist parameter group (--refine_poses) is not ported to "
-            "nerf_shared_tpu_torch yet: ROADMAP A11")
-    if n_appearance:
-        raise NotImplementedError(
-            "the appearance parameter group (--appearance) is not ported to "
-            "nerf_shared_tpu_torch yet: ROADMAP A11")
+    branch is a grid family. ``n_refine_poses`` / ``n_appearance`` > 0 add
+    the identity pose twists / appearance corrections of that many images,
+    each group with its own Adam rate."""
     g = torch.Generator().manual_seed(int(seed))
     coarse = make_model(coarse_cfg, device, g)
     fine = make_model(fine_cfg, device, g) if fine_cfg is not None else None
     if grid_lrate is None and any(c is not None and not isinstance(c, NeRFConfig)
                                   for c in (coarse_cfg, fine_cfg)):
         grid_lrate = 2e-2
-    return TrainState(coarse, fine, lrate, lrate_decay, grid_lrate)
+    return TrainState(coarse, fine, lrate, lrate_decay, grid_lrate,
+                      aux=init_aux(n_refine_poses, n_appearance, device),
+                      pose_lrate=pose_lrate, appearance_lrate=appearance_lrate)
 
 
 def fresh_state_at(coarse, fine, step: int, lrate: float = 5e-4,
                    lrate_decay: int = 250,
-                   grid_lrate: Optional[float] = None) -> TrainState:
-    """A TrainState over existing fields with a fresh Adam (``grid_lrate``
-    as in TrainState): ``step`` and the schedule's ``count`` continue at
-    ``step``, Adam's own count and moments restart (a restarted Adam at
-    count ``step`` would lose its bias correction and shrink the first
-    updates right when the new parameters need to train)."""
-    state = TrainState(coarse, fine, lrate, lrate_decay, grid_lrate)
+                   grid_lrate: Optional[float] = None, aux=None,
+                   pose_lrate: float = 1e-3,
+                   appearance_lrate: float = 1e-3) -> TrainState:
+    """A TrainState over existing fields (and ``aux`` groups) with a fresh
+    Adam (``grid_lrate`` as in TrainState): ``step`` and the schedule's
+    ``count`` continue at ``step``, Adam's own count and moments restart (a
+    restarted Adam at count ``step`` would lose its bias correction and
+    shrink the first updates right when the new parameters need to
+    train)."""
+    state = TrainState(coarse, fine, lrate, lrate_decay, grid_lrate, aux=aux,
+                       pose_lrate=pose_lrate, appearance_lrate=appearance_lrate)
     state.step = state.count = int(step)
     return state

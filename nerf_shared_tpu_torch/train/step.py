@@ -14,6 +14,22 @@ program: there is no superstep scan and no sharded variant (ROADMAP A16).
 Under ``RenderConfig.fused_backward`` the networks run through
 ``fused_train_op`` (kernel B1 forward, kernel B2 backward). The loss and
 the aux values stay on the device; the caller fetches them when it logs.
+
+The per-image groups of the state (train/state.py) and BARF:
+
+- pose twists (--refine_poses): the step builds its rays from
+  ``apply_pose_twists(twists, poses)`` inside autograd, the twists gated
+  to zero before ``pose_start`` and image 0's pinned by ``pose_anchor``,
+  so the loss reaches them through rays_o / rays_d (and, on the card,
+  through B2's point and direction gradients). Without twists the rays
+  are built as before, from the same draws.
+- appearance (--appearance): ``nerf_loss`` maps every pass's composited
+  colour through the drawn image's correction, image 0's pinned to the
+  identity (the JAX step's ``appearance_anchor`` default, which its
+  trainer never changes).
+- BARF (``barf_end`` > 0): the networks render with the weights annealed
+  at progress clip((step - barf_start) / max(1, barf_end - barf_start),
+  0, 1) (models/nerf.anneal_nerf_params).
 """
 
 from __future__ import annotations
@@ -23,9 +39,12 @@ from typing import Dict, Optional
 import torch
 import torch.nn.functional as F
 
+from nerf_shared_tpu_torch.models.nerf import anneal_nerf_params
 from nerf_shared_tpu_torch.ops.rays import ndc_rays
 from nerf_shared_tpu_torch.render.renderer import RenderConfig, render_rays
-from nerf_shared_tpu_torch.train.pipeline import PixelSamplerSpec, sample_ray_batch
+from nerf_shared_tpu_torch.train.appearance import anchor_appearance, apply_appearance
+from nerf_shared_tpu_torch.train.pipeline import PixelSamplerSpec, pixel_rays, sample_pixels
+from nerf_shared_tpu_torch.train.pose_refine import apply_pose_twists
 from nerf_shared_tpu_torch.train.state import TrainState
 from nerf_shared_tpu_torch.utils.metrics import img2mse, mse2psnr
 
@@ -49,11 +68,14 @@ def pack_ray_batch(rays_o, rays_d, rcfg: RenderConfig, H: int, W: int,
 def nerf_loss(params: Dict, ray_batch, target, rcfg: RenderConfig, ccfg, fcfg,
               acc_reg: float = 0.0, dist_reg: float = 0.0, tv_reg: float = 0.0,
               overrides: Optional[Dict[str, torch.Tensor]] = None,
-              generator: Optional[torch.Generator] = None):
+              generator: Optional[torch.Generator] = None,
+              appearance: Optional[Dict[str, torch.Tensor]] = None,
+              img_idx: Optional[torch.Tensor] = None):
     """(loss, aux): loss = mse(fine, target) [+ mse(coarse, target)]
     [+ acc_reg * sparsity] [+ tv_reg * tv]; ``params`` is {"coarse": state
     dict, "fine": state dict or absent}; ``overrides`` pins the render's
-    draws."""
+    draws. ``appearance`` ({"gain", "offset"}) with ``img_idx`` (each ray's
+    train image) corrects every pass's colour before its mse."""
     if dist_reg > 0.0:
         raise NotImplementedError(
             "the distortion loss is not ported to nerf_shared_tpu_torch yet: "
@@ -61,6 +83,10 @@ def nerf_loss(params: Dict, ray_batch, target, rcfg: RenderConfig, ccfg, fcfg,
     ret = render_rays(params["coarse"], params.get("fine"), ray_batch, rcfg, ccfg,
                       fcfg, retraw=acc_reg > 0.0, retraw_coarse=acc_reg > 0.0,
                       overrides=overrides, generator=generator)
+    if appearance is not None:
+        ret["rgb_map"] = apply_appearance(appearance, img_idx, ret["rgb_map"])
+        if "rgb0" in ret:
+            ret["rgb0"] = apply_appearance(appearance, img_idx, ret["rgb0"])
     img_loss = img2mse(ret["rgb_map"], target)
     loss = img_loss
     aux = {"img_loss": img_loss, "psnr": mse2psnr(img_loss)}
@@ -94,22 +120,56 @@ def nerf_loss(params: Dict, ray_batch, target, rcfg: RenderConfig, ccfg, fcfg,
 # trainer options of the JAX step that this port does not carry yet
 _STEP_NOT_PORTED = {
     "dist_reg": "the distortion loss (ROADMAP A11)",
-    "barf_end": "BARF annealing (ROADMAP A11)",
-    "pose_twists": "pose refinement (ROADMAP A11)",
-    "appearance": "per-image appearance (ROADMAP A11)",
     "loss_sampling": "loss-guided sampling (ROADMAP A11)",
 }
 
 
+def barf_progress(step: int, barf_start: int, barf_end: int) -> torch.Tensor:
+    """BARF's progress at ``step`` as the JAX step computes it: the float32
+    quotient (step - start) / max(1, end - start), clipped to [0, 1]."""
+    denom = float(max(1, barf_end - barf_start))
+    q = torch.tensor(float(step - barf_start), dtype=torch.float32) / denom
+    return torch.clamp(q, 0.0, 1.0)
+
+
+def anneal_branches(params: Dict, ccfg, fcfg, progress) -> Dict:
+    """{"coarse", "fine"} state dicts with the BARF mask of ``progress``."""
+    out = dict(params)
+    out["coarse"] = anneal_nerf_params(params["coarse"], ccfg, progress)
+    if fcfg is not None and "fine" in params:
+        out["fine"] = anneal_nerf_params(params["fine"], fcfg, progress)
+    return out
+
+
+def refined_poses(twists: torch.Tensor, poses: torch.Tensor, step: int,
+                  pose_start: int = 0, pose_anchor: bool = True) -> torch.Tensor:
+    """The poses the step's rays come from under --refine_poses: the twists
+    gated to zero while step < ``pose_start`` and, with ``pose_anchor``,
+    image 0's pinned to identity (both by masks, so their gradient is 0),
+    applied to ``poses``."""
+    if pose_start > 0:
+        twists = twists * float(step >= pose_start)
+    if pose_anchor:
+        mask = torch.ones((twists.shape[0], 1), dtype=twists.dtype, device=twists.device)
+        mask[0, 0] = 0.0
+        twists = twists * mask
+    return apply_pose_twists(twists, poses)
+
+
 def make_train_step(rcfg: RenderConfig, ccfg, fcfg, spec: PixelSamplerSpec,
-                    acc_reg: float = 0.0, tv_reg: float = 0.0, **not_ported):
+                    acc_reg: float = 0.0, tv_reg: float = 0.0,
+                    pose_anchor: bool = True, pose_start: int = 0,
+                    barf_end: int = 0, barf_start: int = 0, **not_ported):
     """``train_step(state, images, poses, generator, draws=None,
     overrides=None) -> aux``: one iteration on ``state`` in place.
 
     ``generator`` is the run's CPU torch.Generator: it draws the step's
     pixels (train/pipeline.py) and the seed of the render's device-side
     draws (stratified jitter, inverse-CDF u, sigma noise). ``draws`` /
-    ``overrides`` pin them for tests."""
+    ``overrides`` pin them for tests. The state's pose twists and
+    appearance corrections, when it has them, and ``barf_end`` > 0 act as
+    the module docstring says; aux then carries ``twist_norm`` /
+    ``gain_norm`` (the RMS of the raw twists / gains)."""
     for name, value in not_ported.items():
         if name not in _STEP_NOT_PORTED:
             raise TypeError(f"make_train_step: unknown option {name}")
@@ -120,15 +180,29 @@ def make_train_step(rcfg: RenderConfig, ccfg, fcfg, spec: PixelSamplerSpec,
     def train_step(state: TrainState, images, poses, generator: torch.Generator,
                    draws: Optional[Dict] = None,
                    overrides: Optional[Dict[str, torch.Tensor]] = None):
-        rays_o, rays_d, target = sample_ray_batch(generator, images, poses,
-                                                  state.step, spec, draws)
+        img_idx, y, x = sample_pixels(generator, images.shape[0], state.step, spec, draws)
+        if state.pose_twists is not None:
+            poses = refined_poses(state.pose_twists, poses, state.step,
+                                  pose_start, pose_anchor)
+        rays_o, rays_d, target = pixel_rays(images, poses, spec, img_idx, y, x)
         ray_batch = pack_ray_batch(rays_o, rays_d, rcfg, spec.H, spec.W, spec.fx)
         render_gen = torch.Generator(device=images.device)
         render_gen.manual_seed(int(torch.randint(0, 1 << 62, (), generator=generator)))
         params = {b: m.params() for b, m in state.branches()}
+        if barf_end > 0:
+            params = anneal_branches(params, ccfg, fcfg,
+                                     barf_progress(state.step, barf_start, barf_end))
+        app = state.appearance
+        if app is not None:
+            app = anchor_appearance(app)
         loss, aux = nerf_loss(params, ray_batch, target, rcfg, ccfg, fcfg,
                               acc_reg=acc_reg, tv_reg=tv_reg, overrides=overrides,
-                              generator=render_gen)
+                              generator=render_gen, appearance=app,
+                              img_idx=None if app is None else img_idx.to(images.device))
+        if state.appearance is not None:
+            aux["gain_norm"] = torch.sqrt(torch.mean(state.appearance["gain"] ** 2))
+        if state.pose_twists is not None:
+            aux["twist_norm"] = torch.sqrt(torch.mean(state.pose_twists ** 2))
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
         state.apply_gradients()

@@ -21,8 +21,18 @@ families have no ``.tar`` layout (the reference schema is the MLP's): a
 ``.ckpt.npz`` alone, as in the JAX package. A file without Adam state (an
 empty optimizer dict) resumes as the JAX ``load_checkpoint`` does: weights
 and global step restored, Adam fresh at count 0. On a multi-group file the
-schedule's count resumes at the largest group count, as in JAX. EMA and
-the pose and appearance groups are not ported (ROADMAP A11).
+schedule's count resumes at the largest group count, as in JAX. EMA is
+not ported (ROADMAP A11).
+
+The per-image groups (pose twists, appearance; train/state.py
+``AUX_GROUPS``) go in the ``.ckpt.npz`` only, as the JAX package keeps
+them: ``params/pose_twists``, ``params/appearance/gain|offset`` and their
+moments in their own ``opt/g<i>/`` groups (labels "appearance", "net",
+"pose" sorted). The ``.tar`` stays the reference's field-only layout. A
+resume with the flags on takes a ``.tar``'s same-step ``.ckpt.npz``
+sibling when there is one; otherwise, and when a file lacks the groups or
+carries groups the run does not train, it prints the JAX package's
+message and restarts every Adam moment (``restore_train_state``).
 
 Resume rule (reference utils.py:174-214): the newest file in
 ``{basedir}/{expname}`` wins, ``ft_path`` overrides, ``no_reload`` disables.
@@ -38,7 +48,12 @@ import numpy as np
 import torch
 
 from nerf_shared_tpu_torch.models.nerf import params_from_jax, params_tree_from_jax
-from nerf_shared_tpu_torch.train.state import group_label
+from nerf_shared_tpu_torch.train.state import AUX_GROUPS, group_label
+
+# the run-time message names of the per-image groups, as the JAX loader
+# prints them (params key -> label)
+_AUX_LABELS = {"pose_twists": "--refine_poses pose twists",
+               "appearance": "--appearance exposure corrections"}
 
 
 def find_checkpoints(basedir: str, expname: str,
@@ -141,7 +156,7 @@ def read_tar(path: str):
     fine = ckpt.get("fine_model_state_dict") or None
     n = len(coarse) + len(fine or {})
     return coarse, fine, int(ckpt["global_step"]), _opt_from_tar(
-        ckpt.get("optimizer_state_dict"), n)
+        ckpt.get("optimizer_state_dict"), n), {}
 
 
 def load_tar(path: str) -> Tuple[Dict, Optional[Dict], int]:
@@ -149,36 +164,48 @@ def load_tar(path: str) -> Tuple[Dict, Optional[Dict], int]:
     return read_tar(path)[:3]
 
 
+def _params_in_order(coarse_sd, fine_sd, aux):
+    """(flat key, tensor, torch -> JAX layout, group label) of every
+    parameter in the TrainState's order: the fields, then the aux groups."""
+    out = []
+    for branch, sd in (("coarse", coarse_sd), ("fine", fine_sd)):
+        for name in param_order(sd or {}):
+            out.append((f"{branch}/{_flat_key(name)}", sd[name], _jax_layout(name),
+                        group_label(name)))
+    for name, t in (aux or {}).items():
+        out.append((name.replace(".", "/"), t, lambda a: a, AUX_GROUPS[name]))
+    return out
+
+
 def save_native(path: str, coarse_sd: Dict[str, torch.Tensor],
                 fine_sd: Optional[Dict[str, torch.Tensor]], global_step: int,
-                opt: Optional[Dict] = None):
+                opt: Optional[Dict] = None,
+                aux: Optional[Dict[str, torch.Tensor]] = None):
     """Write the JAX package's ``.ckpt.npz`` schema: params and, given
     ``opt`` ({"count", "exp_avg", "exp_avg_sq"} per parameter index, coarse
-    then fine, torch layout; zeros where None), the Adam moments. With
-    ``opt["groups"]`` (the group labels) and ``opt["step"]`` (Adam's count
-    per parameter) the moments go into the multi-group schema, each
-    parameter into the group ``group_label`` gives it."""
+    then fine then ``aux``, torch layout; zeros where None), the Adam
+    moments. With ``opt["groups"]`` (the group labels) and ``opt["step"]``
+    (Adam's count per parameter) the moments go into the multi-group
+    schema, each field parameter into the group ``group_label`` gives it,
+    each ``aux`` one (AUX_GROUPS names) into its own."""
     groups = sorted((opt or {}).get("groups", ["net"]))
     multi = len(groups) > 1
     counts = {}
-    flat, idx = {}, 0
-    for branch, sd in (("coarse", coarse_sd), ("fine", fine_sd)):
-        for name in param_order(sd or {}):
-            key = f"{branch}/{_flat_key(name)}"
-            t = sd[name].detach().cpu().numpy()
-            tr = _jax_layout(name)
-            flat[f"params/{key}"] = np.ascontiguousarray(tr(t))
-            if opt is not None:
-                pre = "opt/"
-                if multi:
-                    gi = groups.index(group_label(name))
-                    pre = f"opt/g{gi}/"
-                    counts.setdefault(gi, int(opt["step"][idx]))
-                for part, src in (("mu", "exp_avg"), ("nu", "exp_avg_sq")):
-                    m = opt[src][idx]
-                    m = np.zeros_like(t) if m is None else m.detach().cpu().numpy()
-                    flat[f"{pre}{part}/{key}"] = np.ascontiguousarray(tr(m))
-            idx += 1
+    flat = {}
+    for idx, (key, tensor, tr, label) in enumerate(_params_in_order(coarse_sd, fine_sd, aux)):
+        t = tensor.detach().cpu().numpy()
+        flat[f"params/{key}"] = np.ascontiguousarray(tr(t))
+        if opt is None:
+            continue
+        pre = "opt/"
+        if multi:
+            gi = groups.index(label)
+            pre = f"opt/g{gi}/"
+            counts.setdefault(gi, int(opt["step"][idx]))
+        for part, src in (("mu", "exp_avg"), ("nu", "exp_avg_sq")):
+            m = opt[src][idx]
+            m = np.zeros_like(t) if m is None else m.detach().cpu().numpy()
+            flat[f"{pre}{part}/{key}"] = np.ascontiguousarray(tr(m))
     if opt is not None and multi:
         flat["opt/n_groups"] = np.asarray(len(groups))
         for gi in range(len(groups)):
@@ -214,41 +241,43 @@ def _unflatten(flat: Dict[str, np.ndarray]):
 
 def read_native(path: str):
     """A JAX ``.ckpt.npz`` -> (coarse_sd, fine_sd | None, step, Adam state
-    as _opt_from_tar gives it, or None); MLP weights converted through
+    as _opt_from_tar gives it, or None, aux); MLP weights converted through
     ``params_from_jax``, grid-family parameters through
-    ``params_tree_from_jax``."""
+    ``params_tree_from_jax``; ``aux`` maps the per-image groups the file
+    carries (AUX_GROUPS names) to tensors, and the Adam state's lists run
+    over the fields and then these."""
     with np.load(path) as z:
         flat = {k: z[k] for k in z.files}
     step = int(flat.pop("global_step"))
     tree = _unflatten({k[len("params/"):]: v for k, v in flat.items()
                        if k.startswith("params/")})
-    extra = set(tree) - {"coarse", "fine"}
+    aux = {}
+    for name in AUX_GROUPS:
+        key = "params/" + name.replace(".", "/")
+        if key in flat:
+            aux[name] = torch.from_numpy(np.array(flat[key], np.float32))
+    extra = set(tree) - {"coarse", "fine"} - {k.split(".")[0] for k in AUX_GROUPS}
     if extra:
-        raise NotImplementedError(
-            f"{path}: parameter groups {sorted(extra)} (pose or appearance) are "
-            "not ported to nerf_shared_tpu_torch yet: ROADMAP A11")
-    convert = {b: (params_from_jax if "pts_linears" in t else params_tree_from_jax)
-               for b, t in tree.items()}
+        raise ValueError(f"{path}: unknown parameter groups {sorted(extra)}")
+    convert = {b: (params_from_jax if "pts_linears" in tree[b] else params_tree_from_jax)
+               for b in ("coarse", "fine") if b in tree}
     coarse = convert["coarse"](tree["coarse"])
     fine = convert["fine"](tree["fine"]) if "fine" in tree else None
     n_groups = int(flat["opt/n_groups"]) if "opt/n_groups" in flat else 0
     if not n_groups and "opt/count" not in flat:
-        return coarse, fine, step, None
+        return coarse, fine, step, None, aux
     prefixes = [f"opt/g{i}/" for i in range(n_groups)] or ["opt/"]
     counts = [int(flat[p + "count"]) for p in prefixes]
     opt = {"count": max(counts), "step": [], "exp_avg": [], "exp_avg_sq": []}
-    for branch, sd in (("coarse", coarse), ("fine", fine)):
-        for name in param_order(sd or {}):
-            key = f"{branch}/{_flat_key(name)}"
-            gi = next((i for i, p in enumerate(prefixes) if f"{p}mu/{key}" in flat), None)
-            if gi is None:
-                raise ValueError(f"{path}: no Adam moments for {key}")
-            opt["step"].append(counts[gi])
-            for part, dst in (("mu", "exp_avg"), ("nu", "exp_avg_sq")):
-                a = flat[f"{prefixes[gi]}{part}/{key}"]
-                opt[dst].append(torch.from_numpy(np.ascontiguousarray(
-                    _jax_layout(name)(a))))
-    return coarse, fine, step, opt
+    for key, _, tr, _ in _params_in_order(coarse, fine, aux):
+        gi = next((i for i, p in enumerate(prefixes) if f"{p}mu/{key}" in flat), None)
+        if gi is None:
+            raise ValueError(f"{path}: no Adam moments for {key}")
+        opt["step"].append(counts[gi])
+        for part, dst in (("mu", "exp_avg"), ("nu", "exp_avg_sq")):
+            a = flat[f"{prefixes[gi]}{part}/{key}"]
+            opt[dst].append(torch.from_numpy(np.ascontiguousarray(tr(a))))
+    return coarse, fine, step, opt, aux
 
 
 def load_native(path: str) -> Tuple[Dict, Optional[Dict], int]:
@@ -290,7 +319,7 @@ def save_checkpoints(basedir: str, expname: str, state, i: int,
     opt_sd = state.optimizer.state_dict()
     paths = []
     if fmt in ("native", "both"):
-        params = state.parameters()
+        params = state.parameters() + list(state.aux.values())
         st = [state.optimizer.state.get(p, {}) for p in params]
         opt = {"count": state.count,
                "groups": [g["label"] for g in state.optimizer.param_groups],
@@ -298,8 +327,14 @@ def save_checkpoints(basedir: str, expname: str, state, i: int,
                "exp_avg": [s.get("exp_avg") for s in st],
                "exp_avg_sq": [s.get("exp_avg_sq") for s in st]}
         paths.append(os.path.join(expdir, f"{i:06d}.ckpt.npz"))
-        save_native(paths[-1], coarse_sd, fine_sd, state.step, opt)
+        save_native(paths[-1], coarse_sd, fine_sd, state.step, opt, aux=state.aux)
     if fmt in ("tar", "both") and tar_able:
+        # the reference layout holds the fields' Adam alone: the aux groups
+        # come after the fields' indices, so keep the field groups' entries
+        n_fields = len(state.parameters())
+        opt_sd = {"state": {k: v for k, v in opt_sd["state"].items() if k < n_fields},
+                  "param_groups": [g for g in opt_sd["param_groups"]
+                                   if g["label"] in ("net", "grid")]}
         paths.append(os.path.join(expdir, f"{i:06d}.tar"))
         save_tar(paths[-1], coarse_sd, fine_sd, state.step, opt_sd)
     return paths
@@ -309,18 +344,54 @@ def restore_train_state(state, args) -> int:
     """Load the newest checkpoint (resume rule above) into a TrainState:
     weights, global step and, when the file has it, Adam's moments and
     count (which keeps the learning rate on schedule). Returns the start
-    step (0 when nothing was loaded)."""
+    step (0 when nothing was loaded).
+
+    The per-image groups follow the JAX ``load_checkpoint``: a run that
+    trains them takes a ``.tar``'s same-step ``.ckpt.npz`` sibling; a file
+    without a group the run trains starts it at identity, a file with a
+    group the run does not train drops it, and either way every Adam moment
+    restarts (count 0), each with the JAX package's message."""
     ckpts = find_checkpoints(args.basedir, args.expname, args.ft_path)
     if not ckpts or args.no_reload:
         return 0
     path = ckpts[-1]
+    wanted = {k.split(".")[0] for k in state.aux}
+    if wanted and path.endswith(".tar"):
+        sibling = path[: -len(".tar")] + ".ckpt.npz"
+        if sibling in ckpts:
+            path = sibling
     print(f"Reloading from {path}")
-    coarse_sd, fine_sd, step, opt = (read_native(path) if path.endswith(".npz")
-                                     else read_tar(path))
+    coarse_sd, fine_sd, step, opt, aux = (read_native(path) if path.endswith(".npz")
+                                          else read_tar(path))
+    have = {k.split(".")[0] for k in aux}
+    for group, label in _AUX_LABELS.items():
+        if not path.endswith(".npz"):
+            if group in wanted:
+                print(f"torch .tar has no {label} group: starting at "
+                      "identity (Adam moments reset — the .tar's single-adam "
+                      "schema cannot map onto the group split)")
+                opt = None
+        elif group in have and group not in wanted:
+            print(f"checkpoint carries {label} but the flag is off: "
+                  "dropping them (Adam moments reset)")
+            opt = None
+        elif group in wanted and group not in have:
+            print(f"{label} requested but absent from the checkpoint: "
+                  "starting them at identity (Adam moments reset)")
+            opt = None
     state.coarse.load_state_dict(coarse_sd, strict=True)
     if state.fine is not None and fine_sd:
         state.fine.load_state_dict(fine_sd, strict=True)
-    params = state.parameters()
+    with torch.no_grad():
+        for k, p in state.aux.items():
+            if k in aux:
+                if tuple(aux[k].shape) != tuple(p.shape):
+                    raise ValueError(f"{path}: {k} has shape {tuple(aux[k].shape)}, "
+                                     f"the run trains {tuple(p.shape)}")
+                p.copy_(aux[k])
+            else:
+                p.zero_()
+    params = state.parameters() + list(state.aux.values())
     state.optimizer.state.clear()
     state.count = 0
     if opt is not None:

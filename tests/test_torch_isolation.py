@@ -40,7 +40,9 @@ def test_package_has_the_slice_modules():
               "ops.cuda.composite", "render.gated", "render.occupancy",
               "render.froxels", "ops.cuda.gather", "models.hashgrid",
               "models.triplane", "benchmarks.scatter_probe", "data.llff",
-              "data.deepvoxels", "data.linemod", "apps.eval_cli"):
+              "data.deepvoxels", "data.linemod", "apps.eval_cli", "ops.se3",
+              "train.pose_refine", "train.appearance", "apps.pose_estimation",
+              "apps.pose_cli"):
         assert f"nerf_shared_tpu_torch.{m}" in mods, m
 
 

@@ -222,13 +222,25 @@ def test_three_adam_updates_match_optax():
     _assert_params_match(jstate.params, tstate, atol=1e-7, rtol=1e-5)
 
 
-@pytest.mark.parametrize("kw,match", [(dict(n_refine_poses=1, n_appearance=1), "A11"),
-                                      (dict(n_refine_poses=3), "A11"),
-                                      (dict(n_appearance=3), "A11")])
-def test_unported_parameter_groups_raise(kw, match):
+@pytest.mark.parametrize("kw,labels", [(dict(n_refine_poses=1, n_appearance=1),
+                                       ["net", "pose", "appearance"]),
+                                      (dict(n_refine_poses=3), ["net", "pose"]),
+                                      (dict(n_appearance=3), ["net", "appearance"])])
+def test_unported_parameter_groups_raise(kw, labels):
+    """The pose-twist and appearance groups are ported (they raised until
+    the pose slice): identity-initialised leaves in their own Adam groups
+    at 1e-3, after the fields."""
     cfg = tnerf.NeRFConfig(**KW)
-    with pytest.raises(NotImplementedError, match=match):
-        create_train_state(cfg, None, "cpu", **kw)
+    state = create_train_state(cfg, None, "cpu", **kw)
+    assert [g["label"] for g in state.optimizer.param_groups] == labels
+    assert [g["base_lr"] for g in state.optimizer.param_groups[1:]] == [1e-3] * (len(labels) - 1)
+    n = kw.get("n_refine_poses", 0)
+    assert (state.pose_twists is None) == (n == 0)
+    if n:
+        assert state.pose_twists.shape == (n, 6) and not state.pose_twists.any()
+    if kw.get("n_appearance"):
+        assert state.appearance["gain"].shape == (kw["n_appearance"], 3)
+    assert len(state.parameters()) == len(tnerf.torch_param_order(cfg))
 
 
 # --- train/step.py -----------------------------------------------------------
@@ -373,11 +385,18 @@ def test_three_step_trajectory_matches_jax():
 
 
 def test_step_options_not_ported_raise():
+    """dist_reg and loss_sampling still raise; BARF (barf_end) is ported,
+    and the pose twists and appearance come from the state, so those two
+    are no options of the step."""
     tcfg = tnerf.NeRFConfig(**KW)
     _, tr = _rcfgs()
     spec = tpipe.PixelSamplerSpec(H=4, W=4, fx=1, fy=1, cx=2, cy=2, N_rand=4)
-    for opt in ("dist_reg", "barf_end", "pose_twists", "appearance", "loss_sampling"):
+    for opt in ("dist_reg", "loss_sampling"):
         with pytest.raises(NotImplementedError):
+            make_train_step(tr, tcfg, tcfg, spec, **{opt: 1})
+    assert callable(make_train_step(tr, tcfg, tcfg, spec, barf_end=1))
+    for opt in ("pose_twists", "appearance"):
+        with pytest.raises(TypeError, match="unknown option"):
             make_train_step(tr, tcfg, tcfg, spec, **{opt: 1})
     with pytest.raises(NotImplementedError, match="distortion"):
         nerf_loss({"coarse": {}}, torch.zeros(1, 11), torch.zeros(1, 3), tr, tcfg,
@@ -419,7 +438,13 @@ def test_fused_backward_resolves_on_for_the_mlp_family_on_cuda():
                                   ["--distortion_loss_weight", "0.01"],
                                   ["--multihost", "True"], ["--debug_nans", "True"]])
 def test_training_flags_not_ported_raise(flag):
+    """Each flag the port does not carry raises; --refine_poses and
+    --appearance are ported and pass the check (they train in
+    tests/test_torch_pose_train.py)."""
     args = config_parser().parse_args(["--device", "cpu"] + flag)
+    if flag[0] in ("--refine_poses", "--appearance"):
+        tapp.check_ported(args)
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tapp.train(args)
 
