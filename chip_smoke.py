@@ -162,6 +162,34 @@ Phases (any failure exits non-zero and prints no result line):
             moments in the .ckpt.npz and restored exactly, eval frames at
             steps 100 and 200 mid-anneal. One "phase 11 pose" line with the
             pose-step and refine-step ms and the errors.
+12. proposal the JAX package's quality-first recipe on phase 6's scene:
+            configs/lego.txt with --proposal --loss_sampling --ema_decay
+            0.99 --distortion_loss_weight 0.01 (a 2x64 density-only
+            proposal MLP, always plain, as the coarse branch). (a) one
+            step at full width (1024 rays, 64 + 128 samples, the fine pass
+            196,608 points through B1 + B2) against the plain step with
+            the same draws, the weighted tail included: the loss and its
+            img / prop / dist parts within 1e-5, every proposal and fine
+            gradient within 1e-3 of its max, the post-Adam parameters as
+            phase 5, the EMA shadow and the updated loss map; and the host
+            syncs of an unpinned loss-sampling step (under
+            torch.cuda.set_sync_debug_mode("warn")) no more than a uniform
+            step's. (b) apps/train.main 400 + 100 steps (--precrop_iters
+            100): exactly 1 B1 + 1 B2 a step and no B3 while training,
+            train PSNR rising, the ema/ sidecar in the .ckpt.npz restored
+            exactly, the loss map off uniform; --render_only
+            --render_test (5 B3 + 10 B5 a frame), held-out PSNR >= 2 dB
+            above all-white, the frame within 1e-3 (sentinel flips set
+            apart) of the plain renderer on the EMA weights at the kernel
+            run's fine depths and apart from the raw weights' frame; one
+            frame served over HTTP through --render_guided 48 (/info
+            "ema": true), and --render_gate refused. (c) the mixed
+            hierarchy (the proposal + the split L8/F8/T14 hashgrid) for
+            100 steps: exactly 8 P1 + 8 P2 a step and nothing else, the
+            tables' Adam group at --grid_lrate, one served frame against
+            the plain versions within 1e-3. One "phase 12 proposal" line
+            with the step, frame and PSNR numbers and the card's
+            nvidia-smi name and power limit.
 
 ``--parent-tree`` (with ``--phases``) marks the parent side of an A/B:
 phase 1 logs a tensor-core kernel that tree predates instead of failing.
@@ -170,10 +198,10 @@ each fast engine, five split and five vertex hashgrid training steps, a
 hashgrid and a triplane frame, and five fern training steps and a fern
 frame under torch.profiler (device time by
 kernel, device busy share, P1's and P2's shares). ``--phases 2,3,4,7``
-runs the build and the listed phases alone (phases 7 and 11 run phase 6
-for its checkpoint; 3 and 4 run together; no result lines; for iterating on a
+runs the build and the listed phases alone (phases 7, 11 and 12 run phase 6
+for its checkpoint and scene; 3 and 4 run together; no result lines; for iterating on a
 phase and for nerf_shared_tpu_torch/benchmarks/ab_smoke.sh). Before the last
-line it prints the kernels JSON line and the card's
+line it prints the whole script's time, the kernels JSON line and the card's
 ``nvidia-smi --query-gpu=name,power.limit`` line; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -1027,6 +1055,42 @@ def train_step_setup(device, fused, recipe="lego"):
     return state, step, images, poses, overrides, draws
 
 
+def adam_checks(k, p):
+    """The post-Adam parameters of one step from equal states through the
+    kernels (``k``) and the plain path (``p``): dicts of "params", "grads"
+    and "lrs" (each parameter's group rate). Adam's first update is
+    u(g) = lr * g / (|g| + eps) (m and v start at zero), so three checks:
+    - everywhere they differ by u(g_plain) - u(g_kernel), to fp32 rounding
+      (adam_err);
+    - where |g_plain| is over 100 eps and over 100 |g_kernel - g_plain|,
+      that difference is below lr * 1e-4, so they agree to 1e-6 outright
+      (param_err, at the field's lr 5e-4; 2e-6 at the pose and appearance
+      groups' 1e-3);
+    - the entries that moved apart by more than 1e-6 (|g| near eps, or a
+      sign flip of a gradient near 0) are at most 1 in 100: 307 and 1,656
+      of 1,191,688 in two runs on the H100, so a wholesale flip of the
+      small gradients fails while the run-to-run spread passes.
+    Returns (param_err, adam_err, moved, moved_tol, moved_g, n_sure, n_par),
+    moved_g the largest |grad| among the moved entries over its tensor's
+    max."""
+    eps = 1e-8
+    n_par, n_sure, moved, adam_err, param_err, moved_g = 0, 0, 0, 0.0, 0.0, 0.0
+    for pk, pp, gk, gp, lr in zip(k["params"], p["params"], k["grads"], p["grads"],
+                                  k["lrs"]):
+        du = lr * gp / (gp.abs() + eps) - lr * gk / (gk.abs() + eps)
+        adam_err = max(adam_err, float(((pk - pp) - du).abs().max()))
+        far = du.abs() > 1e-6
+        moved += int(far.sum())
+        if bool(far.any()):
+            moved_g = max(moved_g, float(gp[far].abs().max() / gp.abs().max()))
+        sure = (gp.abs() > 100 * eps) & (gp.abs() > 100 * (gk - gp).abs())
+        if bool(sure.any()):
+            param_err = max(param_err, float((pk - pp)[sure].abs().max()) * 5e-4 / lr)
+        n_sure += int(sure.sum())
+        n_par += gp.numel()
+    return param_err, adam_err, moved, n_par // 100, moved_g, n_sure, n_par
+
+
 def check_train_step(device, recipe="lego"):
     """One training step of ``recipe`` (train_step_setup) through B1 + B2
     and through the plain path from the same state and draws; returns the
@@ -1085,33 +1149,7 @@ def check_train_step(device, recipe="lego"):
             + f" of max|grad| (tol max({CAMERA_FLOOR:g}, {CAMERA_FACTOR:g} x plain fp32's))")
     n_fields = len(k["grads"]) - n_aux
     grad_err = max(rel_err(a, b) for a, b in zip(k["grads"][:n_fields], p["grads"][:n_fields]))
-    # Adam's first update is u(g) = lr * g / (|g| + eps) (m and v start at
-    # zero), so three checks of the post-Adam parameters:
-    # - everywhere they differ by u(g_plain) - u(g_kernel), to fp32 rounding;
-    # - where |g_plain| is over 100 eps and over 100 |g_kernel - g_plain|,
-    #   that difference is below lr * 1e-4, so they agree to 1e-6 outright
-    #   (at the field's lr 5e-4; 2e-6 at the pose and appearance groups'
-    #   1e-3);
-    # - the entries that moved apart by more than 1e-6 (|g| near eps, or a
-    #   sign flip of a gradient near 0) are at most 1 in 100: 307 and 1,656
-    #   of 1,191,688 in two runs on the H100, so a wholesale flip of the
-    #   small gradients fails while the run-to-run spread passes
-    eps = 1e-8
-    n_par, n_sure, moved, adam_err, param_err, moved_g = 0, 0, 0, 0.0, 0.0, 0.0
-    for pk, pp, gk, gp, lr in zip(k["params"], p["params"], k["grads"], p["grads"],
-                                  k["lrs"]):
-        du = lr * gp / (gp.abs() + eps) - lr * gk / (gk.abs() + eps)
-        adam_err = max(adam_err, float(((pk - pp) - du).abs().max()))
-        far = du.abs() > 1e-6
-        moved += int(far.sum())
-        if bool(far.any()):
-            moved_g = max(moved_g, float(gp[far].abs().max() / gp.abs().max()))
-        sure = (gp.abs() > 100 * eps) & (gp.abs() > 100 * (gk - gp).abs())
-        if bool(sure.any()):
-            param_err = max(param_err, float((pk - pp)[sure].abs().max()) * 5e-4 / lr)
-        n_sure += int(sure.sum())
-        n_par += gp.numel()
-    moved_tol = n_par // 100
+    param_err, adam_err, moved, moved_tol, moved_g, n_sure, n_par = adam_checks(k, p)
     what = {"lego": "64 + 128 samples",
             "fern": "64 + 64 samples, NDC, batching, sigma noise 1.0 pinned",
             "refine": "64 + 128 samples, pose twists + appearance + BARF at progress 0.5"
@@ -1313,7 +1351,7 @@ def profile_train_step(device, steps=5, recipe="lego"):
     it is in training."""
     import torch
 
-    state, step, images, poses, ov = train_step_setup(device, True, recipe)
+    state, step, images, poses, ov, _ = train_step_setup(device, True, recipe)
     step(state, images, poses, torch.Generator().manual_seed(9), overrides=ov)
     torch.cuda.synchronize()
 
@@ -1322,6 +1360,26 @@ def profile_train_step(device, steps=5, recipe="lego"):
             step(state, images, poses, torch.Generator().manual_seed(i), overrides=ov)
 
     _profile(f"{steps} {recipe} training steps", run)
+
+
+def profile_proposal_step(device, steps=5):
+    """``steps`` consecutive steps of phase 12's recipe (proposal_step_setup:
+    the proposal, loss sampling, EMA, distortion; the pixels and the tail
+    drawn unpinned) through the kernels, then through the plain path, each
+    under torch.profiler after one warm-up step."""
+    import torch
+
+    for fused in (True, False):
+        state, step, images, poses, ov, _ = proposal_step_setup(device, fused)
+        step(state, images, poses, torch.Generator().manual_seed(9), overrides=ov)
+        torch.cuda.synchronize()
+
+        def run():
+            for i in range(steps):
+                step(state, images, poses, torch.Generator().manual_seed(i), overrides=ov)
+
+        _profile(f"{steps} proposal training steps ({'kernels' if fused else 'plain'})",
+                 run, top_n=14)
 
 
 def profile_grid_step(device, steps=5, vertex=False):
@@ -1337,7 +1395,7 @@ def profile_grid_step(device, steps=5, vertex=False):
     from nerf_shared_tpu_torch.train.state import create_train_state
     from nerf_shared_tpu_torch.train.step import make_train_step
 
-    _, _, images, poses, ov = train_step_setup(device, False)
+    _, _, images, poses, ov, _ = train_step_setup(device, False)
     box = dict(aabb_min=(-4.72,) * 3, aabb_max=(4.72,) * 3)
     cfg = (HashGridConfig(**box) if vertex else
            HashGridConfig(L=8, F=8, log2_T=14, max_res=512, layout="split", **box))
@@ -2882,9 +2940,366 @@ def phase_pose(device, trained):
                 "pose_training": train_launches}}
 
 
-def _profile(what, fn):
-    """fn() under torch.profiler: device time by kernel and the device's
-    busy share of the wall time."""
+# the four flags of phase 12, the JAX package's quality-first recipe
+PROPOSAL_FLAGS = ["--proposal", "True", "--loss_sampling", "True", "--ema_decay", "0.99",
+                  "--distortion_loss_weight", "0.01"]
+
+
+def proposal_step_setup(device, fused, loss_sampling=True):
+    """The lego step with the four flags: a seeded 2x64 density-only
+    proposal MLP (plain) as the coarse branch, the 8x256 fine MLP (B1 + B2
+    when ``fused``), two 400x400 seeded images, N_rand 1024, 64 proposal +
+    128 importance samples, the state at step 600 (past the precrop
+    window, so the weighted tail is drawn), an EMA shadow at decay 0.99 and
+    a seeded peaked loss map [2, 50, 50]. Returns (state, step, images,
+    poses, overrides, draws): the stratified and inverse-CDF draws, image
+    1, its permutation keys and the weighted tail's tile uniforms and
+    jitter, pinned."""
+    import torch
+
+    from nerf_shared_tpu_torch.data.poses import pose_spherical
+    from nerf_shared_tpu_torch.models.nerf import NeRFConfig
+    from nerf_shared_tpu_torch.render.renderer import RenderConfig
+    from nerf_shared_tpu_torch.train.loss_sampling import LossSamplingSpec
+    from nerf_shared_tpu_torch.train.pipeline import PixelSamplerSpec
+    from nerf_shared_tpu_torch.train.state import create_train_state
+    from nerf_shared_tpu_torch.train.step import make_train_step
+
+    ccfg = NeRFConfig(D=2, W=64, output_ch=4, skips=(4,), use_viewdirs=False,
+                      multires=10, multires_views=4)
+    fcfg = NeRFConfig(D=8, W=256, skips=(4,), use_viewdirs=True, multires=10,
+                      multires_views=4, output_ch=5)
+    g = torch.Generator().manual_seed(23)
+    H = W = 400
+    focal = 0.5 * H / math.tan(0.5 * 0.6911112)
+    K = [[focal, 0, W / 2], [0, focal, H / 2], [0, 0, 1]]
+    poses = torch.stack([torch.as_tensor(pose_spherical(a, -30.0, 4.0)[:3, :4])
+                         for a in (0.0, 120.0)]).float().to(device)
+    images = torch.rand(2, H, W, 3, generator=g).to(device)
+    spec = PixelSamplerSpec.from_K(H, W, K, 1024, single_image=True, precrop_iters=500,
+                                   precrop_frac=0.5)
+    rcfg = RenderConfig(perturb=1.0, N_importance=128, N_samples=64, use_viewdirs=True,
+                        white_bkgd=True, near=2.0, far=6.0, fused_backward=fused,
+                        proposal=True)
+    state = create_train_state(ccfg, fcfg, device, seed=3, lrate=5e-4, lrate_decay=500)
+    state.step = 600
+    state.init_ema()
+    state.loss_map = (torch.rand(2, 50, 50, generator=g) ** 4).to(device)
+    overrides = {"t_rand": torch.rand(1024, 64, generator=g).to(device),
+                 "u": torch.rand(1024, 128, generator=g).to(device)}
+    draws = {"img_idx": 1, "key_y": torch.randint(0, 1 << 32, (2,), generator=g),
+             "key_x": torch.randint(0, 1 << 32, (2,), generator=g),
+             "tile_u": torch.rand(1024, generator=g),
+             "jitter_y": torch.randint(0, 8, (1024,), generator=g),
+             "jitter_x": torch.randint(0, 8, (1024,), generator=g)}
+    step = make_train_step(rcfg, ccfg, fcfg, spec, prop_reg=1.0, dist_reg=0.01,
+                           loss_sampling=LossSamplingSpec() if loss_sampling else None,
+                           ema_decay=0.99)
+    return state, step, images, poses, overrides, draws
+
+
+def count_syncs(fn):
+    """Host syncs ``fn`` makes, as torch.cuda.set_sync_debug_mode("warn")
+    reports them: (count, the sorted "file:line" of each)."""
+    import warnings
+
+    import torch
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    where = sorted(f"{os.path.relpath(w.filename, REPO)}:{w.lineno}" for w in caught
+                   if "synchroniz" in str(w.message))
+    return len(where), where
+
+
+def check_proposal_step(device):
+    """Phase 12 (a): one step with the four flags at full width through B1
+    + B2 and through the plain path from the same state and draws: the loss
+    and its parts within 1e-5, every gradient (proposal and fine) within
+    1e-3 of its max, the post-Adam parameters as phase 5 holds them
+    (adam_checks), the EMA shadow (each route's equal to 0.99 e0 + 0.01 p
+    to 1e-6, the routes apart by at most 0.01 x their parameters' gap +
+    1e-6) and the updated loss map within 1e-5 of its max. Exactly one B1
+    and one B2 launch on the kernel route, none on the plain one. Then the
+    host syncs of an unpinned loss-sampling step against a uniform step's
+    (the tail is drawn and the map updated on the card: it must add none).
+    Returns times and errors."""
+    import torch
+
+    out = {}
+    for fused in (True, False):
+        state, step, images, poses, ov, draws = proposal_step_setup(device, fused)
+        e0 = [state.ema[b][n].clone() for (b, n) in state.named_parameters()]
+        lmap0 = state.loss_map.clone()
+        params = state.parameters()
+        before = launch_counts()
+        aux = step(state, images, poses, torch.Generator().manual_seed(9), draws=draws,
+                   overrides=ov)
+        torch.cuda.synchronize()
+        after = launch_counts()
+        out[fused] = dict(aux={k: float(v) for k, v in aux.items()},
+                          launched={k: after[k] - before[k] for k in after},
+                          grads=[p.grad.detach().clone() for p in params],
+                          params=[p.detach().clone() for p in params],
+                          ema=[state.ema[b][n].clone() for (b, n) in state.named_parameters()],
+                          e0=e0, lmap=state.loss_map.clone(), lmap0=lmap0,
+                          names=list(state.named_parameters()),
+                          lrs=[gr["lr"] for gr in state.optimizer.param_groups
+                               for _ in gr["params"]])
+
+        def again():
+            step(state, images, poses, torch.Generator().manual_seed(9), draws=draws,
+                 overrides=ov)
+
+        out[fused]["ms"] = time_ms(again, 3)
+    k, p = out[True], out[False]
+    expect_launches("proposal step, kernels", k["launched"],
+                    {"fused_mlp_points": 1, "fused_mlp_bwd": 1})
+    expect_launches("proposal step, plain", p["launched"], {})
+    part_err = {n: abs(k["aux"][n] - p["aux"][n]) / abs(p["aux"][n])
+                for n in ("loss", "img_loss", "prop_loss", "dist_loss")}
+    grad_err = {b: max(rel_err(gk, gp) for (bb, _), gk, gp in zip(k["names"], k["grads"],
+                                                                    p["grads"]) if bb == b)
+                for b in ("coarse", "fine")}
+    param_err, adam_err, moved, moved_tol, moved_g, n_sure, n_par = adam_checks(k, p)
+    blend_err = max(float((e - (0.99 * e0 + 0.01 * q)).abs().max())
+                    for r in (k, p) for e, e0, q in zip(r["ema"], r["e0"], r["params"]))
+    ema_gap = max(float(((ek - ep).abs() - 0.01 * (qk - qp).abs()).max())
+                  for ek, ep, qk, qp in zip(k["ema"], p["ema"], k["params"], p["params"]))
+    lmap_err = rel_err(k["lmap"], p["lmap"])
+    lmap_moved = int((k["lmap"] != k["lmap0"]).sum())
+
+    # host syncs: an unpinned loss-sampling step against a uniform one
+    syncs, sites = {}, {}
+    for name, ls in (("uniform", False), ("loss_sampling", True)):
+        state, step, images, poses, _, _ = proposal_step_setup(device, True, loss_sampling=ls)
+        gen = torch.Generator().manual_seed(5)
+        step(state, images, poses, gen)   # warm-up
+        syncs[name], sites[name] = count_syncs(lambda: step(state, images, poses, gen))
+    log(f"proposal step (lego, --proposal --loss_sampling --ema_decay 0.99 "
+        f"--distortion_loss_weight 0.01; N_rand 1024, 64 proposal + 128 importance samples, "
+        f"2x64 proposal plain, 8x256 fine 196,608 points): kernels {k['ms']:.2f} ms, plain "
+        f"{p['ms']:.2f} ms; launches {k['launched']}; loss parts rel err "
+        + ", ".join(f"{n} {e:.1e}" for n, e in part_err.items()) + " (tol 1e-5); worst "
+        f"gradient proposal {grad_err['coarse']:.1e}, fine {grad_err['fine']:.1e} of max|grad| "
+        f"(tol 1e-3); post-Adam params {param_err:.1e} (tol 1e-6) on {n_sure} of {n_par}, "
+        f"{adam_err:.1e} from Adam's update (tol 1e-6), {moved} moved apart (tol "
+        f"{moved_tol}, largest |grad| {moved_g:.1e} of max); EMA blend err {blend_err:.1e}, "
+        f"routes' EMA gap beyond 0.01 x params' {ema_gap:.1e} (tol 1e-6); loss map "
+        f"{lmap_err:.1e} of max (tol 1e-5), {lmap_moved} tiles updated; host syncs a step: "
+        f"uniform {syncs['uniform']} {sites['uniform']}, loss sampling "
+        f"{syncs['loss_sampling']} {sites['loss_sampling']}")
+    if not (all(e <= 1e-5 for e in part_err.values())
+            and all(e <= 1e-3 for e in grad_err.values()) and param_err <= 1e-6
+            and adam_err <= 1e-6 and moved <= moved_tol and blend_err <= 1e-6
+            and ema_gap <= 1e-6 and lmap_err <= 1e-5 and lmap_moved > 0
+            and syncs["loss_sampling"] <= syncs["uniform"]):
+        raise AssertionError("the proposal step through the kernels disagrees with the "
+                             "plain step, or loss sampling added host syncs")
+    return {"kernel_ms": k["ms"], "plain_ms": p["ms"], "part_err": part_err,
+            "grad_err": grad_err, "param_err": param_err, "adam_err": adam_err,
+            "moved": moved, "ema_blend_err": blend_err, "ema_gap": ema_gap,
+            "lmap_err": lmap_err, "syncs": syncs}
+
+
+def phase_proposal(device, trained, smi, steps=400, more=100, mixed_steps=100):
+    """Phase 12: --proposal --loss_sampling --ema_decay 0.99
+    --distortion_loss_weight 0.01 with configs/lego.txt on phase 6's scene
+    (--precrop_iters 100, so most steps draw the weighted tail): (a) one
+    step against the plain step (check_proposal_step); (b) apps/train.main
+    for ``steps`` + ``more`` steps: exactly one B1 and one B2 a step, no
+    B3 while training (the one [VAL] frame at the end: 5 B3 + 10 B5, the
+    proposal plain), train PSNR rising, the ema/ sidecar in the .ckpt.npz
+    restored exactly, the loss map off uniform; --render_only
+    --render_test (5 B3 + 10 B5 a frame; the frame within 1e-3 of the plain
+    renderer on the EMA weights at the kernel run's fine depths, and apart
+    from the raw weights' frame; held-out PSNR >= 2 dB above all-white);
+    one frame served over HTTP through --render_guided 48 (/info "ema"
+    true); --render_gate refused; (c) the mixed hierarchy (the proposal
+    coarse + the split L8/F8/T14 hashgrid fine) for ``mixed_steps`` steps:
+    exactly 8 P1 + 8 P2 a step and nothing else, the tables' Adam group at
+    --grid_lrate, and one served frame against its plain versions."""
+    import re
+
+    import numpy as np
+    import torch
+
+    from nerf_shared_tpu_torch.apps.serve import serve_parser
+    from nerf_shared_tpu_torch.apps.train import build_eval_engine
+    from nerf_shared_tpu_torch.config import config_parser
+    from nerf_shared_tpu_torch.data.datasets import load_datasets
+    from nerf_shared_tpu_torch.factory import get_train_state
+    from nerf_shared_tpu_torch.train.state import lr_at
+    from nerf_shared_tpu_torch.utils import checkpoints as ckpt_utils
+
+    t_phase = time.perf_counter()
+    step_check = check_proposal_step(device)
+
+    # (b) the trainer, resumed, render_only, served
+    total = steps + more
+    argv = [a if a != "lego_smoke" else "lego_proposal" for a in trained["base_argv"]] + (
+        PROPOSAL_FLAGS + ["--precrop_iters", "100", "--i_img", str(total), "--i_weights",
+                          str(steps), "--i_print", "50"])
+    args = config_parser().parse_args(argv)
+    expdir = os.path.join(args.basedir, args.expname)
+    serve_argv = argv + ["--N_iters", str(total), "--port", "0"]
+    ds = load_datasets(serve_parser().parse_args(serve_argv))
+    blocks = math.ceil(ds.hwf[0] * ds.hwf[1] / args.chunk)
+    zero_counts()
+    state1, text1 = run_train_cli(argv + ["--N_iters", str(steps)])
+    first = launch_counts()
+    expect_launches("proposal training (first run)", first,
+                    {"fused_mlp_points": steps, "fused_mlp_bwd": steps})
+    with np.load(os.path.join(expdir, f"{steps:06d}.ckpt.npz")) as z:
+        ema_keys = [n for n in z.files if n.startswith("ema/")]
+        saved = np.array_equal(z["ema/fine/pts_linears/0/w"],
+                               state1.ema["fine"]["pts_linears.0.weight"].T.cpu().numpy())
+    fresh = get_train_state(args, device)
+    fresh.init_ema()
+    ckpt_utils.restore_train_state(fresh, args)
+    restored = all(torch.equal(fresh.ema[b][n], state1.ema[b][n])
+                   for b in state1.ema for n in state1.ema[b])
+    state2, text2 = run_train_cli(argv + ["--N_iters", str(total)])
+    launches = launch_counts()
+    expect_launches("proposal training", launches,
+                    {"fused_mlp_points": total, "fused_mlp_bwd": total, "fused_mlp": blocks,
+                     "composite": 2 * blocks})
+    train_lines = re.findall(r"\[TRAIN\] Iter: \d+ Loss: \S+\s+PSNR: (\S+)\s+rays/sec: (\S+)",
+                             text1 + text2)
+    psnrs = [float(a) for a, _ in train_lines]
+    rps = [float(b.replace(",", "")) for _, b in train_lines]
+    train_ms = 1e3 * args.N_rand / statistics.median(rps[1:])
+    it, view, vpsnr, vssim = re.findall(r"\[VAL\] Iter: (\d+) view (\d+) PSNR: (\S+) SSIM: (\S+)",
+                                        text2)[-1]
+    lm = state2.loss_map
+    lmap_spread = float(lm.max() / lm.min())
+    log(f"proposal training: {steps} + {more} steps, median {statistics.median(rps[1:]):,.0f} "
+        f"rays/s = {train_ms:.2f} ms a step; train PSNR {psnrs[0]:.2f} -> {psnrs[-1]:.2f} dB; "
+        f"{len(ema_keys)} ema/ keys in the .ckpt.npz (the shadow as trained: {saved}), "
+        f"restored exactly: {restored}; loss map max/min {lmap_spread:.1f} at the end; "
+        f"launches {launches}")
+    if not (len(ema_keys) == len(state1.parameters()) and saved and restored
+            and f"{steps:06d}.ckpt.npz" in text2 and psnrs[-1] > psnrs[0] + 1.0
+            and state2.count == total and float((lm - 1.0).abs().max()) > 1e-3):
+        raise AssertionError("the proposal trainer failed a check")
+
+    eng = build_eval_engine(serve_parser().parse_args(serve_argv), ds=ds)
+    white = -10.0 * math.log10(float(np.mean((1.0 - ds.images[int(view)]) ** 2)))
+    zero_counts()
+    _, text3 = run_train_cli(argv + ["--N_iters", str(total), "--render_only",
+                                     "--render_test"])
+    render_launches = launch_counts()
+    n_test = len(ds.i_test)
+    expect_launches("proposal render_only", render_launches,
+                    {"fused_mlp": n_test * blocks, "composite": n_test * 2 * blocks})
+    sidecar = ckpt_utils.read_native_ema(os.path.join(expdir, f"{total:06d}.ckpt.npz"))
+    is_ema = all(torch.equal(v.cpu(), sidecar[b][n])
+                 for b, m in (("coarse", eng.coarse), ("fine", eng.fine))
+                 for n, v in m.state_dict().items())
+    c2w = np.asarray(ds.poses[ds.i_test[0]][:3, :4], np.float32)
+    t0 = time.perf_counter()
+    rgb_k, acc_k, z_k, _, _ = engine_maps(eng, True, c2w)
+    frame_ms = 1e3 * (time.perf_counter() - t0)
+    err, n_held, flips = held(rgb_k, acc_k, *plain_fine_pass(eng, c2w, z_k))
+    raw_eng = build_eval_engine(serve_parser().parse_args(
+        [a for a in serve_argv if a not in ("--ema_decay", "0.99")]), ds=ds)
+    raw_gap = float(np.abs(engine_maps(raw_eng, True, c2w)[0] - rgb_k).max())
+    log(f"proposal render_only: {n_test} views, launches {render_launches}; the engine holds "
+        f"the EMA sidecar: {is_ema}; test view 0 vs the plain renderer on the EMA weights at "
+        f"the kernel run's depths {err:.2e} over {n_held}/{acc_k.size} rays ({flips} sentinel "
+        f"flips set apart; tol 1e-3); vs the raw weights' frame {raw_gap:.2e}; held-out view "
+        f"{view} at step {it}: {float(vpsnr):.2f} dB (SSIM {vssim}), all-white {white:.2f} dB")
+    if not (is_ema and err <= 1e-3 and flips <= acc_k.size // 1000 and raw_gap > 1e-3
+            and float(vpsnr) >= white + 2.0):
+        raise AssertionError("the proposal render failed a check")
+
+    served = Served(serve_argv + ["--render_guided", "48"], ds=ds)
+    try:
+        zero_counts()
+        status, _, body = http(served.base + "/render", {"c2w": c2w.tolist(), "fmt": "npy"})
+        served_launches = launch_counts()
+        info = json.loads(http(served.base + "/info")[2])
+    finally:
+        served.close()
+    img = np.load(io.BytesIO(body))
+    g_eng = served.service.engine
+    served_ms = served.service._latencies[0] * 1e3
+    expect_launches("proposal guided frame", served_launches,
+                    {"fused_mlp": blocks, "composite": 2 * blocks})
+    kern = engine_maps(g_eng, True, c2w)
+    checks, _, _, note = frame_checks(g_eng, c2w, kern)
+    g_err, g_held, g_flips = checks["at the kernel run's depths"]
+    same = float(np.abs(kern[0] - img).max())
+    gate_eng = build_eval_engine(serve_parser().parse_args(serve_argv + ["--render_gate",
+                                                                         "1e-3"]), ds=ds)
+    try:
+        gate_eng.render_poses(c2w[None])
+        gate_refused = False
+    except ValueError as e:
+        gate_refused = "density-only" in str(e)
+    log(f"proposal guided 48 frame over HTTP: {served_ms:.1f} ms, launches {served_launches}; "
+        f"/info ema {info.get('ema')}, engine {info.get('engine')}; vs plain at the kernel "
+        f"run's depths {g_err:.2e} over {g_held} rays ({g_flips} flips){note}; HTTP vs direct "
+        f"{same:.1e}; --render_gate refused: {gate_refused}")
+    if not (status == 200 and info.get("ema") is True and info.get("engine") == "dense"
+            and g_err <= 1e-3 and g_flips <= img.size // 3000 and same <= 1e-6
+            and np.isfinite(img).all() and gate_refused):
+        raise AssertionError("the proposal guided frame failed a check")
+
+    # (c) the mixed hierarchy: a proposal MLP coarse + the split hashgrid fine
+    m_argv = [a if a != "lego_smoke" else "mixed_proposal" for a in trained["base_argv"]] + (
+        GRID_ARGS + ["--proposal", "True", "--i_img", "0", "--i_weights", str(mixed_steps),
+                     "--i_print", "25"])
+    zero_counts()
+    m_state, m_text = run_train_cli(m_argv + ["--N_iters", str(mixed_steps)])
+    m_launches = launch_counts()
+    expect_launches("mixed hierarchy training", m_launches,
+                    {"gather": 8 * mixed_steps, "scatter_add": 8 * mixed_steps})
+    groups = {gr["label"]: gr for gr in m_state.optimizer.param_groups}
+    tables = {id(t) for t in m_state.fine.tables}
+    lr_ok = (abs(groups["grid"]["lr"] - lr_at(2e-2, 500, mixed_steps - 1)) < 1e-12
+             and abs(groups["net"]["lr"] - lr_at(5e-4, 500, mixed_steps - 1)) < 1e-12
+             and {id(t) for t in groups["grid"]["params"]} == tables
+             and isinstance(m_state.coarse.cfg, type(eng.coarse.cfg))
+             and m_state.coarse.cfg.W == 64)
+    m_rps = [float(r.replace(",", "")) for r in re.findall(r"rays/sec: (\S+)", m_text)]
+    m_ms = 1e3 * args.N_rand / statistics.median(m_rps[1:])
+    log(f"mixed hierarchy (2x64 proposal + split L8/F8/T14 hashgrid): {mixed_steps} steps, "
+        f"{m_ms:.2f} ms a step; launches {m_launches}; the tables' group at "
+        f"{groups['grid']['lr']:.3e}, the rest at {groups['net']['lr']:.3e}: {lr_ok}")
+    if not lr_ok:
+        raise AssertionError("the mixed hierarchy's Adam groups are off")
+    m_served = serve_grid(m_argv + ["--N_iters", str(mixed_steps), "--port", "0"], ds,
+                          {"gather": 8 * blocks, "composite": 2 * blocks})
+
+    wall = time.perf_counter() - t_phase
+    log(f"phase 12 proposal: step {step_check['kernel_ms']:.2f} ms through B1 + B2 "
+        f"(plain {step_check['plain_ms']:.2f} ms; phase 6's lego step "
+        f"{trained['ms_per_step']:.2f} ms), the trainer {train_ms:.2f} ms a step; dense frame "
+        f"{frame_ms:.1f} ms, guided 48 frame {served_ms:.1f} ms; held-out PSNR "
+        f"{float(vpsnr):.2f} dB (all-white {white:.2f}); mixed step {m_ms:.2f} ms, frame "
+        f"{m_served['frame_ms'][1]:.1f} ms; {wall:.1f} s; {smi}")
+    return {"step": step_check, "train_ms": train_ms, "train_psnr": psnrs,
+            "val": (int(it), int(view), float(vpsnr), float(vssim)), "white_psnr": white,
+            "frame_ms": frame_ms, "frame_err": err, "raw_gap": raw_gap,
+            "guided_ms": served_ms, "guided_err": g_err, "mixed_ms": m_ms,
+            "mixed_frame_ms": m_served["frame_ms"], "mixed_frame_err": m_served["err"],
+            "s": wall, "launches_by_path": {
+                "proposal_training": launches, "proposal_render_only": render_launches,
+                "proposal_guided_serving": served_launches,
+                "mixed_training": m_launches, "mixed_serving": m_served["launches"]}}
+
+
+def _profile(what, fn, top_n=8):
+    """fn() under torch.profiler: device time by kernel (the ``top_n``
+    largest) and the device's busy share of the wall time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -2901,7 +3316,7 @@ def _profile(what, fn):
     busy = sum(by_name.values())
     if busy <= 0:
         raise AssertionError("the profiler recorded no device time")
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:top_n]
     log(f"profile {what}: {wall_ms:.1f} ms wall, device busy {busy:.1f} ms "
         f"({100 * busy / wall_ms:.1f}%)")
     for name, ms in top:
@@ -3000,6 +3415,7 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     device = "cuda"
+    t_script = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     log(f"torch {torch.__version__} cuda {torch.version.cuda} on "
@@ -3042,7 +3458,7 @@ def main() -> int:
         train_cases, step = phase_train_kernels(device)
         cases += train_cases
         log(f"phase 5: training kernels in {time.perf_counter() - t0:.1f} s")
-    if want(6, 7, 11):
+    if want(6, 7, 11, 12):
         t0 = time.perf_counter()
         trained = phase_training(device)
         log(f"phase 6: training in {time.perf_counter() - t0:.1f} s")
@@ -3068,11 +3484,18 @@ def main() -> int:
         pose = phase_pose(device, trained)
         cases += pose["cases"]
         log(f"phase 11: camera poses in {time.perf_counter() - t0:.1f} s")
+    if want(12):
+        t0 = time.perf_counter()
+        proposal = phase_proposal(device, trained, smi)
+        log(f"phase 12: the proposal sampler, loss sampling and EMA in "
+            f"{time.perf_counter() - t0:.1f} s")
     if profile:
         if want(3, 4):
             profile_frame(served["engine"], served["pose"])
-        if want(5, 6):
+        if want(5, 6, 12):
             profile_train_step(device)
+        if want(12):
+            profile_proposal_step(device)
         if want(9):
             profile_grid_step(device)
             profile_grid_step(device, vertex=True)
@@ -3080,7 +3503,8 @@ def main() -> int:
             profile_train_step(device, recipe="fern")
             _profile("fern frame", lambda: llff["engine"].render_poses(llff["pose"][None]))
     if only is not None:
-        log(f"phases {sorted(only)} done (no result lines with --phases)")
+        log(f"phases {sorted(only)} done in {time.perf_counter() - t_script:.1f} s "
+            "(no result lines with --phases)")
         return 0
     by_path = dict(served["launches"])
     by_path["training"] = trained["launches"]
@@ -3091,6 +3515,7 @@ def main() -> int:
     by_path.update(grid["launches_by_path"])
     by_path.update(llff["launches_by_path"])
     by_path.update(pose["launches_by_path"])
+    by_path.update(proposal["launches_by_path"])
 
     sources = {
         "fused_mlp_points": ("nerf_shared_tpu_torch/csrc/fused_mlp.cu",
@@ -3135,7 +3560,10 @@ def main() -> int:
                              if k not in ("launches_by_path", "engine", "pose")},
                     "pose": {k: v for k, v in pose.items()
                              if k not in ("launches_by_path", "cases")},
+                    "proposal": {k: v for k, v in proposal.items()
+                                 if k != "launches_by_path"},
                     "probe": probe}))
+    log(f"all phases in {time.perf_counter() - t_script:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

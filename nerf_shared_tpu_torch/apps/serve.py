@@ -115,6 +115,7 @@ class RenderService:
             "height": int(eng.H),
             "width": int(eng.W),
             "occ_fine": int(getattr(self.args, "occ_fine", 0)),
+            "ema": float(getattr(self.args, "ema_decay", 0.0)) > 0.0,
             "device": str(dev),
             "n_devices": torch.cuda.device_count() if dev.type == "cuda" else 1,
         }

@@ -20,7 +20,14 @@ grows the planes at its milestones. ``--refine_poses`` and
 ``--appearance`` train per-image pose twists and exposure corrections with
 the field (train/step.py); ``--barf_anneal`` anneals the encoding, and
 every eval render mid-anneal (the hooks, ``render_only``, the service)
-sees the step's masked encoder (``_eval_models``).
+sees the step's masked encoder (``_eval_models``). ``--proposal`` trains a
+density-only proposal MLP as the coarse branch (plain network, never
+B1-B4; with a grid ``--model_type`` the mixed hierarchy) through the
+interlevel loss, ``--distortion_loss_weight`` adds the distortion loss,
+``--loss_sampling`` draws part of each batch from a per-tile error map on
+the device, and ``--ema_decay`` keeps an EMA shadow of the fields that
+every eval render reads (the hooks from the state, ``render_only``, the
+eval CLI and the service from the checkpoint's ``ema/`` sidecar).
 
 Render engines (``EvalEngine.engine_name``): ``dense`` (guided with
 ``--render_guided``), ``gated`` (``--render_gate``), ``occ-froxel`` and
@@ -39,6 +46,7 @@ import dataclasses
 import os
 import time
 import warnings
+from typing import Optional
 
 import numpy as np
 import torch
@@ -58,7 +66,8 @@ from nerf_shared_tpu_torch.factory import (
     grid_lrate,
     nerf_configs,
 )
-from nerf_shared_tpu_torch.models.triplane import upsample_triplane
+from nerf_shared_tpu_torch.models.triplane import TriplaneConfig, upsample_triplane
+from nerf_shared_tpu_torch.train.loss_sampling import LossSamplingSpec, init_loss_map
 from nerf_shared_tpu_torch.train.pipeline import PixelSamplerSpec
 from nerf_shared_tpu_torch.train.state import fresh_state_at, make_model
 from nerf_shared_tpu_torch.train.step import make_train_step
@@ -69,14 +78,9 @@ from nerf_shared_tpu_torch.utils.metrics import ssim, to8b
 # flags whose paths the port does not carry yet: each raises instead of
 # being ignored (name -> (is-set test, what it would need))
 _NOT_PORTED = {
-    "ema_decay": (lambda v: float(v) > 0.0, "EMA eval state (ROADMAP A11)"),
-    "proposal": (bool, "the proposal sampler (ROADMAP A11)"),
     "precision": (lambda v: v != "fp32", "bf16 operands in the CUDA kernels"),
     "mesh_shape": (lambda v: bool(v), "multi-GPU renders and training (ROADMAP A16)"),
     "train_occ": (bool, "the occupancy-gated trainer (ROADMAP A14)"),
-    "loss_sampling": (bool, "loss-guided pixel sampling (ROADMAP A11)"),
-    "distortion_loss_weight": (lambda v: float(v) > 0.0,
-                               "the distortion loss (ROADMAP A11)"),
     "multihost": (bool, "multi-host training over torch.distributed (ROADMAP A16)"),
     "debug_nans": (bool, "NaN checks at the source: torch.autograd anomaly "
                    "mode and a finite check after every kernel (ROADMAP C2)"),
@@ -111,6 +115,44 @@ def check_ported(args):
                 "nerf_shared_tpu_torch yet")
 
 
+def check_trainer_flags(args):
+    """The JAX trainer's guards on --loss_sampling (single-image sampling
+    only) and on --proposal, --loss_sampling and --ema_decay with
+    --train_occ (which the port does not carry yet: ROADMAP A14)."""
+    train_occ = bool(getattr(args, "train_occ", False))
+    occ_note = (" (and --train_occ, the occupancy-gated trainer, is not ported to "
+                "nerf_shared_tpu_torch yet: ROADMAP A14)")
+    if bool(getattr(args, "loss_sampling", False)):
+        if not args.no_batching:
+            raise SystemExit(
+                "--loss_sampling targets single-image sampling: add "
+                "--no_batching (the batching pipeline draws across all "
+                "images per step)")
+        if train_occ:
+            raise SystemExit(
+                "--loss_sampling targets the hierarchical/proposal "
+                "trainer (the occ trainer has its own candidate sampler)" + occ_note)
+    if float(getattr(args, "ema_decay", 0.0)) > 0.0 and train_occ:
+        raise SystemExit(
+            "--ema_decay targets the hierarchical/proposal trainer "
+            "(the occ trainer does not maintain the EMA shadow)" + occ_note)
+    if bool(getattr(args, "proposal", False)) and train_occ:
+        raise SystemExit(
+            "--proposal and --train_occ are alternative accelerants: "
+            "the occ trainer is fine-only (no coarse branch to "
+            "propose for) and the two-phase seed copy assumes "
+            "same-shape coarse/fine nets" + occ_note)
+
+
+def loss_sampling_spec(args) -> Optional[LossSamplingSpec]:
+    """--loss_sampling's spec from its flags, or None when it is off."""
+    if not bool(getattr(args, "loss_sampling", False)):
+        return None
+    return LossSamplingSpec(tile=int(args.loss_sampling_tile),
+                            frac=float(args.loss_sampling_frac),
+                            decay=float(args.loss_sampling_decay))
+
+
 def check_barf(args):
     """The JAX trainer's guards on --barf_anneal: the MLP family with the
     positional encoding only."""
@@ -137,19 +179,22 @@ def _barf_progress(args, step):
 
 
 @torch.no_grad()
-def _eval_models(args, step, coarse, fine):
+def _eval_models(args, step, coarse, fine, ema=None):
     """What the eval renders at ``step`` see: the models as they are, or
-    mid-anneal (--barf_anneal, progress < 1) (params, cfg) pairs with the
-    step's BARF mask, the encoder the training step saw (the untrained
-    high-frequency weights, still at their init under the mask, would
-    otherwise add noise). Never used for checkpoints."""
+    (params, cfg) pairs of the EMA shadow ``ema`` ({"coarse", "fine":
+    state dict}, --ema_decay) and then, mid-anneal (--barf_anneal,
+    progress < 1), the step's BARF mask, the encoder the training step saw
+    (the untrained high-frequency weights, still at their init under the
+    mask, would otherwise add noise). Never used for checkpoints."""
+    pairs = [None if m is None else (m.params() if ema is None else ema[b], m.cfg)
+             for b, m in (("coarse", coarse), ("fine", fine))]
     p = _barf_progress(args, step)
     if p is None or p >= 1.0:
-        return coarse, fine
+        return (coarse, fine) if ema is None else tuple(pairs)
     from nerf_shared_tpu_torch.models.nerf import anneal_nerf_params
 
-    return tuple(None if m is None else (anneal_nerf_params(m.params(), m.cfg, p), m.cfg)
-                 for m in (coarse, fine))
+    return tuple(None if pr is None else (anneal_nerf_params(pr[0], pr[1], p), pr[1])
+                 for pr in pairs)
 
 
 def _grid_select(args) -> str:
@@ -217,24 +262,31 @@ def _resolve_triplane_aabb(args, ds, H, W):
     print(f"grid aabb half-extent: {args.triplane_aabb:.2f}")
 
 
+def _plane_res(ccfg, fcfg) -> Optional[int]:
+    """The triplane branches' plane resolution G (the fine's in the mixed
+    hierarchy, where the coarse is a proposal MLP), or None."""
+    return next((c.G for c in (ccfg, fcfg) if isinstance(c, TriplaneConfig)), None)
+
+
 def _sync_triplane_res(args, ccfg, fcfg):
     """Adopt the plane resolution of the checkpoint a run will load (a
     resume after an upsample carries larger planes than --triplane_res, and
     G sets the sampling coordinates). No-op for the other families and for
     matching resolutions. Returns (ccfg, fcfg)."""
     ckpts = ckpt_utils.find_checkpoints(args.basedir, args.expname, args.ft_path)
-    if (getattr(ccfg, "G", None) is None or not ckpts or args.no_reload
-            or not ckpts[-1].endswith(".npz")):
+    G = _plane_res(ccfg, fcfg)
+    if G is None or not ckpts or args.no_reload or not ckpts[-1].endswith(".npz"):
         return ccfg, fcfg
+    branch = "coarse" if isinstance(ccfg, TriplaneConfig) else "fine"
     with np.load(ckpts[-1]) as z:
-        if "params/coarse/planes" not in z.files:
+        if f"params/{branch}/planes" not in z.files:
             return ccfg, fcfg
-        g = int(z["params/coarse/planes"].shape[1])
-    if g == ccfg.G:
+        g = int(z[f"params/{branch}/planes"].shape[1])
+    if g == G:
         return ccfg, fcfg
     print(f"triplane resolution from checkpoint: {g}^2 planes")
-    return (dataclasses.replace(ccfg, G=g),
-            dataclasses.replace(fcfg, G=g) if fcfg is not None else None)
+    return tuple(dataclasses.replace(c, G=g) if isinstance(c, TriplaneConfig) else c
+                 for c in (ccfg, fcfg))
 
 
 def _upsample_milestones(args, start):
@@ -249,11 +301,15 @@ def _upsample_milestones(args, start):
 
 
 def _upsample_state(state, new_G, args):
-    """The TrainState with both branches' planes grown to new_G and a fresh
-    Adam whose schedule continues at state.step; returns (state, ccfg,
-    fcfg)."""
+    """The TrainState with the triplane branches' planes grown to new_G (a
+    proposal coarse stays as it is) and a fresh Adam whose schedule
+    continues at state.step; the loss map carries over and an EMA shadow
+    restarts at the new parameters. Returns (state, ccfg, fcfg)."""
     mods = []
     for _, m in state.branches():
+        if not isinstance(m.cfg, TriplaneConfig):
+            mods.append(m)
+            continue
         params, cfg = upsample_triplane(m.params(), m.cfg, new_G)
         new = make_model(cfg, params["planes"].device)
         new.load_state_dict(params, strict=True)
@@ -262,7 +318,8 @@ def _upsample_state(state, new_G, args):
     new_state = fresh_state_at(mods[0], fine, state.step, lrate=args.lrate,
                                lrate_decay=args.lrate_decay, grid_lrate=grid_lrate(args),
                                aux=state.aux, pose_lrate=args.pose_lrate,
-                               appearance_lrate=args.appearance_lrate)
+                               appearance_lrate=args.appearance_lrate,
+                               ema=state.ema is not None, loss_map=state.loss_map)
     return new_state, mods[0].cfg, fine.cfg if fine is not None else None
 
 
@@ -298,6 +355,7 @@ def train(args):
     or the newest checkpoint, then one step per iteration with the print,
     checkpoint, test-set, validation-image and render-path hooks, and a
     final checkpoint. Returns the TrainState."""
+    check_trainer_flags(args)
     check_ported(args)
     check_barf(args)
     device = resolve_device(args.device)
@@ -315,6 +373,15 @@ def train(args):
         print(f"BARF annealing: frequency bands ramp over steps "
               f"[{int(getattr(args, 'barf_anneal_start', 0))}, "
               f"{int(args.barf_anneal)}]")
+    ls_spec = loss_sampling_spec(args)
+    if ls_spec is not None:
+        print(f"loss sampling: {ls_spec.frac:.0%} of rays from the "
+              f"per-image {ls_spec.tile}px-tile error map "
+              f"(EMA decay {ls_spec.decay})")
+    ema_decay = float(getattr(args, "ema_decay", 0.0))
+    if ema_decay > 0.0:
+        print(f"EMA eval: decay {ema_decay} shadow of the field params "
+              "(training uses raw params; eval/render use the average)")
     refine_poses = bool(getattr(args, "refine_poses", False))
     appearance = bool(getattr(args, "appearance", False))
     state = get_train_state(args, device, cfgs=(ccfg, fcfg),
@@ -327,7 +394,14 @@ def train(args):
         print(f"appearance: {len(ds.i_train)} per-image exposure/WB "
               f"corrections (lr {getattr(args, 'appearance_lrate', 1e-3)}); "
               "eval renders the canonical (uncorrected) radiance")
+    if ema_decay > 0.0:
+        # restore_train_state fills the shadow from the checkpoint's ema/
+        # sidecar, or restarts it at the loaded weights
+        state.init_ema()
     start = ckpt_utils.restore_train_state(state, args)
+    if ls_spec is not None:
+        # not checkpointed: a resume starts the map uniform
+        state.loss_map = init_loss_map(len(ds.i_train), H, W, ls_spec.tile, device)
     renderer = get_renderer(args, ds.bds_dict, device)
     spec = PixelSamplerSpec.from_K(
         H, W, ds.K, args.N_rand, single_image=args.no_batching,
@@ -347,6 +421,10 @@ def train(args):
     rcfg = dataclasses.replace(renderer.cfg, use_pallas=False,
                                fused_composite=False, fused_backward=fused_bwd,
                                guided=0)
+    if rcfg.proposal:
+        print(f"proposal sampler: coarse branch is a density-only "
+              f"{args.proposal_depth}x{args.proposal_width} MLP "
+              f"(interlevel loss weight {args.proposal_loss_weight})")
 
     def make_steps(ccfg, fcfg):
         """(step, warm-up step or None). --warmup_noise: sigma noise >= 1
@@ -356,7 +434,10 @@ def train(args):
                   pose_anchor=bool(getattr(args, "pose_anchor", True)),
                   pose_start=int(getattr(args, "refine_poses_from", 500)),
                   barf_end=int(getattr(args, "barf_anneal", 0)),
-                  barf_start=int(getattr(args, "barf_anneal_start", 0)))
+                  barf_start=int(getattr(args, "barf_anneal_start", 0)),
+                  prop_reg=args.proposal_loss_weight,
+                  dist_reg=args.distortion_loss_weight, loss_sampling=ls_spec,
+                  ema_decay=ema_decay)
         warm = None
         if args.warmup_noise > 0:
             warm = make_train_step(
@@ -395,8 +476,9 @@ def train(args):
     for i in range(start + 1, N_iters):
         while upsample_ms and i > upsample_ms[0][0]:
             _, new_G = upsample_ms.pop(0)
-            if new_G <= ccfg.G:
-                print(f"[UPSAMPLE] skip {new_G}^2: planes already {ccfg.G}^2")
+            if new_G <= _plane_res(ccfg, fcfg):
+                print(f"[UPSAMPLE] skip {new_G}^2: planes already "
+                      f"{_plane_res(ccfg, fcfg)}^2")
                 continue
             state, ccfg, fcfg = _upsample_state(state, new_G, args)
             step_fn, warm_fn = make_steps(ccfg, fcfg)
@@ -434,7 +516,7 @@ def train(args):
             testsavedir = os.path.join(args.basedir, args.expname, f"testset_{i:06d}")
             renderer.render_from_batch_poses(
                 H, W, ds.K, args.chunk, ds.poses[ds.i_test],
-                *_eval_models(args, i, state.coarse, state.fine), retraw=False,
+                *_eval_models(args, i, state.coarse, state.fine, state.ema), retraw=False,
                 save_directory=testsavedir, **hook_kw(i))
             print(f"Saved test set renders to {testsavedir}")
             hooked = True
@@ -443,7 +525,7 @@ def train(args):
             val_i = int(ds.i_val[(i // args.i_img) % len(ds.i_val)])
             rgb = renderer.render_from_batch_poses(
                 H, W, ds.K, args.chunk, ds.poses[val_i][None, :3, :4],
-                *_eval_models(args, i, state.coarse, state.fine), retraw=False,
+                *_eval_models(args, i, state.coarse, state.fine, state.ema), retraw=False,
                 **hook_kw(i))[0]
             val_mse = float(np.mean((rgb - ds.images[val_i]) ** 2))
             val_psnr = -10.0 * np.log10(val_mse) if val_mse > 0 else np.inf
@@ -463,7 +545,7 @@ def train(args):
             rposes = rposes[:, :3, :4] if rposes.ndim == 3 else rposes
             renderer.render_from_batch_poses(H, W, ds.K, args.chunk, rposes,
                                              *_eval_models(args, i, state.coarse,
-                                                           state.fine),
+                                                           state.fine, state.ema),
                                              retraw=False, save_directory=videodir,
                                              b_combine_as_video=True, **hook_kw(i))
             print(f"Saved render-path video to {videodir}")
@@ -522,7 +604,9 @@ class EvalEngine:
 def build_eval_engine(args, ds=None) -> EvalEngine:
     """Load the newest checkpoint (or seeded init weights when there is
     none) and assemble the render engine on ``--device``: the renderer,
-    and with --occ_grid the occupancy grid of the fine network."""
+    and with --occ_grid the occupancy grid of the fine network. With
+    --ema_decay the models hold the checkpoint's EMA shadow (its raw
+    weights when it has none), as the JAX engine renders them."""
     check_ported(args)
     device = resolve_device(args.device)
     pin_fp32()
@@ -538,7 +622,8 @@ def build_eval_engine(args, ds=None) -> EvalEngine:
     _resolve_triplane_aabb(args, ds, int(ds.hwf[0]), int(ds.hwf[1]))
     ccfg, fcfg = _sync_triplane_res(args, *nerf_configs(args))
     coarse, fine = create_nerf_models(args, device, cfgs=(ccfg, fcfg))
-    coarse_sd, fine_sd, start = ckpt_utils.load_checkpoint(args)
+    coarse_sd, fine_sd, start = ckpt_utils.load_checkpoint(
+        args, ema=float(getattr(args, "ema_decay", 0.0)) > 0.0)
     if coarse_sd is not None:
         coarse.load_state_dict(coarse_sd, strict=True)
         if fine is not None and fine_sd:

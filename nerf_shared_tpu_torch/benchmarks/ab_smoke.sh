@@ -36,6 +36,6 @@ for which in parent change change parent; do
   rc=$?
   [ $rc -ne 0 ] && failed=1
   echo "== run $n: $which ($dir), rc=$rc"
-  grep -E "^B[1-5] |^P1 / P2 |ms per step|^triplane: |frame over HTTP|^served 3 frames|^fused-composite frame|ms per frame \(|^profile |of device time|nstt::|HGMMA|HMMA|^  ptxas fused_mlp|^grid build|^phase 7 times|^train step|^phase 10 fern|^phase 11 pose|^pose " "$log"
+  grep -E "^B[1-5] |^P1 / P2 |ms per step|^triplane: |frame over HTTP|^served 3 frames|^fused-composite frame|ms per frame \(|^profile |of device time|nstt::|HGMMA|HMMA|^  ptxas fused_mlp|^grid build|^phase 7 times|^train step|^phase 10 fern|^phase 11 pose|^pose |^phase 12 proposal|^proposal |^mixed hierarchy " "$log"
 done
 exit $failed

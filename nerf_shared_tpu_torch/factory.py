@@ -3,7 +3,9 @@
 Counterpart of ``nerf_configs``, ``create_nerf_models``, ``get_renderer``
 and ``get_train_state`` in ``nerf_shared_tpu/factory.py`` (reference
 utils.py:119-172), for the MLP family and the grid families (hashgrid,
-triplane) in the plain hierarchy; ``--proposal`` raises (ROADMAP A11).
+triplane), in the reference hierarchy or under ``--proposal`` with a
+density-only proposal MLP as the coarse branch (the fine branch an MLP or,
+in the mixed hierarchy, a grid family).
 """
 
 from __future__ import annotations
@@ -45,17 +47,29 @@ def _grid_config(args):
                           layout=args.triplane_layout, **common)
 
 
+def proposal_config(args) -> NeRFConfig:
+    """The --proposal coarse branch: a density-only MLP of --proposal_depth
+    x --proposal_width (no viewdirs, output 4); N_importance 0 raises."""
+    if args.N_importance <= 0:
+        raise ValueError("--proposal replaces the hierarchical coarse branch and "
+                         "needs N_importance > 0")
+    return NeRFConfig(D=int(args.proposal_depth), W=int(args.proposal_width),
+                      output_ch=4, skips=(4,), use_viewdirs=False,
+                      multires=args.multires, multires_views=args.multires_views,
+                      i_embed=args.i_embed)
+
+
 def nerf_configs(args) -> Tuple[object, Optional[object]]:
     """Coarse + (optional) fine model configs from flags (reference
-    utils.py:119-139). Grid families use one config for both branches. The
+    utils.py:119-139). Grid families use one config for both branches;
+    under --proposal the coarse branch is ``proposal_config``'s MLP. The
     MLP family keeps the output_ch=5 quirk: it only matters when
     use_viewdirs=False (reference nerf.py:94)."""
-    if getattr(args, "proposal", False):
-        raise NotImplementedError(
-            "--proposal: the proposal sampler is not ported to "
-            "nerf_shared_tpu_torch yet (ROADMAP A11)")
+    proposal = bool(getattr(args, "proposal", False))
     if getattr(args, "model_type", "nerf") in GRID_FAMILIES:
         gcfg = _grid_config(args)
+        if proposal:
+            return proposal_config(args), gcfg
         return gcfg, (gcfg if args.N_importance > 0 else None)
     output_ch = 5 if args.N_importance > 0 else 4
 
@@ -66,7 +80,7 @@ def nerf_configs(args) -> Tuple[object, Optional[object]]:
                           multires_views=args.multires_views,
                           i_embed=args.i_embed)
 
-    ccfg = cfg(args.netdepth, args.netwidth)
+    ccfg = proposal_config(args) if proposal else cfg(args.netdepth, args.netwidth)
     fcfg = (cfg(args.netdepth_fine, args.netwidth_fine)
             if args.N_importance > 0 else None)
     return ccfg, fcfg
@@ -88,7 +102,8 @@ def get_renderer(args, bds_dict, device) -> Renderer:
     no_ndc (reference utils.py:141-161). ``--use_pallas`` (the default)
     means the hand-written CUDA kernels; on the CPU their plain versions
     run whatever the flag says. ``--render_guided`` sets the guided fine
-    pass (it raises with N_importance 0)."""
+    pass (it raises with N_importance 0); ``--proposal`` marks the coarse
+    branch as a proposal network."""
     use_kernels = (bool(getattr(args, "use_pallas", True))
                    and torch.device(device).type == "cuda")
     return Renderer(
@@ -105,13 +120,14 @@ def get_renderer(args, bds_dict, device) -> Renderer:
         and bool(getattr(args, "fused_composite", False)),
         guided=int(getattr(args, "render_guided", 0)),
         remat=bool(getattr(args, "remat", False)),
+        proposal=bool(getattr(args, "proposal", False)),
         **bds_dict,
     )
 
 
 def grid_lrate(args) -> Optional[float]:
-    """--grid_lrate for the grid families, None (one Adam group) for the
-    MLP family."""
+    """--grid_lrate for the grid families (the mixed hierarchy's grid fine
+    included), None (one Adam group) for the MLP family."""
     if getattr(args, "model_type", "nerf") in GRID_FAMILIES:
         return float(getattr(args, "grid_lrate", 2e-2))
     return None

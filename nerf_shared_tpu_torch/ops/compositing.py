@@ -12,6 +12,11 @@ Counterpart of ``raw2outputs`` and ``exclusive_cumprod`` in
 The transmittance stays a cumprod (a log-space cumsum gives NaN cotangents
 at saturated alpha) and the disparity is floored so empty rays give 1e10
 instead of NaN. ``noise=`` overrides the sigma-noise draw for tests.
+
+``distortion_loss`` and ``interlevel_loss`` are the mip-NeRF 360 training
+regularizers of the same JAX module (the distortion and the proposal
+histogram bound); both drop the final sample, which rides the 1e10
+sentinel interval.
 """
 
 from __future__ import annotations
@@ -66,3 +71,44 @@ def raw2outputs(
     if white_bkgd:
         rgb_map = rgb_map + (1.0 - acc_map[..., None])
     return rgb_map, disp_map, acc_map, weights, depth_map
+
+
+def distortion_loss(z_vals: torch.Tensor, weights: torch.Tensor, near: float,
+                    far: float) -> torch.Tensor:
+    """mip-NeRF 360's distortion loss (Barron et al. 2022, eq. 15), the mean
+    over rays of sum_ij w_i w_j |m_i - m_j| + (1/3) sum_i w_i^2 ds_i over the
+    normalised distance s = (z - near) / (far - near), m the interval
+    midpoints. The pairwise term is the prefix-sum identity
+    2 sum_i w_i (m_i A_i - B_i), A / B the exclusive prefix sums of w and
+    w m (two cumsums, no [N, S, S] tensor)."""
+    s = (z_vals - near) / max(far - near, 1e-9)
+    sm = 0.5 * (s[..., 1:] + s[..., :-1])
+    ds = s[..., 1:] - s[..., :-1]
+    w = weights[..., :-1]
+    a = torch.cumsum(w, dim=-1) - w
+    b = torch.cumsum(w * sm, dim=-1) - w * sm
+    pairwise = 2.0 * torch.sum(w * (sm * a - b), dim=-1)
+    self_term = torch.sum(w * w * ds, dim=-1) / 3.0
+    return torch.mean(pairwise + self_term)
+
+
+def interlevel_loss(z_prop: torch.Tensor, w_prop: torch.Tensor,
+                    z_fine: torch.Tensor, w_fine: torch.Tensor,
+                    eps: float = 1e-7) -> torch.Tensor:
+    """The proposal (interlevel) loss, mip-NeRF 360 eq. 13-14 in the NeRF
+    weight convention (weight i on [z_i, z_i+1]): for each final interval
+    the proposal mass on the intervals overlapping it must reach the final
+    mass inside it; the squared deficit over the final mass, summed over
+    intervals and averaged over rays. The final histogram is detached, so
+    the gradient reaches the proposal alone. The overlap bound is one
+    batched product of the [N, Sf-1, Sp-1] overlap mask with the proposal
+    masses, in fp32."""
+    pl, pr = z_prop[..., :-1], z_prop[..., 1:]
+    wp = w_prop[..., :-1]
+    fl, fr = z_fine[..., :-1].detach(), z_fine[..., 1:].detach()
+    wf = w_fine[..., :-1].detach()
+    overlap = ((pr[..., None, :] > fl[..., :, None])
+               & (pl[..., None, :] < fr[..., :, None]))
+    bound = torch.matmul(overlap.to(wp.dtype), wp[..., None])[..., 0]
+    excess = torch.clamp(wf - bound, min=0.0)
+    return torch.mean(torch.sum(excess ** 2 / (wf + eps), dim=-1))

@@ -34,6 +34,14 @@ dispatch seams:
 The trainer keeps B3, B4 and B5 off its step by clearing ``use_pallas`` and
 ``fused_composite`` in the step's config (``apps/train.py``).
 
+Under ``RenderConfig.proposal`` the coarse branch is a density-only
+proposal MLP (factory.proposal_config): it runs through the plain network
+on every route, as the JAX package runs it through XLA, never B1-B4 (they
+target the 8x256 family); its composite still goes through ``_composite``
+(B5 under ``use_pallas``). Its weights only place the fine samples: it
+returns no ``rgb0`` / ``disp0`` / ``acc0``, and with ``retweights`` hands
+its histogram out as ``weights0`` / ``z_vals0`` for the interlevel loss.
+
 Models are passed into every call (a field module: ``NeRF``, ``HashGrid``
 or ``Triplane``; a (params, cfg) tuple; or None). A full image is rendered
 by a plain Python loop over ray blocks of ``chunk`` rays; no padding is
@@ -171,6 +179,10 @@ class RenderConfig:
     guided: int = 0
     # recompute the grid families' apply in backward (torch.utils.checkpoint)
     remat: bool = False
+    # the coarse branch is a density-only proposal MLP (mip-NeRF 360): its
+    # weights drive sample_pdf, it renders no rgb, and it runs through the
+    # plain network whatever the kernel flags say. Needs N_importance > 0
+    proposal: bool = False
 
     def __post_init__(self):
         if self.guided > 0 and self.N_importance <= 0:
@@ -195,7 +207,8 @@ def render_rays(
 ) -> Dict[str, torch.Tensor]:
     """Render a flat ray batch (reference render_utils.py:67-174).
     ``retraw_coarse`` also returns the coarse pass's raw outputs as 'raw0'
-    (the density-sparsity regularizer reads them)."""
+    (the density-sparsity regularizer reads them). Under ``rcfg.proposal``
+    the coarse pass is the proposal network's (module docstring)."""
     overrides = overrides or {}
     rays_o, rays_d, viewdirs = split_rays(ray_batch)
     near, far = ray_batch[:, 6:7], ray_batch[:, 7:8]
@@ -210,7 +223,17 @@ def render_rays(
     # retraw / 'raw' contract
     coarse_needs_raw = retraw_coarse or (retraw and rcfg.N_importance == 0)
     raw = None
-    if rcfg.N_importance == 0 and _fused_render_eligible(
+    proposal = rcfg.proposal and rcfg.N_importance > 0
+    if proposal:
+        prop_rcfg = dataclasses.replace(rcfg, use_pallas=False, fused_backward=False,
+                                        fused_composite=False)
+        raw = _apply_model_rays(params_coarse, ccfg, rays_o, rays_d, z_vals, None,
+                                prop_rcfg)
+        rgb_map, disp_map, acc_map, weights, _ = _composite(
+            raw, z_vals, rays_d, rcfg, overrides.get("noise_coarse"), generator)
+        if retraw_coarse:
+            ret["raw0"] = raw
+    elif rcfg.N_importance == 0 and _fused_render_eligible(
             rcfg, ccfg, overrides.get("noise_coarse"), coarse_needs_raw):
         rgb_map, disp_map, acc_map, weights, _ = _apply_render_fused(
             params_coarse, ccfg, rays_o, rays_d, z_vals, viewdirs, rcfg,
@@ -225,6 +248,9 @@ def render_rays(
 
     if rcfg.N_importance > 0:
         rgb_map_0, disp_map_0, acc_map_0 = rgb_map, disp_map, acc_map
+        if proposal and retweights:
+            ret["weights0"] = weights
+            ret["z_vals0"] = z_vals
         z_vals_mid = 0.5 * (z_vals[..., 1:] + z_vals[..., :-1])
         z_samples = sample_pdf(
             z_vals_mid, weights[..., 1:-1],
@@ -252,9 +278,10 @@ def render_rays(
             rgb_map, disp_map, acc_map, weights, _ = _composite(
                 raw, z_vals, rays_d, rcfg, overrides.get("noise_fine"),
                 generator)
-        ret["rgb0"] = rgb_map_0
-        ret["disp0"] = disp_map_0
-        ret["acc0"] = acc_map_0
+        if not proposal:
+            ret["rgb0"] = rgb_map_0
+            ret["disp0"] = disp_map_0
+            ret["acc0"] = acc_map_0
         ret["z_std"] = torch.std(z_samples, dim=-1, correction=0)
 
     ret["rgb_map"] = rgb_map
@@ -370,7 +397,15 @@ class Renderer:
                            threshold: float = 1e-3):
         """Full-image render that skips the fine pass of rays whose coarse
         opacity is below ``threshold`` (render/gated.py): returns
-        (rgb [H,W,3], extras dict with [H,W] maps and active_fraction)."""
+        (rgb [H,W,3], extras dict with [H,W] maps and active_fraction).
+        Raises under ``proposal``: the proposal network renders no colour
+        for the rays it would keep."""
+        if self.cfg.proposal:
+            raise ValueError(
+                "the gated renderer keeps the coarse rgb for sub-threshold "
+                "rays; under --proposal the coarse branch is density-only "
+                "(its rgb head is untrained) — use the dense or occ/froxel "
+                "render paths instead")
         from nerf_shared_tpu_torch.render.gated import render_flat_rays_gated
 
         pc, ccfg = _model_parts(coarse_model)

@@ -28,6 +28,15 @@ the state also holds the per-image pose twists [n, 6]
 ``appearance_lrate``) on the same decay, as the JAX package's "pose" and
 "appearance" groups. They are the ``aux`` parameters, after the fields in
 the optimizer's order.
+
+Two pieces of non-learned device state ride along, as the JAX state's
+``aux_state``: ``ema`` (--ema_decay), the shadow {"coarse", "fine": name ->
+tensor} of the fields' parameters that eval renders read (``init_ema``,
+``update_ema``: decay * e + (1 - decay) * p after each Adam update; the
+pose twists and appearance are not averaged), and ``loss_map``
+(--loss_sampling, train/loss_sampling.py). In the mixed hierarchy (a
+proposal MLP coarse, a grid fine) ``group_label`` puts the fine tables in
+the "grid" group and the proposal MLP in "net".
 """
 
 from __future__ import annotations
@@ -93,6 +102,8 @@ class TrainState:
             (k, aux[k]) for k in AUX_GROUPS if aux is not None and k in aux)
         self.step = 0
         self.count = 0
+        self.ema = None
+        self.loss_map = None
         if self.grid_lrate is None:
             groups = [{"params": self.parameters(), "label": "net",
                        "base_lr": self.lrate}]
@@ -140,6 +151,23 @@ class TrainState:
 
     def parameters(self) -> list:
         return list(self.named_parameters().values())
+
+    def init_ema(self):
+        """Start the EMA shadow at the fields' current parameters."""
+        self.ema = {b: {k: v.detach().clone() for k, v in m.params().items()}
+                    for b, m in self.branches()}
+
+    @torch.no_grad()
+    def update_ema(self, decay: float):
+        """ema <- decay * ema + (1 - decay) * params, on the device."""
+        shadow, live = [], []
+        for b, m in self.branches():
+            p = m.params()
+            for k, e in self.ema[b].items():
+                shadow.append(e)
+                live.append(p[k])
+        torch._foreach_mul_(shadow, decay)
+        torch._foreach_add_(shadow, live, alpha=1.0 - decay)
 
     def lr(self) -> float:
         """The net group's rate at the current count."""
@@ -196,14 +224,21 @@ def fresh_state_at(coarse, fine, step: int, lrate: float = 5e-4,
                    lrate_decay: int = 250,
                    grid_lrate: Optional[float] = None, aux=None,
                    pose_lrate: float = 1e-3,
-                   appearance_lrate: float = 1e-3) -> TrainState:
+                   appearance_lrate: float = 1e-3, ema: bool = False,
+                   loss_map: Optional[torch.Tensor] = None) -> TrainState:
     """A TrainState over existing fields (and ``aux`` groups) with a fresh
     Adam (``grid_lrate`` as in TrainState): ``step`` and the schedule's
     ``count`` continue at ``step``, Adam's own count and moments restart (a
     restarted Adam at count ``step`` would lose its bias correction and
     shrink the first updates right when the new parameters need to
-    train)."""
+    train). ``loss_map`` carries over; with ``ema`` the shadow restarts at
+    the fields' parameters (a triplane upsample changed their shapes), as
+    in the JAX trainer."""
     state = TrainState(coarse, fine, lrate, lrate_decay, grid_lrate, aux=aux,
                        pose_lrate=pose_lrate, appearance_lrate=appearance_lrate)
     state.step = state.count = int(step)
+    state.loss_map = loss_map
+    if ema:
+        state.init_ema()
     return state
+

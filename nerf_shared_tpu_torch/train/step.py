@@ -7,7 +7,10 @@ against the target pixels plus the coarse render's MSE when the hierarchy
 is on, and ``acc_reg`` > 0 adds acc_reg * mean(log(1 + 2 sigma^2)) over the
 sampled densities of both passes. ``tv_reg`` > 0 adds the total variation
 of the triplane feature planes of both branches (a no-op for the other
-families).
+families). Under ``RenderConfig.proposal`` there is no coarse MSE: the
+interlevel loss (ops/compositing.py), weighted by ``prop_reg``, trains the
+proposal network to bound the fine histogram; ``dist_reg`` > 0 adds the
+distortion loss over the final pass's weights.
 
 PyTorch runs eagerly, so a step is a sequence of launches, not one compiled
 program: there is no superstep scan and no sharded variant (ROADMAP A16).
@@ -30,6 +33,14 @@ The per-image groups of the state (train/state.py) and BARF:
 - BARF (``barf_end`` > 0): the networks render with the weights annealed
   at progress clip((step - barf_start) / max(1, barf_end - barf_start),
   0, 1) (models/nerf.anneal_nerf_params).
+
+Two more options of the JAX step, both on the device with no host read:
+
+- ``loss_sampling`` (a LossSamplingSpec, --loss_sampling): the tail of the
+  batch is drawn from ``state.loss_map`` (train/loss_sampling.py) with the
+  render's device generator, and after the backward the step's per-ray
+  errors are blended into the map.
+- ``ema_decay`` > 0 (--ema_decay): after Adam, ``state.update_ema``.
 """
 
 from __future__ import annotations
@@ -40,9 +51,15 @@ import torch
 import torch.nn.functional as F
 
 from nerf_shared_tpu_torch.models.nerf import anneal_nerf_params
+from nerf_shared_tpu_torch.ops.compositing import distortion_loss, interlevel_loss
 from nerf_shared_tpu_torch.ops.rays import ndc_rays
 from nerf_shared_tpu_torch.render.renderer import RenderConfig, render_rays
 from nerf_shared_tpu_torch.train.appearance import anchor_appearance, apply_appearance
+from nerf_shared_tpu_torch.train.loss_sampling import (
+    LossSamplingSpec,
+    update_loss_map,
+    weighted_tail,
+)
 from nerf_shared_tpu_torch.train.pipeline import PixelSamplerSpec, pixel_rays, sample_pixels
 from nerf_shared_tpu_torch.train.pose_refine import apply_pose_twists
 from nerf_shared_tpu_torch.train.state import TrainState
@@ -70,18 +87,19 @@ def nerf_loss(params: Dict, ray_batch, target, rcfg: RenderConfig, ccfg, fcfg,
               overrides: Optional[Dict[str, torch.Tensor]] = None,
               generator: Optional[torch.Generator] = None,
               appearance: Optional[Dict[str, torch.Tensor]] = None,
-              img_idx: Optional[torch.Tensor] = None):
+              img_idx: Optional[torch.Tensor] = None, prop_reg: float = 1.0,
+              return_ray_err: bool = False):
     """(loss, aux): loss = mse(fine, target) [+ mse(coarse, target)]
-    [+ acc_reg * sparsity] [+ tv_reg * tv]; ``params`` is {"coarse": state
-    dict, "fine": state dict or absent}; ``overrides`` pins the render's
-    draws. ``appearance`` ({"gain", "offset"}) with ``img_idx`` (each ray's
-    train image) corrects every pass's colour before its mse."""
-    if dist_reg > 0.0:
-        raise NotImplementedError(
-            "the distortion loss is not ported to nerf_shared_tpu_torch yet: "
-            "ROADMAP A11")
+    [+ prop_reg * interlevel] [+ dist_reg * distortion] [+ acc_reg *
+    sparsity] [+ tv_reg * tv]; ``params`` is {"coarse": state dict, "fine":
+    state dict or absent}; ``overrides`` pins the render's draws.
+    ``appearance`` ({"gain", "offset"}) with ``img_idx`` (each ray's train
+    image) corrects every pass's colour before its mse. ``return_ray_err``
+    adds aux["ray_err"], each ray's squared error (detached) for the loss
+    map."""
     ret = render_rays(params["coarse"], params.get("fine"), ray_batch, rcfg, ccfg,
                       fcfg, retraw=acc_reg > 0.0, retraw_coarse=acc_reg > 0.0,
+                      retweights=rcfg.proposal or dist_reg > 0.0,
                       overrides=overrides, generator=generator)
     if appearance is not None:
         ret["rgb_map"] = apply_appearance(appearance, img_idx, ret["rgb_map"])
@@ -90,6 +108,17 @@ def nerf_loss(params: Dict, ray_batch, target, rcfg: RenderConfig, ccfg, fcfg,
     img_loss = img2mse(ret["rgb_map"], target)
     loss = img_loss
     aux = {"img_loss": img_loss, "psnr": mse2psnr(img_loss)}
+    if return_ray_err:
+        aux["ray_err"] = torch.mean((ret["rgb_map"] - target) ** 2, dim=-1).detach()
+    if "weights0" in ret:
+        prop_loss = interlevel_loss(ret["z_vals0"], ret["weights0"], ret["z_vals"],
+                                    ret["weights"])
+        loss = loss + prop_reg * prop_loss
+        aux["prop_loss"] = prop_loss
+    if dist_reg > 0.0:
+        dist_loss = distortion_loss(ret["z_vals"], ret["weights"], rcfg.near, rcfg.far)
+        loss = loss + dist_reg * dist_loss
+        aux["dist_loss"] = dist_loss
     if "rgb0" in ret:
         img_loss0 = img2mse(ret["rgb0"], target)
         loss = loss + img_loss0
@@ -115,13 +144,6 @@ def nerf_loss(params: Dict, ray_batch, target, rcfg: RenderConfig, ccfg, fcfg,
         aux["tv"] = torch.as_tensor(tv)
     aux["loss"] = loss
     return loss, aux
-
-
-# trainer options of the JAX step that this port does not carry yet
-_STEP_NOT_PORTED = {
-    "dist_reg": "the distortion loss (ROADMAP A11)",
-    "loss_sampling": "loss-guided sampling (ROADMAP A11)",
-}
 
 
 def barf_progress(step: int, barf_start: int, barf_end: int) -> torch.Tensor:
@@ -159,35 +181,42 @@ def refined_poses(twists: torch.Tensor, poses: torch.Tensor, step: int,
 def make_train_step(rcfg: RenderConfig, ccfg, fcfg, spec: PixelSamplerSpec,
                     acc_reg: float = 0.0, tv_reg: float = 0.0,
                     pose_anchor: bool = True, pose_start: int = 0,
-                    barf_end: int = 0, barf_start: int = 0, **not_ported):
+                    barf_end: int = 0, barf_start: int = 0, prop_reg: float = 1.0,
+                    dist_reg: float = 0.0,
+                    loss_sampling: Optional[LossSamplingSpec] = None,
+                    ema_decay: float = 0.0):
     """``train_step(state, images, poses, generator, draws=None,
     overrides=None) -> aux``: one iteration on ``state`` in place.
 
     ``generator`` is the run's CPU torch.Generator: it draws the step's
     pixels (train/pipeline.py) and the seed of the render's device-side
-    draws (stratified jitter, inverse-CDF u, sigma noise). ``draws`` /
-    ``overrides`` pin them for tests. The state's pose twists and
-    appearance corrections, when it has them, and ``barf_end`` > 0 act as
-    the module docstring says; aux then carries ``twist_norm`` /
-    ``gain_norm`` (the RMS of the raw twists / gains)."""
-    for name, value in not_ported.items():
-        if name not in _STEP_NOT_PORTED:
-            raise TypeError(f"make_train_step: unknown option {name}")
-        if value:
-            raise NotImplementedError(
-                f"{_STEP_NOT_PORTED[name]} is not ported to nerf_shared_tpu_torch yet")
+    draws (stratified jitter, inverse-CDF u, sigma noise; under
+    ``loss_sampling`` first the weighted tail's tile uniforms and jitter).
+    ``draws`` / ``overrides`` pin them for tests. The state's pose twists
+    and appearance corrections, when it has them, and ``barf_end`` > 0 act
+    as the module docstring says; aux then carries ``twist_norm`` /
+    ``gain_norm`` (the RMS of the raw twists / gains). ``loss_sampling``
+    needs ``state.loss_map`` and ``ema_decay`` > 0 ``state.ema``."""
+    if loss_sampling is not None and not spec.single_image:
+        raise ValueError(
+            "--loss_sampling targets single-image sampling (no_batching); "
+            "the batching pipeline draws across all images per step and "
+            "would need a per-ray CDF per image")
 
     def train_step(state: TrainState, images, poses, generator: torch.Generator,
                    draws: Optional[Dict] = None,
                    overrides: Optional[Dict[str, torch.Tensor]] = None):
         img_idx, y, x = sample_pixels(generator, images.shape[0], state.step, spec, draws)
+        render_gen = torch.Generator(device=images.device)
+        render_gen.manual_seed(int(torch.randint(0, 1 << 62, (), generator=generator)))
+        if loss_sampling is not None:
+            y, x = weighted_tail(img_idx, y, x, state.step, spec, state.loss_map,
+                                 loss_sampling, render_gen, draws)
         if state.pose_twists is not None:
             poses = refined_poses(state.pose_twists, poses, state.step,
                                   pose_start, pose_anchor)
         rays_o, rays_d, target = pixel_rays(images, poses, spec, img_idx, y, x)
         ray_batch = pack_ray_batch(rays_o, rays_d, rcfg, spec.H, spec.W, spec.fx)
-        render_gen = torch.Generator(device=images.device)
-        render_gen.manual_seed(int(torch.randint(0, 1 << 62, (), generator=generator)))
         params = {b: m.params() for b, m in state.branches()}
         if barf_end > 0:
             params = anneal_branches(params, ccfg, fcfg,
@@ -196,16 +225,23 @@ def make_train_step(rcfg: RenderConfig, ccfg, fcfg, spec: PixelSamplerSpec,
         if app is not None:
             app = anchor_appearance(app)
         loss, aux = nerf_loss(params, ray_batch, target, rcfg, ccfg, fcfg,
-                              acc_reg=acc_reg, tv_reg=tv_reg, overrides=overrides,
+                              acc_reg=acc_reg, tv_reg=tv_reg, prop_reg=prop_reg,
+                              dist_reg=dist_reg, overrides=overrides,
                               generator=render_gen, appearance=app,
-                              img_idx=None if app is None else img_idx.to(images.device))
+                              img_idx=None if app is None else img_idx.to(images.device),
+                              return_ray_err=loss_sampling is not None)
         if state.appearance is not None:
             aux["gain_norm"] = torch.sqrt(torch.mean(state.appearance["gain"] ** 2))
         if state.pose_twists is not None:
             aux["twist_norm"] = torch.sqrt(torch.mean(state.pose_twists ** 2))
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        if loss_sampling is not None:
+            update_loss_map(state.loss_map, int(img_idx), y, x, aux.pop("ray_err"),
+                            loss_sampling.tile, loss_sampling.decay)
         state.apply_gradients()
+        if ema_decay > 0.0:
+            state.update_ema(ema_decay)
         return {k: v.detach() for k, v in aux.items()}
 
     return train_step

@@ -21,8 +21,17 @@ families have no ``.tar`` layout (the reference schema is the MLP's): a
 ``.ckpt.npz`` alone, as in the JAX package. A file without Adam state (an
 empty optimizer dict) resumes as the JAX ``load_checkpoint`` does: weights
 and global step restored, Adam fresh at count 0. On a multi-group file the
-schedule's count resumes at the largest group count, as in JAX. EMA is
-not ported (ROADMAP A11).
+schedule's count resumes at the largest group count, as in JAX.
+
+The EMA shadow (--ema_decay, train/state.py) is the ``.ckpt.npz``'s
+``ema/<branch>/...`` sidecar, in the params' flat layout, as the JAX
+``save_native(..., ema=)`` writes it; ``read_native_ema`` reads it (None
+for a pre-EMA file or a ``.tar``, where a run with --ema_decay restarts
+the shadow at the loaded weights). A run or an eval engine with
+--ema_decay reads a ``.tar``'s same-step ``.ckpt.npz`` sibling instead, so
+under the default ``--ckpt_format both`` the shadow survives a resume and
+reaches ``render_only`` and the service (the JAX loader takes the ``.tar``
+there and restarts the shadow, ROADMAP C). The loss map is not saved.
 
 The per-image groups (pose twists, appearance; train/state.py
 ``AUX_GROUPS``) go in the ``.ckpt.npz`` only, as the JAX package keeps
@@ -180,14 +189,16 @@ def _params_in_order(coarse_sd, fine_sd, aux):
 def save_native(path: str, coarse_sd: Dict[str, torch.Tensor],
                 fine_sd: Optional[Dict[str, torch.Tensor]], global_step: int,
                 opt: Optional[Dict] = None,
-                aux: Optional[Dict[str, torch.Tensor]] = None):
+                aux: Optional[Dict[str, torch.Tensor]] = None,
+                ema: Optional[Dict[str, Dict[str, torch.Tensor]]] = None):
     """Write the JAX package's ``.ckpt.npz`` schema: params and, given
     ``opt`` ({"count", "exp_avg", "exp_avg_sq"} per parameter index, coarse
     then fine then ``aux``, torch layout; zeros where None), the Adam
     moments. With ``opt["groups"]`` (the group labels) and ``opt["step"]``
     (Adam's count per parameter) the moments go into the multi-group
     schema, each field parameter into the group ``group_label`` gives it,
-    each ``aux`` one (AUX_GROUPS names) into its own."""
+    each ``aux`` one (AUX_GROUPS names) into its own. ``ema`` ({"coarse",
+    "fine": state dict}) goes in the ``ema/`` sidecar."""
     groups = sorted((opt or {}).get("groups", ["net"]))
     multi = len(groups) > 1
     counts = {}
@@ -206,6 +217,9 @@ def save_native(path: str, coarse_sd: Dict[str, torch.Tensor],
             m = opt[src][idx]
             m = np.zeros_like(t) if m is None else m.detach().cpu().numpy()
             flat[f"{pre}{part}/{key}"] = np.ascontiguousarray(tr(m))
+    if ema is not None:
+        for key, tensor, tr, _ in _params_in_order(ema["coarse"], ema.get("fine"), None):
+            flat[f"ema/{key}"] = np.ascontiguousarray(tr(tensor.detach().cpu().numpy()))
     if opt is not None and multi:
         flat["opt/n_groups"] = np.asarray(len(groups))
         for gi in range(len(groups)):
@@ -259,10 +273,8 @@ def read_native(path: str):
     extra = set(tree) - {"coarse", "fine"} - {k.split(".")[0] for k in AUX_GROUPS}
     if extra:
         raise ValueError(f"{path}: unknown parameter groups {sorted(extra)}")
-    convert = {b: (params_from_jax if "pts_linears" in tree[b] else params_tree_from_jax)
-               for b in ("coarse", "fine") if b in tree}
-    coarse = convert["coarse"](tree["coarse"])
-    fine = convert["fine"](tree["fine"]) if "fine" in tree else None
+    coarse = _branch_from_jax(tree["coarse"])
+    fine = _branch_from_jax(tree["fine"]) if "fine" in tree else None
     n_groups = int(flat["opt/n_groups"]) if "opt/n_groups" in flat else 0
     if not n_groups and "opt/count" not in flat:
         return coarse, fine, step, None, aux
@@ -280,23 +292,58 @@ def read_native(path: str):
     return coarse, fine, step, opt, aux
 
 
+def _branch_from_jax(tree):
+    """A JAX branch pytree -> state dict (MLP or grid family)."""
+    return (params_from_jax if "pts_linears" in tree else params_tree_from_jax)(tree)
+
+
+def read_native_ema(path: str) -> Optional[Dict[str, Dict[str, torch.Tensor]]]:
+    """The EMA sidecar of a ``.ckpt.npz`` as {"coarse", "fine": state
+    dict}, or None (a pre-EMA file or a ``.tar``), as JAX's
+    ``load_native_ema``."""
+    if not path.endswith(".npz"):
+        return None
+    with np.load(path) as z:
+        flat = {k[len("ema/"):]: z[k] for k in z.files if k.startswith("ema/")}
+    if not flat:
+        return None
+    return {b: _branch_from_jax(t) for b, t in _unflatten(flat).items()}
+
+
 def load_native(path: str) -> Tuple[Dict, Optional[Dict], int]:
     """Read the params half of a JAX ``.ckpt.npz`` -> (coarse_sd,
     fine_sd | None, step)."""
     return read_native(path)[:3]
 
 
-def load_checkpoint(args) -> Tuple[Optional[Dict], Optional[Dict], int]:
-    """The newest checkpoint's (coarse_sd, fine_sd, step), or
-    (None, None, 0) when there is none or ``--no_reload`` is set."""
+def newest_checkpoint(args, native: bool = False) -> Optional[str]:
+    """The checkpoint the resume rule picks, or None (none, or
+    --no_reload); with ``native`` a ``.tar``'s same-step ``.ckpt.npz``
+    sibling instead, which carries the per-image groups and the EMA."""
     ckpts = find_checkpoints(args.basedir, args.expname, args.ft_path)
     if not ckpts or args.no_reload:
-        return None, None, 0
+        return None
     path = ckpts[-1]
+    sibling = path[: -len(".tar")] + ".ckpt.npz"
+    if native and path.endswith(".tar") and sibling in ckpts:
+        return sibling
+    return path
+
+
+def load_checkpoint(args, ema: bool = False) -> Tuple[Optional[Dict], Optional[Dict], int]:
+    """The newest checkpoint's (coarse_sd, fine_sd, step), or
+    (None, None, 0) when there is none or ``--no_reload`` is set. With
+    ``ema`` the weights are the checkpoint's EMA shadow (from the
+    ``.ckpt.npz`` sibling of a ``.tar``) when it has one."""
+    path = newest_checkpoint(args, native=ema)
+    if path is None:
+        return None, None, 0
     print(f"Reloading from {path}")
-    if path.endswith(".npz"):
-        return load_native(path)
-    return load_tar(path)
+    coarse, fine, step = load_native(path) if path.endswith(".npz") else load_tar(path)
+    shadow = read_native_ema(path) if ema else None
+    if shadow is not None:
+        coarse, fine = shadow["coarse"], shadow.get("fine")
+    return coarse, fine, step
 
 
 def save_checkpoints(basedir: str, expname: str, state, i: int,
@@ -327,7 +374,8 @@ def save_checkpoints(basedir: str, expname: str, state, i: int,
                "exp_avg": [s.get("exp_avg") for s in st],
                "exp_avg_sq": [s.get("exp_avg_sq") for s in st]}
         paths.append(os.path.join(expdir, f"{i:06d}.ckpt.npz"))
-        save_native(paths[-1], coarse_sd, fine_sd, state.step, opt, aux=state.aux)
+        save_native(paths[-1], coarse_sd, fine_sd, state.step, opt, aux=state.aux,
+                    ema=state.ema)
     if fmt in ("tar", "both") and tar_able:
         # the reference layout holds the fields' Adam alone: the aux groups
         # come after the fields' indices, so keep the field groups' entries
@@ -347,19 +395,17 @@ def restore_train_state(state, args) -> int:
     step (0 when nothing was loaded).
 
     The per-image groups follow the JAX ``load_checkpoint``: a run that
-    trains them takes a ``.tar``'s same-step ``.ckpt.npz`` sibling; a file
+    trains them (or keeps an EMA) takes a ``.tar``'s same-step
+    ``.ckpt.npz`` sibling; a file
     without a group the run trains starts it at identity, a file with a
     group the run does not train drops it, and either way every Adam moment
-    restarts (count 0), each with the JAX package's message."""
-    ckpts = find_checkpoints(args.basedir, args.expname, args.ft_path)
-    if not ckpts or args.no_reload:
-        return 0
-    path = ckpts[-1]
+    restarts (count 0), each with the JAX package's message. A state with
+    an EMA shadow takes the file's ``ema/`` sidecar, or restarts the shadow
+    at the loaded weights when the file has none."""
     wanted = {k.split(".")[0] for k in state.aux}
-    if wanted and path.endswith(".tar"):
-        sibling = path[: -len(".tar")] + ".ckpt.npz"
-        if sibling in ckpts:
-            path = sibling
+    path = newest_checkpoint(args, native=bool(wanted) or state.ema is not None)
+    if path is None:
+        return 0
     print(f"Reloading from {path}")
     coarse_sd, fine_sd, step, opt, aux = (read_native(path) if path.endswith(".npz")
                                           else read_tar(path))
@@ -405,5 +451,13 @@ def restore_train_state(state, args) -> int:
                 "exp_avg_sq": (torch.zeros_like(p) if v is None else v.to(p)).contiguous(),
             }
         state.count = opt["count"]
+    if state.ema is not None:
+        ema = read_native_ema(path)
+        if ema is None:
+            state.init_ema()
+        else:
+            for b, shadow in state.ema.items():
+                for k, t in shadow.items():
+                    t.copy_(ema[b][k])
     state.step = step
     return step

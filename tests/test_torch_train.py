@@ -385,22 +385,30 @@ def test_three_step_trajectory_matches_jax():
 
 
 def test_step_options_not_ported_raise():
-    """dist_reg and loss_sampling still raise; BARF (barf_end) is ported,
-    and the pose twists and appearance come from the state, so those two
-    are no options of the step."""
+    """dist_reg and loss_sampling are ported (they raised until the proposal
+    slice): make_train_step takes them and nerf_loss adds the distortion
+    loss; BARF (barf_end) is ported, and the pose twists and appearance come
+    from the state, so those two are no options of the step."""
+    from nerf_shared_tpu_torch.train.loss_sampling import LossSamplingSpec
+
     tcfg = tnerf.NeRFConfig(**KW)
     _, tr = _rcfgs()
     spec = tpipe.PixelSamplerSpec(H=4, W=4, fx=1, fy=1, cx=2, cy=2, N_rand=4)
-    for opt in ("dist_reg", "loss_sampling"):
-        with pytest.raises(NotImplementedError):
-            make_train_step(tr, tcfg, tcfg, spec, **{opt: 1})
+    for opt, value in (("dist_reg", 1), ("loss_sampling", LossSamplingSpec())):
+        assert callable(make_train_step(tr, tcfg, tcfg, spec, **{opt: value}))
     assert callable(make_train_step(tr, tcfg, tcfg, spec, barf_end=1))
     for opt in ("pose_twists", "appearance"):
-        with pytest.raises(TypeError, match="unknown option"):
+        with pytest.raises(TypeError, match="unexpected keyword"):
             make_train_step(tr, tcfg, tcfg, spec, **{opt: 1})
-    with pytest.raises(NotImplementedError, match="distortion"):
-        nerf_loss({"coarse": {}}, torch.zeros(1, 11), torch.zeros(1, 3), tr, tcfg,
-                  tcfg, dist_reg=0.1)
+    _, _, _, tstate = _shared_state()
+    ro, rd, target = _batch()
+    tb = pack_ray_batch(torch.from_numpy(ro), torch.from_numpy(rd), tr, 8, 8, 10.0)
+    params = {b: m.params() for b, m in tstate.branches()}
+    loss, aux = nerf_loss(params, tb, torch.from_numpy(target), tr, tcfg, tcfg,
+                          dist_reg=0.1)
+    assert float(aux["dist_loss"]) > 0
+    assert float(loss.detach()) == pytest.approx(
+        float(aux["img_loss"] + aux["img_loss0"] + 0.1 * aux["dist_loss"]), rel=1e-6)
 
 
 # --- utils/metrics.py --------------------------------------------------------
@@ -439,11 +447,16 @@ def test_fused_backward_resolves_on_for_the_mlp_family_on_cuda():
                                   ["--multihost", "True"], ["--debug_nans", "True"]])
 def test_training_flags_not_ported_raise(flag):
     """Each flag the port does not carry raises; --refine_poses and
-    --appearance are ported and pass the check (they train in
-    tests/test_torch_pose_train.py)."""
+    --appearance (tests/test_torch_pose_train.py), --loss_sampling and
+    --distortion_loss_weight (tests/test_torch_ema.py) are ported and pass
+    the check; --loss_sampling without --no_batching exits, as in JAX."""
     args = config_parser().parse_args(["--device", "cpu"] + flag)
-    if flag[0] in ("--refine_poses", "--appearance"):
+    if flag[0] in ("--refine_poses", "--appearance", "--loss_sampling",
+                   "--distortion_loss_weight"):
         tapp.check_ported(args)
+        if flag[0] == "--loss_sampling":
+            with pytest.raises(SystemExit, match="--no_batching"):
+                tapp.train(args)
         return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tapp.train(args)
