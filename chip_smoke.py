@@ -190,16 +190,57 @@ Phases (any failure exits non-zero and prints no result line):
             the plain versions within 1e-3. One "phase 12 proposal" line
             with the step, frame and PSNR numbers and the card's
             nvidia-smi name and power limit.
+13. occ      the occupancy-gated trainer (--train_occ: C 64, K 32, a 64^3
+            grid) at full lego width on phase 6's scene. (a) On phase 6's
+            800-step weights: one density refresh (4 B1 launches of 65,536
+            points) against the plain one with the jitter pinned (the EMA
+            within 2e-4 of max(1, max|plain|), the binarized grids equal but
+            for cells within 1e-4 of the threshold); one occ step with the
+            warm-up's sigma noise and one budgeted step (--train_occ_budget)
+            through B1 + B2 against the plain step, every draw pinned (loss
+            1e-5, fine gradients 1e-3 of each max, coarse gradients exactly
+            zero, post-Adam as phase 5); one max_probes refresh the same
+            way. (b) apps/train.main from phase 6's checkpoint with
+            --train_occ_warmup 850 --train_occ_until 1100 to step 1100, then
+            resumed to 1200: exactly 1 B1 + 1 B2 an occ step and 4 B1 a
+            refresh, one refresh per dispatch of gcd(i_print, i_weights,
+            i_testset, i_img) steps; n_active_mean 32 in the warm-up; the
+            grid below fully occupied after it; the hook frame through the
+            training grid; [PHASE] at step 1100 with coarse and its Adam
+            moments equal to fine's right after the sync; 2 B1 + 2 B2 a step
+            after it; render_only held-out PSNR 2 dB above all-white. (c)
+            300 steps from scratch (--train_occ_warmup 100): finite losses,
+            train PSNR rising. (d) the vertex hashgrid at its defaults, 100
+            steps: 1 P1 + 1 P2 an occ step (the fine pass only), no B1 / B2.
+            One "phase 13 occ" line: occ step, refresh and post-switch step
+            ms, the occupied fraction, held-out PSNR, rays/s against phase 6.
+14. mesh     apps/mesh_cli.main on phase 6's checkpoint with --mesh_res 256
+            --mesh_color --mesh_normals grad and the native scan required:
+            the probe exactly 260 B1 launches of 65,536 points, no plain
+            network anywhere in the export, the probe within 2e-4 of the
+            plain probe on the 65^3 sub-lattice, the native scan and the
+            numpy scan bit-equal on the 257^3 grid, faces at iso 50 (the
+            99th percentile of sigma when the field stays below 50), every
+            edge inside the box in two faces (the surface is open only where
+            it leaves the probed box), colours in [0, 1] and within 1e-4 of the
+            plain route, gradient normals (B1 + B2) unit and within 1e-3 of
+            the plain route where |grad sigma| > 1e-3 of its max, the OBJ
+            read back; then phase 10's fern checkpoint at --mesh_res 128
+            with --mesh_world: finite world vertices, faces flipped. One
+            "phase 14 mesh" line: probe ms, scan s (native, numpy), vertex
+            and face counts, colour and normal ms.
 
 ``--parent-tree`` (with ``--phases``) marks the parent side of an A/B:
 phase 1 logs a tensor-core kernel that tree predates instead of failing.
 ``--profile`` adds one dense frame, five training steps, one frame of
 each fast engine, five split and five vertex hashgrid training steps, a
-hashgrid and a triplane frame, and five fern training steps and a fern
-frame under torch.profiler (device time by
+hashgrid and a triplane frame, five fern training steps and a fern
+frame, and one dispatch window of the occ trainer (50 occ steps and a
+refresh) under torch.profiler (device time by
 kernel, device busy share, P1's and P2's shares). ``--phases 2,3,4,7``
-runs the build and the listed phases alone (phases 7, 11 and 12 run phase 6
-for its checkpoint and scene; 3 and 4 run together; no result lines; for iterating on a
+runs the build and the listed phases alone (phases 7, 11, 12, 13 and 14
+run phase 6 for its checkpoint and scene, 14 phase 10 too; 3 and 4 run
+together; no result lines; for iterating on a
 phase and for nerf_shared_tpu_torch/benchmarks/ab_smoke.sh). Before the last
 line it prints the whole script's time, the kernels JSON line and the card's
 ``nvidia-smi --query-gpu=name,power.limit`` line; the last line is
@@ -1239,14 +1280,19 @@ class _Tee(io.TextIOBase):
         self.out.flush()
 
 
+def capture(fn):
+    """(fn(), its stdout), the stdout still printed."""
+    tee = _Tee(sys.stdout)
+    with contextlib.redirect_stdout(tee):
+        result = fn()
+    return result, tee.buf.getvalue()
+
+
 def run_train_cli(argv):
     """apps.train.main(argv) with its stdout kept -> (result, text)."""
     from nerf_shared_tpu_torch.apps import train
 
-    tee = _Tee(sys.stdout)
-    with contextlib.redirect_stdout(tee):
-        result = train.main(argv)
-    return result, tee.buf.getvalue()
+    return capture(lambda: train.main(argv))
 
 
 def phase_training(device, steps=600, more=200):
@@ -1380,6 +1426,43 @@ def profile_proposal_step(device, steps=5):
 
         _profile(f"{steps} proposal training steps ({'kernels' if fused else 'plain'})",
                  run, top_n=14)
+
+
+def profile_occ_step(device, trained, steps=50):
+    """One dispatch window of the occupancy-gated trainer under
+    torch.profiler: ``steps`` occ steps through B1 + B2 (draws unpinned)
+    from phase 6's weights on a grid refreshed once, then the refresh that
+    ends the window, after one warm-up step."""
+    import torch
+
+    from nerf_shared_tpu_torch.train.occ_train import (
+        binarize_density_grid,
+        init_density_grid,
+        make_occ_train_step,
+        update_density_grid,
+    )
+
+    setup = occ_setup(device, trained)
+    a = setup["args"]
+    state = occ_state(setup, device)
+    rc = occ_rcfg(setup, True, 0.0)
+    dg = update_density_grid(init_density_grid(*setup["aabb"], a.train_occ_res, device),
+                             state.fine.params(), setup["cfg"], rc)
+    occ = binarize_density_grid(dg, setup["alpha"])
+    step = make_occ_train_step(rc, setup["cfg"], setup["spec"],
+                               n_candidates=a.train_occ_candidates,
+                               n_keep=a.train_occ_keep, explore=a.train_occ_explore)
+    step(state, occ, setup["images"], setup["poses"], torch.Generator().manual_seed(0))
+    torch.cuda.synchronize()
+
+    def run():
+        for i in range(steps):
+            step(state, occ, setup["images"], setup["poses"],
+                 torch.Generator().manual_seed(i + 1))
+        update_density_grid(dg, state.fine.params(), setup["cfg"], rc,
+                            decay=a.train_occ_decay)
+
+    _profile(f"{steps} occ steps and one refresh", run, top_n=12)
 
 
 def profile_grid_step(device, steps=5, vertex=False):
@@ -2695,7 +2778,7 @@ def phase_llff(device, steps=600, more=200):
             "train_psnr": psnrs, "eval": {k: report[k] for k in ("mean_psnr", "mean_ssim")},
             "scene_s": scene_s, "minify_s": minify_s, "train_s": train_s,
             "render_test_s": render_s, "spiral_s": spiral_s, "launches_by_path": launches,
-            "engine": eng, "pose": c2w}
+            "engine": eng, "pose": c2w, "argv": after}
 
 
 POSE_RAYS = 512   # the pose app's batch (--batch_size): 32,768 + 98,304 points a step
@@ -3297,6 +3380,704 @@ def phase_proposal(device, trained, smi, steps=400, more=100, mixed_steps=100):
                 "mixed_training": m_launches, "mixed_serving": m_served["launches"]}}
 
 
+# --- phases 13 and 14: the occupancy-gated trainer and mesh export ----------
+
+# --train_occ at its defaults: C 64 candidates, K 32 kept, a 64^3 grid
+OCC_FLAGS = ["--train_occ", "True"]
+
+
+@contextlib.contextmanager
+def patched(obj, name, make):
+    """``obj.name`` replaced by ``make(original)`` inside the block."""
+    orig = getattr(obj, name)
+    setattr(obj, name, make(orig))
+    try:
+        yield
+    finally:
+        setattr(obj, name, orig)
+
+
+def occ_setup(device, trained):
+    """Phase 6's scene and 800-step checkpoint under --train_occ: the
+    parsed args, dataset, renderer, sampler spec, training images and
+    poses on the card, the fine config, the grid's box and alpha."""
+    import torch
+
+    from nerf_shared_tpu_torch.apps import train as tapp
+    from nerf_shared_tpu_torch.config import config_parser, resolved_occ_alpha_thresh
+    from nerf_shared_tpu_torch.data.datasets import load_datasets
+    from nerf_shared_tpu_torch.factory import get_renderer, nerf_configs
+    from nerf_shared_tpu_torch.train.pipeline import PixelSamplerSpec
+
+    args = config_parser().parse_args(trained["base_argv"] + ["--N_iters", "800"] + OCC_FLAGS)
+    ds = load_datasets(args)
+    H, W = int(ds.hwf[0]), int(ds.hwf[1])
+    renderer = get_renderer(args, ds.bds_dict, device)
+    spec = PixelSamplerSpec.from_K(H, W, ds.K, args.N_rand, single_image=args.no_batching,
+                                   precrop_iters=args.precrop_iters,
+                                   precrop_frac=args.precrop_frac)
+    return {"args": args, "ds": ds, "renderer": renderer, "spec": spec,
+            "images": torch.as_tensor(ds.images[ds.i_train], device=device),
+            "poses": torch.as_tensor(ds.poses[ds.i_train][:, :3, :4], device=device),
+            "cfg": nerf_configs(args)[1], "aabb": tapp._occ_aabb(renderer, ds, H, W, ds.K),
+            "alpha": resolved_occ_alpha_thresh(args)}
+
+
+def occ_state(setup, device):
+    """A TrainState with phase 6's 800-step weights and a fresh Adam."""
+    from nerf_shared_tpu_torch.train.state import create_train_state
+    from nerf_shared_tpu_torch.utils import checkpoints as ckpt_utils
+
+    a, cfg = setup["args"], setup["cfg"]
+    with contextlib.redirect_stdout(io.StringIO()):
+        coarse_sd, fine_sd, start = ckpt_utils.load_checkpoint(a)
+    state = create_train_state(cfg, cfg, device, lrate=a.lrate, lrate_decay=a.lrate_decay)
+    state.coarse.load_state_dict(coarse_sd, strict=True)
+    state.fine.load_state_dict(fine_sd, strict=True)
+    state.step = state.count = start
+    return state
+
+
+def occ_rcfg(setup, fused, noise):
+    """The trainer's step config (apps/train.py): kernels B1 + B2 when
+    ``fused``, else the plain network; sigma noise ``noise``."""
+    import dataclasses
+
+    return dataclasses.replace(setup["renderer"].cfg, use_pallas=False,
+                               fused_composite=False, fused_backward=fused, guided=0,
+                               raw_noise_std=noise)
+
+
+def occ_grid_check(label, dg_k, dg_p, alpha):
+    """A density refresh through B1 against the plain one: the EMA within
+    2e-4 of max(1, max|plain|), the binarized grids equal apart from cells
+    within 1e-4 relative of the threshold. Returns (ema_err, flips, the
+    occupied fraction)."""
+    import torch
+
+    from nerf_shared_tpu_torch.train.occ_train import binarize_density_grid
+
+    ema_err = float((dg_k.ema - dg_p.ema).abs().max()) / max(1.0, float(dg_p.ema.abs().max()))
+    g = dg_p.ema.shape[0]
+    step = float(torch.linalg.norm((dg_p.aabb_max - dg_p.aabb_min) / g))
+    thr = -math.log1p(-min(alpha, 0.999)) / step
+    near = (dg_p.ema - thr).abs() <= 1e-4 * thr
+    bk = binarize_density_grid(dg_k, alpha, dilation=0).grid
+    bp = binarize_density_grid(dg_p, alpha, dilation=0).grid
+    flips = int((bk != bp).sum())
+    off = int(((bk != bp) & ~near).sum())
+    dk = binarize_density_grid(dg_k, alpha).grid
+    dp = binarize_density_grid(dg_p, alpha).grid
+    frac = float(dp.float().mean())
+    log(f"{label}: EMA through B1 vs plain {ema_err:.1e} of max(1, max|plain|) (tol 2e-4); "
+        f"binarized cells apart {flips} ({off} farther than 1e-4 of the threshold, tol 0); "
+        f"dilated grids equal: {torch.equal(dk, dp)}; {frac:.1%} occupied")
+    if not (ema_err <= 2e-4 and off == 0 and (flips > 0 or torch.equal(dk, dp))):
+        raise AssertionError(f"{label}: the kernel refresh disagrees with the plain one")
+    return ema_err, flips, frac
+
+
+def check_occ_step(setup, device, occ, density, noise, label):
+    """One occupancy-gated step (make_occ_train_step, 1024 rays, C 64, K 32)
+    from phase 6's weights through B1 + B2 and through the plain network,
+    the candidates' jitter, the race uniforms, the explore draw and the
+    sigma noise pinned: the loss within 1e-5 relative, every fine gradient
+    within 1e-3 of its max, the coarse gradients exactly zero, the
+    post-Adam parameters as phase 5 holds them. Returns the times (median
+    of 5 steps) and errors."""
+    import torch
+
+    from nerf_shared_tpu_torch.ops.cuda import fused_mlp, fused_mlp_bwd
+    from nerf_shared_tpu_torch.train.occ_train import make_occ_train_step
+
+    a = setup["args"]
+    C, K, n = a.train_occ_candidates, a.train_occ_keep, a.N_rand
+    g = torch.Generator(device=device).manual_seed(13)
+    draws = {"t_rand": torch.rand(n, C, generator=g, device=device),
+             "u": torch.rand(n, C, generator=g, device=device) * (1.0 - 1e-7) + 1e-7,
+             "explore_u": torch.rand(n, C, generator=g, device=device),
+             "noise": torch.randn(n, K, generator=g, device=device) * noise}
+    out = {}
+    for fused in (True, False):
+        state = occ_state(setup, device)
+        step = make_occ_train_step(occ_rcfg(setup, fused, noise), setup["cfg"], setup["spec"],
+                                   n_candidates=C, n_keep=K, explore=a.train_occ_explore)
+        params = state.parameters()
+        before = (fused_mlp.POINT_LAUNCHES, fused_mlp_bwd.LAUNCHES)
+        aux = step(state, occ, setup["images"], setup["poses"],
+                   torch.Generator().manual_seed(9), density=density, draws=draws)
+        torch.cuda.synchronize()
+        launched = (fused_mlp.POINT_LAUNCHES - before[0], fused_mlp_bwd.LAUNCHES - before[1])
+        n_coarse = len(list(state.coarse.parameters()))
+        out[fused] = dict(loss=float(aux["loss"]), n_active=float(aux["n_active_mean"]),
+                          launched=launched, n_coarse=n_coarse,
+                          coarse_zero=all(not bool(p.grad.any()) for p in params[:n_coarse]),
+                          grads=[p.grad.detach().clone() for p in params],
+                          params=[p.detach().clone() for p in params],
+                          lrs=[gr["lr"] for gr in state.optimizer.param_groups
+                               for _ in gr["params"]])
+
+        def again():
+            step(state, occ, setup["images"], setup["poses"], torch.Generator().manual_seed(9),
+                 density=density, draws=draws)
+
+        out[fused]["ms"] = time_ms(again, 5)
+    k, p = out[True], out[False]
+    nc = k["n_coarse"]
+    loss_err = abs(k["loss"] - p["loss"]) / abs(p["loss"])
+    grad_err = max(rel_err(x, y) for x, y in zip(k["grads"][nc:], p["grads"][nc:]))
+    param_err, adam_err, moved, moved_tol, moved_g, n_sure, n_par = adam_checks(k, p)
+    log(f"{label} (1024 rays, C {C}, K {K}, sigma noise {noise}, n_active_mean "
+        f"{k['n_active']:.2f}): kernels {k['ms']:.2f} ms, plain {p['ms']:.2f} ms; launches "
+        f"{k['launched']} (B1, B2) vs plain {p['launched']}; loss rel err {loss_err:.1e} "
+        f"(tol 1e-5), worst fine gradient {grad_err:.1e} of max|grad| (tol 1e-3), coarse "
+        f"gradients zero: {k['coarse_zero'] and p['coarse_zero']}; post-Adam params "
+        f"{param_err:.1e} apart on the {n_sure} of {n_par} sure entries (tol 1e-6), "
+        f"{adam_err:.1e} from Adam's update of the two gradients (tol 1e-6), {moved} moved "
+        f"(tol {moved_tol})")
+    if not (k["launched"] == (1, 1) and p["launched"] == (0, 0) and loss_err <= 1e-5
+            and grad_err <= 1e-3 and k["coarse_zero"] and p["coarse_zero"]
+            and param_err <= 1e-6 and adam_err <= 1e-6 and moved <= moved_tol):
+        raise AssertionError(f"{label}: the kernel step disagrees with the plain step")
+    return {"kernel_ms": k["ms"], "plain_ms": p["ms"], "loss_rel_err": loss_err,
+            "grad_rel_err": grad_err, "param_err": param_err, "adam_err": adam_err,
+            "moved": moved, "n_active_mean": k["n_active"]}
+
+
+class OccRecorder:
+    """Watches an apps.train run under --train_occ: each occ step's launches
+    and n_active_mean (read after the run), each refresh's launches, the
+    occupied fraction at each window start, the phase switch (coarse and
+    its Adam moments equal to fine right after the sync), and each render
+    hook's grid and launches."""
+
+    def __init__(self):
+        self.steps, self.refreshes, self.windows, self.hooks, self.syncs = [], [], [], [], []
+        self.hook_grids = set()
+
+    def __enter__(self):
+        import torch
+
+        from nerf_shared_tpu_torch.apps import train as tapp
+        from nerf_shared_tpu_torch.render.renderer import Renderer
+        from nerf_shared_tpu_torch.train import occ_train
+
+        rec = self
+        self._stack = contextlib.ExitStack()
+
+        def make_step(orig):
+            def make(rcfg, *a, **kw):
+                fn = orig(rcfg, *a, **kw)
+
+                def step(state, *args, **kwargs):
+                    before, s = launch_counts(), state.step
+                    aux = fn(state, *args, **kwargs)
+                    rec.steps.append((s, float(rcfg.raw_noise_std), diff(before),
+                                      aux["n_active_mean"]))
+                    return aux
+                return step
+            return make
+
+        def update(orig):
+            def fn(*a, **kw):
+                before = launch_counts()
+                out = orig(*a, **kw)
+                rec.refreshes.append(diff(before))
+                return out
+            return fn
+
+        def window(orig):
+            def fn(self_, step):
+                orig(self_, step)
+                rec.windows.append((step, self_.warm, self_.occ.grid.float().mean()))
+            return fn
+
+        def hook_grid(orig):
+            def fn(self_, step):
+                grid = orig(self_, step)
+                rec.hook_grids.add(id(grid))
+                return grid
+            return fn
+
+        def sync(orig):
+            def fn(state):
+                out = orig(state)
+                opt, fine = state.optimizer.state, state.fine.params()
+                rec.syncs.append((state.step, all(
+                    torch.equal(p, fine[k]) and all(torch.equal(opt[p][m], opt[fine[k]][m])
+                                                    for m in ("exp_avg", "exp_avg_sq"))
+                    for k, p in state.coarse.params().items())))
+                return out
+            return fn
+
+        def render(orig):
+            def fn(self_, *a, **kw):
+                before = launch_counts()
+                out = orig(self_, *a, **kw)
+                g = kw.get("occ_grid")
+                rec.hooks.append((g is not None and id(g) in rec.hook_grids, diff(before)))
+                return out
+            return fn
+
+        for obj, name, make in ((occ_train, "make_occ_train_step", make_step),
+                                (occ_train, "update_density_grid", update),
+                                (tapp.OccTraining, "start_window", window),
+                                (tapp.OccTraining, "hook_grid", hook_grid),
+                                (tapp, "sync_coarse_from_fine", sync),
+                                (Renderer, "render_from_batch_poses", render)):
+            self._stack.enter_context(patched(obj, name, make))
+        return self
+
+    def __exit__(self, *exc):
+        self._stack.close()
+        return False
+
+    def hook_launches(self):
+        return {k: sum(d.get(k, 0) for _, d in self.hooks) for k in launch_counts()}
+
+
+def diff(before):
+    """launch_counts() now minus ``before``, zero entries dropped."""
+    now = launch_counts()
+    return {k: now[k] - before[k] for k in now if now[k] != before[k]}
+
+
+def train_rays_per_s(text):
+    """Median [TRAIN] rays/s of a CLI log, the first window left out."""
+    import re
+
+    rps = [float(r.replace(",", "")) for r in re.findall(
+        r"\[TRAIN\] Iter: \d+ .*?rays/sec: (\S+)", text)]
+    return statistics.median(rps[1:] if len(rps) > 1 else rps)
+
+
+def phase_occ(device, trained, smi):
+    """Phase 13: the occupancy-gated trainer at full lego width on phase 6's
+    scene: (a) one refresh, one occ step, one budgeted step and one
+    max_probes refresh through the kernels against the plain versions;
+    (b) the two-phase run with resume from phase 6's checkpoint; (c) a run
+    from scratch; (d) the vertex hashgrid under --train_occ."""
+    import re
+
+    import numpy as np
+    import torch
+
+    from nerf_shared_tpu_torch.apps import train as tapp
+    from nerf_shared_tpu_torch.config import config_parser
+    from nerf_shared_tpu_torch.data.datasets import load_datasets
+    from nerf_shared_tpu_torch.train.occ_train import (
+        binarize_density_grid,
+        init_density_grid,
+        update_density_grid,
+    )
+
+    t_phase = time.perf_counter()
+    setup = occ_setup(device, trained)
+    a = setup["args"]
+    G = a.train_occ_res
+    n_cells = G ** 3
+    per_refresh = math.ceil(n_cells / 65536)
+    launches = {}
+
+    # (a) a refresh, an occ step (the warm-up's sigma noise), a budgeted
+    # step and a max_probes refresh, kernels against plain
+    g = torch.Generator(device=device).manual_seed(17)
+    jitter = torch.rand(n_cells, 3, generator=g, device=device) - 0.5
+    state = occ_state(setup, device)
+    dg0 = init_density_grid(*setup["aabb"], G, device)
+    refresh = {}
+    for fused in (True, False):
+        rc = occ_rcfg(setup, fused, 0.0)
+
+        def run(grid=dg0):
+            return update_density_grid(grid, state.fine.params(), setup["cfg"], rc,
+                                       decay=a.train_occ_decay, draws={"jitter": jitter})
+
+        zero_counts()
+        dg = run()
+        torch.cuda.synchronize()
+        refresh[fused] = (dg, launch_counts(), time_ms(run, 5))
+    expect_launches("density refresh through the kernels", refresh[True][1],
+                    {"fused_mlp_points": per_refresh})
+    expect_launches("plain density refresh", refresh[False][1], {})
+    refresh_err, refresh_flips, frac0 = occ_grid_check(
+        f"density refresh {G}^3 ({n_cells} points, {per_refresh} B1 launches)",
+        refresh[True][0], refresh[False][0], setup["alpha"])
+    dg = refresh[True][0]
+    occ = binarize_density_grid(dg, setup["alpha"])
+    if not 0.0 < occ.occupied_fraction() < 1.0:
+        raise AssertionError(f"the trained field's grid is {occ.occupied_fraction():.1%} "
+                             "occupied")
+    step_a = check_occ_step(setup, device, occ, None, float(a.train_occ_warmup_noise),
+                            "occ step (warm-up noise)")
+    step_b = check_occ_step(setup, device, occ, dg, 0.0, "budgeted occ step")
+    m = n_cells // 4
+    idx = torch.randint(0, n_cells, (m,), generator=g, device=device)
+    jit2 = torch.rand(m, 3, generator=g, device=device) - 0.5
+    probes = {}
+    for fused in (True, False):
+        zero_counts()
+        probes[fused] = (update_density_grid(
+            dg, state.fine.params(), setup["cfg"], occ_rcfg(setup, fused, 0.0),
+            decay=a.train_occ_decay, max_probes=m, draws={"idx": idx, "jitter": jit2}),
+            launch_counts())
+    expect_launches("max_probes refresh through the kernels", probes[True][1],
+                    {"fused_mlp_points": math.ceil(m / 65536)})
+    probe_err, _, _ = occ_grid_check(f"max_probes refresh ({m} random cells)",
+                                     probes[True][0], probes[False][0], setup["alpha"])
+    del state
+
+    # (b) the two-phase schedule with a resume, from phase 6's checkpoint
+    logs = os.path.join(WORK, "occ_logs")
+    expdir = os.path.join(logs, "lego_occ")
+    os.makedirs(expdir)
+    src = os.path.join(WORK, "train_logs", "lego_smoke")
+    for f in ("000800.tar", "000800.ckpt.npz"):
+        shutil.copy(os.path.join(src, f), expdir)
+    warmup, until, end = 850, 1100, 1200
+    argv = trained["base_argv"] + ["--basedir", logs, "--expname", "lego_occ"] + OCC_FLAGS + [
+        "--train_occ_warmup", str(warmup), "--train_occ_until", str(until)]
+    inner = tapp.dispatch_steps(config_parser().parse_args(argv + ["--N_iters", str(until)]))
+    zero_counts()
+    with OccRecorder() as rec:
+        _, text = run_train_cli(argv + ["--N_iters", str(until)])
+    occ_total = launch_counts()
+    n_steps = until - 800
+    bad = [s for s in rec.steps if s[2] != {"fused_mlp_points": 1, "fused_mlp_bwd": 1}]
+    bad_r = [r for r in rec.refreshes if r != {"fused_mlp_points": per_refresh}]
+    hooks = rec.hook_launches()
+    want_total = {"fused_mlp_points": n_steps + per_refresh * len(rec.refreshes)
+                  + hooks["fused_mlp_points"],
+                  "fused_mlp_bwd": n_steps + hooks["fused_mlp_bwd"]}
+    warm_active = [float(s[3]) for s in rec.steps if s[0] < warmup]
+    after_warm = [float(f) for s, w, f in rec.windows if s >= warmup]
+    log(f"occ-gated run 800 -> {until} ({inner} steps a dispatch): {len(rec.steps)} steps, "
+        f"{len(rec.refreshes)} refreshes, launches {occ_total} (hooks {hooks}); warm-up "
+        f"n_active_mean {min(warm_active):.2f}-{max(warm_active):.2f}; occupied after the "
+        f"warm-up {min(after_warm):.1%}-{max(after_warm):.1%}; hook frames through the "
+        f"training grid {[h[0] for h in rec.hooks]}")
+    if (len(rec.steps) != n_steps or bad or bad_r or len(rec.refreshes) != n_steps // inner
+            or any(occ_total.get(k, 0) != v for k, v in want_total.items())
+            or set(warm_active) != {float(a.train_occ_keep)}
+            or [s for s, w, _ in rec.windows if w] != list(range(800, warmup, inner))
+            or not after_warm or not after_warm[0] < 1.0
+            or not rec.hooks or not all(h[0] for h in rec.hooks) or "[PHASE]" in text):
+        raise AssertionError(f"the occ-gated run: bad steps {bad[:3]}, bad refreshes "
+                             f"{bad_r[:3]}, windows {[(s, w) for s, w, _ in rec.windows]}, "
+                             f"hooks {rec.hooks}")
+    occ_rps = train_rays_per_s(text)
+    zero_counts()
+    with OccRecorder() as rec2:
+        state2, text2 = run_train_cli(argv + ["--N_iters", str(end)])
+    hier_total = launch_counts()
+    hooks2 = rec2.hook_launches()
+    phase = [ln for ln in text2.splitlines() if ln.startswith("[PHASE]")]
+    want_phase = [f"[PHASE] step {until}: occ -> hierarchical; coarse seeded from fine "
+                  "(+Adam moments)"]
+    hier_steps = end - until
+    log(f"resumed {until} -> {end}: {phase}; sync check {rec2.syncs}; launches "
+        f"{hier_total} (hooks {hooks2}); hook frames through a grid "
+        f"{[h[0] for h in rec2.hooks]}")
+    if (phase != want_phase or rec2.syncs != [(until, True)] or rec2.steps
+            or hier_total["fused_mlp_points"] - hooks2["fused_mlp_points"] != 2 * hier_steps
+            or hier_total["fused_mlp_bwd"] - hooks2["fused_mlp_bwd"] != 2 * hier_steps
+            or any(h[0] for h in rec2.hooks) or state2.step != end):
+        raise AssertionError("the switch to the hierarchical phase")
+    hier_rps = train_rays_per_s(text2)
+    ra = config_parser().parse_args(argv + ["--N_iters", str(end), "--render_only",
+                                            "--render_test"])
+    ds = load_datasets(ra)   # render_test: the render poses are the test views
+    zero_counts()
+    with contextlib.redirect_stdout(io.StringIO()):
+        _, rgbs = tapp.render_only(ra, return_rgbs=True, ds=ds)
+    launches["occ_render_only"] = launch_counts()
+    gts = ds.images[ds.i_test]
+    held = float(np.mean([-10 * math.log10(float(np.mean((r - t) ** 2))) for r, t in
+                          zip(rgbs, gts)]))
+    white = float(np.mean([-10 * math.log10(float(np.mean((1.0 - t) ** 2))) for t in gts]))
+    log(f"held-out PSNR after the two-phase run: {held:.2f} dB over {len(gts)} views "
+        f"(all-white {white:.2f} dB)")
+    if not held >= white + 2.0:
+        raise AssertionError("held-out PSNR is not 2 dB above the all-white frame")
+    launches["occ_two_phase"] = occ_total
+    launches["occ_switch_resume"] = hier_total
+
+    # (c) from scratch on phase 6's scene
+    scene = os.path.join(WORK, "train_scene")
+    lego = os.path.join(REPO, "configs", "lego.txt")
+    scratch = ["--config", lego, "--datadir", scene, "--basedir",
+               os.path.join(WORK, "occ_scratch_logs"), "--expname", "occ_scratch",
+               "--device", device, "--testskip", "1", "--i_print", "10", "--i_testset", "0",
+               "--i_video", "0", "--i_img", "0", "--i_weights", "300", "--N_iters", "300",
+               "--train_occ_warmup", "100"] + OCC_FLAGS
+    zero_counts()
+    _, text3 = run_train_cli(scratch)
+    launches["occ_scratch"] = launch_counts()
+    lines = re.findall(r"\[TRAIN\] Iter: (\d+) Loss: (\S+)\s+PSNR: (\S+)", text3)
+    losses = [float(x) for _, x, _ in lines]
+    psnr = {int(i): float(p) for i, _, p in lines}
+    log(f"occ-gated from scratch, 300 steps (warm-up 100): train PSNR step 10 "
+        f"{psnr.get(10, float('nan')):.2f} -> step 300 {psnr.get(300, float('nan')):.2f} dB; "
+        f"launches {launches['occ_scratch']}")
+    if not (losses and all(math.isfinite(x) for x in losses) and psnr[300] > psnr[10]):
+        raise AssertionError("the occ-gated run from scratch did not train")
+
+    # (d) the vertex hashgrid at its defaults under --train_occ: the occ
+    # step runs the fine pass only, one fused P1 forward and one P2
+    # backward (the hierarchical step's 2 + 2 are two passes)
+    vertex = ["--config", lego, "--datadir", scene, "--basedir",
+              os.path.join(WORK, "occ_vertex_logs"), "--expname", "occ_vertex", "--device",
+              device, "--testskip", "1", "--i_print", "10", "--i_testset", "0", "--i_video",
+              "0", "--i_img", "0", "--i_weights", "0", "--model_type", "hashgrid",
+              "--N_iters", "100"] + OCC_FLAGS
+    zero_counts()
+    with OccRecorder() as rec4:
+        _, text4 = run_train_cli(vertex)
+    launches["occ_vertex"] = launch_counts()
+    kinds = {tuple(sorted(s[2].items())) for s in rec4.steps}
+    log(f"vertex hashgrid under --train_occ, 100 steps: per-step launches {kinds}, "
+        f"refreshes {len(rec4.refreshes)} ({rec4.refreshes[:1]} each); "
+        f"{1e3 * 1024 / train_rays_per_s(text4):.2f} ms a step")
+    if (len(rec4.steps) != 100
+            or kinds != {(("gather", 1), ("scatter_add", 1))}):
+        raise AssertionError(f"vertex hashgrid occ steps launched {kinds}")
+
+    wall = time.perf_counter() - t_phase
+    result = {
+        "occ_step_ms": step_a["kernel_ms"], "occ_step_plain_ms": step_a["plain_ms"],
+        "budget_step_ms": step_b["kernel_ms"], "budget_step_plain_ms": step_b["plain_ms"],
+        "refresh_ms": refresh[True][2], "refresh_plain_ms": refresh[False][2],
+        "refresh_err": refresh_err, "refresh_flips": refresh_flips, "probe_err": probe_err,
+        "occupied_fraction": frac0, "trainer_occ_ms": 1e3 * a.N_rand / occ_rps,
+        "trainer_occ_rays_per_s": occ_rps, "post_switch_ms": 1e3 * a.N_rand / hier_rps,
+        "phase6_rays_per_s": trained["rays_per_s"], "held_out_psnr": held,
+        "white_psnr": white, "scratch_psnr": [psnr[10], psnr[300]],
+        "vertex_ms": 1e3 * 1024 / train_rays_per_s(text4), "steps": {
+            "a": step_a, "b": step_b}, "launches_by_path": launches, "wall_s": wall}
+    log(f"phase 13 occ: occ step {step_a['kernel_ms']:.2f} ms through B1 + B2 (plain "
+        f"{step_a['plain_ms']:.2f}; budgeted {step_b['kernel_ms']:.2f}), refresh "
+        f"{refresh[True][2]:.2f} ms ({per_refresh} B1; plain {refresh[False][2]:.2f}), "
+        f"post-switch step {result['post_switch_ms']:.2f} ms; trainer occ-gated "
+        f"{occ_rps:,.0f} rays/s = {result['trainer_occ_ms']:.2f} ms a step against phase 6's "
+        f"{trained['rays_per_s']:,.0f} rays/s ({occ_rps / trained['rays_per_s']:.2f}x); "
+        f"occupied {frac0:.1%} after one refresh of the 800-step field; held-out PSNR "
+        f"{held:.2f} dB (white {white:.2f}); from scratch {psnr[10]:.2f} -> {psnr[300]:.2f} "
+        f"dB; vertex hashgrid step {result['vertex_ms']:.2f} ms; {wall:.1f} s ({smi})")
+    return result
+
+
+def canon_faces(f):
+    """A face set as sorted rows, each rolled to its smallest index."""
+    import numpy as np
+
+    roll = np.argmin(f, axis=1)
+    rows = np.stack([f[np.arange(len(f)), (roll + k) % 3] for k in range(3)], axis=1)
+    return rows[np.lexsort(rows.T[::-1])]
+
+
+def open_edges(verts, faces, lo, hi):
+    """(edges not shared by exactly two faces inside the box, such edges
+    on the box's faces): a marching-tetrahedra surface is closed except
+    where it leaves the probed box."""
+    import numpy as np
+
+    e = np.sort(np.concatenate([faces[:, [0, 1]], faces[:, [1, 2]], faces[:, [2, 0]]]), 1)
+    keys, counts = np.unique(e[:, 0].astype(np.int64) * len(verts) + e[:, 1],
+                             return_counts=True)
+    bad = keys[counts != 2]
+    a, b = verts[bad // len(verts)], verts[bad % len(verts)]
+    tol = 1e-5 * (np.asarray(hi) - np.asarray(lo))
+
+    def on_face(v):
+        return (np.abs(v - lo) <= tol) | (np.abs(v - hi) <= tol)
+
+    boundary = (on_face(a) & on_face(b)).any(-1)
+    return int((~boundary).sum()), int(boundary.sum())
+
+
+def sigma_grad_norms(params, cfg, verts, device, block=65536):
+    """|∇σ| at each vertex through the plain network (the normals' mask)."""
+    import torch
+
+    from nerf_shared_tpu_torch.models.nerf import apply_nerf
+
+    dirs = torch.full((1, 3), 1.0 / math.sqrt(3.0), device=device)
+    out = []
+    for i in range(0, len(verts), block):
+        with torch.enable_grad():
+            p = torch.as_tensor(verts[i:i + block], device=device).requires_grad_(True)
+            raw = apply_nerf(params, cfg, p[None], dirs)
+            (gr,) = torch.autograd.grad(raw[0, :, 3].sum(), p)
+        out.append(torch.linalg.norm(gr, dim=-1))
+    return torch.cat(out).cpu().numpy()
+
+
+def read_obj_counts(path):
+    nv = nf = 0
+    with open(path) as f:
+        for line in f:
+            nv += line.startswith("v ")
+            nf += line.startswith("f ")
+    return nv, nf
+
+
+def mesh_iso(grid):
+    """The export's iso level: the original NeRF export's 50 on raw sigma,
+    or the probed grid's 99th percentile when the field never reaches 50."""
+    import numpy as np
+
+    return (50.0, "50") if float(grid.max()) > 50.0 else (
+        float(np.percentile(grid, 99)), "the 99th percentile (the field stays below 50)")
+
+
+def phase_mesh(device, trained, llff):
+    """Phase 14: mesh export (apps/mesh_cli.py) of phase 6's checkpoint at
+    --mesh_res 256 with colours and gradient normals, the native scan
+    required; then phase 10's fern checkpoint at --mesh_res 128 with
+    --mesh_world."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from nerf_shared_tpu_torch.apps import mesh_cli
+    from nerf_shared_tpu_torch.apps import train as tapp
+    from nerf_shared_tpu_torch.ops import meshing as TM
+    from nerf_shared_tpu_torch.config import config_parser
+    from nerf_shared_tpu_torch.ops.cuda import fused_mlp, fused_mlp_bwd
+    from nerf_shared_tpu_torch.render import renderer as TR
+
+    t_phase = time.perf_counter()
+    R = 256
+    argv = trained["base_argv"] + ["--N_iters", "800"]
+    margs = mesh_cli.extend_parser_for_mesh(config_parser()).parse_args(argv)
+    with contextlib.redirect_stdout(io.StringIO()):
+        eng = tapp.build_eval_engine(margs)
+    params = {k: v.detach() for k, v in eng.fine.params().items()}
+    cfg, rcfg = eng.fcfg, eng.renderer.cfg
+    plain = dataclasses.replace(rcfg, use_pallas=False)
+    lo, hi = mesh_cli.mesh_aabb(margs, eng.renderer, eng.ds, eng.H, eng.W)
+    n_probe = math.ceil((R + 1) ** 3 / 65536)
+
+    # the probe through B1 (timed) against the plain network on the 65^3
+    # sub-lattice (every 4th point: the same coordinates)
+    def probe():
+        return TM.probe_density_grid(params, cfg, rcfg, lo, hi, resolution=R)
+
+    zero_counts()
+    grid = probe()
+    expect_launches(f"probe {R + 1}^3", launch_counts(), {"fused_mlp_points": n_probe})
+    probe_ms = time_ms(probe, 3)
+    sub = TM.probe_density_grid(params, cfg, plain, lo, hi, resolution=R // 4)
+    probe_err = float(np.abs(grid[::4, ::4, ::4] - sub).max()) / max(1.0, float(np.abs(sub).max()))
+    iso, iso_src = mesh_iso(grid)
+    spacing = (np.asarray(hi, np.float32) - np.asarray(lo, np.float32)) / np.float32(R)
+    t0 = time.perf_counter()
+    vn, fn = TM.marching_tetrahedra(grid, iso, lo, spacing, native="require")
+    native_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    vp, fp = TM.marching_tetrahedra(grid, iso, lo, spacing, native="never")
+    numpy_s = time.perf_counter() - t0
+    same = np.array_equal(vn, vp) and np.array_equal(canon_faces(fn), canon_faces(fp))
+    inner_open, box_open = open_edges(vn, fn, lo, hi)
+    log(f"probe {R + 1}^3 through B1 ({n_probe} launches): {probe_ms:.1f} ms, {probe_err:.1e} "
+        f"of max(1, max|plain|) on the 65^3 sub-lattice (tol 2e-4); sigma max "
+        f"{float(grid.max()):.1f}, iso {iso:.2f} ({iso_src}); scan native {native_s:.2f} s, "
+        f"numpy {numpy_s:.2f} s, {len(vn)} vertices, {len(fn)} faces, bit-equal {same}; "
+        f"edges not in exactly two faces: {inner_open} inside the box (tol 0), {box_open} "
+        "on its faces (where the surface leaves the probed box)")
+    if not (probe_err <= 2e-4 and same and len(fn) > 0 and inner_open == 0):
+        raise AssertionError("the probe, the scans or the surface")
+
+    # the CLI: native scan required, no plain network anywhere
+    out = os.path.join(WORK, "mesh_lego.obj")
+    plain_calls = []
+
+    def count(orig):
+        def fn_(*a, **kw):
+            plain_calls.append(1)
+            return orig(*a, **kw)
+        return fn_
+
+    zero_counts()
+    t0 = time.perf_counter()
+    with patched(TR, "apply_nerf", count), patched(fused_mlp_bwd, "apply_nerf", count), \
+            patched(fused_mlp, "apply_nerf", count):
+        (path, verts, faces), text = capture(lambda: mesh_cli.main(
+            argv + ["--mesh_res", str(R), "--mesh_iso", repr(iso), "--mesh_color",
+                    "--mesh_normals", "grad", "--mesh_out", out], native="require"))
+    cli_s = time.perf_counter() - t0
+    cli = launch_counts()
+    nb = math.ceil(len(verts) / 65536)
+    expect_launches("mesh CLI", cli, {"fused_mlp_points": n_probe + 2 * nb,
+                                      "fused_mlp_bwd": nb})
+    nv, nf = read_obj_counts(path)
+    if (plain_calls or "cell scan: native" not in text or not np.array_equal(verts, vn)
+            or not np.array_equal(faces, fn) or (nv, nf) != (len(vn), len(fn))):
+        raise AssertionError(f"mesh CLI: plain calls {len(plain_calls)}, OBJ {nv} / {nf}")
+
+    # colours and gradient normals against the plain route
+    normals = TM.density_gradient_normals(params, cfg, rcfg, verts)
+    normals_ms = time_ms(lambda: TM.density_gradient_normals(params, cfg, rcfg, verts), 3)
+    normals_p = TM.density_gradient_normals(params, cfg, plain, verts)
+    colors = TM.vertex_colors(params, cfg, rcfg, verts, faces, normals=normals)
+    colors_ms = time_ms(lambda: TM.vertex_colors(params, cfg, rcfg, verts, faces,
+                                                 normals=normals), 3)
+    colors_p = TM.vertex_colors(params, cfg, plain, verts, faces, normals=normals)
+    mag = sigma_grad_norms(params, cfg, verts, device)
+    strong = mag > 1e-3 * mag.max()
+    n_err = float(np.abs(normals - normals_p)[strong].max())
+    unit = float(np.abs(np.linalg.norm(normals, axis=1) - 1.0)[strong].max())
+    c_err = float(np.abs(colors - colors_p).max())
+    log(f"mesh CLI {cli_s:.1f} s: {path} with {nv} vertices, {nf} faces; launches {cli}; "
+        f"colours {colors_ms:.1f} ms, in [{colors.min():.3f}, {colors.max():.3f}], {c_err:.1e} "
+        f"from the plain route (tol 1e-4); gradient normals {normals_ms:.1f} ms (B1 + B2), "
+        f"{n_err:.1e} from the plain route on {int(strong.sum())} of {len(verts)} vertices "
+        f"with |grad sigma| > 1e-3 of its max (tol 1e-3), unit to {unit:.1e}")
+    if not (colors.min() >= 0.0 and colors.max() <= 1.0 and c_err <= 1e-4 and n_err <= 1e-3
+            and unit <= 1e-5):
+        raise AssertionError("mesh colours or gradient normals disagree with the plain route")
+    launches = {"mesh_lego": cli}
+
+    # the fern checkpoint at 128, NDC and world
+    fargv = llff["argv"]
+    feng = llff["engine"]
+    fparams = {k: v.detach() for k, v in feng.fine.params().items()}
+    fargs = mesh_cli.extend_parser_for_mesh(config_parser()).parse_args(fargv)
+    flo, fhi = mesh_cli.mesh_aabb(fargs, feng.renderer, feng.ds, int(feng.ds.hwf[0]),
+                                  int(feng.ds.hwf[1]))
+    fgrid = TM.probe_density_grid(fparams, feng.fcfg, feng.renderer.cfg, flo, fhi, resolution=128)
+    fiso, fiso_src = mesh_iso(fgrid)
+    fl = fargv + ["--mesh_res", "128", "--mesh_iso", repr(fiso)]
+    zero_counts()
+    (_, nverts, nfaces), _ = capture(lambda: mesh_cli.main(
+        fl + ["--mesh_out", os.path.join(WORK, "mesh_fern_ndc.obj")], native="require"))
+    (_, wverts, wfaces), wtext = capture(lambda: mesh_cli.main(
+        fl + ["--mesh_world", "--mesh_out", os.path.join(WORK, "mesh_fern_world.obj")],
+        native="require"))
+    launches["mesh_fern"] = launch_counts()
+    log(f"fern at 128^3, iso {fiso:.2f} ({fiso_src}): {len(wverts)} world vertices, "
+        f"z in [{wverts[:, 2].min() if len(wverts) else 0:.2f}, "
+        f"{wverts[:, 2].max() if len(wverts) else 0:.2f}], faces flipped against the NDC "
+        f"export: {np.array_equal(wfaces, nfaces[:, ::-1])}")
+    if not (len(wfaces) > 0 and np.isfinite(wverts).all() and len(wverts) == len(nverts)
+            and np.array_equal(wfaces, nfaces[:, ::-1])
+            and "unwarped NDC mesh to world coordinates" in wtext):
+        raise AssertionError("the fern world-space export")
+    wall = time.perf_counter() - t_phase
+    result = {"probe_ms": probe_ms, "probe_err": probe_err, "iso": iso, "native_scan_s":
+              native_s, "numpy_scan_s": numpy_s, "vertices": len(verts), "faces": len(faces),
+              "colors_ms": colors_ms, "colors_err": c_err, "normals_ms": normals_ms,
+              "normals_err": n_err, "cli_s": cli_s, "fern_iso": fiso,
+              "open_edges_on_box": box_open,
+              "fern_faces": len(wfaces), "launches_by_path": launches, "wall_s": wall}
+    log(f"phase 14 mesh: probe {probe_ms:.1f} ms ({R + 1}^3, {n_probe} B1), scan native "
+        f"{native_s:.2f} s / numpy {numpy_s:.2f} s, {len(verts)} vertices, {len(faces)} "
+        f"faces (iso {iso:.2f}), colours {colors_ms:.1f} ms, gradient normals "
+        f"{normals_ms:.1f} ms; fern 128^3 {len(wfaces)} faces; {wall:.1f} s")
+    return result
+
+
 def _profile(what, fn, top_n=8):
     """fn() under torch.profiler: device time by kernel (the ``top_n``
     largest) and the device's busy share of the wall time."""
@@ -3458,7 +4239,7 @@ def main() -> int:
         train_cases, step = phase_train_kernels(device)
         cases += train_cases
         log(f"phase 5: training kernels in {time.perf_counter() - t0:.1f} s")
-    if want(6, 7, 11, 12):
+    if want(6, 7, 11, 12, 13, 14):
         t0 = time.perf_counter()
         trained = phase_training(device)
         log(f"phase 6: training in {time.perf_counter() - t0:.1f} s")
@@ -3475,7 +4256,7 @@ def main() -> int:
         t0 = time.perf_counter()
         grid = phase_grid(device, profile=profile)
         log(f"phase 9: grid families in {time.perf_counter() - t0:.1f} s")
-    if want(10):
+    if want(10, 14):
         t0 = time.perf_counter()
         llff = phase_llff(device)
         log(f"phase 10: LLFF (fern recipe) in {time.perf_counter() - t0:.1f} s")
@@ -3489,6 +4270,14 @@ def main() -> int:
         proposal = phase_proposal(device, trained, smi)
         log(f"phase 12: the proposal sampler, loss sampling and EMA in "
             f"{time.perf_counter() - t0:.1f} s")
+    if want(13):
+        t0 = time.perf_counter()
+        occ = phase_occ(device, trained, smi)
+        log(f"phase 13: the occupancy-gated trainer in {time.perf_counter() - t0:.1f} s")
+    if want(14):
+        t0 = time.perf_counter()
+        mesh = phase_mesh(device, trained, llff)
+        log(f"phase 14: mesh export in {time.perf_counter() - t0:.1f} s")
     if profile:
         if want(3, 4):
             profile_frame(served["engine"], served["pose"])
@@ -3496,6 +4285,8 @@ def main() -> int:
             profile_train_step(device)
         if want(12):
             profile_proposal_step(device)
+        if want(13):
+            profile_occ_step(device, trained)
         if want(9):
             profile_grid_step(device)
             profile_grid_step(device, vertex=True)
@@ -3516,6 +4307,8 @@ def main() -> int:
     by_path.update(llff["launches_by_path"])
     by_path.update(pose["launches_by_path"])
     by_path.update(proposal["launches_by_path"])
+    by_path.update(occ["launches_by_path"])
+    by_path.update(mesh["launches_by_path"])
 
     sources = {
         "fused_mlp_points": ("nerf_shared_tpu_torch/csrc/fused_mlp.cu",
@@ -3562,6 +4355,8 @@ def main() -> int:
                              if k not in ("launches_by_path", "cases")},
                     "proposal": {k: v for k, v in proposal.items()
                                  if k != "launches_by_path"},
+                    "occ": {k: v for k, v in occ.items() if k != "launches_by_path"},
+                    "mesh": {k: v for k, v in mesh.items() if k != "launches_by_path"},
                     "probe": probe}))
     log(f"all phases in {time.perf_counter() - t_script:.1f} s")
     print(json.dumps({"kernels": kernels}))

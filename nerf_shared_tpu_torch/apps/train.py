@@ -29,6 +29,17 @@ the device, and ``--ema_decay`` keeps an EMA shadow of the fields that
 every eval render reads (the hooks from the state, ``render_only``, the
 eval CLI and the service from the checkpoint's ``ema/`` sidecar).
 
+``--train_occ`` trains the fine network alone through the occupancy-gated
+step (train/occ_train.py: B1 + B2 at K samples a ray, or P1 / P2 for the
+grid families) over a density grid refreshed from the live network (4 B1
+launches at 64³). The JAX trainer scans gcd(i_print, i_weights,
+i_testset, i_img) steps per dispatch (``dispatch_steps``); the port steps
+one at a time but makes the per-dispatch decisions on the same steps: the
+warm-up and the binary grid at each window's start, the refresh at its
+end, and with ``--train_occ_until`` the switch to the hierarchical step
+(coarse seeded from fine, ``sync_coarse_from_fine``) at the first window
+starting past it. Render hooks go through the training grid until then.
+
 Render engines (``EvalEngine.engine_name``): ``dense`` (guided with
 ``--render_guided``), ``gated`` (``--render_gate``), ``occ-froxel`` and
 ``occ-grid`` (``--occ_grid`` with ``--occ_mode``; the grid is built from
@@ -67,9 +78,10 @@ from nerf_shared_tpu_torch.factory import (
     nerf_configs,
 )
 from nerf_shared_tpu_torch.models.triplane import TriplaneConfig, upsample_triplane
+from nerf_shared_tpu_torch.train import occ_train
 from nerf_shared_tpu_torch.train.loss_sampling import LossSamplingSpec, init_loss_map
 from nerf_shared_tpu_torch.train.pipeline import PixelSamplerSpec
-from nerf_shared_tpu_torch.train.state import fresh_state_at, make_model
+from nerf_shared_tpu_torch.train.state import fresh_state_at, make_model, sync_coarse_from_fine
 from nerf_shared_tpu_torch.train.step import make_train_step
 from nerf_shared_tpu_torch.utils import checkpoints as ckpt_utils
 from nerf_shared_tpu_torch.utils.logging import copy_log_dir, make_tb_writer, print_statistics
@@ -80,7 +92,6 @@ from nerf_shared_tpu_torch.utils.metrics import ssim, to8b
 _NOT_PORTED = {
     "precision": (lambda v: v != "fp32", "bf16 operands in the CUDA kernels"),
     "mesh_shape": (lambda v: bool(v), "multi-GPU renders and training (ROADMAP A16)"),
-    "train_occ": (bool, "the occupancy-gated trainer (ROADMAP A14)"),
     "multihost": (bool, "multi-host training over torch.distributed (ROADMAP A16)"),
     "debug_nans": (bool, "NaN checks at the source: torch.autograd anomaly "
                    "mode and a finite check after every kernel (ROADMAP C2)"),
@@ -118,10 +129,8 @@ def check_ported(args):
 def check_trainer_flags(args):
     """The JAX trainer's guards on --loss_sampling (single-image sampling
     only) and on --proposal, --loss_sampling and --ema_decay with
-    --train_occ (which the port does not carry yet: ROADMAP A14)."""
+    --train_occ."""
     train_occ = bool(getattr(args, "train_occ", False))
-    occ_note = (" (and --train_occ, the occupancy-gated trainer, is not ported to "
-                "nerf_shared_tpu_torch yet: ROADMAP A14)")
     if bool(getattr(args, "loss_sampling", False)):
         if not args.no_batching:
             raise SystemExit(
@@ -131,17 +140,17 @@ def check_trainer_flags(args):
         if train_occ:
             raise SystemExit(
                 "--loss_sampling targets the hierarchical/proposal "
-                "trainer (the occ trainer has its own candidate sampler)" + occ_note)
+                "trainer (the occ trainer has its own candidate sampler)")
     if float(getattr(args, "ema_decay", 0.0)) > 0.0 and train_occ:
         raise SystemExit(
             "--ema_decay targets the hierarchical/proposal trainer "
-            "(the occ trainer does not maintain the EMA shadow)" + occ_note)
+            "(the occ trainer does not maintain the EMA shadow)")
     if bool(getattr(args, "proposal", False)) and train_occ:
         raise SystemExit(
             "--proposal and --train_occ are alternative accelerants: "
             "the occ trainer is fine-only (no coarse branch to "
             "propose for) and the two-phase seed copy assumes "
-            "same-shape coarse/fine nets" + occ_note)
+            "same-shape coarse/fine nets")
 
 
 def loss_sampling_spec(args) -> Optional[LossSamplingSpec]:
@@ -323,6 +332,68 @@ def _upsample_state(state, new_G, args):
     return new_state, mods[0].cfg, fine.cfg if fine is not None else None
 
 
+def dispatch_steps(args) -> int:
+    """The JAX trainer's steps per dispatch: the gcd of the positive
+    i_print / i_weights / i_testset / i_img cadences (100 when none is set),
+    at most N_iters. The port steps one at a time; --train_occ makes its
+    per-dispatch decisions (warm-up, the binary grid, the grid refresh, the
+    phase switch) on this grid of steps, as the JAX trainer does."""
+    cadences = [c for c in (args.i_print, args.i_weights, args.i_testset, args.i_img)
+                if c > 0]
+    inner = int(np.gcd.reduce(cadences)) if cadences else 100
+    return max(1, min(inner, args.N_iters))
+
+
+class OccTraining:
+    """The --train_occ side of a run (train/occ_train.py): the density
+    grid over the scene box, the occupancy-gated step and its warm-up
+    variant (sigma noise max(raw_noise_std, --train_occ_warmup_noise),
+    which breaks the zero-gradient transparency trap of a fine-only start),
+    and the binary grid of the current dispatch window."""
+
+    def __init__(self, args, rcfg, fcfg, spec, aabb, device):
+        self.rcfg, self.fcfg = rcfg, fcfg
+        self.warmup = int(args.train_occ_warmup)
+        self.decay = float(args.train_occ_decay)
+        self.alpha = resolved_occ_alpha_thresh(args)
+        self.budget = bool(args.train_occ_budget)
+        self.max_probes = int(args.train_occ_probe_budget) or None
+        kw = dict(n_candidates=args.train_occ_candidates, n_keep=args.train_occ_keep,
+                  explore=args.train_occ_explore, tv_reg=args.tv_loss_weight)
+        self.step_fn = occ_train.make_occ_train_step(rcfg, fcfg, spec, **kw)
+        warm_noise = max(float(rcfg.raw_noise_std), float(args.train_occ_warmup_noise))
+        self.warm_fn = (occ_train.make_occ_train_step(
+            dataclasses.replace(rcfg, raw_noise_std=warm_noise), fcfg, spec, **kw)
+            if warm_noise != float(rcfg.raw_noise_std) else self.step_fn)
+        self.grid = occ_train.init_density_grid(*aabb, args.train_occ_res, device)
+        self.warm, self.occ, self.density = True, None, None
+
+    def start_window(self, step: int):
+        """The decisions of a dispatch window starting at global step
+        ``step``: warm-up or not, the binary grid, the budgeting grid."""
+        self.warm = step < self.warmup
+        self.occ = occ_train.binarize_density_grid(
+            self.grid, alpha_threshold=self.alpha, force_occupied=self.warm)
+        self.density = self.grid if (self.budget and not self.warm) else None
+
+    def train_step(self, state, images, poses, generator):
+        fn = self.warm_fn if self.warm else self.step_fn
+        return fn(state, self.occ, images, poses, generator, density=self.density)
+
+    def refresh(self, params_fine, seed: int):
+        """One density-grid update from the live fine network."""
+        gen = torch.Generator(device=self.grid.ema.device).manual_seed(seed)
+        self.grid = occ_train.update_density_grid(
+            self.grid, params_fine, self.fcfg, self.rcfg, gen, decay=self.decay,
+            max_probes=self.max_probes)
+
+    def hook_grid(self, step: int):
+        """The grid the render hooks see at ``step``: the training grid
+        (all occupied during the warm-up), since the coarse net is untrained."""
+        return occ_train.binarize_density_grid(
+            self.grid, alpha_threshold=self.alpha, force_occupied=step < self.warmup)
+
+
 def run(args):
     """render_only, or train (returning its TrainState)."""
     if args.render_only:
@@ -425,6 +496,26 @@ def train(args):
         print(f"proposal sampler: coarse branch is a density-only "
               f"{args.proposal_depth}x{args.proposal_width} MLP "
               f"(interlevel loss weight {args.proposal_loss_weight})")
+    inner = dispatch_steps(args)
+    train_occ = bool(args.train_occ)
+    occ_run = None
+    if train_occ:
+        # grid-triaged fine-only sampling replaces the coarse + fine
+        # hierarchy; the density grid refreshes once per dispatch window
+        if fcfg is None:
+            raise SystemExit("--train_occ requires N_importance > 0 "
+                             "(the fine network is the trained one)")
+        occ_run = OccTraining(args, rcfg, fcfg, spec, _occ_aabb(renderer, ds, H, W, ds.K),
+                              device)
+        print(f"occupancy-gated training: fine-only, C={args.train_occ_candidates} "
+              f"K={args.train_occ_keep}, grid {args.train_occ_res}^3 (refreshed per "
+              f"dispatch of {inner} steps)")
+    # two-phase schedule (--train_occ_until): occupancy-gated bulk, then the
+    # hierarchical trainer, the coarse branch seeded from the fine one
+    occ_until = int(args.train_occ_until) if train_occ else 0
+    if occ_until > 0:
+        print(f"two-phase schedule: occ-gated until step {occ_until}, "
+              "hierarchical after")
 
     def make_steps(ccfg, fcfg):
         """(step, warm-up step or None). --warmup_noise: sigma noise >= 1
@@ -439,7 +530,8 @@ def train(args):
                   dist_reg=args.distortion_loss_weight, loss_sampling=ls_spec,
                   ema_decay=ema_decay)
         warm = None
-        if args.warmup_noise > 0:
+        # the occ trainer has its own warm-up (--train_occ_warmup)
+        if args.warmup_noise > 0 and not args.train_occ:
             warm = make_train_step(
                 dataclasses.replace(rcfg, raw_noise_std=max(1.0, rcfg.raw_noise_std)),
                 ccfg, fcfg, spec, **kw)
@@ -461,16 +553,31 @@ def train(args):
     occ_maint = make_occ_maint(fcfg)
     upsample_ms = _upsample_milestones(args, start)
 
+    if upsample_ms and train_occ:
+        raise SystemExit("--triplane_upsample is standard-trainer only; "
+                         "combine with --train_occ is not supported")
+    switched = False
+
     def hook_kw(step):
-        if occ_maint is None:
-            return {}
-        return dict(occ_grid=occ_maint.get(state.fine.params(), step),
-                    **_occ_render_args(args))
+        if occ_maint is not None:
+            return dict(occ_grid=occ_maint.get(state.fine.params(), step),
+                        **_occ_render_args(args))
+        if occ_run is not None and not switched:
+            # the coarse net is untrained until the phase switch: the hooks
+            # render through the training grid
+            return dict(occ_grid=occ_run.hook_grid(step), **_occ_render_args(args))
+        return {}
 
     generator = torch.Generator()
     N_iters = args.N_iters + 1
     print(f"Begin: {len(ds.i_train)} train views, {len(ds.i_test)} test views, "
           f"device {device}")
+    if occ_until > 0 and start - inner + 1 > occ_until:
+        # resumed past the switching dispatch: the checkpoint carries the
+        # trained coarse net, so no re-sync (a checkpoint at the end of the
+        # last occ-gated dispatch switches, and syncs, in the loop)
+        switched = True
+        print(f"[PHASE] resume at step {start + 1} > {occ_until}: hierarchical phase")
     t0 = t_train_start = time.perf_counter()
     rays_done, warned = 0, False
     for i in range(start + 1, N_iters):
@@ -485,11 +592,27 @@ def train(args):
             occ_maint = make_occ_maint(fcfg)
             print(f"[UPSAMPLE] step {i - 1}: planes -> {new_G}^2 "
                   "(optimizer restarted at the continued schedule)")
+        window = (i - start - 1) % inner == 0
+        if window and occ_until > 0 and not switched and i > occ_until:
+            if ccfg == fcfg:
+                sync_coarse_from_fine(state)
+                seed_msg = "coarse seeded from fine (+Adam moments)"
+            else:
+                seed_msg = "coarse/fine architectures differ — coarse trains from init"
+            switched = True
+            print(f"[PHASE] step {i - 1}: occ -> hierarchical; {seed_msg}")
         # each step's draws depend on (seed, step) only, so a resumed run
         # draws what an uninterrupted one would
         generator.manual_seed((int(args.jax_seed) << 32) + i)
-        fn = warm_fn if warm_fn is not None and i <= args.warmup_noise else step_fn
-        aux = fn(state, images_tr, poses_tr, generator)
+        if occ_run is not None and not switched:
+            if window:
+                occ_run.start_window(state.step)
+            aux = occ_run.train_step(state, images_tr, poses_tr, generator)
+            if (i - start) % inner == 0 or i == N_iters - 1:
+                occ_run.refresh(state.fine.params(), (int(args.jax_seed) << 32) + i + (1 << 62))
+        else:
+            fn = warm_fn if warm_fn is not None and i <= args.warmup_noise else step_fn
+            aux = fn(state, images_tr, poses_tr, generator)
         rays_done += args.N_rand
         hooked = False
 

@@ -37,6 +37,10 @@ pose twists and appearance are not averaged), and ``loss_map``
 (--loss_sampling, train/loss_sampling.py). In the mixed hierarchy (a
 proposal MLP coarse, a grid fine) ``group_label`` puts the fine tables in
 the "grid" group and the proposal MLP in "net".
+
+``sync_coarse_from_fine`` is the phase switch of the two-phase schedule
+(--train_occ_until): the coarse branch takes the fine branch's parameters
+and Adam state.
 """
 
 from __future__ import annotations
@@ -181,6 +185,30 @@ class TrainState:
         self.optimizer.step()
         self.count += 1
         self.step += 1
+
+
+@torch.no_grad()
+def sync_coarse_from_fine(state: TrainState) -> TrainState:
+    """Copy the fine branch's parameters and Adam state (``exp_avg``,
+    ``exp_avg_sq``, ``step``) onto the coarse branch, in place: the switch
+    of the two-phase schedule, where the hierarchical phase needs a coarse
+    net that already describes the scene (the occupancy-gated phase trains
+    the fine net only). Every copy is a distinct tensor, so no Adam update
+    of one branch reaches the other. Coarse and fine must have the same
+    architecture (the caller checks; a mismatch raises ValueError)."""
+    if state.fine is None or state.coarse.cfg != state.fine.cfg:
+        raise ValueError("sync_coarse_from_fine needs coarse and fine fields "
+                         "of one architecture")
+    coarse, fine = state.coarse.params(), state.fine.params()
+    opt = state.optimizer.state
+    for k, pc in coarse.items():
+        pf = fine[k]
+        pc.copy_(pf)
+        if pf in opt:
+            opt[pc] = {n: v.clone() for n, v in opt[pf].items()}
+        else:
+            opt.pop(pc, None)
+    return state
 
 
 def init_aux(n_refine_poses: int, n_appearance: int, device) -> dict:

@@ -1,6 +1,8 @@
 """The port stands alone: every module of nerf_shared_tpu_torch imports
-with JAX made unimportable, and no source of the port (nor chip_smoke.py)
-imports jax or the JAX package."""
+with JAX made unimportable, no source of the port (nor chip_smoke.py)
+imports jax or the JAX package, and the port's host C++ (the mesh cell
+scan) is its own copy, built from its own tree. Flags still unported
+raise in every entry point that reads them."""
 
 import ast
 import os
@@ -42,7 +44,8 @@ def test_package_has_the_slice_modules():
               "models.triplane", "benchmarks.scatter_probe", "data.llff",
               "data.deepvoxels", "data.linemod", "apps.eval_cli", "ops.se3",
               "train.pose_refine", "train.appearance", "apps.pose_estimation",
-              "apps.pose_cli"):
+              "apps.pose_cli", "train.occ_train", "ops.meshing", "ops.native_meshing",
+              "apps.mesh_cli"):
         assert f"nerf_shared_tpu_torch.{m}" in mods, m
 
 
@@ -84,3 +87,34 @@ def test_sources_import_neither_jax_nor_the_jax_package(path):
             root = n.split(".")[0]
             assert root not in ("jax", "jaxlib", "flax", "optax", "nerf_shared_tpu"), \
                 f"{path}:{node.lineno} imports {n}"
+
+
+def test_native_meshing_builds_from_the_port_tree_only():
+    """The cell scan is compiled from the port's csrc/host/meshing.cpp into
+    the port's build directory: the mesh modules never name the JAX
+    package's native/ directory, and the copy's code is the original's."""
+    from nerf_shared_tpu_torch.ops import native_meshing
+
+    assert str(native_meshing.SOURCE) == os.path.join(PKG, "csrc", "host", "meshing.cpp")
+    assert native_meshing.library_path().parent == native_meshing.BUILD_DIR
+    assert native_meshing.BUILD_DIR.parts[-2:] == ("build", "nerf_shared_tpu_torch")
+    for mod in ("ops/native_meshing.py", "ops/meshing.py", "apps/mesh_cli.py"):
+        with open(os.path.join(PKG, mod)) as f:
+            assert "native/" not in f.read(), mod
+    with open(os.path.join(REPO, "native", "meshing.cpp")) as f:
+        original = f.read()
+    with open(native_meshing.SOURCE) as f:
+        copy = f.read()
+    assert copy[copy.index("namespace {"):] == original[original.index("namespace {"):]
+
+
+def test_train_occ_is_ported_and_mesh_shape_still_raises():
+    from nerf_shared_tpu_torch.apps import mesh_cli, train
+    from nerf_shared_tpu_torch.config import config_parser
+
+    assert "train_occ" not in train._NOT_PORTED
+    train.check_ported(config_parser().parse_args(["--train_occ", "True"]))
+    with pytest.raises(NotImplementedError, match="ROADMAP A16"):
+        train.train(config_parser().parse_args(["--device", "cpu", "--mesh_shape", "2"]))
+    with pytest.raises(NotImplementedError, match="ROADMAP A16"):
+        mesh_cli.main(["--device", "cpu", "--mesh_shape", "2"])

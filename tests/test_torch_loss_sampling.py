@@ -183,14 +183,16 @@ def test_batching_sampler_is_refused():
 
 @pytest.mark.parametrize("argv,match", [
     (["--loss_sampling", "True"], "--no_batching"),
-    (["--loss_sampling", "True", "--no_batching", "--train_occ", "True"], "ROADMAP A14"),
-    (["--ema_decay", "0.99", "--train_occ", "True"], "ROADMAP A14"),
-    (["--proposal", "True", "--train_occ", "True"], "ROADMAP A14"),
+    (["--loss_sampling", "True", "--no_batching", "--train_occ", "True"],
+     "the occ trainer has its own candidate sampler"),
+    (["--ema_decay", "0.99", "--train_occ", "True"],
+     "the occ trainer does not maintain the EMA shadow"),
+    (["--proposal", "True", "--train_occ", "True"], "alternative accelerants"),
 ])
 def test_trainer_guards_match_jax(argv, match):
-    """The JAX trainer's exits: --loss_sampling without --no_batching, and
-    --loss_sampling, --ema_decay or --proposal with --train_occ (whose
-    message also names the unported occupancy trainer)."""
+    """The JAX trainer's exits, with its messages: --loss_sampling without
+    --no_batching, and --loss_sampling, --ema_decay or --proposal with
+    --train_occ (ported since the occupancy-gated trainer's slice)."""
     args = config_parser().parse_args(["--device", "cpu"] + argv)
     with pytest.raises(SystemExit, match=match):
         tapp.train(args)

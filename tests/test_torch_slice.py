@@ -82,8 +82,9 @@ def test_cuda_default_raises_without_a_card(slice_cfg, monkeypatch):
 ])
 def test_unported_flags_raise(slice_cfg, flag, value):
     """Flags the port does not carry raise; --barf_anneal, --refine_poses
-    and --appearance (the pose slice) and --ema_decay, --proposal and
-    --loss_sampling (the proposal slice) are ported and build the engine.
+    and --appearance (the pose slice), --ema_decay, --proposal and
+    --loss_sampling (the proposal slice) and --train_occ (the occupancy
+    trainer's slice) are ported and build the engine.
     The slice's checkpoint holds a full-size coarse network, which a
     --proposal engine (a 2x64 proposal coarse) cannot load: that case
     builds from the seeded init (--no_reload)."""
@@ -91,7 +92,7 @@ def test_unported_flags_raise(slice_cfg, flag, value):
     args = serve_parser().parse_args(
         ["--config", slice_cfg, "--device", "cpu", flag, value] + extra)
     if flag in ("--barf_anneal", "--refine_poses", "--appearance", "--ema_decay",
-                "--proposal", "--loss_sampling"):
+                "--proposal", "--loss_sampling", "--train_occ"):
         eng = build_eval_engine(args)
         assert eng.engine_name == "dense"
         assert eng.renderer.cfg.proposal == (flag == "--proposal")

@@ -448,11 +448,12 @@ def test_fused_backward_resolves_on_for_the_mlp_family_on_cuda():
 def test_training_flags_not_ported_raise(flag):
     """Each flag the port does not carry raises; --refine_poses and
     --appearance (tests/test_torch_pose_train.py), --loss_sampling and
-    --distortion_loss_weight (tests/test_torch_ema.py) are ported and pass
-    the check; --loss_sampling without --no_batching exits, as in JAX."""
+    --distortion_loss_weight (tests/test_torch_ema.py) and --train_occ
+    (tests/test_torch_occ_train.py) are ported and pass the check;
+    --loss_sampling without --no_batching exits, as in JAX."""
     args = config_parser().parse_args(["--device", "cpu"] + flag)
     if flag[0] in ("--refine_poses", "--appearance", "--loss_sampling",
-                   "--distortion_loss_weight"):
+                   "--distortion_loss_weight", "--train_occ"):
         tapp.check_ported(args)
         if flag[0] == "--loss_sampling":
             with pytest.raises(SystemExit, match="--no_batching"):
