@@ -5,13 +5,16 @@
 
 Phases (any failure exits non-zero and prints no result line):
 
-1. build    nvcc builds every kernel (B1-B5, P1-P2) from csrc/, one process
-            per source, in parallel, into build/nerf_shared_tpu_torch/,
-            and logs ptxas's registers and spills per kernel; cuobjdump
-            counts the tensor-core MMA instructions of each kernel of B1's,
-            B3's, B4's and B2's libraries: B1's nerf_points_tc_kernel, B3's
-            nerf_rays_tc_kernel and B4's nerf_render_tc_kernel must have
-            warpgroup MMAs (HGMMA), B2's nerf_dw_kernel warp MMAs (HMMA).
+1. build    nvcc builds every kernel (B1-B5, P1-P2, and B1-B4 in bf16) from
+            csrc/, one process per source, in parallel, into
+            build/nerf_shared_tpu_torch/, and logs ptxas's registers and
+            spills per kernel; cuobjdump counts the tensor-core MMA
+            instructions of each kernel of B1's, B3's, B4's and B2's
+            libraries: B1's nerf_points_tc_kernel, B3's nerf_rays_tc_kernel
+            and B4's nerf_render_tc_kernel and their bf16 instantiations
+            (nerf_points_bf16_kernel, nerf_rays_bf16_kernel,
+            nerf_render_bf16_kernel) must have warpgroup MMAs (HGMMA), B2's
+            nerf_dw_kernel and nerf_dw_bf16_kernel warp MMAs (HMMA).
 2. kernels  at the lego width (8x256, skip at 4, viewdirs, multires 10/4)
             with seeded weights and rays at the main path's shapes (one ray
             block of --chunk 32768 rays): B3 at S=64 and S=192 and B4 at
@@ -230,6 +233,48 @@ Phases (any failure exits non-zero and prints no result line):
             "phase 14 mesh" line: probe ms, scan s (native, numpy), vertex
             and face counts, colour and normal ms.
 
+15. bf16     --precision bf16 (the bf16 instantiations of B1, B2, B3 and
+            B4). (a) Each against its plain bf16 version (bf16-rounded
+            operands multiplied in fp32, fused_mlp.plain_mlp_bf16 and
+            fused_mlp_bwd.plain_mlp_backward_bf16; within 1e-2 of max(1,
+            max|plain|), B2 of each gradient's max) at the fp32 phases'
+            shapes: B1 at 65,536 and 196,608 points, B3 at 32768 rays x S =
+            64 and 192 (seeded weights), B4 at S = 192 on phase 6's trained
+            fine network (rays clear of the 1e10 sentinel, at least 20% of
+            them with acc > 0.5), B2 at 65,536 and 196,608 points on a
+            seeded cotangent; each timed in turns with its plain version
+            and with the fp32 kernel, beside its bound (FLOPs over 989
+            TFLOP/s; B2 also its design bound: tile FLOPs over 67 + dW
+            FLOPs over 989); B1, B3 and B4 at phase 2's other architectures
+            (B4 with sigma's bias raised, so that at least half the rays
+            held have acc > 0.5), B2 at 259 and 19,500 points. (b) On the
+            same inputs bf16 against fp32: raw (B4: rgb, acc) within rtol =
+            atol = 0.1, the JAX test's bar; the B2 gradients not at the JAX
+            test's bar (norm within 2%, cosine above 0.999, which the JAX
+            package's own bf16 backward misses at the lego width), but as
+            close to fp32 as the plain bf16 version comes on the same
+            inputs (each tensor's cosine within 1e-3 of the plain version's,
+            its norm deviation within 5e-3 of it); the JAX bars' numbers
+            logged, also at the JAX tests' own shapes. (c) Phase 6's
+            checkpoint served with --precision bf16 (B3 + B5, exactly 10
+            bf16 B3 and 10 B5 a frame) and with --fused_composite (5 bf16
+            B4): each frame and its acc within 1e-2 of the plain versions
+            of its bf16 kernels at its kernel run's fine depths (sentinel
+            flips set apart, at most 1 in 1000), the B4 frame within 1e-3
+            of the B3 + B5 one, PSNR >= 30 dB against the fp32 frame of the
+            same checkpoint; each frame's ms; the plain bf16 network's
+            route (apply_nerf in bf16) logged. (d) configs/lego.txt
+            --precision bf16 trained through apps/train.main on phase 6's
+            scene, 600 + 200 steps with a resume: exactly 2 bf16 B1 + 2
+            bf16 B2 a step and no fp32 one, held-out PSNR >= 2 dB above
+            all-white and no more than 1 dB below phase 6's; [TRAIN] ms and
+            rays/s; one step through the bf16 kernels against the step
+            through their plain versions, draws pinned (loss within 1e-3,
+            every gradient within 1e-2 of its max), timed beside the fp32
+            kernel step, with the plain bf16 network's step and the fp32
+            step's gradient norms and cosines logged. One "phase 15 bf16"
+            line with every number and the card's name and power limit.
+
 ``--parent-tree`` (with ``--phases``) marks the parent side of an A/B:
 phase 1 logs a tensor-core kernel that tree predates instead of failing.
 ``--profile`` adds one dense frame, five training steps, one frame of
@@ -238,8 +283,8 @@ hashgrid and a triplane frame, five fern training steps and a fern
 frame, and one dispatch window of the occ trainer (50 occ steps and a
 refresh) under torch.profiler (device time by
 kernel, device busy share, P1's and P2's shares). ``--phases 2,3,4,7``
-runs the build and the listed phases alone (phases 7, 11, 12, 13 and 14
-run phase 6 for its checkpoint and scene, 14 phase 10 too; 3 and 4 run
+runs the build and the listed phases alone (phases 7, 11, 12, 13, 14 and
+15 run phase 6 for its checkpoint and scene, 14 phase 10 too; 3 and 4 run
 together; no result lines; for iterating on a
 phase and for nerf_shared_tpu_torch/benchmarks/ab_smoke.sh). Before the last
 line it prints the whole script's time, the kernels JSON line and the card's
@@ -1032,7 +1077,7 @@ def phase_train_kernels(device):
     return cases, {recipe: check_train_step(device, recipe) for recipe in ("lego", "fern")}
 
 
-def train_step_setup(device, fused, recipe="lego"):
+def train_step_setup(device, fused, recipe="lego", precision="fp32"):
     """A training step of ``recipe`` on a seeded state: (state, step_fn,
     images, poses, overrides). "lego": two 400x400 seeded images, 64 + 128
     samples per ray, N_rand 1024 inside the precrop window of the
@@ -1043,7 +1088,9 @@ def train_step_setup(device, fused, recipe="lego"):
     "refine": the lego step with --refine_poses, --appearance and
     --barf_anneal: the state at step 600, past --refine_poses_from 500 and
     mid-ramp of BARF over [0, 1200], its pixels pinned to image 1 (image 0
-    is the anchor) through ``draws``, the sixth item (None otherwise)."""
+    is the anchor) through ``draws``, the sixth item (None otherwise).
+    ``precision`` is the render config's ("bf16": the bf16 kernels, or
+    apply_nerf in bf16 on the plain path)."""
     import numpy as np
     import torch
 
@@ -1064,7 +1111,7 @@ def train_step_setup(device, fused, recipe="lego"):
         spec_kw = dict(single_image=True, precrop_iters=500, precrop_frac=0.5)
         rcfg = RenderConfig(perturb=1.0, N_importance=128, N_samples=64,
                             use_viewdirs=True, white_bkgd=True, near=2.0, far=6.0,
-                            fused_backward=fused)
+                            fused_backward=fused, precision=precision)
     else:
         H, W, focal = FERN_H, FERN_W, FERN_FOCAL
         poses = [np.eye(4), np.eye(4)]
@@ -1072,7 +1119,8 @@ def train_step_setup(device, fused, recipe="lego"):
         spec_kw = dict(single_image=False)
         rcfg = RenderConfig(perturb=1.0, N_importance=64, N_samples=64,
                             use_viewdirs=True, white_bkgd=False, ndc=True, near=0.0,
-                            far=1.0, raw_noise_std=1.0, fused_backward=fused)
+                            far=1.0, raw_noise_std=1.0, fused_backward=fused,
+                            precision=precision)
     K = [[focal, 0, W / 2], [0, focal, H / 2], [0, 0, 1]]
     images = torch.rand(2, H, W, 3, generator=g).to(device)
     poses = torch.stack([torch.as_tensor(p[:3, :4]) for p in poses]).float().to(device)
@@ -1386,7 +1434,7 @@ def phase_training(device, steps=600, more=200):
             "rays_per_s": statistics.median(rps[1:]), "train_psnr": psnrs,
             "val": [(int(a), int(b), float(c), float(d)) for a, b, c, d in vals],
             "white_psnr": white_psnr, "render_launches": render_launches,
-            "base_argv": base}
+            "base_argv": base, "fine_ckpt": os.path.join(expdir, f"{total:06d}.tar")}
 
 
 def profile_train_step(device, steps=5, recipe="lego"):
@@ -1708,7 +1756,11 @@ def launch_counts():
     return {"fused_mlp_points": fused_mlp.POINT_LAUNCHES, "fused_mlp": fused_mlp.LAUNCHES,
             "fused_render": fused_render.LAUNCHES, "fused_mlp_bwd": fused_mlp_bwd.LAUNCHES,
             "composite": composite.LAUNCHES, "gather": gather.LAUNCHES["gather"],
-            "scatter_add": gather.LAUNCHES["scatter_add"]}
+            "scatter_add": gather.LAUNCHES["scatter_add"],
+            "fused_mlp_points_bf16": fused_mlp.POINT_LAUNCHES_BF16,
+            "fused_mlp_bf16": fused_mlp.LAUNCHES_BF16,
+            "fused_render_bf16": fused_render.LAUNCHES_BF16,
+            "fused_mlp_bwd_bf16": fused_mlp_bwd.LAUNCHES_BF16}
 
 
 def zero_counts():
@@ -1717,6 +1769,8 @@ def zero_counts():
 
     fused_mlp.POINT_LAUNCHES = fused_mlp.LAUNCHES = fused_render.LAUNCHES = 0
     fused_mlp_bwd.LAUNCHES = composite.LAUNCHES = 0
+    fused_mlp.POINT_LAUNCHES_BF16 = fused_mlp.LAUNCHES_BF16 = 0
+    fused_render.LAUNCHES_BF16 = fused_mlp_bwd.LAUNCHES_BF16 = 0
     gather.LAUNCHES.update(gather=0, scatter_add=0)
 
 
@@ -1788,11 +1842,12 @@ def plain_gathers():
         hashgrid.table_gather, triplane.table_gather = saved
 
 
-def plain_fine_pass(eng, c2w, z, live=None):
+def plain_fine_pass(eng, c2w, z, live=None, forward=None):
     """(rgb [H,W,3], acc [H,W]) of ``eng``'s fine network at the depths z
     [H,W,S] through the plain versions (network and raw2outputs); with
     ``live`` [H,W], the other rays' densities masked as the occupancy
-    engines mask rays that keep no occupied sample."""
+    engines mask rays that keep no occupied sample; ``forward(params,
+    cfg, rays_o, rays_d, z, viewdirs)`` replaces the plain network."""
     import torch
 
     from nerf_shared_tpu_torch.models.nerf import NeRFConfig
@@ -1806,8 +1861,9 @@ def plain_fine_pass(eng, c2w, z, live=None):
         with plain_gathers():
             return _apply_model(params, cfg, pts, vd, eng.renderer.cfg)
 
-    forward = (plain_nerf_forward_rays if isinstance(eng.fine.cfg, NeRFConfig)
-               else grid_forward)
+    if forward is None:
+        forward = (plain_nerf_forward_rays if isinstance(eng.fine.cfg, NeRFConfig)
+                   else grid_forward)
 
     dev = eng.device
     rays, _ = eng.renderer._pack_rays(eng.H, eng.W, eng.K, None,
@@ -4078,6 +4134,715 @@ def phase_mesh(device, trained, llff):
     return result
 
 
+# ---- phase 15: --precision bf16 -------------------------------------------
+
+# the bf16 tensor cores' dense peak (NVIDIA H100 SXM data sheet): the
+# bound of the bf16 instantiations, whose products take bf16 operands
+PEAK_BF16_FLOPS = 989e12
+# a bf16 kernel against its plain bf16 version (the same roundings, fp32
+# sums in another order, which flip a bf16 rounding now and then: a few
+# bf16 ulps), of max(1, max|plain|); B2 of each gradient's max
+BF16_TOL = 1e-2
+# bf16 against fp32, the JAX tests' bars: raw within rtol / atol 0.1
+# (tests/test_pallas.py test_fused_bf16_close_to_fp32); each gradient's norm
+# within 2% of fp32's and their cosine above 0.999
+# (tests/test_pallas_bwd.py test_bf16_compute_grads_close, at its D4/W64).
+# The JAX package's own bf16 backward meets that cosine only at some
+# weights: on the CPU its test's shapes give 0.99916 at PRNGKey(2) (the
+# test's) and 0.99809 at PRNGKey(1), and the lego width 0.994 on seeded
+# inputs (a bf16 forward flips ReLU masks near zero, layer after layer).
+# So a bf16 gradient is held against fp32 as closely as the plain bf16
+# version (the JAX kernel's arithmetic) comes on the same weights: its
+# cosine within BF16_COS_SLACK of the plain version's, its norm's
+# deviation within BF16_NORM_SLACK of the plain one's; the JAX bars'
+# numbers are logged beside it
+BF16_RAW_TOL, BF16_NORM_TOL, BF16_COS = 0.1, 2e-2, 0.999
+BF16_COS_SLACK, BF16_NORM_SLACK = 1e-3, 5e-3
+# B4 is held where its composites are not empty: on phase 6's weights at
+# least BF16_B4_OPAQUE of the rays held reach acc > 0.5; at the other
+# architectures' seeded weights sigma's bias is raised by BF16_B4_SIGMA
+BF16_B4_OPAQUE, BF16_B4_SIGMA = 0.2, 3.0
+BF16_TC_DESIGN = ("bf16 operands on wgmma.m64nNk16 (one product a 16-row slice, fp32 "
+                  "accumulators), 128-point tiles, bulk-copy weight ring of one bf16 "
+                  "plane a slice with mbarriers, h / feature / hv rounded to bf16 in the "
+                  "epilogue (csrc/mlp_tile_tc.cuh kBf16)")
+BF16_B2_DESIGN = ("tile kernel: B2's fp32 CUDA-core arithmetic on bf16-rounded "
+                  "operands, each dz written in fp32 then rounded in place; "
+                  "nerf_dw_bf16_kernel: dW with one mma.sync.m16n8k16 bf16 product a "
+                  "16-point step, dZ rounded as it is loaded, bias sums of the fp32 dZ "
+                  "(csrc/fused_mlp_bwd.cu)")
+
+
+def bf16_bound(cfg, params, n_points, io_bytes, flops=None):
+    """(bound_ms, bound_by) of a bf16 instantiation: its FLOPs (the
+    network's, or ``flops``) over the bf16 peak vs ``io_bytes`` plus the
+    bf16 weights over the memory rate."""
+    from nerf_shared_tpu_torch.ops.cuda.fused_mlp import flops_per_point, network_bytes
+
+    flops = flops_per_point(cfg) * n_points if flops is None else flops
+    t_ops = flops / PEAK_BF16_FLOPS
+    t_bytes = (io_bytes + network_bytes(params, cfg) // 2) / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def raw_close(got, want, tol=BF16_RAW_TOL):
+    """(max |got - want| - tol |want|, whether |got - want| <= tol + tol
+    |want| everywhere: numpy's allclose with rtol = atol = tol)."""
+    excess = float(((got - want).abs() - tol * want.abs()).max())
+    return excess, excess <= tol
+
+
+def grads_close(got, want):
+    """{name: (norm ratio - 1, cosine)} of two gradient sets and whether
+    every norm is within BF16_NORM_TOL and every cosine above BF16_COS (the
+    JAX tests' bars)."""
+    out = {}
+    for k, w in want.items():
+        a, b = got[k].double().reshape(-1), w.double().reshape(-1)
+        na, nb = float(a.norm()), float(b.norm())
+        cos = float(a @ b) / max(1e-300, na * nb)
+        out[k] = (na / nb - 1.0 if nb > 0 else 0.0, cos if nb > 0 else 1.0)
+    ok = all(abs(r) <= BF16_NORM_TOL and c > BF16_COS for r, c in out.values())
+    return out, ok
+
+
+def grads_as_close(got, plain, ref):
+    """{name: (norm ratio - 1, cosine) of ``got`` and of ``plain`` against
+    ``ref``} and whether ``got`` is as close to ``ref`` as ``plain`` is:
+    every cosine within BF16_COS_SLACK of plain's, every norm deviation
+    within BF16_NORM_SLACK of plain's."""
+    g, _ = grads_close(got, ref)
+    p, _ = grads_close(plain, ref)
+    ok = all(g[k][1] >= p[k][1] - BF16_COS_SLACK
+             and abs(g[k][0]) <= abs(p[k][0]) + BF16_NORM_SLACK for k in g)
+    return {k: (g[k], p[k]) for k in g}, ok
+
+
+def bf16_jax_test_bars(device):
+    """bf16 against fp32 through the port's kernels at the JAX tests' own
+    shapes: tests/test_pallas.py test_fused_bf16_close_to_fp32 (B1, D2/W128,
+    multires 4/2, skip at 0, 4 x 6 points: raw within rtol = atol = 0.1)
+    and tests/test_pallas_bwd.py test_bf16_compute_grads_close (B1 + B2
+    under autograd, D4/W64, multires 6/3, skip at 1, 6 x 8 points, the loss
+    mean(tanh(raw)^2)): the gradients held by grads_as_close against the
+    plain bf16 version's on the same weights, the JAX bars' norm and cosine
+    logged. Weights from the torch init (no JAX here), points from the
+    tests' numpy seeds."""
+    import numpy as np
+    import torch
+
+    from nerf_shared_tpu_torch.models.nerf import NeRF, NeRFConfig, torch_param_order
+    from nerf_shared_tpu_torch.ops.cuda import fused_mlp, fused_mlp_bwd
+
+    def points(n_rays, n_samples, seed):
+        rng = np.random.default_rng(seed)
+        pts = rng.standard_normal((n_rays, n_samples, 3)).astype(np.float32)
+        dirs = rng.standard_normal((n_rays, 3)).astype(np.float32)
+        dirs /= np.linalg.norm(dirs, -1, keepdims=True)
+        return torch.from_numpy(pts).to(device), torch.from_numpy(dirs).to(device)
+
+    cfg = NeRFConfig(D=2, W=128, multires=4, multires_views=2, skips=(0,))
+    params = {k: v.detach() for k, v in NeRF(
+        cfg, device=device, generator=torch.Generator().manual_seed(0)).params().items()}
+    pts, dirs = points(4, 6, 0)
+    with torch.no_grad():
+        fwd = raw_close(fused_mlp.fused_nerf_forward(params, cfg, pts, dirs, torch.bfloat16),
+                        fused_mlp.fused_nerf_forward(params, cfg, pts, dirs))
+    cfg = NeRFConfig(D=4, W=64, multires=6, multires_views=3, skips=(1,))
+    names = torch_param_order(cfg)
+    params = {k: v.detach() for k, v in NeRF(
+        cfg, device=device, generator=torch.Generator().manual_seed(2)).params().items()}
+    pts, dirs = points(6, 8, 2)
+    grads = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        w = {k: params[k].clone().requires_grad_(True) for k in names}
+        loss = torch.tanh(fused_mlp.fused_nerf_forward(w, cfg, pts, dirs, dtype)).pow(2).mean()
+        grads[dtype] = dict(zip(names, torch.autograd.grad(loss, [w[k] for k in names])))
+    raw = fused_mlp.plain_nerf_forward(params, cfg, pts, dirs, torch.bfloat16)
+    t = torch.tanh(raw)
+    g = 2 * t * (1 - t * t) / raw.numel()   # d mean(tanh(raw)^2) / d raw
+    plain = fused_mlp_bwd.plain_mlp_backward_bf16(params, cfg, pts, dirs, g)[0]
+    both, ok = grads_as_close(grads[torch.bfloat16], plain, grads[torch.float32])
+    bar, bar_ok = grads_close(grads[torch.bfloat16], grads[torch.float32])
+    worst_norm = max(abs(r) for r, _ in bar.values())
+    worst_cos = min(c for _, c in bar.values())
+    plain_cos = min(pc for _, (_, pc) in both.values())
+    log(f"  bf16 vs fp32 at the JAX tests' shapes: B1 D2/W128 raw "
+        f"max |bf16 - fp32| - 0.1 |fp32| = {fwd[0]:.3e} (allclose at 0.1); B1 + B2 "
+        f"D4/W64 gradients of mean(tanh(raw)^2): norms within {100 * worst_norm:.3f}% "
+        f"(JAX bar {100 * BF16_NORM_TOL:g}%), lowest cosine {worst_cos:.6f} (JAX bar > "
+        f"{BF16_COS}; met: {bar_ok}), the plain bf16 version's {plain_cos:.6f}; held "
+        f"within {BF16_COS_SLACK:g} / {BF16_NORM_SLACK:g} of the plain version's")
+    if not (fwd[1] and ok):
+        raise AssertionError("bf16 against fp32 at the JAX tests' shapes: raw outside "
+                             "0.1, or the gradients further from fp32 than the plain bf16 "
+                             "version's")
+    return {"fwd_excess": fwd[0], "worst_norm": worst_norm, "worst_cos": worst_cos,
+            "plain_worst_cos": plain_cos, "jax_bars_met": bar_ok}
+
+
+def bf16_case(kernel, label, n_points, S, err, t, tp, t32, bnd, design, **extra):
+    """Log and record one bf16 kernel's case: t / tp its and its plain bf16
+    version's (median, min, max) ms in turns, t32 the fp32 kernel's in
+    turns with it, bnd its bf16 bound."""
+    bms, by = bnd
+    log(f"{label} bf16: max err {err:.3e} vs its plain bf16 version (tol {BF16_TOL:g}); "
+        f"{spread(t)} ms vs plain bf16 {spread(tp)} ms (median [min-max] in turns); "
+        f"fp32 kernel {spread(t32)} ms in turns with it ({t32[0] / t[0]:.2f}x); "
+        f"bound {bms:.3f} ms bf16 ({by}), {100 * bms / t[0]:.1f}% of it")
+    return dict(kernel=kernel, S=S, n_points=n_points, max_abs_err=err, ms=t[0],
+                ms_min=t[1], ms_max=t[2], plain_ms=tp[0], plain_min=tp[1],
+                plain_max=tp[2], fp32_ms=t32[0], fp32_min=t32[1], fp32_max=t32[2],
+                bound_ms=bms, bound_by=by, design=design, **extra)
+
+
+def bf16_other_shapes(device):
+    """The bf16 B1, B3 and B4 against their plain bf16 versions (BF16_TOL)
+    on phase 2's other architectures at S = 7 and 65 (37 rays; tiles that
+    end mid-ray, 16-row slices padding K), and B2 at 37 x 7 and 300 x 65
+    points as close to fp32 as its plain bf16 version (grads_as_close: at
+    a few hundred points a ReLU mask or a dz rounding that flips with the
+    sum order moves a deep network's gradient by percents)."""
+    import torch
+
+    from nerf_shared_tpu_torch.models.nerf import NeRF, NeRFConfig
+    from nerf_shared_tpu_torch.ops.cuda import fused_mlp, fused_mlp_bwd, fused_render
+
+    bf = torch.bfloat16
+    archs = [dict(D=3, W=64, skips=(1,), use_viewdirs=False, output_ch=5),
+             dict(D=8, W=256, skips=(4,), multires=15, multires_views=6),
+             dict(D=2, W=30, skips=(0,), i_embed=-1),
+             dict(D=5, W=128, skips=(1, 3), multires=6, multires_views=2)]
+    worst = {"B1": 0.0, "B3": 0.0, "B4": 0.0}
+    n_b4 = n_opaque = 0
+    for i, kw in enumerate(archs):
+        cfg = NeRFConfig(**kw)
+        params = {k: v.detach() for k, v in NeRF(
+            cfg, device=device, generator=torch.Generator().manual_seed(i)).params().items()}
+        for S in (7, 65):
+            o, d, z, vd = rays_at(37, S, seed=i, device=device)
+            vd = vd if cfg.use_viewdirs else None
+            pts = (o[:, None] + d[:, None] * z[..., None]).contiguous()
+            with torch.no_grad():
+                pairs = {
+                    "B1": (fused_mlp.fused_nerf_forward(params, cfg, pts, vd, bf),
+                           fused_mlp.plain_nerf_forward(params, cfg, pts, vd, bf)),
+                    "B3": (fused_mlp.fused_nerf_forward_rays(params, cfg, o, d, z, vd, bf),
+                           fused_mlp.plain_nerf_forward_rays(params, cfg, o, d, z, vd, bf))}
+                if cfg.use_viewdirs or cfg.output_ch >= 4:
+                    # B4 with the density raised: at seeded weights sigma <= 0
+                    # on most samples and every composite would be empty
+                    dense = with_density(params, cfg, BF16_B4_SIGMA)
+                    raw = fused_mlp.plain_nerf_forward_rays(dense, cfg, o, d, z, vd, bf)
+                    mask = raw[:, -1, 3].abs() >= 1e-2
+                    got = fused_render.fused_render_rays(dense, cfg, o, d, z, vd, True, True, bf)
+                    want = fused_render.plain_render_rays(dense, cfg, o, d, z, vd, True, bf)
+                    e4 = max(float((g[mask] - w[mask]).abs().max())
+                             / max(1.0, float(w[mask].abs().max()))
+                             for g, w in zip(got, want))
+                    worst["B4"] = max(worst["B4"], e4)
+                    n_b4 += int(mask.sum())
+                    n_opaque += int((want[2][mask] > 0.5).sum())
+            for k, (g, w) in pairs.items():
+                worst[k] = max(worst[k], float((g - w).abs().max()) / max(1.0, float(w.abs().max())))
+        for n_rays, S in ((37, 7), (300, 65)):
+            pts, vd, g = lego_points(n_rays, S, seed=10 + i, device=device)
+            vd = vd if cfg.use_viewdirs else None
+            g = g[..., :fused_mlp.out_channels(cfg)].contiguous() if cfg.use_viewdirs \
+                else torch.cat([g, g[..., :1]], -1).contiguous()
+            got = fused_mlp_bwd.fused_mlp_backward(params, cfg, pts, vd, g, bf)
+            plain = fused_mlp_bwd.plain_mlp_backward_bf16(params, cfg, pts, vd, g)
+            f32 = fused_mlp_bwd.fused_mlp_backward(params, cfg, pts, vd, g)
+
+            def named(out):
+                return {**out[0], "dpts": out[1], **({"ddirs": out[2]} if vd is not None else {})}
+
+            both, ok = grads_as_close(named(got), named(plain), named(f32))
+            if not ok:
+                raise AssertionError(f"B2 bf16 at {kw} N={n_rays * S} is further from fp32 "
+                                     f"than its plain bf16 version: {both}")
+    log(f"  bf16 at phase 2's other architectures (S = 7, 65): worst B1 {worst['B1']:.1e}, "
+        f"B3 {worst['B3']:.1e}, B4 {worst['B4']:.1e} of max(1, max|plain|) (tol "
+        f"{BF16_TOL:g}; B4 with sigma's bias raised by {BF16_B4_SIGMA:g}: {n_opaque} of "
+        f"{n_b4} rays held with acc > 0.5, at least half required); B2 at 259 and 19,500 "
+        f"points as close to fp32 as its plain version")
+    if max(worst.values()) > BF16_TOL:
+        raise AssertionError(f"bf16 kernels disagree at the other architectures: {worst}")
+    if not 2 * n_opaque >= n_b4 > 0:
+        raise AssertionError(f"bf16 B4 at the other architectures: {n_opaque} of {n_b4} "
+                             "rays held have acc > 0.5")
+    return worst
+
+
+def with_density(params, cfg, shift):
+    """``params`` with sigma's output bias raised by ``shift``."""
+    name = "alpha_linear.bias" if cfg.use_viewdirs else "output_linear.bias"
+    bias = params[name].clone()
+    bias[0 if cfg.use_viewdirs else 3] += shift
+    return {**params, name: bias}
+
+
+def trained_fine_params(trained, cfg, device):
+    """Phase 6's fine network (its last .tar) as a parameter dict."""
+    from nerf_shared_tpu_torch.models.nerf import NeRF
+    from nerf_shared_tpu_torch.utils.checkpoints import load_tar
+
+    _, fine_sd, _ = load_tar(trained["fine_ckpt"])
+    net = NeRF(cfg, device=device)
+    net.load_state_dict(fine_sd, strict=True)
+    return {k: v.detach() for k, v in net.params().items()}
+
+
+def bf16_kernel_cases(device, trained):
+    """Phase 15 (a) and (b): each bf16 instantiation against its plain bf16
+    version and against the fp32 kernel, on the same inputs at the fp32
+    phases' shapes, timed in turns with both: B1, B2 and B3 on seeded
+    weights, B4 on phase 6's trained fine network (seeded weights put no
+    density on these rays, so every composite would be empty)."""
+    import torch
+
+    from nerf_shared_tpu_torch.models.nerf import NeRF, NeRFConfig
+    from nerf_shared_tpu_torch.ops.cuda import fused_mlp, fused_mlp_bwd, fused_render
+    from nerf_shared_tpu_torch.ops.cuda.fused_mlp import flops_per_point
+    from nerf_shared_tpu_torch.ops.cuda.fused_mlp_bwd import flops_per_point_bwd
+
+    bf = torch.bfloat16
+    cfg = NeRFConfig(D=8, W=256, skips=(4,), use_viewdirs=True, multires=10,
+                     multires_views=4)
+    params = {k: v.detach() for k, v in NeRF(
+        cfg, device=device, generator=torch.Generator().manual_seed(15)).params().items()}
+    cases, vs32 = [], {}
+
+    def check(label, err, scale, ok_extra=True):
+        if not (err <= BF16_TOL * max(1.0, scale) and ok_extra):
+            raise AssertionError(f"{label} bf16 disagrees with its plain bf16 version "
+                                 f"(max err {err:.3e}, tol {BF16_TOL:g} x {max(1.0, scale):.3g})")
+
+    with torch.no_grad():
+        # B1 at a lego step's coarse and fine shapes
+        for S in (64, 192):
+            pts, vd, _ = lego_points(1024, S, seed=S, device=device)
+            n = 1024 * S
+            got = fused_mlp.fused_nerf_forward(params, cfg, pts, vd, bf)
+            want = fused_mlp.plain_nerf_forward(params, cfg, pts, vd, bf)
+            f32 = fused_mlp.fused_nerf_forward(params, cfg, pts, vd)
+            err = float((got - want).abs().max())
+            check(f"B1 N={n}", err, float(want.abs().max()))
+            vs32[f"B1 N={n}"] = raw_close(got, f32)
+            t, tp = in_turns(lambda: fused_mlp.fused_nerf_forward(params, cfg, pts, vd, bf),
+                             lambda: fused_mlp.plain_nerf_forward(params, cfg, pts, vd, bf),
+                             reps=10)
+            t32, _ = in_turns(lambda: fused_mlp.fused_nerf_forward(params, cfg, pts, vd),
+                              lambda: fused_mlp.fused_nerf_forward(params, cfg, pts, vd, bf),
+                              rounds=2, reps=10)
+            cases.append(bf16_case(
+                "fused_mlp_points_bf16", f"B1 fused_mlp points N={n}", n, S, err, t, tp,
+                t32, bf16_bound(cfg, params, n, 4 * (1024 * 3 + n * 3 + n * 4)),
+                BF16_TC_DESIGN + "; point-major encoder (f·x)"))
+        # B3 at a 32768-ray block of the coarse and fine passes, B4 at the fine
+        for S in (64, 192):
+            o, d, z, vd = lego_rays(32768, S, seed=S, device=device)
+            n = 32768 * S
+            got = fused_mlp.fused_nerf_forward_rays(params, cfg, o, d, z, vd, bf)
+            want = fused_mlp.plain_nerf_forward_rays(params, cfg, o, d, z, vd, bf)
+            f32 = fused_mlp.fused_nerf_forward_rays(params, cfg, o, d, z, vd)
+            err = float((got - want).abs().max())
+            check(f"B3 S={S}", err, float(want.abs().max()))
+            vs32[f"B3 S={S}"] = raw_close(got, f32)
+            del got, want, f32
+            # 6 samples of 2 calls each: the plain version takes ~0.3 s a call
+            t, tp = in_turns(
+                lambda: fused_mlp.fused_nerf_forward_rays(params, cfg, o, d, z, vd, bf),
+                lambda: fused_mlp.plain_nerf_forward_rays(params, cfg, o, d, z, vd, bf),
+                rounds=3, reps=2)
+            t32, _ = in_turns(
+                lambda: fused_mlp.fused_nerf_forward_rays(params, cfg, o, d, z, vd),
+                lambda: fused_mlp.fused_nerf_forward_rays(params, cfg, o, d, z, vd, bf),
+                rounds=2, reps=2)
+            cases.append(bf16_case(
+                "fused_mlp_bf16", f"B3 fused_mlp S={S}", n, S, err, t, tp, t32,
+                bf16_bound(cfg, params, n, 4 * (32768 * 9 + n + n * 4)), BF16_TC_DESIGN,
+                n_rays=32768))
+        tp_ = trained_fine_params(trained, cfg, device)
+        o, d, z, vd = lego_rays(32768, 192, seed=7, device=device)
+        n = 32768 * 192
+        got = fused_render.fused_render_rays(tp_, cfg, o, d, z, vd, True, True, bf)
+        want = fused_render.plain_render_rays(tp_, cfg, o, d, z, vd, True, bf)
+        f32 = fused_render.fused_render_rays(tp_, cfg, o, d, z, vd, True, True)
+        raw = fused_mlp.plain_nerf_forward_rays(tp_, cfg, o, d, z, vd, bf)
+        mask = raw[:, -1, 3].abs() >= 1e-2  # clear of the 1e10 sentinel flip
+        del raw
+        # each output (rgb, disp, acc, weights, depth) on the masked rays
+        errs = [float((g[mask] - w[mask]).abs().max()) for g, w in zip(got, want)]
+        for i, w in enumerate(want):
+            check(f"B4 S=192 output {i}", errs[i], float(w[mask].abs().max()))
+        opaque = [float((x[2][mask] > 0.5).float().mean()) for x in (got, want)]
+        log(f"  B4 bf16 S=192 on phase 6's weights: {int(mask.sum())} of {z.shape[0]} rays "
+            f"clear of the sentinel, acc > 0.5 on {100 * opaque[0]:.1f}% of them (the plain "
+            f"version {100 * opaque[1]:.1f}%; at least {100 * BF16_B4_OPAQUE:g}% required)")
+        if int(mask.sum()) < z.shape[0] // 20:
+            raise AssertionError(f"B4 bf16: {int(mask.sum())} rays clear of the sentinel")
+        if min(opaque) < BF16_B4_OPAQUE:
+            raise AssertionError(f"B4 bf16: acc > 0.5 on {opaque} of the rays held")
+        err = max(errs)
+        vs32["B4 S=192 rgb"] = raw_close(got[0][mask], f32[0][mask])
+        vs32["B4 S=192 acc"] = raw_close(got[2][mask], f32[2][mask])
+        del got, want, f32
+        t, tp = in_turns(
+            lambda: fused_render.fused_render_rays(tp_, cfg, o, d, z, vd, True, False, bf),
+            lambda: fused_render.plain_render_rays(tp_, cfg, o, d, z, vd, True, bf),
+            rounds=3, reps=2)
+        t32, _ = in_turns(
+            lambda: fused_render.fused_render_rays(tp_, cfg, o, d, z, vd, True, False),
+            lambda: fused_render.fused_render_rays(tp_, cfg, o, d, z, vd, True, False, bf),
+            rounds=2, reps=2)
+        cases.append(bf16_case(
+            "fused_render_bf16", "B4 fused_render S=192", n, 192, err, t, tp, t32,
+            bf16_bound(cfg, params, n, 4 * (32768 * 12 + n + 32768 * 8)), BF16_TC_DESIGN
+            + "; the composite in fp32", n_rays=32768,
+            masked_rays=int(mask.sum())))
+    # B2 on a seeded cotangent at both lego shapes
+    for S in (64, 192):
+        pts, vd, g = lego_points(1024, S, seed=S, device=device)
+        n = 1024 * S
+        got = fused_mlp_bwd.fused_mlp_backward(params, cfg, pts, vd, g, bf)
+        want = fused_mlp_bwd.plain_mlp_backward_bf16(params, cfg, pts, vd, g)
+        f32 = fused_mlp_bwd.fused_mlp_backward(params, cfg, pts, vd, g)
+        torch.cuda.synchronize()
+        names = list(want[0]) + ["dpts", "ddirs"]
+        trip = [(got[0][k], want[0][k], f32[0][k]) for k in want[0]] + [
+            (got[1], want[1], f32[1]), (got[2], want[2], f32[2])]
+        rel = {k: rel_err(a, b) for k, (a, b, _) in zip(names, trip)}
+        worst = max(rel, key=rel.get)
+        err = max(float((a - b).abs().max()) for a, b, _ in trip)
+        log(f"  B2 bf16 N={n}: worst {worst} {rel[worst]:.1e} of its max|grad| vs the plain "
+            f"bf16 version (tol {BF16_TOL:g}) over {len(rel)} tensors")
+        if not rel[worst] <= BF16_TOL:
+            raise AssertionError(f"B2 bf16 disagrees with its plain bf16 version: {rel}")
+        vs32[f"B2 N={n}"] = grads_as_close({k: a for k, (a, _, _) in zip(names, trip)},
+                                           {k: b for k, (_, b, _) in zip(names, trip)},
+                                           {k: c for k, (_, _, c) in zip(names, trip)})
+        del got, want, f32, trip
+        t, tp = in_turns(
+            lambda: fused_mlp_bwd.fused_mlp_backward(params, cfg, pts, vd, g, bf),
+            lambda: fused_mlp_bwd.plain_mlp_backward_bf16(params, cfg, pts, vd, g), reps=5)
+        t32, _ = in_turns(
+            lambda: fused_mlp_bwd.fused_mlp_backward(params, cfg, pts, vd, g),
+            lambda: fused_mlp_bwd.fused_mlp_backward(params, cfg, pts, vd, g, bf),
+            rounds=2, reps=5)
+        parts = kernels_ms(
+            lambda: fused_mlp_bwd.fused_mlp_backward(params, cfg, pts, vd, g, bf), 3,
+            ("nerf_bwd_bf16_kernel", "nerf_dw_bf16_kernel", "grad_reduce_kernel"))
+        total, dw = flops_per_point_bwd(cfg) * n, flops_per_point(cfg) * n
+        io = 4 * (n * 3 + 1024 * 3 + n * 4 + n * 6) + 2 * 4 * sum(
+            params[k].numel() for k in params)
+        bnd = bf16_bound(cfg, params, n, io, flops=total)
+        design = 1e3 * max((total - dw) / PEAK_FP32_FLOPS + dw / PEAK_BF16_FLOPS,
+                           io / PEAK_BYTES)
+        log(f"  B2 bf16 N={n} device ms by kernel (profiler, 3 calls): tile "
+            f"{parts['nerf_bwd_bf16_kernel']}, dW {parts['nerf_dw_bf16_kernel']}, reduce "
+            f"{parts['grad_reduce_kernel']}; design bound {design:.2f} ms (tile FLOPs on "
+            f"the fp32 CUDA cores + dW FLOPs bf16)")
+        cases.append(bf16_case(
+            "fused_mlp_bwd_bf16", f"B2 fused_mlp_bwd N={n}", n, S, err, t, tp, t32, bnd,
+            BF16_B2_DESIGN, max_rel_err=rel[worst], bound_design_ms=design,
+            tile_ms=parts["nerf_bwd_bf16_kernel"], dw_ms=parts["nerf_dw_bf16_kernel"],
+            reduce_ms=parts["grad_reduce_kernel"]))
+    bad, summary = [], {}
+    for label, v in vs32.items():
+        if isinstance(v[0], dict):
+            kern = {k: g for k, (g, _) in v[0].items()}
+            plain = {k: p for k, (_, p) in v[0].items()}
+            summary[label] = {
+                "kernel": {"worst_norm": max(abs(r) for r, _ in kern.values()),
+                           "worst_cos": min(c for _, c in kern.values())},
+                "plain_bf16": {"worst_norm": max(abs(r) for r, _ in plain.values()),
+                               "worst_cos": min(c for _, c in plain.values())}}
+            k_, p_ = summary[label]["kernel"], summary[label]["plain_bf16"]
+            log(f"  bf16 vs fp32 {label}: gradient norms within "
+                f"{100 * k_['worst_norm']:.3f}% (the plain bf16 version "
+                f"{100 * p_['worst_norm']:.3f}%), lowest cosine {k_['worst_cos']:.6f} "
+                f"(plain bf16 {p_['worst_cos']:.6f}); each tensor within "
+                f"{BF16_COS_SLACK:g} of the plain version's cosine and "
+                f"{BF16_NORM_SLACK:g} of its norm deviation")
+        else:
+            summary[label] = v[0]
+            log(f"  bf16 vs fp32 {label}: max |bf16 - fp32| - 0.1 |fp32| = {v[0]:.3e} "
+                f"(allclose at rtol = atol = {BF16_RAW_TOL})")
+        if not v[1]:
+            bad.append(label)
+    if bad:
+        raise AssertionError(f"bf16 against fp32 outside its bars: {bad}")
+    summary["jax_test_shapes"] = bf16_jax_test_bars(device)
+    summary["other_shapes"] = bf16_other_shapes(device)
+    return cases, summary
+
+
+@contextlib.contextmanager
+def bf16_plain_versions():
+    """Inside the block fused_train_op's bf16 route on CUDA tensors runs the
+    plain versions of bf16 B1 and B2 (fused_mlp.plain_nerf_forward,
+    fused_mlp_bwd.plain_mlp_backward_bf16) where it launches the kernels:
+    the plain bf16 step, for holding the kernel step against."""
+    from nerf_shared_tpu_torch.ops.cuda import fused_mlp, fused_mlp_bwd
+
+    import torch
+
+    def forward(orig):
+        def run(params, cfg, pts, viewdirs, compute_dtype=torch.float32):
+            if compute_dtype != torch.bfloat16:
+                return orig(params, cfg, pts, viewdirs)
+            return fused_mlp.plain_nerf_forward(params, cfg, pts, viewdirs, compute_dtype)
+        return run
+
+    def backward(orig):
+        def run(params, cfg, pts, viewdirs, g, compute_dtype=torch.float32):
+            if compute_dtype != torch.bfloat16:
+                return orig(params, cfg, pts, viewdirs, g)
+            return fused_mlp_bwd.plain_mlp_backward_bf16(params, cfg, pts, viewdirs, g)
+        return run
+
+    with patched(fused_mlp_bwd, "launch_points", forward), \
+            patched(fused_mlp_bwd, "launch_backward", backward):
+        yield
+
+
+def check_bf16_train_step(device):
+    """Phase 15 (d): one lego training step under --precision bf16 from one
+    state with the draws pinned as phase 5 pins them, through the bf16 B1
+    + B2 and through their plain versions (bf16_plain_versions): the loss
+    within 1e-3 and every field gradient within BF16_TOL of its max (the
+    same roundings; fp32 sums in another order flip one now and then, and
+    the fine samples follow the coarse weights). Beside it, for the record,
+    the plain network's bf16 step (apply_nerf in bf16 and autograd, which
+    rounds in other places) and the fp32 kernel step: each one's gradient
+    norms and cosines against the fp32 step's. Times all four."""
+    import torch
+
+    out = {}
+    for label, fused, precision in (("kernels", True, "bf16"), ("plain", True, "bf16"),
+                                    ("network", False, "bf16"), ("fp32", True, "fp32")):
+        state, step, images, poses, ov, draws = train_step_setup(device, fused,
+                                                                 precision=precision)
+        params = state.parameters()
+        ctx = bf16_plain_versions() if label == "plain" else contextlib.nullcontext()
+        with ctx:
+            before = launch_counts()
+            aux = step(state, images, poses, torch.Generator().manual_seed(9), draws=draws,
+                       overrides=ov)
+            torch.cuda.synchronize()
+            rec = dict(loss=float(aux["loss"]), launched=diff(before),
+                       grads={str(i): p.grad.detach().clone() for i, p in enumerate(params)})
+
+            def again():
+                step(state, images, poses, torch.Generator().manual_seed(9), draws=draws,
+                     overrides=ov)
+
+            rec["ms"] = time_ms(again, 3)
+        out[label] = rec
+    k, p, net, f32 = (out[x] for x in ("kernels", "plain", "network", "fp32"))
+    if (k["launched"] != {"fused_mlp_points_bf16": 2, "fused_mlp_bwd_bf16": 2}
+            or p["launched"] or net["launched"]
+            or f32["launched"] != {"fused_mlp_points": 2, "fused_mlp_bwd": 2}):
+        raise AssertionError(f"step launches: {({x: out[x]['launched'] for x in out})}")
+    loss_err = abs(k["loss"] - p["loss"]) / abs(p["loss"])
+    grad_err = max(rel_err(k["grads"][i], p["grads"][i]) for i in p["grads"])
+    vs32 = {}
+    for x in ("kernels", "network"):
+        r, _ = grads_close(out[x]["grads"], f32["grads"])
+        vs32[x] = (max(abs(a) for a, _ in r.values()), min(c for _, c in r.values()))
+    log(f"bf16 train step (lego, N_rand 1024, 64 + 128 samples, draws pinned): kernels "
+        f"{k['ms']:.2f} ms, their plain versions {p['ms']:.2f} ms, the plain bf16 network "
+        f"{net['ms']:.2f} ms, fp32 kernels {f32['ms']:.2f} ms; loss {k['loss']:.6f} vs the "
+        f"plain versions' {p['loss']:.6f} (rel {loss_err:.1e}, tol 1e-3), worst field "
+        f"gradient {grad_err:.1e} of its max (tol {BF16_TOL:g}); against the fp32 step "
+        f"(loss {f32['loss']:.6f}): the kernel step's gradient norms within "
+        f"{100 * vs32['kernels'][0]:.2f}%, lowest cosine {vs32['kernels'][1]:.6f}; the "
+        f"plain bf16 network's {100 * vs32['network'][0]:.2f}%, {vs32['network'][1]:.6f}")
+    if not (loss_err <= 1e-3 and grad_err <= BF16_TOL):
+        raise AssertionError("the bf16 kernel training step disagrees with the step "
+                             "through their plain versions")
+    return {"kernel_ms": k["ms"], "plain_ms": p["ms"], "network_ms": net["ms"],
+            "fp32_kernel_ms": f32["ms"], "loss_rel_err": loss_err, "grad_rel_err": grad_err,
+            "kernel_vs_fp32": vs32["kernels"], "network_vs_fp32": vs32["network"]}
+
+
+def bf16_serving(device, base_argv):
+    """Phase 15 (c): phase 6's checkpoint served with --precision bf16 (B3
+    + B5, and B4 under --fused_composite) and in fp32, one held-out pose,
+    two requests each. Each bf16 frame (B3 + B5, and B4's) and its acc is
+    held against its engine through the plain versions of its bf16
+    kernels, at its kernel run's fine depths (inverse-CDF depths follow the
+    coarse weights), within 1e-2 on the rays clear of a sentinel flip
+    (held(); at most 1 in 1000 set apart), and the B4 frame within 1e-3 of
+    the B3 + B5 one; the plain bf16 network's route (apply_nerf in bf16,
+    which rounds in other places) is logged beside it, at those depths and
+    as it is."""
+    import numpy as np
+    import torch
+
+    from nerf_shared_tpu_torch.apps.serve import serve_parser
+    from nerf_shared_tpu_torch.data.datasets import load_datasets
+    from nerf_shared_tpu_torch.ops.cuda.fused_mlp import (
+        plain_nerf_forward_rays,
+        twin_nerf_forward_rays,
+    )
+
+    argv = base_argv + ["--port", "0"]
+    ds = load_datasets(serve_parser().parse_args(argv))
+    pose = ds.poses[int(ds.i_test[0])][:3, :4]
+    res = {}
+    for name, flags in (("fp32", []), ("bf16", ["--precision", "bf16"]),
+                        ("bf16_fused_composite", ["--precision", "bf16",
+                                                  "--fused_composite", "True"])):
+        served = Served(argv + flags, ds=ds)
+        try:
+            zero_counts()
+            status, _, body = http(served.base + "/render", {"c2w": pose.tolist(), "fmt": "npy"})
+            launches = launch_counts()
+            status2, _, _ = http(served.base + "/render", {"c2w": pose.tolist(), "fmt": "npy"})
+        finally:
+            served.close()
+        frame = np.load(io.BytesIO(body))
+        eng = served.service.engine
+        if status != 200 or status2 != 200 or not np.isfinite(frame).all():
+            raise AssertionError(f"{name}: no finite frame ({status}, {status2})")
+        res[name] = dict(frame=frame, launches=launches, eng=eng,
+                         ms=served.service._latencies[1] * 1e3)
+    eng = res["bf16"]["eng"]
+    per = math.ceil(eng.H * eng.W / eng.args.chunk)
+    expect_launches("fp32 frame", res["fp32"]["launches"],
+                    {"fused_mlp": 2 * per, "composite": 2 * per})
+    expect_launches("bf16 frame", res["bf16"]["launches"],
+                    {"fused_mlp_bf16": 2 * per, "composite": 2 * per})
+    expect_launches("bf16 --fused_composite frame", res["bf16_fused_composite"]["launches"],
+                    {"fused_mlp_bf16": per, "fused_render_bf16": per, "composite": per})
+    c2w = torch.as_tensor(pose, dtype=torch.float32, device=device)
+    def plain_bf16(params, cfg, ro, rd, zz, vd):
+        return plain_nerf_forward_rays(params, cfg, ro, rd, zz, vd, torch.bfloat16)
+
+    def network_bf16(params, cfg, ro, rd, zz, vd):
+        return twin_nerf_forward_rays(params, cfg, ro, rd, zz, vd, torch.bfloat16)
+
+    def acc_err(rgb_a, acc_a, rgb_b, acc_b):
+        """max |acc_a - acc_b| over the rays held() keeps."""
+        d_rgb, d_acc = np.abs(rgb_a - rgb_b).max(-1), np.abs(acc_a - acc_b)
+        return float(d_acc[~((d_acc > 1e-3) & (d_rgb <= d_acc + 1e-5))].max(initial=0.0))
+
+    eng_f = res["bf16_fused_composite"]["eng"]
+    rgb_k, acc_k, z_k, _, _ = engine_maps(eng, True, c2w)
+    rgb_f, acc_f, z_f, _, _ = engine_maps(eng_f, True, c2w)
+    rgb_d, acc_d = plain_fine_pass(eng, pose, z_k, forward=plain_bf16)
+    rgb_df, acc_df = plain_fine_pass(eng_f, pose, z_f, forward=plain_bf16)
+    rgb_n, acc_n = plain_fine_pass(eng, pose, z_k, forward=network_bf16)
+    rgb_p, acc_p, _, _, _ = engine_maps(eng, False, c2w)
+    same = max(float(np.abs(res["bf16"]["frame"] - rgb_k).max()),
+               float(np.abs(res["bf16_fused_composite"]["frame"] - rgb_f).max()))
+    at_depths, n_d, flips_d = held(rgb_k, acc_k, rgb_d, acc_d)
+    fused_at, n_fd, flips_fd = held(rgb_f, acc_f, rgb_df, acc_df)
+    acc_at = max(acc_err(rgb_k, acc_k, rgb_d, acc_d), acc_err(rgb_f, acc_f, rgb_df, acc_df))
+    net_depths, _, flips_n = held(rgb_k, acc_k, rgb_n, acc_n)
+    as_is, _, flips_a = held(rgb_k, acc_k, rgb_p, acc_p)
+    fused_err, n_f, flips_f = held(rgb_f, acc_f, rgb_k, acc_k)
+    opaque = float((acc_df > 0.5).mean())
+    p_vs32 = psnr(res["bf16"]["frame"], res["fp32"]["frame"])
+    log(f"bf16 serving (phase 6's 800-step lego, {eng.W}x{eng.H}): frame "
+        f"{res['bf16']['ms']:.1f} ms (B3 + B5), {res['bf16_fused_composite']['ms']:.1f} ms "
+        f"(--fused_composite, B4), fp32 {res['fp32']['ms']:.1f} ms; the served frames vs "
+        f"their engines' kernel routes {same:.1e}; against the plain versions of the bf16 "
+        f"kernels at each kernel run's fine depths: B3 + B5 {at_depths:.2e} over {n_d} rays "
+        f"({flips_d} sentinel flips set apart), B4 {fused_at:.2e} over {n_fd} rays "
+        f"({flips_fd} set apart; acc > 0.5 on {100 * opaque:.1f}% of its rays), acc "
+        f"{acc_at:.2e} (tol 1e-2, at most {eng.H * eng.W // 1000} set apart); vs the plain "
+        f"bf16 network's route (apply_nerf in bf16) at those depths {net_depths:.2e} "
+        f"({flips_n} set apart), as it is {as_is:.2e} ({flips_a} set apart); B4 frame vs "
+        f"B3 + B5 {fused_err:.2e} ({flips_f} set apart; tol 1e-3); PSNR vs the fp32 frame "
+        f"{p_vs32:.2f} dB (>= 30)")
+    n_rays = eng.H * eng.W
+    if not (same <= 1e-6 and at_depths <= 1e-2 and flips_d <= n_rays // 1000
+            and fused_at <= 1e-2 and flips_fd <= n_rays // 1000 and acc_at <= 1e-2
+            and fused_err <= 1e-3 and flips_f <= n_rays // 1000 and p_vs32 >= 30.0):
+        raise AssertionError("the bf16 served frame fails its checks")
+    return {"frame_ms": {k: v["ms"] for k, v in res.items()},
+            "vs_plain_at_depths": at_depths, "flips": flips_d,
+            "fused_vs_plain_at_depths": fused_at, "fused_flips": flips_fd,
+            "acc_vs_plain_at_depths": acc_at, "fused_opaque_share": opaque,
+            "vs_network_at_depths": net_depths, "vs_network_as_is": as_is,
+            "fused_vs_b3": fused_err, "psnr_vs_fp32": p_vs32,
+            "launches_by_path": {"bf16_serving": res["bf16"]["launches"],
+                                 "bf16_fused_composite":
+                                     res["bf16_fused_composite"]["launches"]}}
+
+
+def phase_bf16(device, trained, smi, steps=600, more=200):
+    """Phase 15: --precision bf16: (a) + (b) the bf16 kernels, (c) serving,
+    (d) training through apps/train.main and the one-step check."""
+    import re
+
+    t0 = time.perf_counter()
+    failed = []
+
+    def attempt(what, fn, fallback):
+        """fn(), or ``fallback`` with the failure kept, so that one run
+        reports every check of the phase."""
+        try:
+            return fn()
+        except AssertionError as e:
+            log(f"phase 15 {what} FAILED: {e}")
+            failed.append(f"{what}: {e}")
+            return fallback
+
+    cases, vs32 = attempt("(a)/(b) kernels", lambda: bf16_kernel_cases(device, trained),
+                          ([], {}))
+    t_a = time.perf_counter() - t0
+    serving = attempt("(c) serving", lambda: bf16_serving(device, trained["base_argv"]),
+                      {"launches_by_path": {}})
+    t_c = time.perf_counter() - t0 - t_a
+
+    argv = trained["base_argv"] + ["--precision", "bf16", "--expname", "lego_bf16"]
+    zero_counts()
+    _, text = run_train_cli(argv + ["--N_iters", str(steps)])
+    _, text2 = run_train_cli(argv + ["--N_iters", str(steps + more)])
+    launches = launch_counts()
+    total = steps + more
+    if (launches["fused_mlp_points_bf16"] != 2 * total
+            or launches["fused_mlp_bwd_bf16"] != 2 * total
+            or launches["fused_mlp_points"] or launches["fused_mlp_bwd"]):
+        failed.append(f"bf16 training: expected {2 * total} bf16 B1 and B2 and no "
+                      f"fp32 ones: {launches}")
+    if "Reloading from" not in text2:
+        failed.append("the resumed bf16 run did not reload its checkpoint")
+    rps = [float(r.replace(",", "")) for r in re.findall(
+        r"\[TRAIN\] Iter: \d+ .*?rays/sec: (\S+)", text + text2)]
+    vals = re.findall(r"\[VAL\] Iter: (\d+) view (\d+) PSNR: (\S+)", text + text2)
+    val = float(vals[-1][2])
+    val32 = trained["val"][-1][2]
+    rate = statistics.median(rps[1:])
+    ms_step = 1e3 * 1024 / rate
+    log(f"bf16 training {steps} + {more} steps: median {rate:,.0f} rays/s = {ms_step:.1f} ms "
+        f"a step (fp32, phase 6: {trained['rays_per_s']:,.0f} = "
+        f"{trained['ms_per_step']:.1f} ms); held-out PSNR at step {vals[-1][0]} {val:.2f} dB "
+        f"(fp32 {val32:.2f}, all-white {trained['white_psnr']:.2f}); launches {launches}")
+    if not (int(vals[-1][0]) == total and val >= trained["white_psnr"] + 2.0
+            and val >= val32 - 1.0):
+        failed.append("bf16 held-out PSNR is not 2 dB above all-white or is more than "
+                      "1 dB below fp32's")
+    step = attempt("(d) one step", lambda: check_bf16_train_step(device), {})
+    wall = time.perf_counter() - t0
+    summary = {"kernels": {c["kernel"] + f" S={c['S']}": {
+        k: c[k] for k in ("ms", "fp32_ms", "plain_ms", "bound_ms", "max_abs_err")}
+        for c in cases}, "bf16_vs_fp32": vs32,
+        "serving": {k: v for k, v in serving.items() if k != "launches_by_path"},
+        "training": {"ms_per_step": ms_step, "rays_per_s": rate, "val_psnr": val,
+                     "fp32_val_psnr": val32, "fp32_ms_per_step": trained["ms_per_step"]},
+        "step": step, "s": {"a_b": t_a, "c": t_c, "all": wall}, "card": smi}
+    log("phase 15 bf16: " + json.dumps(summary))
+    if failed:
+        raise AssertionError(f"phase 15: {len(failed)} check(s) failed: {failed}")
+    return {"cases": cases, "launches_by_path": {**serving["launches_by_path"],
+                                                 "bf16_training": launches}}
+
+
 def _profile(what, fn, top_n=8):
     """fn() under torch.profiler: device time by kernel (the ``top_n``
     largest) and the device's busy share of the wall time."""
@@ -4110,10 +4875,12 @@ def _profile(what, fn, top_n=8):
 
 
 # the tensor-core kernels of each library and their MMA instruction: B1,
-# B3 and B4 on warpgroup MMAs (HGMMA), B2's dW kernel on warp MMAs (HMMA)
-TC_KERNELS = {"fused_mlp": ("HGMMA", ("nerf_points_tc_kernel", "nerf_rays_tc_kernel")),
-              "fused_render": ("HGMMA", ("nerf_render_tc_kernel",)),
-              "fused_mlp_bwd": ("HMMA", ("nerf_dw_kernel",))}
+# B3 and B4 on warpgroup MMAs (HGMMA), B2's dW kernel on warp MMAs (HMMA);
+# each in fp32 (split) and bf16
+TC_KERNELS = {"fused_mlp": ("HGMMA", ("nerf_points_tc_kernel", "nerf_rays_tc_kernel",
+                                      "nerf_points_bf16_kernel", "nerf_rays_bf16_kernel")),
+              "fused_render": ("HGMMA", ("nerf_render_tc_kernel", "nerf_render_bf16_kernel")),
+              "fused_mlp_bwd": ("HMMA", ("nerf_dw_kernel", "nerf_dw_bf16_kernel"))}
 
 
 def demangled(name):
@@ -4163,7 +4930,8 @@ def check_tensor_cores(parent=False):
                 log(f"  SASS {name}: {want} is not in the parent tree")
             elif not any(want in k and n > 0 for k, n in kernels.items()):
                 raise AssertionError(f"{name}: {want} is missing or holds no {op}")
-        if any("_tc_kernel" in k and n == 0 for k, n in kernels.items()):
+        if any(("_tc_kernel" in k or "bf16_kernel" in k) and "bwd" not in k and n == 0
+               for k, n in kernels.items()):
             raise AssertionError(f"{name}: a tensor-core kernel holds no {op}")
 
 
@@ -4239,7 +5007,7 @@ def main() -> int:
         train_cases, step = phase_train_kernels(device)
         cases += train_cases
         log(f"phase 5: training kernels in {time.perf_counter() - t0:.1f} s")
-    if want(6, 7, 11, 12, 13, 14):
+    if want(6, 7, 11, 12, 13, 14, 15):
         t0 = time.perf_counter()
         trained = phase_training(device)
         log(f"phase 6: training in {time.perf_counter() - t0:.1f} s")
@@ -4278,6 +5046,11 @@ def main() -> int:
         t0 = time.perf_counter()
         mesh = phase_mesh(device, trained, llff)
         log(f"phase 14: mesh export in {time.perf_counter() - t0:.1f} s")
+    if want(15):
+        t0 = time.perf_counter()
+        bf16 = phase_bf16(device, trained, smi)
+        cases += bf16["cases"]
+        log(f"phase 15: --precision bf16 in {time.perf_counter() - t0:.1f} s")
     if profile:
         if want(3, 4):
             profile_frame(served["engine"], served["pose"])
@@ -4309,6 +5082,7 @@ def main() -> int:
     by_path.update(proposal["launches_by_path"])
     by_path.update(occ["launches_by_path"])
     by_path.update(mesh["launches_by_path"])
+    by_path.update(bf16["launches_by_path"])
 
     sources = {
         "fused_mlp_points": ("nerf_shared_tpu_torch/csrc/fused_mlp.cu",
@@ -4324,7 +5098,16 @@ def main() -> int:
         "gather": ("nerf_shared_tpu_torch/csrc/gather.cu",
                    "benchmarks/scatter_probe.py:104"),
         "scatter_add": ("nerf_shared_tpu_torch/csrc/gather.cu",
-                        "benchmarks/scatter_probe.py:134")}
+                        "benchmarks/scatter_probe.py:134"),
+        # the bf16 instantiations of B1, B2, B3 and B4 (--precision bf16)
+        "fused_mlp_points_bf16": ("nerf_shared_tpu_torch/csrc/fused_mlp.cu",
+                                  "nerf_shared_tpu/ops/pallas/fused_mlp.py:253"),
+        "fused_mlp_bwd_bf16": ("nerf_shared_tpu_torch/csrc/fused_mlp_bwd.cu",
+                               "nerf_shared_tpu/ops/pallas/fused_mlp_bwd.py:176"),
+        "fused_mlp_bf16": ("nerf_shared_tpu_torch/csrc/fused_mlp.cu",
+                           "nerf_shared_tpu/ops/pallas/fused_mlp.py:280"),
+        "fused_render_bf16": ("nerf_shared_tpu_torch/csrc/fused_render.cu",
+                              "nerf_shared_tpu/ops/pallas/fused_render.py:80")}
     kernels = []
     for name, (src, replaces) in sources.items():
         mine = [c for c in cases if c["kernel"] == name]
@@ -4340,11 +5123,13 @@ def main() -> int:
             "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
             "bound_ms": main_case["bound_ms"], "bound_by": main_case["bound_by"],
             "library_ms": main_case.get("library_ms"),
-            **({"design": main_case["design"],
-                "bound_fp32_cuda_cores_ms": main_case["bound_fp32_cuda_cores_ms"]}
-               if "design" in main_case else {}),
+            **{k: main_case[k] for k in ("design", "bound_fp32_cuda_cores_ms",
+                                         "bound_design_ms", "fp32_ms") if k in main_case},
             "cases": mine,
         })
+    idle = [k["name"] for k in kernels if k["launches"] <= 0]
+    if idle:
+        raise AssertionError(f"kernels the main paths never launched: {idle}")
     log(json.dumps({"frame_ms": served["frame_ms"], "train_step": step, "fast": fast,
                     "training": {k: trained[k] for k in (
                         "ms_per_step", "rays_per_s", "train_psnr", "val", "white_psnr")},
@@ -4357,6 +5142,7 @@ def main() -> int:
                                  if k != "launches_by_path"},
                     "occ": {k: v for k, v in occ.items() if k != "launches_by_path"},
                     "mesh": {k: v for k, v in mesh.items() if k != "launches_by_path"},
+                    "bf16_launches": bf16["launches_by_path"],
                     "probe": probe}))
     log(f"all phases in {time.perf_counter() - t_script:.1f} s")
     print(json.dumps({"kernels": kernels}))

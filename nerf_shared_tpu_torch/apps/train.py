@@ -90,7 +90,6 @@ from nerf_shared_tpu_torch.utils.metrics import ssim, to8b
 # flags whose paths the port does not carry yet: each raises instead of
 # being ignored (name -> (is-set test, what it would need))
 _NOT_PORTED = {
-    "precision": (lambda v: v != "fp32", "bf16 operands in the CUDA kernels"),
     "mesh_shape": (lambda v: bool(v), "multi-GPU renders and training (ROADMAP A16)"),
     "multihost": (bool, "multi-host training over torch.distributed (ROADMAP A16)"),
     "debug_nans": (bool, "NaN checks at the source: torch.autograd anomaly "
@@ -112,7 +111,10 @@ def resolve_device(name: str) -> torch.device:
 
 
 def pin_fp32():
-    """No TF32 anywhere on the fp32 path."""
+    """No TF32 anywhere outside the kernels. Under --precision bf16 too:
+    only the MLP's compute goes to bf16 (the kernels' bf16 instantiations,
+    apply_nerf in bf16); products outside it stay fp32, where the JAX
+    trainer leaves XLA's default matmul precision (ROADMAP C)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 

@@ -44,6 +44,15 @@
 // (the tensor cores' own running sum drifts: mlp_tile_tc.cuh); that costs
 // it ~30% against B3's running sum, in registers (its slice sums beside
 // the accumulators) and in one wait for the MMAs per m64 block and slice.
+//
+// bf16 (nerf_points_bf16_kernel, nerf_rays_bf16_kernel; --precision bf16):
+// the TPU kernels' bf16 instantiations (_make_kernel / _make_ray_kernel
+// with compute_dtype bfloat16). The same tile with bf16 operands on
+// wgmma's k16 (mlp_tile_tc.cuh kBf16): one product a multiply-add at the
+// 989 TFLOP/s bf16 rate, so the bound is FLOPs over 989 TFLOP/s (B1: 0.079
+// / 0.236 ms at 65,536 / 196,608 points; B3: 2.52 / 7.55 ms at a
+// 32768-ray block of S = 64 / 192), and the weight slices stream half the
+// bytes. Both use the running sum (no slice sums).
 #include "mlp_tile_tc.cuh"
 
 namespace nstt {
@@ -51,8 +60,8 @@ namespace tc {
 
 // One persistent block an SM walks the flat point tiles (B3: gp = r * S +
 // s), the ring running on from tile to tile; kSliceSums: tile_network's
-// per-slice sums rounded to nearest (B1).
-template <class Enc, bool kSliceSums>
+// per-slice sums rounded to nearest (B1); kBf16: the bf16 tile.
+template <class Enc, bool kSliceSums, bool kBf16 = false>
 __device__ inline void forward_tiles(const Desc* __restrict__ gdesc,
                                      const float* __restrict__ wb, const Enc& e,
                                      float* __restrict__ out, long long total, int R) {
@@ -66,11 +75,11 @@ __device__ inline void forward_tiles(const Desc* __restrict__ gdesc,
   const long long n_tiles = (total + TP - 1) / TP;
   const long long mine = n_tiles > blockIdx.x
                              ? (n_tiles - blockIdx.x + gridDim.x - 1) / gridDim.x : 0;
-  Ring ring = start_ring(d, wb, s.ring, bars, R, mine);
+  Ring ring = start_ring<kBf16>(d, wb, s.ring, bars, R, mine);
   for (long long t = blockIdx.x; t < n_tiles; t += gridDim.x) {
     const long long p0 = t * TP;
     tile_rows(d, e, p0, total, s);
-    tile_network<Enc, kSliceSums>(d, wb, e, s, ring);
+    tile_network<Enc, kSliceSums, kBf16>(d, wb, e, s, ring);
     for (int i = threadIdx.x; i < TP * OUT; i += NTHREADS) {
       const int q = i / OUT, o = i - q * OUT;
       const long long gp = p0 + q;
@@ -97,6 +106,23 @@ nerf_rays_tc_kernel(const Desc* __restrict__ gdesc, const float* __restrict__ wb
   forward_tiles<RayEnc, false>(gdesc, wb, RayEnc{A, B, z, S}, out, total, R);
 }
 
+// B1 and B3 in bf16: the same arguments over pack_network_tc's bf16 pack
+__global__ void __launch_bounds__(NTHREADS, 1)
+nerf_points_bf16_kernel(const Desc* __restrict__ gdesc, const float* __restrict__ wb,
+                        const float* __restrict__ enc, const float* __restrict__ pts,
+                        const float* __restrict__ vd, float* __restrict__ out,
+                        long long total, int S, int R) {
+  forward_tiles<PointEnc, false, true>(gdesc, wb, PointEnc{pts, vd, enc, S}, out, total, R);
+}
+
+__global__ void __launch_bounds__(NTHREADS, 1)
+nerf_rays_bf16_kernel(const Desc* __restrict__ gdesc, const float* __restrict__ wb,
+                      const float* __restrict__ A, const float* __restrict__ B,
+                      const float* __restrict__ z, float* __restrict__ out,
+                      long long total, int S, int R) {
+  forward_tiles<RayEnc, false, true>(gdesc, wb, RayEnc{A, B, z, S}, out, total, R);
+}
+
 // plan() the ring of a forward kernel and its persistent grid, min(tiles,
 // SMs); 0 on success
 template <class Enc>
@@ -114,6 +140,43 @@ int setup(const void* kernel, int HS, int SLOT, long long total, int* R, size_t*
 }  // namespace tc
 }  // namespace nstt
 
+using PointsKernel = void (*)(const nstt::tc::Desc*, const float*, const float*,
+                              const float*, const float*, float*, long long, int, int);
+using RaysKernel = void (*)(const nstt::tc::Desc*, const float*, const float*,
+                            const float*, const float*, float*, long long, int, int);
+
+static int points_forward(PointsKernel kernel, const void* desc_dev, int HS, int SLOT,
+                          const float* wb, const float* enc, const float* pts,
+                          const float* vd, float* out, long long total, int S,
+                          void* stream) {
+  using namespace nstt::tc;
+  if (total <= 0) return 0;
+  int R;
+  size_t bytes;
+  unsigned grid;
+  int rc = setup<PointEnc>((const void*)kernel, HS, SLOT, total, &R, &bytes, &grid);
+  if (rc != 0) return rc;
+  kernel<<<grid, NTHREADS, bytes, (cudaStream_t)stream>>>(
+      (const Desc*)desc_dev, wb, enc, pts, vd, out, total, S, R);
+  return (int)cudaGetLastError();
+}
+
+static int rays_forward(RaysKernel kernel, const void* desc_dev, int HS, int SLOT,
+                        const float* wb, const float* A, const float* B, const float* z,
+                        float* out, long long n_rays, int S, void* stream) {
+  using namespace nstt::tc;
+  const long long total = n_rays * S;
+  if (total <= 0) return 0;
+  int R;
+  size_t bytes;
+  unsigned grid;
+  int rc = setup<RayEnc>((const void*)kernel, HS, SLOT, total, &R, &bytes, &grid);
+  if (rc != 0) return rc;
+  kernel<<<grid, NTHREADS, bytes, (cudaStream_t)stream>>>(
+      (const Desc*)desc_dev, wb, A, B, z, out, total, S, R);
+  return (int)cudaGetLastError();
+}
+
 // B1 on the tensor cores: HS is the activations' shared row stride of the
 // pack (pack_network_tc), SLOT the floats of its largest weight slice, enc
 // the point-major encoder table (encoder_buffer).
@@ -121,17 +184,8 @@ extern "C" int nstt_points_forward_tc(const void* desc_dev, int HS, int SLOT,
                                       const float* wb, const float* enc,
                                       const float* pts, const float* vd, float* out,
                                       long long total, int S, void* stream) {
-  using namespace nstt::tc;
-  if (total <= 0) return 0;
-  int R;
-  size_t bytes;
-  unsigned grid;
-  int rc = setup<PointEnc>((const void*)nerf_points_tc_kernel, HS, SLOT, total, &R, &bytes,
-                           &grid);
-  if (rc != 0) return rc;
-  nerf_points_tc_kernel<<<grid, NTHREADS, bytes, (cudaStream_t)stream>>>(
-      (const Desc*)desc_dev, wb, enc, pts, vd, out, total, S, R);
-  return (int)cudaGetLastError();
+  return points_forward(nstt::tc::nerf_points_tc_kernel, desc_dev, HS, SLOT, wb, enc, pts,
+                        vd, out, total, S, stream);
 }
 
 // B3 on the tensor cores: HS and SLOT as for B1.
@@ -139,16 +193,23 @@ extern "C" int nstt_rays_forward_tc(const void* desc_dev, int HS, int SLOT,
                                     const float* wb, const float* A, const float* B,
                                     const float* z, float* out, long long n_rays,
                                     int S, void* stream) {
-  using namespace nstt::tc;
-  const long long total = n_rays * S;
-  if (total <= 0) return 0;
-  int R;
-  size_t bytes;
-  unsigned grid;
-  int rc = setup<RayEnc>((const void*)nerf_rays_tc_kernel, HS, SLOT, total, &R, &bytes,
-                         &grid);
-  if (rc != 0) return rc;
-  nerf_rays_tc_kernel<<<grid, NTHREADS, bytes, (cudaStream_t)stream>>>(
-      (const Desc*)desc_dev, wb, A, B, z, out, total, S, R);
-  return (int)cudaGetLastError();
+  return rays_forward(nstt::tc::nerf_rays_tc_kernel, desc_dev, HS, SLOT, wb, A, B, z, out,
+                      n_rays, S, stream);
+}
+
+// B1 and B3 in bf16: the same arguments, over pack_network_tc(..., bf16=True)
+extern "C" int nstt_points_forward_bf16(const void* desc_dev, int HS, int SLOT,
+                                        const float* wb, const float* enc,
+                                        const float* pts, const float* vd, float* out,
+                                        long long total, int S, void* stream) {
+  return points_forward(nstt::tc::nerf_points_bf16_kernel, desc_dev, HS, SLOT, wb, enc,
+                        pts, vd, out, total, S, stream);
+}
+
+extern "C" int nstt_rays_forward_bf16(const void* desc_dev, int HS, int SLOT,
+                                      const float* wb, const float* A, const float* B,
+                                      const float* z, float* out, long long n_rays,
+                                      int S, void* stream) {
+  return rays_forward(nstt::tc::nerf_rays_bf16_kernel, desc_dev, HS, SLOT, wb, A, B, z,
+                      out, n_rays, S, stream);
 }

@@ -55,6 +55,23 @@
 // The 14.7 GB of per-block partial read-modify-write of the first design
 // (one fp32 copy of all gradients per block, updated every tile) becomes
 // ~7.8 GB of streaming writes and reads of H and dZ at 196,608 points.
+//
+// bf16 (nerf_bwd_bf16_kernel, nerf_dw_bf16_kernel; --precision bf16): the
+// TPU kernel's bf16 instantiation (_make_bwd_kernel_closed with
+// compute_dtype bfloat16, fused_mlp_bwd.py:176-300). The tile kernel keeps
+// its fp32 CUDA-core arithmetic on bf16-rounded operands, which computes
+// the JAX function (a product of two bf16 values is exact in fp32): the
+// weights arrive rounded (ops/cuda/fused_mlp_bwd.py pack_forward /
+// pack_backward), the encoding, every layer's output and the cotangent g
+// are rounded as they are stored, and each dz (dhv, dfeature, dz_l) goes
+// to the dZ buffer in fp32 and is then rounded in place (dz_c) before it
+// enters dh = dz_c·Wᵀ. The ReLU masks read the bf16 activations. The dW
+// kernel rounds dZ as it loads it and forms dW with one
+// mma.sync.m16n8k16 bf16 product a 16-point step (each summed from zero
+// and added in fp32), while its bias sums read the fp32 dZ (dbout the
+// rounded g), as JAX's do. demb and dx stay fp32. Design bound: the tile
+// kernel's FLOPs over the fp32 CUDA cores' 67 TFLOP/s plus dW's over the
+// 989 TFLOP/s bf16 rate; all-bf16 bound: all FLOPs over 989 TFLOP/s.
 #include "mlp_tile.cuh"
 
 namespace nstt {
@@ -120,19 +137,45 @@ __device__ __forceinline__ void copy_rows(float* dst, int ds, const float* src,
   }
 }
 
+// copy_rows from src, then under kRound src's copied floats rounded to bf16
+// in place, each by the thread that copied it (no barrier between)
+template <bool kRound>
+__device__ __forceinline__ void copy_rows_round(float* dst, int ds, float* src, int ss,
+                                                int cols) {
+  if (!kRound) {
+    copy_rows(dst, ds, src, ss, cols);
+    return;
+  }
+  const int q = cols / 4;
+  for (int i = threadIdx.x; i < TILE_P * q; i += NTHREADS) {
+    const int p = i / q, c = (i % q) * 4;
+    float4* s4 = reinterpret_cast<float4*>(src + (size_t)p * ss + c);
+    float4 v = *s4;
+    *reinterpret_cast<float4*>(dst + (size_t)p * ds + c) = v;
+    v.x = __bfloat162float(__float2bfloat16_rn(v.x));
+    v.y = __bfloat162float(__float2bfloat16_rn(v.y));
+    v.z = __bfloat162float(__float2bfloat16_rn(v.z));
+    v.w = __bfloat162float(__float2bfloat16_rn(v.w));
+    *s4 = v;
+  }
+}
+
 // Row p0 of segment s of an H or dZ buffer.
 __device__ __forceinline__ float* seg_rows(float* buf, const long long (&s)[2],
                                            long long n_pad, long long p0) {
   return buf + s[0] * n_pad + p0 * s[1];
 }
 
-__global__ void __launch_bounds__(NTHREADS)
-nerf_bwd_kernel(const NetDesc* __restrict__ gdesc, const BwdDesc* __restrict__ gbd,
-                const float* __restrict__ wb, const float* __restrict__ wbt,
-                const float* __restrict__ enc, const float* __restrict__ pts,
-                const float* __restrict__ vd, const float* __restrict__ g, int C,
-                float* __restrict__ dx, float* hbuf, float* zbuf, long long total,
-                long long n_pad, int S) {
+template <bool kBf16>
+__device__ inline void bwd_tiles(const NetDesc* __restrict__ gdesc,
+                                 const BwdDesc* __restrict__ gbd,
+                                 const float* __restrict__ wb, const float* __restrict__ wbt,
+                                 const float* __restrict__ enc,
+                                 const float* __restrict__ pts,
+                                 const float* __restrict__ vd,
+                                 const float* __restrict__ g, int C,
+                                 float* __restrict__ dx, float* hbuf, float* zbuf,
+                                 long long total, long long n_pad, int S) {
   __shared__ NetDesc d;
   __shared__ BwdDesc bd;
   extern __shared__ float4 dyn[];
@@ -166,7 +209,7 @@ nerf_bwd_kernel(const NetDesc* __restrict__ gdesc, const BwdDesc* __restrict__ g
     // H or dZ rows of this tile in segment s
     auto hrows = [&](int s) { return seg_rows(hbuf, bd.hseg[s], n_pad, p0); };
     auto zrows = [&](int s) { return seg_rows(zbuf, bd.zseg[s], n_pad, p0); };
-    encode_points(d, enc, pts, vd, p0, total, S, emb, ES);
+    encode_points<kBf16>(d, enc, pts, vd, p0, total, S, emb, ES);
     for (int i = threadIdx.x; i < TILE_P * ES; i += NTHREADS) demb[i] = 0.f;
     for (int i = threadIdx.x; i < TILE_P * G_LD; i += NTHREADS) {
       const int p = i / G_LD, c = i % G_LD;
@@ -180,7 +223,7 @@ nerf_bwd_kernel(const NetDesc* __restrict__ gdesc, const BwdDesc* __restrict__ g
           v = g[gp * C + c];
         }
       }
-      gr[i] = v;
+      gr[i] = kBf16 ? __bfloat162float(__float2bfloat16_rn(v)) : v;
     }
     __syncthreads();
     copy_rows(hrows(HS_EMB), ES, emb, ES, ES);
@@ -202,7 +245,7 @@ nerf_bwd_kernel(const NetDesc* __restrict__ gdesc, const BwdDesc* __restrict__ g
         }
         gemm_acc<KC_BWD>(acc, X, HS, W, Wl + (size_t)koff * ld, ld, wt);
       }
-      epilogue(acc, wb + L[M_B], W, true, X, HS);
+      epilogue<kBf16>(acc, wb + L[M_B], W, true, X, HS);
       __syncthreads();
       copy_rows(hrows(1 + l), HS, X, HS, HS);
     }
@@ -210,7 +253,7 @@ nerf_bwd_kernel(const NetDesc* __restrict__ gdesc, const BwdDesc* __restrict__ g
       const long long* Hf = d.head[HEAD_FEATURE];
       zero_acc(acc);
       gemm_acc<KC_BWD>(acc, X, HS, W, wb + Hf[M_W], (int)Hf[M_LD], wt);
-      epilogue(acc, wb + Hf[M_B], W, false, X, HS);
+      epilogue<kBf16>(acc, wb + Hf[M_B], W, false, X, HS);
       __syncthreads();
       copy_rows(hrows(HS_FEATURE), HS, X, HS, HS);
       const long long* Hv = d.head[HEAD_VIEWS];
@@ -218,7 +261,7 @@ nerf_bwd_kernel(const NetDesc* __restrict__ gdesc, const BwdDesc* __restrict__ g
       zero_acc(acc);
       gemm_acc<KC_BWD>(acc, X, HS, W, wb + Hv[M_W], ldv, wt);
       gemm_acc<KC_BWD>(acc, emb + P4, ES, V, wb + Hv[M_W] + (size_t)W * ldv, ldv, wt);
-      epilogue(acc, wb + Hv[M_B], W / 2, true, X, HS);
+      epilogue<kBf16>(acc, wb + Hv[M_B], W / 2, true, X, HS);
       __syncthreads();
       copy_rows(hrows(HS_HV), W2S, X, HS, W2S);
     }
@@ -234,7 +277,7 @@ nerf_bwd_kernel(const NetDesc* __restrict__ gdesc, const BwdDesc* __restrict__ g
                        (int)bd.head[BW_RGB][1], wt);
       put<PUT_MASK>(acc, W / 2, X, HS, Y);
       __syncthreads();
-      copy_rows(zrows(ZS_DHV), W2S, X, HS, W2S);
+      copy_rows_round<kBf16>(zrows(ZS_DHV), W2S, X, HS, W2S);   // dhv, then dhv_c
       // hv = relu([feature, emb_dirs] @ Wv + b)
       zero_acc(acc);
       gemm_acc<KC_BWD>(acc, X, HS, W / 2, wbt + bd.head[BW_VIEWS_D][0],
@@ -245,7 +288,7 @@ nerf_bwd_kernel(const NetDesc* __restrict__ gdesc, const BwdDesc* __restrict__ g
                        (int)bd.head[BW_VIEWS_F][1], wt);
       put<PUT_STORE>(acc, W, X, HS, nullptr);   // dfeature
       __syncthreads();
-      copy_rows(zrows(ZS_DFEATURE), HS, X, HS, HS);
+      copy_rows_round<kBf16>(zrows(ZS_DFEATURE), HS, X, HS, HS);   // then dfeature_c
       // feature = h @ Wf + b and alpha = h @ Wa + b, h the last trunk output
       copy_rows(Y, HS, hrows(D), HS, HS);
       __syncthreads();
@@ -269,7 +312,7 @@ nerf_bwd_kernel(const NetDesc* __restrict__ gdesc, const BwdDesc* __restrict__ g
       for (int i = threadIdx.x; i < TILE_P * HS; i += NTHREADS)
         if (!(Y[i] > 0.f)) X[i] = 0.f;   // dz_l
       __syncthreads();
-      copy_rows(zrows(l), HS, X, HS, HS);
+      copy_rows_round<kBf16>(zrows(l), HS, X, HS, HS);   // dz_l, then dz_c
       if (l > 0) {
         copy_rows(Y, HS, hrows(l), HS, HS);   // h_{l-1}
         __syncthreads();
@@ -312,6 +355,26 @@ nerf_bwd_kernel(const NetDesc* __restrict__ gdesc, const BwdDesc* __restrict__ g
   }
 }
 
+__global__ void __launch_bounds__(NTHREADS)
+nerf_bwd_kernel(const NetDesc* __restrict__ gdesc, const BwdDesc* __restrict__ gbd,
+                const float* __restrict__ wb, const float* __restrict__ wbt,
+                const float* __restrict__ enc, const float* __restrict__ pts,
+                const float* __restrict__ vd, const float* __restrict__ g, int C,
+                float* __restrict__ dx, float* hbuf, float* zbuf, long long total,
+                long long n_pad, int S) {
+  bwd_tiles<false>(gdesc, gbd, wb, wbt, enc, pts, vd, g, C, dx, hbuf, zbuf, total, n_pad, S);
+}
+
+__global__ void __launch_bounds__(NTHREADS)
+nerf_bwd_bf16_kernel(const NetDesc* __restrict__ gdesc, const BwdDesc* __restrict__ gbd,
+                     const float* __restrict__ wb, const float* __restrict__ wbt,
+                     const float* __restrict__ enc, const float* __restrict__ pts,
+                     const float* __restrict__ vd, const float* __restrict__ g, int C,
+                     float* __restrict__ dx, float* hbuf, float* zbuf, long long total,
+                     long long n_pad, int S) {
+  bwd_tiles<true>(gdesc, gbd, wb, wbt, enc, pts, vd, g, C, dx, hbuf, zbuf, total, n_pad, S);
+}
+
 // ---- nerf_dw_kernel ---------------------------------------------------------
 
 constexpr int DW_BM = 128;       // output tile rows (of a product's input width)
@@ -350,6 +413,26 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const unsigned (&a)[4],
       : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]),
         "f"(c[0]), "f"(c[1]), "f"(c[2]), "f"(c[3]));
+}
+
+// d = a (16 x 16, row) * b (16 x 8, col) + c on the tensor cores, bf16 in
+// (bf16x2 pairs, the lower k in the low half), fp32 out
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
+                                         const unsigned (&b)[2], const float (&c)[4]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %11, %12, %13};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]),
+        "f"(c[0]), "f"(c[1]), "f"(c[2]), "f"(c[3]));
+}
+
+// (lo, hi) rounded to bf16 (to nearest, ties to even) in one register, lo
+// in the low half
+__device__ __forceinline__ unsigned pack_bf16x2(float lo, float hi) {
+  unsigned r;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;" : "=r"(r) : "f"(hi), "f"(lo));
+  return r;
 }
 
 // 16 bytes global -> shared, asynchronously; bytes 0 fills zeros
@@ -395,12 +478,15 @@ __device__ __forceinline__ void stage_chunk(float* dst, const float* src, long l
 // as 2 x 8 m16n8 fragments, split fp32 on mma.sync, each k8 step's three
 // products summed from zero and added in fp32. Narrow products (N <= 8):
 // a thread a row, fp32 fma in point order. Bias sums: a thread a column,
-// in point order.
-__global__ void __launch_bounds__(NTHREADS, 2)
-nerf_dw_kernel(const BwdDesc* __restrict__ gbd, const long long* __restrict__ jobs,
-               const long long* __restrict__ tiles, const float* __restrict__ hbuf,
-               const float* __restrict__ zbuf, float* __restrict__ part,
-               long long wsize, long long total, long long n_pad) {
+// in point order. kBf16: the wide products as one bf16 MMA (m16n8k16) a
+// 16-point step, H and dZ rounded to bf16 as the fragments are formed.
+template <bool kBf16>
+__device__ inline void dw_tiles(const BwdDesc* __restrict__ gbd,
+                                const long long* __restrict__ jobs,
+                                const long long* __restrict__ tiles,
+                                const float* __restrict__ hbuf,
+                                const float* __restrict__ zbuf, float* __restrict__ part,
+                                long long wsize, long long total, long long n_pad) {
   extern __shared__ float4 dyn[];
   float* Hs = reinterpret_cast<float*>(dyn);            // [STAGES][KC][LD]
   float* Zs = Hs + DW_STAGES * DW_KC * DW_LD;           // [STAGES][KC][LD]
@@ -471,7 +557,41 @@ nerf_dw_kernel(const BwdDesc* __restrict__ gbd, const long long* __restrict__ jo
       const int zc = wide ? bcol : zcol + bcol;
       for (int r = 0; r < DW_KC; ++r) bsum += zk[r * DW_LD + zc];
     }
-    if (wide && warp_on) {
+    if (kBf16 && wide && warp_on) {
+#pragma unroll
+      for (int ks = 0; ks < DW_KC; ks += 16) {
+        // A = H^T (m16 x k16): a0 (m g, k 2tg, +1), a1 (g + 8, ..), a2 (g,
+        // 2tg + 8, +9), a3 (g + 8, ..); B = dZ (k16 x n8): b0 (k 2tg, +1,
+        // n g), b1 (k 2tg + 8, +9, n g)
+        const float* h0 = hk + (ks + 2 * tg) * DW_LD;
+        const float* h8 = h0 + 8 * DW_LD;
+        unsigned a[2][4];
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int r = wm + i * 16 + g;
+          a[i][0] = pack_bf16x2(h0[r], h0[DW_LD + r]);
+          a[i][1] = pack_bf16x2(h0[r + 8], h0[DW_LD + r + 8]);
+          a[i][2] = pack_bf16x2(h8[r], h8[DW_LD + r]);
+          a[i][3] = pack_bf16x2(h8[r + 8], h8[DW_LD + r + 8]);
+        }
+        const float* z0 = zk + (ks + 2 * tg) * DW_LD;
+        const float* z8 = z0 + 8 * DW_LD;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int col = wn + j * 8 + g;
+          const unsigned b[2] = {pack_bf16x2(z0[col], z0[DW_LD + col]),
+                                 pack_bf16x2(z8[col], z8[DW_LD + col])};
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            const float zero[4] = {0.f, 0.f, 0.f, 0.f};
+            float s[4];
+            mma_bf16(s, a[i], b, zero);
+#pragma unroll
+            for (int q = 0; q < 4; ++q) acc[i][j][q] += s[q];
+          }
+        }
+      }
+    } else if (wide && warp_on) {
 #pragma unroll
       for (int ks = 0; ks < DW_KC; ks += 8) {
         // A = H^T (m16 x k8): a0 (m g, k tg), a1 (g + 8, tg), a2 (g, tg + 4),
@@ -550,6 +670,22 @@ nerf_dw_kernel(const BwdDesc* __restrict__ gbd, const long long* __restrict__ jo
   }
 }
 
+__global__ void __launch_bounds__(NTHREADS, 2)
+nerf_dw_kernel(const BwdDesc* __restrict__ gbd, const long long* __restrict__ jobs,
+               const long long* __restrict__ tiles, const float* __restrict__ hbuf,
+               const float* __restrict__ zbuf, float* __restrict__ part,
+               long long wsize, long long total, long long n_pad) {
+  dw_tiles<false>(gbd, jobs, tiles, hbuf, zbuf, part, wsize, total, n_pad);
+}
+
+__global__ void __launch_bounds__(NTHREADS, 2)
+nerf_dw_bf16_kernel(const BwdDesc* __restrict__ gbd, const long long* __restrict__ jobs,
+                    const long long* __restrict__ tiles, const float* __restrict__ hbuf,
+                    const float* __restrict__ zbuf, float* __restrict__ part,
+                    long long wsize, long long total, long long n_pad) {
+  dw_tiles<true>(gbd, jobs, tiles, hbuf, zbuf, part, wsize, total, n_pad);
+}
+
 // out[i] = sum over ranges b, in order, of part[b * n + i]
 __global__ void grad_reduce_kernel(const float* __restrict__ part, int G,
                                    long long n, float* __restrict__ out) {
@@ -562,6 +698,47 @@ __global__ void grad_reduce_kernel(const float* __restrict__ part, int G,
 }
 
 }  // namespace nstt
+
+using BwdKernel = void (*)(const nstt::NetDesc*, const nstt::BwdDesc*, const float*,
+                           const float*, const float*, const float*, const float*,
+                           const float*, int, float*, float*, float*, long long, long long,
+                           int);
+using DwKernel = void (*)(const nstt::BwdDesc*, const long long*, const long long*,
+                          const float*, const float*, float*, long long, long long,
+                          long long);
+
+static int mlp_backward(BwdKernel bwd_kernel, DwKernel dw_kernel, const void* desc_dev,
+                        const void* bdesc_dev, int HS, int ES, const float* wb,
+                        const float* wbt, const float* enc, const float* pts,
+                        const float* vd, const float* g, int C, float* dx, float* hbuf,
+                        float* zbuf, int n_dw_tiles, const long long* jobs,
+                        const long long* tiles, float* part, float* grads,
+                        long long wsize, long long total, long long n_pad, int S,
+                        int grid, int splits, void* stream) {
+  using namespace nstt;
+  cudaStream_t st = (cudaStream_t)stream;
+  const size_t bytes = bwd_smem_floats(HS, ES) * sizeof(float);
+  cudaError_t e = cudaFuncSetAttribute(
+      (const void*)bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (e != cudaSuccess) return (int)e;
+  bwd_kernel<<<grid, NTHREADS, bytes, st>>>(
+      (const NetDesc*)desc_dev, (const BwdDesc*)bdesc_dev, wb, wbt, enc, pts, vd,
+      g, C, dx, hbuf, zbuf, total, n_pad, S);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  const size_t dw_bytes = 2 * (size_t)DW_STAGES * DW_KC * DW_LD * sizeof(float);
+  e = cudaFuncSetAttribute((const void*)dw_kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dw_bytes);
+  if (e != cudaSuccess) return (int)e;
+  dw_kernel<<<dim3((unsigned)n_dw_tiles, (unsigned)splits), NTHREADS, dw_bytes, st>>>(
+      (const BwdDesc*)bdesc_dev, jobs, tiles, hbuf, zbuf, part, wsize, total, n_pad);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  const long long rblocks = (wsize + 255) / 256;
+  grad_reduce_kernel<<<(unsigned)(rblocks < 4096 ? rblocks : 4096), 256, 0, st>>>(
+      part, splits, wsize, grads);
+  return (int)cudaGetLastError();
+}
 
 // grid: blocks of the tile kernel (at most one per 64-point tile); hbuf,
 // zbuf: H and dZ for n_pad points (act_layout); jobs [n_jobs][J_WORDS] and
@@ -576,27 +753,23 @@ extern "C" int nstt_mlp_backward(const void* desc_dev, const void* bdesc_dev,
                                  const long long* tiles, float* part, float* grads,
                                  long long wsize, long long total, long long n_pad,
                                  int S, int grid, int splits, void* stream) {
-  using namespace nstt;
-  cudaStream_t st = (cudaStream_t)stream;
-  const size_t bytes = bwd_smem_floats(HS, ES) * sizeof(float);
-  cudaError_t e = cudaFuncSetAttribute(
-      nerf_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (e != cudaSuccess) return (int)e;
-  nerf_bwd_kernel<<<grid, NTHREADS, bytes, st>>>(
-      (const NetDesc*)desc_dev, (const BwdDesc*)bdesc_dev, wb, wbt, enc, pts, vd,
-      g, C, dx, hbuf, zbuf, total, n_pad, S);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  const size_t dw_bytes = 2 * (size_t)DW_STAGES * DW_KC * DW_LD * sizeof(float);
-  e = cudaFuncSetAttribute(nerf_dw_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)dw_bytes);
-  if (e != cudaSuccess) return (int)e;
-  nerf_dw_kernel<<<dim3((unsigned)n_dw_tiles, (unsigned)splits), NTHREADS, dw_bytes, st>>>(
-      (const BwdDesc*)bdesc_dev, jobs, tiles, hbuf, zbuf, part, wsize, total, n_pad);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  const long long rblocks = (wsize + 255) / 256;
-  grad_reduce_kernel<<<(unsigned)(rblocks < 4096 ? rblocks : 4096), 256, 0, st>>>(
-      part, splits, wsize, grads);
-  return (int)cudaGetLastError();
+  return mlp_backward(nstt::nerf_bwd_kernel, nstt::nerf_dw_kernel, desc_dev, bdesc_dev, HS,
+                      ES, wb, wbt, enc, pts, vd, g, C, dx, hbuf, zbuf, n_dw_tiles, jobs,
+                      tiles, part, grads, wsize, total, n_pad, S, grid, splits, stream);
+}
+
+// B2 in bf16: the same arguments, the weights rounded by the wrapper
+extern "C" int nstt_mlp_backward_bf16(const void* desc_dev, const void* bdesc_dev,
+                                      int HS, int ES, const float* wb,
+                                      const float* wbt, const float* enc,
+                                      const float* pts, const float* vd,
+                                      const float* g, int C, float* dx, float* hbuf,
+                                      float* zbuf, int n_dw_tiles, const long long* jobs,
+                                      const long long* tiles, float* part, float* grads,
+                                      long long wsize, long long total, long long n_pad,
+                                      int S, int grid, int splits, void* stream) {
+  return mlp_backward(nstt::nerf_bwd_bf16_kernel, nstt::nerf_dw_bf16_kernel, desc_dev,
+                      bdesc_dev, HS, ES, wb, wbt, enc, pts, vd, g, C, dx, hbuf, zbuf,
+                      n_dw_tiles, jobs, tiles, part, grads, wsize, total, n_pad, S, grid,
+                      splits, stream);
 }

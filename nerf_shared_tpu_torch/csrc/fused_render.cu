@@ -29,18 +29,25 @@
 // and writes carry[(t + 1) & 1], since within one tile the reader (thread
 // 0) and the writer (the tile's last segment) are in general different
 // threads with no barrier between them.
+//
+// bf16 (nerf_render_bf16_kernel; --precision bf16): the TPU kernel's bf16
+// instantiation (_make_render_kernel with compute_dtype bfloat16). The
+// network is B3's bf16 tile (mlp_tile_tc.cuh kBf16), the composite stays
+// fp32; bound FLOPs over the 989 TFLOP/s bf16 rate (7.55 ms at 32768 rays
+// x 192 samples).
 #include "mlp_tile_tc.cuh"
 
 namespace nstt {
 namespace tc {
 
-__global__ void __launch_bounds__(NTHREADS, 1)
-nerf_render_tc_kernel(const Desc* __restrict__ gdesc, const float* __restrict__ wb,
-                      const float* __restrict__ A, const float* __restrict__ B,
-                      const float* __restrict__ z, const float* __restrict__ rays_d,
-                      float* __restrict__ out8, float* __restrict__ weights,
-                      long long n_rays, int S, int white_bkgd, long long rays_per_block,
-                      int R) {
+template <bool kBf16>
+__device__ inline void render_tiles(const Desc* __restrict__ gdesc, const float* __restrict__ wb,
+                                    const float* __restrict__ A, const float* __restrict__ B,
+                                    const float* __restrict__ z,
+                                    const float* __restrict__ rays_d,
+                                    float* __restrict__ out8, float* __restrict__ weights,
+                                    long long n_rays, int S, int white_bkgd,
+                                    long long rays_per_block, int R) {
   __shared__ Desc d;
   __shared__ float carry[2][6];   // T, r, g, b, depth, acc of the ray left open
   __shared__ unsigned long long bars[2 * MAX_SLOTS];
@@ -53,12 +60,12 @@ nerf_render_tc_kernel(const Desc* __restrict__ gdesc, const float* __restrict__ 
   const long long r1 = min(n_rays, r0 + rays_per_block);
   const long long pbeg = r0 * S, pend = r1 * S;
   const long long n_tiles = r1 > r0 ? (pend - pbeg + TP - 1) / TP : 0;
-  Ring ring = start_ring(d, wb, s.ring, bars, R, n_tiles);
+  Ring ring = start_ring<kBf16>(d, wb, s.ring, bars, R, n_tiles);
 
   for (long long t = 0; t < n_tiles; ++t) {
     const long long p0 = pbeg + t * TP;
     tile_rows(d, e, p0, pend, s);
-    tile_network(d, wb, e, s, ring);
+    tile_network<RayEnc, false, kBf16>(d, wb, e, s, ring);
 
     // per point: rgb sigmoids in place, alpha -> col 4, depth -> col 6
     if (threadIdx.x < TP) {
@@ -130,6 +137,28 @@ nerf_render_tc_kernel(const Desc* __restrict__ gdesc, const float* __restrict__ 
   }
 }
 
+__global__ void __launch_bounds__(NTHREADS, 1)
+nerf_render_tc_kernel(const Desc* __restrict__ gdesc, const float* __restrict__ wb,
+                      const float* __restrict__ A, const float* __restrict__ B,
+                      const float* __restrict__ z, const float* __restrict__ rays_d,
+                      float* __restrict__ out8, float* __restrict__ weights,
+                      long long n_rays, int S, int white_bkgd, long long rays_per_block,
+                      int R) {
+  render_tiles<false>(gdesc, wb, A, B, z, rays_d, out8, weights, n_rays, S, white_bkgd,
+                      rays_per_block, R);
+}
+
+__global__ void __launch_bounds__(NTHREADS, 1)
+nerf_render_bf16_kernel(const Desc* __restrict__ gdesc, const float* __restrict__ wb,
+                        const float* __restrict__ A, const float* __restrict__ B,
+                        const float* __restrict__ z, const float* __restrict__ rays_d,
+                        float* __restrict__ out8, float* __restrict__ weights,
+                        long long n_rays, int S, int white_bkgd, long long rays_per_block,
+                        int R) {
+  render_tiles<true>(gdesc, wb, A, B, z, rays_d, out8, weights, n_rays, S, white_bkgd,
+                     rays_per_block, R);
+}
+
 }  // namespace tc
 }  // namespace nstt
 
@@ -142,15 +171,18 @@ static long long gcd_ll(long long a, long long b) {
   return a;
 }
 
-extern "C" int nstt_render_rays_tc(const void* desc_dev, int HS, int SLOT,
-                                   const float* wb, const float* A, const float* B,
-                                   const float* z, const float* rays_d, float* out8,
-                                   float* weights, long long n_rays, int S,
-                                   int white_bkgd, void* stream) {
+using RenderKernel = void (*)(const nstt::tc::Desc*, const float*, const float*,
+                              const float*, const float*, const float*, float*, float*,
+                              long long, int, int, long long, int);
+
+static int render_rays(RenderKernel kernel, const void* desc_dev, int HS, int SLOT,
+                       const float* wb, const float* A, const float* B, const float* z,
+                       const float* rays_d, float* out8, float* weights, long long n_rays,
+                       int S, int white_bkgd, void* stream) {
   using namespace nstt::tc;
   int R, sms;
   size_t bytes;
-  int rc = plan((const void*)nerf_render_tc_kernel, HS, SLOT, RayEnc::ROW, &R, &bytes, &sms);
+  int rc = plan((const void*)kernel, HS, SLOT, RayEnc::ROW, &R, &bytes, &sms);
   if (rc != 0) return rc;
   // whole rays a block, a multiple of the rays that fill whole tiles
   const long long chunk = TP / gcd_ll(S, TP);
@@ -158,10 +190,29 @@ extern "C" int nstt_render_rays_tc(const void* desc_dev, int HS, int SLOT,
   const long long per_block = (n_chunks + sms - 1) / sms;
   const unsigned grid = (unsigned)((n_chunks + per_block - 1) / per_block);
   cudaError_t e = cudaFuncSetAttribute(
-      nerf_render_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+      (const void*)kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (e != cudaSuccess) return (int)e;
-  nerf_render_tc_kernel<<<grid, NTHREADS, bytes, (cudaStream_t)stream>>>(
+  kernel<<<grid, NTHREADS, bytes, (cudaStream_t)stream>>>(
       (const Desc*)desc_dev, wb, A, B, z, rays_d, out8, weights, n_rays, S,
       white_bkgd, per_block * chunk, R);
   return (int)cudaGetLastError();
+}
+
+extern "C" int nstt_render_rays_tc(const void* desc_dev, int HS, int SLOT,
+                                   const float* wb, const float* A, const float* B,
+                                   const float* z, const float* rays_d, float* out8,
+                                   float* weights, long long n_rays, int S,
+                                   int white_bkgd, void* stream) {
+  return render_rays(nstt::tc::nerf_render_tc_kernel, desc_dev, HS, SLOT, wb, A, B, z,
+                     rays_d, out8, weights, n_rays, S, white_bkgd, stream);
+}
+
+// B4 in bf16: the same arguments, over pack_network_tc(..., bf16=True)
+extern "C" int nstt_render_rays_bf16(const void* desc_dev, int HS, int SLOT,
+                                     const float* wb, const float* A, const float* B,
+                                     const float* z, const float* rays_d, float* out8,
+                                     float* weights, long long n_rays, int S,
+                                     int white_bkgd, void* stream) {
+  return render_rays(nstt::tc::nerf_render_bf16_kernel, desc_dev, HS, SLOT, wb, A, B, z,
+                     rays_d, out8, weights, n_rays, S, white_bkgd, stream);
 }

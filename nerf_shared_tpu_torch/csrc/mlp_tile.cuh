@@ -16,8 +16,13 @@
 // Layer widths up to MAXW = 256; the encoded input up to MAX_EMB columns.
 // Weight matrices are packed [K][ld] (input-major, ld = N rounded up to 4),
 // so the staging loads are 16-byte vectors.
+//
+// B2's bf16 instantiation runs the same arithmetic on bf16-valued operands:
+// the weights arrive rounded, and kRound rounds the encoder's output and
+// each layer's output to bf16 as they are stored.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace nstt {
@@ -64,7 +69,8 @@ __device__ __forceinline__ int emb_col(const NetDesc& d, int c) {
 // by the S samples of a ray. enc holds, per compact column, its frequency
 // (enc[cc]) and its input (enc[MAX_EMB + cc]: 0-2 point, 3-5 direction).
 // The argument f*x is rounded once, as the plain embed's x * f is; points
-// past total encode to zero.
+// past total encode to zero. kRound: each value rounded to bf16.
+template <bool kRound = false>
 __device__ inline void encode_points(const NetDesc& d, const float* __restrict__ enc,
                                      const float* __restrict__ pts,
                                      const float* __restrict__ vd, long long p0,
@@ -81,7 +87,7 @@ __device__ inline void encode_points(const NetDesc& d, const float* __restrict__
       const float arg = __fmul_rn(__ldg(enc + cc), x);
       v = k == 0 ? x : (k == 1 ? sinf(arg) : cosf(arg));
     }
-    emb[i] = v;
+    emb[i] = kRound ? __bfloat162float(__float2bfloat16_rn(v)) : v;
   }
 }
 
@@ -139,7 +145,9 @@ __device__ __forceinline__ void gemm_acc(float (&acc)[8][8],
   }
 }
 
-// dst[(row0+i)*ds + col] = act(acc + bias) for col < N
+// dst[(row0+i)*ds + col] = act(acc + bias) for col < N; kRound: rounded
+// to bf16
+template <bool kRound = false>
 __device__ __forceinline__ void epilogue(const float (&acc)[8][8],
                                          const float* __restrict__ bias, int N,
                                          bool relu, float* dst, int ds) {
@@ -153,7 +161,7 @@ __device__ __forceinline__ void epilogue(const float (&acc)[8][8],
       for (int i = 0; i < 8; ++i) {
         float v = acc[i][j] + bj;
         if (relu) v = fmaxf(v, 0.f);
-        dst[(row0 + i) * ds + col] = v;
+        dst[(row0 + i) * ds + col] = kRound ? __bfloat162float(__float2bfloat16_rn(v)) : v;
       }
     }
   }

@@ -61,8 +61,23 @@
 // descriptor's leading offset) and column groups 256 bytes apart (its
 // stride offset). Each narrow head is a [N][K] matrix. The row stride HS
 // of h (4 mod 8 floats) keeps the A-fragment loads free of bank conflicts.
+//
+// bf16 (the kBf16 instantiation of the tile; --precision bf16). The same
+// tile, ring and encoders, with the arithmetic of the JAX bf16 kernels
+// (nerf_shared_tpu/ops/pallas/fused_mlp.py _mlp_out_value): every GEMM is
+// one wgmma.mma_async.m64nNk16.f32.bf16.bf16 a 16-row slice, its A operand
+// the bf16-rounded activations or encoder outputs as bf16x2 pairs in
+// registers, its B operand the slice's one bf16 plane in shared memory
+// (16 rows x Np, the same core-matrix geometry in bytes: a column's 8
+// k-values in 16 bytes, so b_desc is unchanged), fp32 accumulators. The
+// epilogue adds the fp32 bias and rounds h, the feature and hv to bf16 as
+// it stores them; the narrow heads run as in fp32 on bf16-valued
+// operands (their weights and biases rounded by the pack), which is the
+// JAX kernel's bf16 product with an fp32 sum. The fp32 path's slice sums
+// are not used: bf16's tolerance is 2^-8.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdio>
@@ -223,6 +238,94 @@ struct Wgmma<128> {
   }
 };
 
+// The same with bf16 operands: d[0 .. N/2) = a (64 x 16, bf16x2 pairs in
+// registers) * b (16 x N bf16, shared memory, K-major) + d.
+template <int N>
+struct WgmmaBf16;
+
+template <>
+struct WgmmaBf16<16> {
+  __device__ __forceinline__ static void run(float* d, const unsigned (&a)[4],
+                                             unsigned long long b, int scale_d = 1) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+  }
+};
+
+template <>
+struct WgmmaBf16<32> {
+  __device__ __forceinline__ static void run(float* d, const unsigned (&a)[4],
+                                             unsigned long long b, int scale_d = 1) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+  }
+};
+
+template <>
+struct WgmmaBf16<64> {
+  __device__ __forceinline__ static void run(float* d, const unsigned (&a)[4],
+                                             unsigned long long b, int scale_d = 1) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+  }
+};
+
+template <>
+struct WgmmaBf16<128> {
+  __device__ __forceinline__ static void run(float* d, const unsigned (&a)[4],
+                                             unsigned long long b, int scale_d = 1) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+  }
+};
+
+// (lo, hi) rounded to bf16 (to nearest, ties to even) in one register, lo
+// in the low half: the element of the lower k
+__device__ __forceinline__ unsigned pack_bf16x2(float lo, float hi) {
+  unsigned r;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;" : "=r"(r) : "f"(hi), "f"(lo));
+  return r;
+}
+
+__device__ __forceinline__ float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
 // the B operand descriptor: K-major, no swizzle, 128 bytes between the two
 // k-halves of a column group (leading offset), 256 between column groups
 // (stride offset), both in 16-byte units
@@ -326,13 +429,19 @@ struct Ring {
   long long pissued, pk, ntiles;
 };
 
+// floats of a slice per padded output column: two 8-row tf32 planes, or
+// one 16-row bf16 plane
+template <bool kBf16>
+__host__ __device__ constexpr unsigned slice_floats_per_col() { return kBf16 ? 8u : 16u; }
+
 // thread 0: put the producer's next slice into its slot, first waiting
 // until every warp has released the slice that slot held
+template <bool kBf16 = false>
 __device__ inline void produce(Ring& r, const Desc& d, const float* __restrict__ wb) {
   if (r.pk >= r.ntiles) return;
   if (r.pissued >= r.R) mbar_wait(r.empty + r.pslot, r.pphase ^ 1, (int)r.pissued);
   const long long* G = d.gemm[r.pg];
-  const unsigned floats = 16u * (unsigned)G[G_NP];
+  const unsigned floats = slice_floats_per_col<kBf16>() * (unsigned)G[G_NP];
   bulk_load(r.slots + r.pslot * r.SLOT, wb + G[G_W] + (long long)r.ps * floats,
             floats * 4u, r.full + r.pslot);
   ++r.pissued;
@@ -351,6 +460,7 @@ __device__ inline void produce(Ring& r, const Desc& d, const float* __restrict__
 
 // Called by every thread; barriers are initialised before the block's first
 // __syncthreads after this returns.
+template <bool kBf16 = false>
 __device__ inline Ring start_ring(const Desc& d, const float* __restrict__ wb, float* slots,
                                   unsigned long long* bars, int R, long long ntiles) {
   Ring r;
@@ -368,16 +478,17 @@ __device__ inline Ring start_ring(const Desc& d, const float* __restrict__ wb, f
       mbar_init(r.empty + i, NWARPS);
     }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-    for (int i = 0; i < R - 1; ++i) produce(r, d, wb);
+    for (int i = 0; i < R - 1; ++i) produce<kBf16>(r, d, wb);
   }
   return r;
 }
 
 // the consumer's next slice, once it has landed; thread 0 first refills
 // the ring R - 1 slices ahead. The warp leaves converged (wgmma needs it).
+template <bool kBf16 = false>
 __device__ __forceinline__ const float* acquire(Ring& r, const Desc& d,
                                                const float* __restrict__ wb) {
-  if (threadIdx.x == 0) produce(r, d, wb);
+  if (threadIdx.x == 0) produce<kBf16>(r, d, wb);
   mbar_wait(r.full + r.cslot, r.cphase, -1 - r.cq);
   __syncwarp();
   return r.slots + r.cslot * r.SLOT;
@@ -507,6 +618,50 @@ __device__ __forceinline__ void a_frags(const Desc& d, const Enc& e, const Smem&
   for (int m = 0; m < 2; ++m) a_frag(d, e, s, src, k0, HS, m, ab[m], as[m]);
 }
 
+// bf16: the warp's A fragments of one 16-row slice for m64 block m, as
+// bf16x2 pairs (rows 64 m + 16 (warp % 4) + g (+ 8), columns k0 + 2t, +1
+// (+ 8)), each value rounded to bf16: h is stored rounded already, the
+// encoder's fp32 outputs round here.
+template <class Enc>
+__device__ __forceinline__ void a_frag_bf16(const Desc& d, const Enc& e, const Smem& s,
+                                            int src, int k0, int HS, int m,
+                                            unsigned (&a)[4]) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int r = 64 * m + 16 * ((threadIdx.x >> 5) & 3) + g;
+  const int k = k0 + 2 * t;
+  float v[8];   // (r, k), (r, k + 1), (r + 8, ..), (r, k + 8), (r, k + 9), (r + 8, ..)
+  if (src == SRC_H) {
+    const float* h = s.h + r * HS + k;
+    const float2 x0 = *reinterpret_cast<const float2*>(h);
+    const float2 x1 = *reinterpret_cast<const float2*>(h + 8 * HS);
+    const float2 x2 = *reinterpret_cast<const float2*>(h + 8);
+    const float2 x3 = *reinterpret_cast<const float2*>(h + 8 * HS + 8);
+    v[0] = x0.x; v[1] = x0.y; v[2] = x1.x; v[3] = x1.y;
+    v[4] = x2.x; v[5] = x2.y; v[6] = x3.x; v[7] = x3.y;
+  } else {
+    const int P = (int)d.hdr[H_P], V = (int)d.hdr[H_V];
+    const int base = src == SRC_PTS ? 0 : P, width = src == SRC_PTS ? P : V;
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      v[i] = emb_at(d, e, s, r + 8 * ((i >> 1) & 1), k + (i & 1) + 8 * (i >> 2), base, width);
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) a[i] = pack_bf16x2(v[2 * i], v[2 * i + 1]);
+}
+
+// bf16: acc[m] += the slice's product for both m64 blocks, the warpgroup's
+// N columns of the slice's plane at b
+template <int N>
+__device__ __forceinline__ void mma_slice_bf16(float (&acc)[2][NACC], const unsigned (&a)[2][4],
+                                               unsigned long long b) {
+  fence_acc(acc);
+  wgmma_fence();
+#pragma unroll
+  for (int m = 0; m < 2; ++m) WgmmaBf16<N>::run(acc[m], a[m], b);
+  wgmma_commit_wait();
+  fence_acc(acc);
+}
+
 // acc[m] += slice products for both m64 blocks: the warpgroup's N columns
 // of the big plane at bb and the small plane at bs
 template <int N>
@@ -564,7 +719,8 @@ __device__ __forceinline__ void mma_slice_rn(float (&acc)[2][NACC], const Frag& 
 }
 
 // h[row][col] = act(acc + bias[col]) over the thread's accumulators: the
-// warpgroup's nh columns from n0
+// warpgroup's nh columns from n0; kRound: each value rounded to bf16
+template <bool kRound = false>
 __device__ __forceinline__ void epilogue(const float (&acc)[2][NACC],
                                          const float* __restrict__ bias, bool relu,
                                          int nh, int n0, float* h, int HS) {
@@ -583,6 +739,10 @@ __device__ __forceinline__ void epilogue(const float (&acc)[2][NACC],
         if (relu) {
           v0 = fmaxf(v0, 0.f); v1 = fmaxf(v1, 0.f);
           v2 = fmaxf(v2, 0.f); v3 = fmaxf(v3, 0.f);
+        }
+        if (kRound) {
+          v0 = round_bf16(v0); v1 = round_bf16(v1);
+          v2 = round_bf16(v2); v3 = round_bf16(v3);
         }
         *reinterpret_cast<float2*>(h + r * HS + col) = make_float2(v0, v1);
         *reinterpret_cast<float2*>(h + (r + 8) * HS + col) = make_float2(v2, v3);
@@ -620,8 +780,9 @@ __device__ inline void tile_rows(const Desc& d, const Enc& e, long long p0, long
 
 // The whole network on the tile whose rows tile_rows set -> s.raw (cols
 // 0..2 rgb logits, col 3 sigma; or output_ch columns without viewdirs).
-// Starts and ends with a barrier.
-template <class Enc, bool kSliceSums = false>
+// Starts and ends with a barrier. kBf16: the bf16 instantiation (16-row
+// slices, one bf16 product a slice, activations rounded).
+template <class Enc, bool kSliceSums = false, bool kBf16 = false>
 __device__ inline void tile_network(const Desc& d, const float* __restrict__ wb, const Enc& e,
                                     const Smem& s, Ring& r) {
   const int D = (int)d.hdr[H_D], NG = (int)d.hdr[H_NG], HS = (int)d.hdr[H_HS];
@@ -640,13 +801,25 @@ __device__ inline void tile_network(const Desc& d, const float* __restrict__ wb,
 #pragma unroll
       for (int i = 0; i < NACC; ++i) acc[m][i] = 0.f;
     for (int i = 0; i < ns; ++i) {
-      const float* slice = acquire(r, d, wb);
+      const float* slice = acquire<kBf16>(r, d, wb);
       const bool first = i < ns0;
-      const int src = first ? src0 : src1, k0 = (first ? i : i - ns0) * SLICE_K;
+      const int src = first ? src0 : src1;
+      const int k0 = (first ? i : i - ns0) * (kBf16 ? 2 * SLICE_K : SLICE_K);
       // the warpgroup's columns: n0 / 8 column groups of 256 bytes in
       const float* big = slice + n0 * 8;
       const float* small = slice + 8 * np + n0 * 8;
-      if (kSliceSums) {
+      if constexpr (kBf16) {
+        unsigned a[2][4];
+#pragma unroll
+        for (int m = 0; m < 2; ++m) a_frag_bf16(d, e, s, src, k0, HS, m, a[m]);
+        const unsigned long long b = b_desc(big);
+        switch (nh) {
+          case 128: mma_slice_bf16<128>(acc, a, b); break;
+          case 64: mma_slice_bf16<64>(acc, a, b); break;
+          case 32: mma_slice_bf16<32>(acc, a, b); break;
+          default: mma_slice_bf16<16>(acc, a, b); break;
+        }
+      } else if (kSliceSums) {
         const auto frag = [&](int m, unsigned (&fb)[4], unsigned (&fs)[4]) {
           a_frag(d, e, s, src, k0, HS, m, fb, fs);
         };
@@ -670,7 +843,7 @@ __device__ inline void tile_network(const Desc& d, const float* __restrict__ wb,
       release(r);
     }
     __syncthreads();   // every warp is done reading h before it is overwritten
-    epilogue(acc, wb + G[G_B], G[G_RELU] != 0, nh, n0, s.h, HS);
+    epilogue<kBf16>(acc, wb + G[G_B], G[G_RELU] != 0, nh, n0, s.h, HS);
     __syncthreads();
     if (gi == D - 1) {
       if (viewdirs)

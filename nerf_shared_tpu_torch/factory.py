@@ -103,7 +103,8 @@ def get_renderer(args, bds_dict, device) -> Renderer:
     means the hand-written CUDA kernels; on the CPU their plain versions
     run whatever the flag says. ``--render_guided`` sets the guided fine
     pass (it raises with N_importance 0); ``--proposal`` marks the coarse
-    branch as a proposal network."""
+    branch as a proposal network; ``--precision`` sets the MLP family's
+    compute dtype."""
     use_kernels = (bool(getattr(args, "use_pallas", True))
                    and torch.device(device).type == "cuda")
     return Renderer(
@@ -121,6 +122,7 @@ def get_renderer(args, bds_dict, device) -> Renderer:
         guided=int(getattr(args, "render_guided", 0)),
         remat=bool(getattr(args, "remat", False)),
         proposal=bool(getattr(args, "proposal", False)),
+        precision=str(getattr(args, "precision", "fp32")),
         **bds_dict,
     )
 

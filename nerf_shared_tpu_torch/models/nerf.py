@@ -115,7 +115,12 @@ def linear_init_(m: nn.Linear, generator: torch.Generator):
 
 
 def _dense(params: Params, name: str, x: torch.Tensor) -> torch.Tensor:
-    return F.linear(x, params[name + ".weight"], params[name + ".bias"])
+    w, b = params[name + ".weight"], params[name + ".bias"]
+    if x.dtype == torch.float32:
+        return F.linear(x, w, b)
+    # below fp32, the product and the bias add each round to x's type, as
+    # the JAX package's x @ w + b does
+    return torch.matmul(x, w.t()) + b
 
 
 def apply_mlp(params: Params, cfg: NeRFConfig, x: torch.Tensor) -> torch.Tensor:
@@ -138,15 +143,31 @@ def apply_mlp(params: Params, cfg: NeRFConfig, x: torch.Tensor) -> torch.Tensor:
     return _dense(params, "output_linear", h)
 
 
-def apply_nerf(params: Params, cfg: NeRFConfig, pts: torch.Tensor,
-               viewdirs: Optional[torch.Tensor]) -> torch.Tensor:
-    """Embed points [..., S, 3] (+ dirs [..., 3]) and run the MLP in fp32
-    -> raw [..., S, 4 | output_ch]."""
+def embed_inputs(cfg: NeRFConfig, pts: torch.Tensor,
+                 viewdirs: Optional[torch.Tensor]) -> torch.Tensor:
+    """[γ(pts), γ(dirs)] [..., S, input_ch (+ input_ch_views)] in fp32, the
+    directions [..., 3] broadcast over the S samples of each ray."""
     emb = embed(pts, cfg.pts_embedder)
     if viewdirs is not None:
         dirs = viewdirs[..., None, :].expand(pts.shape)
         emb = torch.cat([emb, embed(dirs, cfg.views_embedder)], dim=-1)
-    return apply_mlp(params, cfg, emb)
+    return emb
+
+
+def apply_nerf(params: Params, cfg: NeRFConfig, pts: torch.Tensor,
+               viewdirs: Optional[torch.Tensor],
+               compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Embed points [..., S, 3] (+ dirs [..., 3]) and run the MLP ->
+    raw [..., S, 4 | output_ch] fp32. Under ``compute_dtype`` bfloat16 the
+    encoder runs in fp32 and everything after it in bf16, as the JAX
+    package's ``apply_nerf(..., compute_dtype)`` runs it: the weights AND
+    biases and the embedding are cast, and every layer's product and bias
+    add round to bf16. The parameters stay fp32; only the compute casts."""
+    emb = embed_inputs(cfg, pts, viewdirs)
+    if compute_dtype == torch.float32:
+        return apply_mlp(params, cfg, emb)
+    cast = {k: params[k].to(compute_dtype) for k in torch_param_order(cfg)}
+    return apply_mlp(cast, cfg, emb.to(compute_dtype)).float()
 
 
 def barf_freq_weights(progress, n_freqs: int) -> torch.Tensor:

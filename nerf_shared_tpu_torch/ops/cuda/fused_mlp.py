@@ -22,10 +22,21 @@ Both run the network only in the kernel, on the tensor cores in split fp32
 encoder) over the weights that ``pack_network_tc`` lays out. B2 reads
 ``pack_network``'s layout.
 
+Under ``compute_dtype`` bfloat16 (``--precision bf16``) each kernel has a
+second instantiation on the same tile, with bf16 operands on wgmma's k16
+(``pack_network_tc(..., torch.bfloat16)``: one bf16 plane a 16-row slice). Its
+arithmetic is the JAX kernels' (fused_mlp.py ``_mlp_out_value``): the
+encoder in fp32, its output rounded to bf16; bf16 weights, fp32 biases,
+fp32 accumulation; h and hv rounded after the ReLU, the feature rounded
+without one; the narrow heads' weights and biases rounded (JAX's
+``pack_params`` casts them), their output fp32. ``plain_mlp_bf16`` is that
+arithmetic in plain PyTorch: bf16-rounded operands multiplied in fp32.
+
 Both entries dispatch on the tensors' device: on the CPU they are the plain
 version, on a CUDA device they launch the kernel or raise. B1's gradient is
 kernel B2 (``fused_mlp_bwd.fused_train_op``); B3's backward recomputes
-through the plain version.
+through the plain network (``apply_nerf`` at the compute dtype: under bf16
+the JAX package's plain bf16 network, as its remat backward runs it).
 """
 
 from __future__ import annotations
@@ -36,7 +47,14 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from nerf_shared_tpu_torch.models.nerf import NeRFConfig, apply_nerf, torch_param_order
+import torch.nn.functional as F
+
+from nerf_shared_tpu_torch.models.nerf import (
+    NeRFConfig,
+    apply_nerf,
+    embed_inputs,
+    torch_param_order,
+)
 from nerf_shared_tpu_torch.ops.cuda import common
 
 MAX_LAYERS, MAX_W, MAX_EMB, MAX_OUT = 32, 256, 256, 8
@@ -44,6 +62,60 @@ _DESC_WORDS = 16 + MAX_LAYERS * 4 + 5 * 4 + MAX_EMB // 8
 
 LAUNCHES = 0        # B3 launches made by fused_nerf_forward_rays
 POINT_LAUNCHES = 0  # B1 launches made by fused_nerf_forward and fused_train_op
+LAUNCHES_BF16 = 0        # the same for the bf16 instantiations
+POINT_LAUNCHES_BF16 = 0
+
+
+def is_bf16(compute_dtype) -> bool:
+    """True for bfloat16, False for float32; raises on any other type."""
+    if compute_dtype == torch.bfloat16:
+        return True
+    if compute_dtype == torch.float32:
+        return False
+    raise ValueError(f"the kernels compute in float32 or bfloat16, not {compute_dtype}")
+
+
+def bf16_round(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to bf16 (to nearest, ties to even) and back to fp32."""
+    return x.to(torch.bfloat16).float()
+
+
+def plain_mlp_bf16(params, cfg: NeRFConfig, emb: torch.Tensor) -> torch.Tensor:
+    """The bf16 kernels' network (B1, B3, B4 under bf16) on fp32
+    embeddings [..., P (+ V)] -> raw fp32, in plain PyTorch: every operand
+    rounded to bf16 and multiplied in fp32 (a product of two bf16 values
+    is exact in fp32), the fp32 biases added in fp32, h and hv rounded
+    after the ReLU, the feature without one, the narrow heads' biases
+    rounded too (fused_mlp.py ``_mlp_out_value``, ``pack_params``)."""
+    P, V = cfg.input_ch, cfg.input_ch_views
+
+    def dense(name, x, round_bias=False):
+        b = params[name + ".bias"]
+        return F.linear(x, bf16_round(params[name + ".weight"]),
+                        bf16_round(b) if round_bias else b)
+
+    e = bf16_round(emb)
+    pts, views = e[..., :P], e[..., P:P + V]
+    h = pts
+    for i in range(cfg.D):
+        h = bf16_round(F.relu(dense(f"pts_linears.{i}", h)))
+        if i in cfg.skips:
+            h = torch.cat([pts, h], dim=-1)
+    if cfg.use_viewdirs:
+        alpha = dense("alpha_linear", h, True)
+        feature = bf16_round(dense("feature_linear", h))
+        hv = bf16_round(F.relu(dense("views_linears.0", torch.cat([feature, views], -1))))
+        return torch.cat([dense("rgb_linear", hv, True), alpha], dim=-1)
+    return dense("output_linear", h, True)
+
+
+def plain_nerf_forward(params, cfg: NeRFConfig, pts, viewdirs,
+                       compute_dtype=torch.float32):
+    """The plain version of B1 (of its bf16 instantiation under
+    ``compute_dtype`` bfloat16): raw [..., S, C] at pts [..., S, 3]."""
+    if not is_bf16(compute_dtype):
+        return apply_nerf(params, cfg, pts, viewdirs)
+    return plain_mlp_bf16(params, cfg, embed_inputs(cfg, pts, viewdirs))
 
 
 def _round4(n: int) -> int:
@@ -222,7 +294,7 @@ def pack_network(params: Dict[str, torch.Tensor], cfg: NeRFConfig, device):
 
 # --- the tensor-core kernels' pack (B1, B3, B4: csrc/mlp_tile_tc.cuh) --------
 
-MAX_GEMMS, SLICE_K = MAX_LAYERS + 2, 8
+MAX_GEMMS, SLICE_K, SLICE_K_BF16 = MAX_LAYERS + 2, 8, 16
 SRC_PTS, SRC_H, SRC_DIRS = 0, 1, 2
 _TC_DESC_WORDS = 16 + MAX_GEMMS * 8 + 3 * 4 + MAX_EMB // 8
 
@@ -274,10 +346,16 @@ def tc_narrow_heads(cfg: NeRFConfig):
     return [(2, "output_linear", cfg.W, cfg.output_ch)]
 
 
-def slice_floats(Np: int) -> int:
-    """Floats of one 8-row weight slice of an Np-wide GEMM: its big plane,
-    then its small plane, each 8 x Np."""
-    return 16 * Np
+def slice_rows(bf16: bool = False) -> int:
+    """Weight rows of a ring slot: one MMA's k (tf32 k8, bf16 k16)."""
+    return SLICE_K_BF16 if bf16 else SLICE_K
+
+
+def slice_floats(Np: int, bf16: bool = False) -> int:
+    """Floats of one weight slice of an Np-wide GEMM: fp32, its big plane
+    then its small plane, each 8 x Np; bf16, one plane of 16 x Np bf16
+    values (the bytes of 8 x Np floats)."""
+    return 8 * Np if bf16 else 16 * Np
 
 
 def slice_index(Np: int) -> torch.Tensor:
@@ -290,15 +368,27 @@ def slice_index(Np: int) -> torch.Tensor:
     return (n // 8) * 64 + (k // 4) * 32 + (n % 8) * 4 + k % 4
 
 
-def tc_layout(cfg: NeRFConfig):
+def slice_index_bf16(Np: int) -> torch.Tensor:
+    """int64 [16, Np]: where weight (row k, column n) of a bf16 slice sits,
+    in bf16 values: the same K-major core matrices in bytes (8 columns x
+    16 bytes, a column's 8 k-values contiguous), the two k-halves of a
+    column group 64 values (128 bytes) apart, column groups 128 values
+    (256 bytes) apart, so one wgmma descriptor reads either pack."""
+    k = torch.arange(SLICE_K_BF16)[:, None]
+    n = torch.arange(Np)[None, :]
+    return (n // 8) * 128 + (k // 8) * 64 + (n % 8) * 8 + k % 8
+
+
+def tc_layout(cfg: NeRFConfig, bf16: bool = False):
     """(layout, size): where ``pack_network_tc`` puts each matrix. A GEMM
     maps to (weight offset, bias offset, Kp, Np): its [Kp, Np] weight (each
-    input segment's rows padded to a multiple of 8, N padded by
-    ``padded_width``) as Kp / 8 consecutive slices of ``slice_floats(Np)``,
+    input segment's rows padded to a multiple of ``slice_rows``, N padded
+    by ``padded_width``) as consecutive slices of ``slice_floats(Np)``,
     its bias as Np floats; a narrow head to (weight offset, bias offset, K,
-    N), its weight [N, K] as torch stores it. Every block starts 64-byte
-    aligned; padding is zero."""
+    N), its weight [N, K] as torch stores it. Offsets and sizes count
+    floats; every block starts 64-byte aligned; padding is zero."""
     layout, off = {}, 0
+    sk = slice_rows(bf16)
 
     def take(n):
         nonlocal off
@@ -306,35 +396,43 @@ def tc_layout(cfg: NeRFConfig):
         return start
 
     for name, segs, N, _ in tc_gemms(cfg):
-        Kp, Np = sum(_round(k, SLICE_K) for _, k in segs), padded_width(N)
-        layout[name] = (take(Kp // SLICE_K * slice_floats(Np)), take(Np), Kp, Np)
+        Kp, Np = sum(_round(k, sk) for _, k in segs), padded_width(N)
+        layout[name] = (take(Kp // sk * slice_floats(Np, bf16)), take(Np), Kp, Np)
     for _, name, K, N in tc_narrow_heads(cfg):
         layout[name] = (take(N * K), take(N), K, N)
     return layout, off
 
 
-def tc_strides(cfg: NeRFConfig):
+def tc_strides(cfg: NeRFConfig, bf16: bool = False):
     """(HS, SLOT): the shared-memory row stride in floats of the
     activations, 4 mod 8 so that a warp's A-fragment loads touch 32
     distinct banks, and the floats of a weight ring slot (the widest
     GEMM's slice)."""
     wn = padded_width(cfg.W)
-    return wn + 4, slice_floats(wn)
+    return wn + 4, slice_floats(wn, bf16)
 
 
-def tc_sources(cfg: NeRFConfig):
-    """(src, plane, desc): where each float of ``pack_network_tc``'s buffer
-    comes from, which depends on the architecture alone. src [size] int64
-    is 1 + the entry's index in the parameters flattened in
-    ``torch_param_order`` (0: padding, zero); plane [size] int8 is 1 for
-    a GEMM weight's big plane, 2 for its small plane, 0 for a value kept
-    as it is (biases, narrow heads); desc is the int64 ``Desc`` of
+PLANE_KEEP, PLANE_BIG, PLANE_SMALL, PLANE_BF16, PLANE_ROUND = range(5)
+
+
+def tc_sources(cfg: NeRFConfig, bf16: bool = False):
+    """(src, plane, src16, desc): where each float of ``pack_network_tc``'s
+    buffer comes from, which depends on the architecture alone. src [size]
+    int64 is 1 + the entry's index in the parameters flattened in
+    ``torch_param_order`` (0: padding, zero); plane [size] int8 says what
+    becomes of it: PLANE_BIG / PLANE_SMALL a GEMM weight's big / small
+    tf32 plane, PLANE_KEEP kept as it is (biases; the narrow heads in
+    fp32), PLANE_ROUND rounded to bf16 (the narrow heads under bf16),
+    PLANE_BF16 a float of a bf16 weight slice, whose two bf16 values come
+    from src16 [2 * size] (None in fp32); desc is the int64 ``Desc`` of
     ``csrc/mlp_tile_tc.cuh``."""
-    layout, size = tc_layout(cfg)
+    layout, size = tc_layout(cfg, bf16)
     shapes = param_shapes(cfg)
     start = param_starts(cfg)
+    sk = slice_rows(bf16)
     src = np.zeros(size, np.int64)
     plane = np.zeros(size, np.int8)
+    src16 = np.zeros(2 * size, np.int64) if bf16 else None
     desc = np.zeros(_TC_DESC_WORDS, np.int64)
     hdr = desc[:16]
     gemm = desc[16:16 + MAX_GEMMS * 8].reshape(MAX_GEMMS, 8)
@@ -351,61 +449,88 @@ def tc_sources(cfg: NeRFConfig):
         for _, k in segs:
             block[row:row + k, :N] = (start[name + ".weight"] + col
                                       + np.arange(k)[:, None] + n_in * np.arange(N)[None, :])
-            row, col = row + _round(k, SLICE_K), col + k
-        at = slice_index(Np).reshape(-1).numpy()
-        n_sl = Kp // SLICE_K
-        for pl in (1, 2):
-            dst = (w_off + np.arange(n_sl)[:, None] * slice_floats(Np)
-                   + (pl - 1) * 8 * Np + at[None, :])
-            src[dst] = block.reshape(n_sl, 8 * Np)
-            plane[dst] = pl
+            row, col = row + _round(k, sk), col + k
+        n_sl = Kp // sk
+        if bf16:
+            at = slice_index_bf16(Np).reshape(-1).numpy()
+            dst = (2 * w_off + np.arange(n_sl)[:, None] * (2 * slice_floats(Np, True))
+                   + at[None, :])
+            src16[dst] = block.reshape(n_sl, sk * Np)
+            plane[w_off:w_off + n_sl * slice_floats(Np, True)] = PLANE_BF16
+        else:
+            at = slice_index(Np).reshape(-1).numpy()
+            for pl in (PLANE_BIG, PLANE_SMALL):
+                dst = (w_off + np.arange(n_sl)[:, None] * slice_floats(Np)
+                       + (pl - 1) * 8 * Np + at[None, :])
+                src[dst] = block.reshape(n_sl, 8 * Np)
+                plane[dst] = pl
         src[b_off:b_off + N] = start[name + ".bias"] + np.arange(N)
         seg_src = [s for s, _ in segs] + [-1]
-        ns = [_round(k, SLICE_K) // SLICE_K for _, k in segs] + [0]
+        ns = [_round(k, sk) // sk for _, k in segs] + [0]
         gemm[g] = (w_off, b_off, Np, ns[0], seg_src[0], ns[1], seg_src[1], int(relu))
     for row, name, K, N in tc_narrow_heads(cfg):
         w_off, b_off, _, _ = layout[name]
         src[w_off:w_off + N * K] = start[name + ".weight"] + np.arange(N * K)
         src[b_off:b_off + N] = start[name + ".bias"] + np.arange(N)
+        if bf16:
+            plane[w_off:w_off + N * K] = PLANE_ROUND
+            plane[b_off:b_off + N] = PLANE_ROUND
         narrow[row] = (w_off, b_off, K, N)
-    HS, SLOT = tc_strides(cfg)
+    HS, SLOT = tc_strides(cfg, bf16)
     hdr[:9] = (cfg.D, cfg.W, cfg.input_ch, cfg.input_ch_views, out_channels(cfg),
                int(cfg.use_viewdirs), HS, SLOT, len(tc_gemms(cfg)))
     k = encoder_tables(cfg)[2]
     kind[:k.size] = k
-    return src, plane, desc
+    return src, plane, src16, desc
 
 
 _TC_STATIC: Dict[tuple, tuple] = {}
 
 
-def _tc_static(cfg: NeRFConfig, device: torch.device):
-    """``tc_sources`` on ``device``, made once per architecture and device
-    (it holds no parameter value)."""
-    key = (cfg, str(device))
+def _tc_static(cfg: NeRFConfig, device: torch.device, bf16: bool = False):
+    """``tc_sources`` on ``device`` (src, plane, desc, and under bf16 src16
+    and the mask of its bf16 values), made once per architecture, type and
+    device (it holds no parameter value)."""
+    key = (cfg, str(device), bf16)
     if key not in _TC_STATIC:
-        src, plane, desc = tc_sources(cfg)
-        _TC_STATIC[key] = (torch.from_numpy(src).to(device),
-                           torch.from_numpy(plane).to(device), common.upload(desc, device))
+        src, plane, src16, desc = tc_sources(cfg, bf16)
+        entry = (torch.from_numpy(src).to(device), torch.from_numpy(plane).to(device),
+                 common.upload(desc, device))
+        if bf16:
+            in16 = np.repeat(plane == PLANE_BF16, 2)
+            entry += (torch.from_numpy(src16).to(device), torch.from_numpy(in16).to(device))
+        _TC_STATIC[key] = entry
     return _TC_STATIC[key]
 
 
-def pack_network_tc(params: Dict[str, torch.Tensor], cfg: NeRFConfig, device):
+def pack_network_tc(params: Dict[str, torch.Tensor], cfg: NeRFConfig, device,
+                    compute_dtype=torch.float32):
     """(weights, desc, HS, SLOT) for the tensor-core kernels B1, B3 and B4:
     the fp32 buffer laid out by ``tc_layout`` (GEMM weights split by
-    ``tf32_split`` into their two planes), the int64 ``Desc`` of
-    ``csrc/mlp_tile_tc.cuh`` on ``device`` and the strides of
-    ``tc_strides``. The buffer is made from the parameters on every call,
-    in a few launches: one gather by ``tc_sources`` and the split."""
+    ``tf32_split`` into their two planes; under ``compute_dtype`` bfloat16
+    rounded to bf16, one plane, and the narrow heads' weights and biases
+    rounded in place), the int64 ``Desc`` of ``csrc/mlp_tile_tc.cuh`` on ``device``
+    and the strides of ``tc_strides``. The buffer is made from the
+    parameters on every call, in a few launches: one gather by
+    ``tc_sources``, then the split or the rounding."""
     device = torch.device(device)
     check_config(cfg)
     check_params(params, cfg, device)
-    src, plane, desc = _tc_static(cfg, device)
-    v = flat_params(params, cfg, device)[src]
-    big, small = tf32_split(v)
-    wbuf = torch.where(plane == 1, big, torch.where(plane == 2, small, v))
-    HS, SLOT = tc_strides(cfg)
-    return wbuf, desc, HS, SLOT
+    bf16 = is_bf16(compute_dtype)
+    static = _tc_static(cfg, device, bf16)
+    src, plane, desc = static[:3]
+    flat = flat_params(params, cfg, device)
+    v = flat[src]
+    HS, SLOT = tc_strides(cfg, bf16)
+    if not bf16:
+        big, small = tf32_split(v)
+        wbuf = torch.where(plane == PLANE_BIG, big,
+                           torch.where(plane == PLANE_SMALL, small, v))
+        return wbuf, desc, HS, SLOT
+    src16, in16 = static[3:]
+    v = torch.where(plane == PLANE_ROUND, bf16_round(v), v)
+    w16 = torch.where(in16, flat[src16].to(torch.bfloat16), v.view(torch.bfloat16))
+    return w16.view(torch.float32), desc, HS, SLOT
 
 
 def encoder_buffer(cfg: NeRFConfig, device) -> torch.Tensor:
@@ -419,10 +544,21 @@ def encoder_buffer(cfg: NeRFConfig, device) -> torch.Tensor:
     return common.upload(buf, device)
 
 
-def plain_nerf_forward_rays(params, cfg: NeRFConfig, rays_o, rays_d, z, viewdirs):
-    """The plain PyTorch version: apply_nerf on o + z·d -> raw [N, S, C]."""
+def plain_nerf_forward_rays(params, cfg: NeRFConfig, rays_o, rays_d, z, viewdirs,
+                            compute_dtype=torch.float32):
+    """The plain PyTorch version of B3 (of its bf16 instantiation under
+    ``compute_dtype`` bfloat16): the network on o + z·d -> raw [N, S, C]."""
     pts = rays_o[..., None, :] + rays_d[..., None, :] * z[..., None]
-    return apply_nerf(params, cfg, pts, viewdirs)
+    return plain_nerf_forward(params, cfg, pts, viewdirs, compute_dtype)
+
+
+def twin_nerf_forward_rays(params, cfg: NeRFConfig, rays_o, rays_d, z, viewdirs,
+                           compute_dtype=torch.float32):
+    """What B3's backward differentiates: ``apply_nerf`` at the compute
+    dtype on o + z·d, the JAX package's remat twin (fused_mlp.py
+    ``_fused_rays_bwd``). In fp32 it is B3's plain version."""
+    pts = rays_o[..., None, :] + rays_d[..., None, :] * z[..., None]
+    return apply_nerf(params, cfg, pts, viewdirs, compute_dtype)
 
 
 def param_shapes(cfg: NeRFConfig) -> Dict[str, tuple]:
@@ -472,55 +608,69 @@ _ARGS = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 5 + 
     ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
 
 
-def _launch(params, cfg, rays_o, rays_d, z, viewdirs) -> torch.Tensor:
-    global LAUNCHES
+def _launch(params, cfg, rays_o, rays_d, z, viewdirs,
+            compute_dtype=torch.float32) -> torch.Tensor:
+    """Kernel B3 (its bf16 instantiation under ``compute_dtype`` bfloat16)
+    on CUDA tensors."""
+    global LAUNCHES, LAUNCHES_BF16
     n, S = _check_rays(cfg, rays_o, rays_d, z, viewdirs)
     C = out_channels(cfg)
     out = torch.empty((n, S, C), dtype=torch.float32, device=z.device)
     if n * S == 0:
         return out
-    fn = common.load("fused_mlp", _ARGS, "nstt_rays_forward_tc")
+    bf16 = is_bf16(compute_dtype)
+    fn = common.load("fused_mlp", _ARGS,
+                     "nstt_rays_forward_bf16" if bf16 else "nstt_rays_forward_tc")
     with torch.cuda.device(z.device):
-        wbuf, desc, HS, SLOT = pack_network_tc(params, cfg, z.device)
+        wbuf, desc, HS, SLOT = pack_network_tc(params, cfg, z.device, compute_dtype)
         A, B = ray_encoder_args(cfg, rays_o, rays_d, viewdirs)
         stream = torch.cuda.current_stream(z.device).cuda_stream
         rc = fn(desc.data_ptr(), HS, SLOT, wbuf.data_ptr(), A.data_ptr(),
                 B.data_ptr(), z.data_ptr(), out.data_ptr(), n, S, stream)
-    common.check_launch(rc, "fused_mlp (B3)")
-    LAUNCHES += 1
+    common.check_launch(rc, "fused_mlp (B3 bf16)" if bf16 else "fused_mlp (B3)")
+    if bf16:
+        LAUNCHES_BF16 += 1
+    else:
+        LAUNCHES += 1
     return out
 
 
 class _RaysFn(torch.autograd.Function):
+    """B3 forward (on the CPU, under bf16, its plain version), backward
+    through ``twin_nerf_forward_rays`` at the compute dtype."""
+
     @staticmethod
-    def forward(ctx, cfg, names, rays_o, rays_d, z, viewdirs, *weights):
-        ctx.cfg, ctx.names, ctx.n_lead = cfg, names, 2
+    def forward(ctx, cfg, names, dtype, rays_o, rays_d, z, viewdirs, *weights):
+        ctx.cfg, ctx.names, ctx.dtype, ctx.n_lead = cfg, names, dtype, 3
         ctx.save_for_backward(rays_o, rays_d, z, viewdirs, *weights)
-        return _launch(dict(zip(names, weights)), cfg, rays_o, rays_d, z,
-                       viewdirs)
+        params = dict(zip(names, weights))
+        if rays_o.device.type == "cpu":
+            return plain_nerf_forward_rays(params, cfg, rays_o, rays_d, z, viewdirs, dtype)
+        return _launch(params, cfg, rays_o, rays_d, z, viewdirs, dtype)
 
     @staticmethod
     def backward(ctx, g):
         cfg, names = ctx.cfg, ctx.names
 
-        def plain(ro, rd, zz, vd, *w):
-            return plain_nerf_forward_rays(dict(zip(names, w)), cfg, ro, rd,
-                                           zz, vd)
+        def twin(ro, rd, zz, vd, *w):
+            return twin_nerf_forward_rays(dict(zip(names, w)), cfg, ro, rd, zz, vd, ctx.dtype)
 
-        grads = common.remat_grads(ctx, plain, ctx.saved_tensors, (g,))
-        return (None, None, *grads)
+        grads = common.remat_grads(ctx, twin, ctx.saved_tensors, (g,))
+        return (None, None, None, *grads)
 
 
 def fused_nerf_forward_rays(params, cfg: NeRFConfig, rays_o, rays_d, z,
-                            viewdirs: Optional[torch.Tensor]) -> torch.Tensor:
+                            viewdirs: Optional[torch.Tensor],
+                            compute_dtype=torch.float32) -> torch.Tensor:
     """raw [N, S, 4 | output_ch] of the network at pts = o + z·d: the plain
-    version for CPU tensors, kernel B3 for CUDA tensors."""
-    if rays_o.device.type == "cpu":
+    version for CPU tensors, kernel B3 (its bf16 instantiation under
+    ``compute_dtype`` bfloat16) for CUDA tensors."""
+    if rays_o.device.type == "cpu" and not is_bf16(compute_dtype):
         return plain_nerf_forward_rays(params, cfg, rays_o, rays_d, z, viewdirs)
-    if rays_o.device.type != "cuda":
+    if rays_o.device.type not in ("cpu", "cuda"):
         raise ValueError(f"fused_nerf_forward_rays: no kernel for {rays_o.device}")
     names = tuple(torch_param_order(cfg))
-    return _RaysFn.apply(cfg, names, rays_o, rays_d, z, viewdirs,
+    return _RaysFn.apply(cfg, names, compute_dtype, rays_o, rays_d, z, viewdirs,
                          *[params[k] for k in names])
 
 
@@ -546,39 +696,48 @@ _POINT_ARGS = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] 
     ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
 
 
-def launch_points(params, cfg: NeRFConfig, pts, viewdirs) -> torch.Tensor:
-    """Kernel B1 on CUDA tensors -> raw [..., S, C]; no autograd."""
-    global POINT_LAUNCHES
+def launch_points(params, cfg: NeRFConfig, pts, viewdirs,
+                  compute_dtype=torch.float32) -> torch.Tensor:
+    """Kernel B1 (its bf16 instantiation under ``compute_dtype`` bfloat16)
+    on CUDA tensors -> raw [..., S, C]; no autograd."""
+    global POINT_LAUNCHES, POINT_LAUNCHES_BF16
     n, S = check_points(cfg, pts, viewdirs)
     C = out_channels(cfg)
     out = torch.empty(pts.shape[:-1] + (C,), dtype=torch.float32, device=pts.device)
     if n == 0:
         return out
-    fn = common.load("fused_mlp", _POINT_ARGS, "nstt_points_forward_tc")
+    bf16 = is_bf16(compute_dtype)
+    fn = common.load("fused_mlp", _POINT_ARGS,
+                     "nstt_points_forward_bf16" if bf16 else "nstt_points_forward_tc")
     with torch.cuda.device(pts.device):
-        wbuf, desc, HS, SLOT = pack_network_tc(params, cfg, pts.device)
+        wbuf, desc, HS, SLOT = pack_network_tc(params, cfg, pts.device, compute_dtype)
         enc = encoder_buffer(cfg, pts.device)
         stream = torch.cuda.current_stream(pts.device).cuda_stream
         rc = fn(desc.data_ptr(), HS, SLOT, wbuf.data_ptr(), enc.data_ptr(),
                 pts.data_ptr(), viewdirs.data_ptr() if viewdirs is not None else 0,
                 out.data_ptr(), n, S, stream)
-    common.check_launch(rc, "fused_mlp points (B1)")
-    POINT_LAUNCHES += 1
+    common.check_launch(rc, "fused_mlp points (B1 bf16)" if bf16 else "fused_mlp points (B1)")
+    if bf16:
+        POINT_LAUNCHES_BF16 += 1
+    else:
+        POINT_LAUNCHES += 1
     return out
 
 
 def fused_nerf_forward(params, cfg: NeRFConfig, pts,
-                       viewdirs: Optional[torch.Tensor]) -> torch.Tensor:
+                       viewdirs: Optional[torch.Tensor],
+                       compute_dtype=torch.float32) -> torch.Tensor:
     """raw [..., S, 4 | output_ch] of the network at pts [..., S, 3] with
-    view directions [..., 3]: ``apply_nerf`` (the plain version) for CPU
-    tensors, kernel B1 for CUDA tensors, differentiated by kernel B2
-    (``fused_mlp_bwd.fused_train_op``)."""
-    if pts.device.type == "cpu":
+    view directions [..., 3]: the plain version for CPU tensors (in fp32
+    ``apply_nerf``), kernel B1 (its bf16 instantiation under
+    ``compute_dtype`` bfloat16) for CUDA tensors, differentiated by kernel
+    B2 (``fused_mlp_bwd.fused_train_op``)."""
+    if pts.device.type == "cpu" and not is_bf16(compute_dtype):
         return apply_nerf(params, cfg, pts, viewdirs)
-    if pts.device.type != "cuda":
+    if pts.device.type not in ("cpu", "cuda"):
         raise ValueError(f"fused_nerf_forward: no kernel for {pts.device}")
     from nerf_shared_tpu_torch.ops.cuda.fused_mlp_bwd import fused_train_op
-    return fused_train_op(params, cfg, pts, viewdirs)
+    return fused_train_op(params, cfg, pts, viewdirs, compute_dtype)
 
 
 def flops_per_point(cfg: NeRFConfig) -> int:

@@ -31,6 +31,18 @@ second copy in PyTorch's [out, in] layout for the input-gradient products,
 split where the network concatenates (the skip input, the view-direction
 input), both by one gather through a source map made once per
 architecture, and allocates the H, dZ and partial buffers.
+
+Under ``compute_dtype`` bfloat16 B2 has a second instantiation with the
+JAX kernel's roundings (fused_mlp_bwd.py ``_make_bwd_kernel_closed``):
+the rematerialised activations, the weights and the cotangent g are bf16;
+each dz is rounded (dz_c) before it enters a weight gradient or dh =
+dz_c·Wᵀ; the ReLU masks read the bf16 activations; the bias gradients sum
+the fp32 dz (dbout the rounded g); demb and dx stay fp32. The tile kernel
+keeps its fp32 CUDA-core arithmetic on bf16-rounded operands (their
+products are exact in fp32) and writes dZ in fp32; ``nerf_dw_kernel``
+rounds dZ as it loads it and forms dW with one ``mma.sync.m16n8k16`` bf16
+product a 16-point step. ``plain_mlp_backward_bf16`` is that arithmetic
+in plain PyTorch.
 """
 
 from __future__ import annotations
@@ -41,24 +53,33 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from nerf_shared_tpu_torch.models.nerf import NeRFConfig, apply_nerf, torch_param_order
+from nerf_shared_tpu_torch.models.nerf import (
+    NeRFConfig,
+    apply_nerf,
+    embed_inputs,
+    torch_param_order,
+)
 from nerf_shared_tpu_torch.ops.cuda import common
 from nerf_shared_tpu_torch.ops.cuda.fused_mlp import (
     MAX_LAYERS,
     _round4,
+    bf16_round,
     check_points,
     encoder_buffer,
     flat_params,
     flops_per_point,
+    is_bf16,
     launch_points,
     out_channels,
     pack_network,
     packed_layout,
     param_shapes,
     param_starts,
+    plain_nerf_forward,
 )
 
 LAUNCHES = 0      # B2 launches made by fused_mlp_backward and fused_train_op
+LAUNCHES_BF16 = 0  # the same for the bf16 instantiation
 TILE_P = 64       # points per tile of the tile kernel (csrc/mlp_tile.cuh)
 MAX_SMEM = 232448  # shared memory one block may use on sm_90
 BW_ALPHA, BW_FEATURE, BW_VIEWS_F, BW_VIEWS_D, BW_RGB, BW_OUTPUT = range(6)
@@ -95,6 +116,83 @@ def plain_mlp_backward(params, cfg: NeRFConfig, pts, viewdirs, g):
         gs = torch.autograd.grad(raw, ins, g)
     n = len(names)
     return dict(zip(names, gs[:n])), gs[n], (gs[n + 1] if vd is not None else None)
+
+
+def plain_mlp_backward_bf16(params, cfg: NeRFConfig, pts, viewdirs, g):
+    """The plain version of B2's bf16 instantiation -> (grads, dpts,
+    ddirs): the JAX kernel's roundings (fused_mlp_bwd.py:176-300) in plain
+    PyTorch, fp32 arithmetic on bf16-rounded operands. The forward is
+    ``fused_mlp.plain_mlp_bf16``'s; the ReLU masks read the bf16
+    activations (hv's its fp32 pre-activation, as JAX's does); every dz is
+    rounded before it enters a weight gradient or the next dh; the bias
+    gradients sum the fp32 dz, the output biases the rounded g; demb and
+    dx are fp32 (dx through the encoder by autograd of ``embed_inputs``)."""
+    P, V, W = cfg.input_ch, cfg.input_ch_views, cfg.W
+    C = g.shape[-1]
+    with torch.enable_grad():
+        pt = pts.detach().requires_grad_(True)
+        vd = None if viewdirs is None else viewdirs.detach().requires_grad_(True)
+        emb32 = embed_inputs(cfg, pt, vd)
+    e = bf16_round(emb32.detach().reshape(-1, P + V))
+    wt = {k: bf16_round(params[k + ".weight"]) for k in param_names_linear(cfg)}
+    b = {k: params[k + ".bias"] for k in param_names_linear(cfg)}
+    grads = {}
+
+    def dense_grads(name, dz, dz_c, x):
+        grads[name + ".weight"] = dz_c.t() @ x
+        grads[name + ".bias"] = dz.sum(0)
+
+    ins, hs, x = [], [], e[:, :P]
+    for i in range(cfg.D):
+        name = f"pts_linears.{i}"
+        ins.append(x)
+        hs.append(bf16_round(torch.relu(x @ wt[name].t() + b[name])))
+        x = torch.cat([e[:, :P], hs[-1]], -1) if i in cfg.skips else hs[-1]
+    h = hs[-1]
+    gc = bf16_round(g.reshape(-1, C))
+    demb = torch.zeros_like(e)
+    if cfg.use_viewdirs:
+        feature = bf16_round(h @ wt["feature_linear"].t() + b["feature_linear"])
+        vin = torch.cat([feature, e[:, P:P + V]], -1)
+        hv_pre = vin @ wt["views_linears.0"].t() + b["views_linears.0"]
+        hv = bf16_round(torch.relu(hv_pre))
+        g_rgb, g_alpha = gc[:, :3], gc[:, 3:4]
+        dense_grads("rgb_linear", g_rgb, g_rgb, hv)
+        dense_grads("alpha_linear", g_alpha, g_alpha, h)
+        dhv = (g_rgb @ wt["rgb_linear"]) * (hv_pre > 0)
+        dhv_c = bf16_round(dhv)
+        dense_grads("views_linears.0", dhv, dhv_c, vin)
+        dvin = dhv_c @ wt["views_linears.0"]
+        dfeature = dvin[:, :W]
+        demb[:, P:P + V] += dvin[:, W:]
+        dfeature_c = bf16_round(dfeature)
+        dense_grads("feature_linear", dfeature, dfeature_c, h)
+        dh = g_alpha @ wt["alpha_linear"] + dfeature_c @ wt["feature_linear"]
+    else:
+        dense_grads("output_linear", gc, gc, h)
+        dh = gc @ wt["output_linear"]
+    for i in reversed(range(cfg.D)):
+        name = f"pts_linears.{i}"
+        dz = dh * (hs[i] > 0)
+        dz_c = bf16_round(dz)
+        dense_grads(name, dz, dz_c, ins[i])
+        dx_in = dz_c @ wt[name]
+        if i == 0:
+            demb[:, :P] += dx_in
+        elif (i - 1) in cfg.skips:
+            demb[:, :P] += dx_in[:, :P]
+            dh = dx_in[:, P:]
+        else:
+            dh = dx_in
+    ins_ = [pt] + ([vd] if vd is not None else [])
+    d_in = torch.autograd.grad(emb32, ins_, demb.reshape(emb32.shape))
+    grads = {k: grads[k] for k in torch_param_order(cfg)}
+    return grads, d_in[0], (d_in[1] if vd is not None else None)
+
+
+def param_names_linear(cfg: NeRFConfig) -> List[str]:
+    """The network's linear layers by state-dict prefix."""
+    return [k[:-len(".weight")] for k in torch_param_order(cfg) if k.endswith(".weight")]
 
 
 def act_layout(cfg: NeRFConfig):
@@ -276,14 +374,37 @@ def _bwd_static(cfg: NeRFConfig, device: torch.device):
     return _BWD_STATIC[key]
 
 
-def pack_backward(params, cfg: NeRFConfig, device):
+def pack_backward(params, cfg: NeRFConfig, device, compute_dtype=torch.float32):
     """(wbt, bdesc): the weights in PyTorch's [out, in] layout, split where
     the input is a concatenation, each segment's rows padded to a multiple
-    of 4 floats (zero), as one gather through ``bwd_sources``' map;
-    bdesc is the int64 BwdDesc of csrc/fused_mlp_bwd.cu."""
+    of 4 floats (zero), as one gather through ``bwd_sources``' map (under
+    ``compute_dtype`` bfloat16 rounded to bf16, kept as fp32 values);
+    bdesc is the int64
+    BwdDesc of csrc/fused_mlp_bwd.cu."""
     device = torch.device(device)
     src, bdesc, _, _, _ = _bwd_static(cfg, device)
-    return flat_params(params, cfg, device)[src], bdesc
+    wbt = flat_params(params, cfg, device)[src]
+    return (bf16_round(wbt) if is_bf16(compute_dtype) else wbt), bdesc
+
+
+_WEIGHT_MASK: Dict[tuple, torch.Tensor] = {}
+
+
+def pack_forward(params, cfg: NeRFConfig, device, compute_dtype=torch.float32):
+    """``fused_mlp.pack_network`` for B2's tile kernel; under
+    ``compute_dtype`` bfloat16 the weight matrices rounded to bf16 (as fp32
+    values), the biases fp32."""
+    wbuf, desc, HS, ES = pack_network(params, cfg, device)
+    if is_bf16(compute_dtype):
+        key = (cfg, str(wbuf.device))
+        if key not in _WEIGHT_MASK:
+            layout, size = packed_layout(cfg)
+            mask = np.zeros(size, bool)
+            for name, (off, rows, _, ld) in layout.items():
+                mask[off:off + rows * ld] = name.endswith(".weight")
+            _WEIGHT_MASK[key] = torch.from_numpy(mask).to(wbuf.device)
+        wbuf = torch.where(_WEIGHT_MASK[key], bf16_round(wbuf), wbuf)
+    return wbuf, desc, HS, ES
 
 
 def unpack_grads(grads: torch.Tensor, cfg: NeRFConfig) -> Dict[str, torch.Tensor]:
@@ -308,17 +429,20 @@ def smem_bytes(cfg: NeRFConfig) -> int:
     return 4 * floats + net_desc + bwd_desc
 
 
-# csrc/fused_mlp_bwd.cu nstt_mlp_backward: descriptors, HS, ES; wb, wbt,
-# enc, pts, vd, g; C; dx, hbuf, zbuf; dW tiles; jobs, tiles, part, grads;
-# wsize, total, n_pad; S, grid, splits; stream
+# csrc/fused_mlp_bwd.cu nstt_mlp_backward (and nstt_mlp_backward_bf16):
+# descriptors, HS, ES; wb, wbt, enc, pts, vd, g; C; dx, hbuf, zbuf; dW
+# tiles; jobs, tiles, part, grads; wsize, total, n_pad; S, grid, splits;
+# stream
 _ARGS = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 6
          + [ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int]
          + [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 3 + [ctypes.c_int] * 3
          + [ctypes.c_void_p])
 
 
-def launch_backward(params, cfg: NeRFConfig, pts, viewdirs, g):
-    """Kernel B2 on CUDA tensors -> (grads, dpts, ddirs).
+def launch_backward(params, cfg: NeRFConfig, pts, viewdirs, g,
+                    compute_dtype=torch.float32):
+    """Kernel B2 (its bf16 instantiation under ``compute_dtype`` bfloat16)
+    on CUDA tensors -> (grads, dpts, ddirs).
 
     Scratch, all ``torch.empty``: H and dZ for n_pad = n rounded up to 64
     points (``act_layout``: 19,856 bytes a point at the lego width, ~3.9 GB
@@ -326,7 +450,7 @@ def launch_backward(params, cfg: NeRFConfig, pts, viewdirs, g):
     output too), and one partial copy of the packed gradients per point
     range (``dw_splits`` of them, 2.38 MB each at the lego width). Every
     float of a partial copy is written, padding as zero."""
-    global LAUNCHES
+    global LAUNCHES, LAUNCHES_BF16
     dev = pts.device
     n, S = check_points(cfg, pts, viewdirs)
     common.check_tensor(g, "g", tuple(pts.shape[:-1]) + (out_channels(cfg),), dev)
@@ -338,10 +462,12 @@ def launch_backward(params, cfg: NeRFConfig, pts, viewdirs, g):
     if n == 0:
         return ({k: torch.zeros_like(params[k]) for k in layout}, pts.new_zeros(pts.shape),
                 None if viewdirs is None else torch.zeros_like(viewdirs))
-    fn = common.load("fused_mlp_bwd", _ARGS, "nstt_mlp_backward")
+    bf16 = is_bf16(compute_dtype)
+    fn = common.load("fused_mlp_bwd", _ARGS,
+                     "nstt_mlp_backward_bf16" if bf16 else "nstt_mlp_backward")
     with torch.cuda.device(dev):
-        wbuf, desc, HS, ES = pack_network(params, cfg, dev)
-        wbt, bdesc = pack_backward(params, cfg, dev)
+        wbuf, desc, HS, ES = pack_forward(params, cfg, dev, compute_dtype)
+        wbt, bdesc = pack_backward(params, cfg, dev, compute_dtype)
         _, _, dw_desc, n_jobs, n_tiles = _bwd_static(cfg, dev)
         enc = encoder_buffer(cfg, dev)
         n_pt_tiles = -(-n // TILE_P)
@@ -363,8 +489,11 @@ def launch_backward(params, cfg: NeRFConfig, pts, viewdirs, g):
                 zbuf.data_ptr(), n_tiles, dw_desc.data_ptr(), tiles_ptr,
                 part.data_ptr(), grads.data_ptr(), wsize, n, n_pad, S, grid, splits,
                 stream)
-    common.check_launch(rc, "fused_mlp_bwd (B2)")
-    LAUNCHES += 1
+    common.check_launch(rc, "fused_mlp_bwd (B2 bf16)" if bf16 else "fused_mlp_bwd (B2)")
+    if bf16:
+        LAUNCHES_BF16 += 1
+    else:
+        LAUNCHES += 1
     dpts = dx[:, :3].reshape(pts.shape)
     ddirs = None
     if viewdirs is not None:
@@ -372,45 +501,60 @@ def launch_backward(params, cfg: NeRFConfig, pts, viewdirs, g):
     return unpack_grads(grads, cfg), dpts, ddirs
 
 
-def fused_mlp_backward(params, cfg: NeRFConfig, pts, viewdirs: Optional[torch.Tensor], g):
+def fused_mlp_backward(params, cfg: NeRFConfig, pts, viewdirs: Optional[torch.Tensor], g,
+                       compute_dtype=torch.float32):
     """(grads, dpts, ddirs) of sum(raw * g): the plain version for CPU
-    tensors, kernel B2 for CUDA tensors."""
+    tensors, kernel B2 (its bf16 instantiation under ``compute_dtype``
+    bfloat16) for CUDA tensors."""
     if pts.device.type == "cpu":
-        return plain_mlp_backward(params, cfg, pts, viewdirs, g)
+        plain = plain_mlp_backward_bf16 if is_bf16(compute_dtype) else plain_mlp_backward
+        return plain(params, cfg, pts, viewdirs, g)
     if pts.device.type != "cuda":
         raise ValueError(f"fused_mlp_backward: no kernel for {pts.device}")
     return launch_backward(params, cfg, pts.contiguous(),
                            None if viewdirs is None else viewdirs.contiguous(),
-                           g.contiguous())
+                           g.contiguous(), compute_dtype)
 
 
 class _TrainFn(torch.autograd.Function):
+    """B1 forward, B2 backward (on the CPU, under bf16, their plain
+    versions)."""
+
     @staticmethod
-    def forward(ctx, cfg, names, pts, viewdirs, *weights):
-        ctx.cfg, ctx.names = cfg, names
+    def forward(ctx, cfg, names, dtype, pts, viewdirs, *weights):
+        ctx.cfg, ctx.names, ctx.dtype = cfg, names, dtype
         ctx.save_for_backward(pts, viewdirs, *weights)
-        return launch_points(dict(zip(names, weights)), cfg, pts, viewdirs)
+        params = dict(zip(names, weights))
+        if pts.device.type == "cpu":
+            return plain_nerf_forward(params, cfg, pts, viewdirs, dtype)
+        return launch_points(params, cfg, pts, viewdirs, dtype)
 
     @staticmethod
     def backward(ctx, g):
         pts, viewdirs, *weights = ctx.saved_tensors
-        grads, dpts, ddirs = launch_backward(dict(zip(ctx.names, weights)), ctx.cfg,
-                                             pts, viewdirs, g.contiguous())
+        params = dict(zip(ctx.names, weights))
+        if pts.device.type == "cpu":
+            grads, dpts, ddirs = plain_mlp_backward_bf16(params, ctx.cfg, pts, viewdirs, g)
+        else:
+            grads, dpts, ddirs = launch_backward(params, ctx.cfg, pts, viewdirs,
+                                                 g.contiguous(), ctx.dtype)
         need = ctx.needs_input_grad
-        return (None, None, dpts if need[2] else None,
-                ddirs if need[3] else None, *[grads[k] for k in ctx.names])
+        return (None, None, None, dpts if need[3] else None,
+                ddirs if need[4] else None, *[grads[k] for k in ctx.names])
 
 
-def fused_train_op(params, cfg: NeRFConfig, pts, viewdirs: Optional[torch.Tensor]):
+def fused_train_op(params, cfg: NeRFConfig, pts, viewdirs: Optional[torch.Tensor],
+                   compute_dtype=torch.float32):
     """raw [..., S, C] whose forward is B1 and whose backward is B2 on CUDA
-    tensors; ``apply_nerf`` (forward and autograd backward) on CPU
-    tensors."""
-    if pts.device.type == "cpu":
+    tensors (their bf16 instantiations under ``compute_dtype`` bfloat16);
+    on CPU tensors ``apply_nerf`` (forward and autograd backward) in fp32,
+    the plain versions of B1 and B2 in bf16."""
+    if pts.device.type == "cpu" and not is_bf16(compute_dtype):
         return apply_nerf(params, cfg, pts, viewdirs)
-    if pts.device.type != "cuda":
+    if pts.device.type not in ("cpu", "cuda"):
         raise ValueError(f"fused_train_op: no kernel for {pts.device}")
     names = tuple(torch_param_order(cfg))
-    return _TrainFn.apply(cfg, names, pts.contiguous(),
+    return _TrainFn.apply(cfg, names, compute_dtype, pts.contiguous(),
                           None if viewdirs is None else viewdirs.contiguous(),
                           *[params[k] for k in names])
 

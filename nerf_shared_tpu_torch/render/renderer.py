@@ -34,6 +34,12 @@ dispatch seams:
 The trainer keeps B3, B4 and B5 off its step by clearing ``use_pallas`` and
 ``fused_composite`` in the step's config (``apps/train.py``).
 
+``RenderConfig.precision`` ("fp32" or "bf16", ``--precision``) is the MLP
+family's compute dtype at all three seams, as the JAX seams read it: under
+"bf16" B1-B4 launch their bf16 instantiations and the plain network is
+``apply_nerf`` in bf16 (the proposal network's route included). The grid
+families ignore it, as in JAX; the composite stays fp32.
+
 Under ``RenderConfig.proposal`` the coarse branch is a density-only
 proposal MLP (factory.proposal_config): it runs through the plain network
 on every route, as the JAX package runs it through XLA, never B1-B4 (they
@@ -94,20 +100,21 @@ def _apply_model(params, mcfg, pts, viewdirs, rcfg):
                 lambda p, x, d: apply(p, mcfg, x, d), params, pts, viewdirs,
                 use_reentrant=False)
         return apply(params, mcfg, pts, viewdirs)
+    dtype = rcfg.compute_dtype
     if rcfg.fused_backward:
-        return fused_train_op(params, mcfg, pts, viewdirs)
+        return fused_train_op(params, mcfg, pts, viewdirs, dtype)
     if rcfg.use_pallas:
         return fused_nerf_forward(
             params, mcfg, pts.contiguous(),
-            None if viewdirs is None else viewdirs.contiguous())
-    return apply_nerf(params, mcfg, pts, viewdirs)
+            None if viewdirs is None else viewdirs.contiguous(), dtype)
+    return apply_nerf(params, mcfg, pts, viewdirs, dtype)
 
 
 def _apply_model_rays(params, mcfg, rays_o, rays_d, z_vals, viewdirs, rcfg):
     """The network on the samples o + z·d of each ray -> raw [N, S, C]."""
     if rcfg.use_pallas and not rcfg.fused_backward and isinstance(mcfg, NeRFConfig):
         return fused_nerf_forward_rays(params, mcfg, rays_o, rays_d, z_vals,
-                                       viewdirs)
+                                       viewdirs, rcfg.compute_dtype)
     pts = rays_o[..., None, :] + rays_d[..., None, :] * z_vals[..., :, None]
     return _apply_model(params, mcfg, pts, viewdirs, rcfg)
 
@@ -134,7 +141,8 @@ def _apply_render_fused(params, mcfg, rays_o, rays_d, z_vals, viewdirs, rcfg,
                         want_weights):
     return fused_render_rays(params, mcfg, rays_o, rays_d, z_vals, viewdirs,
                              white_bkgd=rcfg.white_bkgd,
-                             want_weights=want_weights)
+                             want_weights=want_weights,
+                             compute_dtype=rcfg.compute_dtype)
 
 
 def _composite(raw, z_vals, rays_d, rcfg, noise=None, generator=None):
@@ -148,6 +156,9 @@ def _composite(raw, z_vals, rays_d, rcfg, noise=None, generator=None):
     return raw2outputs(raw, z_vals, rays_d, raw_noise_std=rcfg.raw_noise_std,
                        white_bkgd=rcfg.white_bkgd, noise=noise,
                        generator=generator)
+
+
+_COMPUTE_DTYPES = {"fp32": torch.float32, "bf16": torch.bfloat16}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -183,13 +194,23 @@ class RenderConfig:
     # weights drive sample_pdf, it renders no rgb, and it runs through the
     # plain network whatever the kernel flags say. Needs N_importance > 0
     proposal: bool = False
+    # the MLP family's compute dtype: "fp32", or "bf16" (bf16 operands, fp32
+    # accumulation; the kernels' bf16 instantiations, apply_nerf in bf16)
+    precision: str = "fp32"
 
     def __post_init__(self):
+        if self.precision not in _COMPUTE_DTYPES:
+            raise ValueError(f"precision {self.precision!r}: fp32 or bf16")
         if self.guided > 0 and self.N_importance <= 0:
             raise ValueError(
                 f"guided={self.guided} places the fine samples by the coarse "
                 "histogram and needs N_importance > 0 (with N_importance 0 "
                 "there is no fine pass to guide)")
+
+    @property
+    def compute_dtype(self) -> torch.dtype:
+        """``precision`` as the torch dtype the MLP seams take."""
+        return _COMPUTE_DTYPES[self.precision]
 
 
 def render_rays(

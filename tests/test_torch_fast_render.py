@@ -430,9 +430,9 @@ def test_apply_model_takes_b1_under_use_pallas(monkeypatch):
     calls = []
     real = TR.fused_nerf_forward
 
-    def spy(params, cfg, pts, viewdirs):
+    def spy(params, cfg, pts, viewdirs, *rest):
         calls.append((tuple(pts.shape), tuple(viewdirs.shape)))
-        return real(params, cfg, pts, viewdirs)
+        return real(params, cfg, pts, viewdirs, *rest)
 
     monkeypatch.setattr(TR, "fused_nerf_forward", spy)
     pts = torch.from_numpy(np.random.default_rng(0).uniform(

@@ -45,7 +45,7 @@ def test_package_has_the_slice_modules():
               "data.deepvoxels", "data.linemod", "apps.eval_cli", "ops.se3",
               "train.pose_refine", "train.appearance", "apps.pose_estimation",
               "apps.pose_cli", "train.occ_train", "ops.meshing", "ops.native_meshing",
-              "apps.mesh_cli"):
+              "apps.mesh_cli", "benchmarks.fp32_digest"):
         assert f"nerf_shared_tpu_torch.{m}" in mods, m
 
 
@@ -118,3 +118,18 @@ def test_train_occ_is_ported_and_mesh_shape_still_raises():
         train.train(config_parser().parse_args(["--device", "cpu", "--mesh_shape", "2"]))
     with pytest.raises(NotImplementedError, match="ROADMAP A16"):
         mesh_cli.main(["--device", "cpu", "--mesh_shape", "2"])
+
+
+def test_precision_bf16_is_ported_everywhere_the_flag_is_read():
+    """--precision bf16 passes the trainer's check (every entry point calls
+    it) and reaches the render config through the factory; --mesh_shape
+    still raises."""
+    from nerf_shared_tpu_torch.apps import train
+    from nerf_shared_tpu_torch.config import config_parser
+    from nerf_shared_tpu_torch.factory import get_renderer
+
+    assert "precision" not in train._NOT_PORTED
+    args = config_parser().parse_args(["--device", "cpu", "--precision", "bf16"])
+    train.check_ported(args)
+    assert get_renderer(args, {"near": 2.0, "far": 6.0}, "cpu").cfg.precision == "bf16"
+    assert get_renderer(config_parser().parse_args([]), {}, "cpu").cfg.precision == "fp32"

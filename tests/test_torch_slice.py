@@ -83,8 +83,9 @@ def test_cuda_default_raises_without_a_card(slice_cfg, monkeypatch):
 def test_unported_flags_raise(slice_cfg, flag, value):
     """Flags the port does not carry raise; --barf_anneal, --refine_poses
     and --appearance (the pose slice), --ema_decay, --proposal and
-    --loss_sampling (the proposal slice) and --train_occ (the occupancy
-    trainer's slice) are ported and build the engine.
+    --loss_sampling (the proposal slice), --train_occ (the occupancy
+    trainer's slice) and --precision bf16 (the bf16 slice) are ported and
+    build the engine.
     The slice's checkpoint holds a full-size coarse network, which a
     --proposal engine (a 2x64 proposal coarse) cannot load: that case
     builds from the seeded init (--no_reload)."""
@@ -92,10 +93,11 @@ def test_unported_flags_raise(slice_cfg, flag, value):
     args = serve_parser().parse_args(
         ["--config", slice_cfg, "--device", "cpu", flag, value] + extra)
     if flag in ("--barf_anneal", "--refine_poses", "--appearance", "--ema_decay",
-                "--proposal", "--loss_sampling", "--train_occ"):
+                "--proposal", "--loss_sampling", "--train_occ", "--precision"):
         eng = build_eval_engine(args)
         assert eng.engine_name == "dense"
         assert eng.renderer.cfg.proposal == (flag == "--proposal")
+        assert eng.renderer.cfg.precision == (value if flag == "--precision" else "fp32")
         return
     with pytest.raises(NotImplementedError, match="not ported"):
         build_eval_engine(args)
