@@ -274,6 +274,23 @@ Phases (any failure exits non-zero and prints no result line):
             kernel step, with the plain bf16 network's step and the fp32
             step's gradient norms and cosines logged. One "phase 15 bf16"
             line with every number and the card's name and power limit.
+16. debug, jpeg, parallel
+            (a) --debug_nans: five lego steps (train_step_setup, B1 + B2
+            twice a step) with the NaN checks off and on from one state
+            and one set of draws: the parameters bit-equal, both step ms;
+            a NaN put into B1's points must raise FloatingPointError
+            naming B1; phase 6's checkpoint renders one --fused_composite
+            frame (B3 + B5 coarse, B4 fine) with the checks on: nothing
+            raised, a finite frame. (b) The committed JPEG fixtures
+            (tests/data/jpeg/, written by Pillow) decode to Pillow's
+            arrays bit for bit; the 640x480 4:2:0 fixture's decode rate
+            (MPix/s, host). (c) An NCCL process group of one rank made in
+            this process (a file:// store in a temporary directory):
+            five lego steps and five occ steps through the data-parallel
+            steps against the unsharded steps from the same state and
+            draws, post-Adam parameters bit for bit, B1 + B2 launched;
+            each step's ms with and without the all-reduce. One "phase
+            16" line with the card's name and power limit.
 
 ``--parent-tree`` (with ``--phases``) marks the parent side of an A/B:
 phase 1 logs a tensor-core kernel that tree predates instead of failing.
@@ -283,8 +300,8 @@ hashgrid and a triplane frame, five fern training steps and a fern
 frame, and one dispatch window of the occ trainer (50 occ steps and a
 refresh) under torch.profiler (device time by
 kernel, device busy share, P1's and P2's shares). ``--phases 2,3,4,7``
-runs the build and the listed phases alone (phases 7, 11, 12, 13, 14 and
-15 run phase 6 for its checkpoint and scene, 14 phase 10 too; 3 and 4 run
+runs the build and the listed phases alone (phases 7, 11, 12, 13, 14, 15
+and 16 run phase 6 for its checkpoint and scene, 14 phase 10 too; 3 and 4 run
 together; no result lines; for iterating on a
 phase and for nerf_shared_tpu_torch/benchmarks/ab_smoke.sh). Before the last
 line it prints the whole script's time, the kernels JSON line and the card's
@@ -1077,7 +1094,7 @@ def phase_train_kernels(device):
     return cases, {recipe: check_train_step(device, recipe) for recipe in ("lego", "fern")}
 
 
-def train_step_setup(device, fused, recipe="lego", precision="fp32"):
+def train_step_setup(device, fused, recipe="lego", precision="fp32", world=None):
     """A training step of ``recipe`` on a seeded state: (state, step_fn,
     images, poses, overrides). "lego": two 400x400 seeded images, 64 + 128
     samples per ray, N_rand 1024 inside the precrop window of the
@@ -1090,7 +1107,8 @@ def train_step_setup(device, fused, recipe="lego", precision="fp32"):
     mid-ramp of BARF over [0, 1200], its pixels pinned to image 1 (image 0
     is the anchor) through ``draws``, the sixth item (None otherwise).
     ``precision`` is the render config's ("bf16": the bf16 kernels, or
-    apply_nerf in bf16 on the plain path)."""
+    apply_nerf in bf16 on the plain path); ``world`` makes the step
+    data-parallel (phase 16)."""
     import numpy as np
     import torch
 
@@ -1134,7 +1152,8 @@ def train_step_setup(device, fused, recipe="lego", precision="fp32"):
     overrides = {k: v.to(device) for k, v in overrides.items()}
     if recipe != "refine":
         state = create_train_state(cfg, cfg, device, seed=3, lrate=5e-4, lrate_decay=500)
-        return state, make_train_step(rcfg, cfg, cfg, spec), images, poses, overrides, None
+        return (state, make_train_step(rcfg, cfg, cfg, spec, world=world), images, poses,
+                overrides, None)
     state = create_train_state(cfg, cfg, device, seed=3, lrate=5e-4, lrate_decay=500,
                                n_refine_poses=2, n_appearance=2)
     state.step = 600
@@ -4843,6 +4862,246 @@ def phase_bf16(device, trained, smi, steps=600, more=200):
                                                  "bf16_training": launches}}
 
 
+# ---- phase 16: --debug_nans, the JPEG decoder, data-parallel at world size 1 ----
+
+JPEG_FIXTURES = os.path.join(REPO, "tests", "data", "jpeg")
+JPEG_RATE_FIXTURE = "s420_rate"
+
+
+def timed_steps(step_once, n):
+    """Run ``step_once(i)`` for i < n; each step's ms (CUDA events)."""
+    import torch
+
+    ms = []
+    for i in range(n):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        step_once(i)
+        end.record()
+        torch.cuda.synchronize()
+        ms.append(start.elapsed_time(end))
+    return ms
+
+
+def check_debug_nans(device, trained, steps=5):
+    """Phase 16 (a): ``steps`` lego steps (train_step_setup: 1024 rays, 64 +
+    128 samples, B1 + B2 twice a step) with the NaN checks off and on from
+    the same state and draws: the parameters bit-equal, each run's median
+    step ms (the first step, a warm-up, left out). A NaN put into B1's
+    points raises FloatingPointError naming B1 (the phase fails if it does
+    not). Phase 6's checkpoint served one --fused_composite frame (B4 + B5)
+    with the checks on: nothing raised, a finite frame."""
+    import numpy as np
+    import torch
+
+    from nerf_shared_tpu_torch.apps.serve import serve_parser
+    from nerf_shared_tpu_torch.apps.train import build_eval_engine
+    from nerf_shared_tpu_torch.ops.cuda import fused_mlp
+    from nerf_shared_tpu_torch.utils.debug import enable_nan_checks
+
+    runs, launches = {}, {}
+    for on in (False, True):
+        state, step, images, poses, ov, _ = train_step_setup(device, True)
+        enable_nan_checks(on)
+        try:
+            zero_counts()
+            ms = timed_steps(lambda i: step(state, images, poses,
+                                            torch.Generator().manual_seed(i), overrides=ov),
+                             steps)
+            launches[on] = launch_counts()
+        finally:
+            enable_nan_checks(False)
+        runs[on] = dict(params=[p.detach().clone() for p in state.parameters()],
+                        ms=statistics.median(ms[1:]))
+        expect_launches(f"debug_nans {on} steps", launches[on],
+                        {"fused_mlp_points": 2 * steps, "fused_mlp_bwd": 2 * steps})
+    equal = all(torch.equal(a, b) for a, b in zip(runs[False]["params"], runs[True]["params"]))
+    cfg, params = state.fine.cfg, {k: v.detach() for k, v in state.fine.params().items()}
+    pts, vd, _ = lego_points(1024, 64, 31, device)
+    pts[5, 7, 1] = float("nan")
+    enable_nan_checks(True)
+    try:
+        try:
+            fused_mlp.launch_points(params, cfg, pts, vd)
+            nan_msg = None
+        except FloatingPointError as e:
+            nan_msg = str(e)
+        argv = trained["base_argv"] + ["--fused_composite", "True", "--port", "0"]
+        eng = build_eval_engine(serve_parser().parse_args(argv))
+        pose = eng.ds.poses[int(eng.ds.i_test[0])][:3, :4]
+        zero_counts()
+        t0 = time.perf_counter()
+        frame = eng.render_poses(pose[None])[0]
+        frame_ms = 1e3 * (time.perf_counter() - t0)
+        frame_launches = launch_counts()
+    finally:
+        enable_nan_checks(False)
+    per = math.ceil(eng.H * eng.W / eng.args.chunk)
+    expect_launches("debug_nans --fused_composite frame", frame_launches,
+                    {"fused_mlp": per, "fused_render": per, "composite": per})
+    log(f"phase 16 (a) --debug_nans: {steps} lego steps bit-equal with the checks on and "
+        f"off: {equal}; step {runs[True]['ms']:.2f} ms on, {runs[False]['ms']:.2f} ms off "
+        f"(median of steps 2-{steps}); a NaN in B1's points: {nan_msg!r}; the "
+        f"--fused_composite frame with the checks on: {frame_ms:.1f} ms, finite "
+        f"{bool(np.isfinite(frame).all())}, launches {frame_launches}")
+    if not (equal and nan_msg and "kernel B1 (launch_points)" in nan_msg
+            and np.isfinite(frame).all()):
+        raise AssertionError("phase 16 (a): --debug_nans changed a clean step, missed the "
+                             "NaN in B1's points or broke the frame")
+    return {"step_ms_on": runs[True]["ms"], "step_ms_off": runs[False]["ms"],
+            "frame_ms_on": frame_ms, "launches_by_path": {
+                "debug_nans_steps": launches[True], "debug_nans_frame": frame_launches}}
+
+
+def check_jpeg_fixtures(reps=5):
+    """Phase 16 (b): every committed JPEG fixture (tests/data/jpeg/, written
+    by Pillow) decodes to Pillow's array in fixtures.npz bit for bit (the
+    480x640 rate fixture to its shape and SHA-256); the decode rate of the
+    rate fixture on this machine's host, median of ``reps``."""
+    import hashlib
+
+    import numpy as np
+
+    from nerf_shared_tpu_torch.data.jpeg import jpeg_decode
+
+    with np.load(os.path.join(JPEG_FIXTURES, "fixtures.npz")) as z:
+        want = {k: z[k] for k in z.files}
+    names = sorted({k.split(".")[0] for k in want})
+    bad = []
+    for name in names:
+        with open(os.path.join(JPEG_FIXTURES, name + ".jpg"), "rb") as f:
+            got = jpeg_decode(f.read())
+        if name in want:
+            ok = got.shape == want[name].shape and np.array_equal(got, want[name])
+        else:
+            digest = hashlib.sha256(np.ascontiguousarray(got).tobytes()).digest()
+            ok = (tuple(got.shape) == tuple(want[name + ".shape"])
+                  and digest == want[name + ".sha256"].tobytes())
+        if not ok:
+            bad.append(name)
+    with open(os.path.join(JPEG_FIXTURES, JPEG_RATE_FIXTURE + ".jpg"), "rb") as f:
+        data = f.read()
+    ts = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        img = jpeg_decode(data)
+        ts.append(time.perf_counter() - t0)
+    s = statistics.median(ts)
+    rate = img.shape[0] * img.shape[1] / s / 1e6
+    log(f"phase 16 (b) JPEG: {len(names) - len(bad)} of {len(names)} fixtures decode to "
+        f"Pillow's arrays bit for bit; {JPEG_RATE_FIXTURE} ({img.shape[1]}x{img.shape[0]} "
+        f"4:2:0, {len(data)} bytes) {1e3 * s:.1f} ms [{1e3 * min(ts):.1f}-"
+        f"{1e3 * max(ts):.1f}] = {rate:.3f} MPix/s on the host (12 MP at that rate: "
+        f"{12 / rate:.1f} s)")
+    if bad:
+        raise AssertionError(f"phase 16 (b): fixtures off Pillow's decode: {bad}")
+    return {"fixtures": len(names), "decode_ms": 1e3 * s, "mpix_per_s": rate}
+
+
+def occ_lego_step(device, world):
+    """An occ-gated step (C 64, K 32, explore 0.02) at the lego width on
+    train_step_setup's scene and seeded state, its grid all occupied over
+    [-2, 2]^3: (state, step(i), images, poses)."""
+    import torch
+
+    from nerf_shared_tpu_torch.models.nerf import NeRFConfig
+    from nerf_shared_tpu_torch.render.renderer import RenderConfig
+    from nerf_shared_tpu_torch.train import occ_train
+    from nerf_shared_tpu_torch.train.pipeline import PixelSamplerSpec
+
+    state, _, images, poses, _, _ = train_step_setup(device, True)
+    cfg = NeRFConfig(D=8, W=256, skips=(4,), use_viewdirs=True, multires=10,
+                     multires_views=4, output_ch=5)
+    H = W = 400
+    focal = 0.5 * H / math.tan(0.5 * 0.6911112)
+    spec = PixelSamplerSpec.from_K(H, W, [[focal, 0, W / 2], [0, focal, H / 2], [0, 0, 1]],
+                                   1024, single_image=True, precrop_iters=500,
+                                   precrop_frac=0.5)
+    rcfg = RenderConfig(perturb=1.0, N_importance=128, N_samples=64, use_viewdirs=True,
+                        white_bkgd=True, near=2.0, far=6.0, fused_backward=True)
+    grid = occ_train.init_density_grid([-2.0] * 3, [2.0] * 3, 64, device)
+    occ = occ_train.binarize_density_grid(grid, force_occupied=True)
+    fn = occ_train.make_occ_train_step(rcfg, cfg, spec, n_candidates=64, n_keep=32,
+                                       world=world)
+    return state, lambda i: fn(state, occ, images, poses, torch.Generator().manual_seed(i))
+
+
+def check_world_of_one(device, steps=5):
+    """Phase 16 (c): an NCCL process group of one rank made in this
+    process (a file:// store in a temporary directory, no network), and
+    ``steps`` lego steps through the data-parallel step (its gradient
+    all-reduce and aux mean run) against ``steps`` through the unsharded
+    step from the same state and draws: post-Adam parameters bit for bit,
+    B1 + B2 launched twice a step in both; the same for the occ step (one
+    B1 + one B2 a step). Median step ms (steps 2-``steps``) with and
+    without the all-reduce."""
+    import tempfile
+
+    import torch
+
+    from nerf_shared_tpu_torch.parallel import distributed
+
+    store = tempfile.mkdtemp(dir=WORK)
+    world = distributed.initialize(device, init_method=f"file://{store}/store")
+    out, launches = {}, {}
+    try:
+        backend = "nccl" if torch.device(device).type == "cuda" else "gloo"
+        if not (world.launched and world.size == 1
+                and torch.distributed.get_backend() == backend):
+            raise AssertionError(f"phase 16 (c): not a {backend} world of one: {world}")
+        for what in ("lego", "occ"):
+            res = {}
+            for w in (None, world):
+                if what == "lego":
+                    state, step, images, poses, ov, _ = train_step_setup(device, True,
+                                                                         world=w)
+
+                    def once(i):
+                        step(state, images, poses, torch.Generator().manual_seed(i),
+                             overrides=ov)
+                else:
+                    state, once = occ_lego_step(device, w)
+                zero_counts()
+                ms = timed_steps(once, steps)
+                counts = launch_counts()
+                res[w is not None] = (
+                    [p.detach().clone() for p in state.parameters()],
+                    statistics.median(ms[1:]), counts)
+            per = 2 if what == "lego" else 1
+            for sharded in (False, True):
+                expect_launches(f"{what} steps (world {sharded})", res[sharded][2],
+                                {"fused_mlp_points": per * steps, "fused_mlp_bwd": per * steps})
+            equal = all(torch.equal(a, b) for a, b in zip(res[False][0], res[True][0]))
+            out[what] = {"equal": equal, "ms_dp": res[True][1], "ms_plain": res[False][1]}
+            launches[f"dp_{what}_steps"] = res[True][2]
+            log(f"phase 16 (c) world of one ({torch.distributed.get_backend()}), {steps} "
+                f"{what} steps: post-Adam parameters bit-equal to the unsharded step's: "
+                f"{equal}; step {res[True][1]:.2f} ms with the all-reduce, "
+                f"{res[False][1]:.2f} ms without (median of steps 2-{steps})")
+    finally:
+        distributed.shutdown(world)
+    if not all(o["equal"] for o in out.values()):
+        raise AssertionError("phase 16 (c): the world-of-one step differs from the "
+                             "unsharded step")
+    return {**out, "launches_by_path": launches}
+
+
+def phase_debug_jpeg_parallel(device, trained, smi):
+    """Phase 16: (a) --debug_nans, (b) the JPEG fixtures and the decode
+    rate, (c) the data-parallel steps at world size 1. One "phase 16" line."""
+    t0 = time.perf_counter()
+    a = check_debug_nans(device, trained)
+    b = check_jpeg_fixtures()
+    c = check_world_of_one(device)
+    summary = {"debug_nans": {k: v for k, v in a.items() if k != "launches_by_path"},
+               "jpeg": b, "world_of_one": {k: v for k, v in c.items()
+                                           if k != "launches_by_path"},
+               "s": time.perf_counter() - t0, "card": smi}
+    log("phase 16: " + json.dumps(summary))
+    return {**summary, "launches_by_path": {**a["launches_by_path"],
+                                            **c["launches_by_path"]}}
+
+
 def _profile(what, fn, top_n=8):
     """fn() under torch.profiler: device time by kernel (the ``top_n``
     largest) and the device's busy share of the wall time."""
@@ -5007,7 +5266,7 @@ def main() -> int:
         train_cases, step = phase_train_kernels(device)
         cases += train_cases
         log(f"phase 5: training kernels in {time.perf_counter() - t0:.1f} s")
-    if want(6, 7, 11, 12, 13, 14, 15):
+    if want(6, 7, 11, 12, 13, 14, 15, 16):
         t0 = time.perf_counter()
         trained = phase_training(device)
         log(f"phase 6: training in {time.perf_counter() - t0:.1f} s")
@@ -5051,6 +5310,11 @@ def main() -> int:
         bf16 = phase_bf16(device, trained, smi)
         cases += bf16["cases"]
         log(f"phase 15: --precision bf16 in {time.perf_counter() - t0:.1f} s")
+    if want(16):
+        t0 = time.perf_counter()
+        p16 = phase_debug_jpeg_parallel(device, trained, smi)
+        log(f"phase 16: --debug_nans, JPEG and data parallel in "
+            f"{time.perf_counter() - t0:.1f} s")
     if profile:
         if want(3, 4):
             profile_frame(served["engine"], served["pose"])
@@ -5083,6 +5347,7 @@ def main() -> int:
     by_path.update(occ["launches_by_path"])
     by_path.update(mesh["launches_by_path"])
     by_path.update(bf16["launches_by_path"])
+    by_path.update(p16["launches_by_path"])
 
     sources = {
         "fused_mlp_points": ("nerf_shared_tpu_torch/csrc/fused_mlp.cu",
@@ -5143,6 +5408,7 @@ def main() -> int:
                     "occ": {k: v for k, v in occ.items() if k != "launches_by_path"},
                     "mesh": {k: v for k, v in mesh.items() if k != "launches_by_path"},
                     "bf16_launches": bf16["launches_by_path"],
+                    "phase16": {k: v for k, v in p16.items() if k != "launches_by_path"},
                     "probe": probe}))
     log(f"all phases in {time.perf_counter() - t_script:.1f} s")
     print(json.dumps({"kernels": kernels}))

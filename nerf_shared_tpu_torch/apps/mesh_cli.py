@@ -14,7 +14,7 @@ B1, P1 for the grid families) and isosurfaces on the host (ops/meshing.py;
 the cell scan it ran is logged). NDC scenes mesh in NDC coordinates unless
 ``--mesh_world`` inverts the warp (winding flipped, gradient normals
 transformed covariantly). ``--mesh_shape`` (a sharded probe) raises
-(ROADMAP A16).
+(ROADMAP A16b).
 """
 
 from __future__ import annotations

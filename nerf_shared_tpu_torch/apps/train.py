@@ -78,22 +78,26 @@ from nerf_shared_tpu_torch.factory import (
     nerf_configs,
 )
 from nerf_shared_tpu_torch.models.triplane import TriplaneConfig, upsample_triplane
+from nerf_shared_tpu_torch.parallel import distributed
+from nerf_shared_tpu_torch.parallel.distributed import World
+from nerf_shared_tpu_torch.parallel.mesh import make_mesh
 from nerf_shared_tpu_torch.train import occ_train
 from nerf_shared_tpu_torch.train.loss_sampling import LossSamplingSpec, init_loss_map
 from nerf_shared_tpu_torch.train.pipeline import PixelSamplerSpec
 from nerf_shared_tpu_torch.train.state import fresh_state_at, make_model, sync_coarse_from_fine
 from nerf_shared_tpu_torch.train.step import make_train_step
 from nerf_shared_tpu_torch.utils import checkpoints as ckpt_utils
+from nerf_shared_tpu_torch.utils.debug import enable_nan_checks
 from nerf_shared_tpu_torch.utils.logging import copy_log_dir, make_tb_writer, print_statistics
 from nerf_shared_tpu_torch.utils.metrics import ssim, to8b
 
-# flags whose paths the port does not carry yet: each raises instead of
-# being ignored (name -> (is-set test, what it would need))
+# flags whose paths the render and export entry points (the eval engine,
+# the pose and mesh CLIs) do not carry yet: each raises instead of being
+# ignored (name -> (is-set test, what it would need)). The trainer takes
+# --mesh_shape (data parallel, parallel/mesh.py)
 _NOT_PORTED = {
-    "mesh_shape": (lambda v: bool(v), "multi-GPU renders and training (ROADMAP A16)"),
-    "multihost": (bool, "multi-host training over torch.distributed (ROADMAP A16)"),
-    "debug_nans": (bool, "NaN checks at the source: torch.autograd anomaly "
-                   "mode and a finite check after every kernel (ROADMAP C2)"),
+    "mesh_shape": (lambda v: bool(v) and int(np.prod(v)) > 1,
+                   "sharded renders and export over several cards (ROADMAP A16b)"),
 }
 
 
@@ -120,6 +124,7 @@ def pin_fp32():
 
 
 def check_ported(args):
+    """Raise on a flag the render and export entry points do not carry."""
     for flag, (is_set, what) in _NOT_PORTED.items():
         value = getattr(args, flag, None)
         if value is not None and is_set(value):
@@ -353,7 +358,7 @@ class OccTraining:
     which breaks the zero-gradient transparency trap of a fine-only start),
     and the binary grid of the current dispatch window."""
 
-    def __init__(self, args, rcfg, fcfg, spec, aabb, device):
+    def __init__(self, args, rcfg, fcfg, spec, aabb, device, world=None):
         self.rcfg, self.fcfg = rcfg, fcfg
         self.warmup = int(args.train_occ_warmup)
         self.decay = float(args.train_occ_decay)
@@ -361,7 +366,7 @@ class OccTraining:
         self.budget = bool(args.train_occ_budget)
         self.max_probes = int(args.train_occ_probe_budget) or None
         kw = dict(n_candidates=args.train_occ_candidates, n_keep=args.train_occ_keep,
-                  explore=args.train_occ_explore, tv_reg=args.tv_loss_weight)
+                  explore=args.train_occ_explore, tv_reg=args.tv_loss_weight, world=world)
         self.step_fn = occ_train.make_occ_train_step(rcfg, fcfg, spec, **kw)
         warm_noise = max(float(rcfg.raw_noise_std), float(args.train_occ_warmup_noise))
         self.warm_fn = (occ_train.make_occ_train_step(
@@ -423,23 +428,66 @@ def collapse_warning(last: int, psnr: float, args, already_warned: bool):
             "--precrop_iters, or a different --jax_seed.")
 
 
+def join_world(args, device: torch.device) -> World:
+    """The run's data-parallel world: with --multihost, under a launcher
+    (torchrun's RANK / WORLD_SIZE) or in a process group the caller made,
+    ``parallel.distributed.initialize``; else one process. Then
+    --mesh_shape is checked against it (``parallel.mesh.make_mesh``)."""
+    if (bool(getattr(args, "multihost", False)) or distributed.launched_by_env()
+            or (torch.distributed.is_available() and torch.distributed.is_initialized())):
+        world = distributed.initialize(str(device))
+    else:
+        world = World(0, 1, str(device), False)
+    return make_mesh(getattr(args, "mesh_shape", None), world)
+
+
 def train(args):
     """The hierarchical trainer (reference main.py:55-143): seeded state
     or the newest checkpoint, then one step per iteration with the print,
     checkpoint, test-set, validation-image and render-path hooks, and a
-    final checkpoint. Returns the TrainState."""
+    final checkpoint. Returns the TrainState.
+
+    --debug_nans turns on the NaN checks (utils/debug.py) for the run and
+    off again when it returns. Data parallel (``join_world``): every rank
+    loads the dataset and takes rank 0's state after init or resume; each
+    step draws ceil(N_rand / n) rays a rank and mean-reduces the gradients
+    (train/step.py); rank 0 alone logs, writes checkpoints and TensorBoard
+    and runs the render hooks (unsharded), while the others wait at a
+    barrier."""
     check_trainer_flags(args)
-    check_ported(args)
     check_barf(args)
     device = resolve_device(args.device)
     pin_fp32()
+    debug_nans = bool(getattr(args, "debug_nans", False))
+    if debug_nans:
+        enable_nan_checks(True)
+    owns_group = not (torch.distributed.is_available()
+                      and torch.distributed.is_initialized())
+    world = None
+    try:
+        world = join_world(args, device)
+        return _train(args, torch.device(world.device) if world.launched else device, world)
+    finally:
+        if debug_nans:
+            enable_nan_checks(False)
+        if world is not None and owns_group:
+            distributed.shutdown(world)
+
+
+def _train(args, device: torch.device, world: World):
+    main = world.is_main
+    # the step's collectives run whenever a process group exists (one rank
+    # too); a plain run steps unsharded
+    step_world = world if world.launched else None
     ds = load_datasets(args)
     H, W, _ = ds.hwf
     for msg in recipe_warnings(args, n_train_views=len(ds.i_train), render_h=H):
-        warnings.warn(msg, UserWarning, stacklevel=2)
+        warnings.warn(msg, UserWarning, stacklevel=3)
         print(f"[RECIPE WARNING] {msg}")
-    copy_log_dir(args)
-    tb_writer = make_tb_writer(args)
+    tb_writer = None
+    if main:
+        copy_log_dir(args)
+        tb_writer = make_tb_writer(args)
     _resolve_triplane_aabb(args, ds, H, W)
     ccfg, fcfg = _sync_triplane_res(args, *nerf_configs(args))
     if int(getattr(args, "barf_anneal", 0)) > 0:
@@ -475,6 +523,10 @@ def train(args):
     if ls_spec is not None:
         # not checkpointed: a resume starts the map uniform
         state.loss_map = init_loss_map(len(ds.i_train), H, W, ls_spec.tile, device)
+    distributed.broadcast_state(state, world)
+    if world.size > 1:
+        print(f"data parallel: rank {world.rank} of {world.size}, "
+              f"{-(-args.N_rand // world.size)} rays a rank a step")
     renderer = get_renderer(args, ds.bds_dict, device)
     spec = PixelSamplerSpec.from_K(
         H, W, ds.K, args.N_rand, single_image=args.no_batching,
@@ -508,7 +560,7 @@ def train(args):
             raise SystemExit("--train_occ requires N_importance > 0 "
                              "(the fine network is the trained one)")
         occ_run = OccTraining(args, rcfg, fcfg, spec, _occ_aabb(renderer, ds, H, W, ds.K),
-                              device)
+                              device, step_world)
         print(f"occupancy-gated training: fine-only, C={args.train_occ_candidates} "
               f"K={args.train_occ_keep}, grid {args.train_occ_res}^3 (refreshed per "
               f"dispatch of {inner} steps)")
@@ -530,7 +582,7 @@ def train(args):
                   barf_start=int(getattr(args, "barf_anneal_start", 0)),
                   prop_reg=args.proposal_loss_weight,
                   dist_reg=args.distortion_loss_weight, loss_sampling=ls_spec,
-                  ema_decay=ema_decay)
+                  ema_decay=ema_decay, world=step_world)
         warm = None
         # the occ trainer has its own warm-up (--train_occ_warmup)
         if args.warmup_noise > 0 and not args.train_occ:
@@ -603,9 +655,10 @@ def train(args):
                 seed_msg = "coarse/fine architectures differ — coarse trains from init"
             switched = True
             print(f"[PHASE] step {i - 1}: occ -> hierarchical; {seed_msg}")
-        # each step's draws depend on (seed, step) only, so a resumed run
-        # draws what an uninterrupted one would
-        generator.manual_seed((int(args.jax_seed) << 32) + i)
+        # each step's draws depend on (seed, step, rank) only, so a resumed
+        # run draws what an uninterrupted one would
+        generator.manual_seed(distributed.rank_seed((int(args.jax_seed) << 32) + i,
+                                                    world.rank))
         if occ_run is not None and not switched:
             if window:
                 occ_run.start_window(state.step)
@@ -617,6 +670,11 @@ def train(args):
             aux = fn(state, images_tr, poses_tr, generator)
         rays_done += args.N_rand
         hooked = False
+        if not main:
+            # rank 0 logs, saves and renders; the others wait for it
+            if _hook_step(args, i, len(ds.i_val)):
+                distributed.barrier(world)
+            continue
 
         if args.i_print > 0 and i % args.i_print == 0:
             # the fetch waits for the queued steps: read the clock after it
@@ -679,10 +737,22 @@ def train(args):
             # rays/sec counts training only: restart its window after the
             # renders (they end in a device -> host copy)
             t0, rays_done = time.perf_counter(), 0
+        if _hook_step(args, i, len(ds.i_val)):
+            distributed.barrier(world)
 
-    ckpt_utils.save_checkpoints(args.basedir, args.expname, state, N_iters - 1,
-                                fmt=args.ckpt_format)
+    if main:
+        ckpt_utils.save_checkpoints(args.basedir, args.expname, state, N_iters - 1,
+                                    fmt=args.ckpt_format)
+    distributed.barrier(world)
     return state
+
+
+def _hook_step(args, i: int, n_val: int) -> bool:
+    """Whether step ``i`` logs, saves or renders (rank 0's work that the
+    other ranks wait for)."""
+    return any(c > 0 and i % c == 0 for c in (args.i_print, args.i_weights,
+                                              args.i_testset, args.i_video)) or (
+        args.i_img > 0 and i % args.i_img == 0 and n_val > 0)
 
 
 class EvalEngine:

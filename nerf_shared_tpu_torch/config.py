@@ -285,8 +285,10 @@ def config_parser() -> ConfigArgumentParser:
 
     # ---- TPU-native flags (new in this framework) ----
     parser.add_argument("--mesh_shape", type=int, nargs='+', default=None,
-                        help='device mesh shape for data parallelism, e.g. '
-                             '"--mesh_shape 8". Default: all local devices on '
+                        help='data-parallel mesh of the trainer, e.g. '
+                             '"--mesh_shape 8" under torchrun --nproc_per_node '
+                             '8: the data axis must equal WORLD_SIZE, a second '
+                             'axis > 1 raises. Default: the launched world on '
                              'one "data" axis.')
     parser.add_argument("--precision", type=str, default='fp32',
                         choices=['fp32', 'bf16'],
@@ -646,15 +648,17 @@ def config_parser() -> ConfigArgumentParser:
                              'family\'s backward kernel B2 rematerialises '
                              'its forward itself')
     parser.add_argument("--debug_nans", type=_str2bool, default=False,
-                        help='raise at the source of the first NaN (the '
-                             'JAX package\'s NaN checks); not ported to '
-                             'the PyTorch package: True raises')
+                        help='raise at the source of the first NaN: '
+                             'autograd anomaly mode and a finite check on '
+                             'every kernel\'s outputs (one host sync a '
+                             'launch)')
     parser.add_argument("--ckpt_format", type=str, default='both',
                         choices=['native', 'tar', 'both'],
                         help='checkpoint format: native .npz, reference-'
                              'compatible .tar, or both')
     parser.add_argument("--multihost", type=_str2bool, default=False,
-                        help='join a multi-host cluster and train over '
-                             "all hosts' devices; not ported to the PyTorch "
-                             'package yet (ROADMAP A16): True raises')
+                        help='join the torch.distributed world of the '
+                             'launcher (torchrun\'s RANK / WORLD_SIZE / '
+                             'MASTER_ADDR) and train data-parallel over its '
+                             'ranks; without a launcher: single-process')
     return parser

@@ -6,10 +6,11 @@ no imaging package (imageio, PIL, cv2) is installed, so it carries its own
 
 - read: grey, grey+alpha, RGB and RGBA at bit depth 8, non-interlaced, with
   all five scanline filters (None, Sub, Up, Average, Paeth);
-- write: the same colour types with filter 0 on every row.
+- write: the same colour types with filter 0 on every row;
 
-It reads no JPEG: ``minify_images`` and the LLFF loader raise on JPEG
-sources (``require_png``). ``gif_encode`` writes render-path videos as
+and reads baseline JPEG through its own decoder (data/jpeg.py), bit-equal
+to Pillow's libjpeg read. ``imread_float`` picks the codec by the file's
+signature, not its name. ``gif_encode`` writes render-path videos as
 GIF89a (the JAX package writes mp4 through imageio's ffmpeg backend and
 falls back to GIF). ``resize_area`` is the exact area average of the JAX
 package's native resizer (``native/imageops.cpp``) at any factor, in numpy.
@@ -22,6 +23,8 @@ import struct
 import zlib
 
 import numpy as np
+
+from nerf_shared_tpu_torch.data.jpeg import is_jpeg, jpeg_decode
 
 _SIGNATURE = b"\x89PNG\r\n\x1a\n"
 # PNG colour type -> channels (palette images, type 3, are not read)
@@ -121,9 +124,11 @@ def png_encode(img_u8: np.ndarray, level: int = 6) -> bytes:
 
 
 def imread_float(path: str) -> np.ndarray:
-    """Read a PNG as float32 in [0, 1], keeping the alpha channel."""
+    """Read a PNG or a baseline JPEG (by its signature) as float32 in
+    [0, 1], keeping the alpha channel."""
     with open(path, "rb") as f:
-        img = png_decode(f.read())
+        data = f.read()
+    img = jpeg_decode(data) if is_jpeg(data) else png_decode(data)
     return (img / 255.0).astype(np.float32)
 
 
@@ -168,29 +173,17 @@ def image_files(imgdir: str):
     return sorted(f for f in os.listdir(imgdir) if f.lower().endswith(IMAGE_EXTS))
 
 
-def require_png(files, where: str) -> None:
-    """Raise if any of ``files`` is a JPEG: the port's codec reads PNG only."""
-    jpegs = [f for f in files if not f.lower().endswith(".png")]
-    if jpegs:
-        raise NotImplementedError(
-            f"{where} holds {len(jpegs)} JPEG file(s) (e.g. {jpegs[0]}): the port "
-            "reads PNG only; a JPEG decoder is not ported to nerf_shared_tpu_torch "
-            "yet (ROADMAP A10). Convert the images to PNG, or use a dataset that "
-            "ships PNG images_N/ directories")
-
-
 def minify_images(basedir: str, factor: int) -> str:
     """Create (once) and return the images_{factor}/ cache directory with all
     of images/ area-downsampled by ``factor`` (``resize_area``) as 8-bit PNG,
     truncated as ``(clip(x, 0, 1) * 255).astype(uint8)``; an existing
     directory is returned untouched. The directory appears whole or not at
-    all. JPEG sources raise (``require_png``)."""
+    all. Sources may be PNG or JPEG."""
     srcdir = os.path.join(basedir, "images")
     outdir = os.path.join(basedir, f"images_{factor}")
     if os.path.exists(outdir):
         return outdir
     files = image_files(srcdir)
-    require_png(files, srcdir)
     tmpdir = outdir + ".partial"
     os.makedirs(tmpdir, exist_ok=True)
     for f in files:

@@ -6,7 +6,7 @@ bounds), the factor-downsampled images_{factor}/ cache (``minify_images``),
 the [down, right, back] -> [right, up, back] axis swap, the
 1/(bds.min*bd_factor) scene rescale, average-pose recentering, the
 spherified or spiral render path (``path_zflat`` too), and the
-closest-to-mean holdout view. The port reads PNG only: JPEG images raise.
+closest-to-mean holdout view. Images may be PNG or baseline JPEG.
 """
 
 from __future__ import annotations
@@ -19,7 +19,6 @@ from nerf_shared_tpu_torch.data.images import (
     image_files,
     imread_float,
     minify_images,
-    require_png,
 )
 from nerf_shared_tpu_torch.data.poses import (
     average_pose,
@@ -46,7 +45,6 @@ def _load_poses_and_images(basedir: str, factor: int | None):
     if poses.shape[-1] != len(names):
         raise ValueError(
             f"{len(names)} images but {poses.shape[-1]} poses in {basedir}")
-    require_png(names, imgdir)
 
     imgs = np.stack([imread_float(os.path.join(imgdir, f))[..., :3] for f in names], 0)
     sh = imgs[0].shape

@@ -109,6 +109,32 @@ def check_launch(rc: int, what: str):
         raise RuntimeError(f"{what}: CUDA error {rc} at launch")
 
 
+# --debug_nans (utils/debug.enable_nan_checks): every kernel wrapper checks
+# its inputs before the launch and its outputs after it (or around the
+# plain version on a CPU tensor). Inputs too: a kernel's ReLU (fmaxf) turns
+# a NaN into 0, so a NaN point or weight may leave no trace in its outputs
+NAN_CHECKS = False
+
+
+def check_finite(label: str, wrapper: str, what: str, **tensors):
+    """With NAN_CHECKS on, raise FloatingPointError naming the kernel
+    ``label`` (``B1``, ``B2 bf16``, ...), the ``wrapper``, the first of
+    ``tensors`` (its ``what``: "input" or "output") holding a non-finite
+    value, and its count; one host sync for all of them. Off, it returns
+    at once: no sync and no launch."""
+    if not NAN_CHECKS:
+        return
+    named = [(k, t) for k, t in tensors.items() if t is not None and t.numel()]
+    if not named:
+        return
+    counts = torch.stack([(~torch.isfinite(t)).sum() for _, t in named]).tolist()
+    for (name, t), n_bad in zip(named, counts):
+        if n_bad:
+            raise FloatingPointError(
+                f"[Numerical Error] kernel {label} ({wrapper}): {what} {name} "
+                f"contains {n_bad} non-finite values (shape {tuple(t.shape)})")
+
+
 def check_tensor(t: torch.Tensor, name: str, shape: Sequence, device):
     """Raise unless ``t`` is a contiguous float32 tensor of ``shape`` on
     ``device`` (a None entry in ``shape`` matches any size)."""

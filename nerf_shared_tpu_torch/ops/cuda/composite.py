@@ -64,6 +64,7 @@ def _launch(raw, z_vals, rays_d, white_bkgd, want_weights):
                 raw.shape[2], int(white_bkgd), stream)
     common.check_launch(rc, "composite (B5)")
     LAUNCHES += 1
+    common.check_finite("B5", "composite_fused", "output", out8=out8, weights=weights)
     return out8, weights
 
 
@@ -92,8 +93,12 @@ def composite_fused(raw, z_vals, rays_d, white_bkgd: bool = False,
     """(rgb, disp, acc, weights, depth) of the noise-free composite: the
     plain version for CPU tensors, kernel B5 for CUDA tensors (contiguous
     float32 raw [N, S, >=4], z_vals [N, S], rays_d [N, 3])."""
+    common.check_finite("B5", "composite_fused", "input", raw=raw, z_vals=z_vals,
+                        rays_d=rays_d)
     if raw.device.type == "cpu":
         rgb, disp, acc, w, depth = plain_composite(raw, z_vals, rays_d, white_bkgd)
+        common.check_finite("B5", "composite_fused", "output", rgb=rgb, disp=disp, acc=acc,
+                            weights=w, depth=depth)
         return rgb, disp, acc, (w if want_weights else w[:, :0]), depth
     if raw.device.type != "cuda":
         raise ValueError(f"composite_fused: no kernel for {raw.device}")

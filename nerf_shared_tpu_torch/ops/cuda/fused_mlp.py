@@ -75,6 +75,22 @@ def is_bf16(compute_dtype) -> bool:
     raise ValueError(f"the kernels compute in float32 or bfloat16, not {compute_dtype}")
 
 
+def _label(kernel: str, compute_dtype) -> str:
+    """A kernel's label in --debug_nans errors: ``B1``, ``B1 bf16``, ..."""
+    return f"{kernel} bf16" if is_bf16(compute_dtype) else kernel
+
+
+def check_in(kernel: str, compute_dtype, wrapper: str, params, **tensors):
+    """--debug_nans on an MLP kernel's inputs: ``tensors`` and the
+    network's ``params`` (common.check_finite)."""
+    common.check_finite(_label(kernel, compute_dtype), wrapper, "input", **tensors, **params)
+
+
+def check_out(kernel: str, compute_dtype, wrapper: str, **tensors):
+    """--debug_nans on an MLP kernel's outputs."""
+    common.check_finite(_label(kernel, compute_dtype), wrapper, "output", **tensors)
+
+
 def bf16_round(x: torch.Tensor) -> torch.Tensor:
     """x rounded to bf16 (to nearest, ties to even) and back to fp32."""
     return x.to(torch.bfloat16).float()
@@ -618,6 +634,8 @@ def _launch(params, cfg, rays_o, rays_d, z, viewdirs,
     out = torch.empty((n, S, C), dtype=torch.float32, device=z.device)
     if n * S == 0:
         return out
+    check_in("B3", compute_dtype, "fused_nerf_forward_rays", params, rays_o=rays_o,
+             rays_d=rays_d, z=z, viewdirs=viewdirs)
     bf16 = is_bf16(compute_dtype)
     fn = common.load("fused_mlp", _ARGS,
                      "nstt_rays_forward_bf16" if bf16 else "nstt_rays_forward_tc")
@@ -632,7 +650,17 @@ def _launch(params, cfg, rays_o, rays_d, z, viewdirs,
         LAUNCHES_BF16 += 1
     else:
         LAUNCHES += 1
+    check_out("B3", compute_dtype, "fused_nerf_forward_rays", raw=out)
     return out
+
+
+def _plain_rays(params, cfg, rays_o, rays_d, z, viewdirs, compute_dtype):
+    """B3's plain version between its --debug_nans checks (a CPU tensor)."""
+    check_in("B3", compute_dtype, "fused_nerf_forward_rays", params, rays_o=rays_o,
+             rays_d=rays_d, z=z, viewdirs=viewdirs)
+    raw = plain_nerf_forward_rays(params, cfg, rays_o, rays_d, z, viewdirs, compute_dtype)
+    check_out("B3", compute_dtype, "fused_nerf_forward_rays", raw=raw)
+    return raw
 
 
 class _RaysFn(torch.autograd.Function):
@@ -645,7 +673,7 @@ class _RaysFn(torch.autograd.Function):
         ctx.save_for_backward(rays_o, rays_d, z, viewdirs, *weights)
         params = dict(zip(names, weights))
         if rays_o.device.type == "cpu":
-            return plain_nerf_forward_rays(params, cfg, rays_o, rays_d, z, viewdirs, dtype)
+            return _plain_rays(params, cfg, rays_o, rays_d, z, viewdirs, dtype)
         return _launch(params, cfg, rays_o, rays_d, z, viewdirs, dtype)
 
     @staticmethod
@@ -666,7 +694,7 @@ def fused_nerf_forward_rays(params, cfg: NeRFConfig, rays_o, rays_d, z,
     version for CPU tensors, kernel B3 (its bf16 instantiation under
     ``compute_dtype`` bfloat16) for CUDA tensors."""
     if rays_o.device.type == "cpu" and not is_bf16(compute_dtype):
-        return plain_nerf_forward_rays(params, cfg, rays_o, rays_d, z, viewdirs)
+        return _plain_rays(params, cfg, rays_o, rays_d, z, viewdirs, compute_dtype)
     if rays_o.device.type not in ("cpu", "cuda"):
         raise ValueError(f"fused_nerf_forward_rays: no kernel for {rays_o.device}")
     names = tuple(torch_param_order(cfg))
@@ -706,6 +734,7 @@ def launch_points(params, cfg: NeRFConfig, pts, viewdirs,
     out = torch.empty(pts.shape[:-1] + (C,), dtype=torch.float32, device=pts.device)
     if n == 0:
         return out
+    check_in("B1", compute_dtype, "launch_points", params, pts=pts, viewdirs=viewdirs)
     bf16 = is_bf16(compute_dtype)
     fn = common.load("fused_mlp", _POINT_ARGS,
                      "nstt_points_forward_bf16" if bf16 else "nstt_points_forward_tc")
@@ -721,6 +750,7 @@ def launch_points(params, cfg: NeRFConfig, pts, viewdirs,
         POINT_LAUNCHES_BF16 += 1
     else:
         POINT_LAUNCHES += 1
+    check_out("B1", compute_dtype, "launch_points", raw=out)
     return out
 
 
@@ -733,7 +763,10 @@ def fused_nerf_forward(params, cfg: NeRFConfig, pts,
     ``compute_dtype`` bfloat16) for CUDA tensors, differentiated by kernel
     B2 (``fused_mlp_bwd.fused_train_op``)."""
     if pts.device.type == "cpu" and not is_bf16(compute_dtype):
-        return apply_nerf(params, cfg, pts, viewdirs)
+        check_in("B1", compute_dtype, "fused_nerf_forward", params, pts=pts, viewdirs=viewdirs)
+        raw = apply_nerf(params, cfg, pts, viewdirs)
+        check_out("B1", compute_dtype, "fused_nerf_forward", raw=raw)
+        return raw
     if pts.device.type not in ("cpu", "cuda"):
         raise ValueError(f"fused_nerf_forward: no kernel for {pts.device}")
     from nerf_shared_tpu_torch.ops.cuda.fused_mlp_bwd import fused_train_op

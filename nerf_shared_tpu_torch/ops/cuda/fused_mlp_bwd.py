@@ -68,6 +68,8 @@ from nerf_shared_tpu_torch.ops.cuda.fused_mlp import (
     encoder_buffer,
     flat_params,
     flops_per_point,
+    check_in,
+    check_out,
     is_bf16,
     launch_points,
     out_channels,
@@ -462,6 +464,7 @@ def launch_backward(params, cfg: NeRFConfig, pts, viewdirs, g,
     if n == 0:
         return ({k: torch.zeros_like(params[k]) for k in layout}, pts.new_zeros(pts.shape),
                 None if viewdirs is None else torch.zeros_like(viewdirs))
+    check_in("B2", compute_dtype, "launch_backward", params, pts=pts, viewdirs=viewdirs, g=g)
     bf16 = is_bf16(compute_dtype)
     fn = common.load("fused_mlp_bwd", _ARGS,
                      "nstt_mlp_backward_bf16" if bf16 else "nstt_mlp_backward")
@@ -494,11 +497,24 @@ def launch_backward(params, cfg: NeRFConfig, pts, viewdirs, g,
         LAUNCHES_BF16 += 1
     else:
         LAUNCHES += 1
+    check_out("B2", compute_dtype, "launch_backward", grads=grads, dx=dx)
     dpts = dx[:, :3].reshape(pts.shape)
     ddirs = None
     if viewdirs is not None:
         ddirs = dx[:, 3:].reshape(pts.shape).sum(dim=-2)
     return unpack_grads(grads, cfg), dpts, ddirs
+
+
+def _plain_backward(params, cfg, pts, viewdirs, g, compute_dtype, wrapper):
+    """B2's plain version between its --debug_nans checks (a CPU tensor).
+    It differentiates with autograd; anomaly mode (--debug_nans) is for the
+    caller's graph, so it is off here: B2's own checks name a NaN."""
+    check_in("B2", compute_dtype, wrapper, params, pts=pts, viewdirs=viewdirs, g=g)
+    plain = plain_mlp_backward_bf16 if is_bf16(compute_dtype) else plain_mlp_backward
+    with torch.autograd.set_detect_anomaly(False):
+        grads, dpts, ddirs = plain(params, cfg, pts, viewdirs, g)
+    check_out("B2", compute_dtype, wrapper, **grads, dpts=dpts, ddirs=ddirs)
+    return grads, dpts, ddirs
 
 
 def fused_mlp_backward(params, cfg: NeRFConfig, pts, viewdirs: Optional[torch.Tensor], g,
@@ -507,8 +523,8 @@ def fused_mlp_backward(params, cfg: NeRFConfig, pts, viewdirs: Optional[torch.Te
     tensors, kernel B2 (its bf16 instantiation under ``compute_dtype``
     bfloat16) for CUDA tensors."""
     if pts.device.type == "cpu":
-        plain = plain_mlp_backward_bf16 if is_bf16(compute_dtype) else plain_mlp_backward
-        return plain(params, cfg, pts, viewdirs, g)
+        return _plain_backward(params, cfg, pts, viewdirs, g, compute_dtype,
+                               "fused_mlp_backward")
     if pts.device.type != "cuda":
         raise ValueError(f"fused_mlp_backward: no kernel for {pts.device}")
     return launch_backward(params, cfg, pts.contiguous(),
@@ -526,7 +542,10 @@ class _TrainFn(torch.autograd.Function):
         ctx.save_for_backward(pts, viewdirs, *weights)
         params = dict(zip(names, weights))
         if pts.device.type == "cpu":
-            return plain_nerf_forward(params, cfg, pts, viewdirs, dtype)
+            check_in("B1", dtype, "fused_train_op", params, pts=pts, viewdirs=viewdirs)
+            raw = plain_nerf_forward(params, cfg, pts, viewdirs, dtype)
+            check_out("B1", dtype, "fused_train_op", raw=raw)
+            return raw
         return launch_points(params, cfg, pts, viewdirs, dtype)
 
     @staticmethod
@@ -534,7 +553,8 @@ class _TrainFn(torch.autograd.Function):
         pts, viewdirs, *weights = ctx.saved_tensors
         params = dict(zip(ctx.names, weights))
         if pts.device.type == "cpu":
-            grads, dpts, ddirs = plain_mlp_backward_bf16(params, ctx.cfg, pts, viewdirs, g)
+            grads, dpts, ddirs = _plain_backward(params, ctx.cfg, pts, viewdirs, g, ctx.dtype,
+                                                 "fused_train_op")
         else:
             grads, dpts, ddirs = launch_backward(params, ctx.cfg, pts, viewdirs,
                                                  g.contiguous(), ctx.dtype)
@@ -550,7 +570,10 @@ def fused_train_op(params, cfg: NeRFConfig, pts, viewdirs: Optional[torch.Tensor
     on CPU tensors ``apply_nerf`` (forward and autograd backward) in fp32,
     the plain versions of B1 and B2 in bf16."""
     if pts.device.type == "cpu" and not is_bf16(compute_dtype):
-        return apply_nerf(params, cfg, pts, viewdirs)
+        check_in("B1", compute_dtype, "fused_train_op", params, pts=pts, viewdirs=viewdirs)
+        raw = apply_nerf(params, cfg, pts, viewdirs)
+        check_out("B1", compute_dtype, "fused_train_op", raw=raw)
+        return raw
     if pts.device.type not in ("cpu", "cuda"):
         raise ValueError(f"fused_train_op: no kernel for {pts.device}")
     names = tuple(torch_param_order(cfg))

@@ -33,6 +33,8 @@ from nerf_shared_tpu_torch.ops.compositing import raw2outputs
 from nerf_shared_tpu_torch.ops.cuda import common
 from nerf_shared_tpu_torch.ops.cuda.fused_mlp import (
     _check_rays,
+    check_in,
+    check_out,
     is_bf16,
     pack_network_tc,
     plain_nerf_forward_rays,
@@ -75,6 +77,8 @@ def _launch(params, cfg, rays_o, rays_d, z, viewdirs, white_bkgd, want_weights,
                           device=z.device)
     if n == 0 or S == 0:
         return out8, weights
+    check_in("B4", compute_dtype, "fused_render_rays", params, rays_o=rays_o, rays_d=rays_d,
+             z=z, viewdirs=viewdirs)
     bf16 = is_bf16(compute_dtype)
     fn = common.load("fused_render", _ARGS,
                      "nstt_render_rays_bf16" if bf16 else "nstt_render_rays_tc")
@@ -91,7 +95,19 @@ def _launch(params, cfg, rays_o, rays_d, z, viewdirs, white_bkgd, want_weights,
         LAUNCHES_BF16 += 1
     else:
         LAUNCHES += 1
+    check_out("B4", compute_dtype, "fused_render_rays", out8=out8, weights=weights)
     return out8, weights
+
+
+def _plain_render(params, cfg, rays_o, rays_d, z, viewdirs, white_bkgd, compute_dtype):
+    """B4's plain version between its --debug_nans checks (a CPU tensor)."""
+    check_in("B4", compute_dtype, "fused_render_rays", params, rays_o=rays_o, rays_d=rays_d,
+             z=z, viewdirs=viewdirs)
+    rgb, disp, acc, w, depth = plain_render_rays(params, cfg, rays_o, rays_d, z, viewdirs,
+                                                 white_bkgd, compute_dtype)
+    check_out("B4", compute_dtype, "fused_render_rays", rgb=rgb, disp=disp, acc=acc,
+              weights=w, depth=depth)
+    return rgb, disp, acc, w, depth
 
 
 class _RenderFn(torch.autograd.Function):
@@ -106,8 +122,8 @@ class _RenderFn(torch.autograd.Function):
         ctx.save_for_backward(rays_o, rays_d, z, viewdirs, *weights)
         params = dict(zip(names, weights))
         if rays_o.device.type == "cpu":
-            rgb, disp, acc, w, depth = plain_render_rays(
-                params, cfg, rays_o, rays_d, z, viewdirs, white_bkgd, dtype)
+            rgb, disp, acc, w, depth = _plain_render(params, cfg, rays_o, rays_d, z, viewdirs,
+                                                     white_bkgd, dtype)
             return common.pack8(rgb, disp, acc, depth), (w if want_weights else w[:, :0])
         return _launch(params, cfg, rays_o, rays_d, z, viewdirs, white_bkgd,
                        want_weights, dtype)
@@ -133,8 +149,8 @@ def fused_render_rays(params, cfg: NeRFConfig, rays_o, rays_d, z,
     plain version for CPU tensors, kernel B4 (its bf16 instantiation under
     ``compute_dtype`` bfloat16) for CUDA tensors."""
     if rays_o.device.type == "cpu" and not is_bf16(compute_dtype):
-        rgb, disp, acc, w, depth = plain_render_rays(
-            params, cfg, rays_o, rays_d, z, viewdirs, white_bkgd)
+        rgb, disp, acc, w, depth = _plain_render(params, cfg, rays_o, rays_d, z, viewdirs,
+                                                 white_bkgd, compute_dtype)
         return rgb, disp, acc, (w if want_weights else w[:, :0]), depth
     if rays_o.device.type not in ("cpu", "cuda"):
         raise ValueError(f"fused_render_rays: no kernel for {rays_o.device}")

@@ -63,8 +63,11 @@ _ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
 def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """out [R, w] = table [T, w] rows at idx [R] (int32): the plain version
     for CPU tensors, kernel P1 for CUDA tensors."""
+    common.check_finite("P1", "gather_rows", "input", table=table)
     if table.device.type == "cpu":
-        return plain_gather_rows(table, idx)
+        out = plain_gather_rows(table, idx)
+        common.check_finite("P1", "gather_rows", "output", out=out)
+        return out
     if table.device.type != "cuda":
         raise ValueError(f"gather_rows: no kernel for {table.device}")
     common.check_tensor(table, "table", (None, None), table.device)
@@ -80,6 +83,7 @@ def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
                 stream)
     common.check_launch(rc, "gather_rows (P1)")
     LAUNCHES["gather"] += 1
+    common.check_finite("P1", "gather_rows", "output", out=out)
     return out
 
 
@@ -87,8 +91,11 @@ def scatter_add_rows(idx: torch.Tensor, upd: torch.Tensor, T: int) -> torch.Tens
     """out [T, w] = zeros with upd [R, w] added at rows idx [R] (int32),
     duplicates summed: the plain version for CPU tensors, kernel P2 for
     CUDA tensors."""
+    common.check_finite("P2", "scatter_add_rows", "input", upd=upd)
     if upd.device.type == "cpu":
-        return plain_scatter_add_rows(idx, upd, T)
+        out = plain_scatter_add_rows(idx, upd, T)
+        common.check_finite("P2", "scatter_add_rows", "output", out=out)
+        return out
     if upd.device.type != "cuda":
         raise ValueError(f"scatter_add_rows: no kernel for {upd.device}")
     common.check_tensor(upd, "upd", (idx.shape[0] if idx.dim() == 1 else None, None),
@@ -105,6 +112,7 @@ def scatter_add_rows(idx: torch.Tensor, upd: torch.Tensor, T: int) -> torch.Tens
                 stream)
     common.check_launch(rc, "scatter_add_rows (P2)")
     LAUNCHES["scatter_add"] += 1
+    common.check_finite("P2", "scatter_add_rows", "output", out=out)
     return out
 
 

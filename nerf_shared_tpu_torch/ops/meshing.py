@@ -22,7 +22,7 @@ isosurface at iso = 50), in two stages:
 the radiance viewed along each vertex normal (B1 on [V, 1] points), the NDC
 helpers unwarp forward-facing meshes, and ``save_obj`` / ``save_ply`` write
 the files byte for byte as the JAX package does. A sharded probe
-(``mesh=``) is not ported (ROADMAP A16).
+(``mesh=``) is not ported (ROADMAP A16b).
 """
 
 from __future__ import annotations
@@ -38,7 +38,7 @@ from nerf_shared_tpu_torch.render.occupancy import _device_of
 from nerf_shared_tpu_torch.render.renderer import _apply_model
 
 _A16 = ("a sharded probe (mesh=...) is not ported to nerf_shared_tpu_torch "
-        "yet (ROADMAP A16)")
+        "yet (ROADMAP A16b)")
 
 
 def _dummy_dirs(cfg, device):

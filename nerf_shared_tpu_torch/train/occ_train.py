@@ -27,9 +27,16 @@ draw can be pinned through ``draws`` for tests: ``occ_nerf_loss`` takes
 uniforms in [1e-7, 1)), ``explore_u`` and ``noise`` (sigma noise, already
 scaled by ``raw_noise_std``); ``update_density_grid`` takes ``idx`` (the
 probed cells under ``max_probes``) and ``jitter`` (offsets in cells in
-[-0.5, 0.5), one row per probe). There is no superstep and no sharded
-step (ROADMAP A16): the trainer (apps/train.py) runs one step at a time
-and refreshes the grid once per dispatch window of the JAX trainer.
+[-0.5, 0.5), one row per probe). There is no superstep: the trainer
+(apps/train.py) runs one step at a time and refreshes the grid once per
+dispatch window of the JAX trainer.
+
+Data-parallel (``world``, as ``make_occ_train_step(mesh=)``): each rank
+draws ceil(N_rand / n) rays from its own generator; the grid and the
+parameters stay replicated and the gradients are mean-reduced before Adam,
+the aux values as in train/step.py. The trainer refreshes the grid from
+a generator that is the same on every rank, from parameters that are
+equal on every rank, so every rank holds the same grid.
 """
 
 from __future__ import annotations
@@ -56,7 +63,8 @@ from nerf_shared_tpu_torch.render.renderer import (
 )
 from nerf_shared_tpu_torch.train.pipeline import PixelSamplerSpec, pixel_rays, sample_pixels
 from nerf_shared_tpu_torch.train.state import TrainState
-from nerf_shared_tpu_torch.train.step import pack_ray_batch
+from nerf_shared_tpu_torch.parallel.distributed import World, all_reduce_grads
+from nerf_shared_tpu_torch.train.step import local_spec, pack_ray_batch, reduce_aux
 from nerf_shared_tpu_torch.utils.metrics import img2mse, mse2psnr
 
 
@@ -289,27 +297,29 @@ def occ_nerf_loss(params: Dict, occ: OccupancyGrid, ray_batch, target,
 
 def make_occ_train_step(rcfg: RenderConfig, fcfg, spec: PixelSamplerSpec,
                         n_candidates: int = 64, n_keep: int = 32,
-                        explore: float = 0.02, mesh=None, tv_reg: float = 0.0):
+                        explore: float = 0.02, tv_reg: float = 0.0,
+                        world: Optional[World] = None):
     """``step(state, occ, images, poses, generator, density=None, draws=None)
     -> aux``: one occupancy-gated iteration on ``state`` in place (pixel
     draw, grid triage, fine render, backward, Adam). ``generator`` is the
     run's CPU generator, as in train/step.py: it draws the pixels and seeds
     the render's device generator. ``draws`` pins the pixel draw (the keys
     of train/pipeline.sample_pixels) and the render's (occ_nerf_loss's).
-    ``density`` (a DensityGrid) turns on candidate budgeting."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "make_occ_train_step(mesh=...): the sharded occupancy-gated step "
-            "is not ported to nerf_shared_tpu_torch yet (ROADMAP A16)")
+    ``density`` (a DensityGrid) turns on candidate budgeting. With
+    ``world`` the step is data-parallel (module docstring)."""
     if n_keep > n_candidates:
         raise ValueError(
             f"n_keep ({n_keep}) must be <= n_candidates ({n_candidates}) "
             "— check --train_occ_keep vs --train_occ_candidates")
 
+    spec = local_spec(spec, world)
+    rank, n_ranks = (0, 1) if world is None else (world.rank, world.size)
+
     def step(state: TrainState, occ: OccupancyGrid, images, poses,
              generator: torch.Generator, density: Optional[DensityGrid] = None,
              draws: Optional[Dict] = None):
-        img_idx, y, x = sample_pixels(generator, images.shape[0], state.step, spec, draws)
+        img_idx, y, x = sample_pixels(generator, images.shape[0], state.step, spec, draws,
+                                      rank, n_ranks)
         render_gen = torch.Generator(device=images.device)
         render_gen.manual_seed(int(torch.randint(0, 1 << 62, (), generator=generator)))
         rays_o, rays_d, target = pixel_rays(images, poses, spec, img_idx, y, x)
@@ -328,7 +338,10 @@ def make_occ_train_step(rcfg: RenderConfig, fcfg, spec: PixelSamplerSpec,
             for p in group["params"]:
                 if p.grad is None:
                     p.grad = torch.zeros_like(p)
+        if world is not None:
+            all_reduce_grads(state, world)
         state.apply_gradients()
-        return {k: v.detach() for k, v in aux.items()}
+        aux = {k: v.detach() for k, v in aux.items()}
+        return aux if world is None else reduce_aux(aux, world)
 
     return step

@@ -10,7 +10,11 @@ N_rand pixels and builds exactly their rays there from the intrinsics.
   the centre crop while ``step < precrop_iters``.
 - ``single_image=False`` (use_batching): N_rand (image, pixel) pairs across
   all images, i.i.d., or with ``exact_epochs`` a without-replacement walk of
-  one permutation per epoch.
+  one permutation per epoch. Data-parallel, rank r of n draws its N_rand
+  (the local batch) at ``step * n * N_rand + r * N_rand`` of the walk, so
+  the ranks' draws of a step are the global batch cut into parts (the JAX
+  sharded step offsets by the rank but advances by the local batch, so a
+  pixel comes back on the next rank one step later: ROADMAP C).
 
 The draws that decide which pixels are taken (image index, permutation key
 words, i.i.d. coordinates) come from a CPU ``torch.Generator`` and are
@@ -100,10 +104,11 @@ def _first_n(key, N: int, total: int) -> torch.Tensor:
 
 
 def sample_pixels(generator: Optional[torch.Generator], n_train: int, step: int,
-                  spec: PixelSamplerSpec,
-                  draws: Optional[Dict] = None) -> Tuple[torch.Tensor, ...]:
+                  spec: PixelSamplerSpec, draws: Optional[Dict] = None,
+                  rank: int = 0, n_ranks: int = 1) -> Tuple[torch.Tensor, ...]:
     """Host side of a step's draw: (img_idx, y, x) as CPU int64 tensors
-    ([N] each; img_idx [] in single-image mode)."""
+    ([N] each; img_idx [] in single-image mode). ``rank`` of ``n_ranks``
+    places the exact-epoch walk's batch (``spec.N_rand`` the rank's own)."""
     draws = draws or {}
     N, H, W = spec.N_rand, spec.H, spec.W
 
@@ -126,7 +131,7 @@ def sample_pixels(generator: Optional[torch.Generator], n_train: int, step: int,
         return img_idx, y, x
     if spec.exact_epochs:
         total = n_train * H * W
-        g = step * N + torch.arange(N, dtype=torch.int64)
+        g = (step * n_ranks + rank) * N + torch.arange(N, dtype=torch.int64)
         epoch, pos = g // total, g % total
         flat = torch.empty_like(pos)
         for e in torch.unique(epoch).tolist():

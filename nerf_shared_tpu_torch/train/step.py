@@ -13,8 +13,8 @@ proposal network to bound the fine histogram; ``dist_reg`` > 0 adds the
 distortion loss over the final pass's weights.
 
 PyTorch runs eagerly, so a step is a sequence of launches, not one compiled
-program: there is no superstep scan and no sharded variant (ROADMAP A16).
-Under ``RenderConfig.fused_backward`` the networks run through
+program: there is no superstep scan. Under ``RenderConfig.fused_backward``
+the networks run through
 ``fused_train_op`` (kernel B1 forward, kernel B2 backward). The loss and
 the aux values stay on the device; the caller fetches them when it logs.
 
@@ -41,11 +41,22 @@ Two more options of the JAX step, both on the device with no host read:
   render's device generator, and after the backward the step's per-ray
   errors are blended into the map.
 - ``ema_decay`` > 0 (--ema_decay): after Adam, ``state.update_ema``.
+
+Data-parallel (``world``, parallel/distributed.py: the counterpart of
+``make_fused_train_step(mesh=)``): each rank draws ceil(N_rand / n) rays
+from its own generator (the trainer seeds rank r's from (seed, r)), the
+gradients of every group are mean-reduced before Adam, the aux values are
+mean-reduced with ``psnr`` / ``psnr0`` recomputed from the mean MSE, the
+loss map adds the sum of the ranks' deltas, and the EMA needs no
+collective (the parameters are equal on every rank after Adam). With one
+rank the step is the unsharded step bit for bit.
 """
 
 from __future__ import annotations
 
 from typing import Dict, Optional
+
+import dataclasses
 
 import torch
 import torch.nn.functional as F
@@ -53,6 +64,12 @@ import torch.nn.functional as F
 from nerf_shared_tpu_torch.models.nerf import anneal_nerf_params
 from nerf_shared_tpu_torch.ops.compositing import distortion_loss, interlevel_loss
 from nerf_shared_tpu_torch.ops.rays import ndc_rays
+from nerf_shared_tpu_torch.parallel.distributed import (
+    World,
+    all_reduce_grads,
+    all_reduce_mean,
+    all_reduce_sum,
+)
 from nerf_shared_tpu_torch.render.renderer import RenderConfig, render_rays
 from nerf_shared_tpu_torch.train.appearance import anchor_appearance, apply_appearance
 from nerf_shared_tpu_torch.train.loss_sampling import (
@@ -184,7 +201,7 @@ def make_train_step(rcfg: RenderConfig, ccfg, fcfg, spec: PixelSamplerSpec,
                     barf_end: int = 0, barf_start: int = 0, prop_reg: float = 1.0,
                     dist_reg: float = 0.0,
                     loss_sampling: Optional[LossSamplingSpec] = None,
-                    ema_decay: float = 0.0):
+                    ema_decay: float = 0.0, world: Optional[World] = None):
     """``train_step(state, images, poses, generator, draws=None,
     overrides=None) -> aux``: one iteration on ``state`` in place.
 
@@ -196,17 +213,21 @@ def make_train_step(rcfg: RenderConfig, ccfg, fcfg, spec: PixelSamplerSpec,
     and appearance corrections, when it has them, and ``barf_end`` > 0 act
     as the module docstring says; aux then carries ``twist_norm`` /
     ``gain_norm`` (the RMS of the raw twists / gains). ``loss_sampling``
-    needs ``state.loss_map`` and ``ema_decay`` > 0 ``state.ema``."""
+    needs ``state.loss_map`` and ``ema_decay`` > 0 ``state.ema``. With
+    ``world`` the step is data-parallel (module docstring)."""
     if loss_sampling is not None and not spec.single_image:
         raise ValueError(
             "--loss_sampling targets single-image sampling (no_batching); "
             "the batching pipeline draws across all images per step and "
             "would need a per-ray CDF per image")
+    spec = local_spec(spec, world)
+    rank, n_ranks = (0, 1) if world is None else (world.rank, world.size)
 
     def train_step(state: TrainState, images, poses, generator: torch.Generator,
                    draws: Optional[Dict] = None,
                    overrides: Optional[Dict[str, torch.Tensor]] = None):
-        img_idx, y, x = sample_pixels(generator, images.shape[0], state.step, spec, draws)
+        img_idx, y, x = sample_pixels(generator, images.shape[0], state.step, spec, draws,
+                                      rank, n_ranks)
         render_gen = torch.Generator(device=images.device)
         render_gen.manual_seed(int(torch.randint(0, 1 << 62, (), generator=generator)))
         if loss_sampling is not None:
@@ -237,11 +258,38 @@ def make_train_step(rcfg: RenderConfig, ccfg, fcfg, spec: PixelSamplerSpec,
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
         if loss_sampling is not None:
+            before = state.loss_map.clone() if n_ranks > 1 else None
             update_loss_map(state.loss_map, int(img_idx), y, x, aux.pop("ray_err"),
                             loss_sampling.tile, loss_sampling.decay)
+            if before is not None:
+                # each rank updated its own image's row: add the sum of the
+                # ranks' deltas (rows two ranks drew add both)
+                state.loss_map.copy_(before + all_reduce_sum(state.loss_map - before, world))
+        if world is not None:
+            all_reduce_grads(state, world)
         state.apply_gradients()
         if ema_decay > 0.0:
             state.update_ema(ema_decay)
-        return {k: v.detach() for k, v in aux.items()}
+        aux = {k: v.detach() for k, v in aux.items()}
+        return aux if world is None else reduce_aux(aux, world)
 
     return train_step
+
+
+def local_spec(spec: PixelSamplerSpec, world: Optional[World]) -> PixelSamplerSpec:
+    """The rank's share of the batch: ceil(N_rand / n) rays (a global
+    N_rand the world does not divide trains the next multiple, as the JAX
+    sharded step does)."""
+    if world is None or world.size == 1:
+        return spec
+    return dataclasses.replace(spec, N_rand=-(-spec.N_rand // world.size))
+
+
+def reduce_aux(aux: Dict[str, torch.Tensor], world: World) -> Dict[str, torch.Tensor]:
+    """The ranks' mean of each aux value; PSNR is not linear in the MSE, so
+    ``psnr`` / ``psnr0`` come from the mean ``img_loss`` / ``img_loss0``."""
+    aux = all_reduce_mean(aux, world)
+    aux["psnr"] = mse2psnr(aux["img_loss"])
+    if "img_loss0" in aux:
+        aux["psnr0"] = mse2psnr(aux["img_loss0"])
+    return aux

@@ -45,7 +45,8 @@ def test_package_has_the_slice_modules():
               "data.deepvoxels", "data.linemod", "apps.eval_cli", "ops.se3",
               "train.pose_refine", "train.appearance", "apps.pose_estimation",
               "apps.pose_cli", "train.occ_train", "ops.meshing", "ops.native_meshing",
-              "apps.mesh_cli", "benchmarks.fp32_digest"):
+              "apps.mesh_cli", "benchmarks.fp32_digest", "parallel.distributed",
+              "parallel.mesh", "utils.debug", "data.jpeg"):
         assert f"nerf_shared_tpu_torch.{m}" in mods, m
 
 
@@ -109,15 +110,40 @@ def test_native_meshing_builds_from_the_port_tree_only():
 
 
 def test_train_occ_is_ported_and_mesh_shape_still_raises():
+    """The trainer takes --mesh_shape since the data-parallel slice: without
+    a launcher, 2 ranks raise saying how to launch them; the mesh CLI's
+    sharded probe still raises (ROADMAP A16b)."""
     from nerf_shared_tpu_torch.apps import mesh_cli, train
     from nerf_shared_tpu_torch.config import config_parser
 
     assert "train_occ" not in train._NOT_PORTED
     train.check_ported(config_parser().parse_args(["--train_occ", "True"]))
-    with pytest.raises(NotImplementedError, match="ROADMAP A16"):
+    train.check_ported(config_parser().parse_args(["--mesh_shape", "1"]))
+    with pytest.raises(ValueError, match="torchrun --nproc_per_node 2"):
         train.train(config_parser().parse_args(["--device", "cpu", "--mesh_shape", "2"]))
     with pytest.raises(NotImplementedError, match="ROADMAP A16"):
         mesh_cli.main(["--device", "cpu", "--mesh_shape", "2"])
+
+
+def test_the_new_modules_default_to_the_card(monkeypatch):
+    """parallel.distributed.initialize defaults to the card (NCCL); the
+    trainer's --debug_nans / --multihost / --mesh_shape run on --device
+    cuda unless asked for the CPU, and raise without a card."""
+    import inspect
+
+    import torch
+
+    from nerf_shared_tpu_torch.apps import train
+    from nerf_shared_tpu_torch.config import config_parser
+    from nerf_shared_tpu_torch.parallel import distributed
+
+    assert inspect.signature(distributed.initialize).parameters["device"].default == "cuda"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for flag in (["--debug_nans", "True"], ["--multihost", "True"], ["--mesh_shape", "1"]):
+        args = config_parser().parse_args(flag)
+        assert args.device == "cuda"
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            train.train(args)
 
 
 def test_precision_bf16_is_ported_everywhere_the_flag_is_read():

@@ -348,14 +348,24 @@ def test_minify_returns_an_existing_cache_untouched(tmp_path):
 
 @pytest.mark.parametrize("factor", [1, 4])
 def test_jpeg_sources_raise(tmp_path, factor):
-    """The port reads PNG only: JPEG images raise naming the missing
-    decoder, whether minify_images (factor 4) or the loader (factor 1)
-    meets them, and no images_N/ is left behind."""
+    """JPEG images/ (imageio's writer) load as the JAX package loads them,
+    now that the port decodes JPEG (this test asserted the raise before
+    the decoder, data/jpeg.py): at factor 1 bit for bit, at factor 4
+    through each package's images_4/ within one level (the minified
+    pixels round at truncation boundaries as test_minify_matches_jax
+    holds them); poses and bounds within 1e-6."""
     root = str(tmp_path / "scene")
     _write_llff_fixture(root, ext=".jpg")
-    with pytest.raises(NotImplementedError, match="JPEG decoder"):
-        load_llff_data(root, factor=factor)
-    assert sorted(os.listdir(root)) == ["images", "poses_bounds.npy"]
+    theirs = _copy(root, str(tmp_path / "jax"))
+    got, want = load_llff_data(root, factor=factor), j_load_llff(theirs, factor=factor)
+    if factor == 1:
+        np.testing.assert_array_equal(got[0], want[0])
+    else:
+        assert got[0].shape == want[0].shape == (6, 4, 4, 3)
+        np.testing.assert_allclose(got[0], want[0], atol=1 / 255 + 1e-7, rtol=0)
+    for g, w in zip(got[1:4], want[1:4]):
+        np.testing.assert_allclose(g, w, atol=1e-6, rtol=0)
+    assert got[4] == want[4]
 
 
 # --- training and rendering -------------------------------------------------------

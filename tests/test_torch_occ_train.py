@@ -37,6 +37,7 @@ from nerf_shared_tpu_torch.models import hashgrid as thash
 from nerf_shared_tpu_torch.models import nerf as tnerf
 from nerf_shared_tpu_torch.models import triplane as ttri
 from nerf_shared_tpu_torch.models.nerf import params_tree_from_jax
+from nerf_shared_tpu_torch.parallel.distributed import World
 from nerf_shared_tpu_torch.render.renderer import RenderConfig
 from nerf_shared_tpu_torch.train import occ_train as TOT
 from nerf_shared_tpu_torch.train import pipeline as tpipe
@@ -359,8 +360,9 @@ def test_sync_coarse_from_fine_matches_jax():
 
 
 def test_occ_step_guards_match_jax():
-    """n_keep > n_candidates raises JAX's ValueError; a device mesh raises,
-    naming ROADMAP A16."""
+    """n_keep > n_candidates raises JAX's ValueError; a data-parallel world
+    builds the sharded step (tests/test_torch_parallel.py runs it), where
+    the step took no mesh before."""
     jr, tr = _rcfgs()
     cfg = tnerf.NeRFConfig(**MLP_KW)
     spec = tpipe.PixelSamplerSpec(H=4, W=4, fx=1, fy=1, cx=2, cy=2, N_rand=4)
@@ -371,8 +373,7 @@ def test_occ_step_guards_match_jax():
     with pytest.raises(ValueError) as terr:
         TOT.make_occ_train_step(tr, cfg, spec, n_candidates=8, n_keep=9)
     assert str(terr.value) == str(jerr.value)
-    with pytest.raises(NotImplementedError, match="ROADMAP A16"):
-        TOT.make_occ_train_step(tr, cfg, spec, mesh=object())
+    assert callable(TOT.make_occ_train_step(tr, cfg, spec, world=World(0, 2, "cpu", True)))
 
 
 # --- the CLI -----------------------------------------------------------------------

@@ -78,14 +78,17 @@ def test_cuda_default_raises_without_a_card(slice_cfg, monkeypatch):
     ("--ema_decay", "0.999"), ("--barf_anneal", "100"), ("--train_occ", "True"),
     ("--refine_poses", "True"), ("--appearance", "True"),
     ("--proposal", "True"), ("--loss_sampling", "True"),
-    ("--precision", "bf16"), ("--mesh_shape", "2"),
+    ("--precision", "bf16"), ("--mesh_shape", "2"), ("--mesh_shape", "1"),
 ])
 def test_unported_flags_raise(slice_cfg, flag, value):
     """Flags the port does not carry raise; --barf_anneal, --refine_poses
     and --appearance (the pose slice), --ema_decay, --proposal and
     --loss_sampling (the proposal slice), --train_occ (the occupancy
     trainer's slice) and --precision bf16 (the bf16 slice) are ported and
-    build the engine.
+    build the engine. --mesh_shape trains data-parallel since the
+    data-parallel slice (tests/test_torch_parallel.py); the engine renders
+    on one card, so a mesh of one builds it and a mesh of more raises,
+    naming the sharded renders (ROADMAP A16b).
     The slice's checkpoint holds a full-size coarse network, which a
     --proposal engine (a 2x64 proposal coarse) cannot load: that case
     builds from the seeded init (--no_reload)."""
@@ -93,13 +96,14 @@ def test_unported_flags_raise(slice_cfg, flag, value):
     args = serve_parser().parse_args(
         ["--config", slice_cfg, "--device", "cpu", flag, value] + extra)
     if flag in ("--barf_anneal", "--refine_poses", "--appearance", "--ema_decay",
-                "--proposal", "--loss_sampling", "--train_occ", "--precision"):
+                "--proposal", "--loss_sampling", "--train_occ", "--precision") or (
+            flag, value) == ("--mesh_shape", "1"):
         eng = build_eval_engine(args)
         assert eng.engine_name == "dense"
         assert eng.renderer.cfg.proposal == (flag == "--proposal")
         assert eng.renderer.cfg.precision == (value if flag == "--precision" else "fp32")
         return
-    with pytest.raises(NotImplementedError, match="not ported"):
+    with pytest.raises(NotImplementedError, match=r"sharded renders .*ROADMAP A16b"):
         build_eval_engine(args)
 
 

@@ -445,22 +445,30 @@ def test_fused_backward_resolves_on_for_the_mlp_family_on_cuda():
                                   ["--appearance", "True"], ["--loss_sampling", "True"],
                                   ["--distortion_loss_weight", "0.01"],
                                   ["--multihost", "True"], ["--debug_nans", "True"]])
-def test_training_flags_not_ported_raise(flag):
-    """Each flag the port does not carry raises; --refine_poses and
+def test_training_flags_not_ported_raise(flag, capsys):
+    """Every flag here is ported and passes the check: --refine_poses and
     --appearance (tests/test_torch_pose_train.py), --loss_sampling and
-    --distortion_loss_weight (tests/test_torch_ema.py) and --train_occ
-    (tests/test_torch_occ_train.py) are ported and pass the check;
-    --loss_sampling without --no_batching exits, as in JAX."""
+    --distortion_loss_weight (tests/test_torch_ema.py), --train_occ
+    (tests/test_torch_occ_train.py), --multihost and --debug_nans
+    (tests/test_torch_parallel.py, tests/test_torch_debug.py; both raised
+    until the data-parallel slice). --loss_sampling without --no_batching
+    exits, as in JAX; --multihost without a launcher runs single-process
+    and says so, and --debug_nans is off again after a run that fails (here
+    at the missing dataset)."""
     args = config_parser().parse_args(["--device", "cpu"] + flag)
-    if flag[0] in ("--refine_poses", "--appearance", "--loss_sampling",
-                   "--distortion_loss_weight", "--train_occ"):
-        tapp.check_ported(args)
-        if flag[0] == "--loss_sampling":
-            with pytest.raises(SystemExit, match="--no_batching"):
-                tapp.train(args)
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tapp.train(args)
+    tapp.check_ported(args)
+    if flag[0] == "--loss_sampling":
+        with pytest.raises(SystemExit, match="--no_batching"):
+            tapp.train(args)
+    if flag[0] in ("--multihost", "--debug_nans"):
+        args.datadir = "/nonexistent/scene"
+        with pytest.raises(FileNotFoundError):
+            tapp.train(args)
+        from nerf_shared_tpu_torch.ops.cuda import common
+
+        assert not common.NAN_CHECKS and not torch.is_anomaly_enabled()
+        if flag[0] == "--multihost":
+            assert "single-process" in capsys.readouterr().out
 
 
 @pytest.mark.parametrize("last,psnr,warned", [(2100, 8.0, False), (2100, 12.0, False),
