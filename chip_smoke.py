@@ -291,6 +291,22 @@ Phases (any failure exits non-zero and prints no result line):
             draws, post-Adam parameters bit for bit, B1 + B2 launched;
             each step's ms with and without the all-reduce. One "phase
             16" line with the card's name and power limit.
+17. sharded  the sharded renders and export. In an NCCL process group of
+            one rank made in this process, on
+            phase 6's checkpoint: (a) the sharded dense 400x400 frame
+            (parallel/render.make_sharded_pose_render through the engine
+            build_eval_engine makes under the world) against the unsharded
+            engine's frame, bit for bit, exactly 2 B3 + 2 B5 a chunk of
+            --chunk rays, and under --fused_composite (B3 + B5 coarse, B4
+            fine), each frame's ms beside the unsharded one's; (b) the
+            sharded froxel frame (--occ_grid 128 --occ_keep 32 --occ_fine
+            16) against the unsharded froxel frame (tile skipping), rgb
+            within 1e-5; (c) the sharded 129^3 density probe against the
+            unsharded probe, bit for bit, 33 B1; (d) make_tp_apply at t = 1
+            against apply_nerf on 65,536 points, within 1e-5; (e) the
+            engines built under the world report "sharded-dense" and
+            "sharded-froxel". One "phase 17" line with the card's name and
+            power limit.
 
 ``--parent-tree`` (with ``--phases``) marks the parent side of an A/B:
 phase 1 logs a tensor-core kernel that tree predates instead of failing.
@@ -300,8 +316,8 @@ hashgrid and a triplane frame, five fern training steps and a fern
 frame, and one dispatch window of the occ trainer (50 occ steps and a
 refresh) under torch.profiler (device time by
 kernel, device busy share, P1's and P2's shares). ``--phases 2,3,4,7``
-runs the build and the listed phases alone (phases 7, 11, 12, 13, 14, 15
-and 16 run phase 6 for its checkpoint and scene, 14 phase 10 too; 3 and 4 run
+runs the build and the listed phases alone (phases 7, 11, 12, 13, 14, 15,
+16 and 17 run phase 6 for its checkpoint and scene, 14 phase 10 too; 3 and 4 run
 together; no result lines; for iterating on a
 phase and for nerf_shared_tpu_torch/benchmarks/ab_smoke.sh). Before the last
 line it prints the whole script's time, the kernels JSON line and the card's
@@ -5102,6 +5118,162 @@ def phase_debug_jpeg_parallel(device, trained, smi):
                                             **c["launches_by_path"]}}
 
 
+def _frame_pair(label, plain_eng, sharded_eng, c2w, reps=3):
+    """One pose through an unsharded engine and through its sharded twin
+    (world of one): the max abs difference of rgb, bit-equal or not, both
+    ms (median of ``reps``) and both launch counts. The plain engine renders
+    through ``render_poses``, the sharded one through its ``render_fn``."""
+    import numpy as np
+    import torch
+
+    def plain_maps():
+        return plain_eng.render_poses(c2w[None])[0]
+
+    def sharded_maps():
+        return sharded_eng.render_fn(c2w, None)
+
+    zero_counts()
+    a = plain_maps()
+    la = launch_counts()
+    zero_counts()
+    maps = sharded_maps()
+    torch.cuda.synchronize()
+    lb = launch_counts()
+    b = maps["rgb_map"].float().cpu().numpy()
+    ms_a = time_ms(plain_maps, reps)
+    ms_b = time_ms(lambda: sharded_maps()["rgb_map"].cpu(), reps)
+    err = float(np.abs(a - b).max())
+    equal = bool(np.array_equal(a, b))
+    log(f"phase 17 {label}: sharded (world of one) against unsharded: max |rgb| diff "
+        f"{err:.3g}, bit-equal {equal}; {ms_b:.2f} ms sharded, {ms_a:.2f} ms unsharded "
+        f"(median of {reps}); launches {_nonzero(lb)} / {_nonzero(la)}")
+    return {"max_rgb_diff": err, "bit_equal": equal, "ms_sharded": ms_b, "ms_plain": ms_a,
+            "launches": lb, "launches_plain": _nonzero(la)}
+
+
+def _nonzero(counts):
+    return {k: v for k, v in counts.items() if v}
+
+
+def phase_sharded(device, trained, smi):
+    """Phase 17: the sharded renders and export in an NCCL world of one rank
+    (a file:// store in a temporary directory), on phase 6's checkpoint:
+    (a) the sharded dense 400x400 frame against build_eval_engine's
+    unsharded frame (B3 + B5), and under --fused_composite (B4); (b) the
+    sharded froxel frame (--occ_grid 128) against the unsharded froxel
+    frame; (c) the sharded 129^3 probe against the unsharded probe (B1);
+    (d) make_tp_apply at t = 1 against apply_nerf; (e) the engine built
+    under the world reports "sharded-dense". One "phase 17" line."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from nerf_shared_tpu_torch.apps.train import build_eval_engine
+    from nerf_shared_tpu_torch.config import config_parser
+    from nerf_shared_tpu_torch.data.datasets import load_datasets
+    from nerf_shared_tpu_torch.models.nerf import apply_nerf
+    from nerf_shared_tpu_torch.ops.meshing import probe_density_grid
+    from nerf_shared_tpu_torch.parallel import distributed
+    from nerf_shared_tpu_torch.parallel.mesh import make_groups
+    from nerf_shared_tpu_torch.parallel.tensor import make_tp_apply
+
+    t_phase = time.perf_counter()
+    argv = trained["base_argv"]
+    ds = load_datasets(config_parser().parse_args(argv))
+    c2w = np.asarray(ds.poses[int(ds.i_test[0])][:3, :4], np.float32)
+    kinds = {"dense": [], "fused": ["--fused_composite", "True"],
+             "froxel": ["--occ_grid", "128", "--occ_keep", "32", "--occ_fine", "16"]}
+
+    def engine(flags):
+        return build_eval_engine(config_parser().parse_args(argv + flags), ds=ds)
+
+    plain = {k: engine(f) for k, f in kinds.items()}  # before the world: unsharded
+    store = tempfile.mkdtemp(dir=WORK)
+    world = distributed.initialize(device, init_method=f"file://{store}/store")
+    out, launches = {}, {}
+    try:
+        backend = "nccl" if torch.device(device).type == "cuda" else "gloo"
+        if not (world.launched and world.size == 1
+                and torch.distributed.get_backend() == backend):
+            raise AssertionError(f"phase 17: not a {backend} world of one: {world}")
+        sharded = {k: engine(f) for k, f in kinds.items()}
+        names = {k: e.engine_name for k, e in sharded.items()}
+        out["e_engine_names"] = names
+        if names != {"dense": "sharded-dense", "fused": "sharded-dense",
+                     "froxel": "sharded-froxel"}:
+            raise AssertionError(f"phase 17 (e): engines under the world: {names}")
+        for k in kinds:
+            r = _frame_pair(k, plain[k], sharded[k], c2w)
+            launches[f"sharded_{k}_frame"] = r.pop("launches")
+            out[k] = r
+        n = math.ceil(plain["dense"].H * plain["dense"].W / plain["dense"].args.chunk)
+        want = {"dense": {"fused_mlp": 2 * n, "composite": 2 * n},
+                "fused": {"fused_mlp": n, "composite": n, "fused_render": n}}
+        for k, w in want.items():
+            got = _nonzero(launches[f"sharded_{k}_frame"])
+            if got != w:
+                raise AssertionError(f"phase 17 (a) {k}: launches {got}, expected {w}")
+        if not (out["dense"]["bit_equal"] and out["fused"]["bit_equal"]):
+            raise AssertionError("phase 17 (a): the sharded dense frame differs from the "
+                                 "unsharded frame")
+        fro = launches["sharded_froxel_frame"]
+        if not (fro["fused_mlp"] > 0 and fro["composite"] > 0
+                and out["froxel"]["max_rgb_diff"] <= 1e-5):
+            raise AssertionError(f"phase 17 (b): froxel frame {out['froxel']}, launches {fro}")
+
+        # (c) the probe, as the mesh CLI runs it at --mesh_res 128
+        eng = plain["dense"]
+        params, cfg, rcfg = eng.fine.params(), eng.fine.cfg, eng.renderer.cfg
+        box = ([-1.5] * 3, [1.5] * 3)
+
+        def probe(sharded):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sigma = probe_density_grid(params, cfg, rcfg, *box, resolution=128,
+                                       mesh=world if sharded else None)
+            return sigma, 1e3 * (time.perf_counter() - t0)
+
+        zero_counts()
+        s_sh = probe(True)[0]
+        launches["sharded_probe"] = launch_counts()
+        s_pl = probe(False)[0]
+        # in turns after the warm-up: unsharded, sharded, sharded, unsharded
+        ms = {True: [], False: []}
+        for sharded in (False, True, True, False):
+            ms[sharded].append(probe(sharded)[1])
+        ms_sh, ms_pl = statistics.mean(ms[True]), statistics.mean(ms[False])
+        n_blocks = math.ceil(129 ** 3 / 65536)
+        out["probe"] = {"bit_equal": bool(np.array_equal(s_sh, s_pl)),
+                        "max_diff": float(np.abs(s_sh - s_pl).max()),
+                        "ms_sharded": ms_sh, "ms_plain": ms_pl}
+        log(f"phase 17 (c) probe 129^3: sharded (world of one) against unsharded bit-equal "
+            f"{out['probe']['bit_equal']}, {ms_sh:.1f} / {ms_pl:.1f} ms (host clock with the "
+            f"host copy, mean of two in turns); launches {_nonzero(launches['sharded_probe'])}")
+        if not out["probe"]["bit_equal"] or launches["sharded_probe"]["fused_mlp_points"] != n_blocks:
+            raise AssertionError(f"phase 17 (c): {out['probe']}, {launches['sharded_probe']}")
+
+        # (d) tensor parallelism at t = 1 against the plain network
+        gen = torch.Generator(device=device).manual_seed(17)
+        pts = torch.rand((1024, 64, 3), generator=gen, device=device) * 3.0 - 1.5
+        vd = torch.nn.functional.normalize(
+            torch.randn((1024, 3), generator=gen, device=device), dim=-1)
+        apply = make_tp_apply(make_groups([1, 1], world), cfg, data_axis="data")
+        with torch.no_grad():
+            got, ref = apply(params, pts, vd), apply_nerf(params, cfg, pts, vd)
+        out["tp"] = {"bit_equal": bool(torch.equal(got, ref)),
+                     "max_diff": float((got - ref).abs().max())}
+        log(f"phase 17 (d) make_tp_apply t = 1 against apply_nerf on 65,536 points: "
+            f"{out['tp']}")
+        if not out["tp"]["max_diff"] <= 1e-5:
+            raise AssertionError(f"phase 17 (d): {out['tp']}")
+    finally:
+        distributed.shutdown(world)
+    summary = {**out, "s": time.perf_counter() - t_phase, "card": smi}
+    log("phase 17: " + json.dumps(summary))
+    return {**summary, "launches_by_path": launches}
+
+
 def _profile(what, fn, top_n=8):
     """fn() under torch.profiler: device time by kernel (the ``top_n``
     largest) and the device's busy share of the wall time."""
@@ -5266,7 +5438,7 @@ def main() -> int:
         train_cases, step = phase_train_kernels(device)
         cases += train_cases
         log(f"phase 5: training kernels in {time.perf_counter() - t0:.1f} s")
-    if want(6, 7, 11, 12, 13, 14, 15, 16):
+    if want(6, 7, 11, 12, 13, 14, 15, 16, 17):
         t0 = time.perf_counter()
         trained = phase_training(device)
         log(f"phase 6: training in {time.perf_counter() - t0:.1f} s")
@@ -5315,6 +5487,10 @@ def main() -> int:
         p16 = phase_debug_jpeg_parallel(device, trained, smi)
         log(f"phase 16: --debug_nans, JPEG and data parallel in "
             f"{time.perf_counter() - t0:.1f} s")
+    if want(17):
+        t0 = time.perf_counter()
+        p17 = phase_sharded(device, trained, smi)
+        log(f"phase 17: sharded renders and export in {time.perf_counter() - t0:.1f} s")
     if profile:
         if want(3, 4):
             profile_frame(served["engine"], served["pose"])
@@ -5348,6 +5524,7 @@ def main() -> int:
     by_path.update(mesh["launches_by_path"])
     by_path.update(bf16["launches_by_path"])
     by_path.update(p16["launches_by_path"])
+    by_path.update(p17["launches_by_path"])
 
     sources = {
         "fused_mlp_points": ("nerf_shared_tpu_torch/csrc/fused_mlp.cu",
@@ -5409,6 +5586,7 @@ def main() -> int:
                     "mesh": {k: v for k, v in mesh.items() if k != "launches_by_path"},
                     "bf16_launches": bf16["launches_by_path"],
                     "phase16": {k: v for k, v in p16.items() if k != "launches_by_path"},
+                    "phase17": {k: v for k, v in p17.items() if k != "launches_by_path"},
                     "probe": probe}))
     log(f"all phases in {time.perf_counter() - t_script:.1f} s")
     print(json.dumps({"kernels": kernels}))

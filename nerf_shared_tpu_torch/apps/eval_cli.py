@@ -13,6 +13,11 @@ saved 8-bit PNGs. With ``--render_factor`` the ground truth is
 area-downsampled (``resize_area``) to the render's size. PSNR is capped at
 120 dB (a bit-exact render is infinite, which JSON cannot carry). The
 report goes to ``--eval_out``, default <basedir>/<expname>/eval_<step>.json.
+Under torchrun with ``--mesh_shape N`` the renders split over the ranks
+(``render_only``) and rank 0 alone prints the report and writes it:
+
+    torchrun --nproc_per_node 2 -m nerf_shared_tpu_torch.apps.eval_cli \
+        --config configs/fern.txt --mesh_shape 2
 """
 
 from __future__ import annotations
@@ -34,6 +39,7 @@ def extend_parser_for_eval(parser):
 
 
 def run_eval(args):
+    """The report (a dict), or None on a rank > 0 of a world."""
     from nerf_shared_tpu_torch.apps.train import render_only
     from nerf_shared_tpu_torch.data.datasets import load_datasets
     from nerf_shared_tpu_torch.data.images import resize_area
@@ -45,6 +51,8 @@ def run_eval(args):
     args.render_test = True
     ds = load_datasets(args)
     outdir, rgbs = render_only(args, return_rgbs=True, ds=ds)
+    if rgbs is None:  # a rank > 0: rank 0 reports
+        return None
 
     gt = np.asarray(ds.images[ds.i_test], np.float32)
     rgbs = np.asarray(rgbs, np.float32)

@@ -13,8 +13,14 @@ coarse one without a hierarchy) on ``--device`` (default ``cuda``: kernel
 B1, P1 for the grid families) and isosurfaces on the host (ops/meshing.py;
 the cell scan it ran is logged). NDC scenes mesh in NDC coordinates unless
 ``--mesh_world`` inverts the warp (winding flipped, gradient normals
-transformed covariantly). ``--mesh_shape`` (a sharded probe) raises
-(ROADMAP A16b).
+transformed covariantly).
+
+Under torchrun with ``--mesh_shape N`` the probe splits over the N ranks
+(ops/meshing.probe_density_grid(mesh=)) and rank 0 alone runs the cell
+scan, the normals and colours, and writes the mesh:
+
+    torchrun --nproc_per_node 2 -m nerf_shared_tpu_torch.apps.mesh_cli \
+        --config configs/lego.txt --mesh_shape 2
 """
 
 from __future__ import annotations
@@ -22,6 +28,7 @@ from __future__ import annotations
 import os
 
 import numpy as np
+import torch
 
 from nerf_shared_tpu_torch.config import ConfigArgumentParser, config_parser
 
@@ -75,14 +82,23 @@ def mesh_aabb(args, renderer, ds, H, W):
 
 def run_mesh(args, native: str = "auto"):
     """Export the mesh of the newest checkpoint; returns (path, verts,
-    faces). ``native`` picks the cell scan (ops/meshing.scan_route)."""
-    from nerf_shared_tpu_torch.apps.train import (
-        _resolve_triplane_aabb,
-        _sync_triplane_res,
-        check_ported,
-        pin_fp32,
-        resolve_device,
-    )
+    faces), and (None, None, None) on a rank > 0 of a world, which only
+    probes. ``native`` picks the cell scan (ops/meshing.scan_route)."""
+    from nerf_shared_tpu_torch.apps.train import join_world, pin_fp32, resolve_device
+    from nerf_shared_tpu_torch.parallel import distributed
+
+    device = resolve_device(args.device)
+    pin_fp32()
+    world = join_world(args, device)
+    try:
+        return _run_mesh(args, torch.device(world.device) if world.launched else device,
+                         world, native)
+    finally:
+        distributed.shutdown(world)
+
+
+def _run_mesh(args, device, world, native):
+    from nerf_shared_tpu_torch.apps.train import _resolve_triplane_aabb, _sync_triplane_res
     from nerf_shared_tpu_torch.data.datasets import load_datasets
     from nerf_shared_tpu_torch.factory import create_nerf_models, get_renderer, nerf_configs
     from nerf_shared_tpu_torch.ops.meshing import (
@@ -90,6 +106,7 @@ def run_mesh(args, native: str = "auto"):
         extract_mesh,
         ndc_normals_to_world,
         ndc_points_to_world,
+        probe_density_grid,
         save_mesh,
         scan_route,
         vertex_colors,
@@ -97,9 +114,6 @@ def run_mesh(args, native: str = "auto"):
     )
     from nerf_shared_tpu_torch.utils import checkpoints as ckpt_utils
 
-    check_ported(args)
-    device = resolve_device(args.device)
-    pin_fp32()
     ds = load_datasets(args)
     H, W = int(ds.hwf[0]), int(ds.hwf[1])
     _resolve_triplane_aabb(args, ds, H, W)
@@ -125,11 +139,17 @@ def run_mesh(args, native: str = "auto"):
 
     lo, hi = mesh_aabb(args, renderer, ds, H, W)
     route = scan_route(native)
+    sharded = world if world.launched else None
     print(f"probing sigma on a {args.mesh_res}^3 lattice over "
-          f"[{np.asarray(lo).round(2)}, {np.asarray(hi).round(2)}]; "
-          f"cell scan: {route}")
-    verts, faces = extract_mesh(params, cfg, rcfg, lo, hi, resolution=args.mesh_res,
-                                iso=args.mesh_iso, block=args.mesh_block, native=native)
+          f"[{np.asarray(lo).round(2)}, {np.asarray(hi).round(2)}]"
+          + (f" on rank {world.rank} of {world.size}" if sharded is not None else "")
+          + f"; cell scan: {route}")
+    sigma = probe_density_grid(params, cfg, rcfg, lo, hi, resolution=args.mesh_res,
+                               block=args.mesh_block, mesh=sharded)
+    if not world.is_main:
+        return None, None, None
+    verts, faces = extract_mesh(params, cfg, rcfg, lo, hi, iso=args.mesh_iso,
+                                sigma_grid=sigma, native=native)
 
     is_ndc = bool(rcfg.ndc)
     if args.mesh_world and not is_ndc:

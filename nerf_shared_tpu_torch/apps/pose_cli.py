@@ -15,7 +15,9 @@ It runs on ``--device`` (default ``cuda``, raising without a card). On the
 card the MLP family's pose step goes through kernels B1 / B2 (and B5)
 unless ``--fused_backward false`` asks for the renderer's own route (B3
 forward with a plain remat backward, then B5); the JAX pose CLI has one
-route and ignores that flag.
+route and ignores that flag. The optimisation is one small problem, which
+the JAX pose CLI runs on one device: under torchrun with ``--mesh_shape N``
+rank 0 runs it and the other ranks return at once.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
 
 from nerf_shared_tpu_torch.config import ConfigArgumentParser, config_parser
 
@@ -112,19 +115,25 @@ def main(argv=None):
     from nerf_shared_tpu_torch.apps.train import (
         _resolve_triplane_aabb,
         _sync_triplane_res,
-        check_ported,
+        join_world,
         pin_fp32,
         resolve_device,
     )
+    from nerf_shared_tpu_torch.parallel import distributed
     from nerf_shared_tpu_torch.config import resolve_fused_backward
     from nerf_shared_tpu_torch.data.datasets import load_datasets
     from nerf_shared_tpu_torch.factory import create_nerf_models, get_renderer, nerf_configs
     from nerf_shared_tpu_torch.utils import checkpoints as ckpt_utils
 
     args = extend_parser_for_pose(config_parser()).parse_args(argv)
-    check_ported(args)
     device = resolve_device(args.device)
     pin_fp32()
+    world = join_world(args, device)
+    distributed.shutdown(world)
+    if not world.is_main:
+        return None, None
+    if world.launched:
+        device = torch.device(world.device)
     ds = load_datasets(args)
     H, W, _ = ds.hwf
     # grid-family checkpoints are decoded against the box every entry point

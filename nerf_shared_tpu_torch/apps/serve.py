@@ -19,9 +19,19 @@ A lock serializes /render (one frame on the card at a time) while /health
 and /metrics stay responsive on the other server threads. PNG responses go
 through the package's own encoder (data/images.png_encode).
 
+Under torchrun with ``--mesh_shape N`` the engine splits each frame over
+the N ranks (apps/train.build_eval_engine). Rank 0 runs the HTTP service;
+the other ranks run ``RenderService.follow``: for each frame rank 0
+broadcasts a fixed-size message (an opcode and the 3x4 c2w; the eval
+render draws nothing, so no seed) and every rank renders it; a stop
+message, sent when the server shuts down, ends the followers. The JAX service renders through a mesh-sharded engine
+in its one process; one process a card needs the follower loop.
+
 Usage:
   python -m nerf_shared_tpu_torch.apps.serve --config configs/lego.txt \
       [--port 8080] [--device cuda]
+  torchrun --nproc_per_node 2 -m nerf_shared_tpu_torch.apps.serve \
+      --config configs/lego.txt --mesh_shape 2
   # through a fast engine (/info's "engine"): the occupancy grid with
   # froxels, or --render_guided 48, or --render_gate 1e-3
   python -m nerf_shared_tpu_torch.apps.serve --config configs/lego.txt \
@@ -68,8 +78,15 @@ def _encode_npy(rgb_float) -> bytes:
     return buf.getvalue()
 
 
+# the frame message rank 0 broadcasts to the followers: opcode, c2w (12)
+_OP_STOP, _OP_RENDER = 0.0, 1.0
+_MSG_LEN = 13
+
+
 class RenderService:
-    """The state behind the HTTP surface: one EvalEngine + serving stats."""
+    """The state behind the HTTP surface: one EvalEngine + serving stats
+    (and, in a world of several ranks, the frame messages to the
+    followers)."""
 
     def __init__(self, args, engine=None):
         if engine is None:
@@ -82,6 +99,41 @@ class RenderService:
         self._frames = 0
         self._latencies = []
         self._started = time.time()
+        self._stopped = False
+
+    @property
+    def _followers(self) -> bool:
+        return self.engine.world.size > 1
+
+    def _message(self, op: float, c2w=None) -> torch.Tensor:
+        """Broadcast rank 0's frame message; every rank returns it."""
+        msg = torch.zeros(_MSG_LEN, dtype=torch.float64, device=self.engine.world.device)
+        if self.engine.world.is_main:
+            msg[0] = op
+            if c2w is not None:
+                msg[1:13] = torch.as_tensor(np.asarray(c2w, np.float64).reshape(12))
+        torch.distributed.broadcast(msg, src=0)
+        return msg.cpu()
+
+    def follow(self) -> int:
+        """A rank > 0's loop: render each frame rank 0 announces, until the
+        stop message. Returns the frames rendered."""
+        n = 0
+        while True:
+            msg = self._message(_OP_STOP)
+            if msg[0].item() == _OP_STOP:
+                return n
+            c2w = msg[1:13].numpy().astype(np.float32).reshape(3, 4)
+            self.engine.render_poses(c2w[None])
+            n += 1
+
+    def close(self):
+        """Stop the followers (rank 0, once) and leave the engine's world."""
+        if self._followers and self.engine.world.is_main and not self._stopped:
+            with self._lock:
+                self._message(_OP_STOP)
+                self._stopped = True
+        self.engine.close()
 
     def render_c2w(self, c2w) -> np.ndarray:
         c2w = np.asarray(c2w, np.float32)
@@ -90,7 +142,11 @@ class RenderService:
         if c2w.shape != (3, 4):
             raise ValueError(f"c2w must be 3x4 or 4x4, got {c2w.shape}")
         with self._lock:
+            if self._stopped:
+                raise RuntimeError("the service is shutting down")
             t0 = time.perf_counter()
+            if self._followers:
+                self._message(_OP_RENDER, c2w)
             # the host copy of the frame fences the timing
             rgb = self.engine.render_poses(c2w[None])[0]
             dt = time.perf_counter() - t0
@@ -118,6 +174,7 @@ class RenderService:
             "ema": float(getattr(self.args, "ema_decay", 0.0)) > 0.0,
             "device": str(dev),
             "n_devices": torch.cuda.device_count() if dev.type == "cuda" else 1,
+            "world_size": int(eng.world.size),
         }
 
     def metrics_text(self) -> str:
@@ -219,6 +276,13 @@ def make_server(service: RenderService, host="127.0.0.1", port=0):
 def main(argv=None):
     args = serve_parser().parse_args(argv)
     service = RenderService(args)
+    if not service.engine.world.is_main:
+        try:
+            n = service.follow()
+        finally:
+            service.close()
+        print(f"rank {service.engine.world.rank}: rendered {n} frames; stopped")
+        return
     info = service.info()
     print(f"serving {info['expname']} (step {info['checkpoint_step']}, "
           f"{info['engine']} engine, {info['width']}x{info['height']}, "
@@ -236,6 +300,8 @@ def main(argv=None):
         server.serve_forever()
     except KeyboardInterrupt:
         server.shutdown()
+    finally:
+        service.close()
 
 
 if __name__ == "__main__":

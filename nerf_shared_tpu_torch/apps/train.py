@@ -81,6 +81,7 @@ from nerf_shared_tpu_torch.models.triplane import TriplaneConfig, upsample_tripl
 from nerf_shared_tpu_torch.parallel import distributed
 from nerf_shared_tpu_torch.parallel.distributed import World
 from nerf_shared_tpu_torch.parallel.mesh import make_mesh
+from nerf_shared_tpu_torch.render.renderer import _model_parts
 from nerf_shared_tpu_torch.train import occ_train
 from nerf_shared_tpu_torch.train.loss_sampling import LossSamplingSpec, init_loss_map
 from nerf_shared_tpu_torch.train.pipeline import PixelSamplerSpec
@@ -90,16 +91,6 @@ from nerf_shared_tpu_torch.utils import checkpoints as ckpt_utils
 from nerf_shared_tpu_torch.utils.debug import enable_nan_checks
 from nerf_shared_tpu_torch.utils.logging import copy_log_dir, make_tb_writer, print_statistics
 from nerf_shared_tpu_torch.utils.metrics import ssim, to8b
-
-# flags whose paths the render and export entry points (the eval engine,
-# the pose and mesh CLIs) do not carry yet: each raises instead of being
-# ignored (name -> (is-set test, what it would need)). The trainer takes
-# --mesh_shape (data parallel, parallel/mesh.py)
-_NOT_PORTED = {
-    "mesh_shape": (lambda v: bool(v) and int(np.prod(v)) > 1,
-                   "sharded renders and export over several cards (ROADMAP A16b)"),
-}
-
 
 def resolve_device(name: str) -> torch.device:
     """The run's torch device; ``cuda`` without a CUDA device raises (the
@@ -121,16 +112,6 @@ def pin_fp32():
     trainer leaves XLA's default matmul precision (ROADMAP C)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-
-
-def check_ported(args):
-    """Raise on a flag the render and export entry points do not carry."""
-    for flag, (is_set, what) in _NOT_PORTED.items():
-        value = getattr(args, flag, None)
-        if value is not None and is_set(value):
-            raise NotImplementedError(
-                f"--{flag} {value}: {what} is not ported to "
-                "nerf_shared_tpu_torch yet")
 
 
 def check_trainer_flags(args):
@@ -438,7 +419,11 @@ def join_world(args, device: torch.device) -> World:
         world = distributed.initialize(str(device))
     else:
         world = World(0, 1, str(device), False)
-    return make_mesh(getattr(args, "mesh_shape", None), world)
+    try:
+        return make_mesh(getattr(args, "mesh_shape", None), world)
+    except (ValueError, NotImplementedError):
+        distributed.shutdown(world)
+        raise
 
 
 def train(args):
@@ -451,9 +436,12 @@ def train(args):
     off again when it returns. Data parallel (``join_world``): every rank
     loads the dataset and takes rank 0's state after init or resume; each
     step draws ceil(N_rand / n) rays a rank and mean-reduces the gradients
-    (train/step.py); rank 0 alone logs, writes checkpoints and TensorBoard
-    and runs the render hooks (unsharded), while the others wait at a
-    barrier."""
+    (train/step.py); rank 0 alone logs and writes checkpoints, TensorBoard
+    and the hooks' frames. At more than one rank every rank takes part in
+    the test-set, validation-image and video renders, which split each
+    frame over the ranks as the JAX trainer's hooks split it over its mesh:
+    the sharded froxel frame while there is an occupancy source (--occ_grid,
+    or --train_occ until its switch), else the sharded dense frame."""
     check_trainer_flags(args)
     check_barf(args)
     device = resolve_device(args.device)
@@ -461,8 +449,6 @@ def train(args):
     debug_nans = bool(getattr(args, "debug_nans", False))
     if debug_nans:
         enable_nan_checks(True)
-    owns_group = not (torch.distributed.is_available()
-                      and torch.distributed.is_initialized())
     world = None
     try:
         world = join_world(args, device)
@@ -470,8 +456,7 @@ def train(args):
     finally:
         if debug_nans:
             enable_nan_checks(False)
-        if world is not None and owns_group:
-            distributed.shutdown(world)
+        distributed.shutdown(world)
 
 
 def _train(args, device: torch.device, world: World):
@@ -603,8 +588,34 @@ def _train(args, device: torch.device, world: World):
             renderer.cfg, fcfg, lo, hi, resolution=args.occ_grid,
             alpha_threshold=resolved_occ_alpha_thresh(args))
 
+    def make_sharded_hook(ccfg, fcfg):
+        """At more than one rank, hook(kw, models) -> the hook's pose
+        renderer split over the ranks (None: rank 0 renders unsharded), as
+        the JAX trainer's sharded hooks: the froxel frame while ``kw``
+        (``hook_kw``) holds an occupancy grid, the dense frame otherwise
+        (after the --train_occ_until switch, or with no occupancy source).
+        Rebuilt at a triplane upsample."""
+        if world.size == 1:
+            return None
+        froxel = dense = None
+        box = {}
+        if fcfg is not None and (occ_maint is not None or train_occ):
+            froxel = sharded_froxel_fn(args, world, renderer.cfg, fcfg, H, W, ds.K,
+                                       lambda: box["fine"], lambda: box["occ"])
+        if froxel is None or occ_until > 0:
+            dense = sharded_dense_fn(args, world, renderer.cfg, ccfg, fcfg, H, W, ds.K,
+                                     lambda: (box["coarse"], box["fine"]))
+
+        def hook(kw, models):
+            box["coarse"], box["fine"] = (_model_parts(m)[0] for m in models)
+            box["occ"] = kw.get("occ_grid")
+            return froxel if box["occ"] is not None else dense
+
+        return hook
+
     step_fn, warm_fn = make_steps(ccfg, fcfg)
     occ_maint = make_occ_maint(fcfg)
+    sharded_hook = make_sharded_hook(ccfg, fcfg)
     upsample_ms = _upsample_milestones(args, start)
 
     if upsample_ms and train_occ:
@@ -621,6 +632,17 @@ def _train(args, device: torch.device, world: World):
             # render through the training grid
             return dict(occ_grid=occ_run.hook_grid(step), **_occ_render_args(args))
         return {}
+
+    def hook_render(i):
+        """(models, the render_from_batch_poses engine arguments) of the
+        hooks at step i, or None on a rank that skips an unsharded
+        hook."""
+        models = _eval_models(args, i, state.coarse, state.fine, state.ema)
+        kw = hook_kw(i)
+        rfn = sharded_hook(kw, models) if sharded_hook is not None else None
+        if rfn is not None:
+            return models, {"render_fn": rfn}
+        return (models, kw) if main else None
 
     generator = torch.Generator()
     N_iters = args.N_iters + 1
@@ -644,6 +666,7 @@ def _train(args, device: torch.device, world: World):
             state, ccfg, fcfg = _upsample_state(state, new_G, args)
             step_fn, warm_fn = make_steps(ccfg, fcfg)
             occ_maint = make_occ_maint(fcfg)
+            sharded_hook = make_sharded_hook(ccfg, fcfg)
             print(f"[UPSAMPLE] step {i - 1}: planes -> {new_G}^2 "
                   "(optimizer restarted at the continued schedule)")
         window = (i - start - 1) % inner == 0
@@ -670,13 +693,8 @@ def _train(args, device: torch.device, world: World):
             aux = fn(state, images_tr, poses_tr, generator)
         rays_done += args.N_rand
         hooked = False
-        if not main:
-            # rank 0 logs, saves and renders; the others wait for it
-            if _hook_step(args, i, len(ds.i_val)):
-                distributed.barrier(world)
-            continue
 
-        if args.i_print > 0 and i % args.i_print == 0:
+        if main and args.i_print > 0 and i % args.i_print == 0:
             # the fetch waits for the queued steps: read the clock after it
             loss_v, psnr_v = float(aux["loss"]), float(aux["psnr"])
             dt = time.perf_counter() - t0
@@ -690,48 +708,54 @@ def _train(args, device: torch.device, world: World):
                 print(f"[RECIPE WARNING] {msg}")
             t0, rays_done = time.perf_counter(), 0
 
-        if args.i_weights > 0 and i % args.i_weights == 0:
+        if main and args.i_weights > 0 and i % args.i_weights == 0:
             paths = ckpt_utils.save_checkpoints(args.basedir, args.expname, state, i,
                                                 fmt=args.ckpt_format)
             print(f"Saved checkpoints at {paths}")
 
         if args.i_testset > 0 and i % args.i_testset == 0:
             testsavedir = os.path.join(args.basedir, args.expname, f"testset_{i:06d}")
-            renderer.render_from_batch_poses(
-                H, W, ds.K, args.chunk, ds.poses[ds.i_test],
-                *_eval_models(args, i, state.coarse, state.fine, state.ema), retraw=False,
-                save_directory=testsavedir, **hook_kw(i))
-            print(f"Saved test set renders to {testsavedir}")
+            hook = hook_render(i)
+            if hook is not None:
+                renderer.render_from_batch_poses(
+                    H, W, ds.K, args.chunk, ds.poses[ds.i_test], *hook[0], retraw=False,
+                    save_directory=testsavedir if main else None, **hook[1])
+            if main:
+                print(f"Saved test set renders to {testsavedir}")
             hooked = True
 
         if args.i_img > 0 and i % args.i_img == 0 and len(ds.i_val):
             val_i = int(ds.i_val[(i // args.i_img) % len(ds.i_val)])
-            rgb = renderer.render_from_batch_poses(
-                H, W, ds.K, args.chunk, ds.poses[val_i][None, :3, :4],
-                *_eval_models(args, i, state.coarse, state.fine, state.ema), retraw=False,
-                **hook_kw(i))[0]
-            val_mse = float(np.mean((rgb - ds.images[val_i]) ** 2))
-            val_psnr = -10.0 * np.log10(val_mse) if val_mse > 0 else np.inf
-            val_ssim = float(ssim(rgb, ds.images[val_i]))
-            print(f"[VAL] Iter: {i} view {val_i} PSNR: {val_psnr:.3f} "
-                  f"SSIM: {val_ssim:.4f} "
-                  f"elapsed: {time.perf_counter() - t_train_start:.0f}s", flush=True)
-            if tb_writer is not None:
-                tb_writer.add_scalar("Val/PSNR", val_psnr, i)
-                tb_writer.add_scalar("Val/SSIM", val_ssim, i)
-                tb_writer.add_image("Val/rgb", to8b(rgb), i, dataformats="HWC")
+            hook = hook_render(i)
+            if hook is not None:
+                rgb = renderer.render_from_batch_poses(
+                    H, W, ds.K, args.chunk, ds.poses[val_i][None, :3, :4], *hook[0],
+                    retraw=False, **hook[1])[0]
+            if main:
+                val_mse = float(np.mean((rgb - ds.images[val_i]) ** 2))
+                val_psnr = -10.0 * np.log10(val_mse) if val_mse > 0 else np.inf
+                val_ssim = float(ssim(rgb, ds.images[val_i]))
+                print(f"[VAL] Iter: {i} view {val_i} PSNR: {val_psnr:.3f} "
+                      f"SSIM: {val_ssim:.4f} "
+                      f"elapsed: {time.perf_counter() - t_train_start:.0f}s", flush=True)
+                if tb_writer is not None:
+                    tb_writer.add_scalar("Val/PSNR", val_psnr, i)
+                    tb_writer.add_scalar("Val/SSIM", val_ssim, i)
+                    tb_writer.add_image("Val/rgb", to8b(rgb), i, dataformats="HWC")
             hooked = True
 
         if args.i_video > 0 and i % args.i_video == 0:
             videodir = os.path.join(args.basedir, args.expname, f"video_{i:06d}")
             rposes = ds.render_poses
             rposes = rposes[:, :3, :4] if rposes.ndim == 3 else rposes
-            renderer.render_from_batch_poses(H, W, ds.K, args.chunk, rposes,
-                                             *_eval_models(args, i, state.coarse,
-                                                           state.fine, state.ema),
-                                             retraw=False, save_directory=videodir,
-                                             b_combine_as_video=True, **hook_kw(i))
-            print(f"Saved render-path video to {videodir}")
+            hook = hook_render(i)
+            if hook is not None:
+                renderer.render_from_batch_poses(
+                    H, W, ds.K, args.chunk, rposes, *hook[0], retraw=False,
+                    save_directory=videodir if main else None,
+                    b_combine_as_video=True, **hook[1])
+            if main:
+                print(f"Saved render-path video to {videodir}")
             hooked = True
         if hooked:
             # rays/sec counts training only: restart its window after the
@@ -748,8 +772,8 @@ def _train(args, device: torch.device, world: World):
 
 
 def _hook_step(args, i: int, n_val: int) -> bool:
-    """Whether step ``i`` logs, saves or renders (rank 0's work that the
-    other ranks wait for)."""
+    """Whether step ``i`` logs, saves or renders (work on rank 0 that the
+    other ranks wait for at a barrier)."""
     return any(c > 0 and i % c == 0 for c in (args.i_print, args.i_weights,
                                               args.i_testset, args.i_video)) or (
         args.i_img > 0 and i % args.i_img == 0 and n_val > 0)
@@ -757,38 +781,55 @@ def _hook_step(args, i: int, n_val: int) -> bool:
 
 class EvalEngine:
     """Everything needed to render novel views from a checkpoint: dataset
-    geometry, the restored models, the renderer and the optional occupancy
-    grid. Built once and reused across poses by render_only and by
+    geometry, the restored models, the renderer, the optional occupancy
+    grid and, in a world (``join_world``), the sharded pose renderer
+    ``render_fn``. Built once and reused across poses by render_only and by
     apps/serve.py."""
 
     def __init__(self, ds, H, W, K, renderer, ccfg, fcfg, coarse, fine,
-                 occ_grid, start, args, device):
+                 occ_grid, start, args, device, render_fn=None, world=None):
         self.ds = ds
         self.H, self.W, self.K = H, W, K
         self.renderer = renderer
         self.ccfg, self.fcfg = ccfg, fcfg
         self.coarse, self.fine = coarse, fine
         self.occ_grid = occ_grid
+        self.render_fn = render_fn
         self.start = start
         self.args = args
         self.device = device
+        self.world = world if world is not None else World(0, 1, str(device), False)
 
     def render_poses(self, poses, save_directory=None, generator=None,
                      b_combine_as_video=False):
         """Render a [N, 3+, 4] pose batch through the engine's path
-        (occupancy / gated / dense); returns float rgbs [N, H, W, 3]. With
-        ``b_combine_as_video`` the frames also go to
-        ``save_directory``/video.gif."""
+        (sharded / occupancy / gated / dense); returns float rgbs [N, H, W,
+        3]. With ``b_combine_as_video`` the frames also go to
+        ``save_directory``/video.gif. In a world of several ranks rank 0
+        alone writes; a single-card engine (no ``render_fn``) renders on
+        rank 0 alone and the other ranks skip the frames (None)."""
         a = self.args
+        if not self.world.is_main:
+            save_directory = None
+            if self.render_fn is None and self.world.size > 1:
+                return None
         return self.renderer.render_from_batch_poses(
             self.H, self.W, self.K, a.chunk, poses, self.coarse, self.fine,
             retraw=False, save_directory=save_directory, generator=generator,
             save_depth=getattr(a, "render_depth", False),
             gate_threshold=a.render_gate, occ_grid=self.occ_grid,
-            b_combine_as_video=b_combine_as_video, **_occ_render_args(a))
+            b_combine_as_video=b_combine_as_video, render_fn=self.render_fn,
+            **_occ_render_args(a))
+
+    def close(self):
+        """Leave the world the engine joined (a no-op for an adopted group
+        or one process)."""
+        distributed.shutdown(self.world)
 
     @property
     def engine_name(self):
+        if self.render_fn is not None:
+            return "sharded-" + ("froxel" if self.occ_grid is not None else "dense")
         if self.occ_grid is not None:
             return "occ-" + self.args.occ_mode
         if self.args.render_gate > 0.0:
@@ -796,15 +837,68 @@ class EvalEngine:
         return "dense"
 
 
+def sharded_froxel_fn(args, world, rcfg, fcfg, H, W, K, params_of, occ_of):
+    """A pose renderer ``fn(c2w, generator) -> maps`` through the sharded
+    froxel frame (render/froxels.make_sharded_render_froxel) at eval
+    semantics: ``params_of()`` the fine network's parameters and
+    ``occ_of()`` the occupancy grid at call time."""
+    from nerf_shared_tpu_torch.render.froxels import build_froxels, make_sharded_render_froxel
+
+    eval_rcfg = dataclasses.replace(rcfg, perturb=0.0, raw_noise_std=0.0,
+                                    fused_backward=False)
+    frame = make_sharded_render_froxel(world, eval_rcfg, fcfg, H, W, tile=args.occ_tile,
+                                       n_keep=args.occ_keep, block=args.chunk,
+                                       n_fine=args.occ_fine)
+
+    def render_fn(c2w, generator=None):
+        params = params_of()
+        dev = next(iter(params.values())).device
+        c2w = torch.as_tensor(c2w, dtype=torch.float32, device=dev)[:3, :4]
+        # the frame's froxels, as render_image_froxels builds them
+        fro = build_froxels(occ_of(), H, W, K, c2w, float(eval_rcfg.near),
+                            float(eval_rcfg.far), n_depth=args.occ_candidates,
+                            tile=args.occ_tile, lindisp=eval_rcfg.lindisp, ndc=eval_rcfg.ndc,
+                            n_keep=args.occ_keep)
+        return frame(params, fro, K, c2w)
+
+    return render_fn
+
+
+def sharded_dense_fn(args, world, rcfg, ccfg, fcfg, H, W, K, params_of):
+    """A pose renderer ``fn(c2w, generator) -> maps`` through the sharded
+    dense frame (parallel/render.make_sharded_pose_render, blocks of
+    --chunk rays): ``params_of()`` the (coarse, fine or None) parameters
+    at call time."""
+    from nerf_shared_tpu_torch.parallel.render import make_sharded_pose_render
+
+    frame = make_sharded_pose_render(world, rcfg, ccfg, fcfg, H, W, block=args.chunk)
+
+    def render_fn(c2w, generator=None):
+        pc, pf = params_of()
+        return frame(pc, pf, K, c2w)
+
+    return render_fn
+
+
 def build_eval_engine(args, ds=None) -> EvalEngine:
     """Load the newest checkpoint (or seeded init weights when there is
     none) and assemble the render engine on ``--device``: the renderer,
     and with --occ_grid the occupancy grid of the fine network. With
     --ema_decay the models hold the checkpoint's EMA shadow (its raw
-    weights when it has none), as the JAX engine renders them."""
-    check_ported(args)
+    weights when it has none), as the JAX engine renders them.
+
+    In a world (``join_world``: torchrun, --multihost, or a process group
+    the caller made; --mesh_shape checked against it) each pose renders
+    split over the ranks, by the JAX engine's policy: the sharded froxel
+    frame with an occupancy grid, a fine network and --occ_mode froxel; the
+    sharded dense frame with no grid and --render_gate 0; the paths JAX
+    keeps on one card (grid-mode occupancy, the gated engine) render on
+    rank 0 alone."""
     device = resolve_device(args.device)
     pin_fp32()
+    world = join_world(args, device)
+    if world.launched:
+        device = torch.device(world.device)
     if ds is None:
         ds = load_datasets(args)
     H, W, _ = ds.hwf
@@ -833,8 +927,20 @@ def build_eval_engine(args, ds=None) -> EvalEngine:
         fine.eval()
     renderer = get_renderer(args, ds.bds_dict, device)
     occ_grid = _build_occ_grid(args, renderer, ds, H, W, K, coarse, fine)
+    render_fn = None
+    if world.launched:
+        if (occ_grid is not None and fine is not None
+                and getattr(args, "occ_mode", "froxel") == "froxel"):
+            render_fn = sharded_froxel_fn(args, world, renderer.cfg, fine.cfg, H, W, K,
+                                          fine.params, lambda: occ_grid)
+        elif occ_grid is None and args.render_gate <= 0.0:
+            render_fn = sharded_dense_fn(
+                args, world, renderer.cfg, ccfg, fcfg, H, W, K,
+                lambda: (coarse.params(), None if fine is None else fine.params()))
+        print(f"render world: rank {world.rank} of {world.size}, "
+              + ("sharded frames" if render_fn is not None else "frames on rank 0"))
     return EvalEngine(ds, H, W, K, renderer, ccfg, fcfg, coarse, fine, occ_grid,
-                      start, args, device)
+                      start, args, device, render_fn=render_fn, world=world)
 
 
 def render_only(args, return_rgbs: bool = False, ds=None):
@@ -842,15 +948,24 @@ def render_only(args, return_rgbs: bool = False, ds=None):
     with --render_test) to PNGs and video.gif (reference utils.py:330-358).
     Returns the output directory, and with ``return_rgbs`` also the float
     renders (apps/eval_cli.py computes its metrics on these). ``ds`` takes a
-    dataset its caller has loaded already."""
+    dataset its caller has loaded already. In a world every rank walks the
+    poses and rank 0 alone writes; the other ranks return None for the
+    renders."""
     eng = build_eval_engine(args, ds=ds)
-    suffix = "test" if args.render_test else "path"
-    outdir = os.path.join(args.basedir, args.expname,
-                          f"renderonly_{suffix}_{eng.start:06d}")
-    poses = eng.ds.render_poses
-    poses = poses[:, :3, :4] if poses.ndim == 3 else poses
-    rgbs = eng.render_poses(poses, save_directory=outdir, b_combine_as_video=True)
-    print(f"Done rendering {rgbs.shape[0]} views to {outdir}")
+    try:
+        suffix = "test" if args.render_test else "path"
+        outdir = os.path.join(args.basedir, args.expname,
+                              f"renderonly_{suffix}_{eng.start:06d}")
+        poses = eng.ds.render_poses
+        poses = poses[:, :3, :4] if poses.ndim == 3 else poses
+        rgbs = eng.render_poses(poses, save_directory=outdir, b_combine_as_video=True)
+        distributed.barrier(eng.world)
+        if not eng.world.is_main:
+            rgbs = None
+        else:
+            print(f"Done rendering {rgbs.shape[0]} views to {outdir}")
+    finally:
+        eng.close()
     if return_rgbs:
         return outdir, rgbs
     return outdir

@@ -21,8 +21,9 @@ isosurface at iso = 50), in two stages:
 (B1 forward and B2 backward under ``use_pallas``), ``vertex_colors`` bakes
 the radiance viewed along each vertex normal (B1 on [V, 1] points), the NDC
 helpers unwarp forward-facing meshes, and ``save_obj`` / ``save_ply`` write
-the files byte for byte as the JAX package does. A sharded probe
-(``mesh=``) is not ported (ROADMAP A16b).
+the files byte for byte as the JAX package does. With ``mesh=`` (a
+``parallel.distributed.World``) the probe's blocks split over the ranks and
+the sigma gathers back to every rank, as JAX shards it over its mesh.
 """
 
 from __future__ import annotations
@@ -34,11 +35,9 @@ import numpy as np
 import torch
 
 from nerf_shared_tpu_torch.ops import native_meshing
+from nerf_shared_tpu_torch.parallel.distributed import gather_rows
 from nerf_shared_tpu_torch.render.occupancy import _device_of
 from nerf_shared_tpu_torch.render.renderer import _apply_model
-
-_A16 = ("a sharded probe (mesh=...) is not ported to nerf_shared_tpu_torch "
-        "yet (ROADMAP A16b)")
 
 
 def _dummy_dirs(cfg, device):
@@ -63,26 +62,35 @@ def probe_density_grid(params, cfg, rcfg, aabb_min, aabb_max,
     tetrahedra a signed interpolation target below the surface. The
     lattice goes through the network in blocks of ``block`` points (one
     "ray" of ``block`` samples each; the padded tail re-probes the last
-    corner)."""
-    if mesh is not None:
-        raise NotImplementedError(_A16)
+    corner).
+
+    With ``mesh`` (a ``parallel.distributed.World``) the block count is
+    padded to a multiple of the world size, rank r sweeps its contiguous
+    blocks and the sigma is gathered to every rank (the network
+    replicated; the gather the only collective). A world of one is the
+    unsharded probe bit for bit."""
     device = _device_of(params)
     r = int(resolution)
     r1 = r + 1
     n = r1 ** 3
     block = min(block, n)
     n_blocks = -(-n // block)
+    size = mesh.size if mesh is not None else 1
+    n_blocks = -(-n_blocks // size) * size
+    per = n_blocks // size
+    first = (mesh.rank if mesh is not None else 0) * per
     lo = torch.as_tensor(np.asarray(aabb_min, np.float32), device=device).reshape(3)
     hi = torch.as_tensor(np.asarray(aabb_max, np.float32), device=device).reshape(3)
     dirs = _dummy_dirs(cfg, device)
     offs = torch.arange(block, dtype=torch.int64, device=device)
-    sigma = torch.empty(n_blocks * block, dtype=torch.float32, device=device)
-    for b in range(n_blocks):
-        idx = torch.clamp(b * block + offs, max=n - 1)
+    sigma = torch.empty(per * block, dtype=torch.float32, device=device)
+    for j in range(per):
+        idx = torch.clamp((first + j) * block + offs, max=n - 1)
         ijk = torch.stack([idx // (r1 * r1), (idx // r1) % r1, idx % r1], -1)
         pts = lo + ijk.to(torch.float32) / r * (hi - lo)
         raw = _apply_model(params, cfg, pts[None], dirs, rcfg)
-        sigma[b * block:(b + 1) * block] = raw[0, :, 3]
+        sigma[j * block:(j + 1) * block] = raw[0, :, 3]
+    sigma = gather_rows(sigma, n, mesh)
     return sigma[:n].cpu().numpy().reshape(r1, r1, r1)
 
 
@@ -289,12 +297,12 @@ def extract_mesh(params, cfg, rcfg, aabb_min, aabb_max, resolution: int = 256,
                  native: str = "auto") -> Tuple[np.ndarray, np.ndarray]:
     """Probe the field on the device, then isosurface on the host. ``iso``
     is on raw pre-ReLU sigma (the original NeRF export's 50);
-    ``sigma_grid`` reuses an already probed lattice."""
-    if mesh is not None:
-        raise NotImplementedError(_A16)
+    ``sigma_grid`` reuses an already probed lattice. With ``mesh`` (a
+    World) the probe is sharded (``probe_density_grid``) and every rank
+    that calls it isosurfaces the gathered lattice."""
     if sigma_grid is None:
         sigma_grid = probe_density_grid(params, cfg, rcfg, aabb_min, aabb_max,
-                                        resolution=resolution, block=block)
+                                        resolution=resolution, block=block, mesh=mesh)
     aabb_min = np.asarray(aabb_min, np.float32)
     aabb_max = np.asarray(aabb_max, np.float32)
     dims = np.asarray(sigma_grid.shape, np.float32)

@@ -19,6 +19,10 @@ the cards, gloo on the CPU.
   group (net, grid, pose, appearance) in one flat buffer, before Adam.
 - ``all_reduce_mean`` / ``all_reduce_sum``: the step's aux values and the
   loss map's deltas.
+- ``shard_rows`` / ``gather_rows``: a sharded render's or probe's rows,
+  the counterpart of ``in_specs=P("data")`` / ``out_specs=P("data")``: the
+  rows padded to a multiple of the world by repeating the last one, rank
+  r's contiguous slice, and every rank's slice gathered back and trimmed.
 
 With one rank every collective is skipped or exact (a sum over one rank,
 divided by 1), so the world-size-1 step is the unsharded step bit for bit.
@@ -47,6 +51,9 @@ class World:
     size: int = 1
     device: str = "cpu"
     launched: bool = False
+    # this World's ``initialize`` created the process group (``shutdown``
+    # destroys only such a group; an adopted one stays its maker's)
+    owner: bool = False
 
     @property
     def is_main(self) -> bool:
@@ -86,12 +93,13 @@ def initialize(device: str = "cuda", init_method: Optional[str] = None) -> World
                             init_method=init_method or "env://", rank=rank,
                             world_size=size)
     print(f"torch.distributed: rank {rank} of {size} on {dev} ({dist.get_backend()})")
-    return World(rank, size, dev, True)
+    return World(rank, size, dev, True, owner=True)
 
 
-def shutdown(world: World) -> None:
-    """Leave the world ``initialize`` joined (a no-op for one process)."""
-    if world.launched and dist.is_initialized():
+def shutdown(world: Optional[World]) -> None:
+    """Destroy the process group ``initialize`` created for ``world`` (a
+    no-op for one process and for an adopted group)."""
+    if world is not None and world.owner and dist.is_initialized():
         dist.destroy_process_group()
 
 
@@ -177,3 +185,46 @@ def all_reduce_sum(t: torch.Tensor, world: World) -> torch.Tensor:
     if world.launched:
         dist.all_reduce(t, op=dist.ReduceOp.SUM)
     return t
+
+
+def shard_rows(rows: torch.Tensor, world: Optional[World]) -> torch.Tensor:
+    """Rank r's contiguous slice of ``rows`` [n, ...] padded to a multiple of
+    the world size by repeating the last row (JAX's pad before a
+    ``P("data")`` split, ``parallel/render.py``). One rank: ``rows`` itself."""
+    if world is None or world.size == 1:
+        return rows
+    n = rows.shape[0]
+    m = -(-n // world.size)
+    pad = m * world.size - n
+    if pad:
+        rows = torch.cat([rows, rows[-1:].expand((pad,) + tuple(rows.shape[1:]))])
+    return rows[world.rank * m:(world.rank + 1) * m]
+
+
+def _all_gather_rows(local: torch.Tensor, size: int, group=None) -> torch.Tensor:
+    """Every rank's ``local`` [m, ...] (equal shapes) concatenated in rank
+    order: ``all_gather_into_tensor`` on NCCL, ``all_gather`` on gloo.
+    Booleans cross as uint8."""
+    t = local.contiguous()
+    as_bool = t.dtype == torch.bool
+    if as_bool:
+        t = t.to(torch.uint8)
+    if dist.get_backend(group) == "nccl":
+        out = torch.empty((size * t.shape[0],) + tuple(t.shape[1:]), dtype=t.dtype,
+                          device=t.device)
+        dist.all_gather_into_tensor(out, t, group=group)
+    else:
+        parts = [torch.empty_like(t) for _ in range(size)]
+        dist.all_gather(parts, t, group=group)
+        out = torch.cat(parts)
+    return out.bool() if as_bool else out
+
+
+def gather_rows(local: torch.Tensor, n: int, world: Optional[World]) -> torch.Tensor:
+    """The rows [n, ...] of which each rank holds its ``shard_rows`` slice
+    ``local``, on every rank (the counterpart of ``out_specs=P("data")``).
+    One rank: ``local`` itself, no collective, so a world of one is the
+    unsharded result bit for bit."""
+    if world is None or world.size == 1:
+        return local
+    return _all_gather_rows(local, world.size)[:n]

@@ -1,7 +1,6 @@
 """Camera-froxel occupancy: per-frame empty-space skipping for pose renders.
 
-Counterpart of ``nerf_shared_tpu/render/froxels.py`` (single device; the
-sharded froxel renderer is not ported). Every ray of a pose render shares
+Counterpart of ``nerf_shared_tpu/render/froxels.py``. Every ray of a pose render shares
 one camera origin, so the world occupancy grid is resampled once per frame
 into camera frustum voxels ("froxels"): a [ceil(H/tile), ceil(W/tile), C]
 boolean over (pixel tile, depth bin), where the depth bins are exactly the
@@ -18,8 +17,12 @@ occupied world cell; the froxel tensor is then dilated in the tile plane.
 ``skip_empty`` renders only tiles with a marked bin (the rest are exact
 background) after one host fetch of the tile activity.
 
-``check_froxel_preset`` refuses the measured-degenerate presets: both
-``build_froxels`` and ``render_image_froxels`` call it.
+``make_sharded_render_froxel`` splits a frame's rays over the ranks of a
+world: every rank computes the selection for the whole frame, renders its
+slice of the rays and their bins (no tile skipping) and gathers the maps.
+
+``check_froxel_preset`` refuses the measured-degenerate presets:
+``build_froxels``, ``render_image_froxels`` and the sharded render call it.
 """
 
 from __future__ import annotations
@@ -31,6 +34,8 @@ import torch
 import torch.nn.functional as F
 
 from nerf_shared_tpu_torch.ops.rays import get_rays, ndc_rays
+from nerf_shared_tpu_torch.parallel.distributed import World, shard_rows
+from nerf_shared_tpu_torch.parallel.render import gather_maps, rank_generator
 from nerf_shared_tpu_torch.render.occupancy import (
     OccupancyGrid,
     _masked_sigma,
@@ -356,3 +361,39 @@ def render_image_froxels(
     idx = torch.as_tensor(order[:n_pad], device=dev)
     return _render_tiles_scatter(pf, parts, idx, rcfg, fcfg, H, W, tile,
                                  min(chunk, n_pad * tile * tile), generator, n_fine)
+
+
+def make_sharded_render_froxel(world: Optional[World], rcfg: RenderConfig, fcfg,
+                               H: int, W: int, tile: int = 8, n_keep: int = 16,
+                               block: int = 16384, n_fine: int = 0):
+    """A froxel render of one pose over the ranks of ``world``: the
+    FroxelGrid and the network replicate, the flat rays and their
+    tile-selected bins split, the maps gather (the collective shape of
+    parallel/render.make_sharded_render). The selection runs on every rank
+    for the whole frame (a few lane sorts per tile); the network and the
+    composite, all of the frame's cost, split. Rank r's slice renders as
+    ``render_image_froxels(skip_empty=False)`` does, in blocks of
+    ``block`` rays, with its draws from ``rank_seed(seed, r)``.
+
+    Returns render_fn(params_fine, froxels, K, c2w, seed=0) -> dict of
+    [H, W, ...] maps (rgb / disp / acc / n_active; with ``n_fine`` also
+    ``z_vals``)."""
+    n = H * W
+
+    @torch.no_grad()
+    def render_fn(params_fine, froxels: FroxelGrid, K, c2w, seed: int = 0):
+        check_froxel_preset(froxels.bits.shape[-1], n_keep)
+        dev = next(iter(params_fine.values())).device
+        c2w = torch.as_tensor(c2w, dtype=torch.float32, device=dev)[:3, :4]
+        rays_o, rays_d, viewdirs = _ray_inputs(rcfg, H, W, K, c2w)
+        parts = [rays_o, rays_d, *_selection_maps(froxels, rcfg, H, W, tile, n_keep)]
+        if viewdirs is not None:
+            parts.append(viewdirs)
+        local = [shard_rows(p, world) for p in parts]
+        out = _map_ray_blocks(params_fine, rcfg, fcfg, local,
+                              rank_generator(world, seed, dev),
+                              min(block, max(local[0].shape[0], 1)), n_fine)
+        out = gather_maps(out, n, world)
+        return {k: v.reshape((H, W) + tuple(v.shape[1:])) for k, v in out.items()}
+
+    return render_fn

@@ -495,7 +495,7 @@ class Renderer:
                                 occ_candidates: int = 128, occ_keep: int = 64,
                                 occ_mode: str = "froxel", occ_tile: int = 8,
                                 occ_select: str = "sort", occ_fine: int = 0,
-                                b_combine_as_video: bool = False):
+                                b_combine_as_video: bool = False, render_fn=None):
         """Render poses at perturb 0 without sigma noise; PNGs (and with
         ``save_depth`` NNN_disp.png + disp.npy) go to ``save_directory``,
         and with ``b_combine_as_video`` the frames as video.gif at 30 fps
@@ -503,7 +503,10 @@ class Renderer:
         imageio has an ffmpeg backend, else video.gif). Returns float rgbs
         [N, H, W, 3] as numpy (reference render_utils.py:293-319).
 
-        The engine: with ``occ_grid`` the occupancy render
+        The engine: a caller's pose renderer ``render_fn(c2w [3, 4],
+        generator)`` when given (the sharded renders of apps/train.py),
+        returning the rgb map or a map dict whose ``disp_map``
+        ``save_depth`` reads; else with ``occ_grid`` the occupancy render
         (``render_image_occ`` with the ``occ_*`` arguments, through the
         fine model), else with ``gate_threshold > 0`` the gated render,
         else the dense hierarchical render (guided when the config says)."""
@@ -513,7 +516,13 @@ class Renderer:
             os.makedirs(save_directory, exist_ok=True)
         rgbs, disps = [], []
         for i, c2w in enumerate(np.asarray(batch_c2w)):
-            if occ_grid is not None:
+            disp = None
+            if render_fn is not None:
+                rgb = render_fn(c2w[:3, :4], generator)
+                if isinstance(rgb, dict):
+                    disp = rgb.get("disp_map")
+                    rgb = rgb["rgb_map"]
+            elif occ_grid is not None:
                 rgb, out = eval_renderer.render_image_occ(
                     H, W, K, c2w,
                     fine_model if fine_model is not None else coarse_model,
@@ -536,7 +545,7 @@ class Renderer:
             if save_directory is not None:
                 imwrite_u8(os.path.join(save_directory, f"{i:03d}.png"),
                            to8b(rgbs[-1]))
-            if save_depth:
+            if save_depth and disp is not None:
                 d = disp.float().cpu().numpy().reshape(rgbs[-1].shape[:2])
                 disps.append(d)
                 if save_directory is not None:

@@ -110,18 +110,17 @@ def test_native_meshing_builds_from_the_port_tree_only():
 
 
 def test_train_occ_is_ported_and_mesh_shape_still_raises():
-    """The trainer takes --mesh_shape since the data-parallel slice: without
-    a launcher, 2 ranks raise saying how to launch them; the mesh CLI's
-    sharded probe still raises (ROADMAP A16b)."""
+    """Every flag is ported: the not-ported table and its check are gone
+    with the sharded renders and export. Without a launcher, 2 ranks raise
+    in the trainer and in the mesh CLI, saying how to launch them (the
+    sharded probe: tests/test_torch_parallel_render.py)."""
     from nerf_shared_tpu_torch.apps import mesh_cli, train
     from nerf_shared_tpu_torch.config import config_parser
 
-    assert "train_occ" not in train._NOT_PORTED
-    train.check_ported(config_parser().parse_args(["--train_occ", "True"]))
-    train.check_ported(config_parser().parse_args(["--mesh_shape", "1"]))
+    assert not hasattr(train, "_NOT_PORTED") and not hasattr(train, "check_ported")
     with pytest.raises(ValueError, match="torchrun --nproc_per_node 2"):
         train.train(config_parser().parse_args(["--device", "cpu", "--mesh_shape", "2"]))
-    with pytest.raises(NotImplementedError, match="ROADMAP A16"):
+    with pytest.raises(ValueError, match="torchrun --nproc_per_node 2"):
         mesh_cli.main(["--device", "cpu", "--mesh_shape", "2"])
 
 
@@ -147,15 +146,13 @@ def test_the_new_modules_default_to_the_card(monkeypatch):
 
 
 def test_precision_bf16_is_ported_everywhere_the_flag_is_read():
-    """--precision bf16 passes the trainer's check (every entry point calls
-    it) and reaches the render config through the factory; --mesh_shape
-    still raises."""
+    """--precision bf16 reaches the render config through the factory (no
+    entry point has a not-ported check left)."""
     from nerf_shared_tpu_torch.apps import train
     from nerf_shared_tpu_torch.config import config_parser
     from nerf_shared_tpu_torch.factory import get_renderer
 
-    assert "precision" not in train._NOT_PORTED
+    assert not hasattr(train, "_NOT_PORTED")
     args = config_parser().parse_args(["--device", "cpu", "--precision", "bf16"])
-    train.check_ported(args)
     assert get_renderer(args, {"near": 2.0, "far": 6.0}, "cpu").cfg.precision == "bf16"
     assert get_renderer(config_parser().parse_args([]), {}, "cpu").cfg.precision == "fp32"

@@ -32,6 +32,7 @@ from nerf_shared_tpu_torch.models import nerf as tnerf
 from nerf_shared_tpu_torch.models.nerf import params_tree_from_jax
 from nerf_shared_tpu_torch.ops import meshing as TM
 from nerf_shared_tpu_torch.ops import native_meshing as tnative
+from nerf_shared_tpu_torch.parallel.distributed import World
 from nerf_shared_tpu_torch.render.renderer import RenderConfig
 from tests.test_e2e import _write_config, _write_llff_scene, _write_scene
 from tests.test_torch_grid_train import HASH_KW
@@ -137,8 +138,11 @@ def test_probe_density_grid_matches_jax(family):
     got = TM.probe_density_grid(tp, tcfg, RenderConfig(), lo, hi, resolution=16, block=1000)
     assert got.shape == want.shape == (17, 17, 17) and got.dtype == np.float32
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5 * max(1.0, np.abs(want).max()))
-    with pytest.raises(NotImplementedError, match="ROADMAP A16"):
-        TM.probe_density_grid(tp, tcfg, RenderConfig(), lo, hi, resolution=4, mesh=object())
+    # the sharded probe over one process is the unsharded probe (worlds of
+    # 2 and 3: tests/test_torch_parallel_render.py)
+    one = World(0, 1, "cpu", False)
+    assert np.array_equal(TM.probe_density_grid(tp, tcfg, RenderConfig(), lo, hi,
+                                                resolution=16, block=1000, mesh=one), got)
 
 
 def test_normals_and_colors_match_jax():
@@ -209,7 +213,8 @@ def test_mesh_cli_matches_jax_on_one_checkpoint(tmp_path, monkeypatch, capsys):
     """The port trains a tiny blender scene (.tar only); both mesh CLIs
     export it with colours and gradient normals: the same face count and
     faces, vertices, colours and normals within 1e-4; the port logs its
-    scan; --mesh_shape raises (ROADMAP A16)."""
+    scan; --mesh_shape 2 without a launcher raises saying how to launch it
+    (two ranks: tests/test_torch_parallel_render.py)."""
     monkeypatch.setattr(jnative, "available", lambda: False)
     root = str(tmp_path)
     datadir = os.path.join(root, "scene")
@@ -235,7 +240,7 @@ def test_mesh_cli_matches_jax_on_one_checkpoint(tmp_path, monkeypatch, capsys):
     np.testing.assert_array_equal(rf, tf)
     np.testing.assert_allclose(rv, jrv, rtol=0, atol=1e-4)
     assert set(np.unique(_edge_use_counts(tv, tf))) == {2}
-    with pytest.raises(NotImplementedError, match="ROADMAP A16"):
+    with pytest.raises(ValueError, match="torchrun --nproc_per_node 2"):
         tmesh_cli.main(["--config", cfg, "--device", "cpu", "--mesh_shape", "2"] + flags)
 
 

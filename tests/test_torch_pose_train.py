@@ -294,8 +294,8 @@ def test_group_resume_rules_and_messages_match_jax(tmp_path, capsys, case):
 
 def test_barf_guards_raise_as_in_jax(tmp_path):
     """--barf_anneal with a grid family or with the identity embedding
-    exits with the JAX trainer's message; the other pose flags pass the
-    not-ported check."""
+    exits with the JAX trainer's message; no entry point keeps a
+    not-ported check for the other pose flags."""
     root = str(tmp_path)
     datadir, logdir = os.path.join(root, "scene"), os.path.join(root, "logs")
     os.makedirs(datadir)
@@ -308,9 +308,8 @@ def test_barf_guards_raise_as_in_jax(tmp_path):
         with pytest.raises(SystemExit) as got:
             tapp.train(config_parser().parse_args(argv + ["--device", "cpu"]))
         assert str(got.value) == str(want.value) and "--barf_anneal" in str(got.value)
-    for flag in ("--refine_poses", "--appearance"):
-        tapp.check_ported(config_parser().parse_args([flag, "True"]))
-    tapp.check_ported(config_parser().parse_args(["--barf_anneal", "100"]))
+    # no entry point keeps a not-ported check: every flag is ported
+    assert not hasattr(tapp, "check_ported")
 
 
 def test_cli_trains_resumes_and_renders_with_the_pose_flags(tmp_path, capsys):

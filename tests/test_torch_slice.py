@@ -85,10 +85,9 @@ def test_unported_flags_raise(slice_cfg, flag, value):
     and --appearance (the pose slice), --ema_decay, --proposal and
     --loss_sampling (the proposal slice), --train_occ (the occupancy
     trainer's slice) and --precision bf16 (the bf16 slice) are ported and
-    build the engine. --mesh_shape trains data-parallel since the
-    data-parallel slice (tests/test_torch_parallel.py); the engine renders
-    on one card, so a mesh of one builds it and a mesh of more raises,
-    naming the sharded renders (ROADMAP A16b).
+    build the engine. --mesh_shape: a mesh of one builds the plain engine,
+    and a mesh of more without a launcher raises saying how to launch it
+    (the sharded engine under torchrun: tests/test_torch_parallel_render.py).
     The slice's checkpoint holds a full-size coarse network, which a
     --proposal engine (a 2x64 proposal coarse) cannot load: that case
     builds from the seeded init (--no_reload)."""
@@ -103,7 +102,7 @@ def test_unported_flags_raise(slice_cfg, flag, value):
         assert eng.renderer.cfg.proposal == (flag == "--proposal")
         assert eng.renderer.cfg.precision == (value if flag == "--precision" else "fp32")
         return
-    with pytest.raises(NotImplementedError, match=r"sharded renders .*ROADMAP A16b"):
+    with pytest.raises(ValueError, match="torchrun --nproc_per_node 2"):
         build_eval_engine(args)
 
 

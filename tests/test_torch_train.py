@@ -446,7 +446,8 @@ def test_fused_backward_resolves_on_for_the_mlp_family_on_cuda():
                                   ["--distortion_loss_weight", "0.01"],
                                   ["--multihost", "True"], ["--debug_nans", "True"]])
 def test_training_flags_not_ported_raise(flag, capsys):
-    """Every flag here is ported and passes the check: --refine_poses and
+    """Every flag here is ported (no entry point keeps a not-ported check
+    since the sharded renders): --refine_poses and
     --appearance (tests/test_torch_pose_train.py), --loss_sampling and
     --distortion_loss_weight (tests/test_torch_ema.py), --train_occ
     (tests/test_torch_occ_train.py), --multihost and --debug_nans
@@ -456,7 +457,7 @@ def test_training_flags_not_ported_raise(flag, capsys):
     and says so, and --debug_nans is off again after a run that fails (here
     at the missing dataset)."""
     args = config_parser().parse_args(["--device", "cpu"] + flag)
-    tapp.check_ported(args)
+    assert not hasattr(tapp, "check_ported")  # every flag is ported
     if flag[0] == "--loss_sampling":
         with pytest.raises(SystemExit, match="--no_batching"):
             tapp.train(args)
