@@ -7,8 +7,10 @@
 # drives both trees (it is copied into the parent tree first), so both run
 # the same phases and measurements over their own kernels and wrappers;
 # the parent's runs get --parent-tree, so phase 1 does not require the
-# tensor-core kernels the parent predates. Exits non-zero if any run
-# failed.
+# tensor-core kernels the parent predates. The parent must offer what the
+# change's phases call (phases 5, 11-15 read B2's H through
+# fused_mlp_bwd.launch_backward_h, which B2's tensor-core tile added).
+# Exits non-zero if any run failed.
 #
 #   mkdir -p build/parent build/change
 #   git archive <parent commit> | tar -x -C build/parent

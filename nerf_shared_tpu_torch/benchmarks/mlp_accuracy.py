@@ -1,7 +1,7 @@
 """Probe: how far the tensor-core MLP kernels B1 and B3 and the plain fp32
 chain are from a float64 forward of the same network, and how far B2's
-weight and bias gradients and the plain fp32 backward are from a float64
-backward, on the card.
+weight and bias gradients, its input gradients (dpts, ddirs) and the
+plain fp32 backward's are from a float64 backward, on the card.
 
     python -m nerf_shared_tpu_torch.benchmarks.mlp_accuracy [--rays 1024 --samples 64]
 
@@ -13,9 +13,10 @@ shows that drift as a bias. Inputs: seeded lego-width weights and points
 on seeded rays through the lego volume; B3 reads the rays and depths
 that give the same fp32 points. Prints one JSON line per forward path
 (rgb and sigma: max, rms and mean of the error), one per backward path
-(each parameter's gradient: max, rms and mean of the error, the mean
-showing any bias of the tensor cores' sum in B2's dW products, with the
-cotangent of the raw outputs seeded) and the card's name and power limit.
+(each parameter's gradient and dpts / ddirs: max, rms and mean of the
+error, the mean showing any bias of the tensor cores' sums in B2's tile
+and dW products, with the cotangent of the raw outputs seeded) and the
+card's name and power limit.
 """
 
 from __future__ import annotations
@@ -94,20 +95,21 @@ def main(argv=None) -> int:
                               **errors(got, want)}))
     g = torch.randn(pts.shape[:-1] + (4,), generator=torch.Generator().manual_seed(
         args.seed + 1)).to(dev)
-    want, _, _ = fused_mlp_bwd.plain_mlp_backward(p64, cfg, pts.double(), d.double(),
-                                                  g.double())
+    want, wpts, wdirs = fused_mlp_bwd.plain_mlp_backward(p64, cfg, pts.double(), d.double(),
+                                                         g.double())
     backward = {
         "plain fp32 backward (autograd, cuBLAS)":
-            fused_mlp_bwd.plain_mlp_backward(params, cfg, pts, d, g)[0],
-        "B2 (dW split fp32 on the tensor cores, k8 slice sums in fp32)":
-            fused_mlp_bwd.fused_mlp_backward(params, cfg, pts, d, g)[0],
+            fused_mlp_bwd.plain_mlp_backward(params, cfg, pts, d, g),
+        "B2 (tile and dW split fp32 on the tensor cores, k8 slice sums in fp32)":
+            fused_mlp_bwd.fused_mlp_backward(params, cfg, pts, d, g),
     }
-    for name, got in backward.items():
+    for name, (got, dpts, ddirs) in backward.items():
         errs = grad_errors(got, want)
         worst = {q: max(v[q] / v["scale"] if q != "mean" else abs(v[q]) / v["scale"]
                         for v in errs.values()) for q in ("max", "rms", "mean")}
+        inputs = grad_errors({"dpts": dpts, "ddirs": ddirs}, {"dpts": wpts, "ddirs": wdirs})
         print(json.dumps({"path": name, "points": pts.shape[0] * pts.shape[1],
-                          "worst_of_max_grad": worst, "grads": errs}))
+                          "worst_of_max_grad": worst, "inputs": inputs, "grads": errs}))
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip().splitlines()[0])

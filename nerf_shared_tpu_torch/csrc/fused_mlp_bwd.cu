@@ -6,8 +6,8 @@
 // fused_train_op, the backward of every training step). Input: points
 // [N, 3], per-ray view directions [N / S, 3] and the cotangent of the raw
 // outputs g [N, C]. Output: the gradient of every weight and bias, in the
-// packed [in][ld] layout of the forward weights (ops/cuda/fused_mlp.py
-// pack_network), and dx [N, 6] (d/dpts, d/ddirs per point).
+// packed [in][ld] layout of ops/cuda/fused_mlp.py packed_layout, and dx
+// [N, 6] (d/dpts, d/ddirs per point).
 //
 // What bounds it on an H100: operations. A point costs about three forward
 // passes (rematerialised forward, input gradients through every layer, the
@@ -17,24 +17,36 @@
 // in revisited VMEM blocks. Hopper's blocks run in no order and carry
 // nothing, so B2 is two kernels and a reduction:
 //
-// 1. nerf_bwd_kernel, one persistent block per SM walking 64-point tiles
-//    (TILE_P): the forward again and the input gradients through every
-//    layer down to dx, fp32 on the CUDA cores through the 8x8-per-thread
-//    register tile of mlp_tile.cuh (gemm_acc), two thirds of the FLOPs. A
-//    tile's activations (~9.9 KB a point at the lego width) do not fit a
-//    block's 227 KB of shared memory, which keeps two [64][256] buffers (X:
-//    the running gradient, Y: the layer input or relu mask), the encoding
-//    and its gradient, the cotangent tile and a 16-row weight staging tile
-//    (~199 KB). Each weight matrix's layer input H and its post-mask
-//    cotangent dZ go to two device buffers, one point-major segment per
-//    activation (BwdDesc hseg / zseg; ops/cuda/fused_mlp_bwd.py act_layout,
-//    ~19.8 KB a point); the backward reads each layer's input back from H.
-//    Input-gradient products dZ·W use the weights in PyTorch's [out][in]
-//    layout (a second packed copy, split at the skip and view-direction
-//    concatenations). dx as the TPU kernel computes it
+// 1. nerf_bwd_kernel, one persistent block per SM walking 128-point tiles
+//    (tc::TP), two thirds of the FLOPs, on the tensor cores through B1's
+//    tile (mlp_tile_tc.cuh): the forward again, then the input gradients
+//    through every layer down to dx. Every GEMM runs on wgmma in split fp32
+//    (3xTF32), each 8-row slice summed on the tensor cores from zero and
+//    added in fp32 on the CUDA cores (mma_slice_rn): the tensor cores'
+//    running sum drifts toward zero, and dx feeds the pose gradients. The
+//    weights of both sweeps stream through one ring of shared-memory slots
+//    (bulk copies, mbarriers): the forward's GEMMs from B1's pack
+//    (pack_network_tc), then the input-gradient GEMMs dh = dz·W from a
+//    pack of their own (ops/cuda/fused_mlp_bwd.py pack_backward_tc: each
+//    weight [out][in] as a [K = out][N = in] matrix in the same K-major
+//    slices, split where the forward concatenates its input: the skip
+//    layer's embedding and h columns, the views layer's feature and
+//    direction columns). A tile's activations (~9.9 KB a point at the lego
+//    width) do not fit shared memory, which holds one [128][HS] tile (the
+//    running activation or gradient, the A operand of every GEMM), the
+//    cotangent tile, the encoder's rows and the ring. Each weight matrix's
+//    layer input H and its post-mask cotangent dZ go to two device
+//    buffers, one point-major segment per activation (BwdDesc hseg / zseg;
+//    ops/cuda/fused_mlp_bwd.py act_layout, ~19.8 KB a point), written from
+//    the accumulators in each GEMM's epilogue; the ReLU mask of dz_l reads
+//    h_l back from H, which the same thread wrote in the forward. The
+//    narrow heads' transposed products (K = 1, 3 or output_ch) run in fp32
+//    on the CUDA cores. dx as the TPU kernel computes it
 //    (fused_mlp_bwd.py:299-300): through identity columns 1, through
 //    sin(f·x) f·cos(f·x), through cos(f·x) -f·sin(f·x), summed per input
-//    coordinate.
+//    coordinate, formed in the epilogue of each GEMM into the embedding
+//    (layer 0, the skip layer, the views layer's directions) and added per
+//    point and coordinate in shared memory in a fixed order.
 // 2. nerf_dw_kernel: dW = H^T·dZ and db = sum dZ for every matrix, one
 //    third of the FLOPs, as a GEMM over the points (K = up to 196,608). A
 //    block owns one 128 x 128 output tile of one product over one range of
@@ -52,36 +64,43 @@
 // 3. grad_reduce_kernel sums the ranges' partials in a fixed order, so the
 //    result is the same on every run.
 //
-// The 14.7 GB of per-block partial read-modify-write of the first design
-// (one fp32 copy of all gradients per block, updated every tile) becomes
-// ~7.8 GB of streaming writes and reads of H and dZ at 196,608 points.
-//
 // bf16 (nerf_bwd_bf16_kernel, nerf_dw_bf16_kernel; --precision bf16): the
 // TPU kernel's bf16 instantiation (_make_bwd_kernel_closed with
-// compute_dtype bfloat16, fused_mlp_bwd.py:176-300). The tile kernel keeps
-// its fp32 CUDA-core arithmetic on bf16-rounded operands, which computes
-// the JAX function (a product of two bf16 values is exact in fp32): the
-// weights arrive rounded (ops/cuda/fused_mlp_bwd.py pack_forward /
-// pack_backward), the encoding, every layer's output and the cotangent g
-// are rounded as they are stored, and each dz (dhv, dfeature, dz_l) goes
-// to the dZ buffer in fp32 and is then rounded in place (dz_c) before it
-// enters dh = dz_c·Wᵀ. The ReLU masks read the bf16 activations. The dW
-// kernel rounds dZ as it loads it and forms dW with one
-// mma.sync.m16n8k16 bf16 product a 16-point step (each summed from zero
-// and added in fp32), while its bias sums read the fp32 dZ (dbout the
-// rounded g), as JAX's do. demb and dx stay fp32. Design bound: the tile
-// kernel's FLOPs over the fp32 CUDA cores' 67 TFLOP/s plus dW's over the
-// 989 TFLOP/s bf16 rate; all-bf16 bound: all FLOPs over 989 TFLOP/s.
-#include "mlp_tile.cuh"
+// compute_dtype bfloat16, fused_mlp_bwd.py:176-300). The tile kernel is
+// B1's bf16 tile: one wgmma.m64nNk16 bf16 product a 16-row slice of both
+// packs (rounded to bf16 by the wrappers), its A operand the bf16-rounded
+// activations or dz_c as bf16x2 pairs in registers, fp32 accumulators. The
+// encoding, every layer's output and the cotangent g are rounded as they
+// are stored; each dz (dhv, dfeature, dz_l) goes to the dZ buffer in fp32
+// and is rounded (dz_c) as it is stored in shared memory, the operand of
+// dh = dz_c·Wᵀ, as JAX's _dot_nt(dz_c, W). The ReLU masks read the bf16
+// activations. The dW kernel rounds dZ as it loads it and forms dW with
+// one mma.sync.m16n8k16 bf16 product a 16-point step (each summed from
+// zero and added in fp32), while its bias sums read the fp32 dZ (dbout the
+// rounded g), as JAX's do. demb and dx stay fp32. Bound: all FLOPs over
+// the 989 TFLOP/s bf16 rate.
+#include "mlp_tile_tc.cuh"
 
 namespace nstt {
 
-constexpr int KC_BWD = 16;   // weight rows staged per step (shared memory)
-constexpr int G_LD = 8;      // cotangent tile row: rgb 0-2, alpha 3, alpha 4
+constexpr int NTHREADS = tc::NTHREADS;
+constexpr int MAX_LAYERS = 32;
+constexpr int G_LD = tc::RAW_LD;  // cotangent tile row: rgb 0-2, alpha 3, alpha 4
+constexpr int DX_LD = 6;          // dx scratch row: d/dpts, d/ddirs
 
-// PyTorch-layout ([out][in]) weight segments for the input-gradient
-// products: {float offset, row stride}; offset -1 where there is none.
-enum { BW_ALPHA, BW_FEATURE, BW_VIEWS_F, BW_VIEWS_D, BW_RGB, BW_OUTPUT };
+// The input-gradient GEMMs in the order the tile runs them (pack_backward_tc
+// bwd_gemms): the views layer's direction and feature columns, the feature
+// layer, then per layer from the last its embedding columns (layer 0 and
+// the skip layer) and its h columns. A row holds the forward's fields
+// G_W (float offset in the backward pack), G_NP, G_NS0 and G_NS1 (0) that
+// the ring reads, the kind of its epilogue and its argument.
+constexpr int MAX_BGEMMS = 3 + 2 * MAX_LAYERS;
+enum { BG_KIND = tc::G_B, BG_ARG = tc::G_SRC0 };
+// epilogues: dx through the embedding (arg 0 the points' columns, 1 the
+// directions'); dfeature; dz_arg = dh_arg ⊙ 1[h_arg > 0], under
+// BK_DZ_ALPHA with g_alpha·W_alpha added first
+enum { BK_DEMB, BK_DFEATURE, BK_DZ, BK_DZ_ALPHA };
+enum { BH_NB, BH_SLOT };
 // Activation segments of the H and dZ buffers: {floats a point before the
 // segment, row stride}; for n_pad points segment s starts at float
 // n_pad * seg[s][0]. H: the embedding, h_l at 1 + l, the feature, hv;
@@ -90,74 +109,18 @@ constexpr int N_SEG = MAX_LAYERS + 3;
 enum { HS_EMB = 0, HS_FEATURE = MAX_LAYERS + 1, HS_HV = MAX_LAYERS + 2 };
 enum { ZS_DFEATURE = MAX_LAYERS, ZS_DHV = MAX_LAYERS + 1, ZS_GR = MAX_LAYERS + 2 };
 struct BwdDesc {
-  long long seg[MAX_LAYERS][2][2];   // layer l: [0] embedding part, [1] h part
-  long long head[6][2];
+  long long hdr[8];
+  long long gemm[MAX_BGEMMS][8];
   long long hseg[N_SEG][2];
   long long zseg[N_SEG][2];
 };
 
-// ops/cuda/fused_mlp_bwd.py smem_bytes mirrors this (plus the two
-// descriptors in static shared memory) to refuse widths that do not fit
-__host__ __device__ inline size_t bwd_smem_floats(int HS, int ES) {
-  return (size_t)KC_BWD * MAXW + 2 * (size_t)TILE_P * HS
-       + 2 * (size_t)TILE_P * ES + (size_t)TILE_P * G_LD;
-}
-
-// Epilogues of a gemm_acc without bias: store, add, or store where the
-// relu mask (the layer's output) is positive.
-enum { PUT_STORE, PUT_ADD, PUT_MASK };
-template <int MODE>
-__device__ __forceinline__ void put(const float (&acc)[8][8], int N, float* dst,
-                                    int ds, const float* mask) {
-  const int lane = threadIdx.x & 31, row0 = (threadIdx.x >> 5) * 8;
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    const int col = acc_col(lane, j);
-    if (col < N) {
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const int k = (row0 + i) * ds + col;
-        if (MODE == PUT_STORE) dst[k] = acc[i][j];
-        if (MODE == PUT_ADD) dst[k] += acc[i][j];
-        if (MODE == PUT_MASK) dst[k] = mask[k] > 0.f ? acc[i][j] : 0.f;
-      }
-    }
-  }
-}
-
-// TILE_P rows of `cols` floats (a multiple of 4) from src (row stride ss)
-// to dst (row stride ds); 16-byte aligned rows.
-__device__ __forceinline__ void copy_rows(float* dst, int ds, const float* src,
-                                          int ss, int cols) {
-  const int q = cols / 4;
-  for (int i = threadIdx.x; i < TILE_P * q; i += NTHREADS) {
-    const int p = i / q, c = (i % q) * 4;
-    *reinterpret_cast<float4*>(dst + (size_t)p * ds + c) =
-        *reinterpret_cast<const float4*>(src + (size_t)p * ss + c);
-  }
-}
-
-// copy_rows from src, then under kRound src's copied floats rounded to bf16
-// in place, each by the thread that copied it (no barrier between)
-template <bool kRound>
-__device__ __forceinline__ void copy_rows_round(float* dst, int ds, float* src, int ss,
-                                                int cols) {
-  if (!kRound) {
-    copy_rows(dst, ds, src, ss, cols);
-    return;
-  }
-  const int q = cols / 4;
-  for (int i = threadIdx.x; i < TILE_P * q; i += NTHREADS) {
-    const int p = i / q, c = (i % q) * 4;
-    float4* s4 = reinterpret_cast<float4*>(src + (size_t)p * ss + c);
-    float4 v = *s4;
-    *reinterpret_cast<float4*>(dst + (size_t)p * ds + c) = v;
-    v.x = __bfloat162float(__float2bfloat16_rn(v.x));
-    v.y = __bfloat162float(__float2bfloat16_rn(v.y));
-    v.z = __bfloat162float(__float2bfloat16_rn(v.z));
-    v.w = __bfloat162float(__float2bfloat16_rn(v.w));
-    *s4 = v;
-  }
+// dynamic shared memory of the tile kernel, in floats: the activation tile,
+// the cotangent tile, the encoder's rows, two warpgroups' dx sums and R
+// ring slots of SLOT floats (ops/cuda/fused_mlp_bwd.py smem_bytes mirrors
+// it, plus the descriptors and barriers in static shared memory)
+__host__ __device__ inline size_t bwd_smem_floats(int HS, int SLOT, int R) {
+  return (size_t)tc::TP * (HS + G_LD + tc::PointEnc::ROW + 2 * DX_LD) + (size_t)R * SLOT;
 }
 
 // Row p0 of segment s of an H or dZ buffer.
@@ -166,213 +129,492 @@ __device__ __forceinline__ float* seg_rows(float* buf, const long long (&s)[2],
   return buf + s[0] * n_pad + p0 * s[1];
 }
 
+namespace tc {
+
+// mbar_wait without its printf: an extern call in the kernel makes ptxas
+// serialise its wgmma (C7510). A phase that never completes still traps.
+__device__ __forceinline__ void bar_wait(unsigned long long* bar, unsigned parity) {
+  const unsigned addr = smem_addr(bar);
+  for (int tries = 0;; ++tries) {
+    unsigned done;
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n" : "=r"(done) : "r"(addr), "r"(parity) : "memory");
+    if (done) return;
+    if (tries == (1 << 24)) __trap();
+  }
+}
+
+// The ring over B2's sequence: the forward's NG GEMMs of d (weights wb),
+// then the backward's NB of bd (weights wbt), tile after tile.
+struct Sweep {
+  const Desc* d;
+  const BwdDesc* bd;
+  const float* wb;
+  const float* wbt;
+};
+
 template <bool kBf16>
-__device__ inline void bwd_tiles(const NetDesc* __restrict__ gdesc,
+__device__ inline void produce(Ring& r, const Sweep& w) {
+  if (r.pk >= r.ntiles) return;
+  if (r.pissued >= r.R) bar_wait(r.empty + r.pslot, r.pphase ^ 1);
+  const int NF = (int)w.d->hdr[H_NG];
+  const bool fwd = r.pg < NF;
+  const long long* G = fwd ? w.d->gemm[r.pg] : w.bd->gemm[r.pg - NF];
+  const unsigned floats = slice_floats_per_col<kBf16>() * (unsigned)G[G_NP];
+  bulk_load(r.slots + r.pslot * r.SLOT, (fwd ? w.wb : w.wbt) + G[G_W] + (long long)r.ps * floats,
+            floats * 4u, r.full + r.pslot);
+  ++r.pissued;
+  if (++r.pslot == r.R) {
+    r.pslot = 0;
+    r.pphase ^= 1;
+  }
+  if (++r.ps == (int)(G[G_NS0] + G[G_NS1])) {
+    r.ps = 0;
+    if (++r.pg == NF + (int)w.bd->hdr[BH_NB]) {
+      r.pg = 0;
+      ++r.pk;
+    }
+  }
+}
+
+template <bool kBf16>
+__device__ inline Ring start_sweep(const Sweep& w, float* slots, unsigned long long* bars,
+                                   int R, int SLOT, long long ntiles) {
+  Ring r;
+  r.slots = slots;
+  r.full = bars;
+  r.empty = bars + MAX_SLOTS;
+  r.R = R;
+  r.SLOT = SLOT;
+  r.cslot = r.cphase = r.cq = r.pslot = r.pphase = r.pg = r.ps = 0;
+  r.pissued = r.pk = 0;
+  r.ntiles = ntiles;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < R; ++i) {
+      mbar_init(r.full + i, 1);
+      mbar_init(r.empty + i, NWARPS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    for (int i = 0; i < R - 1; ++i) produce<kBf16>(r, w);
+  }
+  return r;
+}
+
+template <bool kBf16>
+__device__ __forceinline__ const float* take(Ring& r, const Sweep& w) {
+  if (threadIdx.x == 0) produce<kBf16>(r, w);
+  bar_wait(r.full + r.cslot, r.cphase);
+  __syncwarp();
+  return r.slots + r.cslot * r.SLOT;
+}
+
+// acc = the GEMM's product over all its slices: A from s.h (src SRC_H) or
+// the encoder, the weights from the ring; as tile_network runs it (fp32:
+// slice sums rounded to nearest; bf16: one k16 product a slice)
+template <bool kBf16>
+__device__ __forceinline__ void sweep_gemm(float (&acc)[2][NACC], const long long* G,
+                                           int src0, int src1, const Desc& d,
+                                           const PointEnc& e, const Smem& s, Ring& r,
+                                           const Sweep& w) {
+  const int HS = (int)d.hdr[H_HS];
+  const int np = (int)G[G_NP], nh = np >> 1, n0 = (threadIdx.x >> 7) * nh;
+  const int ns0 = (int)G[G_NS0], ns = ns0 + (int)G[G_NS1];
+#pragma unroll
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int i = 0; i < NACC; ++i) acc[m][i] = 0.f;
+  for (int i = 0; i < ns; ++i) {
+    const float* slice = take<kBf16>(r, w);
+    const bool first = i < ns0;
+    const int src = first ? src0 : src1;
+    const int k0 = (first ? i : i - ns0) * (kBf16 ? 2 * SLICE_K : SLICE_K);
+    const float* big = slice + n0 * 8;
+    const float* small = slice + 8 * np + n0 * 8;
+    if constexpr (kBf16) {
+      unsigned a[2][4];
+#pragma unroll
+      for (int m = 0; m < 2; ++m) a_frag_bf16(d, e, s, src, k0, HS, m, a[m]);
+      const unsigned long long b = b_desc(big);
+      switch (nh) {
+        case 128: mma_slice_bf16<128>(acc, a, b); break;
+        case 64: mma_slice_bf16<64>(acc, a, b); break;
+        case 32: mma_slice_bf16<32>(acc, a, b); break;
+        default: mma_slice_bf16<16>(acc, a, b); break;
+      }
+    } else {
+      const auto frag = [&](int m, unsigned (&fb)[4], unsigned (&fs)[4]) {
+        a_frag(d, e, s, src, k0, HS, m, fb, fs);
+      };
+      switch (nh) {
+        case 128: mma_slice_rn<128, 1>(acc, frag, big, small); break;
+        case 64: mma_slice_rn<64, 1>(acc, frag, big, small); break;
+        case 32: mma_slice_rn<32, 1>(acc, frag, big, small); break;
+        default: mma_slice_rn<16, 1>(acc, frag, big, small); break;
+      }
+    }
+    release(r);
+  }
+}
+
+// The thread's accumulator (m, 4 j + q) holds tile row 64 m + r0 + 8 (q >> 1)
+// and column n0 + 8 j + 2 t + (q & 1).
+__device__ __forceinline__ int frag_row0() {
+  return 16 * ((threadIdx.x >> 5) & 3) + ((threadIdx.x & 31) >> 2);
+}
+
+__device__ __forceinline__ int frag_col(int n0, int j) {
+  return n0 + 8 * j + 2 * (threadIdx.x & 3);
+}
+
+// acc -> s.h (all nh columns of the warpgroup; kRound: rounded to bf16),
+// once every warp is done reading s.h. Ends with a barrier.
+template <bool kRound>
+__device__ __forceinline__ void to_tile(const float (&acc)[2][NACC], int nh, int n0,
+                                        float* h, int HS) {
+  const int r0 = frag_row0();
+  __syncthreads();
+#pragma unroll
+  for (int j = 0; j < NACC / 4; ++j) {
+    if (8 * j < nh) {
+      const int col = frag_col(n0, j);
+#pragma unroll
+      for (int m = 0; m < 2; ++m) {
+        const int r = 64 * m + r0;
+        float v[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) v[q] = kRound ? round_bf16(acc[m][4 * j + q]) : acc[m][4 * j + q];
+        *reinterpret_cast<float2*>(h + r * HS + col) = make_float2(v[0], v[1]);
+        *reinterpret_cast<float2*>(h + (r + 8) * HS + col) = make_float2(v[2], v[3]);
+      }
+    }
+  }
+  __syncthreads();
+}
+
+// acc's columns below ld -> rows of a segment (row stride ld, a multiple
+// of 4) of the H or dZ buffer
+__device__ __forceinline__ void to_segment(const float (&acc)[2][NACC], int nh, int n0,
+                                           float* rows, int ld) {
+  const int r0 = frag_row0();
+#pragma unroll
+  for (int j = 0; j < NACC / 4; ++j) {
+    const int col = frag_col(n0, j);
+    if (8 * j < nh && col < ld) {
+#pragma unroll
+      for (int m = 0; m < 2; ++m) {
+        const int r = 64 * m + r0;
+        __stcg(reinterpret_cast<float2*>(rows + (size_t)r * ld + col),
+               make_float2(acc[m][4 * j], acc[m][4 * j + 1]));
+        __stcg(reinterpret_cast<float2*>(rows + (size_t)(r + 8) * ld + col),
+               make_float2(acc[m][4 * j + 2], acc[m][4 * j + 3]));
+      }
+    }
+  }
+}
+
+// forward epilogue: acc = act(acc + bias) (kBf16: rounded), as
+// tile_network's epilogue forms it
+template <bool kBf16>
+__device__ __forceinline__ void bias_act(float (&acc)[2][NACC], const float* __restrict__ bias,
+                                         bool relu, int nh, int n0) {
+#pragma unroll
+  for (int j = 0; j < NACC / 4; ++j) {
+    if (8 * j < nh) {
+      const int col = frag_col(n0, j);
+      const float b[2] = {__ldg(bias + col), __ldg(bias + col + 1)};
+#pragma unroll
+      for (int m = 0; m < 2; ++m)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          float v = acc[m][4 * j + q] + b[q & 1];
+          if (relu) v = fmaxf(v, 0.f);
+          acc[m][4 * j + q] = kBf16 ? round_bf16(v) : v;
+        }
+    }
+  }
+}
+
+// dz = dh ⊙ 1[h > 0] in place, h the forward's output in rows (row stride
+// ldh; columns past it 0) of the H buffer, which this thread wrote; wa
+// (non-null): first dh += g_alpha · W_alpha, wa the alpha head's K weights,
+// g_alpha column 4 of the cotangent tile
+__device__ __forceinline__ void relu_mask(float (&acc)[2][NACC], int nh, int n0,
+                                          const float* hrows, int ldh, const float* wa,
+                                          int K, const float* gr) {
+  const int r0 = frag_row0();
+#pragma unroll
+  for (int j = 0; j < NACC / 4; ++j) {
+    if (8 * j < nh) {
+      const int col = frag_col(n0, j);
+      float w0 = 0.f, w1 = 0.f;
+      if (wa) {
+        w0 = col < K ? __ldg(wa + col) : 0.f;
+        w1 = col + 1 < K ? __ldg(wa + col + 1) : 0.f;
+      }
+#pragma unroll
+      for (int m = 0; m < 2; ++m) {
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int r = 64 * m + r0 + 8 * hh;
+          float2 h = make_float2(0.f, 0.f);
+          if (col < ldh) h = __ldcg(reinterpret_cast<const float2*>(hrows + (size_t)r * ldh + col));
+          float v0 = acc[m][4 * j + 2 * hh], v1 = acc[m][4 * j + 2 * hh + 1];
+          if (wa) {
+            const float ga = gr[r * G_LD + 4];
+            v0 = fmaf(ga, w0, v0);
+            v1 = fmaf(ga, w1, v1);
+          }
+          acc[m][4 * j + 2 * hh] = h.x > 0.f ? v0 : 0.f;
+          acc[m][4 * j + 2 * hh + 1] = h.y > 0.f ? v1 : 0.f;
+        }
+      }
+    }
+  }
+}
+
+// dx through the embedding: acc holds demb's columns [n0, n0 + nh) of the
+// segment of compact embedding columns [base, base + width), which read
+// inputs dim0 .. dim0 + 2 (the point or the direction). Each thread sums
+// acc·d(emb)/dx over its columns per row and input, the quad's four
+// threads add theirs, and lane 0 of the quad adds the sum to the
+// warpgroup's dx row in shared memory (one thread per row and input: a
+// fixed order).
+__device__ __forceinline__ void demb_to_dx(const float (&acc)[2][NACC], const Desc& d,
+                                           const float* __restrict__ enc, const float* rows,
+                                           int nh, int n0, int base, int width, int dim0,
+                                           float* dxs) {
+  const int r0 = frag_row0();
+  float sx[2][2][3];
+#pragma unroll
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+      for (int i = 0; i < 3; ++i) sx[m][hh][i] = 0.f;
+#pragma unroll
+  for (int j = 0; j < NACC / 4; ++j) {
+#pragma unroll
+    for (int q2 = 0; q2 < 2; ++q2) {
+      const int col = frag_col(n0, j) + q2;
+      if (8 * j < nh && col < width) {
+        const int cc = base + col;
+        const int dim = (int)__ldg(enc + MAX_EMB + cc);
+        const int k = d.kind[cc];
+        const float f = __ldg(enc + cc);
+#pragma unroll
+        for (int m = 0; m < 2; ++m) {
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+            const int r = 64 * m + r0 + 8 * hh;
+            float der = 1.f;
+            if (k != 0) {
+              const float arg = __fmul_rn(f, rows[r * PointEnc::ROW + dim]);
+              der = k == 1 ? f * cosf(arg) : -f * sinf(arg);
+            }
+            const float v = acc[m][4 * j + 2 * hh + q2] * der;
+            const int i = dim - dim0;
+            sx[m][hh][0] += i == 0 ? v : 0.f;
+            sx[m][hh][1] += i == 1 ? v : 0.f;
+            sx[m][hh][2] += i == 2 ? v : 0.f;
+          }
+        }
+      }
+    }
+  }
+  const int wg = threadIdx.x >> 7;
+#pragma unroll
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+      for (int i = 0; i < 3; ++i) {
+        float v = sx[m][hh][i];
+        v += __shfl_xor_sync(0xffffffffu, v, 1);
+        v += __shfl_xor_sync(0xffffffffu, v, 2);
+        if ((threadIdx.x & 3) == 0)
+          dxs[(wg * TP + 64 * m + r0 + 8 * hh) * DX_LD + dim0 + i] += v;
+      }
+}
+
+// The narrow heads' transposed products on the CUDA cores, in fp32, at the
+// turn from the forward to the backward (s.h holds hv, or without viewdirs
+// the last trunk output): dhv = (g_rgb·W_rgb) ⊙ 1[hv > 0], or dz_{D-1} =
+// (g·W_out) ⊙ 1[h_{D-1} > 0], a sum of K <= 8 products in order; to its dZ
+// segment (fp32; the row's padding columns 0) and, rounded under kBf16, in
+// place to s.h. Ends with a barrier.
+template <bool kBf16>
+__device__ inline void narrow_bwd(const Desc& d, const BwdDesc& bd, const float* __restrict__ wb,
+                                  const Smem& s, float* zbuf, long long n_pad, long long p0) {
+  const int HS = (int)d.hdr[H_HS], D = (int)d.hdr[H_D];
+  const bool views = d.hdr[H_VIEWDIRS] != 0;
+  const long long* Nh = d.narrow[views ? N_RGB : N_OUTPUT];
+  const float* __restrict__ w = wb + Nh[NW_W];
+  const int K = (int)Nh[NW_K], N = (int)Nh[NW_N];
+  const long long(&zs)[2] = bd.zseg[views ? ZS_DHV : D - 1];
+  float* z = seg_rows(zbuf, zs, n_pad, p0);
+  const int ld = (int)zs[1];
+  for (int i = threadIdx.x; i < TP * ld; i += NTHREADS) {
+    const int p = i / ld, c = i - p * ld;
+    float v = 0.f;
+    if (c < K) {
+      const float* gp = s.raw + p * G_LD;
+      v = gp[0] * __ldg(w + c);
+      for (int o = 1; o < N; ++o) v = fmaf(gp[o], __ldg(w + o * K + c), v);
+      if (!(s.h[p * HS + c] > 0.f)) v = 0.f;
+    }
+    __stcg(z + (size_t)p * ld + c, v);
+    s.h[p * HS + c] = kBf16 ? round_bf16(v) : v;
+  }
+  __syncthreads();
+}
+
+// B2's tile kernel: one persistent block an SM walks the 128-point tiles.
+// Per tile: the encoder's rows, the cotangent tile (to dZ), the embedding
+// (to H); the forward GEMMs, each layer's output to H and s.h; the narrow
+// heads' transposed products; the backward GEMMs with their epilogues
+// (dx sums, dfeature, dz); dx.
+template <bool kBf16>
+__device__ inline void bwd_tiles(const Desc* __restrict__ gdesc,
                                  const BwdDesc* __restrict__ gbd,
                                  const float* __restrict__ wb, const float* __restrict__ wbt,
-                                 const float* __restrict__ enc,
-                                 const float* __restrict__ pts,
-                                 const float* __restrict__ vd,
-                                 const float* __restrict__ g, int C,
-                                 float* __restrict__ dx, float* hbuf, float* zbuf,
-                                 long long total, long long n_pad, int S) {
-  __shared__ NetDesc d;
+                                 const float* __restrict__ enc, const float* __restrict__ pts,
+                                 const float* __restrict__ vd, const float* __restrict__ g,
+                                 int C, float* __restrict__ dx, float* hbuf, float* zbuf,
+                                 long long total, long long n_pad, int S, int R) {
+  __shared__ Desc d;
   __shared__ BwdDesc bd;
+  __shared__ unsigned long long bars[2 * MAX_SLOTS];
   extern __shared__ float4 dyn[];
   load_desc(d, gdesc);
   {
     const long long* src = reinterpret_cast<const long long*>(gbd);
     long long* dst = reinterpret_cast<long long*>(&bd);
     for (int i = threadIdx.x; i < (int)(sizeof(BwdDesc) / 8); i += NTHREADS)
-      dst[i] = src[i];
+      dst[i] = __ldg(src + i);
   }
   __syncthreads();
-  const int D = (int)d.hdr[H_D], W = (int)d.hdr[H_W], P = (int)d.hdr[H_P];
-  const int V = (int)d.hdr[H_V], P4 = (int)d.hdr[H_P4], HS = (int)d.hdr[H_HS];
-  const int ES = P4 + (int)d.hdr[H_V4], OUT = (int)d.hdr[H_OUT];
-  const int W2S = (W / 2 + 3) / 4 * 4;
+  const int D = (int)d.hdr[H_D], P = (int)d.hdr[H_P], V = (int)d.hdr[H_V];
+  const int HS = (int)d.hdr[H_HS], NF = (int)d.hdr[H_NG], NB = (int)bd.hdr[BH_NB];
   const bool views = d.hdr[H_VIEWDIRS] != 0;
-  const unsigned long long skips = (unsigned long long)d.hdr[H_SKIPS];
+  Smem s;
+  s.h = reinterpret_cast<float*>(dyn);
+  s.raw = s.h + TP * HS;
+  s.rows = s.raw + TP * G_LD;
+  float* dxs = s.rows + TP * PointEnc::ROW;   // [2][TP][DX_LD]
+  s.ring = dxs + 2 * TP * DX_LD;
+  const PointEnc e{pts, vd, enc, S};
+  const Sweep sw{&d, &bd, wb, wbt};
+  const long long n_tiles = (total + TP - 1) / TP;
+  const long long mine = n_tiles > blockIdx.x
+                             ? (n_tiles - blockIdx.x + gridDim.x - 1) / gridDim.x : 0;
+  Ring ring = start_sweep<kBf16>(sw, s.ring, bars, R, (int)bd.hdr[BH_SLOT], mine);
+  for (int i = threadIdx.x; i < 2 * TP * DX_LD; i += NTHREADS) dxs[i] = 0.f;
+  const int ES = (int)bd.hseg[HS_EMB][1], P4 = (P + 3) / 4 * 4;
+  const int wg = threadIdx.x >> 7;
+  float acc[2][NACC];
 
-  float* wt = reinterpret_cast<float*>(dyn);
-  float* X = wt + KC_BWD * MAXW;      // running activation / gradient
-  float* Y = X + TILE_P * HS;         // layer input, relu mask
-  float* emb = Y + TILE_P * HS;
-  float* demb = emb + TILE_P * ES;
-  float* gr = demb + TILE_P * ES;     // cotangent tile [TILE_P][G_LD]
-  for (int i = threadIdx.x; i < 2 * TILE_P * HS; i += NTHREADS) X[i] = 0.f;
-
-  float acc[8][8];
-  const long long n_tiles = (total + TILE_P - 1) / TILE_P;
   for (long long t = blockIdx.x; t < n_tiles; t += gridDim.x) {
-    const long long p0 = t * TILE_P;
-    // H or dZ rows of this tile in segment s
-    auto hrows = [&](int s) { return seg_rows(hbuf, bd.hseg[s], n_pad, p0); };
-    auto zrows = [&](int s) { return seg_rows(zbuf, bd.zseg[s], n_pad, p0); };
-    encode_points<kBf16>(d, enc, pts, vd, p0, total, S, emb, ES);
-    for (int i = threadIdx.x; i < TILE_P * ES; i += NTHREADS) demb[i] = 0.f;
-    for (int i = threadIdx.x; i < TILE_P * G_LD; i += NTHREADS) {
+    const long long p0 = t * TP;
+    tile_rows(d, e, p0, total, s);
+    // the cotangent tile, rounded under kBf16, to s.raw and dZ
+    float* zg = seg_rows(zbuf, bd.zseg[ZS_GR], n_pad, p0);
+    for (int i = threadIdx.x; i < TP * G_LD; i += NTHREADS) {
       const int p = i / G_LD, c = i % G_LD;
       const long long gp = p0 + p;
       float v = 0.f;
       if (gp < total) {
         if (views) {
-          if (c < 4) v = g[gp * C + c];
-          else if (c == 4) v = g[gp * C + 3];
+          if (c < 4) v = __ldg(g + gp * C + c);
+          else if (c == 4) v = __ldg(g + gp * C + 3);
         } else if (c < C) {
-          v = g[gp * C + c];
+          v = __ldg(g + gp * C + c);
         }
       }
-      gr[i] = kBf16 ? __bfloat162float(__float2bfloat16_rn(v)) : v;
+      if (kBf16) v = round_bf16(v);
+      s.raw[i] = v;
+      __stcg(zg + i, v);
     }
-    __syncthreads();
-    copy_rows(hrows(HS_EMB), ES, emb, ES, ES);
-    copy_rows(zrows(ZS_GR), G_LD, gr, G_LD, G_LD);
+    __syncthreads();   // the rows and the cotangent tile are set
+    // the embedding to H (rounded under kBf16; rows past total 0)
+    float* he = seg_rows(hbuf, bd.hseg[HS_EMB], n_pad, p0);
+    for (int i = threadIdx.x; i < TP * ES; i += NTHREADS) {
+      const int p = i / ES, c = i - p * ES;
+      const int cc = c < P4 ? (c < P ? c : -1) : (c - P4 < V ? P + c - P4 : -1);
+      float v = 0.f;
+      if (cc >= 0 && p0 + p < total) v = e.value(d, s.rows, p, cc);
+      __stcg(he + i, kBf16 ? round_bf16(v) : v);
+    }
 
-    // ---- forward, each layer's output kept in H ----
-    for (int l = 0; l < D; ++l) {
-      const long long* L = d.layer[l];
-      const int ld = (int)L[M_LD];
-      const float* Wl = wb + L[M_W];
-      zero_acc(acc);
-      if (l == 0) {
-        gemm_acc<KC_BWD>(acc, emb, ES, P, Wl, ld, wt);
+    for (int gi = 0; gi < NF + NB; ++gi) {
+      const bool fwd = gi < NF;
+      if (gi == NF) narrow_bwd<kBf16>(d, bd, wb, s, zbuf, n_pad, p0);
+      const long long* G = fwd ? d.gemm[gi] : bd.gemm[gi - NF];
+      const int nh = (int)G[G_NP] >> 1, n0 = wg * nh;
+      if (fwd)
+        sweep_gemm<kBf16>(acc, G, (int)G[G_SRC0], (int)G[G_SRC1], d, e, s, ring, sw);
+      else
+        sweep_gemm<kBf16>(acc, G, SRC_H, -1, d, e, s, ring, sw);
+      if (fwd) {
+        // h_gi, the feature or hv, to H and s.h
+        const int seg = gi < D ? 1 + gi : (gi == D ? HS_FEATURE : HS_HV);
+        bias_act<kBf16>(acc, wb + G[G_B], G[G_RELU] != 0, nh, n0);
+        to_segment(acc, nh, n0, seg_rows(hbuf, bd.hseg[seg], n_pad, p0), (int)bd.hseg[seg][1]);
+        to_tile<false>(acc, nh, n0, s.h, HS);
+        continue;
+      }
+      const int kind = (int)G[BG_KIND], arg = (int)G[BG_ARG];
+      if (kind == BK_DEMB) {
+        demb_to_dx(acc, d, enc, s.rows, nh, n0, arg ? P : 0, arg ? V : P, 3 * arg, dxs);
+      } else if (kind == BK_DFEATURE) {
+        to_segment(acc, nh, n0, seg_rows(zbuf, bd.zseg[ZS_DFEATURE], n_pad, p0),
+                   (int)bd.zseg[ZS_DFEATURE][1]);
+        to_tile<kBf16>(acc, nh, n0, s.h, HS);
       } else {
-        int koff = 0;
-        if ((skips >> l) & 1ull) {
-          gemm_acc<KC_BWD>(acc, emb, ES, P, Wl, ld, wt);
-          koff = P;
-        }
-        gemm_acc<KC_BWD>(acc, X, HS, W, Wl + (size_t)koff * ld, ld, wt);
+        // dz_arg: the mask from h_arg, to dZ (fp32) and s.h (dz_c)
+        const long long* Na = d.narrow[N_ALPHA];
+        relu_mask(acc, nh, n0, seg_rows(hbuf, bd.hseg[1 + arg], n_pad, p0),
+                  (int)bd.hseg[1 + arg][1], kind == BK_DZ_ALPHA ? wb + Na[NW_W] : nullptr,
+                  (int)Na[NW_K], s.raw);
+        to_segment(acc, nh, n0, seg_rows(zbuf, bd.zseg[arg], n_pad, p0), (int)bd.zseg[arg][1]);
+        to_tile<kBf16>(acc, nh, n0, s.h, HS);
       }
-      epilogue<kBf16>(acc, wb + L[M_B], W, true, X, HS);
-      __syncthreads();
-      copy_rows(hrows(1 + l), HS, X, HS, HS);
     }
-    if (views) {
-      const long long* Hf = d.head[HEAD_FEATURE];
-      zero_acc(acc);
-      gemm_acc<KC_BWD>(acc, X, HS, W, wb + Hf[M_W], (int)Hf[M_LD], wt);
-      epilogue<kBf16>(acc, wb + Hf[M_B], W, false, X, HS);
-      __syncthreads();
-      copy_rows(hrows(HS_FEATURE), HS, X, HS, HS);
-      const long long* Hv = d.head[HEAD_VIEWS];
-      const int ldv = (int)Hv[M_LD];
-      zero_acc(acc);
-      gemm_acc<KC_BWD>(acc, X, HS, W, wb + Hv[M_W], ldv, wt);
-      gemm_acc<KC_BWD>(acc, emb + P4, ES, V, wb + Hv[M_W] + (size_t)W * ldv, ldv, wt);
-      epilogue<kBf16>(acc, wb + Hv[M_B], W / 2, true, X, HS);
-      __syncthreads();
-      copy_rows(hrows(HS_HV), W2S, X, HS, W2S);
+    __syncthreads();   // every warpgroup's dx sums are in
+    for (int i = threadIdx.x; i < TP * DX_LD; i += NTHREADS) {
+      const long long gp = p0 + i / DX_LD;
+      const float v = dxs[i] + dxs[TP * DX_LD + i];
+      dxs[i] = dxs[TP * DX_LD + i] = 0.f;
+      if (gp < total) dx[gp * DX_LD + i % DX_LD] = v;
     }
-    // X: hv (viewdirs) or the last trunk output
-    copy_rows(Y, HS, X, HS, HS);
-    __syncthreads();
-
-    // ---- head ----
-    if (views) {
-      // rgb = hv @ Wrgb + b; dhv = (g_rgb Wrgb^T) * (hv > 0)
-      zero_acc(acc);
-      gemm_acc<KC_BWD>(acc, gr, G_LD, 3, wbt + bd.head[BW_RGB][0],
-                       (int)bd.head[BW_RGB][1], wt);
-      put<PUT_MASK>(acc, W / 2, X, HS, Y);
-      __syncthreads();
-      copy_rows_round<kBf16>(zrows(ZS_DHV), W2S, X, HS, W2S);   // dhv, then dhv_c
-      // hv = relu([feature, emb_dirs] @ Wv + b)
-      zero_acc(acc);
-      gemm_acc<KC_BWD>(acc, X, HS, W / 2, wbt + bd.head[BW_VIEWS_D][0],
-                       (int)bd.head[BW_VIEWS_D][1], wt);
-      put<PUT_ADD>(acc, V, demb + P4, ES, nullptr);
-      zero_acc(acc);
-      gemm_acc<KC_BWD>(acc, X, HS, W / 2, wbt + bd.head[BW_VIEWS_F][0],
-                       (int)bd.head[BW_VIEWS_F][1], wt);
-      put<PUT_STORE>(acc, W, X, HS, nullptr);   // dfeature
-      __syncthreads();
-      copy_rows_round<kBf16>(zrows(ZS_DFEATURE), HS, X, HS, HS);   // then dfeature_c
-      // feature = h @ Wf + b and alpha = h @ Wa + b, h the last trunk output
-      copy_rows(Y, HS, hrows(D), HS, HS);
-      __syncthreads();
-      zero_acc(acc);
-      gemm_acc<KC_BWD>(acc, X, HS, W, wbt + bd.head[BW_FEATURE][0],
-                       (int)bd.head[BW_FEATURE][1], wt);
-      gemm_acc<KC_BWD>(acc, gr + 4, G_LD, 1, wbt + bd.head[BW_ALPHA][0],
-                       (int)bd.head[BW_ALPHA][1], wt);
-      put<PUT_STORE>(acc, W, X, HS, nullptr);
-      __syncthreads();
-    } else {
-      zero_acc(acc);
-      gemm_acc<KC_BWD>(acc, gr, G_LD, OUT, wbt + bd.head[BW_OUTPUT][0],
-                       (int)bd.head[BW_OUTPUT][1], wt);
-      put<PUT_STORE>(acc, W, X, HS, nullptr);
-      __syncthreads();
-    }
-
-    // ---- trunk: X = dh_l, Y = h_l ----
-    for (int l = D - 1; l >= 0; --l) {
-      for (int i = threadIdx.x; i < TILE_P * HS; i += NTHREADS)
-        if (!(Y[i] > 0.f)) X[i] = 0.f;   // dz_l
-      __syncthreads();
-      copy_rows_round<kBf16>(zrows(l), HS, X, HS, HS);   // dz_l, then dz_c
-      if (l > 0) {
-        copy_rows(Y, HS, hrows(l), HS, HS);   // h_{l-1}
-        __syncthreads();
-      }
-      const bool from_emb = l == 0 || ((skips >> l) & 1ull);
-      if (from_emb) {
-        zero_acc(acc);
-        gemm_acc<KC_BWD>(acc, X, HS, W, wbt + bd.seg[l][0][0], (int)bd.seg[l][0][1], wt);
-        put<PUT_ADD>(acc, P, demb, ES, nullptr);
-      }
-      if (l > 0) {
-        zero_acc(acc);
-        gemm_acc<KC_BWD>(acc, X, HS, W, wbt + bd.seg[l][1][0], (int)bd.seg[l][1][1], wt);
-        put<PUT_STORE>(acc, W, X, HS, nullptr);
-      }
-      __syncthreads();
-    }
-
-    // ---- encoder: dx ----
-    for (int i = threadIdx.x; i < TILE_P * 6; i += NTHREADS) {
-      const int p = i / 6, dim = i % 6;
-      const long long gp = p0 + p;
-      if (gp >= total) continue;
-      float s = 0.f;
-      if (dim < 3 || views) {
-        const float x = dim < 3 ? pts[gp * 3 + dim] : vd[(gp / S) * 3 + (dim - 3)];
-        for (int c = 0; c < ES; ++c) {
-          const int cc = emb_col(d, c);
-          if (cc < 0 || (int)enc[MAX_EMB + cc] != dim) continue;
-          const int k = d.kind[cc];
-          const float f = enc[cc];
-          const float arg = __fmul_rn(f, x);
-          const float der = k == 0 ? 1.f : (k == 1 ? f * cosf(arg) : -f * sinf(arg));
-          s = fmaf(demb[p * ES + c], der, s);
-        }
-      }
-      dx[gp * 6 + dim] = s;
-    }
-    __syncthreads();
   }
 }
 
-__global__ void __launch_bounds__(NTHREADS)
-nerf_bwd_kernel(const NetDesc* __restrict__ gdesc, const BwdDesc* __restrict__ gbd,
+}  // namespace tc
+
+__global__ void __launch_bounds__(NTHREADS, 1)
+nerf_bwd_kernel(const tc::Desc* __restrict__ gdesc, const BwdDesc* __restrict__ gbd,
                 const float* __restrict__ wb, const float* __restrict__ wbt,
                 const float* __restrict__ enc, const float* __restrict__ pts,
                 const float* __restrict__ vd, const float* __restrict__ g, int C,
                 float* __restrict__ dx, float* hbuf, float* zbuf, long long total,
-                long long n_pad, int S) {
-  bwd_tiles<false>(gdesc, gbd, wb, wbt, enc, pts, vd, g, C, dx, hbuf, zbuf, total, n_pad, S);
+                long long n_pad, int S, int R) {
+  tc::bwd_tiles<false>(gdesc, gbd, wb, wbt, enc, pts, vd, g, C, dx, hbuf, zbuf, total, n_pad,
+                       S, R);
 }
 
-__global__ void __launch_bounds__(NTHREADS)
-nerf_bwd_bf16_kernel(const NetDesc* __restrict__ gdesc, const BwdDesc* __restrict__ gbd,
+__global__ void __launch_bounds__(NTHREADS, 1)
+nerf_bwd_bf16_kernel(const tc::Desc* __restrict__ gdesc, const BwdDesc* __restrict__ gbd,
                      const float* __restrict__ wb, const float* __restrict__ wbt,
                      const float* __restrict__ enc, const float* __restrict__ pts,
                      const float* __restrict__ vd, const float* __restrict__ g, int C,
                      float* __restrict__ dx, float* hbuf, float* zbuf, long long total,
-                     long long n_pad, int S) {
-  bwd_tiles<true>(gdesc, gbd, wb, wbt, enc, pts, vd, g, C, dx, hbuf, zbuf, total, n_pad, S);
+                     long long n_pad, int S, int R) {
+  tc::bwd_tiles<true>(gdesc, gbd, wb, wbt, enc, pts, vd, g, C, dx, hbuf, zbuf, total, n_pad,
+                      S, R);
 }
 
 // ---- nerf_dw_kernel ---------------------------------------------------------
@@ -699,31 +941,47 @@ __global__ void grad_reduce_kernel(const float* __restrict__ part, int G,
 
 }  // namespace nstt
 
-using BwdKernel = void (*)(const nstt::NetDesc*, const nstt::BwdDesc*, const float*,
+using BwdKernel = void (*)(const nstt::tc::Desc*, const nstt::BwdDesc*, const float*,
                            const float*, const float*, const float*, const float*,
                            const float*, int, float*, float*, float*, long long, long long,
-                           int);
+                           int, int);
 using DwKernel = void (*)(const nstt::BwdDesc*, const long long*, const long long*,
                           const float*, const float*, float*, long long, long long,
                           long long);
 
 static int mlp_backward(BwdKernel bwd_kernel, DwKernel dw_kernel, const void* desc_dev,
-                        const void* bdesc_dev, int HS, int ES, const float* wb,
+                        const void* bdesc_dev, int HS, int SLOT, const float* wb,
                         const float* wbt, const float* enc, const float* pts,
                         const float* vd, const float* g, int C, float* dx, float* hbuf,
                         float* zbuf, int n_dw_tiles, const long long* jobs,
                         const long long* tiles, float* part, float* grads,
                         long long wsize, long long total, long long n_pad, int S,
-                        int grid, int splits, void* stream) {
+                        int splits, void* stream) {
   using namespace nstt;
   cudaStream_t st = (cudaStream_t)stream;
-  const size_t bytes = bwd_smem_floats(HS, ES) * sizeof(float);
-  cudaError_t e = cudaFuncSetAttribute(
-      (const void*)bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  // the tile kernel: the deepest ring (at most MAX_SLOTS) that fits beside
+  // its static shared memory, one persistent block an SM
+  int dev, optin, sms;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaFuncAttributes fa;
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&fa, (const void*)bwd_kernel);
   if (e != cudaSuccess) return (int)e;
+  const long long avail = (long long)optin - (long long)fa.sharedSizeBytes;
+  const long long r = (avail - 4LL * (long long)bwd_smem_floats(HS, SLOT, 0)) / (4LL * SLOT);
+  if (r < 2) return (int)cudaErrorInvalidConfiguration;
+  const int R = (int)(r < tc::MAX_SLOTS ? r : tc::MAX_SLOTS);
+  const size_t bytes = 4 * bwd_smem_floats(HS, SLOT, R);
+  e = cudaFuncSetAttribute((const void*)bwd_kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (e != cudaSuccess) return (int)e;
+  const long long n_tiles = (total + tc::TP - 1) / tc::TP;
+  const unsigned grid = (unsigned)(n_tiles < sms ? n_tiles : sms);
   bwd_kernel<<<grid, NTHREADS, bytes, st>>>(
-      (const NetDesc*)desc_dev, (const BwdDesc*)bdesc_dev, wb, wbt, enc, pts, vd,
-      g, C, dx, hbuf, zbuf, total, n_pad, S);
+      (const tc::Desc*)desc_dev, (const BwdDesc*)bdesc_dev, wb, wbt, enc, pts, vd, g, C, dx,
+      hbuf, zbuf, total, n_pad, S, R);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   const size_t dw_bytes = 2 * (size_t)DW_STAGES * DW_KC * DW_LD * sizeof(float);
@@ -740,36 +998,39 @@ static int mlp_backward(BwdKernel bwd_kernel, DwKernel dw_kernel, const void* de
   return (int)cudaGetLastError();
 }
 
-// grid: blocks of the tile kernel (at most one per 64-point tile); hbuf,
-// zbuf: H and dZ for n_pad points (act_layout); jobs [n_jobs][J_WORDS] and
-// tiles [n_dw_tiles][T_WORDS] of nerf_dw_kernel, run over `splits` point
-// ranges into part [splits][wsize]; grads [wsize] their fixed-order sum.
+// desc_dev: pack_network_tc's Desc, bdesc_dev: pack_backward_tc's BwdDesc;
+// HS, SLOT: the activation tile's row stride and the floats of a ring slot
+// (the widest slice of either pack); wb, wbt: the forward and backward
+// packs; hbuf, zbuf: H and dZ for n_pad points (act_layout, n_pad a
+// multiple of the 128-point tile); jobs [n_jobs][J_WORDS] and tiles
+// [n_dw_tiles][T_WORDS] of nerf_dw_kernel, run over `splits` point ranges
+// into part [splits][wsize]; grads [wsize] their fixed-order sum.
 extern "C" int nstt_mlp_backward(const void* desc_dev, const void* bdesc_dev,
-                                 int HS, int ES, const float* wb,
+                                 int HS, int SLOT, const float* wb,
                                  const float* wbt, const float* enc,
                                  const float* pts, const float* vd,
                                  const float* g, int C, float* dx, float* hbuf,
                                  float* zbuf, int n_dw_tiles, const long long* jobs,
                                  const long long* tiles, float* part, float* grads,
                                  long long wsize, long long total, long long n_pad,
-                                 int S, int grid, int splits, void* stream) {
+                                 int S, int splits, void* stream) {
   return mlp_backward(nstt::nerf_bwd_kernel, nstt::nerf_dw_kernel, desc_dev, bdesc_dev, HS,
-                      ES, wb, wbt, enc, pts, vd, g, C, dx, hbuf, zbuf, n_dw_tiles, jobs,
-                      tiles, part, grads, wsize, total, n_pad, S, grid, splits, stream);
+                      SLOT, wb, wbt, enc, pts, vd, g, C, dx, hbuf, zbuf, n_dw_tiles, jobs,
+                      tiles, part, grads, wsize, total, n_pad, S, splits, stream);
 }
 
-// B2 in bf16: the same arguments, the weights rounded by the wrapper
+// B2 in bf16: the same arguments over the bf16 packs
 extern "C" int nstt_mlp_backward_bf16(const void* desc_dev, const void* bdesc_dev,
-                                      int HS, int ES, const float* wb,
+                                      int HS, int SLOT, const float* wb,
                                       const float* wbt, const float* enc,
                                       const float* pts, const float* vd,
                                       const float* g, int C, float* dx, float* hbuf,
                                       float* zbuf, int n_dw_tiles, const long long* jobs,
                                       const long long* tiles, float* part, float* grads,
                                       long long wsize, long long total, long long n_pad,
-                                      int S, int grid, int splits, void* stream) {
+                                      int S, int splits, void* stream) {
   return mlp_backward(nstt::nerf_bwd_bf16_kernel, nstt::nerf_dw_bf16_kernel, desc_dev,
-                      bdesc_dev, HS, ES, wb, wbt, enc, pts, vd, g, C, dx, hbuf, zbuf,
-                      n_dw_tiles, jobs, tiles, part, grads, wsize, total, n_pad, S, grid,
-                      splits, stream);
+                      bdesc_dev, HS, SLOT, wb, wbt, enc, pts, vd, g, C, dx, hbuf, zbuf,
+                      n_dw_tiles, jobs, tiles, part, grads, wsize, total, n_pad, S, splits,
+                      stream);
 }

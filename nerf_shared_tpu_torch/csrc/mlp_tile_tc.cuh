@@ -1,8 +1,9 @@
 // The NeRF MLP on the tensor cores at fp32 accuracy, on one tile of 128
 // sample points: the network of the ray-major kernels B3 (fused_mlp.cu
-// nerf_rays_tc_kernel) and B4 (fused_render.cu nerf_render_tc_kernel) and
-// of the point-major kernel B1 (fused_mlp.cu nerf_points_tc_kernel). B2
-// keeps the CUDA-core tile of mlp_tile.cuh.
+// nerf_rays_tc_kernel) and B4 (fused_render.cu nerf_render_tc_kernel), of
+// the point-major kernel B1 (fused_mlp.cu nerf_points_tc_kernel) and of
+// B2's tile kernel (fused_mlp_bwd.cu nerf_bwd_kernel), which runs its
+// forward and then its input-gradient GEMMs through these pieces.
 //
 // Split fp32 (3xTF32). Every trunk and head GEMM runs on Hopper's
 // warpgroup MMA, wgmma.mma_async.m64nNk8 with tf32 operands and fp32
@@ -26,7 +27,7 @@
 // fp32 on the CUDA cores (mma_slice_rn): 3.4e-9 rms, unbiased. The encoder (sin / cos of A + z·B or of f·x), the
 // bias adds, the ReLUs and the narrow heads (alpha,
 // rgb, output_ch <= 8: a warp per point and output, lanes splitting K, fp32
-// on the CUDA cores) are the fp32 arithmetic of mlp_tile.cuh.
+// on the CUDA cores) are fp32 arithmetic on the CUDA cores.
 //
 // Block: 256 threads, two warpgroups. Warpgroup w computes output columns
 // [w Np / 2, (w + 1) Np / 2) of all 128 points, as two m64 row blocks:

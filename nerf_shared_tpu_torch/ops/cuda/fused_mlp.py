@@ -19,8 +19,8 @@ product per entry).
 
 Both run the network only in the kernel, on the tensor cores in split fp32
 (``csrc/mlp_tile_tc.cuh``, one tile with a point-major and a ray-major
-encoder) over the weights that ``pack_network_tc`` lays out. B2 reads
-``pack_network``'s layout.
+encoder) over the weights that ``pack_network_tc`` lays out, as B2's tile
+kernel does for its forward.
 
 Under ``compute_dtype`` bfloat16 (``--precision bf16``) each kernel has a
 second instantiation on the same tile, with bf16 operands on wgmma's k16
@@ -58,7 +58,6 @@ from nerf_shared_tpu_torch.models.nerf import (
 from nerf_shared_tpu_torch.ops.cuda import common
 
 MAX_LAYERS, MAX_W, MAX_EMB, MAX_OUT = 32, 256, 256, 8
-_DESC_WORDS = 16 + MAX_LAYERS * 4 + 5 * 4 + MAX_EMB // 8
 
 LAUNCHES = 0        # B3 launches made by fused_nerf_forward_rays
 POINT_LAUNCHES = 0  # B1 launches made by fused_nerf_forward and fused_train_op
@@ -194,11 +193,11 @@ def check_config(cfg: NeRFConfig):
 
 
 def packed_layout(cfg: NeRFConfig):
-    """(layout, size): where ``pack_network`` puts each parameter. layout
+    """(layout, size): the packed layout B2 writes its gradients in. layout
     maps a state-dict name to (float offset, rows, cols, row stride): a
     weight [out, in] is stored transposed as rows = in, cols = out; a bias
     as one row. Row strides are cols rounded up to 4, so every matrix
-    starts 16-byte aligned. B2 writes its gradients in the same layout."""
+    starts 16-byte aligned."""
     names = [f"pts_linears.{i}" for i in range(cfg.D)]
     names += (["alpha_linear", "feature_linear", "views_linears.0", "rgb_linear"]
               if cfg.use_viewdirs else ["output_linear"])
@@ -229,83 +228,6 @@ def flat_params(params: Dict[str, torch.Tensor], cfg: NeRFConfig, device) -> tor
     packs gather from, by ``param_starts``' numbering."""
     return torch.cat([torch.zeros(1, dtype=torch.float32, device=device)]
                      + [params[k].detach().reshape(-1) for k in torch_param_order(cfg)])
-
-
-def net_sources(cfg: NeRFConfig):
-    """(src, desc): where each float of ``pack_network``'s buffer comes
-    from, by ``param_starts``' numbering (0: padding, zero), and the int64
-    NetDesc of ``csrc/mlp_tile.cuh``. Both depend on the architecture
-    alone."""
-    layout, size = packed_layout(cfg)
-    shapes = param_shapes(cfg)
-    start = param_starts(cfg)
-    src = np.zeros(size, np.int64)
-    for name, (off, rows, cols, ld) in layout.items():
-        block = src[off:off + rows * ld].reshape(rows, ld)
-        if name.endswith(".weight"):
-            # stored transposed: entry (r, c) is weight [c, r] of [out, in]
-            n_in = shapes[name][1]
-            block[:, :cols] = (start[name] + np.arange(rows)[:, None]
-                               + n_in * np.arange(cols)[None, :])
-        else:
-            block[0, :cols] = start[name] + np.arange(cols)
-
-    desc = np.zeros(_DESC_WORDS, np.int64)
-    hdr = desc[:16]
-    layers = desc[16:16 + MAX_LAYERS * 4].reshape(MAX_LAYERS, 4)
-    heads = desc[16 + MAX_LAYERS * 4:16 + MAX_LAYERS * 4 + 20].reshape(5, 4)
-    kind = desc[16 + MAX_LAYERS * 4 + 20:].view(np.int8)
-
-    def matrix(name):
-        w, k, _, ld = layout[name + ".weight"]
-        return (w, layout[name + ".bias"][0], k, ld)
-
-    for i in range(cfg.D):
-        layers[i] = matrix(f"pts_linears.{i}")
-    # head rows: HEAD_ALPHA, HEAD_FEATURE, HEAD_VIEWS, HEAD_RGB, HEAD_OUTPUT
-    if cfg.use_viewdirs:
-        for row, name in enumerate(("alpha_linear", "feature_linear",
-                                    "views_linears.0", "rgb_linear")):
-            heads[row] = matrix(name)
-    else:
-        heads[4] = matrix("output_linear")
-
-    P, V = cfg.input_ch, cfg.input_ch_views
-    skips = sum(1 << (i + 1) for i in cfg.skips if 0 <= i < cfg.D - 1)
-    hdr[:11] = (cfg.D, cfg.W, P, V, P + V, out_channels(cfg),
-                int(cfg.use_viewdirs), _round4(P), _round4(V), skips, _round4(cfg.W))
-    k = encoder_tables(cfg)[2]
-    kind[:k.size] = k
-    return src, desc
-
-
-_NET_STATIC: Dict[tuple, tuple] = {}
-
-
-def _net_static(cfg: NeRFConfig, device: torch.device):
-    """``net_sources`` on ``device``, made once per architecture and device
-    (it holds no parameter value)."""
-    key = (cfg, str(device))
-    if key not in _NET_STATIC:
-        src, desc = net_sources(cfg)
-        _NET_STATIC[key] = (torch.from_numpy(src).to(device), common.upload(desc, device))
-    return _NET_STATIC[key]
-
-
-def pack_network(params: Dict[str, torch.Tensor], cfg: NeRFConfig, device):
-    """(weights, desc, HS, ES) for kernel B2: every matrix transposed to
-    [in, out] with its row stride rounded up to 4 floats, concatenated into
-    one fp32 buffer (``packed_layout``; padding zero); ``desc`` is the
-    int64 NetDesc of ``csrc/mlp_tile.cuh`` on ``device``. The buffer is
-    one gather of the parameters by ``net_sources``' map, made once per
-    architecture."""
-    device = torch.device(device)
-    check_config(cfg)
-    check_params(params, cfg, device)
-    src, desc = _net_static(cfg, device)
-    wbuf = flat_params(params, cfg, device)[src]
-    P, V = cfg.input_ch, cfg.input_ch_views
-    return wbuf, desc, _round4(cfg.W), _round4(P) + _round4(V)
 
 
 # --- the tensor-core kernels' pack (B1, B3, B4: csrc/mlp_tile_tc.cuh) --------
@@ -431,6 +353,45 @@ def tc_strides(cfg: NeRFConfig, bf16: bool = False):
 PLANE_KEEP, PLANE_BIG, PLANE_SMALL, PLANE_BF16, PLANE_ROUND = range(5)
 
 
+def place_slices(src, plane, src16, w_off, block, bf16: bool):
+    """Lay a GEMM's [Kp, Np] source block (sources by ``param_starts``'
+    numbering, 0 for padding) into a pack's slices from float ``w_off``:
+    fp32, its big and small planes (``src`` and ``plane``); bf16, one bf16
+    plane (``src16``, two values a float; ``plane`` PLANE_BF16)."""
+    Kp, Np = block.shape
+    sk = slice_rows(bf16)
+    n_sl = Kp // sk
+    if bf16:
+        at = slice_index_bf16(Np).reshape(-1).numpy()
+        dst = (2 * w_off + np.arange(n_sl)[:, None] * (2 * slice_floats(Np, True))
+               + at[None, :])
+        src16[dst] = block.reshape(n_sl, sk * Np)
+        plane[w_off:w_off + n_sl * slice_floats(Np, True)] = PLANE_BF16
+        return
+    at = slice_index(Np).reshape(-1).numpy()
+    for pl in (PLANE_BIG, PLANE_SMALL):
+        dst = (w_off + np.arange(n_sl)[:, None] * slice_floats(Np)
+               + (pl - 1) * 8 * Np + at[None, :])
+        src[dst] = block.reshape(n_sl, 8 * Np)
+        plane[dst] = pl
+
+
+def gather_pack(flat: torch.Tensor, src, plane, src16=None, in16=None) -> torch.Tensor:
+    """A pack's fp32 buffer from the parameters flattened by ``flat_params``
+    and a source map: fp32 (``src16`` None), each GEMM weight split by
+    ``tf32_split`` into its plane; bf16, the narrow heads rounded in place
+    and the weight slices' bf16 values (``src16``, where ``in16``) in pairs
+    a float."""
+    v = flat[src]
+    if src16 is None:
+        big, small = tf32_split(v)
+        return torch.where(plane == PLANE_BIG, big,
+                           torch.where(plane == PLANE_SMALL, small, v))
+    v = torch.where(plane == PLANE_ROUND, bf16_round(v), v)
+    w16 = torch.where(in16, flat[src16].to(torch.bfloat16), v.view(torch.bfloat16))
+    return w16.view(torch.float32)
+
+
 def tc_sources(cfg: NeRFConfig, bf16: bool = False):
     """(src, plane, src16, desc): where each float of ``pack_network_tc``'s
     buffer comes from, which depends on the architecture alone. src [size]
@@ -466,20 +427,7 @@ def tc_sources(cfg: NeRFConfig, bf16: bool = False):
             block[row:row + k, :N] = (start[name + ".weight"] + col
                                       + np.arange(k)[:, None] + n_in * np.arange(N)[None, :])
             row, col = row + _round(k, sk), col + k
-        n_sl = Kp // sk
-        if bf16:
-            at = slice_index_bf16(Np).reshape(-1).numpy()
-            dst = (2 * w_off + np.arange(n_sl)[:, None] * (2 * slice_floats(Np, True))
-                   + at[None, :])
-            src16[dst] = block.reshape(n_sl, sk * Np)
-            plane[w_off:w_off + n_sl * slice_floats(Np, True)] = PLANE_BF16
-        else:
-            at = slice_index(Np).reshape(-1).numpy()
-            for pl in (PLANE_BIG, PLANE_SMALL):
-                dst = (w_off + np.arange(n_sl)[:, None] * slice_floats(Np)
-                       + (pl - 1) * 8 * Np + at[None, :])
-                src[dst] = block.reshape(n_sl, 8 * Np)
-                plane[dst] = pl
+        place_slices(src, plane, src16, w_off, block, bf16)
         src[b_off:b_off + N] = start[name + ".bias"] + np.arange(N)
         seg_src = [s for s, _ in segs] + [-1]
         ns = [_round(k, sk) // sk for _, k in segs] + [0]
@@ -533,20 +481,9 @@ def pack_network_tc(params: Dict[str, torch.Tensor], cfg: NeRFConfig, device,
     check_config(cfg)
     check_params(params, cfg, device)
     bf16 = is_bf16(compute_dtype)
-    static = _tc_static(cfg, device, bf16)
-    src, plane, desc = static[:3]
-    flat = flat_params(params, cfg, device)
-    v = flat[src]
+    src, plane, desc, *src16 = _tc_static(cfg, device, bf16)
     HS, SLOT = tc_strides(cfg, bf16)
-    if not bf16:
-        big, small = tf32_split(v)
-        wbuf = torch.where(plane == PLANE_BIG, big,
-                           torch.where(plane == PLANE_SMALL, small, v))
-        return wbuf, desc, HS, SLOT
-    src16, in16 = static[3:]
-    v = torch.where(plane == PLANE_ROUND, bf16_round(v), v)
-    w16 = torch.where(in16, flat[src16].to(torch.bfloat16), v.view(torch.bfloat16))
-    return w16.view(torch.float32), desc, HS, SLOT
+    return gather_pack(flat_params(params, cfg, device), src, plane, *src16), desc, HS, SLOT
 
 
 def encoder_buffer(cfg: NeRFConfig, device) -> torch.Tensor:

@@ -17,20 +17,24 @@ Counterpart of ``nerf_shared_tpu/ops/pallas/fused_mlp_bwd.py``:
 
 B2 is two kernels and a reduction, launched by one C entry:
 
-1. the tile kernel rematerialises the forward per 64-point tile, takes the
-   input gradients through every layer down to dx, and writes each weight
-   matrix's layer input H and post-mask cotangent dZ to two device buffers
-   (``act_layout``: one point-major segment per activation);
+1. the tile kernel walks 128-point tiles on the tensor cores (B1's tile,
+   ``csrc/mlp_tile_tc.cuh``): it reruns the forward over B1's pack
+   (``fused_mlp.pack_network_tc``), takes the input gradients dh = dz·W
+   through every layer over ``pack_backward_tc``'s pack down to dx, and
+   writes each weight matrix's layer input H and post-mask cotangent dZ to
+   two device buffers (``act_layout``: one point-major segment per
+   activation); both in split fp32 with each 8-row slice summed in fp32;
 2. ``nerf_dw_kernel`` forms every dW = H^T·dZ on the tensor cores in split
    fp32 and every db = sum dZ in fp32, one output tile (``dw_tiles``) over
    one range of points (``split_ranges``) a block;
 3. a fixed-order sum of the ranges' partial gradients.
 
-The wrapper packs the forward weights (``fused_mlp.pack_network``) and a
-second copy in PyTorch's [out, in] layout for the input-gradient products,
-split where the network concatenates (the skip input, the view-direction
-input), both by one gather through a source map made once per
-architecture, and allocates the H, dZ and partial buffers.
+``pack_backward_tc`` lays out each input-gradient GEMM's weights, W as a
+[K = out, N = in] matrix split where the network concatenates (the skip
+input, the view-direction input), in the tensor-core pack's slices, by one
+gather through a source map made once per architecture; its descriptor
+(``BwdDesc``) carries the GEMM sequence of the backward sweep and the H /
+dZ segments. The wrapper allocates the H, dZ and partial buffers.
 
 Under ``compute_dtype`` bfloat16 B2 has a second instantiation with the
 JAX kernel's roundings (fused_mlp_bwd.py ``_make_bwd_kernel_closed``):
@@ -38,11 +42,10 @@ the rematerialised activations, the weights and the cotangent g are bf16;
 each dz is rounded (dz_c) before it enters a weight gradient or dh =
 dz_c·Wᵀ; the ReLU masks read the bf16 activations; the bias gradients sum
 the fp32 dz (dbout the rounded g); demb and dx stay fp32. The tile kernel
-keeps its fp32 CUDA-core arithmetic on bf16-rounded operands (their
-products are exact in fp32) and writes dZ in fp32; ``nerf_dw_kernel``
-rounds dZ as it loads it and forms dW with one ``mma.sync.m16n8k16`` bf16
-product a 16-point step. ``plain_mlp_backward_bf16`` is that arithmetic
-in plain PyTorch.
+is B1's bf16 tile (one wgmma k16 bf16 product a 16-row slice of both packs
+in bf16) and writes dZ in fp32; ``nerf_dw_kernel`` rounds dZ as it loads
+it and forms dW with one ``mma.sync.m16n8k16`` bf16 product a 16-point
+step. ``plain_mlp_backward_bf16`` is that arithmetic in plain PyTorch.
 """
 
 from __future__ import annotations
@@ -61,31 +64,51 @@ from nerf_shared_tpu_torch.models.nerf import (
 )
 from nerf_shared_tpu_torch.ops.cuda import common
 from nerf_shared_tpu_torch.ops.cuda.fused_mlp import (
+    _TC_DESC_WORDS,
     MAX_LAYERS,
+    PLANE_BF16,
+    _round,
     _round4,
     bf16_round,
+    check_config,
+    check_in,
+    check_out,
+    check_params,
     check_points,
     encoder_buffer,
     flat_params,
     flops_per_point,
-    check_in,
-    check_out,
+    gather_pack,
     is_bf16,
     launch_points,
     out_channels,
-    pack_network,
+    pack_network_tc,
     packed_layout,
+    padded_width,
     param_shapes,
     param_starts,
+    place_slices,
     plain_nerf_forward,
+    slice_floats,
+    slice_rows,
+    tc_strides,
 )
 
 LAUNCHES = 0      # B2 launches made by fused_mlp_backward and fused_train_op
 LAUNCHES_BF16 = 0  # the same for the bf16 instantiation
-TILE_P = 64       # points per tile of the tile kernel (csrc/mlp_tile.cuh)
+TILE_P = 128      # points per tile of the tile kernel (csrc/mlp_tile_tc.cuh TP)
 MAX_SMEM = 232448  # shared memory one block may use on sm_90
-BW_ALPHA, BW_FEATURE, BW_VIEWS_F, BW_VIEWS_D, BW_RGB, BW_OUTPUT = range(6)
 G_LD = 8          # cotangent tile row: rgb 0-2, alpha 3, alpha 4 (csrc G_LD)
+DX_LD = 6         # the tile's dx sums a point and warpgroup (csrc DX_LD)
+ENC_ROW = 7       # the point-major encoder's floats a point (csrc PointEnc::ROW)
+MAX_SLOTS = 8     # the deepest weight ring (csrc tc::MAX_SLOTS)
+
+# The input-gradient GEMMs (csrc BwdDesc): at most the views layer's two,
+# the feature layer's and two a trunk layer; their epilogues: dx through the
+# embedding (arg 0 the points' columns, 1 the directions'), dfeature, dz_arg
+# (the ReLU mask of h_arg), dz_arg with g_alpha·W_alpha added first
+MAX_BGEMMS = 3 + 2 * MAX_LAYERS
+BK_DEMB, BK_DFEATURE, BK_DZ, BK_DZ_ALPHA = range(4)
 
 # Activation segments (csrc/fused_mlp_bwd.cu BwdDesc hseg / zseg): H slots are the
 # embedding [emb_pts, emb_dirs], h_l at 1 + l, the feature and hv; dZ slots
@@ -93,6 +116,7 @@ G_LD = 8          # cotangent tile row: rgb 0-2, alpha 3, alpha 4 (csrc G_LD)
 N_SEG = MAX_LAYERS + 3
 H_EMB, H_FEATURE, H_HV = 0, MAX_LAYERS + 1, MAX_LAYERS + 2
 Z_DFEATURE, Z_DHV, Z_GR = MAX_LAYERS, MAX_LAYERS + 1, MAX_LAYERS + 2
+_BWD_DESC_WORDS = 8 + MAX_BGEMMS * 8 + 4 * N_SEG
 
 # nerf_dw_kernel: output tile rows (of the input width) x columns (of the
 # output width), points a staged chunk, chunks in flight, blocks an SM
@@ -310,103 +334,117 @@ def reduce_partials(part: torch.Tensor, splits: int) -> torch.Tensor:
     return out
 
 
-def bwd_sources(cfg: NeRFConfig):
-    """(src, bdesc): where each float of ``pack_backward``'s buffer comes
-    from, by ``fused_mlp.param_starts``' numbering (0: padding, zero), and
-    the int64 BwdDesc of csrc/fused_mlp_bwd.cu ({offset, row stride} of
-    each weight segment, -1 where there is none; then ``act_layout``'s
-    segments). Both depend on the architecture alone."""
-    P, W = cfg.input_ch, cfg.W
+def bwd_gemms(cfg: NeRFConfig):
+    """The tile kernel's input-gradient GEMMs dh = dz·W in the order it
+    runs them: (name, col0, N, kind, arg), columns col0 .. col0 + N of
+    weight ``name`` [out, in] as a [K = out, N] matrix. With viewdirs the
+    views layer's direction and feature columns (dz = dhv), the feature
+    layer (dz = dfeature); then per trunk layer from the last, its
+    embedding columns (layer 0 and the layer after a skip) and its h
+    columns (not layer 0)."""
+    P, V, W, D = cfg.input_ch, cfg.input_ch_views, cfg.W, cfg.D
+    gemms = []
+    if cfg.use_viewdirs:
+        gemms += [("views_linears.0", W, V, BK_DEMB, 1),
+                  ("views_linears.0", 0, W, BK_DFEATURE, 0),
+                  ("feature_linear", 0, W, BK_DZ_ALPHA, D - 1)]
+    for l in reversed(range(D)):
+        name = f"pts_linears.{l}"
+        from_emb = l == 0 or (l - 1) in cfg.skips
+        if from_emb:
+            gemms.append((name, 0, P, BK_DEMB, 0))
+        if l > 0:
+            gemms.append((name, P if from_emb else 0, W, BK_DZ, l - 1))
+    return gemms
+
+
+def bwd_layout(cfg: NeRFConfig, bf16: bool = False):
+    """(layout, size, SLOT): where ``pack_backward_tc`` puts each of
+    ``bwd_gemms``' GEMMs, (weight offset, Kp, Np) in floats: its [Kp, Np]
+    weights (K padded to a multiple of ``slice_rows``, N by
+    ``padded_width``) as consecutive slices of ``slice_floats(Np)``, 64-byte
+    aligned; SLOT is the floats of the tile kernel's ring slot, the widest
+    slice of this pack and of the forward's (``tc_strides``)."""
+    shapes = param_shapes(cfg)
+    sk = slice_rows(bf16)
+    layout, off = [], 0
+    for name, _, N, _, _ in bwd_gemms(cfg):
+        Kp, Np = _round(shapes[name + ".weight"][0], sk), padded_width(N)
+        layout.append((off, Kp, Np))
+        off += _round(Kp // sk * slice_floats(Np, bf16), 16)
+    slot = max([tc_strides(cfg, bf16)[1]] + [slice_floats(Np, bf16) for _, _, Np in layout])
+    return layout, off, slot
+
+
+def bwd_tc_sources(cfg: NeRFConfig, bf16: bool = False):
+    """(src, plane, src16, bdesc): ``fused_mlp.tc_sources``' source map for
+    ``pack_backward_tc``'s buffer (block (k, n) of a GEMM is weight [k, col0
+    + n]), and the int64 BwdDesc of csrc/fused_mlp_bwd.cu: its header
+    (GEMM count, ring slot floats), a row per GEMM (weight offset, epilogue
+    kind, Np, slices, the epilogue's argument, 0), ``act_layout``'s
+    segments. Both depend on the architecture alone."""
     shapes = param_shapes(cfg)
     start = param_starts(cfg)
-    seg = np.full((MAX_LAYERS, 2, 2), -1, np.int64)
-    head = np.full((6, 2), -1, np.int64)
-    pieces, off = [], 0
-
-    def add(name, col0, k):
-        """Columns col0 .. col0 + k of weight ``name`` [out, in], each row
-        padded to a multiple of 4."""
-        nonlocal off
-        n_out, n_in = shapes[name]
-        ld = _round4(k)
-        block = np.zeros((n_out, ld), np.int64)
-        block[:, :k] = (start[name] + col0 + np.arange(k)[None, :]
-                        + n_in * np.arange(n_out)[:, None])
-        pieces.append(block.reshape(-1))
-        begin, off = off, off + block.size
-        return begin, ld
-
-    for i in range(cfg.D):
-        name = f"pts_linears.{i}.weight"
-        if i == 0:
-            seg[0, 0] = add(name, 0, P)
-        elif (i - 1) in cfg.skips:
-            seg[i, 0], seg[i, 1] = add(name, 0, P), add(name, P, W)
-        else:
-            seg[i, 1] = add(name, 0, W)
-    if cfg.use_viewdirs:
-        head[BW_ALPHA] = add("alpha_linear.weight", 0, W)
-        head[BW_FEATURE] = add("feature_linear.weight", 0, W)
-        head[BW_VIEWS_F] = add("views_linears.0.weight", 0, W)
-        head[BW_VIEWS_D] = add("views_linears.0.weight", W, cfg.input_ch_views)
-        head[BW_RGB] = add("rgb_linear.weight", 0, W // 2)
-    else:
-        head[BW_OUTPUT] = add("output_linear.weight", 0, W)
+    layout, size, slot = bwd_layout(cfg, bf16)
+    sk = slice_rows(bf16)
+    src = np.zeros(size, np.int64)
+    plane = np.zeros(size, np.int8)
+    src16 = np.zeros(2 * size, np.int64) if bf16 else None
+    desc = np.zeros(_BWD_DESC_WORDS, np.int64)
+    gemm = desc[8:8 + MAX_BGEMMS * 8].reshape(MAX_BGEMMS, 8)
+    gems = bwd_gemms(cfg)
+    for i, ((name, col0, N, kind, arg), (w_off, Kp, Np)) in enumerate(zip(gems, layout)):
+        n_out, n_in = shapes[name + ".weight"]
+        block = np.zeros((Kp, Np), np.int64)
+        block[:n_out, :N] = (start[name + ".weight"] + col0 + np.arange(N)[None, :]
+                             + n_in * np.arange(n_out)[:, None])
+        place_slices(src, plane, src16, w_off, block, bf16)
+        gemm[i] = (w_off, kind, Np, Kp // sk, arg, 0, 0, 0)
+    desc[:2] = (len(gems), slot)
     hseg, zseg, _, _ = act_layout(cfg)
-    bdesc = np.concatenate([seg.reshape(-1), head.reshape(-1), hseg.reshape(-1),
-                            zseg.reshape(-1)])
-    return np.concatenate(pieces), bdesc
+    desc[8 + MAX_BGEMMS * 8:] = np.concatenate([hseg.reshape(-1), zseg.reshape(-1)])
+    return src, plane, src16, desc
 
 
 _BWD_STATIC: Dict[tuple, tuple] = {}
 
 
-def _bwd_static(cfg: NeRFConfig, device: torch.device):
-    """(src, bdesc, dw_desc, n_jobs, n_tiles) on ``device``, made once per
-    architecture and device (they hold no parameter value). dw_desc is
-    ``dw_jobs`` then ``dw_tiles``, flattened."""
-    key = (cfg, str(device))
+def _bwd_static(cfg: NeRFConfig, device: torch.device, bf16: bool = False):
+    """(src, plane, bdesc, dw_desc, n_jobs, n_tiles, src16, in16) on
+    ``device``, made once per architecture, type and device (they hold no
+    parameter value). dw_desc is ``dw_jobs`` then ``dw_tiles``, flattened;
+    src16 and in16 (its bf16 values' mask) are None in fp32."""
+    key = (cfg, str(device), bf16)
     if key not in _BWD_STATIC:
-        src, bdesc = bwd_sources(cfg)
+        src, plane, src16, bdesc = bwd_tc_sources(cfg, bf16)
         jobs = dw_jobs(cfg)
         tiles = dw_tiles(jobs)
         dw = np.concatenate([jobs.reshape(-1), tiles.reshape(-1)])
-        _BWD_STATIC[key] = (torch.from_numpy(src).to(device), common.upload(bdesc, device),
-                            common.upload(dw, device), len(jobs), len(tiles))
+        s16 = in16 = None
+        if bf16:
+            s16 = torch.from_numpy(src16).to(device)
+            in16 = torch.from_numpy(np.repeat(plane == PLANE_BF16, 2)).to(device)
+        _BWD_STATIC[key] = (torch.from_numpy(src).to(device), torch.from_numpy(plane).to(device),
+                            common.upload(bdesc, device), common.upload(dw, device),
+                            len(jobs), len(tiles), s16, in16)
     return _BWD_STATIC[key]
 
 
-def pack_backward(params, cfg: NeRFConfig, device, compute_dtype=torch.float32):
-    """(wbt, bdesc): the weights in PyTorch's [out, in] layout, split where
-    the input is a concatenation, each segment's rows padded to a multiple
-    of 4 floats (zero), as one gather through ``bwd_sources``' map (under
-    ``compute_dtype`` bfloat16 rounded to bf16, kept as fp32 values);
-    bdesc is the int64
-    BwdDesc of csrc/fused_mlp_bwd.cu."""
+def pack_backward_tc(params, cfg: NeRFConfig, device, compute_dtype=torch.float32):
+    """(wbt, bdesc): the input-gradient GEMMs' weights laid out by
+    ``bwd_layout`` as the tensor-core pack lays out the forward's
+    (``fused_mlp.pack_network_tc``): fp32, each 8-row slice's big and small
+    tf32 planes; under ``compute_dtype`` bfloat16, one plane of 16 rows
+    rounded to bf16; padding zero. One gather through ``bwd_tc_sources``'
+    map, then the split or the rounding. bdesc is the int64 BwdDesc of
+    csrc/fused_mlp_bwd.cu on ``device``."""
     device = torch.device(device)
-    src, bdesc, _, _, _ = _bwd_static(cfg, device)
-    wbt = flat_params(params, cfg, device)[src]
-    return (bf16_round(wbt) if is_bf16(compute_dtype) else wbt), bdesc
-
-
-_WEIGHT_MASK: Dict[tuple, torch.Tensor] = {}
-
-
-def pack_forward(params, cfg: NeRFConfig, device, compute_dtype=torch.float32):
-    """``fused_mlp.pack_network`` for B2's tile kernel; under
-    ``compute_dtype`` bfloat16 the weight matrices rounded to bf16 (as fp32
-    values), the biases fp32."""
-    wbuf, desc, HS, ES = pack_network(params, cfg, device)
-    if is_bf16(compute_dtype):
-        key = (cfg, str(wbuf.device))
-        if key not in _WEIGHT_MASK:
-            layout, size = packed_layout(cfg)
-            mask = np.zeros(size, bool)
-            for name, (off, rows, _, ld) in layout.items():
-                mask[off:off + rows * ld] = name.endswith(".weight")
-            _WEIGHT_MASK[key] = torch.from_numpy(mask).to(wbuf.device)
-        wbuf = torch.where(_WEIGHT_MASK[key], bf16_round(wbuf), wbuf)
-    return wbuf, desc, HS, ES
+    check_config(cfg)
+    check_params(params, cfg, device)
+    bf16 = is_bf16(compute_dtype)
+    src, plane, bdesc, _, _, _, src16, in16 = _bwd_static(cfg, device, bf16)
+    extra = (src16, in16) if bf16 else ()
+    return gather_pack(flat_params(params, cfg, device), src, plane, *extra), bdesc
 
 
 def unpack_grads(grads: torch.Tensor, cfg: NeRFConfig) -> Dict[str, torch.Tensor]:
@@ -420,33 +458,39 @@ def unpack_grads(grads: torch.Tensor, cfg: NeRFConfig) -> Dict[str, torch.Tensor
 
 
 def smem_bytes(cfg: NeRFConfig) -> int:
-    """Shared memory of one tile-kernel block: csrc/fused_mlp_bwd.cu
-    bwd_smem_floats plus the NetDesc and BwdDesc it keeps in static shared
+    """Shared memory of one tile-kernel block with the smallest ring, two
+    slots (the kernel takes the deepest that fits, at most MAX_SLOTS):
+    csrc/fused_mlp_bwd.cu bwd_smem_floats (the [128][HS] activation tile,
+    the cotangent tile, the encoder's rows, the dx sums, the ring) plus the
+    Desc, the BwdDesc and the ring's barriers it keeps in static shared
     memory."""
-    HS = _round4(cfg.W)
-    ES = _round4(cfg.input_ch) + _round4(cfg.input_ch_views)
-    floats = 16 * 256 + 2 * TILE_P * HS + 2 * TILE_P * ES + TILE_P * G_LD
-    net_desc = 8 * (16 + MAX_LAYERS * 4 + 20) + 256
-    bwd_desc = 8 * (MAX_LAYERS * 4 + 12 + 4 * N_SEG)
-    return 4 * floats + net_desc + bwd_desc
+    HS, _ = tc_strides(cfg)
+    _, _, slot = bwd_layout(cfg)
+    floats = TILE_P * (HS + G_LD + ENC_ROW + 2 * DX_LD) + 2 * slot
+    return 4 * floats + 8 * (_TC_DESC_WORDS + _BWD_DESC_WORDS + 2 * MAX_SLOTS)
 
 
 # csrc/fused_mlp_bwd.cu nstt_mlp_backward (and nstt_mlp_backward_bf16):
-# descriptors, HS, ES; wb, wbt, enc, pts, vd, g; C; dx, hbuf, zbuf; dW
-# tiles; jobs, tiles, part, grads; wsize, total, n_pad; S, grid, splits;
-# stream
+# descriptors, HS, SLOT; wb, wbt, enc, pts, vd, g; C; dx, hbuf, zbuf; dW
+# tiles; jobs, tiles, part, grads; wsize, total, n_pad; S, splits; stream
 _ARGS = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 6
          + [ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int]
-         + [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 3 + [ctypes.c_int] * 3
+         + [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 3 + [ctypes.c_int] * 2
          + [ctypes.c_void_p])
 
 
-def launch_backward(params, cfg: NeRFConfig, pts, viewdirs, g,
-                    compute_dtype=torch.float32):
+def launch_backward(params, cfg: NeRFConfig, pts, viewdirs, g, compute_dtype=torch.float32):
     """Kernel B2 (its bf16 instantiation under ``compute_dtype`` bfloat16)
-    on CUDA tensors -> (grads, dpts, ddirs).
+    on CUDA tensors -> (grads, dpts, ddirs)."""
+    return launch_backward_h(params, cfg, pts, viewdirs, g, compute_dtype)[:3]
 
-    Scratch, all ``torch.empty``: H and dZ for n_pad = n rounded up to 64
+
+def launch_backward_h(params, cfg: NeRFConfig, pts, viewdirs, g, compute_dtype=torch.float32):
+    """``launch_backward`` -> (grads, dpts, ddirs, hbuf, n_pad), with the H
+    buffer the tile kernel wrote (``act_layout``: every layer input of
+    every point, whose signs are the kernel's ReLU decisions).
+
+    Scratch, all ``torch.empty``: H and dZ for n_pad = n rounded up to 128
     points (``act_layout``: 19,856 bytes a point at the lego width, ~3.9 GB
     at 196,608 points; the plain path's autograd keeps every layer's
     output too), and one partial copy of the packed gradients per point
@@ -463,20 +507,18 @@ def launch_backward(params, cfg: NeRFConfig, pts, viewdirs, g,
     dx = torch.empty((n, 6), dtype=torch.float32, device=dev)
     if n == 0:
         return ({k: torch.zeros_like(params[k]) for k in layout}, pts.new_zeros(pts.shape),
-                None if viewdirs is None else torch.zeros_like(viewdirs))
+                None if viewdirs is None else torch.zeros_like(viewdirs), dx[:0, 0], 0)
     check_in("B2", compute_dtype, "launch_backward", params, pts=pts, viewdirs=viewdirs, g=g)
     bf16 = is_bf16(compute_dtype)
     fn = common.load("fused_mlp_bwd", _ARGS,
                      "nstt_mlp_backward_bf16" if bf16 else "nstt_mlp_backward")
     with torch.cuda.device(dev):
-        wbuf, desc, HS, ES = pack_forward(params, cfg, dev, compute_dtype)
-        wbt, bdesc = pack_backward(params, cfg, dev, compute_dtype)
-        _, _, dw_desc, n_jobs, n_tiles = _bwd_static(cfg, dev)
+        wbuf, desc, HS, _ = pack_network_tc(params, cfg, dev, compute_dtype)
+        wbt, bdesc = pack_backward_tc(params, cfg, dev, compute_dtype)
+        _, _, _, dw_desc, n_jobs, n_tiles, _, _ = _bwd_static(cfg, dev, bf16)
         enc = encoder_buffer(cfg, dev)
-        n_pt_tiles = -(-n // TILE_P)
-        n_pad = n_pt_tiles * TILE_P
+        n_pad = -(-n // TILE_P) * TILE_P
         sms = torch.cuda.get_device_properties(dev).multi_processor_count
-        grid = min(n_pt_tiles, sms)
         splits = dw_splits(n_pad, n_tiles, sms)
         _, _, h_floats, z_floats = act_layout(cfg)
         hbuf = torch.empty(n_pad * h_floats, dtype=torch.float32, device=dev)
@@ -485,13 +527,12 @@ def launch_backward(params, cfg: NeRFConfig, pts, viewdirs, g,
         grads = torch.empty(wsize, dtype=torch.float32, device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
         tiles_ptr = dw_desc.data_ptr() + 8 * n_jobs * J_WORDS
-        rc = fn(desc.data_ptr(), bdesc.data_ptr(), HS, ES, wbuf.data_ptr(),
-                wbt.data_ptr(), enc.data_ptr(), pts.data_ptr(),
+        rc = fn(desc.data_ptr(), bdesc.data_ptr(), HS, bwd_layout(cfg, bf16)[2],
+                wbuf.data_ptr(), wbt.data_ptr(), enc.data_ptr(), pts.data_ptr(),
                 viewdirs.data_ptr() if viewdirs is not None else 0,
                 g.data_ptr(), out_channels(cfg), dx.data_ptr(), hbuf.data_ptr(),
                 zbuf.data_ptr(), n_tiles, dw_desc.data_ptr(), tiles_ptr,
-                part.data_ptr(), grads.data_ptr(), wsize, n, n_pad, S, grid, splits,
-                stream)
+                part.data_ptr(), grads.data_ptr(), wsize, n, n_pad, S, splits, stream)
     common.check_launch(rc, "fused_mlp_bwd (B2 bf16)" if bf16 else "fused_mlp_bwd (B2)")
     if bf16:
         LAUNCHES_BF16 += 1
@@ -502,7 +543,7 @@ def launch_backward(params, cfg: NeRFConfig, pts, viewdirs, g,
     ddirs = None
     if viewdirs is not None:
         ddirs = dx[:, 3:].reshape(pts.shape).sum(dim=-2)
-    return unpack_grads(grads, cfg), dpts, ddirs
+    return unpack_grads(grads, cfg), dpts, ddirs, hbuf, n_pad
 
 
 def _plain_backward(params, cfg, pts, viewdirs, g, compute_dtype, wrapper):

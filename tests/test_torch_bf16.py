@@ -387,19 +387,23 @@ def test_bf16_pack_holds_the_rounded_weights_and_zero_padding():
 
 
 def test_b2_bf16_packs_round_the_weights_and_keep_the_biases():
-    """B2's tile kernel reads the forward pack with its weight matrices
-    rounded to bf16 and its biases fp32, and the [out, in] pack rounded."""
+    """B2's tile kernel reads B1's bf16 pack (GEMM weights rounded, biases
+    fp32, the narrow heads rounded) and the bf16 backward pack, whose
+    16-row slices hold each input-gradient GEMM's weights rounded to bf16:
+    the fp32 weights' bf16 roundings, zero padding."""
     _, _, tcfg, tp = _models(seed=8)
-    w32, _, _, _ = fused_mlp.pack_network(tp, tcfg, "cpu")
-    w16, _, _, _ = fused_mlp_bwd.pack_forward(tp, tcfg, "cpu", torch.bfloat16)
-    layout, _ = fused_mlp.packed_layout(tcfg)
-    for name, (off, rows, _, ld) in layout.items():
-        a, b = w16[off:off + rows * ld], w32[off:off + rows * ld]
-        want = fused_mlp.bf16_round(b) if name.endswith(".weight") else b
-        assert torch.equal(a, want), name
-    t16 = fused_mlp_bwd.pack_backward(tp, tcfg, "cpu", torch.bfloat16)[0]
-    t32 = fused_mlp_bwd.pack_backward(tp, tcfg, "cpu")[0]
-    assert torch.equal(t16, fused_mlp.bf16_round(t32))
+    wbuf, _, _, _ = fused_mlp.pack_network_tc(tp, tcfg, "cpu", BF)
+    layout, _ = fused_mlp.tc_layout(tcfg, True)
+    for name, _, N, _ in fused_mlp.tc_gemms(tcfg):
+        _, b_off, _, _ = layout[name]
+        assert torch.equal(wbuf[b_off:b_off + N], tp[name + ".bias"]), name
+    t16, _ = fused_mlp_bwd.pack_backward_tc(tp, tcfg, "cpu", BF)
+    blayout, _, _ = fused_mlp_bwd.bwd_layout(tcfg, True)
+    for (name, col0, N, _, _), (w_off, Kp, Np) in zip(fused_mlp_bwd.bwd_gemms(tcfg), blayout):
+        blk = _slices(t16, w_off, Kp, Np)
+        w = tp[name + ".weight"][:, col0:col0 + N]
+        assert torch.equal(blk[:w.shape[0], :N], fused_mlp.bf16_round(w)), name
+        assert not blk[w.shape[0]:].any() and not blk[:, N:].any()
 
 
 def test_compute_dtype_other_than_fp32_or_bf16_raises():

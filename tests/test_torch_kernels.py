@@ -7,9 +7,8 @@ A CUDA kernel cannot run here, so these tests hold what surrounds it:
   JAX suite runs them on the CPU (interpret mode);
 - the CPU dispatch (a CPU tensor takes the plain version, other devices
   raise) and the remat backward of the plain path;
-- the packed weight buffer and layout descriptor the kernels consume,
-  evaluated by a numpy transcription of csrc/mlp_tile.cuh's arithmetic;
-- the shape / device / dtype guards.
+- the ray-major encoder's arguments and the shape / device / dtype guards
+  (the tensor-core pack and its arithmetic: tests/test_torch_tc_mlp.py).
 
 The kernels themselves are held against the plain versions on the card by
 chip_smoke.py.
@@ -128,77 +127,7 @@ def test_plain_path_gradients_reach_params_and_rays():
     assert ro.grad is not None and rd.grad is not None
 
 
-# --- the packed network the kernels read --------------------------------
-
-
-def _emulate_kernel(wbuf, desc, A, B, z):
-    """numpy transcription of csrc/mlp_tile.cuh on packed weights -> raw
-    [N, S, OUT]."""
-    wbuf, desc = wbuf.numpy(), desc.numpy()
-    hdr = desc[:16]
-    layers = desc[16:144].reshape(32, 4)
-    heads = desc[144:164].reshape(5, 4)
-    kind = desc[164:].view(np.int8)
-    D, W, P, V, EMB, OUT, VD, P4, V4, SK, HS = (int(v) for v in hdr[:11])
-    kind = kind[:EMB]
-
-    def mat(m):
-        w_off, b_off, K, ld = (int(v) for v in m)
-        return (wbuf[w_off:w_off + K * ld].reshape(K, ld),
-                wbuf[b_off:b_off + ld])
-
-    arg = A.numpy()[:, None, :] + z.numpy()[..., None] * B.numpy()[:, None, :]
-    emb = np.where(kind == 0, arg, np.where(kind == 1, np.sin(arg), np.cos(arg)))
-    n, S = z.shape
-    emb = emb.reshape(n * S, EMB).astype(np.float64)
-    pts, dirs = emb[:, :P], emb[:, P:]
-    relu = lambda x: np.maximum(x, 0.0)  # noqa: E731
-    h = None
-    for layer in range(D):
-        Wm, b = mat(layers[layer])
-        if layer == 0:
-            acc = pts @ Wm[:P, :W]
-        elif (SK >> layer) & 1:
-            acc = pts @ Wm[:P, :W] + h @ Wm[P:P + W, :W]
-        else:
-            acc = h @ Wm[:W, :W]
-        h = relu(acc + b[:W])
-    if VD:
-        Wa, ba = mat(heads[0])
-        Wf, bf = mat(heads[1])
-        Wv, bv = mat(heads[2])
-        Wr, br = mat(heads[3])
-        alpha = h @ Wa[:, :1] + ba[:1]
-        feat = h @ Wf[:, :W] + bf[:W]
-        hv = relu(feat @ Wv[:W, :W // 2] + dirs @ Wv[W:W + V, :W // 2]
-                  + bv[:W // 2])
-        out = np.concatenate([hv @ Wr[:, :3] + br[:3], alpha], -1)
-    else:
-        Wo, bo = mat(heads[4])
-        out = h @ Wo[:, :OUT] + bo[:OUT]
-    return out.reshape(n, S, OUT)
-
-
-@pytest.mark.parametrize("kw", [
-    dict(),                                        # small lego shape
-    dict(use_viewdirs=False, output_ch=5),         # N_importance > 0 quirk
-    dict(i_embed=-1),
-    dict(multires=15, multires_views=6, W=16),     # stonehenge: EMB 132
-    dict(D=6, skips=(4,), W=8, multires=10, multires_views=4),
-])
-def test_packed_network_reproduces_plain(kw):
-    """The packing, the descriptor and the encoder tables are right if the
-    kernel's arithmetic on them gives the plain version's raw outputs.
-    Tolerance 1e-4: float64 emulation vs fp32 plain version."""
-    _, _, tcfg, tp = _models(**kw)
-    ro, rd, z = map(_t, _rays(n=6, S=8))
-    vd = rd if tcfg.use_viewdirs else None
-    wbuf, desc, HS, ES = fused_mlp.pack_network(tp, tcfg, "cpu")
-    assert wbuf.data_ptr() % 16 == 0 and HS % 4 == 0 and ES % 4 == 0
-    A, B = fused_mlp.ray_encoder_args(tcfg, ro, rd, vd)
-    got = _emulate_kernel(wbuf, desc, A, B, z)
-    want = fused_mlp.plain_nerf_forward_rays(tp, tcfg, ro, rd, z, vd).numpy()
-    np.testing.assert_allclose(got, want, atol=1e-4, rtol=1e-4)
+# --- the encoder and the guards -------------------------------------------
 
 
 def test_encoder_arguments_are_exact_for_power_of_two_frequencies():
@@ -253,9 +182,9 @@ def test_pack_refuses_params_that_do_not_match_the_config():
     bad = dict(tp)
     bad["pts_linears.1.weight"] = torch.zeros(32, 31)
     with pytest.raises(ValueError, match="pts_linears.1.weight"):
-        fused_mlp.pack_network(bad, tcfg, "cpu")
+        fused_mlp.pack_network_tc(bad, tcfg, "cpu")
     bad = dict(tp)
     bad["rgb_linear.bias"] = bad["rgb_linear.bias"].double()
     with pytest.raises(ValueError, match="rgb_linear.bias"):
-        fused_mlp.pack_network(bad, tcfg, "cpu")
+        fused_mlp.pack_network_tc(bad, tcfg, "cpu")
     assert set(fused_mlp.param_shapes(tcfg)) == set(tp)

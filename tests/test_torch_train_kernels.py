@@ -8,9 +8,10 @@ A CUDA kernel cannot run here, so these tests hold what surrounds it:
   of the backward at this size);
 - the CPU dispatch of fused_nerf_forward, fused_mlp_backward and
   fused_train_op, and the guards;
-- the packed forward and backward weights, descriptors and encoder table
-  B2 reads, driven through a numpy transcription of its arithmetic
-  (csrc/mlp_tile.cuh encode_points, csrc/fused_mlp_bwd.cu); B1's
+- the packs, descriptors and encoder table B2 reads, driven through a
+  transcription of its arithmetic (csrc/fused_mlp_bwd.cu: the tile kernel
+  on the tensor cores in split fp32 with 8-row slice sums, or one bf16
+  product a 16-row slice, then the dW kernel and the reduction); B1's
   tensor-core arithmetic is emulated in tests/test_torch_tc_mlp.py.
 
 The kernels themselves are held against the plain versions on the card by
@@ -23,6 +24,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from nerf_shared_tpu.models import nerf as jnerf
 from nerf_shared_tpu.ops.pallas import fused_mlp as jfm
 from nerf_shared_tpu.ops.pallas import fused_mlp_bwd as jbwd
@@ -87,10 +89,9 @@ def test_plain_b1_matches_pallas_forward(use_vd, n, S):
 
 
 def test_b1_encoder_arguments_match_embed_bit_for_bit():
-    """B1's point-major encoder (csrc/mlp_tile_tc.cuh PointEnc) and B2's
-    encode_points (csrc/mlp_tile.cuh) form f·x from the encoder table,
-    rounded once: for every column that is exactly the plain embed's
-    x * f."""
+    """The point-major encoder of B1 and B2 (csrc/mlp_tile_tc.cuh PointEnc)
+    forms f·x from the encoder table, rounded once: for every column that
+    is exactly the plain embed's x * f."""
     _, _, tcfg, _ = _models(multires=10, multires_views=4)
     pts, vd, _ = _points(n=4, S=5)
     enc = fused_mlp.encoder_buffer(tcfg, "cpu")
@@ -211,7 +212,8 @@ def _dw_wide(h, z):
         sl = torch.bmm(hs, zb)
         sl = torch.baddbmm(sl, hb, zs)
         sl = torch.baddbmm(sl, hb, zb)
-        acc = np.cumsum(np.concatenate([acc[None], sl.numpy()]), 0, dtype=np.float32)[-1]
+        for step in sl.numpy():   # in order, each add rounded to fp32
+            acc = acc + step
     return acc
 
 
@@ -223,132 +225,215 @@ def _dw_narrow(h, z):
                      dtype=np.float32)[-1]
 
 
-def _emulate_b2(params, cfg, pts, vd, g, sms=132, buffers=None):
-    """numpy transcription of csrc/fused_mlp_bwd.cu on the packed forward
-    weights, the PyTorch-layout segments, both descriptors and the dW
-    tables -> (grads, dpts, ddirs):
+def _tc_desc(desc):
+    """csrc/mlp_tile_tc.cuh Desc -> (hdr, gemm, narrow, kind)."""
+    d = desc.numpy()
+    G = fused_mlp.MAX_GEMMS
+    return (d[:16], d[16:16 + 8 * G].reshape(G, 8),
+            d[16 + 8 * G:16 + 8 * G + 12].reshape(3, 4), d[16 + 8 * G + 12:].view(np.int8))
 
-    - the tile kernel in float64: forward, input gradients, dx; it writes
-      each layer input H and post-mask cotangent dZ (float32) into the two
-      buffers at act_layout's offsets for n_pad points (the rest NaN, as
-      torch.empty may leave it, so a read past the points shows);
+
+def _bwd_desc(bdesc):
+    """csrc/fused_mlp_bwd.cu BwdDesc -> (hdr, gemm, hseg, zseg)."""
+    d = bdesc.numpy()
+    G, ns = fused_mlp_bwd.MAX_BGEMMS, fused_mlp_bwd.N_SEG
+    return (d[:8], d[8:8 + 8 * G].reshape(G, 8),
+            d[8 + 8 * G:8 + 8 * G + 2 * ns].reshape(ns, 2), d[8 + 8 * G + 2 * ns:].reshape(ns, 2))
+
+
+def _slice_planes(buf, w_off, Kp, Np, bf16):
+    """A GEMM's [Kp, Np] weights back out of a tensor-core pack's slices:
+    fp32, its (big, small) tf32 planes; bf16, (its bf16 plane,)."""
+    if bf16:
+        w16 = buf.view(torch.bfloat16)
+        step = 2 * fused_mlp.slice_floats(Np, True)
+        at = fused_mlp.slice_index_bf16(Np).reshape(-1)
+        return (torch.stack([w16[2 * w_off + s * step + at] for s in range(Kp // 16)])
+                .reshape(Kp, Np).float(),)
+    v = buf[w_off:w_off + Kp // 8 * fused_mlp.slice_floats(Np)].view(Kp // 8, 2, 8 * Np)
+    at = fused_mlp.slice_index(Np).reshape(-1)
+    return tuple(v[:, plane, at].reshape(Kp, Np) for plane in (0, 1))
+
+
+def _mm3_rn(a, big, small):
+    """a [M, K] @ w [K, N] as mma_slice_rn forms it from w's split planes:
+    a split in registers, each 8-row slice's three TF32 products (small·big'
+    + big·small' + big·big') summed from zero, the slice sums added in fp32
+    in order."""
+    M, K = a.shape
+    ab, as_ = (torch.from_numpy(t).view(M, K // 8, 8).transpose(0, 1) for t in _split(a.numpy()))
+    # per slice [as | ab | ab] @ [big; small; big]: the three products in one sum
+    a3 = torch.cat([as_, ab, ab], -1).contiguous()
+    w3 = torch.cat([big.view(K // 8, 8, -1), small.view(K // 8, 8, -1),
+                    big.view(K // 8, 8, -1)], 1)
+    acc = torch.zeros(M, big.shape[1])
+    for a_s, w_s in zip(a3, w3):
+        acc = acc + a_s @ w_s
+    return acc
+
+
+def _sinf(a):
+    """sinf of fp32 arguments, correctly rounded (the kernel's sinf is
+    within 2 ulp over the whole range). torch's fp32 sin on the CPU is not
+    used: it now and then runs one thread's share of the rows through a
+    path 1.5e-4 off at the 2^9 frequencies' arguments."""
+    return torch.sin(a.double()).float()
+
+
+def _cosf(a):
+    """cosf as _sinf."""
+    return torch.cos(a.double()).float()
+
+
+def _emulate_tile(params, cfg, pts, vd, g, bf16=False):
+    """Transcription of csrc/fused_mlp_bwd.cu's tile kernel (nerf_bwd_kernel,
+    under ``bf16`` nerf_bwd_bf16_kernel) on pack_network_tc's and
+    pack_backward_tc's buffers and descriptors, over n_pad = n rounded up
+    to the 128-point tile (points past n are zero, as the encoder's empty
+    rows are) -> (hbuf, zbuf, dx [n, 6], n_pad). fp32: every GEMM's
+    products through the split planes with 8-row slice sums (_mm3_rn);
+    bf16: operands rounded, one product a 16-row slice, fp32 sums. H and
+    dZ start NaN, as torch.empty may leave them, so a float the kernel
+    does not write shows."""
+    dt = torch.bfloat16 if bf16 else torch.float32
+    rnd = fused_mlp.bf16_round if bf16 else (lambda a: a)  # noqa: E731
+    sk = 16 if bf16 else 8
+    wbuf, desc, HS, _ = fused_mlp.pack_network_tc(params, cfg, "cpu", dt)
+    wbt, bdesc = fused_mlp_bwd.pack_backward_tc(params, cfg, "cpu", dt)
+    enc = fused_mlp.encoder_buffer(cfg, "cpu")
+    hdr, gemm, narrow, kind = _tc_desc(desc)
+    D, W, P, V, OUT, VD, HS, _, NG = (int(v) for v in hdr[:9])
+    bhdr, bgemm, hseg, zseg = _bwd_desc(bdesc)
+    n = pts.size // 3
+    n_pad = -(-n // fused_mlp_bwd.TILE_P) * fused_mlp_bwd.TILE_P
+    assert fused_mlp_bwd.TILE_P == 128
+    x = torch.zeros(n_pad, 6)
+    x[:n, :3] = torch.from_numpy(pts.reshape(-1, 3))
+    if VD:
+        x[:n, 3:] = torch.from_numpy(np.repeat(vd, pts.shape[-2], axis=0))
+    _, _, h_floats, z_floats = fused_mlp_bwd.act_layout(cfg)
+    hbuf = torch.full((n_pad * h_floats,), float("nan"))
+    zbuf = torch.full((n_pad * z_floats,), float("nan"))
+
+    def rows(buf, table, slot):
+        off, ld = (int(v) for v in table[slot])
+        return buf[off * n_pad:(off + ld) * n_pad].view(n_pad, ld)
+
+    # the point-major encoder: column cc reads x[:, enc[256 + cc]], f·x rounded once
+    m = fused_mlp.MAX_EMB
+    src = enc[m:m + P + V].long()
+    f = enc[:P + V]
+    k = torch.from_numpy(kind[:P + V].astype(np.int64))
+    xs = x[:, src]
+    emb = torch.where(k == 0, xs, torch.where(k == 1, _sinf(f * xs), _cosf(f * xs)))
+    P4 = fused_mlp._round4(P)
+    he = rows(hbuf, hseg, fused_mlp_bwd.H_EMB)
+    he[:] = 0.0
+    he[:n, :P] = rnd(emb[:n, :P])
+    he[:n, P4:P4 + V] = rnd(emb[:n, P:])
+    gt = torch.zeros(n_pad, fused_mlp_bwd.G_LD)
+    gr = torch.from_numpy(g.reshape(n, -1))
+    if VD:
+        gt[:n, :4], gt[:n, 4] = gr, gr[:, 3]
+    else:
+        gt[:n, :OUT] = gr
+    gt = rnd(gt)
+    rows(zbuf, zseg, fused_mlp_bwd.Z_GR)[:] = gt
+
+    def prod(a, buf, w_off, Kp, Np):
+        planes = _slice_planes(buf, w_off, Kp, Np, bf16)
+        return rnd(a) @ planes[0] if bf16 else _mm3_rn(a, *planes)
+
+    def pad(a, width):
+        return torch.nn.functional.pad(a, (0, width - a.shape[1]))
+
+    srcs = {fused_mlp.SRC_PTS: pad(emb[:, :P], -(-P // sk) * sk),
+            fused_mlp.SRC_DIRS: pad(emb[:, P:], -(-V // sk) * sk)}
+    t = torch.zeros(n_pad, HS)   # the activation tile s.h
+    for gi in range(NG):
+        w_off, b_off, Np, ns0, src0, ns1, src1, relu = (int(v) for v in gemm[gi])
+        a = torch.cat([t[:, :sk * ns] if s_ == fused_mlp.SRC_H else srcs[s_]
+                       for s_, ns in ((src0, ns0), (src1, ns1)) if ns], -1)
+        out = prod(a, wbuf, w_off, sk * (ns0 + ns1), Np) + wbuf[b_off:b_off + Np]
+        out = rnd(out.clamp_min(0.0) if relu else out)
+        slot = 1 + gi if gi < D else (fused_mlp_bwd.H_FEATURE if gi == D else fused_mlp_bwd.H_HV)
+        hr = rows(hbuf, hseg, slot)
+        hr[:] = out[:, :hr.shape[1]]
+        t[:, :Np] = out
+    # the narrow heads' transposed products, fp32 in order, masked by s.h
+    w_off, _, K, N = (int(v) for v in narrow[1 if VD else 2])
+    wn = wbuf[w_off:w_off + N * K].view(N, K)
+    zr = rows(zbuf, zseg, fused_mlp_bwd.Z_DHV if VD else D - 1)
+    v = gt[:, :1] * wn[0]
+    for o in range(1, N):
+        v = v + gt[:, o:o + 1] * wn[o]
+    v = torch.where(t[:, :K] > 0, v, torch.zeros(()))
+    zr[:] = pad(v, zr.shape[1])
+    t[:, :zr.shape[1]] = rnd(zr)
+    dx = torch.zeros(n_pad, 6, dtype=torch.float64)
+    for w_off, kind_, Np, ns, arg in (tuple(int(v) for v in r[:5])
+                                      for r in bgemm[:int(bhdr[0])]):
+        acc = prod(t[:, :sk * ns], wbt, w_off, sk * ns, Np)
+        if kind_ == fused_mlp_bwd.BK_DEMB:
+            base, width = (P, V) if arg else (0, P)
+            for c in range(width):
+                cc = base + c
+                dim, fc, kc = int(src[cc]), float(f[cc]), int(k[cc])
+                xa = x[:, dim]
+                arg_ = fc * xa
+                der = (torch.ones_like(xa) if kc == 0 else
+                       fc * _cosf(arg_) if kc == 1 else -fc * _sinf(arg_))
+                dx[:, dim] += (acc[:, c] * der).double()
+            continue
+        if kind_ == fused_mlp_bwd.BK_DFEATURE:
+            zr = rows(zbuf, zseg, fused_mlp_bwd.Z_DFEATURE)
+        else:
+            if kind_ == fused_mlp_bwd.BK_DZ_ALPHA:
+                wa_off, _, Ka, _ = (int(v) for v in narrow[0])
+                acc[:, :Ka] = acc[:, :Ka] + gt[:, 4:5] * wbuf[wa_off:wa_off + Ka]
+            hm = rows(hbuf, hseg, 1 + arg)
+            acc = torch.where(pad(hm, Np) > 0, acc, torch.zeros(()))
+            zr = rows(zbuf, zseg, arg)
+        zr[:] = acc[:, :zr.shape[1]]
+        t[:, :Np] = rnd(acc)
+    return hbuf.numpy(), zbuf.numpy(), dx[:n].numpy(), n_pad
+
+
+def _dw_wide_bf16(h, z):
+    """nerf_dw_bf16_kernel's product over one point range: h and z rounded
+    to bf16, one product a 16-point step (exact in fp32, summed in fp32),
+    the steps' sums added in order."""
+    K, M = h.shape
+    hb = fused_mlp.bf16_round(torch.from_numpy(h)).reshape(K // 16, 16, M).transpose(1, 2)
+    zb = fused_mlp.bf16_round(torch.from_numpy(z)).reshape(K // 16, 16, -1)
+    sl = torch.bmm(hb, zb).numpy()
+    return np.cumsum(np.concatenate([np.zeros((1,) + sl.shape[1:], np.float32), sl]), 0,
+                     dtype=np.float32)[-1]
+
+
+def _emulate_b2(params, cfg, pts, vd, g, sms=132, buffers=None, bf16=False):
+    """Transcription of all of B2 -> (grads, dpts, ddirs):
+
+    - the tile kernel (_emulate_tile), which writes each layer input H and
+      post-mask cotangent dZ (float32) into the two buffers at act_layout's
+      offsets for n_pad points and forms dx;
     - nerf_dw_kernel: every dw_jobs product over each split_ranges range
       (rows at or past n zero, as the kernel's staging fills them), split
-      fp32 with k8 slice sums (_dw_wide) or fp32 fma (_dw_narrow), biases
-      fp32 sums in point order, into one partial copy of the packed
-      gradients per range (padding zero);
+      fp32 with k8 slice sums (_dw_wide; bf16: _dw_wide_bf16) or fp32 fma
+      (_dw_narrow), biases fp32 sums in point order, into one partial copy
+      of the packed gradients per range (padding zero);
     - the ranges summed in order by the wrapper's reduce_partials, and
       unpacked by its unpack_grads.
 
     ``buffers``, a dict, receives hbuf, zbuf, part and the split count."""
-    wbuf, desc, HS, ES = fused_mlp.pack_network(params, cfg, "cpu")
-    wbt, bdesc = fused_mlp_bwd.pack_backward(params, cfg, "cpu")
-    enc = fused_mlp.encoder_buffer(cfg, "cpu").numpy().astype(np.float64)
-    wbuf, wbt = wbuf.numpy().astype(np.float64), wbt.numpy().astype(np.float64)
-    desc, bdesc = desc.numpy(), bdesc.numpy()
-    D, W, P, V, _, OUT, VD, P4, V4, SK, HS = (int(v) for v in desc[:11])
-    layers = desc[16:144].reshape(32, 4)
-    heads = desc[144:164].reshape(5, 4)
-    kind = desc[164:].view(np.int8)
-    seg = bdesc[:128].reshape(32, 2, 2)
-    bh = bdesc[128:140].reshape(6, 2)
-    nseg = fused_mlp_bwd.N_SEG
-    hseg = bdesc[140:140 + 2 * nseg].reshape(nseg, 2)
-    zseg = bdesc[140 + 2 * nseg:].reshape(nseg, 2)
-    S = pts.shape[-2]
-    x = pts.reshape(-1, 3).astype(np.float64)
-    n = x.shape[0]
-    n_pad = -(-n // fused_mlp_bwd.TILE_P) * fused_mlp_bwd.TILE_P
-    _, _, h_floats, z_floats = fused_mlp_bwd.act_layout(cfg)
-    hbuf = np.full(n_pad * h_floats, np.nan, np.float32)
-    zbuf = np.full(n_pad * z_floats, np.nan, np.float32)
+    hbuf, zbuf, dx, n_pad = _emulate_tile(params, cfg, pts, vd, g, bf16)
+    VD = cfg.use_viewdirs
+    n = pts.size // 3
+    hseg, zseg, _, _ = fused_mlp_bwd.act_layout(cfg)
 
     def rows(buf, table, slot):
         off, ld = (int(v) for v in table[slot])
         return buf[off * n_pad:(off + ld) * n_pad].reshape(n_pad, ld)
-
-    def put(buf, table, slot, a):
-        r = rows(buf, table, slot)
-        r[:n] = 0.0
-        r[:n, :a.shape[1]] = a
-
-    xd = np.repeat(vd, S, axis=0).astype(np.float64) if VD else np.zeros_like(x)
-    xin = np.concatenate([x, xd], -1)
-
-    cols = [c if c < P else -1 for c in range(P4)]
-    cols += [P + c if c < V else -1 for c in range(V4)]
-    emb = np.zeros((n, P4 + V4))
-    def arg(f, xs):
-        """f·x rounded once to fp32, as encode_points and embed form it"""
-        return (np.float32(f) * xs.astype(np.float32)).astype(np.float64)
-
-    for c, cc in enumerate(cols):
-        if cc < 0:
-            continue
-        xs, f, k = xin[:, int(enc[256 + cc])], enc[cc], kind[cc]
-        emb[:, c] = xs if k == 0 else (np.sin(arg(f, xs)) if k == 1 else np.cos(arg(f, xs)))
-    put(hbuf, hseg, fused_mlp_bwd.H_EMB, emb)
-
-    def fw(m):
-        w, b, K, ld = (int(v) for v in m)
-        return wbuf[w:w + K * ld].reshape(K, ld), wbuf[b:b + ld]
-
-    def tw(entry, rows_):
-        off, ld = (int(v) for v in entry)
-        return wbt[off:off + rows_ * ld].reshape(rows_, ld)
-
-    relu = lambda a: np.maximum(a, 0.0)  # noqa: E731
-    hs = []
-    for l in range(D):
-        Wm, b = fw(layers[l])
-        if l == 0:
-            z = emb[:, :P] @ Wm[:P, :W]
-        elif (SK >> l) & 1:
-            z = emb[:, :P] @ Wm[:P, :W] + hs[-1] @ Wm[P:P + W, :W]
-        else:
-            z = hs[-1] @ Wm[:W, :W]
-        hs.append(relu(z + b[:W]))
-        put(hbuf, hseg, 1 + l, hs[-1])
-    gr = g.reshape(n, -1).astype(np.float64)
-    gt = np.zeros((n, fused_mlp_bwd.G_LD))
-    if VD:
-        gt[:, :4], gt[:, 4] = gr, gr[:, 3]
-    else:
-        gt[:, :OUT] = gr
-    put(zbuf, zseg, fused_mlp_bwd.Z_GR, gt)
-    demb = np.zeros_like(emb)
-    W2 = W // 2
-    if VD:
-        Wf, bf = fw(heads[1])
-        Wv, bv = fw(heads[2])
-        feat = hs[-1] @ Wf[:, :W] + bf[:W]
-        hv = relu(feat @ Wv[:W, :W2] + emb[:, P4:P4 + V] @ Wv[W:W + V, :W2] + bv[:W2])
-        put(hbuf, hseg, fused_mlp_bwd.H_FEATURE, feat)
-        put(hbuf, hseg, fused_mlp_bwd.H_HV, hv)
-        dhv = (gr[:, :3] @ tw(bh[4], 3)[:, :W2]) * (hv > 0)
-        put(zbuf, zseg, fused_mlp_bwd.Z_DHV, dhv)
-        demb[:, P4:P4 + V] += dhv @ tw(bh[3], W2)[:, :V]
-        dfeat = dhv @ tw(bh[2], W2)[:, :W]
-        put(zbuf, zseg, fused_mlp_bwd.Z_DFEATURE, dfeat)
-        dh = dfeat @ tw(bh[1], W)[:, :W] + gr[:, 3:4] @ tw(bh[0], 1)[:, :W]
-    else:
-        dh = gr @ tw(bh[5], OUT)[:, :W]
-    for l in reversed(range(D)):
-        dz = dh * (hs[l] > 0)
-        put(zbuf, zseg, l, dz)
-        from_emb = l == 0 or (SK >> l) & 1
-        if from_emb:
-            demb[:, :P] += dz @ tw(seg[l, 0], W)[:, :P]
-        if l > 0:
-            dh = dz @ tw(seg[l, 1], W)[:, :W]
-    dx = np.zeros((n, 6))
-    for c, cc in enumerate(cols):
-        if cc < 0:
-            continue
-        s, f, k = int(enc[256 + cc]), enc[cc], kind[cc]
-        der = 1.0 if k == 0 else (f * np.cos(arg(f, xin[:, s])) if k == 1
-                                  else -f * np.sin(arg(f, xin[:, s])))
-        dx[:, s] += demb[:, c] * der
 
     # ---- nerf_dw_kernel over the buffers, then the reduction ----
     jobs = fused_mlp_bwd.dw_jobs(cfg)
@@ -362,7 +447,8 @@ def _emulate_b2(params, cfg, pts, vd, g, sms=132, buffers=None):
             z = rows(zbuf, zseg, zslot)[kb:ke, zcol:zcol + N].copy()
             h[max(0, n - kb):] = 0.0
             z[max(0, n - kb):] = 0.0
-            dw = _dw_wide(h, z) if kind_ == fused_mlp_bwd.DW_WIDE else _dw_narrow(h, z)
+            wide = _dw_wide_bf16 if bf16 else _dw_wide
+            dw = wide(h, z) if kind_ == fused_mlp_bwd.DW_WIDE else _dw_narrow(h, z)
             blk = part[si, w_off:w_off + M * ld].reshape(M, ld)
             blk[:] = 0.0
             blk[:, :N] = dw
@@ -453,18 +539,25 @@ def test_kernel_sources_are_built():
 
 
 def test_backward_fits_shared_memory_at_the_supported_widths():
-    """One tile-kernel block keeps X, Y, the encoding, its gradient, the
-    cotangent tile, a 16-row weight tile and the NetDesc and BwdDesc (now
-    with the H / dZ segments) in shared memory: it must fit the 227 KB a
-    block may use at the lego width and with the stonehenge encoder. Two
-    nerf_dw_kernel blocks (three stages of 32-point H and dZ chunks each)
-    must fit one SM's 228 KB."""
+    """One tile-kernel block keeps the [128][HS] activation tile, the
+    cotangent tile, the encoder's rows, the dx sums, a ring of at least two
+    weight slots (the widest slice of either pack) and the Desc, BwdDesc
+    and ring barriers in shared memory: it must fit the 227 KB a block may
+    use at the lego width and with the stonehenge encoder (whose wider
+    embedding stays out of shared memory: the same bytes), with room for
+    four slots at the lego width. Two nerf_dw_kernel blocks (three stages
+    of 32-point H and dZ chunks each) must fit one SM's 228 KB."""
     lego = tnerf.NeRFConfig()
     stone = tnerf.NeRFConfig(multires=15, multires_views=6)
-    assert fused_mlp_bwd.smem_bytes(lego) < fused_mlp_bwd.smem_bytes(stone)
+    assert fused_mlp_bwd.smem_bytes(lego) == fused_mlp_bwd.smem_bytes(stone)
     assert fused_mlp_bwd.smem_bytes(stone) <= fused_mlp_bwd.MAX_SMEM
-    words = 32 * 2 * 2 + 6 * 2 + 2 * fused_mlp_bwd.N_SEG * 2
-    _, bdesc = fused_mlp_bwd.pack_backward(
+    slot = fused_mlp_bwd.bwd_layout(lego)[2]
+    assert slot == 16 * 256
+    assert fused_mlp_bwd.smem_bytes(lego) + 4 * 2 * slot <= fused_mlp_bwd.MAX_SMEM
+    small = tnerf.NeRFConfig(D=3, W=32, skips=(1,))
+    assert fused_mlp_bwd.smem_bytes(small) < fused_mlp_bwd.smem_bytes(lego)
+    words = 8 + fused_mlp_bwd.MAX_BGEMMS * 8 + 2 * fused_mlp_bwd.N_SEG * 2
+    _, bdesc = fused_mlp_bwd.pack_backward_tc(
         tnerf.NeRF(lego).params(), lego, "cpu")
     assert bdesc.numel() == words
     dw = fused_mlp_bwd.dw_smem_bytes()
@@ -497,8 +590,7 @@ def test_flop_counts_of_the_two_kernels():
 
 def test_unpack_grads_inverts_the_packed_layout():
     _, _, tcfg, tp = _models()
-    wbuf, _, _, _ = fused_mlp.pack_network(tp, tcfg, "cpu")
-    back = fused_mlp_bwd.unpack_grads(wbuf, tcfg)
+    back = fused_mlp_bwd.unpack_grads(_pack_network_loop(tp, tcfg), tcfg)
     assert list(back) == list(fused_mlp.packed_layout(tcfg)[0])
     for k, v in tp.items():
         torch.testing.assert_close(back[k], v, rtol=0, atol=0)
@@ -532,14 +624,17 @@ def _b2_case(kw, n, S, seed=4):
     return jcfg, jp, tcfg, tp, pts, (vd if tcfg.use_viewdirs else None), g
 
 
-def _plain64(tp, tcfg, pts, vd, g):
-    """plain_mlp_backward in float64 -> (grads, dpts, ddirs) as numpy /
-    float64 tensors. At 19,500 points the fp32 chain itself reads up to
-    1.6e-3 of max|grad| away from it on these seeded networks, far from
-    the transcription's ~4e-7."""
+def _plain64(tp, tcfg, pts, vd, g, masks=None):
+    """plain_mlp_backward in float64 (on the ReLU decisions ``masks`` if
+    given: chip_smoke.masked_backward) -> (grads, dpts, ddirs) as numpy /
+    float64 tensors. At 19,500
+    points the fp32 chain itself reads up to 1.6e-3 of max|grad| away
+    from it on these seeded networks, far from the transcription's ~4e-7
+    on the same branch."""
     d = lambda a: None if a is None else torch.from_numpy(np.asarray(a, np.float64))  # noqa: E731
-    grads, dpts, ddirs = fused_mlp_bwd.plain_mlp_backward(
-        {k: v.double() for k, v in tp.items()}, tcfg, d(pts), d(vd), d(g))
+    args = ({k: v.double() for k, v in tp.items()}, tcfg, d(pts), d(vd), d(g))
+    grads, dpts, ddirs = (fused_mlp_bwd.plain_mlp_backward(*args) if masks is None
+                          else chip_smoke.masked_backward(*args, masks))
     return grads, dpts.numpy(), None if ddirs is None else ddirs.numpy()
 
 
@@ -555,11 +650,12 @@ def test_two_stage_b2_matches_plain_and_pallas(kw):
     Pallas backward in interpret mode. Tolerance 1e-4 of each tensor's
     max |grad|; 5e-2 against Pallas with the stonehenge encoder, whose
     matmul-formed argument at frequency 2^14 puts that kernel 4e-2 from
-    float64 (the transcription stays within 4e-7 of it)."""
+    float64 (the transcription stays within 4e-7 of it). 259 points fill
+    three 128-point tiles (n_pad 384)."""
     jcfg, jp, tcfg, tp, pts, vd, g = _b2_case(kw, 37, 7)
     bufs = {}
     got, dpts, ddirs = _emulate_b2(tp, tcfg, pts, vd, g, buffers=bufs)
-    assert bufs["n_pad"] == 320 and bufs["splits"] >= 1
+    assert bufs["n_pad"] == 384 and bufs["splits"] >= 1
     want, wpts, wdirs = _plain64(tp, tcfg, pts, vd, g)
     _check_b2(_as64(got), want, dpts, wpts, ddirs, wdirs)
     jwant, dx = _pallas_backward(jcfg, jp, pts, vd, g)
@@ -571,13 +667,269 @@ def test_two_stage_b2_matches_plain_and_pallas(kw):
 @pytest.mark.parametrize("kw", PHASE5, ids=PHASE5_IDS)
 def test_two_stage_b2_at_300_rays_of_65(kw):
     """As above at 300 x 65 = 19,500 points, several point ranges each,
-    against plain_mlp_backward in float64 (tolerance 1e-4)."""
+    against plain_mlp_backward in float64 on the transcription's ReLU
+    decisions (chip_smoke.relu_masks of its H; tolerance 1e-4). At these
+    points some pre-activations lie within fp32 rounding of 0, where the
+    fp32 forward (the kernel's, and the plain fp32 chain's) switches a unit
+    otherwise than float64 does, which moves the gradients below it by up
+    to 1.6e-3 of their max; on the same branch the two differ by rounding
+    alone. Every decision other than float64's lies within
+    chip_smoke.RELU_SWITCH of its layer's max |pre-activation| of 0
+    (chip_smoke.relu_switches), as phase 5 holds the kernel."""
     _, _, tcfg, tp, pts, vd, g = _b2_case(kw, 300, 65, seed=5)
     bufs = {}
     got, dpts, ddirs = _emulate_b2(tp, tcfg, pts, vd, g, buffers=bufs)
     assert bufs["splits"] > 1
+    masks = [torch.from_numpy(m) for m in chip_smoke.relu_masks(
+        tcfg, bufs["hbuf"], bufs["n_pad"], pts.size // 3)]
+    _, z_worst = chip_smoke.relu_switches(
+        tcfg, {k: v.double() for k, v in tp.items()}, torch.from_numpy(pts),
+        None if vd is None else torch.from_numpy(vd), masks)
+    assert z_worst <= chip_smoke.RELU_SWITCH
+    want, wpts, wdirs = _plain64(tp, tcfg, pts, vd, g, masks)
+    _check_b2(_as64(got), want, dpts, wpts, ddirs, wdirs)
+
+
+# --- B2's tensor-core tile: its pack, its H / dZ, both instantiations -------
+
+D4W64 = dict(D=4, W=64, skips=(1,), multires=6, multires_views=3)
+
+
+@pytest.mark.parametrize("kw", [LEGO] + PHASE5 + [D4W64],
+                         ids=["lego"] + PHASE5_IDS + ["d4w64"])
+@pytest.mark.parametrize("bf16", [False, True], ids=["fp32", "bf16"])
+def test_backward_tc_pack_round_trips_and_pads_with_zeros(kw, bf16):
+    """Unpacking pack_backward_tc gives back, for every input-gradient GEMM
+    of bwd_gemms, its columns of the weight [out, in] as a [K = out, N]
+    matrix: fp32 as their split (big, small) tf32 planes (tf32_split's, big
+    + small within 2^-21 of W), bf16 rounded; every padded entry is zero
+    and every other float of the buffer belongs to a GEMM. The descriptor
+    holds each GEMM's offset, epilogue, Np (a power of two >= 32), slice
+    count, argument, the ring slot and act_layout's segments."""
+    _, _, tcfg, tp = _models(seed=6, **kw)
+    tp = {k: v + 0.5 for k, v in tp.items()}   # no weight is zero
+    dt = torch.bfloat16 if bf16 else torch.float32
+    wbt, bdesc = fused_mlp_bwd.pack_backward_tc(tp, tcfg, "cpu", dt)
+    layout, size, slot = fused_mlp_bwd.bwd_layout(tcfg, bf16)
+    assert wbt.numel() == size and wbt.dtype == torch.float32
+    hdr, gemm, hseg, zseg = _bwd_desc(bdesc)
+    gems = fused_mlp_bwd.bwd_gemms(tcfg)
+    assert (int(hdr[0]), int(hdr[1])) == (len(gems), slot)
+    sk = 16 if bf16 else 8
+    used = torch.zeros(size, dtype=torch.bool)
+    where = torch.arange(size, dtype=torch.float32)
+    for i, ((name, col0, N, kind, arg), (w_off, Kp, Np)) in enumerate(zip(gems, layout)):
+        assert tuple(gemm[i][:6]) == (w_off, kind, Np, Kp // sk, arg, 0)
+        assert w_off % 16 == 0 and Np >= 32 and Np & (Np - 1) == 0 and Np >= N
+        w = tp[name + ".weight"][:, col0:col0 + N]
+        K = w.shape[0]
+        planes = _slice_planes(wbt, w_off, Kp, Np, bf16)
+        if bf16:
+            torch.testing.assert_close(planes[0][:K, :N], fused_mlp.bf16_round(w),
+                                       rtol=0, atol=0)
+        else:
+            for a, b in zip(planes, fused_mlp.tf32_split(w)):
+                torch.testing.assert_close(a[:K, :N], b, rtol=0, atol=0)
+            assert ((planes[0][:K, :N] + planes[1][:K, :N] - w).abs()
+                    <= w.abs() * 2.0 ** -21).all()
+        for pl in planes:
+            assert not pl[K:].any() and not pl[:, N:].any()
+        n_floats = Kp // sk * fused_mlp.slice_floats(Np, bf16)
+        used[w_off:w_off + n_floats] = True
+        if not bf16:   # every float of the slices is an entry of one plane
+            at = _slice_planes(where, w_off, Kp, Np, False)
+            assert sorted(torch.cat([a.reshape(-1) for a in at]).long().tolist()) == list(
+                range(w_off, w_off + n_floats))
+    assert not wbt[~used].any()
+    want_h, want_z, _, _ = fused_mlp_bwd.act_layout(tcfg)
+    assert (hseg == want_h).all() and (zseg == want_z).all()
+
+
+def _masked_tile_rows(tcfg, pts, vd, g, tp):
+    """Float64 forward activations (h_l, feature, hv) and post-mask
+    cotangents (dz_l, dfeature, dhv) of the network, by H / dZ slot, for
+    the points of pts."""
+    names = tnerf.torch_param_order(tcfg)
+    n = pts.size // 3
+    P, W = tcfg.input_ch, tcfg.W
+    w = {k: tp[k].double() for k in names}
+    with torch.enable_grad():
+        pt = torch.from_numpy(pts.astype(np.float64))
+        dv = None if vd is None else torch.from_numpy(vd.astype(np.float64))
+        emb = tnerf.embed_inputs(tcfg, pt, dv).reshape(n, -1)
+
+        def dense(name, x):
+            return x @ w[name + ".weight"].t() + w[name + ".bias"]
+
+        zs, hs = {}, {}
+        h = emb[:, :P]
+        for i in range(tcfg.D):
+            z = dense(f"pts_linears.{i}", h).requires_grad_(True)
+            zs[i] = z
+            hs[1 + i] = torch.relu(z)
+            h = torch.cat([emb[:, :P], hs[1 + i]], -1) if i in tcfg.skips else hs[1 + i]
+        if tcfg.use_viewdirs:
+            f = dense("feature_linear", h).requires_grad_(True)
+            zv = dense("views_linears.0", torch.cat([f, emb[:, P:]], -1)).requires_grad_(True)
+            zs[fused_mlp_bwd.Z_DFEATURE], zs[fused_mlp_bwd.Z_DHV] = f, zv
+            hs[fused_mlp_bwd.H_FEATURE], hs[fused_mlp_bwd.H_HV] = f, torch.relu(zv)
+            raw = torch.cat([dense("rgb_linear", hs[fused_mlp_bwd.H_HV]),
+                             dense("alpha_linear", h)], -1)
+        else:
+            raw = dense("output_linear", h)
+        keys = list(zs)
+        dzs = torch.autograd.grad(raw, [zs[k] for k in keys],
+                                  torch.from_numpy(g.reshape(n, -1).astype(np.float64)))
+    return ({k: v.detach().numpy() for k, v in hs.items()},
+            {k: d.numpy() for k, d in zip(keys, dzs)})
+
+
+@pytest.mark.parametrize("use_vd", [True, False], ids=["viewdirs", "no_viewdirs"])
+def test_tc_tile_writes_h_and_dz_at_act_layout(use_vd):
+    """The tile's transcription at D = 4, W = 64, one skip, 259 points
+    (three 128-point tiles, the last partly padded) writes every float of H
+    and dZ for n_pad = 384 points; each layer input and each post-mask
+    cotangent sits at act_layout's offsets, within 1e-4 of the float64
+    network's (of each activation's max); the padded rows of dZ are zero,
+    so the dW kernel's sums over them add nothing."""
+    _, _, tcfg, tp = _models(seed=1, **{**D4W64, "use_viewdirs": use_vd,
+                                        "output_ch": 4 if use_vd else 5})
+    pts, vd, g = _points(n=37, S=7, C=4 if use_vd else 5, seed=4)
+    vd = vd if use_vd else None
+    hbuf, zbuf, dx, n_pad = _emulate_tile(tp, tcfg, pts, vd, g)
+    n = 259
+    assert n_pad == 384 and not np.isnan(hbuf).any() and not np.isnan(zbuf).any()
+    hseg, zseg, _, _ = fused_mlp_bwd.act_layout(tcfg)
+
+    def rows(buf, table, slot):
+        off, ld = (int(v) for v in table[slot])
+        return buf[off * n_pad:(off + ld) * n_pad].reshape(n_pad, ld)
+
+    hs, dzs = _masked_tile_rows(tcfg, pts, vd, g, tp)
+    for slot, want in hs.items():
+        got = rows(hbuf, hseg, slot)
+        np.testing.assert_allclose(got[:n, :want.shape[1]], want, rtol=0,
+                                   atol=1e-4 * max(1.0, np.abs(want).max()))
+        assert not got[:n, want.shape[1]:].any()
+    for slot, want in dzs.items():
+        got = rows(zbuf, zseg, slot)
+        np.testing.assert_allclose(got[:n, :want.shape[1]], want, rtol=0,
+                                   atol=1e-4 * np.abs(want).max())
+        assert not got[:n, want.shape[1]:].any() and not got[n:].any()
+    gr = rows(zbuf, zseg, fused_mlp_bwd.Z_GR)
+    assert not gr[n:].any() and not rows(hbuf, hseg, fused_mlp_bwd.H_EMB)[n:].any()
+
+
+def _pallas_backward_bf16(jcfg, jp, pts, vd, g):
+    """The JAX bf16 B2 (fused_train_op((cfg, "bfloat16")) differentiated,
+    interpret mode) -> (torch-layout grads, dpts, ddirs)."""
+    if vd is not None:
+        _, vjp = jax.vjp(lambda p, x, d: jbwd.fused_train_op((jcfg, "bfloat16"), p, x, d),
+                         jp, jnp.asarray(pts), jnp.asarray(vd))
+        jg, jdx, jdd = vjp(jnp.asarray(g))
+    else:
+        _, vjp = jax.vjp(lambda p, x: jbwd.fused_train_op((jcfg, "bfloat16"), p, x, None),
+                         jp, jnp.asarray(pts))
+        (jg, jdx), jdd = vjp(jnp.asarray(g)), None
+    return (_j_grads_to_torch(jg), np.asarray(jdx),
+            None if jdd is None else np.asarray(jdd))
+
+
+@pytest.mark.parametrize("use_vd", [True, False], ids=["viewdirs", "no_viewdirs"])
+@pytest.mark.parametrize("bf16", [False, True], ids=["fp32", "bf16"])
+def test_tc_tile_b2_matches_plain_and_pallas(use_vd, bf16):
+    """All of B2 with the tensor-core tile (split fp32 with 8-row slice
+    sums, or one bf16 product a 16-row slice) at D = 4, W = 64, one skip,
+    259 points, against its plain version (plain_mlp_backward in float64;
+    plain_mlp_backward_bf16) and against JAX's Pallas B2 in interpret mode
+    (_make_bwd_kernel_closed; its bf16 instantiation through
+    fused_train_op): every gradient, dpts and ddirs within 1e-4 of its max
+    in fp32, 1e-2 in bf16 (an fp32 sum in another order flips a bf16
+    rounding now and then)."""
+    kw = {**D4W64, "use_viewdirs": use_vd, "output_ch": 4 if use_vd else 5}
+    jcfg, jp, tcfg, tp = _models(seed=1, **kw)
+    pts, vd, g = _points(n=37, S=7, C=4 if use_vd else 5, seed=4)
+    vd = vd if use_vd else None
+    got, dpts, ddirs = _emulate_b2(tp, tcfg, pts, vd, g, bf16=bf16)
+    if bf16:
+        want, wpts, wdirs = fused_mlp_bwd.plain_mlp_backward_bf16(tp, tcfg, _t(pts), _t(vd),
+                                                                  _t(g))
+        _check_b2(got, want, dpts, wpts.numpy(), ddirs,
+                  None if wdirs is None else wdirs.numpy(), tol=1e-2)
+        jwant, jpts, jdirs = _pallas_backward_bf16(jcfg, jp, pts, vd, g)
+        _check_b2(got, jwant, dpts, jpts, ddirs, jdirs, tol=1e-2)
+        return
     want, wpts, wdirs = _plain64(tp, tcfg, pts, vd, g)
     _check_b2(_as64(got), want, dpts, wpts, ddirs, wdirs)
+    jwant, dx = _pallas_backward(jcfg, jp, pts, vd, g)
+    jdirs = None if vd is None else dx[:, 3:6].reshape(pts.shape).sum(1)
+    _check_b2(got, jwant, dpts, dx[:, :3], ddirs, jdirs)
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(use_viewdirs=False, output_ch=5),
+                                dict(D=4, skips=(0, 2), W=48)])
+@pytest.mark.parametrize("bf16", [False, True], ids=["fp32", "bf16"])
+def test_plain_backward_on_its_own_relu_decisions_is_the_plain_backward(kw, bf16):
+    """chip_smoke's plain versions on given ReLU decisions
+    (masked_backward, masked_backward_bf16) with ``masks`` set to the plain
+    forward's own decisions (h > 0, hv's pre-activation > 0) give the plain
+    versions' gradients (fp32: to rounding, the ReLU a product by the mask;
+    bf16 bit for bit); with one unit of layer 0 switched off for one point
+    only that point's dpts and the gradients the unit feeds move."""
+    _, _, tcfg, tp = _models(**kw)
+    C = 4 if tcfg.use_viewdirs else tcfg.output_ch
+    pts, vd, g = map(_t, _points(n=4, S=9, C=C))
+    vd = vd if tcfg.use_viewdirs else None
+    n, P = 36, tcfg.input_ch
+    emb = tnerf.embed_inputs(tcfg, pts, vd).reshape(n, -1)
+    plain = fused_mlp_bwd.plain_mlp_backward_bf16 if bf16 else fused_mlp_bwd.plain_mlp_backward
+    masked = chip_smoke.masked_backward_bf16 if bf16 else chip_smoke.masked_backward
+    x, masks = emb[:, :P], []
+    for i in range(tcfg.D):
+        w, b = tp[f"pts_linears.{i}.weight"], tp[f"pts_linears.{i}.bias"]
+        if bf16:
+            x = fused_mlp.bf16_round(x)
+            h = fused_mlp.bf16_round(torch.relu(x @ fused_mlp.bf16_round(w).t() + b))
+        else:
+            h = torch.relu(x @ w.t() + b)
+        masks.append(h > 0)
+        x = torch.cat([emb[:, :P], h], -1) if i in tcfg.skips else h
+    if tcfg.use_viewdirs:
+        rnd = fused_mlp.bf16_round if bf16 else (lambda a: a)  # noqa: E731
+
+        def dense(name, a):
+            return rnd(a) @ rnd(tp[name + ".weight"]).t() + tp[name + ".bias"]
+
+        feature = rnd(dense("feature_linear", x))
+        masks.append(dense("views_linears.0", torch.cat([feature, emb[:, P:]], -1)) > 0)
+    want = plain(tp, tcfg, pts, vd, g)
+    got = masked(tp, tcfg, pts, vd, g, masks)
+    tol = 0 if bf16 else 1e-6
+    _check_b2(got[0], want[0], got[1].numpy(), want[1].numpy(),
+              None if vd is None else got[2].numpy(), None if vd is None else want[2].numpy(),
+              tol=tol)
+    on = masks[0].nonzero()[0]
+    masks[0] = masks[0].clone()
+    masks[0][on[0], on[1]] = False
+    moved = masked(tp, tcfg, pts, vd, g, masks)
+    dp = (moved[1] - want[1]).reshape(n, 3).abs().sum(-1)
+    assert dp[on[0]] > 0 and (dp[torch.arange(n) != on[0]] <= 1e-5 * float(dp.max())).all()
+    assert not torch.equal(moved[0]["pts_linears.0.weight"], want[0]["pts_linears.0.weight"])
+
+
+def test_relu_masks_read_the_h_segments():
+    """chip_smoke.relu_masks takes h_l > 0 from H's segment 1 + l and hv >
+    0 from its hv segment, the first n rows and W (W / 2) columns of each."""
+    cfg = tnerf.NeRFConfig(D=3, W=8, skips=(1,), multires=2, multires_views=1)
+    hseg, _, hf, _ = fused_mlp_bwd.act_layout(cfg)
+    n_pad, n = 128, 100
+    hbuf = torch.randn(n_pad * hf, generator=torch.Generator().manual_seed(0))
+    masks = chip_smoke.relu_masks(cfg, hbuf, n_pad, n)
+    assert len(masks) == 4 and masks[-1].shape == (n, 4)
+    for slot, m in zip([1, 2, 3, fused_mlp_bwd.H_HV], masks):
+        off, ld = (int(v) for v in hseg[slot])
+        want = hbuf[off * n_pad:(off + ld) * n_pad].view(n_pad, ld)[:n, :m.shape[1]] > 0
+        assert torch.equal(m, want)
 
 
 @pytest.mark.parametrize("n_pad,splits", [(64, 1), (64, 2), (64, 5), (320, 3),
@@ -679,8 +1031,8 @@ def test_act_layout_at_the_lego_width():
 
 
 def _pack_network_loop(params, cfg):
-    """The earlier per-matrix pack (a slice assignment a matrix), the
-    reference of the gathered one."""
+    """The parameters in packed_layout (a slice assignment a matrix): the
+    layout of B2's gradient buffer."""
     layout, size = fused_mlp.packed_layout(cfg)
     wbuf = torch.zeros(size, dtype=torch.float32)
     for name, (off, rows, cols, ld) in layout.items():
@@ -690,32 +1042,31 @@ def _pack_network_loop(params, cfg):
     return wbuf
 
 
-def _pack_backward_loop(params, cfg):
-    """The earlier per-segment pack (a pad a segment and a cat), the
-    reference of the gathered one."""
-    import torch.nn.functional as F
-    P, W = cfg.input_ch, cfg.W
-    pieces = []
-
-    def add(t):
-        ld = fused_mlp._round4(t.shape[1])
-        pieces.append(F.pad(t.detach(), (0, ld - t.shape[1])).reshape(-1))
-
-    for i in range(cfg.D):
-        w = params[f"pts_linears.{i}.weight"]
-        if i == 0:
-            add(w)
-        elif (i - 1) in cfg.skips:
-            add(w[:, :P]), add(w[:, P:])
-        else:
-            add(w)
-    if cfg.use_viewdirs:
-        wv = params["views_linears.0.weight"]
-        add(params["alpha_linear.weight"]), add(params["feature_linear.weight"])
-        add(wv[:, :W]), add(wv[:, W:]), add(params["rgb_linear.weight"])
-    else:
-        add(params["output_linear.weight"])
-    return torch.cat(pieces)
+def _pack_backward_loop(params, cfg, bf16=False):
+    """pack_backward_tc's buffer built GEMM by GEMM and slice by slice with
+    the K-major core-matrix index written out, the reference of the
+    gathered pack: fp32, big plane then small plane a slice, (k, n) at (n
+    // 8) 64 + (k // 4) 32 + (n % 8) 4 + k % 4; bf16, one plane of 16 rows,
+    (k, n) at (n // 8) 128 + (k // 8) 64 + (n % 8) 8 + k % 8 bf16 values."""
+    layout, size, _ = fused_mlp_bwd.bwd_layout(cfg, bf16)
+    out = torch.zeros(2 * size if bf16 else size,
+                      dtype=torch.bfloat16 if bf16 else torch.float32)
+    for (name, col0, N, _, _), (w_off, Kp, Np) in zip(fused_mlp_bwd.bwd_gemms(cfg), layout):
+        w = params[name + ".weight"].detach()[:, col0:col0 + N]
+        blk = torch.zeros(Kp, Np)
+        blk[:w.shape[0], :N] = w
+        k = torch.arange(16 if bf16 else 8)[:, None]
+        n = torch.arange(Np)[None, :]
+        if bf16:
+            at = (n // 8) * 128 + (k // 8) * 64 + (n % 8) * 8 + k % 8
+            for sl in range(Kp // 16):
+                out[2 * w_off + sl * 16 * Np + at] = blk[16 * sl:16 * sl + 16].to(torch.bfloat16)
+            continue
+        at = (n // 8) * 64 + (k // 4) * 32 + (n % 8) * 4 + k % 4
+        for plane, val in enumerate(fused_mlp.tf32_split(blk)):
+            for sl in range(Kp // 8):
+                out[w_off + sl * 16 * Np + plane * 8 * Np + at] = val[8 * sl:8 * sl + 8]
+    return out.view(torch.float32) if bf16 else out
 
 
 PACK_ARCHS = [LEGO] + PHASE5 + [dict(D=5, skips=(1, 3), W=24, multires=6,
@@ -724,23 +1075,21 @@ PACK_ARCHS = [LEGO] + PHASE5 + [dict(D=5, skips=(1, 3), W=24, multires=6,
 
 @pytest.mark.parametrize("kw", PACK_ARCHS, ids=["lego"] + PHASE5_IDS + ["two_skips_w24"])
 def test_gathered_packs_are_the_per_matrix_packs_bit_for_bit(kw):
-    """pack_network and pack_backward gather through source maps made once
-    per architecture; the buffers are the old per-matrix packs' bit for
-    bit, and the NetDesc is unchanged."""
+    """pack_backward_tc gathers through a source map made once per
+    architecture; its buffer is the per-GEMM, per-slice pack's bit for bit
+    in fp32 and in bf16, and a second call reuses the map and descriptor."""
     _, _, tcfg, tp = _models(seed=2, **kw)
     tp = {k: v + 0.25 for k, v in tp.items()}
-    wbuf, desc, HS, ES = fused_mlp.pack_network(tp, tcfg, "cpu")
-    assert torch.equal(wbuf, _pack_network_loop(tp, tcfg))
-    wbt, bdesc = fused_mlp_bwd.pack_backward(tp, tcfg, "cpu")
+    wbt, bdesc = fused_mlp_bwd.pack_backward_tc(tp, tcfg, "cpu")
     assert torch.equal(wbt, _pack_backward_loop(tp, tcfg))
-    assert HS == fused_mlp._round4(tcfg.W)
-    assert int(desc[10]) == HS and ES == int(desc[7]) + int(desc[8])
-    # a second call reuses the cached maps (keyed by the config)
-    wbuf2, desc2, _, _ = fused_mlp.pack_network(tp, tcfg, "cpu")
-    assert torch.equal(wbuf2, wbuf) and desc2 is desc
+    w16, _ = fused_mlp_bwd.pack_backward_tc(tp, tcfg, "cpu", torch.bfloat16)
+    assert torch.equal(w16.view(torch.int32), _pack_backward_loop(tp, tcfg, True).view(torch.int32))
+    wbt2, bdesc2 = fused_mlp_bwd.pack_backward_tc(tp, tcfg, "cpu")
+    assert torch.equal(wbt2, wbt) and bdesc2 is bdesc
 
 
-@pytest.mark.parametrize("module,symbol", [(fused_mlp_bwd, "nstt_mlp_backward")])
+@pytest.mark.parametrize("module,symbol", [(fused_mlp_bwd, "nstt_mlp_backward"),
+                                           (fused_mlp_bwd, "nstt_mlp_backward_bf16")])
 def test_entry_argtypes_match_the_c_signature(module, symbol):
     """ctypes passes each argument as its argtype says: a pointer typed as
     an int would be cut to 32 bits. The wrapper's list matches the C
