@@ -4502,10 +4502,17 @@ BF16_COS_SLACK, BF16_NORM_SLACK = 1e-3, 5e-3
 # least BF16_B4_OPAQUE of the rays held reach acc > 0.5; at the other
 # architectures' seeded weights sigma's bias is raised by BF16_B4_SIGMA
 BF16_B4_OPAQUE, BF16_B4_SIGMA = 0.2, 3.0
-BF16_TC_DESIGN = ("bf16 operands on wgmma.m64nNk16 (one product a 16-row slice, fp32 "
-                  "accumulators), 128-point tiles, bulk-copy weight ring of one bf16 "
-                  "plane a slice with mbarriers, h / feature / hv rounded to bf16 in the "
-                  "epilogue (csrc/mlp_tile_tc.cuh kBf16)")
+BF16_TC_DESIGN = ("bf16 operands on wgmma.m64nNk16 with A read from shared memory (the "
+                  "activations and the encoded inputs, formed once a tile, in bf16 operand "
+                  "blocks), fp32 accumulators; 128-point tiles, each consumer warpgroup "
+                  "its own 64-point pipeline over all the GEMM's columns; a producer warp "
+                  "streaming 64-row weight stages by bulk copies through an mbarrier "
+                  "ring, one stage of MMAs in flight; h / feature / hv rounded to bf16 "
+                  "in the epilogue (csrc/mlp_tile_bf16.cuh)")
+# the bf16 forward kernels' names in SASS and ptxas's log (phase 15 logs
+# their registers and spills)
+BF16_FORWARD = {"fused_mlp": ("nerf_points_bf16_kernel", "nerf_rays_bf16_kernel"),
+                "fused_render": ("nerf_render_bf16_kernel",)}
 BF16_B2_DESIGN = ("tile kernel: B1's bf16 tile, forward remat + input gradients "
                   "dh = dz_c·W with one wgmma.m64nNk16 bf16 product a 16-row slice, each "
                   "dz written in fp32 and rounded as it is stored for the next product; "
@@ -4622,15 +4629,60 @@ def bf16_jax_test_bars(device):
             "plain_worst_cos": plain_cos, "jax_bars_met": bar_ok}
 
 
-def bf16_case(kernel, label, n_points, S, err, t, tp, t32, bnd, design, **extra):
+def ptxas_report(lib, kernel):
+    """(registers, spill store bytes, spill load bytes, warnings) that
+    ptxas reported for ``kernel`` in ``lib``'s build log (phase 1's
+    build), or None when the log does not hold it. Warnings include its
+    C75xx notes on wgmma (an injected warpgroup.arrive, serialised
+    MMAs)."""
+    import re
+
+    from nerf_shared_tpu_torch.ops.cuda import common
+
+    current, got, warnings = None, {}, []
+    for line in common.BUILD_LOG.get(lib, "").splitlines():
+        if "Compiling entry function" in line and "'" in line:
+            current = demangled(line.split("'")[1])
+        elif ("warning" in line or "(C75" in line) and kernel in demangled_names(line):
+            note = re.sub(r"line \d+", "line N",
+                          re.split(r" in (?:the )?function", line)[0].strip())
+            if note not in warnings:
+                warnings.append(note)
+        elif current and current.endswith(kernel):
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if m:
+                got["spill"] = (int(m.group(1)), int(m.group(2)))
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                got["regs"] = int(m.group(1))
+    if "regs" not in got:
+        return None
+    return got["regs"], *got.get("spill", (0, 0)), warnings
+
+
+def demangled_names(line):
+    """The demangled names of the symbols a log line quotes."""
+    return " ".join(demangled(w.strip("'\",.()")) for w in line.split() if "_Z" in w)
+
+
+def bf16_case(kernel, label, n_points, S, err, t, tp, t32, bnd, design, tiles=None,
+              **extra):
     """Log and record one bf16 kernel's case: t / tp its and its plain bf16
     version's (median, min, max) ms in turns, t32 the fp32 kernel's in
-    turns with it, bnd its bf16 bound."""
+    turns with it, bnd its bf16 bound; ``tiles``: a forward kernel's
+    128-point tiles, for its us a tile (an SM's share of them in a row)."""
     bms, by = bnd
+    per_tile = ""
+    if tiles:
+        import torch
+
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        extra["us_per_tile"] = 1e3 * t[0] * min(sms, tiles) / tiles
+        per_tile = f"; {extra['us_per_tile']:.2f} us a tile ({tiles} tiles on {sms} SMs)"
     log(f"{label} bf16: max err {err:.3e} vs its plain bf16 version (tol {BF16_TOL:g}); "
         f"{spread(t)} ms vs plain bf16 {spread(tp)} ms (median [min-max] in turns); "
         f"fp32 kernel {spread(t32)} ms in turns with it ({t32[0] / t[0]:.2f}x); "
-        f"bound {bms:.3f} ms bf16 ({by}), {100 * bms / t[0]:.1f}% of it")
+        f"bound {bms:.3f} ms bf16 ({by}), {100 * bms / t[0]:.1f}% of it{per_tile}")
     return dict(kernel=kernel, S=S, n_points=n_points, max_abs_err=err, ms=t[0],
                 ms_min=t[1], ms_max=t[2], plain_ms=tp[0], plain_min=tp[1],
                 plain_max=tp[2], fp32_ms=t32[0], fp32_min=t32[1], fp32_max=t32[2],
@@ -4753,6 +4805,14 @@ def bf16_kernel_cases(device, trained):
     params = {k: v.detach() for k, v in NeRF(
         cfg, device=device, generator=torch.Generator().manual_seed(15)).params().items()}
     cases, vs32 = [], {}
+    for lib, names in BF16_FORWARD.items():
+        for name in names:
+            rep = ptxas_report(lib, name)
+            if rep is None:
+                log(f"  ptxas {lib} {name}: not in this run's build log")
+                continue
+            log(f"  ptxas {lib} {name}: {rep[0]} registers, {rep[1]} bytes spill stores, "
+                f"{rep[2]} bytes spill loads; warnings: {rep[3] or 'none'}")
 
     def check(label, err, scale, ok_extra=True):
         if not (err <= BF16_TOL * max(1.0, scale) and ok_extra):
@@ -4779,7 +4839,7 @@ def bf16_kernel_cases(device, trained):
             cases.append(bf16_case(
                 "fused_mlp_points_bf16", f"B1 fused_mlp points N={n}", n, S, err, t, tp,
                 t32, bf16_bound(cfg, params, n, 4 * (1024 * 3 + n * 3 + n * 4)),
-                BF16_TC_DESIGN + "; point-major encoder (f·x)"))
+                BF16_TC_DESIGN + "; point-major encoder (f·x)", tiles=-(-n // 128)))
         # B3 at a 32768-ray block of the coarse and fine passes, B4 at the fine
         for S in (64, 192):
             o, d, z, vd = lego_rays(32768, S, seed=S, device=device)
@@ -4803,7 +4863,7 @@ def bf16_kernel_cases(device, trained):
             cases.append(bf16_case(
                 "fused_mlp_bf16", f"B3 fused_mlp S={S}", n, S, err, t, tp, t32,
                 bf16_bound(cfg, params, n, 4 * (32768 * 9 + n + n * 4)), BF16_TC_DESIGN,
-                n_rays=32768))
+                tiles=-(-n // 128), n_rays=32768))
         tp_ = trained_fine_params(trained, cfg, device)
         o, d, z, vd = lego_rays(32768, 192, seed=7, device=device)
         n = 32768 * 192
@@ -4840,7 +4900,7 @@ def bf16_kernel_cases(device, trained):
         cases.append(bf16_case(
             "fused_render_bf16", "B4 fused_render S=192", n, 192, err, t, tp, t32,
             bf16_bound(cfg, params, n, 4 * (32768 * 12 + n + 32768 * 8)), BF16_TC_DESIGN
-            + "; the composite in fp32", n_rays=32768,
+            + "; the composite in fp32", tiles=-(-n // 128), n_rays=32768,
             masked_rays=int(mask.sum())))
     # B2 on a seeded cotangent at both lego shapes
     for S in (64, 192):

@@ -1,9 +1,11 @@
-"""Holds the fp32 kernels B1-B5 of one tree bit for bit against another's.
+"""Holds the fp32 kernels B1-B5 of one tree bit for bit against another's
+(with ``--dtype bf16``: the bf16 kernels B1-B4).
 
     mkdir -p build/parent build/change
     git archive <parent commit> | tar -x -C build/parent
     git archive $(git write-tree) | tar -x -C build/change
     python3 nerf_shared_tpu_torch/benchmarks/fp32_digest.py build/parent build/change
+    python3 nerf_shared_tpu_torch/benchmarks/fp32_digest.py --dtype bf16 build/parent build/change
 
 runs itself once in each tree, in a fresh process with that tree first on
 ``sys.path``, so that each builds and launches its own kernels from its
@@ -14,8 +16,10 @@ at odd shapes. It takes the sha256 of every output tensor's bytes, twice,
 and fails if the two passes disagree (a kernel that is not deterministic
 cannot be held bit for bit). The parent prints one line per output that
 differs, then ``fp32 digest: N outputs, M differ`` and the card's name and
-power limit; it exits 1 if any differs. ``--one TREE`` is the child's
-mode: one tree's digests as a JSON line. Needs a CUDA card.
+power limit; it exits 1 if any differs. ``--dtype bf16`` runs the same
+cases through the bf16 entry points (compute dtype bfloat16: B1, B2, B3
+and B4; B5 has no dtype) and prints ``bf16 digest: ...``. ``--one TREE``
+is the child's mode: one tree's digests as a JSON line. Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -48,8 +52,9 @@ def rays(n, S, seed, device):
     return tuple(t.to(device=device, dtype=torch.float32).contiguous() for t in (o, d, z, d))
 
 
-def digests(device):
-    """{label: sha256} of every output of the fp32 kernels on this tree."""
+def digests(device, bf16=False):
+    """{label: sha256} of every output of the fp32 kernels on this tree
+    (``bf16``: of the bf16 kernels B1-B4)."""
     import torch
 
     from nerf_shared_tpu_torch.models.nerf import NeRF, NeRFConfig
@@ -68,6 +73,7 @@ def digests(device):
             a = t.detach().contiguous().cpu().numpy().tobytes()
             out[label] = hashlib.sha256(a).hexdigest()
 
+    dt = (torch.bfloat16,) if bf16 else ()
     cases = [("lego", LEGO, 0, (1024, 64), (8192, 64), (8192, 192))] + [
         (f"arch{i}", kw, i + 1, (37, 7), (37, 7), (37, 65)) for i, kw in enumerate(OTHER)]
     with torch.no_grad():
@@ -80,18 +86,20 @@ def digests(device):
             pts = (o[:, None] + d[:, None] * z[..., None]).contiguous()
             C = fused_mlp.out_channels(cfg)
             g = torch.randn(pr, ps, C, generator=torch.Generator().manual_seed(seed)).to(device)
-            put(f"{name} B1 N={pr * ps}", fused_mlp.fused_nerf_forward(params, cfg, pts, vd))
+            put(f"{name} B1 N={pr * ps}", fused_mlp.fused_nerf_forward(params, cfg, pts, vd, *dt))
             put(f"{name} B2 N={pr * ps}",
-                fused_mlp_bwd.fused_mlp_backward(params, cfg, pts, vd, g))
+                fused_mlp_bwd.fused_mlp_backward(params, cfg, pts, vd, g, *dt))
             for n, S in ((r1, s1), (r2, s2)):
                 o, d, z, vd = rays(n, S, seed + 100 * S, device)
                 vd = vd if cfg.use_viewdirs else None
                 put(f"{name} B3 {n}x{S}",
-                    fused_mlp.fused_nerf_forward_rays(params, cfg, o, d, z, vd))
+                    fused_mlp.fused_nerf_forward_rays(params, cfg, o, d, z, vd, *dt))
                 if cfg.use_viewdirs or cfg.output_ch >= 4:
                     for white in (False, True):
                         put(f"{name} B4 {n}x{S} white={white}", fused_render.fused_render_rays(
-                            params, cfg, o, d, z, vd, white, True))
+                            params, cfg, o, d, z, vd, white, True, *dt))
+        if bf16:
+            return out
         o, d, z, _ = rays(8192, 192, 7, device)
         raw = torch.randn(8192, 192, 4, generator=torch.Generator().manual_seed(7)).to(device)
         for white in (False, True):
@@ -99,7 +107,7 @@ def digests(device):
     return out
 
 
-def one(tree):
+def one(tree, bf16=False):
     """Child: this tree's digests, twice, as one JSON line."""
     sys.path.insert(0, os.path.abspath(tree))
     import nerf_shared_tpu_torch
@@ -107,25 +115,28 @@ def one(tree):
     where = os.path.dirname(os.path.abspath(nerf_shared_tpu_torch.__file__))
     if not where.startswith(os.path.abspath(tree) + os.sep):
         raise SystemExit(f"imported nerf_shared_tpu_torch from {where}, not from {tree}")
-    first, second = digests("cuda"), digests("cuda")
+    first, second = digests("cuda", bf16), digests("cuda", bf16)
     print(json.dumps({"digests": first,
                       "unstable": sorted(k for k in first if second.get(k) != first[k])}))
 
 
 def main(argv):
+    dtype = "fp32"
+    if argv[:1] == ["--dtype"] and len(argv) > 1 and argv[1] in ("fp32", "bf16"):
+        dtype, argv = argv[1], argv[2:]
     if len(argv) == 2 and argv[0] == "--one":
-        one(argv[1])
+        one(argv[1], dtype == "bf16")
         return 0
     if len(argv) != 2:
         print(__doc__, file=sys.stderr)
         return 2
     runs = {}
     for tree in argv:
-        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--one", tree],
-                              capture_output=True, text=True)
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--dtype", dtype,
+                               "--one", tree], capture_output=True, text=True)
         if proc.returncode != 0:
             print(proc.stdout + proc.stderr)
-            print(f"fp32 digest: the run in {tree} failed (rc {proc.returncode})")
+            print(f"{dtype} digest: the run in {tree} failed (rc {proc.returncode})")
             return 1
         runs[tree] = json.loads(proc.stdout.strip().splitlines()[-1])
     a, b = (runs[t] for t in argv)
@@ -138,7 +149,7 @@ def main(argv):
             print(f"not deterministic in {tree}: {k}")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True)
-    print(f"fp32 digest: {len(labels)} outputs, {len(differ)} differ, "
+    print(f"{dtype} digest: {len(labels)} outputs, {len(differ)} differ, "
           f"{sum(len(r['unstable']) for r in runs.values())} not deterministic "
           f"({smi.stdout.strip()})")
     return 1 if differ or any(r["unstable"] for r in runs.values()) else 0

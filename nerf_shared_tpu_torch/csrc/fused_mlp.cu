@@ -47,21 +47,23 @@
 //
 // bf16 (nerf_points_bf16_kernel, nerf_rays_bf16_kernel; --precision bf16):
 // the TPU kernels' bf16 instantiations (_make_kernel / _make_ray_kernel
-// with compute_dtype bfloat16). The same tile with bf16 operands on
-// wgmma's k16 (mlp_tile_tc.cuh kBf16): one product a multiply-add at the
-// 989 TFLOP/s bf16 rate, so the bound is FLOPs over 989 TFLOP/s (B1: 0.079
-// / 0.236 ms at 65,536 / 196,608 points; B3: 2.52 / 7.55 ms at a
-// 32768-ray block of S = 64 / 192), and the weight slices stream half the
-// bytes. Both use the running sum (no slice sums).
-#include "mlp_tile_tc.cuh"
+// with compute_dtype bfloat16), on the bf16 tile designed for Hopper
+// (mlp_tile_bf16.cuh: a producer thread streaming 64-row weight stages,
+// two consumer warpgroups each running its own 64 points through wgmma
+// k16 with A read from shared memory, the encoder once a tile): one
+// product a multiply-add at the 989 TFLOP/s bf16 rate, so the bound is
+// FLOPs over 989 TFLOP/s (B1: 0.079 / 0.236 ms at 65,536 / 196,608 points;
+// B3: 2.52 / 7.55 ms at a 32768-ray block of S = 64 / 192), and the weight
+// stages stream half the bytes of the fp32 slices.
+#include "mlp_tile_bf16.cuh"
 
 namespace nstt {
 namespace tc {
 
 // One persistent block an SM walks the flat point tiles (B3: gp = r * S +
 // s), the ring running on from tile to tile; kSliceSums: tile_network's
-// per-slice sums rounded to nearest (B1); kBf16: the bf16 tile.
-template <class Enc, bool kSliceSums, bool kBf16 = false>
+// per-slice sums rounded to nearest (B1).
+template <class Enc, bool kSliceSums>
 __device__ inline void forward_tiles(const Desc* __restrict__ gdesc,
                                      const float* __restrict__ wb, const Enc& e,
                                      float* __restrict__ out, long long total, int R) {
@@ -75,13 +77,43 @@ __device__ inline void forward_tiles(const Desc* __restrict__ gdesc,
   const long long n_tiles = (total + TP - 1) / TP;
   const long long mine = n_tiles > blockIdx.x
                              ? (n_tiles - blockIdx.x + gridDim.x - 1) / gridDim.x : 0;
-  Ring ring = start_ring<kBf16>(d, wb, s.ring, bars, R, mine);
+  Ring ring = start_ring(d, wb, s.ring, bars, R, mine);
   for (long long t = blockIdx.x; t < n_tiles; t += gridDim.x) {
     const long long p0 = t * TP;
     tile_rows(d, e, p0, total, s);
-    tile_network<Enc, kSliceSums, kBf16>(d, wb, e, s, ring);
+    tile_network<Enc, kSliceSums>(d, wb, e, s, ring);
     for (int i = threadIdx.x; i < TP * OUT; i += NTHREADS) {
       const int q = i / OUT, o = i - q * OUT;
+      const long long gp = p0 + q;
+      if (gp < total) out[gp * OUT + o] = s.raw[q * RAW_LD + o];
+    }
+  }
+}
+
+// The same on the bf16 tile: each consumer warpgroup writes its 64 rows
+// of each tile.
+template <class Enc>
+__device__ inline void forward_tiles_bf16(const Desc* __restrict__ gdesc,
+                                          const float* __restrict__ wb, const Enc& e,
+                                          float* __restrict__ out, long long total, int R,
+                                          int SLOT, int E) {
+  __shared__ Desc d;
+  __shared__ unsigned long long bars[2 * bf16::MAX_STAGES];
+  extern __shared__ float4 dyn[];
+  const long long n_tiles = (total + TP - 1) / TP;
+  const long long mine = n_tiles > blockIdx.x
+                             ? (n_tiles - blockIdx.x + gridDim.x - 1) / gridDim.x : 0;
+  bf16::Smem s;
+  bf16::Ring ring;
+  if (!bf16::start(d, gdesc, wb, bars, reinterpret_cast<float*>(dyn), R, SLOT, E, mine, s,
+                   ring))
+    return;
+  const int OUT = (int)d.hdr[H_OUT], wg = threadIdx.x >> 7, tid = threadIdx.x & 127;
+  for (long long t = blockIdx.x; t < n_tiles; t += gridDim.x) {
+    const long long p0 = t * TP;
+    bf16::tile(d, wb, e, s, ring, wg, p0, total);
+    for (int i = tid; i < bf16::WG_ROWS * OUT; i += 128) {
+      const int q = bf16::WG_ROWS * wg + i / OUT, o = i % OUT;
       const long long gp = p0 + q;
       if (gp < total) out[gp * OUT + o] = s.raw[q * RAW_LD + o];
     }
@@ -106,21 +138,22 @@ nerf_rays_tc_kernel(const Desc* __restrict__ gdesc, const float* __restrict__ wb
   forward_tiles<RayEnc, false>(gdesc, wb, RayEnc{A, B, z, S}, out, total, R);
 }
 
-// B1 and B3 in bf16: the same arguments over pack_network_tc's bf16 pack
-__global__ void __launch_bounds__(NTHREADS, 1)
+// B1 and B3 in bf16: the same inputs over pack_network_tc's bf16 pack;
+// SLOT the floats of its widest 16-row slice, E the encoded inputs' columns
+__global__ void __launch_bounds__(bf16::NTHREADS, 1)
 nerf_points_bf16_kernel(const Desc* __restrict__ gdesc, const float* __restrict__ wb,
                         const float* __restrict__ enc, const float* __restrict__ pts,
                         const float* __restrict__ vd, float* __restrict__ out,
-                        long long total, int S, int R) {
-  forward_tiles<PointEnc, false, true>(gdesc, wb, PointEnc{pts, vd, enc, S}, out, total, R);
+                        long long total, int S, int R, int SLOT, int E) {
+  forward_tiles_bf16(gdesc, wb, PointEnc{pts, vd, enc, S}, out, total, R, SLOT, E);
 }
 
-__global__ void __launch_bounds__(NTHREADS, 1)
+__global__ void __launch_bounds__(bf16::NTHREADS, 1)
 nerf_rays_bf16_kernel(const Desc* __restrict__ gdesc, const float* __restrict__ wb,
                       const float* __restrict__ A, const float* __restrict__ B,
                       const float* __restrict__ z, float* __restrict__ out,
-                      long long total, int S, int R) {
-  forward_tiles<RayEnc, false, true>(gdesc, wb, RayEnc{A, B, z, S}, out, total, R);
+                      long long total, int S, int R, int SLOT, int E) {
+  forward_tiles_bf16(gdesc, wb, RayEnc{A, B, z, S}, out, total, R, SLOT, E);
 }
 
 // plan() the ring of a forward kernel and its persistent grid, min(tiles,
@@ -197,19 +230,46 @@ extern "C" int nstt_rays_forward_tc(const void* desc_dev, int HS, int SLOT,
                       n_rays, S, stream);
 }
 
-// B1 and B3 in bf16: the same arguments, over pack_network_tc(..., bf16=True)
-extern "C" int nstt_points_forward_bf16(const void* desc_dev, int HS, int SLOT,
+using Bf16Kernel = void (*)(const nstt::tc::Desc*, const float*, const float*, const float*,
+                            const float*, float*, long long, int, int, int, int);
+
+// a bf16 forward kernel on the persistent grid min(tiles, SMs), its ring
+// as deep as the shared memory allows
+template <class Enc>
+static int forward_bf16(Bf16Kernel kernel, const void* desc_dev, int SLOT, int E,
+                        const float* wb, const float* a, const float* b, const float* c,
+                        float* out, long long total, int S, void* stream) {
+  using namespace nstt;
+  if (total <= 0) return 0;
+  int R, sms;
+  size_t bytes;
+  int rc = bf16::plan((const void*)kernel, SLOT, E, Enc::ROW, &R, &bytes, &sms);
+  if (rc != 0) return rc;
+  const long long n_tiles = (total + tc::TP - 1) / tc::TP;
+  const unsigned grid = (unsigned)(n_tiles < sms ? n_tiles : sms);
+  rc = (int)cudaFuncSetAttribute((const void*)kernel,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (rc != 0) return rc;
+  kernel<<<grid, bf16::NTHREADS, bytes, (cudaStream_t)stream>>>(
+      (const tc::Desc*)desc_dev, wb, a, b, c, out, total, S, R, SLOT, E);
+  return (int)cudaGetLastError();
+}
+
+// B1 and B3 in bf16, over pack_network_tc(..., bf16=True): SLOT the floats
+// of its widest slice, E the encoded inputs' columns (round16(P) +
+// round16(V) with a viewdir head), the other arguments as in fp32
+extern "C" int nstt_points_forward_bf16(const void* desc_dev, int SLOT, int E,
                                         const float* wb, const float* enc,
                                         const float* pts, const float* vd, float* out,
                                         long long total, int S, void* stream) {
-  return points_forward(nstt::tc::nerf_points_bf16_kernel, desc_dev, HS, SLOT, wb, enc,
-                        pts, vd, out, total, S, stream);
+  return forward_bf16<nstt::tc::PointEnc>(nstt::tc::nerf_points_bf16_kernel, desc_dev, SLOT,
+                                          E, wb, enc, pts, vd, out, total, S, stream);
 }
 
-extern "C" int nstt_rays_forward_bf16(const void* desc_dev, int HS, int SLOT,
+extern "C" int nstt_rays_forward_bf16(const void* desc_dev, int SLOT, int E,
                                       const float* wb, const float* A, const float* B,
                                       const float* z, float* out, long long n_rays,
                                       int S, void* stream) {
-  return rays_forward(nstt::tc::nerf_rays_bf16_kernel, desc_dev, HS, SLOT, wb, A, B, z,
-                      out, n_rays, S, stream);
+  return forward_bf16<nstt::tc::RayEnc>(nstt::tc::nerf_rays_bf16_kernel, desc_dev, SLOT, E,
+                                        wb, A, B, z, out, n_rays * S, S, stream);
 }

@@ -2,8 +2,10 @@
 // sample points: the network of the ray-major kernels B3 (fused_mlp.cu
 // nerf_rays_tc_kernel) and B4 (fused_render.cu nerf_render_tc_kernel), of
 // the point-major kernel B1 (fused_mlp.cu nerf_points_tc_kernel) and of
-// B2's tile kernel (fused_mlp_bwd.cu nerf_bwd_kernel), which runs its
-// forward and then its input-gradient GEMMs through these pieces.
+// B2's tile kernel (fused_mlp_bwd.cu nerf_bwd_kernel, and in bf16
+// nerf_bwd_bf16_kernel), which runs its forward and then its
+// input-gradient GEMMs through these pieces. The forward kernels in bf16
+// (B1, B3, B4) run their own tile, mlp_tile_bf16.cuh.
 //
 // Split fp32 (3xTF32). Every trunk and head GEMM runs on Hopper's
 // warpgroup MMA, wgmma.mma_async.m64nNk8 with tf32 operands and fp32
@@ -63,19 +65,14 @@
 // stride offset). Each narrow head is a [N][K] matrix. The row stride HS
 // of h (4 mod 8 floats) keeps the A-fragment loads free of bank conflicts.
 //
-// bf16 (the kBf16 instantiation of the tile; --precision bf16). The same
-// tile, ring and encoders, with the arithmetic of the JAX bf16 kernels
-// (nerf_shared_tpu/ops/pallas/fused_mlp.py _mlp_out_value): every GEMM is
-// one wgmma.mma_async.m64nNk16.f32.bf16.bf16 a 16-row slice, its A operand
-// the bf16-rounded activations or encoder outputs as bf16x2 pairs in
-// registers, its B operand the slice's one bf16 plane in shared memory
-// (16 rows x Np, the same core-matrix geometry in bytes: a column's 8
-// k-values in 16 bytes, so b_desc is unchanged), fp32 accumulators. The
-// epilogue adds the fp32 bias and rounds h, the feature and hv to bf16 as
-// it stores them; the narrow heads run as in fp32 on bf16-valued
-// operands (their weights and biases rounded by the pack), which is the
-// JAX kernel's bf16 product with an fp32 sum. The fp32 path's slice sums
-// are not used: bf16's tolerance is 2^-8.
+// bf16 pieces (B2's bf16 tile kernel; --precision bf16): the arithmetic of
+// the JAX bf16 kernels (nerf_shared_tpu/ops/pallas/fused_mlp.py
+// _mlp_out_value): one wgmma.mma_async.m64nNk16.f32.bf16.bf16 a 16-row
+// slice, its A operand the bf16-rounded activations or encoder outputs as
+// bf16x2 pairs in registers (a_frag_bf16), its B operand the slice's one
+// bf16 plane in shared memory (16 rows x Np, the same core-matrix geometry
+// in bytes: a column's 8 k-values in 16 bytes, so b_desc is unchanged),
+// fp32 accumulators (mma_slice_bf16).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -431,18 +428,17 @@ struct Ring {
 };
 
 // floats of a slice per padded output column: two 8-row tf32 planes, or
-// one 16-row bf16 plane
+// one 16-row bf16 plane (B2's bf16 ring)
 template <bool kBf16>
 __host__ __device__ constexpr unsigned slice_floats_per_col() { return kBf16 ? 8u : 16u; }
 
 // thread 0: put the producer's next slice into its slot, first waiting
 // until every warp has released the slice that slot held
-template <bool kBf16 = false>
 __device__ inline void produce(Ring& r, const Desc& d, const float* __restrict__ wb) {
   if (r.pk >= r.ntiles) return;
   if (r.pissued >= r.R) mbar_wait(r.empty + r.pslot, r.pphase ^ 1, (int)r.pissued);
   const long long* G = d.gemm[r.pg];
-  const unsigned floats = slice_floats_per_col<kBf16>() * (unsigned)G[G_NP];
+  const unsigned floats = slice_floats_per_col<false>() * (unsigned)G[G_NP];
   bulk_load(r.slots + r.pslot * r.SLOT, wb + G[G_W] + (long long)r.ps * floats,
             floats * 4u, r.full + r.pslot);
   ++r.pissued;
@@ -461,7 +457,6 @@ __device__ inline void produce(Ring& r, const Desc& d, const float* __restrict__
 
 // Called by every thread; barriers are initialised before the block's first
 // __syncthreads after this returns.
-template <bool kBf16 = false>
 __device__ inline Ring start_ring(const Desc& d, const float* __restrict__ wb, float* slots,
                                   unsigned long long* bars, int R, long long ntiles) {
   Ring r;
@@ -479,17 +474,16 @@ __device__ inline Ring start_ring(const Desc& d, const float* __restrict__ wb, f
       mbar_init(r.empty + i, NWARPS);
     }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-    for (int i = 0; i < R - 1; ++i) produce<kBf16>(r, d, wb);
+    for (int i = 0; i < R - 1; ++i) produce(r, d, wb);
   }
   return r;
 }
 
 // the consumer's next slice, once it has landed; thread 0 first refills
 // the ring R - 1 slices ahead. The warp leaves converged (wgmma needs it).
-template <bool kBf16 = false>
 __device__ __forceinline__ const float* acquire(Ring& r, const Desc& d,
                                                const float* __restrict__ wb) {
-  if (threadIdx.x == 0) produce<kBf16>(r, d, wb);
+  if (threadIdx.x == 0) produce(r, d, wb);
   mbar_wait(r.full + r.cslot, r.cphase, -1 - r.cq);
   __syncwarp();
   return r.slots + r.cslot * r.SLOT;
@@ -512,7 +506,12 @@ __device__ __forceinline__ void release(Ring& r) {
 // (row(), called for tile row p and flat point gp, rows at or past pend
 // are empty) and forms the encoded input of compact embedding column cc
 // from it (value(): the pre-sine argument, then identity, sin or cos by
-// the descriptor's kind; finite on an empty row).
+// the descriptor's kind; finite on an empty row). arg() and finish() are
+// value() in two steps, arg() the pre-sine argument (or the identity's
+// value) and finish() the value from it, so that the bf16 tile gathers a
+// chunk's arguments before their sines; value() keeps its own form, which
+// B1's fp32 kernel, at the register cap, is compiled from (written as
+// finish(arg()) it spilled 544 bytes against 96 and ran 2x slower).
 
 // Ray-major (B3, B4): the point of flat index gp = r * S + s is o + z·d on
 // ray r, given as per-ray coefficients A = [o, dir]·F, B = [d, 0]·F
@@ -532,6 +531,19 @@ struct RayEnc {
     reinterpret_cast<long long*>(rows)[p] =
         gp < pend ? gp / S * (d.hdr[H_P] + d.hdr[H_V]) : -1;
     rows[2 * TP + p] = gp < pend ? __ldg(z + gp) : 0.f;
+  }
+
+  __device__ __forceinline__ float arg(const Desc&, const float* rows, int p, int cc) const {
+    const long long ray = reinterpret_cast<const long long*>(rows)[p];
+    if (ray < 0) return 0.f;
+    return __fadd_rn(__ldg(A + ray + cc), __fmul_rn(rows[2 * TP + p], __ldg(B + ray + cc)));
+  }
+
+  __device__ __forceinline__ float finish(const Desc& d, const float* rows, int p, int cc,
+                                          float a) const {
+    if (reinterpret_cast<const long long*>(rows)[p] < 0) return 0.f;
+    const int k = d.kind[cc];
+    return k == 0 ? a : (k == 1 ? sinf(a) : cosf(a));
   }
 
   __device__ __forceinline__ float value(const Desc& d, const float* rows, int p,
@@ -564,6 +576,17 @@ struct PointEnc {
     const bool in = gp < pend;
     for (int i = 0; i < 3; ++i) x[i] = in ? __ldg(pts + gp * 3 + i) : 0.f;
     for (int i = 0; i < 3; ++i) x[3 + i] = in && vd ? __ldg(vd + gp / S * 3 + i) : 0.f;
+  }
+
+  __device__ __forceinline__ float arg(const Desc& d, const float* rows, int p, int cc) const {
+    const float x = rows[p * ROW + (int)__ldg(enc + MAX_EMB + cc)];
+    return d.kind[cc] == 0 ? x : __fmul_rn(__ldg(enc + cc), x);
+  }
+
+  __device__ __forceinline__ float finish(const Desc& d, const float*, int, int cc,
+                                          float a) const {
+    const int k = d.kind[cc];
+    return k == 0 ? a : (k == 1 ? sinf(a) : cosf(a));
   }
 
   __device__ __forceinline__ float value(const Desc& d, const float* rows, int p,
@@ -619,7 +642,7 @@ __device__ __forceinline__ void a_frags(const Desc& d, const Enc& e, const Smem&
   for (int m = 0; m < 2; ++m) a_frag(d, e, s, src, k0, HS, m, ab[m], as[m]);
 }
 
-// bf16: the warp's A fragments of one 16-row slice for m64 block m, as
+// bf16 (B2): the warp's A fragments of one 16-row slice for m64 block m, as
 // bf16x2 pairs (rows 64 m + 16 (warp % 4) + g (+ 8), columns k0 + 2t, +1
 // (+ 8)), each value rounded to bf16: h is stored rounded already, the
 // encoder's fp32 outputs round here.
@@ -650,7 +673,7 @@ __device__ __forceinline__ void a_frag_bf16(const Desc& d, const Enc& e, const S
   for (int i = 0; i < 4; ++i) a[i] = pack_bf16x2(v[2 * i], v[2 * i + 1]);
 }
 
-// bf16: acc[m] += the slice's product for both m64 blocks, the warpgroup's
+// bf16 (B2): acc[m] += the slice's product for both m64 blocks, the warpgroup's
 // N columns of the slice's plane at b
 template <int N>
 __device__ __forceinline__ void mma_slice_bf16(float (&acc)[2][NACC], const unsigned (&a)[2][4],
@@ -720,8 +743,7 @@ __device__ __forceinline__ void mma_slice_rn(float (&acc)[2][NACC], const Frag& 
 }
 
 // h[row][col] = act(acc + bias[col]) over the thread's accumulators: the
-// warpgroup's nh columns from n0; kRound: each value rounded to bf16
-template <bool kRound = false>
+// warpgroup's nh columns from n0
 __device__ __forceinline__ void epilogue(const float (&acc)[2][NACC],
                                          const float* __restrict__ bias, bool relu,
                                          int nh, int n0, float* h, int HS) {
@@ -740,10 +762,6 @@ __device__ __forceinline__ void epilogue(const float (&acc)[2][NACC],
         if (relu) {
           v0 = fmaxf(v0, 0.f); v1 = fmaxf(v1, 0.f);
           v2 = fmaxf(v2, 0.f); v3 = fmaxf(v3, 0.f);
-        }
-        if (kRound) {
-          v0 = round_bf16(v0); v1 = round_bf16(v1);
-          v2 = round_bf16(v2); v3 = round_bf16(v3);
         }
         *reinterpret_cast<float2*>(h + r * HS + col) = make_float2(v0, v1);
         *reinterpret_cast<float2*>(h + (r + 8) * HS + col) = make_float2(v2, v3);
@@ -781,9 +799,8 @@ __device__ inline void tile_rows(const Desc& d, const Enc& e, long long p0, long
 
 // The whole network on the tile whose rows tile_rows set -> s.raw (cols
 // 0..2 rgb logits, col 3 sigma; or output_ch columns without viewdirs).
-// Starts and ends with a barrier. kBf16: the bf16 instantiation (16-row
-// slices, one bf16 product a slice, activations rounded).
-template <class Enc, bool kSliceSums = false, bool kBf16 = false>
+// Starts and ends with a barrier.
+template <class Enc, bool kSliceSums = false>
 __device__ inline void tile_network(const Desc& d, const float* __restrict__ wb, const Enc& e,
                                     const Smem& s, Ring& r) {
   const int D = (int)d.hdr[H_D], NG = (int)d.hdr[H_NG], HS = (int)d.hdr[H_HS];
@@ -802,25 +819,14 @@ __device__ inline void tile_network(const Desc& d, const float* __restrict__ wb,
 #pragma unroll
       for (int i = 0; i < NACC; ++i) acc[m][i] = 0.f;
     for (int i = 0; i < ns; ++i) {
-      const float* slice = acquire<kBf16>(r, d, wb);
+      const float* slice = acquire(r, d, wb);
       const bool first = i < ns0;
       const int src = first ? src0 : src1;
-      const int k0 = (first ? i : i - ns0) * (kBf16 ? 2 * SLICE_K : SLICE_K);
+      const int k0 = (first ? i : i - ns0) * SLICE_K;
       // the warpgroup's columns: n0 / 8 column groups of 256 bytes in
       const float* big = slice + n0 * 8;
       const float* small = slice + 8 * np + n0 * 8;
-      if constexpr (kBf16) {
-        unsigned a[2][4];
-#pragma unroll
-        for (int m = 0; m < 2; ++m) a_frag_bf16(d, e, s, src, k0, HS, m, a[m]);
-        const unsigned long long b = b_desc(big);
-        switch (nh) {
-          case 128: mma_slice_bf16<128>(acc, a, b); break;
-          case 64: mma_slice_bf16<64>(acc, a, b); break;
-          case 32: mma_slice_bf16<32>(acc, a, b); break;
-          default: mma_slice_bf16<16>(acc, a, b); break;
-        }
-      } else if (kSliceSums) {
+      if (kSliceSums) {
         const auto frag = [&](int m, unsigned (&fb)[4], unsigned (&fs)[4]) {
           a_frag(d, e, s, src, k0, HS, m, fb, fs);
         };
@@ -844,7 +850,7 @@ __device__ inline void tile_network(const Desc& d, const float* __restrict__ wb,
       release(r);
     }
     __syncthreads();   // every warp is done reading h before it is overwritten
-    epilogue<kBf16>(acc, wb + G[G_B], G[G_RELU] != 0, nh, n0, s.h, HS);
+    epilogue(acc, wb + G[G_B], G[G_RELU] != 0, nh, n0, s.h, HS);
     __syncthreads();
     if (gi == D - 1) {
       if (viewdirs)

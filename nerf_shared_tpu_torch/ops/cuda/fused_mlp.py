@@ -23,8 +23,9 @@ encoder) over the weights that ``pack_network_tc`` lays out, as B2's tile
 kernel does for its forward.
 
 Under ``compute_dtype`` bfloat16 (``--precision bf16``) each kernel has a
-second instantiation on the same tile, with bf16 operands on wgmma's k16
-(``pack_network_tc(..., torch.bfloat16)``: one bf16 plane a 16-row slice). Its
+bf16 instantiation on a tile of its own (``csrc/mlp_tile_bf16.cuh``: bf16
+operands on wgmma's k16, A read from shared memory, weights in stages of
+up to four 16-row slices of ``pack_network_tc(..., torch.bfloat16)``). Its
 arithmetic is the JAX kernels' (fused_mlp.py ``_mlp_out_value``): the
 encoder in fp32, its output rounded to bf16; bf16 weights, fp32 biases,
 fp32 accumulation; h and hv rounded after the ReLU, the feature rounded
@@ -341,6 +342,52 @@ def tc_layout(cfg: NeRFConfig, bf16: bool = False):
     return layout, off
 
 
+# --- the bf16 forward tile (B1, B3, B4 in bf16: csrc/mlp_tile_bf16.cuh) ---------
+
+STAGE_SLICES, TILE_WG_ROWS = 4, 64
+OPERAND_KCHUNK, OPERAND_CORE = 16 * TILE_WG_ROWS, 128
+
+
+def operand_offset(p, k):
+    """Byte offset of (row p < 64, column k) in a consumer warpgroup's bf16
+    operand block of the bf16 tile (its activations h, or its encoded
+    inputs [pts_emb, dirs_emb]): wgmma's K-major layout without swizzle,
+    8-column chunks ``OPERAND_KCHUNK`` bytes apart (the descriptor's
+    leading offset), 8-row core matrices ``OPERAND_CORE`` bytes apart (its
+    stride offset), a row's 8 values in 16 bytes. ints or integer
+    tensors."""
+    return (k // 8) * OPERAND_KCHUNK + (p // 8) * OPERAND_CORE + (p % 8) * 16 + (k % 8) * 2
+
+
+def tile_emb_cols(cfg: NeRFConfig) -> int:
+    """Columns of the bf16 tile's encoded-input block: the points' P
+    padded to 16, then (with a viewdir head) the directions' V padded to
+    16, as the pack pads those segments' rows."""
+    return _round(cfg.input_ch, 16) + (_round(cfg.input_ch_views, 16) if cfg.use_viewdirs else 0)
+
+
+def bf16_stage_plan(cfg: NeRFConfig):
+    """The bf16 tile's weight stages for one tile, in ring order: (GEMM
+    index, first slice, slices, bytes, float offset in the bf16 pack).
+    Each GEMM's 16-row slices, consecutive in the pack, in stages of up to
+    ``STAGE_SLICES`` (64 weight rows), its last stage possibly shorter."""
+    layout, _ = tc_layout(cfg, True)
+    plan = []
+    for g, (name, _, _, _) in enumerate(tc_gemms(cfg)):
+        w_off, _, Kp, Np = layout[name]
+        ns, sf = Kp // SLICE_K_BF16, slice_floats(Np, True)
+        for s0 in range(0, ns, STAGE_SLICES):
+            n = min(STAGE_SLICES, ns - s0)
+            plan.append((g, s0, n, 4 * n * sf, w_off + s0 * sf))
+    return plan
+
+
+def entry_sizes(cfg: NeRFConfig, bf16: bool, HS: int, SLOT: int):
+    """The two sizes an MLP kernel's C entry takes after its descriptor:
+    fp32, the pack's (HS, SLOT); bf16, (SLOT, ``tile_emb_cols``)."""
+    return (SLOT, tile_emb_cols(cfg)) if bf16 else (HS, SLOT)
+
+
 def tc_strides(cfg: NeRFConfig, bf16: bool = False):
     """(HS, SLOT): the shared-memory row stride in floats of the
     activations, 4 mod 8 so that a warp's A-fragment loads touch 32
@@ -580,8 +627,8 @@ def _launch(params, cfg, rays_o, rays_d, z, viewdirs,
         wbuf, desc, HS, SLOT = pack_network_tc(params, cfg, z.device, compute_dtype)
         A, B = ray_encoder_args(cfg, rays_o, rays_d, viewdirs)
         stream = torch.cuda.current_stream(z.device).cuda_stream
-        rc = fn(desc.data_ptr(), HS, SLOT, wbuf.data_ptr(), A.data_ptr(),
-                B.data_ptr(), z.data_ptr(), out.data_ptr(), n, S, stream)
+        rc = fn(desc.data_ptr(), *entry_sizes(cfg, bf16, HS, SLOT), wbuf.data_ptr(),
+                A.data_ptr(), B.data_ptr(), z.data_ptr(), out.data_ptr(), n, S, stream)
     common.check_launch(rc, "fused_mlp (B3 bf16)" if bf16 else "fused_mlp (B3)")
     if bf16:
         LAUNCHES_BF16 += 1
@@ -679,9 +726,10 @@ def launch_points(params, cfg: NeRFConfig, pts, viewdirs,
         wbuf, desc, HS, SLOT = pack_network_tc(params, cfg, pts.device, compute_dtype)
         enc = encoder_buffer(cfg, pts.device)
         stream = torch.cuda.current_stream(pts.device).cuda_stream
-        rc = fn(desc.data_ptr(), HS, SLOT, wbuf.data_ptr(), enc.data_ptr(),
-                pts.data_ptr(), viewdirs.data_ptr() if viewdirs is not None else 0,
-                out.data_ptr(), n, S, stream)
+        rc = fn(desc.data_ptr(), *entry_sizes(cfg, bf16, HS, SLOT), wbuf.data_ptr(),
+                enc.data_ptr(), pts.data_ptr(),
+                viewdirs.data_ptr() if viewdirs is not None else 0, out.data_ptr(), n, S,
+                stream)
     common.check_launch(rc, "fused_mlp points (B1 bf16)" if bf16 else "fused_mlp points (B1)")
     if bf16:
         POINT_LAUNCHES_BF16 += 1

@@ -9,8 +9,9 @@ per-ray maps and, when asked, the compositing weights reach device memory. Retur
 (rgb [N,3], disp [N], acc [N], weights [N,S] or a zero-width placeholder,
 depth [N]).
 
-Under ``compute_dtype`` bfloat16 the network is B3's bf16 instantiation
-(``fused_mlp.plain_mlp_bf16``'s arithmetic) and the composite stays fp32;
+Under ``compute_dtype`` bfloat16 the network is B3's bf16 tile
+(``csrc/mlp_tile_bf16.cuh``, ``fused_mlp.plain_mlp_bf16``'s arithmetic) and
+the composite stays fp32;
 the backward differentiates the JAX package's plain bf16 twin
 (``apply_nerf`` in bf16, then ``raw2outputs``), as fused_render.py's
 ``_fused_render_bwd`` does.
@@ -35,6 +36,7 @@ from nerf_shared_tpu_torch.ops.cuda.fused_mlp import (
     _check_rays,
     check_in,
     check_out,
+    entry_sizes,
     is_bf16,
     pack_network_tc,
     plain_nerf_forward_rays,
@@ -86,8 +88,8 @@ def _launch(params, cfg, rays_o, rays_d, z, viewdirs, white_bkgd, want_weights,
         wbuf, desc, HS, SLOT = pack_network_tc(params, cfg, z.device, compute_dtype)
         A, B = ray_encoder_args(cfg, rays_o, rays_d, viewdirs)
         stream = torch.cuda.current_stream(z.device).cuda_stream
-        rc = fn(desc.data_ptr(), HS, SLOT, wbuf.data_ptr(), A.data_ptr(),
-                B.data_ptr(), z.data_ptr(), rays_d.data_ptr(), out8.data_ptr(),
+        rc = fn(desc.data_ptr(), *entry_sizes(cfg, bf16, HS, SLOT), wbuf.data_ptr(),
+                A.data_ptr(), B.data_ptr(), z.data_ptr(), rays_d.data_ptr(), out8.data_ptr(),
                 weights.data_ptr() if want_weights else 0, n, S,
                 int(white_bkgd), stream)
     common.check_launch(rc, "fused_render (B4 bf16)" if bf16 else "fused_render (B4)")
