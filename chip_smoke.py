@@ -5662,7 +5662,10 @@ def phase_sharded(device, trained, smi):
 
 def _profile(what, fn, top_n=8):
     """fn() under torch.profiler: device time by kernel (the ``top_n``
-    largest) and the device's busy share of the wall time."""
+    largest) and the device's busy share of the wall time. The program's
+    spans (utils/profiling.py) record under any profiler, and each one's
+    ``record_function`` shows on the device's row as a user annotation
+    over the kernels it launched: those are not device time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -5674,7 +5677,7 @@ def _profile(what, fn, top_n=8):
         wall_ms = (time.perf_counter() - t0) * 1e3
     by_name = {}
     for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
+        if e.device_type == DeviceType.CUDA and not e.is_user_annotation:
             by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
     busy = sum(by_name.values())
     if busy <= 0:

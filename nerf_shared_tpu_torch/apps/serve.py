@@ -13,11 +13,16 @@ Endpoints:
   POST /render              -> {"c2w": [[...] x 3 or 4], "fmt": "png"}
                                novel view from an explicit camera-to-world
   GET  /metrics             -> Prometheus text (frames served, latency
-                               quantiles, uptime)
+                               and lock-wait quantiles, uptime)
 
 A lock serializes /render (one frame on the card at a time) while /health
-and /metrics stay responsive on the other server threads. PNG responses go
+and /metrics stay responsive on the other server threads; the time a
+request waits for it is /metrics' lock-wait summary. PNG responses go
 through the package's own encoder (data/images.png_encode).
+
+Under a profiler (utils/profiling.py) each /render is a ``request`` span,
+its unit the service's request sequence number, holding the engine's
+``frame`` span and a ``request.encode`` child (encode and write).
 
 Under torchrun with ``--mesh_shape N`` the engine splits each frame over
 the N ranks (apps/train.build_eval_engine). Rank 0 runs the HTTP service;
@@ -41,6 +46,7 @@ Usage:
 from __future__ import annotations
 
 import io
+import itertools
 import json
 import threading
 import time
@@ -54,6 +60,7 @@ from nerf_shared_tpu_torch.config import config_parser
 from nerf_shared_tpu_torch.data.images import png_encode
 from nerf_shared_tpu_torch.data.poses import pose_spherical
 from nerf_shared_tpu_torch.utils.metrics import to8b
+from nerf_shared_tpu_torch.utils.profiling import span
 
 
 def serve_parser():
@@ -98,6 +105,8 @@ class RenderService:
         self._lock = threading.Lock()
         self._frames = 0
         self._latencies = []
+        self._lock_waits = []
+        self._requests = itertools.count()
         self._started = time.time()
         self._stopped = False
 
@@ -141,6 +150,7 @@ class RenderService:
             c2w = c2w[:3]
         if c2w.shape != (3, 4):
             raise ValueError(f"c2w must be 3x4 or 4x4, got {c2w.shape}")
+        t_ask = time.perf_counter()
         with self._lock:
             if self._stopped:
                 raise RuntimeError("the service is shutting down")
@@ -152,8 +162,10 @@ class RenderService:
             dt = time.perf_counter() - t0
             self._frames += 1
             self._latencies.append(dt)
+            self._lock_waits.append(t0 - t_ask)
             if len(self._latencies) > 4096:
                 self._latencies = self._latencies[-2048:]
+                self._lock_waits = self._lock_waits[-2048:]
         return rgb
 
     def render_spherical(self, theta, phi, radius) -> np.ndarray:
@@ -177,21 +189,26 @@ class RenderService:
             "world_size": int(eng.world.size),
         }
 
-    def metrics_text(self) -> str:
-        lat = sorted(self._latencies)
+    def request(self):
+        """The span of one /render request, its unit the next sequence
+        number."""
+        return span("request", next(self._requests))
 
-        def q(p):
-            if not lat:
-                return 0.0
-            return lat[min(len(lat) - 1, int(p * len(lat)))]
+    def metrics_text(self) -> str:
+        def summary(name, values):
+            values = sorted(values)
+
+            def q(p):
+                return values[min(len(values) - 1, int(p * len(values)))] if values else 0.0
+
+            return [f"# TYPE {name} summary"] + [
+                f'{name}{{quantile="{p}"}} {q(p):.4f}' for p in (0.5, 0.9, 0.99)]
 
         lines = [
             "# TYPE nerf_render_frames_total counter",
             f"nerf_render_frames_total {self._frames}",
-            "# TYPE nerf_render_latency_seconds summary",
-            f'nerf_render_latency_seconds{{quantile="0.5"}} {q(0.5):.4f}',
-            f'nerf_render_latency_seconds{{quantile="0.9"}} {q(0.9):.4f}',
-            f'nerf_render_latency_seconds{{quantile="0.99"}} {q(0.99):.4f}',
+            *summary("nerf_render_latency_seconds", self._latencies),
+            *summary("nerf_render_lock_wait_seconds", self._lock_waits),
             "# TYPE nerf_serve_uptime_seconds gauge",
             f"nerf_serve_uptime_seconds {time.time() - self._started:.1f}",
         ]
@@ -215,10 +232,11 @@ class _Handler(BaseHTTPRequestHandler):
         self._send(code, json.dumps(obj).encode())
 
     def _send_frame(self, rgb, fmt):
-        if fmt == "npy":
-            self._send(200, _encode_npy(rgb), "application/octet-stream")
-        else:
-            self._send(200, _encode_png(rgb), "image/png")
+        with span("request.encode"):
+            if fmt == "npy":
+                self._send(200, _encode_npy(rgb), "application/octet-stream")
+            else:
+                self._send(200, _encode_png(rgb), "image/png")
 
     def do_GET(self):
         url = urlparse(self.path)
@@ -239,9 +257,10 @@ class _Handler(BaseHTTPRequestHandler):
                 def f(name, default):
                     return float(qs.get(name, [default])[0])
 
-                rgb = self.service.render_spherical(
-                    f("theta", 0.0), f("phi", -30.0), f("radius", 4.0))
-                self._send_frame(rgb, qs.get("fmt", ["png"])[0])
+                with self.service.request():
+                    rgb = self.service.render_spherical(
+                        f("theta", 0.0), f("phi", -30.0), f("radius", 4.0))
+                    self._send_frame(rgb, qs.get("fmt", ["png"])[0])
             else:
                 self._send_json(404, {"error": f"no route {url.path}"})
         except Exception as e:  # surface errors as JSON, keep serving
@@ -253,13 +272,14 @@ class _Handler(BaseHTTPRequestHandler):
             if url.path != "/render":
                 self._send_json(404, {"error": f"no route {url.path}"})
                 return
-            n = int(self.headers.get("Content-Length", 0))
-            req = json.loads(self.rfile.read(n) or b"{}")
-            if "c2w" not in req:
-                self._send_json(400, {"error": "missing 'c2w'"})
-                return
-            rgb = self.service.render_c2w(np.asarray(req["c2w"], np.float32))
-            self._send_frame(rgb, req.get("fmt", "png"))
+            with self.service.request():
+                n = int(self.headers.get("Content-Length", 0))
+                req = json.loads(self.rfile.read(n) or b"{}")
+                if "c2w" not in req:
+                    self._send_json(400, {"error": "missing 'c2w'"})
+                    return
+                rgb = self.service.render_c2w(np.asarray(req["c2w"], np.float32))
+                self._send_frame(rgb, req.get("fmt", "png"))
         except ValueError as e:
             self._send_json(400, {"error": str(e)})
         except Exception as e:

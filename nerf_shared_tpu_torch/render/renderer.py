@@ -84,6 +84,7 @@ from nerf_shared_tpu_torch.ops.cuda.fused_render import fused_render_rays
 from nerf_shared_tpu_torch.ops.rays import get_rays, ndc_rays
 from nerf_shared_tpu_torch.ops.sampling import sample_along_rays, sample_pdf
 from nerf_shared_tpu_torch.utils.metrics import to8b
+from nerf_shared_tpu_torch.utils.profiling import span
 
 
 def _apply_model(params, mcfg, pts, viewdirs, rcfg):
@@ -509,39 +510,44 @@ class Renderer:
         ``save_depth`` reads; else with ``occ_grid`` the occupancy render
         (``render_image_occ`` with the ``occ_*`` arguments, through the
         fine model), else with ``gate_threshold > 0`` the gated render,
-        else the dense hierarchical render (guided when the config says)."""
+        else the dense hierarchical render (guided when the config says).
+
+        Under a profiler each pose's render and host copy is a ``frame``
+        span, the copy a ``frame.copy`` child (utils/profiling.py)."""
         eval_renderer = Renderer(**{**dataclasses.asdict(self.cfg),
                                     "perturb": 0.0, "raw_noise_std": 0.0})
         if save_directory is not None:
             os.makedirs(save_directory, exist_ok=True)
         rgbs, disps = [], []
         for i, c2w in enumerate(np.asarray(batch_c2w)):
-            disp = None
-            if render_fn is not None:
-                rgb = render_fn(c2w[:3, :4], generator)
-                if isinstance(rgb, dict):
-                    disp = rgb.get("disp_map")
-                    rgb = rgb["rgb_map"]
-            elif occ_grid is not None:
-                rgb, out = eval_renderer.render_image_occ(
-                    H, W, K, c2w,
-                    fine_model if fine_model is not None else coarse_model,
-                    occ_grid, chunk=chunk, generator=generator,
-                    n_candidates=occ_candidates, n_keep=occ_keep,
-                    mode=occ_mode, tile=occ_tile, select=occ_select,
-                    n_fine=occ_fine)
-                disp = out["disp_map"]
-            elif gate_threshold > 0.0:
-                rgb, out = eval_renderer.render_image_gated(
-                    H, W, K, c2w, coarse_model, fine_model, chunk=chunk,
-                    generator=generator, threshold=gate_threshold)
-                disp = out["disp_map"]
-            else:
-                rgb, disp, _, _ = eval_renderer.render_from_pose(
-                    H, W, K, chunk=chunk, c2w=c2w[:3, :4],
-                    coarse_model=coarse_model, fine_model=fine_model,
-                    retraw=retraw, generator=generator)
-            rgbs.append(rgb.float().cpu().numpy())
+            with span("frame"):
+                disp = None
+                if render_fn is not None:
+                    rgb = render_fn(c2w[:3, :4], generator)
+                    if isinstance(rgb, dict):
+                        disp = rgb.get("disp_map")
+                        rgb = rgb["rgb_map"]
+                elif occ_grid is not None:
+                    rgb, out = eval_renderer.render_image_occ(
+                        H, W, K, c2w,
+                        fine_model if fine_model is not None else coarse_model,
+                        occ_grid, chunk=chunk, generator=generator,
+                        n_candidates=occ_candidates, n_keep=occ_keep,
+                        mode=occ_mode, tile=occ_tile, select=occ_select,
+                        n_fine=occ_fine)
+                    disp = out["disp_map"]
+                elif gate_threshold > 0.0:
+                    rgb, out = eval_renderer.render_image_gated(
+                        H, W, K, c2w, coarse_model, fine_model, chunk=chunk,
+                        generator=generator, threshold=gate_threshold)
+                    disp = out["disp_map"]
+                else:
+                    rgb, disp, _, _ = eval_renderer.render_from_pose(
+                        H, W, K, chunk=chunk, c2w=c2w[:3, :4],
+                        coarse_model=coarse_model, fine_model=fine_model,
+                        retraw=retraw, generator=generator)
+                with span("frame.copy"):
+                    rgbs.append(rgb.float().cpu().numpy())
             if save_directory is not None:
                 imwrite_u8(os.path.join(save_directory, f"{i:03d}.png"),
                            to8b(rgbs[-1]))

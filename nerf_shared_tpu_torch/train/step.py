@@ -50,6 +50,12 @@ mean-reduced with ``psnr`` / ``psnr0`` recomputed from the mean MSE, the
 loss map adds the sum of the ranks' deltas, and the EMA needs no
 collective (the parameters are equal on every rank after Adam). With one
 rank the step is the unsharded step bit for bit.
+
+Under a profiler the step records a ``train_step`` span (unit: the step)
+around four phases, ``train_step.draw`` (pixels, rays, parameters),
+``.forward`` (``nerf_loss``), ``.backward`` (autograd and the loss map)
+and ``.adam`` (the gradient all-reduce under ``world``, Adam, the EMA;
+utils/profiling.py).
 """
 
 from __future__ import annotations
@@ -81,6 +87,7 @@ from nerf_shared_tpu_torch.train.pipeline import PixelSamplerSpec, pixel_rays, s
 from nerf_shared_tpu_torch.train.pose_refine import apply_pose_twists
 from nerf_shared_tpu_torch.train.state import TrainState
 from nerf_shared_tpu_torch.utils.metrics import img2mse, mse2psnr
+from nerf_shared_tpu_torch.utils.profiling import span
 
 
 def pack_ray_batch(rays_o, rays_d, rcfg: RenderConfig, H: int, W: int,
@@ -226,51 +233,57 @@ def make_train_step(rcfg: RenderConfig, ccfg, fcfg, spec: PixelSamplerSpec,
     def train_step(state: TrainState, images, poses, generator: torch.Generator,
                    draws: Optional[Dict] = None,
                    overrides: Optional[Dict[str, torch.Tensor]] = None):
-        img_idx, y, x = sample_pixels(generator, images.shape[0], state.step, spec, draws,
-                                      rank, n_ranks)
-        render_gen = torch.Generator(device=images.device)
-        render_gen.manual_seed(int(torch.randint(0, 1 << 62, (), generator=generator)))
-        if loss_sampling is not None:
-            y, x = weighted_tail(img_idx, y, x, state.step, spec, state.loss_map,
-                                 loss_sampling, render_gen, draws)
-        if state.pose_twists is not None:
-            poses = refined_poses(state.pose_twists, poses, state.step,
-                                  pose_start, pose_anchor)
-        rays_o, rays_d, target = pixel_rays(images, poses, spec, img_idx, y, x)
-        ray_batch = pack_ray_batch(rays_o, rays_d, rcfg, spec.H, spec.W, spec.fx)
-        params = {b: m.params() for b, m in state.branches()}
-        if barf_end > 0:
-            params = anneal_branches(params, ccfg, fcfg,
-                                     barf_progress(state.step, barf_start, barf_end))
-        app = state.appearance
-        if app is not None:
-            app = anchor_appearance(app)
-        loss, aux = nerf_loss(params, ray_batch, target, rcfg, ccfg, fcfg,
-                              acc_reg=acc_reg, tv_reg=tv_reg, prop_reg=prop_reg,
-                              dist_reg=dist_reg, overrides=overrides,
-                              generator=render_gen, appearance=app,
-                              img_idx=None if app is None else img_idx.to(images.device),
-                              return_ray_err=loss_sampling is not None)
-        if state.appearance is not None:
-            aux["gain_norm"] = torch.sqrt(torch.mean(state.appearance["gain"] ** 2))
-        if state.pose_twists is not None:
-            aux["twist_norm"] = torch.sqrt(torch.mean(state.pose_twists ** 2))
-        state.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        if loss_sampling is not None:
-            before = state.loss_map.clone() if n_ranks > 1 else None
-            update_loss_map(state.loss_map, int(img_idx), y, x, aux.pop("ray_err"),
-                            loss_sampling.tile, loss_sampling.decay)
-            if before is not None:
-                # each rank updated its own image's row: add the sum of the
-                # ranks' deltas (rows two ranks drew add both)
-                state.loss_map.copy_(before + all_reduce_sum(state.loss_map - before, world))
-        if world is not None:
-            all_reduce_grads(state, world)
-        state.apply_gradients()
-        if ema_decay > 0.0:
-            state.update_ema(ema_decay)
-        aux = {k: v.detach() for k, v in aux.items()}
+        with span("train_step", state.step):
+            with span("train_step.draw"):
+                img_idx, y, x = sample_pixels(generator, images.shape[0], state.step, spec,
+                                              draws, rank, n_ranks)
+                render_gen = torch.Generator(device=images.device)
+                render_gen.manual_seed(int(torch.randint(0, 1 << 62, (), generator=generator)))
+                if loss_sampling is not None:
+                    y, x = weighted_tail(img_idx, y, x, state.step, spec, state.loss_map,
+                                         loss_sampling, render_gen, draws)
+                if state.pose_twists is not None:
+                    poses = refined_poses(state.pose_twists, poses, state.step,
+                                          pose_start, pose_anchor)
+                rays_o, rays_d, target = pixel_rays(images, poses, spec, img_idx, y, x)
+                ray_batch = pack_ray_batch(rays_o, rays_d, rcfg, spec.H, spec.W, spec.fx)
+                params = {b: m.params() for b, m in state.branches()}
+                if barf_end > 0:
+                    params = anneal_branches(params, ccfg, fcfg,
+                                             barf_progress(state.step, barf_start, barf_end))
+                app = state.appearance
+                if app is not None:
+                    app = anchor_appearance(app)
+            with span("train_step.forward"):
+                loss, aux = nerf_loss(params, ray_batch, target, rcfg, ccfg, fcfg,
+                                      acc_reg=acc_reg, tv_reg=tv_reg, prop_reg=prop_reg,
+                                      dist_reg=dist_reg, overrides=overrides,
+                                      generator=render_gen, appearance=app,
+                                      img_idx=None if app is None else img_idx.to(images.device),
+                                      return_ray_err=loss_sampling is not None)
+                if state.appearance is not None:
+                    aux["gain_norm"] = torch.sqrt(torch.mean(state.appearance["gain"] ** 2))
+                if state.pose_twists is not None:
+                    aux["twist_norm"] = torch.sqrt(torch.mean(state.pose_twists ** 2))
+            with span("train_step.backward"):
+                state.optimizer.zero_grad(set_to_none=True)
+                loss.backward()
+                if loss_sampling is not None:
+                    before = state.loss_map.clone() if n_ranks > 1 else None
+                    update_loss_map(state.loss_map, int(img_idx), y, x, aux.pop("ray_err"),
+                                    loss_sampling.tile, loss_sampling.decay)
+                    if before is not None:
+                        # each rank updated its own image's row: add the sum of
+                        # the ranks' deltas (rows two ranks drew add both)
+                        state.loss_map.copy_(
+                            before + all_reduce_sum(state.loss_map - before, world))
+            with span("train_step.adam"):
+                if world is not None:
+                    all_reduce_grads(state, world)
+                state.apply_gradients()
+                if ema_decay > 0.0:
+                    state.update_ema(ema_decay)
+                aux = {k: v.detach() for k, v in aux.items()}
         return aux if world is None else reduce_aux(aux, world)
 
     return train_step
