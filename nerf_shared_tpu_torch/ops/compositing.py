@@ -13,6 +13,13 @@ The transmittance stays a cumprod (a log-space cumsum gives NaN cotangents
 at saturated alpha) and the disparity is floored so empty rays give 1e10
 instead of NaN. ``noise=`` overrides the sigma-noise draw for tests.
 
+The transmittance's backward reads nothing on the host. torch's own
+``cumprod`` backward tests its input for zeros with ``.item()``, which
+stops the host until the card has run everything before it, twice a
+training step; ``exclusive_cumprod`` takes torch's zero-free formula
+(bit for bit the same gradients) and handles a zero factor with masks on
+the device.
+
 ``distortion_loss`` and ``interlevel_loss`` are the mip-NeRF 360 training
 regularizers of the same JAX module (the distortion and the proposal
 histogram bound); both drop the final sample, which rides the 1e10
@@ -29,9 +36,51 @@ import torch.nn.functional as F
 
 def exclusive_cumprod(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
     """cumprod with an implicit leading 1 (TF exclusive=True semantics)."""
-    cp = torch.cumprod(x, dim=dim)
-    ones = torch.ones_like(cp.narrow(dim, 0, 1))
-    return torch.cat([ones, cp.narrow(dim, 0, x.shape[dim] - 1)], dim=dim)
+    return _ExclusiveCumprod.apply(x, dim)
+
+
+class _ExclusiveCumprod(torch.autograd.Function):
+    """``exclusive_cumprod`` with a backward that makes no host read."""
+
+    @staticmethod
+    def forward(ctx, x, dim):
+        cp = torch.cumprod(x, dim=dim)
+        ones = torch.ones_like(cp.narrow(dim, 0, 1))
+        out = torch.cat([ones, cp.narrow(dim, 0, x.shape[dim] - 1)], dim=dim)
+        ctx.dim = dim
+        ctx.save_for_backward(x, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        """From the input and the output, in differentiable torch ops.
+
+        The inclusive cumprod cp has the cotangent g shifted one place down
+        (g_cp[m] = g[m + 1], 0 at the end), and cp[m] = out[m + 1]. Before
+        a row's first zero factor the gradient is torch's zero-free
+        formula, reversed_cumsum(cp * g_cp) / x; at the first zero it is
+        the product of the factors before it (out) times the reversed
+        cumsum of g_cp times the product of the factors after it; past it,
+        0. Its own gradient (a double backward) is exact on rows without a
+        zero factor; on the others it leaves out the terms that pair the
+        first zero with a later factor."""
+        x, out = ctx.saved_tensors
+        dim, n = ctx.dim, x.shape[ctx.dim]
+        zero = torch.zeros_like(g.narrow(dim, 0, 1))
+        g_cp = torch.cat([g.narrow(dim, 1, n - 1), zero], dim=dim)
+        w = torch.cat([(out * g).narrow(dim, 1, n - 1), zero], dim=dim)
+        is_zero = x == 0
+        zeros_so_far = torch.cumsum(is_zero, dim=dim)
+        before = zeros_so_far == 0
+        first = is_zero & (zeros_so_far == 1)
+        below = _reversed_cumsum(w, dim) / torch.where(before, x, 1.0)
+        after = torch.cumprod(torch.where(before | first, 1.0, x), dim=dim)
+        at_first = out * _reversed_cumsum(g_cp * after, dim)
+        return torch.where(before, below, torch.where(first, at_first, 0.0)), None
+
+
+def _reversed_cumsum(t: torch.Tensor, dim: int) -> torch.Tensor:
+    return t.flip(dim).cumsum(dim).flip(dim)
 
 
 def raw2outputs(
