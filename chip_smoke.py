@@ -13,10 +13,11 @@ Phases (any failure exits non-zero and prints no result line):
             libraries: B1's nerf_points_tc_kernel, B3's nerf_rays_tc_kernel
             and B4's nerf_render_tc_kernel and their bf16 instantiations
             (nerf_points_bf16_kernel, nerf_rays_bf16_kernel,
-            nerf_render_bf16_kernel) and B2's tile kernels
-            (nerf_bwd_kernel, nerf_bwd_bf16_kernel) must have warpgroup
-            MMAs (HGMMA), B2's nerf_dw_kernel and nerf_dw_bf16_kernel warp
-            MMAs (HMMA).
+            nerf_render_bf16_kernel), B1's IPE instantiation
+            (nerf_points_ipe_kernel) and B2's tile kernels
+            (nerf_bwd_kernel, nerf_bwd_bf16_kernel, nerf_bwd_ipe_kernel)
+            must have warpgroup MMAs (HGMMA), B2's nerf_dw_kernel and
+            nerf_dw_bf16_kernel warp MMAs (HMMA).
 2. kernels  at the lego width (8x256, skip at 4, viewdirs, multires 10/4)
             with seeded weights and rays at the main path's shapes (one ray
             block of --chunk 32768 rays): B3 at S=64 and S=192 and B4 at
@@ -309,6 +310,25 @@ Phases (any failure exits non-zero and prints no result line):
             engines built under the world report "sharded-dense" and
             "sharded-froxel". One "phase 17" line with the card's name and
             power limit.
+18. mip      mip-NeRF (--model_type mipnerf, portbench's mipnerf-lego: one
+            8x256 network, IPE degrees [0, 16), 800x800 at lego's focal):
+            B1's and B2's IPE instantiations on one pass of the step (4096
+            seeded lego-like cones x 128 intervals = 524,288 Gaussians)
+            against the plain fp32 network (TF32 off) on the same
+            Gaussians: B1 within 2e-4 and FP32_TOL of max(1, max|plain|),
+            B2's weight gradients each within twice the plain fp32 route's
+            distance to float64 (+1e-5); the same network on Gaussians
+            without their variances (no attenuation), with the mean's
+            coordinates rotated (a column on the wrong input) and a degree
+            up (a column at the next frequency) has to miss both
+            tolerances; both timed in turns with the plain versions beside
+            their two bounds. Then one training step (4096 rays x (128 +
+            128) intervals) under set_sync_debug_mode("error") with the
+            launch counters reset just before it: exactly 2 B1 IPE and 2
+            B2 IPE launches, 1,048,576 Gaussians encoded; and its ms over
+            5 steps. One "phase 18" line with the card's name and power
+            limit, the step, and the two kernels' entries of the kernels
+            line (launches, errors, ms, bound_ms).
 
 ``--parent-tree`` (with ``--phases``) marks the parent side of an A/B:
 phase 1 logs a tensor-core kernel that tree predates instead of failing.
@@ -2001,7 +2021,9 @@ def launch_counts():
             "fused_mlp_points_bf16": fused_mlp.POINT_LAUNCHES_BF16,
             "fused_mlp_bf16": fused_mlp.LAUNCHES_BF16,
             "fused_render_bf16": fused_render.LAUNCHES_BF16,
-            "fused_mlp_bwd_bf16": fused_mlp_bwd.LAUNCHES_BF16}
+            "fused_mlp_bwd_bf16": fused_mlp_bwd.LAUNCHES_BF16,
+            "fused_mlp_points_ipe": fused_mlp.POINT_LAUNCHES_IPE,
+            "fused_mlp_bwd_ipe": fused_mlp_bwd.LAUNCHES_IPE}
 
 
 def zero_counts():
@@ -2012,6 +2034,7 @@ def zero_counts():
     fused_mlp_bwd.LAUNCHES = composite.LAUNCHES = 0
     fused_mlp.POINT_LAUNCHES_BF16 = fused_mlp.LAUNCHES_BF16 = 0
     fused_render.LAUNCHES_BF16 = fused_mlp_bwd.LAUNCHES_BF16 = 0
+    fused_mlp.POINT_LAUNCHES_IPE = fused_mlp.IPE_POINTS = fused_mlp_bwd.LAUNCHES_IPE = 0
     gather.LAUNCHES.update(gather=0, scatter_add=0)
 
 
@@ -5660,6 +5683,337 @@ def phase_sharded(device, trained, smi):
     return {**summary, "launches_by_path": launches}
 
 
+# mip-NeRF's step (phase 18): configuration mipnerf-lego, one image of
+# 800x800 at lego's focal, 4096 rays x 128 intervals a pass
+MIP_RAYS, MIP_S, MIP_HW = 4096, 128, 800
+MIP_FOCAL = 0.5 * MIP_HW / math.tan(0.5 * 0.6911112070083618)
+MIP_DESIGN = (TC_DESIGN + "; IPE encoder (IpeEnc: a Gaussian's mean, variances and view "
+              "direction a point; sin / cos(f·μ)·exp(-f²σ²/2))")
+
+
+def mip_args(device):
+    """The mipnerf-lego flags (portbench/configs/mipnerf-lego.json) on
+    ``device``."""
+    from nerf_shared_tpu_torch.config import config_parser
+
+    return config_parser().parse_args(
+        ["--model_type", "mipnerf", "--dataset_type", "blender", "--use_viewdirs",
+         "--white_bkgd", "--no_batching", "--N_samples", str(MIP_S),
+         "--N_importance", str(MIP_S), "--N_rand", str(MIP_RAYS), "--precrop_iters", "0",
+         "--device", str(device), "--no_reload"])
+
+
+def mip_gaussians(n, S, seed, device):
+    """A coarse pass's Gaussians [n, S, 6] on seeded lego-like rays
+    (lego_rays: the radius-4 orbit): S + 1 stratified edges on [2, 6], each
+    cone's base radius a pixel's of an 800x800 frame at lego's focal
+    (2 / sqrt(12) of the pixel spacing |d| / focal); and the rays' unit
+    directions [n, 3]."""
+    import torch
+
+    from nerf_shared_tpu_torch.ops.mip import cast_rays
+
+    o, d, _, vd = lego_rays(n, 64, seed, "cpu")
+    g = torch.Generator().manual_seed(seed + 1)
+    t = 2.0 + 4.0 * (torch.arange(S + 1) + torch.rand(n, S + 1, generator=g)) / (S + 1)
+    radii = 2 / math.sqrt(12) * torch.linalg.norm(d, dim=-1, keepdim=True) / MIP_FOCAL
+    return cast_rays(t, o, d, radii).to(device), vd.to(device)
+
+
+def mip_faults(gauss):
+    """Records under which a wrong IPE would read as the right one: without
+    the variances (no attenuation, the published ``disable_integration``),
+    with the mean's coordinates rotated (a column reading the wrong
+    input), and a degree up (mean x 2, variances x 4: each column at the
+    next column's frequency)."""
+    import torch
+
+    mean, var = gauss[..., :3], gauss[..., 3:]
+    return {"unattenuated": torch.cat([mean, torch.zeros_like(var)], -1).contiguous(),
+            "wrong input": torch.cat([mean.roll(1, -1), var.roll(1, -1)], -1).contiguous(),
+            "degree up": torch.cat([2 * mean, 4 * var], -1).contiguous()}
+
+
+def mip_grads(params, cfg, gauss, vd, g, dtype):
+    """The plain network's weight gradients of sum(raw * g) in ``dtype``."""
+    import torch
+
+    from nerf_shared_tpu_torch.models.nerf import apply_nerf
+
+    with torch.enable_grad():
+        leaves = {k: v.detach().to(dtype).requires_grad_(True) for k, v in params.items()}
+        raw = apply_nerf(leaves, cfg, gauss.to(dtype), vd.to(dtype))
+        gs = torch.autograd.grad((raw * g.to(dtype)).sum(), list(leaves.values()))
+    return dict(zip(leaves, gs))
+
+
+def rel_norm(got, want):
+    """|got - want| / |want| in float64 (vector norms)."""
+    import torch
+
+    want = want.double()
+    return float(torch.linalg.vector_norm(got.double() - want)
+                 / torch.linalg.vector_norm(want).clamp_min(1e-30))
+
+
+def mip_bounds(cfg, params, n_rays, S):
+    """(B1's, B2's) two bounds each, ((ms, by) of the design, (ms, by) on
+    the fp32 CUDA cores), on n_rays x S Gaussians: B1 as points_bounds
+    with 6-float records; B2 as bwd_bounds less the GEMMs into the
+    embedding (the IPE instantiation forms no dx) and with no dx out."""
+    from nerf_shared_tpu_torch.ops.cuda.fused_mlp import flops_per_point, network_bytes
+    from nerf_shared_tpu_torch.ops.cuda.fused_mlp_bwd import flops_per_point_bwd
+
+    n = n_rays * S
+    P, V, W = cfg.input_ch, cfg.input_ch_views, cfg.W
+    from_emb = 1 + sum(1 for s in cfg.skips if s + 1 < cfg.D)
+    f1 = flops_per_point(cfg) * n
+    f2 = (flops_per_point_bwd(cfg) - 2 * (from_emb * P * W + V * (W // 2))) * n
+    b1 = 4 * (n_rays * 3 + n * 6 + n * 4) + network_bytes(params, cfg)
+    b2 = 4 * (n_rays * 3 + n * 6 + n * 4) + 2 * network_bytes(params, cfg)
+    out = []
+    for flops, nbytes in ((f1, b1), (f2, b2)):
+        t_bytes = nbytes / PEAK_BYTES
+        pair = []
+        for t_ops in (3 * flops / PEAK_TF32_FLOPS, flops / PEAK_FP32_FLOPS):
+            pair.append((1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"))
+        out.append(tuple(pair))
+    return tuple(out)
+
+
+def mip_kernel_cases(device, cfg, params):
+    """B1 and B2 with the IPE encoder on one pass of the step (4096 rays x
+    128 Gaussians = 524,288 points) against the plain fp32 network (TF32
+    off) on the same Gaussians. B1: within 2e-4 and FP32_TOL of max(1,
+    max|plain|), as at lego's shapes. B2: each weight gradient within
+    twice the plain fp32 route's distance to float64 (+1e-5), vector norms
+    (two fp32 routes switch a ReLU at a pre-activation within rounding of
+    0 each their own way). Each of mip_faults' records, through the plain
+    network, has to miss both tolerances, or the check could not see it.
+    Times in turns with the plain versions beside both bounds."""
+    import torch
+
+    from nerf_shared_tpu_torch.models.nerf import apply_nerf
+    from nerf_shared_tpu_torch.ops.cuda import fused_mlp, fused_mlp_bwd
+
+    n, S = MIP_RAYS, MIP_S
+    gauss, vd = mip_gaussians(n, S, 18, device)
+    g = torch.randn(n, S, 4, generator=torch.Generator().manual_seed(19)).to(device)
+    with torch.no_grad():
+        raw = fused_mlp.launch_points(params, cfg, gauss, vd)
+        plain = apply_nerf(params, cfg, gauss, vd)
+        want = apply_nerf({k: v.double() for k, v in params.items()}, cfg, gauss.double(),
+                          vd.double())
+        e1, ok1 = abs_err(raw, plain, 2e-4, fp32=True)
+        tol1 = FP32_TOL * max(1.0, float(plain.abs().max()))
+        faults1 = {k: float((apply_nerf(params, cfg, f, vd) - plain).abs().max())
+                   for k, f in mip_faults(gauss).items()}
+    e1_64, p1_64 = rel_norm(raw, want), rel_norm(plain, want)
+    del want
+    grads, dpts, ddirs = fused_mlp_bwd.launch_backward(params, cfg, gauss, vd, g)
+    if dpts is not None or ddirs is not None:
+        raise AssertionError("B2's IPE instantiation returned input gradients")
+    g64 = mip_grads(params, cfg, gauss, vd, g, torch.float64)
+    g32 = mip_grads(params, cfg, gauss, vd, g, torch.float32)
+    tol2 = {k: 2 * rel_norm(g32[k], g64[k]) + 1e-5 for k in g64}
+    errs2 = {k: rel_norm(grads[k], g64[k]) for k in g64}
+    vs_plain2 = max(rel_norm(grads[k], g32[k]) for k in g32)
+    e2 = max(float((grads[k].double() - g64[k]).abs().max()) for k in g64)
+    faults2 = {}
+    for name, f in mip_faults(gauss).items():
+        gf = mip_grads(params, cfg, f, vd, g, torch.float32)
+        faults2[name] = max(rel_norm(gf[k], g64[k]) / tol2[k] for k in g64)
+    del g64, g32
+    torch.cuda.synchronize()
+    worst = max(errs2, key=lambda k: errs2[k] / tol2[k])
+    log(f"  mip B1 IPE N={n * S}: max err {e1:.1e} vs the plain fp32 network (tol "
+        f"{tol1:.1e}: FP32_TOL x max(1, max|plain|)); vs float64 {e1_64:.1e}, the plain "
+        f"route {p1_64:.1e} (vector norms); the faults through the plain network miss it "
+        f"by " + ", ".join(f"{k} {v:.1e}" for k, v in faults1.items()))
+    log(f"  mip B2 IPE N={n * S}: worst leaf {worst} {errs2[worst]:.1e} from float64 (tol "
+        f"{tol2[worst]:.1e}: 2x the plain fp32 route's + 1e-5); vs the plain fp32 route "
+        f"worst {vs_plain2:.1e}; the faults' worst leaf at " +
+        ", ".join(f"{k} {v:.0f}x" for k, v in faults2.items()) + " its tolerance")
+    if not ok1:
+        raise AssertionError(f"mip B1 IPE disagrees with the plain network: {e1:.1e}")
+    if any(errs2[k] > tol2[k] for k in errs2):
+        raise AssertionError(f"mip B2 IPE disagrees with float64: {errs2}")
+    if min(faults1.values()) <= tol1 or min(faults2.values()) <= 1.0:
+        raise AssertionError(f"a fault of the IPE passes the check: {faults1}, {faults2}")
+    with torch.no_grad():
+        t1, tp1 = in_turns(lambda: fused_mlp.launch_points(params, cfg, gauss, vd),
+                           lambda: apply_nerf(params, cfg, gauss, vd), rounds=3, reps=5)
+    t2, tp2 = in_turns(lambda: fused_mlp_bwd.launch_backward(params, cfg, gauss, vd, g),
+                       lambda: mip_grads(params, cfg, gauss, vd, g, torch.float32),
+                       rounds=3, reps=3)
+    parts = kernels_ms(lambda: fused_mlp_bwd.launch_backward(params, cfg, gauss, vd, g),
+                       3, ("nerf_bwd_ipe_kernel", "nerf_dw_kernel", "grad_reduce_kernel"))
+    ((b1, by1), (f1, fby1)), ((b2, by2), (f2, fby2)) = mip_bounds(cfg, params, n, S)
+    cases = []
+    for kernel, t, tp, b, by, f, err, extra in (
+            ("fused_mlp_points_ipe", t1, tp1, b1, by1, f1, e1,
+             dict(design=MIP_DESIGN, fault_errs=faults1)),
+            ("fused_mlp_bwd_ipe", t2, tp2, b2, by2, f2, e2,
+             dict(design=B2_DESIGN + "; the tile with the IPE encoder and no dx "
+                  "(nerf_bwd_ipe_kernel)", max_rel_err=errs2[worst],
+                  tile_ms=parts["nerf_bwd_ipe_kernel"], dw_ms=parts["nerf_dw_kernel"],
+                  reduce_ms=parts["grad_reduce_kernel"], fault_over_tol=faults2))):
+        verdict = "beats" if t[2] < tp[1] else "loses to" if t[1] > tp[2] else "ties"
+        log(f"{kernel} N={n * S}: {spread(t)} ms vs plain {spread(tp)} ms ({verdict} it; "
+            f"median [min-max] in turns); bound {b:.2f} ms split fp32 on the tensor cores "
+            f"({by}), {f:.2f} ms fp32 on the CUDA cores; {100 * b / t[0]:.1f}% of the "
+            f"design's bound" + (f"; tile {parts['nerf_bwd_ipe_kernel']:.3f}, dW "
+                                 f"{parts['nerf_dw_kernel']:.3f} ms (profiler)"
+                                 if kernel == "fused_mlp_bwd_ipe" else ""))
+        cases.append(dict(kernel=kernel, S=S, n_points=n * S, max_abs_err=err, ms=t[0],
+                          ms_min=t[1], ms_max=t[2], plain_ms=tp[0], plain_min=tp[1],
+                          plain_max=tp[2], bound_ms=b, bound_by=by,
+                          bound_fp32_cuda_cores_ms=f, vs_plain=verdict, **extra))
+    return cases
+
+
+def mip_train_step(device, params):
+    """One mipnerf-lego training step (4096 rays of one 800x800 image x
+    (128 + 128) intervals) through make_train_step as apps/train.py builds
+    it, after a first step that builds the kernels: the launch counters
+    reset just before it and read after it (2 B1 IPE, 2 B2 IPE, 1,048,576
+    Gaussians encoded, no other kernel), under
+    ``set_sync_debug_mode("error")``; then the device ms of 5 steps."""
+    import dataclasses
+
+    import torch
+
+    from nerf_shared_tpu_torch.config import resolve_fused_backward
+    from nerf_shared_tpu_torch.factory import (
+        coarse_loss_weight, get_renderer, get_train_state, nerf_configs)
+    from nerf_shared_tpu_torch.ops.cuda import fused_mlp
+    from nerf_shared_tpu_torch.train.pipeline import PixelSamplerSpec
+    from nerf_shared_tpu_torch.train.step import make_train_step
+
+    args = mip_args(device)
+    ccfg, fcfg = nerf_configs(args)
+    state = get_train_state(args, device, cfgs=(ccfg, fcfg))
+    with torch.no_grad():
+        for k, v in state.coarse.params().items():
+            v.copy_(params[k])
+    rcfg = dataclasses.replace(get_renderer(args, {"near": 2.0, "far": 6.0}, device).cfg,
+                               use_pallas=False, fused_composite=False,
+                               fused_backward=resolve_fused_backward(args, device))
+    K = [[MIP_FOCAL, 0.0, MIP_HW / 2], [0.0, MIP_FOCAL, MIP_HW / 2], [0.0, 0.0, 1.0]]
+    spec = PixelSamplerSpec.from_K(MIP_HW, MIP_HW, K, MIP_RAYS, single_image=True)
+    step = make_train_step(rcfg, ccfg, fcfg, spec, coarse_weight=coarse_loss_weight(args))
+    g = torch.Generator().manual_seed(18)
+    images = torch.rand(2, MIP_HW, MIP_HW, 3, generator=g).to(device)
+    poses = torch.eye(4)[:3].repeat(2, 1, 1)
+    poses[:, :, 3] = torch.tensor([0.0, 0.0, 4.0])
+    poses = poses.to(device)
+    step(state, images, poses, g)
+    torch.cuda.synchronize()
+    zero_counts()
+    prev = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        aux = step(state, images, poses, g)
+    finally:
+        torch.cuda.set_sync_debug_mode(prev)
+    torch.cuda.synchronize()
+    launches, points = launch_counts(), fused_mlp.IPE_POINTS
+    want = {"fused_mlp_points_ipe": 2, "fused_mlp_bwd_ipe": 2}
+    expect_launches("mip step", launches, want)
+    if points != 2 * MIP_RAYS * MIP_S or not bool(torch.isfinite(aux["loss"])):
+        raise AssertionError(f"mip step: {points} Gaussians encoded, loss {aux['loss']}")
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(5):
+        step(state, images, poses, g)
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / 5
+    log(f"  mip step: launches {_nonzero(launches)}, {points:,} Gaussians encoded, no host "
+        f"sync (set_sync_debug_mode error), loss {float(aux['loss']):.4f}; {ms:.2f} ms a "
+        f"step over 5 ({MIP_RAYS * 1e3 / ms:,.0f} rays/s)")
+    return {"mip_train_step": launches}, {"ms_per_step": ms, "ipe_points": points}
+
+
+def phase_mip(device, smi):
+    """Phase 18: mip-NeRF (--model_type mipnerf, the mipnerf-lego
+    configuration): B1's and B2's IPE instantiations against the plain
+    network at the step's shapes, and one training step's launches."""
+    import torch
+
+    from nerf_shared_tpu_torch.factory import nerf_configs
+    from nerf_shared_tpu_torch.models.nerf import NeRF
+
+    cfg, _ = nerf_configs(mip_args(device))
+    # He-uniform weights (sqrt(6) x torch's init), as the benchmark's: at
+    # torch's init a deep ReLU network's outputs all but vanish
+    params = {k: (v * (math.sqrt(6) if k.endswith("weight") else 1.0)).detach()
+              for k, v in NeRF(cfg, device=device,
+                               generator=torch.Generator().manual_seed(18)).params().items()}
+    cases = mip_kernel_cases(device, cfg, params)
+    by_path, step = mip_train_step(device, params)
+    entries = [kernel_entry(c["kernel"], [c], by_path) for c in cases]
+    log("phase 18: " + json.dumps({"card": smi, "step": step, "kernels": [
+        {k: e[k] for k in ("name", "launches", "launches_by_path", "max_abs_err", "ms",
+                           "plain_ms", "bound_ms", "bound_by")} for e in entries]}))
+    return {"cases": cases, "launches_by_path": by_path, "step": step}
+
+
+# each kernel of the kernels line: (its source, the TPU kernel it replaces)
+KERNEL_SOURCES = {
+    "fused_mlp_points": ("nerf_shared_tpu_torch/csrc/fused_mlp.cu",
+                         "nerf_shared_tpu/ops/pallas/fused_mlp.py:253"),
+    "fused_mlp_bwd": ("nerf_shared_tpu_torch/csrc/fused_mlp_bwd.cu",
+                      "nerf_shared_tpu/ops/pallas/fused_mlp_bwd.py:176"),
+    "fused_mlp": ("nerf_shared_tpu_torch/csrc/fused_mlp.cu",
+                  "nerf_shared_tpu/ops/pallas/fused_mlp.py:280"),
+    "fused_render": ("nerf_shared_tpu_torch/csrc/fused_render.cu",
+                     "nerf_shared_tpu/ops/pallas/fused_render.py:80"),
+    "composite": ("nerf_shared_tpu_torch/csrc/composite.cu",
+                  "nerf_shared_tpu/ops/pallas/composite.py:37"),
+    "gather": ("nerf_shared_tpu_torch/csrc/gather.cu",
+               "benchmarks/scatter_probe.py:104"),
+    "scatter_add": ("nerf_shared_tpu_torch/csrc/gather.cu",
+                    "benchmarks/scatter_probe.py:134"),
+    # the bf16 instantiations of B1, B2, B3 and B4 (--precision bf16)
+    "fused_mlp_points_bf16": ("nerf_shared_tpu_torch/csrc/fused_mlp.cu",
+                              "nerf_shared_tpu/ops/pallas/fused_mlp.py:253"),
+    "fused_mlp_bwd_bf16": ("nerf_shared_tpu_torch/csrc/fused_mlp_bwd.cu",
+                           "nerf_shared_tpu/ops/pallas/fused_mlp_bwd.py:176"),
+    "fused_mlp_bf16": ("nerf_shared_tpu_torch/csrc/fused_mlp.cu",
+                       "nerf_shared_tpu/ops/pallas/fused_mlp.py:280"),
+    "fused_render_bf16": ("nerf_shared_tpu_torch/csrc/fused_render.cu",
+                          "nerf_shared_tpu/ops/pallas/fused_render.py:80"),
+    # the IPE instantiations of B1 and B2's tile (--model_type mipnerf)
+    "fused_mlp_points_ipe": ("nerf_shared_tpu_torch/csrc/fused_mlp.cu",
+                             "nerf_shared_tpu/ops/pallas/fused_mlp.py:253"),
+    "fused_mlp_bwd_ipe": ("nerf_shared_tpu_torch/csrc/fused_mlp_bwd.cu",
+                          "nerf_shared_tpu/ops/pallas/fused_mlp_bwd.py:176")}
+
+
+def kernel_entry(name, mine, by_path):
+    """The kernels line's entry of kernel ``name`` from its cases ``mine``
+    and the launch counts ``by_path`` (path -> launch_counts())."""
+    src, replaces = KERNEL_SOURCES[name]
+    # the main path's shape: the largest sample count, or for P1 / P2
+    # split L8/F8 level 3 in the fine pass on main-path indices
+    main_case = (max((c for c in mine if "path" not in c), key=lambda c: c["S"])
+                 if "S" in mine[0] else next(c for c in mine if c["main"]))
+    return {
+        "name": name, "route": "cuda", "source": src, "replaces": replaces,
+        "launches": sum(p.get(name, 0) for p in by_path.values()),
+        "launches_by_path": {k: p.get(name, 0) for k, p in by_path.items()},
+        "max_abs_err": max(c["max_abs_err"] for c in mine),
+        "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
+        "bound_ms": main_case["bound_ms"], "bound_by": main_case["bound_by"],
+        "library_ms": main_case.get("library_ms"),
+        **{k: main_case[k] for k in ("design", "bound_fp32_cuda_cores_ms",
+                                     "bound_design_ms", "bound_tile_cuda_cores_ms", "fp32_ms")
+           if k in main_case},
+        "cases": mine,
+    }
+
+
 def _profile(what, fn, top_n=8):
     """fn() under torch.profiler: device time by kernel (the ``top_n``
     largest) and the device's busy share of the wall time. The program's
@@ -5698,9 +6052,11 @@ def _profile(what, fn, top_n=8):
 # B3, B4 and B2's tile kernel on warpgroup MMAs (HGMMA), B2's dW kernel on
 # warp MMAs (HMMA); each in fp32 (split) and bf16
 TC_KERNELS = {"fused_mlp": [("HGMMA", ("nerf_points_tc_kernel", "nerf_rays_tc_kernel",
-                                       "nerf_points_bf16_kernel", "nerf_rays_bf16_kernel"))],
+                                       "nerf_points_bf16_kernel", "nerf_rays_bf16_kernel",
+                                       "nerf_points_ipe_kernel"))],
               "fused_render": [("HGMMA", ("nerf_render_tc_kernel", "nerf_render_bf16_kernel"))],
-              "fused_mlp_bwd": [("HGMMA", ("nerf_bwd_kernel", "nerf_bwd_bf16_kernel")),
+              "fused_mlp_bwd": [("HGMMA", ("nerf_bwd_kernel", "nerf_bwd_bf16_kernel",
+                                           "nerf_bwd_ipe_kernel")),
                                 ("HMMA", ("nerf_dw_kernel", "nerf_dw_bf16_kernel"))]}
 
 
@@ -5885,6 +6241,11 @@ def main() -> int:
         t0 = time.perf_counter()
         p17 = phase_sharded(device, trained, smi)
         log(f"phase 17: sharded renders and export in {time.perf_counter() - t0:.1f} s")
+    if want(18):
+        t0 = time.perf_counter()
+        mip = phase_mip(device, smi)
+        cases += mip["cases"]
+        log(f"phase 18: mip-NeRF's IPE kernels and step in {time.perf_counter() - t0:.1f} s")
     if profile:
         if want(3, 4):
             profile_frame(served["engine"], served["pose"])
@@ -5919,51 +6280,10 @@ def main() -> int:
     by_path.update(bf16["launches_by_path"])
     by_path.update(p16["launches_by_path"])
     by_path.update(p17["launches_by_path"])
+    by_path.update(mip["launches_by_path"])
 
-    sources = {
-        "fused_mlp_points": ("nerf_shared_tpu_torch/csrc/fused_mlp.cu",
-                             "nerf_shared_tpu/ops/pallas/fused_mlp.py:253"),
-        "fused_mlp_bwd": ("nerf_shared_tpu_torch/csrc/fused_mlp_bwd.cu",
-                          "nerf_shared_tpu/ops/pallas/fused_mlp_bwd.py:176"),
-        "fused_mlp": ("nerf_shared_tpu_torch/csrc/fused_mlp.cu",
-                      "nerf_shared_tpu/ops/pallas/fused_mlp.py:280"),
-        "fused_render": ("nerf_shared_tpu_torch/csrc/fused_render.cu",
-                         "nerf_shared_tpu/ops/pallas/fused_render.py:80"),
-        "composite": ("nerf_shared_tpu_torch/csrc/composite.cu",
-                      "nerf_shared_tpu/ops/pallas/composite.py:37"),
-        "gather": ("nerf_shared_tpu_torch/csrc/gather.cu",
-                   "benchmarks/scatter_probe.py:104"),
-        "scatter_add": ("nerf_shared_tpu_torch/csrc/gather.cu",
-                        "benchmarks/scatter_probe.py:134"),
-        # the bf16 instantiations of B1, B2, B3 and B4 (--precision bf16)
-        "fused_mlp_points_bf16": ("nerf_shared_tpu_torch/csrc/fused_mlp.cu",
-                                  "nerf_shared_tpu/ops/pallas/fused_mlp.py:253"),
-        "fused_mlp_bwd_bf16": ("nerf_shared_tpu_torch/csrc/fused_mlp_bwd.cu",
-                               "nerf_shared_tpu/ops/pallas/fused_mlp_bwd.py:176"),
-        "fused_mlp_bf16": ("nerf_shared_tpu_torch/csrc/fused_mlp.cu",
-                           "nerf_shared_tpu/ops/pallas/fused_mlp.py:280"),
-        "fused_render_bf16": ("nerf_shared_tpu_torch/csrc/fused_render.cu",
-                              "nerf_shared_tpu/ops/pallas/fused_render.py:80")}
-    kernels = []
-    for name, (src, replaces) in sources.items():
-        mine = [c for c in cases if c["kernel"] == name]
-        # the main path's shape: the largest sample count, or for P1 / P2
-        # split L8/F8 level 3 in the fine pass on main-path indices
-        main_case = (max((c for c in mine if "path" not in c), key=lambda c: c["S"])
-                     if "S" in mine[0] else next(c for c in mine if c["main"]))
-        kernels.append({
-            "name": name, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": sum(p.get(name, 0) for p in by_path.values()),
-            "launches_by_path": {k: p.get(name, 0) for k, p in by_path.items()},
-            "max_abs_err": max(c["max_abs_err"] for c in mine),
-            "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
-            "bound_ms": main_case["bound_ms"], "bound_by": main_case["bound_by"],
-            "library_ms": main_case.get("library_ms"),
-            **{k: main_case[k] for k in ("design", "bound_fp32_cuda_cores_ms",
-                                         "bound_design_ms", "bound_tile_cuda_cores_ms", "fp32_ms")
-                if k in main_case},
-            "cases": mine,
-        })
+    kernels = [kernel_entry(name, [c for c in cases if c["kernel"] == name], by_path)
+               for name in KERNEL_SOURCES]
     idle = [k["name"] for k in kernels if k["launches"] <= 0]
     if idle:
         raise AssertionError(f"kernels the main paths never launched: {idle}")
@@ -5982,6 +6302,7 @@ def main() -> int:
                     "bf16_launches": bf16["launches_by_path"],
                     "phase16": {k: v for k, v in p16.items() if k != "launches_by_path"},
                     "phase17": {k: v for k, v in p17.items() if k != "launches_by_path"},
+                    "mip": mip["step"],
                     "probe": probe}))
     log(f"all phases in {time.perf_counter() - t_script:.1f} s")
     print(json.dumps({"kernels": kernels}))

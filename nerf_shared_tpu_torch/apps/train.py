@@ -40,6 +40,12 @@ end, and with ``--train_occ_until`` the switch to the hierarchical step
 (coarse seeded from fine, ``sync_coarse_from_fine``) at the first window
 starting past it. Render hooks go through the training grid until then.
 
+``--model_type mipnerf`` trains mip-NeRF's one network (no fine branch)
+through B1 and B2's IPE instantiations at its published recipe's coarse
+loss weight and rate schedule (factory.py), and every entry point renders
+it densely (render/renderer.py ``render_rays_mip``); config.check_mip_flags
+and ``RenderConfig`` name the flags it does not take.
+
 Render engines (``EvalEngine.engine_name``): ``dense`` (guided with
 ``--render_guided``), ``gated`` (``--render_gate``), ``occ-froxel`` and
 ``occ-grid`` (``--occ_grid`` with ``--occ_mode``; the grid is built from
@@ -71,6 +77,7 @@ from nerf_shared_tpu_torch.config import (
 from nerf_shared_tpu_torch.data.datasets import load_datasets
 from nerf_shared_tpu_torch.factory import (
     GRID_FAMILIES,
+    coarse_loss_weight,
     create_nerf_models,
     get_renderer,
     get_train_state,
@@ -567,7 +574,8 @@ def _train(args, device: torch.device, world: World):
                   barf_start=int(getattr(args, "barf_anneal_start", 0)),
                   prop_reg=args.proposal_loss_weight,
                   dist_reg=args.distortion_loss_weight, loss_sampling=ls_spec,
-                  ema_decay=ema_decay, world=step_world)
+                  ema_decay=ema_decay, world=step_world,
+                  coarse_weight=coarse_loss_weight(args))
         warm = None
         # the occ trainer has its own warm-up (--train_occ_warmup)
         if args.warmup_noise > 0 and not args.train_occ:

@@ -89,7 +89,30 @@ def resolve_fused_backward(args, device) -> bool:
     plain versions."""
     fb = getattr(args, "fused_backward", None)
     return ((fb is None or bool(fb)) and str(device).split(":")[0] == "cuda"
-            and getattr(args, "model_type", "nerf") == "nerf")
+            and getattr(args, "model_type", "nerf") in ("nerf", "mipnerf"))
+
+
+def check_mip_flags(args):
+    """Raise SystemExit naming every flag ``--model_type mipnerf`` does not
+    take that its render config cannot see (``RenderConfig`` checks the
+    rest): mip-NeRF trains one network, with no pose, occupancy or grid
+    machinery and no extra loss."""
+    if getattr(args, "model_type", "nerf") != "mipnerf":
+        return
+    bad = [flag for flag, on in (
+        ("--refine_poses", bool(getattr(args, "refine_poses", False))),
+        ("--appearance", bool(getattr(args, "appearance", False))),
+        ("--barf_anneal", int(getattr(args, "barf_anneal", 0)) > 0),
+        ("--train_occ", bool(getattr(args, "train_occ", False))),
+        ("--occ_grid", int(getattr(args, "occ_grid", 0)) > 0),
+        ("--render_gate", float(getattr(args, "render_gate", 0.0)) > 0.0),
+        ("--warmup_noise", int(getattr(args, "warmup_noise", 0)) > 0),
+        ("--distortion_loss_weight", float(getattr(args, "distortion_loss_weight", 0.0)) > 0.0),
+        ("--acc_loss_weight", float(getattr(args, "acc_loss_weight", 0.0)) > 0.0),
+        ("--i_embed -1", int(getattr(args, "i_embed", 0)) == -1)) if on]
+    if bad:
+        raise SystemExit("--model_type mipnerf trains and renders one network on fp32 "
+                         f"cone-traced intervals; it does not take {', '.join(bad)}")
 
 
 def resolved_occ_alpha_thresh(args) -> float:
@@ -294,9 +317,13 @@ def config_parser() -> ConfigArgumentParser:
                         choices=['fp32', 'bf16'],
                         help='compute precision for the MLP matmuls')
     parser.add_argument("--model_type", type=str, default='nerf',
-                        choices=['nerf', 'triplane', 'hashgrid'],
+                        choices=['nerf', 'triplane', 'hashgrid', 'mipnerf'],
                         help="model family: 'nerf' = the reference 8x256 "
-                             "MLP + positional encoding; 'triplane' = "
+                             "MLP + positional encoding; 'mipnerf' = "
+                             "mip-NeRF (cone-traced intervals, integrated "
+                             "positional encoding, one MLP for both "
+                             "passes, fp32, the published Blender recipe: "
+                             "models/nerf.py MipNeRFConfig); 'triplane' = "
                              'grid-based radiance field (three bilinear '
                              'feature planes + tiny decoder, '
                              'models/triplane.py); "hashgrid" = '

@@ -45,6 +45,10 @@
 // it ~30% against B3's running sum, in registers (its slice sums beside
 // the accumulators) and in one wait for the MMAs per m64 block and slice.
 //
+// mip-NeRF (nerf_points_ipe_kernel): B1's fp32 kernel with the IPE encoder
+// (mlp_tile_tc.cuh IpeEnc) over Gaussian records [N, 6] (mean, variances)
+// in place of the points; the same tile, entries and launch.
+//
 // bf16 (nerf_points_bf16_kernel, nerf_rays_bf16_kernel; --precision bf16):
 // the TPU kernels' bf16 instantiations (_make_kernel / _make_ray_kernel
 // with compute_dtype bfloat16), on the bf16 tile designed for Hopper
@@ -129,6 +133,16 @@ nerf_points_tc_kernel(const Desc* __restrict__ gdesc, const float* __restrict__ 
   forward_tiles<PointEnc, true>(gdesc, wb, PointEnc{pts, vd, enc, S}, out, total, R);
 }
 
+// B1 under mip-NeRF: Gaussians [total][6] (mean, variances), directions
+// [total / S][3]
+__global__ void __launch_bounds__(NTHREADS, 1)
+nerf_points_ipe_kernel(const Desc* __restrict__ gdesc, const float* __restrict__ wb,
+                       const float* __restrict__ enc, const float* __restrict__ gauss,
+                       const float* __restrict__ vd, float* __restrict__ out,
+                       long long total, int S, int R) {
+  forward_tiles<IpeEnc, true>(gdesc, wb, IpeEnc{gauss, vd, enc, S}, out, total, R);
+}
+
 // B3: rays' A, B [rays][EMB], depths z [rays][S]
 __global__ void __launch_bounds__(NTHREADS, 1)
 nerf_rays_tc_kernel(const Desc* __restrict__ gdesc, const float* __restrict__ wb,
@@ -178,6 +192,7 @@ using PointsKernel = void (*)(const nstt::tc::Desc*, const float*, const float*,
 using RaysKernel = void (*)(const nstt::tc::Desc*, const float*, const float*,
                             const float*, const float*, float*, long long, int, int);
 
+template <class Enc>
 static int points_forward(PointsKernel kernel, const void* desc_dev, int HS, int SLOT,
                           const float* wb, const float* enc, const float* pts,
                           const float* vd, float* out, long long total, int S,
@@ -187,7 +202,7 @@ static int points_forward(PointsKernel kernel, const void* desc_dev, int HS, int
   int R;
   size_t bytes;
   unsigned grid;
-  int rc = setup<PointEnc>((const void*)kernel, HS, SLOT, total, &R, &bytes, &grid);
+  int rc = setup<Enc>((const void*)kernel, HS, SLOT, total, &R, &bytes, &grid);
   if (rc != 0) return rc;
   kernel<<<grid, NTHREADS, bytes, (cudaStream_t)stream>>>(
       (const Desc*)desc_dev, wb, enc, pts, vd, out, total, S, R);
@@ -217,8 +232,18 @@ extern "C" int nstt_points_forward_tc(const void* desc_dev, int HS, int SLOT,
                                       const float* wb, const float* enc,
                                       const float* pts, const float* vd, float* out,
                                       long long total, int S, void* stream) {
-  return points_forward(nstt::tc::nerf_points_tc_kernel, desc_dev, HS, SLOT, wb, enc, pts,
-                        vd, out, total, S, stream);
+  return points_forward<nstt::tc::PointEnc>(nstt::tc::nerf_points_tc_kernel, desc_dev, HS,
+                                            SLOT, wb, enc, pts, vd, out, total, S, stream);
+}
+
+// B1 under mip-NeRF: gauss [total][6] in place of the points, the rest as
+// for nstt_points_forward_tc (enc: encoder_buffer's IPE table).
+extern "C" int nstt_points_forward_ipe(const void* desc_dev, int HS, int SLOT,
+                                       const float* wb, const float* enc,
+                                       const float* gauss, const float* vd, float* out,
+                                       long long total, int S, void* stream) {
+  return points_forward<nstt::tc::IpeEnc>(nstt::tc::nerf_points_ipe_kernel, desc_dev, HS,
+                                          SLOT, wb, enc, gauss, vd, out, total, S, stream);
 }
 
 // B3 on the tensor cores: HS and SLOT as for B1.

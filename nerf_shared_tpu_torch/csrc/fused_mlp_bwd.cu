@@ -64,6 +64,11 @@
 // 3. grad_reduce_kernel sums the ranges' partials in a fixed order, so the
 //    result is the same on every run.
 //
+// mip-NeRF (nerf_bwd_ipe_kernel): the tile kernel with the IPE encoder
+// (mlp_tile_tc.cuh IpeEnc) over Gaussian records [N, 6], fp32; its
+// backward pack has no GEMMs into the embedding (mip-NeRF trains no poses),
+// so it writes no dx. nerf_dw_kernel and the reduction are the same.
+//
 // bf16 (nerf_bwd_bf16_kernel, nerf_dw_bf16_kernel; --precision bf16): the
 // TPU kernel's bf16 instantiation (_make_bwd_kernel_closed with
 // compute_dtype bfloat16, fused_mlp_bwd.py:176-300). The tile kernel is
@@ -119,8 +124,9 @@ struct BwdDesc {
 // the cotangent tile, the encoder's rows, two warpgroups' dx sums and R
 // ring slots of SLOT floats (ops/cuda/fused_mlp_bwd.py smem_bytes mirrors
 // it, plus the descriptors and barriers in static shared memory)
-__host__ __device__ inline size_t bwd_smem_floats(int HS, int SLOT, int R) {
-  return (size_t)tc::TP * (HS + G_LD + tc::PointEnc::ROW + 2 * DX_LD) + (size_t)R * SLOT;
+__host__ __device__ inline size_t bwd_smem_floats(int HS, int SLOT, int R,
+                                                  int ROW = tc::PointEnc::ROW) {
+  return (size_t)tc::TP * (HS + G_LD + ROW + 2 * DX_LD) + (size_t)R * SLOT;
 }
 
 // Row p0 of segment s of an H or dZ buffer.
@@ -215,10 +221,10 @@ __device__ __forceinline__ const float* take(Ring& r, const Sweep& w) {
 // acc = the GEMM's product over all its slices: A from s.h (src SRC_H) or
 // the encoder, the weights from the ring; as tile_network runs it (fp32:
 // slice sums rounded to nearest; bf16: one k16 product a slice)
-template <bool kBf16>
+template <bool kBf16, class Enc>
 __device__ __forceinline__ void sweep_gemm(float (&acc)[2][NACC], const long long* G,
                                            int src0, int src1, const Desc& d,
-                                           const PointEnc& e, const Smem& s, Ring& r,
+                                           const Enc& e, const Smem& s, Ring& r,
                                            const Sweep& w) {
   const int HS = (int)d.hdr[H_HS];
   const int np = (int)G[G_NP], nh = np >> 1, n0 = (threadIdx.x >> 7) * nh;
@@ -476,8 +482,8 @@ __device__ inline void narrow_bwd(const Desc& d, const BwdDesc& bd, const float*
 // Per tile: the encoder's rows, the cotangent tile (to dZ), the embedding
 // (to H); the forward GEMMs, each layer's output to H and s.h; the narrow
 // heads' transposed products; the backward GEMMs with their epilogues
-// (dx sums, dfeature, dz); dx.
-template <bool kBf16>
+// (dx sums, dfeature, dz); dx (an encoder without kDx: none).
+template <bool kBf16, class Enc = PointEnc>
 __device__ inline void bwd_tiles(const Desc* __restrict__ gdesc,
                                  const BwdDesc* __restrict__ gbd,
                                  const float* __restrict__ wb, const float* __restrict__ wbt,
@@ -504,9 +510,9 @@ __device__ inline void bwd_tiles(const Desc* __restrict__ gdesc,
   s.h = reinterpret_cast<float*>(dyn);
   s.raw = s.h + TP * HS;
   s.rows = s.raw + TP * G_LD;
-  float* dxs = s.rows + TP * PointEnc::ROW;   // [2][TP][DX_LD]
+  float* dxs = s.rows + TP * Enc::ROW;   // [2][TP][DX_LD]
   s.ring = dxs + 2 * TP * DX_LD;
-  const PointEnc e{pts, vd, enc, S};
+  const Enc e{pts, vd, enc, S};
   const Sweep sw{&d, &bd, wb, wbt};
   const long long n_tiles = (total + TP - 1) / TP;
   const long long mine = n_tiles > blockIdx.x
@@ -568,7 +574,8 @@ __device__ inline void bwd_tiles(const Desc* __restrict__ gdesc,
       }
       const int kind = (int)G[BG_KIND], arg = (int)G[BG_ARG];
       if (kind == BK_DEMB) {
-        demb_to_dx(acc, d, enc, s.rows, nh, n0, arg ? P : 0, arg ? V : P, 3 * arg, dxs);
+        if constexpr (Enc::kDx)
+          demb_to_dx(acc, d, enc, s.rows, nh, n0, arg ? P : 0, arg ? V : P, 3 * arg, dxs);
       } else if (kind == BK_DFEATURE) {
         to_segment(acc, nh, n0, seg_rows(zbuf, bd.zseg[ZS_DFEATURE], n_pad, p0),
                    (int)bd.zseg[ZS_DFEATURE][1]);
@@ -584,11 +591,13 @@ __device__ inline void bwd_tiles(const Desc* __restrict__ gdesc,
       }
     }
     __syncthreads();   // every warpgroup's dx sums are in
-    for (int i = threadIdx.x; i < TP * DX_LD; i += NTHREADS) {
-      const long long gp = p0 + i / DX_LD;
-      const float v = dxs[i] + dxs[TP * DX_LD + i];
-      dxs[i] = dxs[TP * DX_LD + i] = 0.f;
-      if (gp < total) dx[gp * DX_LD + i % DX_LD] = v;
+    if constexpr (Enc::kDx) {
+      for (int i = threadIdx.x; i < TP * DX_LD; i += NTHREADS) {
+        const long long gp = p0 + i / DX_LD;
+        const float v = dxs[i] + dxs[TP * DX_LD + i];
+        dxs[i] = dxs[TP * DX_LD + i] = 0.f;
+        if (gp < total) dx[gp * DX_LD + i % DX_LD] = v;
+      }
     }
   }
 }
@@ -615,6 +624,19 @@ nerf_bwd_bf16_kernel(const tc::Desc* __restrict__ gdesc, const BwdDesc* __restri
                      long long n_pad, int S, int R) {
   tc::bwd_tiles<true>(gdesc, gbd, wb, wbt, enc, pts, vd, g, C, dx, hbuf, zbuf, total, n_pad,
                       S, R);
+}
+
+// mip-NeRF: gauss [total][6] (mean, variances) in place of the points; dx
+// is not written
+__global__ void __launch_bounds__(NTHREADS, 1)
+nerf_bwd_ipe_kernel(const tc::Desc* __restrict__ gdesc, const BwdDesc* __restrict__ gbd,
+                    const float* __restrict__ wb, const float* __restrict__ wbt,
+                    const float* __restrict__ enc, const float* __restrict__ gauss,
+                    const float* __restrict__ vd, const float* __restrict__ g, int C,
+                    float* __restrict__ dx, float* hbuf, float* zbuf, long long total,
+                    long long n_pad, int S, int R) {
+  tc::bwd_tiles<false, tc::IpeEnc>(gdesc, gbd, wb, wbt, enc, gauss, vd, g, C, dx, hbuf, zbuf,
+                                   total, n_pad, S, R);
 }
 
 // ---- nerf_dw_kernel ---------------------------------------------------------
@@ -956,7 +978,7 @@ static int mlp_backward(BwdKernel bwd_kernel, DwKernel dw_kernel, const void* de
                         float* zbuf, int n_dw_tiles, const long long* jobs,
                         const long long* tiles, float* part, float* grads,
                         long long wsize, long long total, long long n_pad, int S,
-                        int splits, void* stream) {
+                        int splits, void* stream, int row = nstt::tc::PointEnc::ROW) {
   using namespace nstt;
   cudaStream_t st = (cudaStream_t)stream;
   // the tile kernel: the deepest ring (at most MAX_SLOTS) that fits beside
@@ -970,10 +992,11 @@ static int mlp_backward(BwdKernel bwd_kernel, DwKernel dw_kernel, const void* de
   if (e == cudaSuccess) e = cudaFuncGetAttributes(&fa, (const void*)bwd_kernel);
   if (e != cudaSuccess) return (int)e;
   const long long avail = (long long)optin - (long long)fa.sharedSizeBytes;
-  const long long r = (avail - 4LL * (long long)bwd_smem_floats(HS, SLOT, 0)) / (4LL * SLOT);
+  const long long r =
+      (avail - 4LL * (long long)bwd_smem_floats(HS, SLOT, 0, row)) / (4LL * SLOT);
   if (r < 2) return (int)cudaErrorInvalidConfiguration;
   const int R = (int)(r < tc::MAX_SLOTS ? r : tc::MAX_SLOTS);
-  const size_t bytes = 4 * bwd_smem_floats(HS, SLOT, R);
+  const size_t bytes = 4 * bwd_smem_floats(HS, SLOT, R, row);
   e = cudaFuncSetAttribute((const void*)bwd_kernel,
                            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (e != cudaSuccess) return (int)e;
@@ -1033,4 +1056,22 @@ extern "C" int nstt_mlp_backward_bf16(const void* desc_dev, const void* bdesc_de
                       bdesc_dev, HS, SLOT, wb, wbt, enc, pts, vd, g, C, dx, hbuf, zbuf,
                       n_dw_tiles, jobs, tiles, part, grads, wsize, total, n_pad, S, splits,
                       stream);
+}
+
+// B2 under mip-NeRF: gauss [total][6] in place of the points, over the IPE
+// packs (no GEMMs into the embedding); dx is not written. The other
+// arguments as for nstt_mlp_backward.
+extern "C" int nstt_mlp_backward_ipe(const void* desc_dev, const void* bdesc_dev,
+                                     int HS, int SLOT, const float* wb,
+                                     const float* wbt, const float* enc,
+                                     const float* gauss, const float* vd,
+                                     const float* g, int C, float* dx, float* hbuf,
+                                     float* zbuf, int n_dw_tiles, const long long* jobs,
+                                     const long long* tiles, float* part, float* grads,
+                                     long long wsize, long long total, long long n_pad,
+                                     int S, int splits, void* stream) {
+  return mlp_backward(nstt::nerf_bwd_ipe_kernel, nstt::nerf_dw_kernel, desc_dev, bdesc_dev,
+                      HS, SLOT, wb, wbt, enc, gauss, vd, g, C, dx, hbuf, zbuf, n_dw_tiles,
+                      jobs, tiles, part, grads, wsize, total, n_pad, S, splits, stream,
+                      nstt::tc::IpeEnc::ROW);
 }

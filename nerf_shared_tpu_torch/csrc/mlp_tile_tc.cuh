@@ -39,8 +39,10 @@
 // views layer), from a few floats a point kept for the tile, which leaves
 // the shared memory to the weight ring. What those floats are and how a
 // column is formed from them is the encoder, a template parameter of the
-// tile: RayEnc (B3, B4: the point's ray and depth, A + z·B) or PointEnc
-// (B1: the point and its ray's direction, f·x).
+// tile: RayEnc (B3, B4: the point's ray and depth, A + z·B), PointEnc
+// (B1: the point and its ray's direction, f·x) or IpeEnc (B1 and B2 under
+// mip-NeRF: a Gaussian's mean and variances and its ray's direction, the
+// integrated encoding sin / cos(f·μ)·exp(-f²σ²/2)).
 //
 // Weights stream through a ring of R >= 2 slots, each one 8-row slice of a
 // GEMM's weights (both planes), filled by the tensor memory accelerator
@@ -107,7 +109,8 @@ struct Desc {
   long long hdr[16];
   long long gemm[MAX_GEMMS][8];
   long long narrow[3][4];
-  signed char kind[MAX_EMB];    // per compact embedding column: 0 identity, 1 sin, 2 cos
+  signed char kind[MAX_EMB];    // per compact embedding column: 0 identity, 1 sin, 2 cos,
+                                // 3 / 4 IPE's attenuated sin / cos (IpeEnc)
 };
 
 struct Smem {
@@ -565,6 +568,7 @@ struct RayEnc {
 // once, as the plain embed's x * f is; identity columns give x itself.
 struct PointEnc {
   static constexpr int ROW = 7;
+  static constexpr bool kDx = true;   // B2 forms dx through this encoding
   const float* pts;
   const float* vd;
   const float* enc;
@@ -596,6 +600,47 @@ struct PointEnc {
     if (k == 0) return x;
     const float arg = __fmul_rn(__ldg(enc + cc), x);
     return k == 1 ? sinf(arg) : cosf(arg);
+  }
+};
+
+// Point-major integrated positional encoding (mip-NeRF; B1 and B2's tile):
+// each point is a Gaussian, its record gauss [total][6] (the mean, then the
+// variance of each coordinate), and one view direction vd [total / S][3]
+// for each ray of S points. The tile's record is the mean, the variances
+// and the direction, 9 floats apart (odd: a warp's reads of 8 rows fall in
+// distinct banks). Column cc reads input enc[MAX_EMB + cc] (0-2 the mean,
+// 6-8 the direction) at f = enc[cc]: kinds 0-2 as PointEnc's (the
+// directions' encoding), kinds 3 / 4 sin / cos of f·μ times exp(-f²σ²/2),
+// σ² the variance of the same coordinate (input + 3). f·μ and f²σ² are one
+// product each, exact for power-of-two f, as ops/mip.py ipe forms them.
+// B2 forms no dx through it (mip-NeRF trains no poses).
+struct IpeEnc {
+  static constexpr int ROW = 9;
+  static constexpr bool kDx = false;
+  const float* gauss;
+  const float* vd;
+  const float* enc;
+  int S;
+
+  __device__ __forceinline__ void row(const Desc&, float* rows, int p, long long gp,
+                                      long long pend) const {
+    float* x = rows + p * ROW;
+    const bool in = gp < pend;
+    for (int i = 0; i < 6; ++i) x[i] = in ? __ldg(gauss + gp * 6 + i) : 0.f;
+    for (int i = 0; i < 3; ++i) x[6 + i] = in && vd ? __ldg(vd + gp / S * 3 + i) : 0.f;
+  }
+
+  __device__ __forceinline__ float value(const Desc& d, const float* rows, int p,
+                                         int cc) const {
+    const int i = (int)__ldg(enc + MAX_EMB + cc);
+    const float x = rows[p * ROW + i];
+    const int k = d.kind[cc];
+    if (k == 0) return x;
+    const float f = __ldg(enc + cc);
+    const float arg = __fmul_rn(f, x);
+    if (k < 3) return k == 1 ? sinf(arg) : cosf(arg);
+    const float att = expf(-0.5f * __fmul_rn(rows[p * ROW + i + 3], __fmul_rn(f, f)));
+    return __fmul_rn(k == 3 ? sinf(arg) : cosf(arg), att);
   }
 };
 

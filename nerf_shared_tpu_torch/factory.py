@@ -5,7 +5,9 @@ and ``get_train_state`` in ``nerf_shared_tpu/factory.py`` (reference
 utils.py:119-172), for the MLP family and the grid families (hashgrid,
 triplane), in the reference hierarchy or under ``--proposal`` with a
 density-only proposal MLP as the coarse branch (the fine branch an MLP or,
-in the mixed hierarchy, a grid family).
+in the mixed hierarchy, a grid family), and mip-NeRF (``--model_type
+mipnerf``: one IPE network for both passes, no fine branch, its render
+route and its learning-rate schedule).
 """
 
 from __future__ import annotations
@@ -14,12 +16,17 @@ from typing import Optional, Tuple
 
 import torch
 
-from nerf_shared_tpu_torch.config import resolved_hash_sigma_bias
+from nerf_shared_tpu_torch.config import check_mip_flags, resolved_hash_sigma_bias
 from nerf_shared_tpu_torch.models.hashgrid import HashGridConfig
-from nerf_shared_tpu_torch.models.nerf import NeRFConfig
+from nerf_shared_tpu_torch.models.nerf import MipNeRFConfig, NeRFConfig
 from nerf_shared_tpu_torch.models.triplane import TriplaneConfig
 from nerf_shared_tpu_torch.render.renderer import Renderer
-from nerf_shared_tpu_torch.train.state import TrainState, create_train_state, make_model
+from nerf_shared_tpu_torch.train.state import (
+    MipSchedule,
+    TrainState,
+    create_train_state,
+    make_model,
+)
 
 GRID_FAMILIES = ("triplane", "hashgrid")
 
@@ -59,12 +66,23 @@ def proposal_config(args) -> NeRFConfig:
                       i_embed=args.i_embed)
 
 
+def mip_config(args) -> MipNeRFConfig:
+    """mip-NeRF's one network (``--model_type mipnerf``): netdepth x
+    netwidth, the rest its published recipe (``MipNeRFConfig``). Raises on
+    a flag it does not take (config.check_mip_flags)."""
+    check_mip_flags(args)
+    return MipNeRFConfig(D=args.netdepth, W=args.netwidth)
+
+
 def nerf_configs(args) -> Tuple[object, Optional[object]]:
     """Coarse + (optional) fine model configs from flags (reference
     utils.py:119-139). Grid families use one config for both branches;
     under --proposal the coarse branch is ``proposal_config``'s MLP. The
     MLP family keeps the output_ch=5 quirk: it only matters when
-    use_viewdirs=False (reference nerf.py:94)."""
+    use_viewdirs=False (reference nerf.py:94). mip-NeRF has one network:
+    (``mip_config``, None)."""
+    if getattr(args, "model_type", "nerf") == "mipnerf":
+        return mip_config(args), None
     proposal = bool(getattr(args, "proposal", False))
     if getattr(args, "model_type", "nerf") in GRID_FAMILIES:
         gcfg = _grid_config(args)
@@ -104,7 +122,7 @@ def get_renderer(args, bds_dict, device) -> Renderer:
     run whatever the flag says. ``--render_guided`` sets the guided fine
     pass (it raises with N_importance 0); ``--proposal`` marks the coarse
     branch as a proposal network; ``--precision`` sets the MLP family's
-    compute dtype."""
+    compute dtype; ``--model_type mipnerf`` takes mip-NeRF's route."""
     use_kernels = (bool(getattr(args, "use_pallas", True))
                    and torch.device(device).type == "cuda")
     return Renderer(
@@ -123,8 +141,17 @@ def get_renderer(args, bds_dict, device) -> Renderer:
         remat=bool(getattr(args, "remat", False)),
         proposal=bool(getattr(args, "proposal", False)),
         precision=str(getattr(args, "precision", "fp32")),
+        mip=getattr(args, "model_type", "nerf") == "mipnerf",
         **bds_dict,
     )
+
+
+def coarse_loss_weight(args) -> float:
+    """The coarse MSE's weight: mip-NeRF's ``coarse_loss_mult`` under
+    ``--model_type mipnerf``, else 1."""
+    if getattr(args, "model_type", "nerf") != "mipnerf":
+        return 1.0
+    return MipNeRFConfig.coarse_loss_mult
 
 
 def grid_lrate(args) -> Optional[float]:
@@ -150,4 +177,6 @@ def get_train_state(args, device, cfgs=None, n_refine_poses: int = 0,
                               n_refine_poses=n_refine_poses,
                               pose_lrate=float(getattr(args, "pose_lrate", 1e-3)),
                               n_appearance=n_appearance,
-                              appearance_lrate=float(getattr(args, "appearance_lrate", 1e-3)))
+                              appearance_lrate=float(getattr(args, "appearance_lrate", 1e-3)),
+                              schedule=MipSchedule() if getattr(
+                                  args, "model_type", "nerf") == "mipnerf" else None)

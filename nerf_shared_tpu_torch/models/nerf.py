@@ -6,6 +6,14 @@ points concatenated back in after each layer in ``skips``, and either the
 viewdir head (alpha_linear W->1, feature_linear W->W, one views_linears layer
 (W+dirs)->W//2, rgb_linear W//2->3) or a single output_linear W->output_ch.
 
+``MipNeRFConfig`` is mip-NeRF's network (Barron et al., ICCV 2021;
+``--model_type mipnerf``): the same layers, its points Gaussians (the
+[..., 6] records of ops/mip.py) encoded by the integrated positional
+encoding at frequencies 2^l, l in [min_deg_point, multires), with no
+identity columns; ``density_bias`` and ``rgb_padding`` are its output
+activations, which its interval composite applies
+(ops/compositing.composite_intervals).
+
 The attribute names are the reference's, so a ``.tar`` written by the JAX
 package (``utils/checkpoints.params_to_state_dict``) loads with
 ``load_state_dict(strict=True)``. ``apply_nerf`` is the plain forward on a
@@ -28,6 +36,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from nerf_shared_tpu_torch.ops.embedding import EmbedderConfig, embed
+from nerf_shared_tpu_torch.ops.mip import ipe
 
 Params = Mapping[str, torch.Tensor]
 
@@ -44,6 +53,17 @@ class NeRFConfig:
     i_embed: int = 0
 
     @property
+    def ipe(self) -> bool:
+        """Points are Gaussians through the integrated encoding
+        (``MipNeRFConfig``)."""
+        return False
+
+    @property
+    def point_width(self) -> int:
+        """Floats a point takes: 3, or the Gaussian record's 6 under IPE."""
+        return 6 if self.ipe else 3
+
+    @property
     def pts_embedder(self) -> EmbedderConfig:
         return EmbedderConfig(multires=self.multires, i_embed=self.i_embed)
 
@@ -53,6 +73,8 @@ class NeRFConfig:
 
     @property
     def input_ch(self) -> int:
+        if self.ipe:
+            return 6 * (self.multires - self.min_deg_point)
         return self.pts_embedder.out_dim
 
     @property
@@ -64,6 +86,28 @@ class NeRFConfig:
         if i == 0:
             return self.input_ch
         return self.W + self.input_ch if (i - 1) in self.skips else self.W
+
+
+@dataclasses.dataclass(frozen=True)
+class MipNeRFConfig(NeRFConfig):
+    """mip-NeRF's network (module docstring) and the constants of its
+    published Blender recipe (``configs/blender.gin``): ``multires`` is its
+    max_deg_point, ``multires_views`` its deg_view; its output activations
+    are softplus(sigma + density_bias) and sigmoid(rgb) * (1 + 2
+    rgb_padding) - rgb_padding; the fine edges are drawn from the blurred
+    coarse weights plus ``resample_padding``; the coarse MSE weighs
+    ``coarse_loss_mult``."""
+
+    multires: int = 16
+    min_deg_point = 0
+    density_bias = -1.0
+    rgb_padding = 0.001
+    resample_padding = 0.01
+    coarse_loss_mult = 0.1
+
+    @property
+    def ipe(self) -> bool:
+        return True
 
 
 class NeRF(nn.Module):
@@ -146,10 +190,14 @@ def apply_mlp(params: Params, cfg: NeRFConfig, x: torch.Tensor) -> torch.Tensor:
 def embed_inputs(cfg: NeRFConfig, pts: torch.Tensor,
                  viewdirs: Optional[torch.Tensor]) -> torch.Tensor:
     """[γ(pts), γ(dirs)] [..., S, input_ch (+ input_ch_views)] in fp32, the
-    directions [..., 3] broadcast over the S samples of each ray."""
-    emb = embed(pts, cfg.pts_embedder)
+    directions [..., 3] broadcast over the S samples of each ray. Under
+    IPE ``pts`` are Gaussian records [..., S, 6] and γ is their IPE."""
+    if cfg.ipe:
+        emb = ipe(pts[..., :3], pts[..., 3:], cfg.min_deg_point, cfg.multires)
+    else:
+        emb = embed(pts, cfg.pts_embedder)
     if viewdirs is not None:
-        dirs = viewdirs[..., None, :].expand(pts.shape)
+        dirs = viewdirs[..., None, :].expand(pts.shape[:-1] + (3,))
         emb = torch.cat([emb, embed(dirs, cfg.views_embedder)], dim=-1)
     return emb
 

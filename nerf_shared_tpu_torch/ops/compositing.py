@@ -20,6 +20,14 @@ training step; ``exclusive_cumprod`` takes torch's zero-free formula
 (bit for bit the same gradients) and handles a zero factor with masks on
 the device.
 
+``composite_intervals`` is mip-NeRF's (Barron et al., ICCV 2021,
+``volumetric_rendering``) for ``--model_type mipnerf``: samples are
+intervals [t_i, t_i+1] with delta = (t_i+1 - t_i)·|d| and no sentinel,
+density softplus(sigma + density_bias), colour sigmoid(rgb)·(1 + 2 pad)
+- pad, transmittance exp(-(exclusive cumsum of density·delta)), and the
+depth the weights' mean of the interval midpoints, clipped to the ray's
+span.
+
 ``distortion_loss`` and ``interlevel_loss`` are the mip-NeRF 360 training
 regularizers of the same JAX module (the distortion and the proposal
 histogram bound); both drop the final sample, which rides the 1e10
@@ -120,6 +128,32 @@ def raw2outputs(
     if white_bkgd:
         rgb_map = rgb_map + (1.0 - acc_map[..., None])
     return rgb_map, disp_map, acc_map, weights, depth_map
+
+
+def composite_intervals(raw: torch.Tensor, t_vals: torch.Tensor, rays_d: torch.Tensor,
+                        density_bias: float, rgb_padding: float, white_bkgd: bool):
+    """raw [N, S, 4] of the intervals between edges t_vals [N, S + 1] ->
+    (rgb_map, disp_map, acc_map, weights, depth_map), mip-NeRF's
+    activations and composite (module docstring); disp = 1 / depth."""
+    rgb = torch.sigmoid(raw[..., :3]) * (1 + 2 * rgb_padding) - rgb_padding
+    density = F.softplus(raw[..., 3] + density_bias)
+    t_dists = t_vals[..., 1:] - t_vals[..., :-1]
+    delta = t_dists * torch.linalg.norm(rays_d[..., None, :], dim=-1)
+    density_delta = density * delta
+    alpha = 1 - torch.exp(-density_delta)
+    trans = torch.exp(-torch.cat([torch.zeros_like(density_delta[..., :1]),
+                                  torch.cumsum(density_delta[..., :-1], dim=-1)], dim=-1))
+    weights = alpha * trans
+    rgb_map = torch.sum(weights[..., None] * rgb, dim=-2)
+    acc_map = torch.sum(weights, dim=-1)
+    t_mids = 0.5 * (t_vals[..., :-1] + t_vals[..., 1:])
+    # nan (an empty ray) -> 0, clipped to the near end, as mip-NeRF's
+    # jnp.nan_to_num(distance, jnp.inf) does (its second argument is copy)
+    depth = torch.nan_to_num(torch.sum(weights * t_mids, dim=-1) / acc_map)
+    depth = torch.minimum(torch.maximum(depth, t_vals[..., 0]), t_vals[..., -1])
+    if white_bkgd:
+        rgb_map = rgb_map + (1.0 - acc_map[..., None])
+    return rgb_map, 1.0 / depth, acc_map, weights, depth
 
 
 def distortion_loss(z_vals: torch.Tensor, weights: torch.Tensor, near: float,

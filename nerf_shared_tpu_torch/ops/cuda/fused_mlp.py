@@ -33,6 +33,14 @@ without one; the narrow heads' weights and biases rounded (JAX's
 ``pack_params`` casts them), their output fp32. ``plain_mlp_bf16`` is that
 arithmetic in plain PyTorch: bf16-rounded operands multiplied in fp32.
 
+Under an IPE config (``models.nerf.MipNeRFConfig``, mip-NeRF) B1 takes
+Gaussian records [..., S, 6] (mean, variances; ops/mip.py) for points and
+launches ``nerf_points_ipe_kernel``, the same tile with the IPE encoder
+(``csrc/mlp_tile_tc.cuh`` IpeEnc: sin / cos of f·μ times exp(-f²σ²/2) from
+``encoder_tables``' kinds 3 and 4), fp32 only; it counts its launches in
+``POINT_LAUNCHES_IPE`` and its points in ``IPE_POINTS``. B3 and B4 build
+points from rays and depths, not Gaussians, and decline IPE configs.
+
 Both entries dispatch on the tensors' device: on the CPU they are the plain
 version, on a CUDA device they launch the kernel or raise. B1's gradient is
 kernel B2 (``fused_mlp_bwd.fused_train_op``); B3's backward recomputes
@@ -57,6 +65,7 @@ from nerf_shared_tpu_torch.models.nerf import (
     torch_param_order,
 )
 from nerf_shared_tpu_torch.ops.cuda import common
+from nerf_shared_tpu_torch.ops.mip import ipe_freqs
 
 MAX_LAYERS, MAX_W, MAX_EMB, MAX_OUT = 32, 256, 256, 8
 
@@ -64,6 +73,8 @@ LAUNCHES = 0        # B3 launches made by fused_nerf_forward_rays
 POINT_LAUNCHES = 0  # B1 launches made by fused_nerf_forward and fused_train_op
 LAUNCHES_BF16 = 0        # the same for the bf16 instantiations
 POINT_LAUNCHES_BF16 = 0
+POINT_LAUNCHES_IPE = 0   # B1 launches of the IPE instantiation
+IPE_POINTS = 0           # points encoded by those launches
 
 
 def is_bf16(compute_dtype) -> bool:
@@ -144,12 +155,21 @@ def out_channels(cfg: NeRFConfig) -> int:
 
 def encoder_tables(cfg: NeRFConfig):
     """Per embedding column (the layout of [γ(pts), γ(dirs)]): the input it
-    reads (0-2 ray, 3-5 view direction), its frequency, and its kind
-    (0 identity, 1 sin, 2 cos)."""
+    reads (0-2 ray, 3-5 view direction; under IPE 0-2 the mean, whose
+    variances follow at 3-5, and 6-8 the view direction), its frequency,
+    and its kind (0 identity, 1 sin, 2 cos; 3 and 4 the IPE's attenuated
+    sin and cos)."""
     src, scale, kind = [], [], []
-    specs = [(0, cfg.pts_embedder)]
+    specs = []
+    if cfg.ipe:
+        for freq in ipe_freqs(cfg.min_deg_point, cfg.multires):
+            for k in (3, 4):
+                for d in range(3):
+                    src.append(d), scale.append(freq), kind.append(k)
+    else:
+        specs.append((0, cfg.pts_embedder))
     if cfg.use_viewdirs:
-        specs.append((3, cfg.views_embedder))
+        specs.append((6 if cfg.ipe else 3, cfg.views_embedder))
     for row0, ecfg in specs:
         for d in range(3):
             src.append(row0 + d), scale.append(1.0), kind.append(0)
@@ -175,6 +195,15 @@ def ray_encoder_args(cfg: NeRFConfig, rays_o, rays_d, viewdirs):
     idx = common.upload(src, rays_o.device)
     sc = common.upload(scale, rays_o.device)
     return ((x_o[:, idx] * sc).contiguous(), (x_d[:, idx] * sc).contiguous())
+
+
+def check_ray_config(cfg: NeRFConfig, kernel: str):
+    """Raise for an IPE config: the ray-major kernels (B3, B4) form points
+    from rays and depths, and mip-NeRF's samples are Gaussians."""
+    if getattr(cfg, "ipe", False):
+        raise ValueError(f"kernel {kernel} evaluates points o + z·d along rays; mip-NeRF's "
+                         "IPE network takes Gaussians and renders through kernel B1 "
+                         "(render/renderer.py render_rays_mip)")
 
 
 def check_config(cfg: NeRFConfig):
@@ -677,6 +706,7 @@ def fused_nerf_forward_rays(params, cfg: NeRFConfig, rays_o, rays_d, z,
     """raw [N, S, 4 | output_ch] of the network at pts = o + z·d: the plain
     version for CPU tensors, kernel B3 (its bf16 instantiation under
     ``compute_dtype`` bfloat16) for CUDA tensors."""
+    check_ray_config(cfg, "B3")
     if rays_o.device.type == "cpu" and not is_bf16(compute_dtype):
         return _plain_rays(params, cfg, rays_o, rays_d, z, viewdirs, compute_dtype)
     if rays_o.device.type not in ("cpu", "cuda"):
@@ -687,12 +717,14 @@ def fused_nerf_forward_rays(params, cfg: NeRFConfig, rays_o, rays_d, z,
 
 
 def check_points(cfg: NeRFConfig, pts, viewdirs):
-    """(N, S): raise unless pts is a contiguous float32 [..., S, 3] and
-    viewdirs (with a viewdir head) a contiguous float32 [..., 3] on the
-    same device, one direction per ray of S samples."""
+    """(N, S): raise unless pts is a contiguous float32 [..., S, 3] (under
+    IPE the Gaussian records [..., S, 6]) and viewdirs (with a viewdir
+    head) a contiguous float32 [..., 3] on the same device, one direction
+    per ray of S samples. N counts points."""
     dev = pts.device
-    if pts.dim() < 2 or pts.shape[-1] != 3:
-        raise ValueError(f"pts has shape {tuple(pts.shape)}, expected [..., S, 3]")
+    w = cfg.point_width
+    if pts.dim() < 2 or pts.shape[-1] != w:
+        raise ValueError(f"pts has shape {tuple(pts.shape)}, expected [..., S, {w}]")
     common.check_tensor(pts, "pts", tuple(pts.shape), dev)
     if cfg.use_viewdirs:
         if viewdirs is None:
@@ -701,18 +733,28 @@ def check_points(cfg: NeRFConfig, pts, viewdirs):
     elif viewdirs is not None:
         raise ValueError("viewdirs given to a network without a viewdir head")
     S = pts.shape[-2]
-    return pts.numel() // 3, S
+    return pts.numel() // w, S
 
 
 _POINT_ARGS = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 5 + [
     ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
 
 
+def point_symbol(cfg: NeRFConfig, bf16: bool) -> str:
+    """B1's C entry for ``cfg`` (its IPE instantiation takes fp32 only)."""
+    if cfg.ipe:
+        if bf16:
+            raise ValueError("B1's IPE instantiation (mip-NeRF) computes in fp32 only")
+        return "nstt_points_forward_ipe"
+    return "nstt_points_forward_bf16" if bf16 else "nstt_points_forward_tc"
+
+
 def launch_points(params, cfg: NeRFConfig, pts, viewdirs,
                   compute_dtype=torch.float32) -> torch.Tensor:
-    """Kernel B1 (its bf16 instantiation under ``compute_dtype`` bfloat16)
-    on CUDA tensors -> raw [..., S, C]; no autograd."""
-    global POINT_LAUNCHES, POINT_LAUNCHES_BF16
+    """Kernel B1 (its bf16 instantiation under ``compute_dtype`` bfloat16,
+    its IPE one for an IPE config) on CUDA tensors -> raw [..., S, C]; no
+    autograd."""
+    global POINT_LAUNCHES, POINT_LAUNCHES_BF16, POINT_LAUNCHES_IPE, IPE_POINTS
     n, S = check_points(cfg, pts, viewdirs)
     C = out_channels(cfg)
     out = torch.empty(pts.shape[:-1] + (C,), dtype=torch.float32, device=pts.device)
@@ -720,8 +762,7 @@ def launch_points(params, cfg: NeRFConfig, pts, viewdirs,
         return out
     check_in("B1", compute_dtype, "launch_points", params, pts=pts, viewdirs=viewdirs)
     bf16 = is_bf16(compute_dtype)
-    fn = common.load("fused_mlp", _POINT_ARGS,
-                     "nstt_points_forward_bf16" if bf16 else "nstt_points_forward_tc")
+    fn = common.load("fused_mlp", _POINT_ARGS, point_symbol(cfg, bf16))
     with torch.cuda.device(pts.device):
         wbuf, desc, HS, SLOT = pack_network_tc(params, cfg, pts.device, compute_dtype)
         enc = encoder_buffer(cfg, pts.device)
@@ -731,7 +772,10 @@ def launch_points(params, cfg: NeRFConfig, pts, viewdirs,
                 viewdirs.data_ptr() if viewdirs is not None else 0, out.data_ptr(), n, S,
                 stream)
     common.check_launch(rc, "fused_mlp points (B1 bf16)" if bf16 else "fused_mlp points (B1)")
-    if bf16:
+    if cfg.ipe:
+        POINT_LAUNCHES_IPE += 1
+        IPE_POINTS += n
+    elif bf16:
         POINT_LAUNCHES_BF16 += 1
     else:
         POINT_LAUNCHES += 1

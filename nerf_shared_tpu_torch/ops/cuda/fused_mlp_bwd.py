@@ -46,6 +46,13 @@ is B1's bf16 tile (one wgmma k16 bf16 product a 16-row slice of both packs
 in bf16) and writes dZ in fp32; ``nerf_dw_kernel`` rounds dZ as it loads
 it and forms dW with one ``mma.sync.m16n8k16`` bf16 product a 16-point
 step. ``plain_mlp_backward_bf16`` is that arithmetic in plain PyTorch.
+
+Under an IPE config (mip-NeRF) the tile kernel is ``nerf_bwd_ipe_kernel``,
+B1's tile with the IPE encoder over the Gaussian records [..., S, 6], in
+fp32, counted in ``LAUNCHES_IPE``; ``nerf_dw_kernel`` and the reduction
+are the same. It computes the weight gradients alone: mip-NeRF trains no
+poses, so its backward pack leaves out the GEMMs into the embedding
+(``bwd_gemms``) and no dx is written.
 """
 
 from __future__ import annotations
@@ -96,11 +103,13 @@ from nerf_shared_tpu_torch.ops.cuda.fused_mlp import (
 
 LAUNCHES = 0      # B2 launches made by fused_mlp_backward and fused_train_op
 LAUNCHES_BF16 = 0  # the same for the bf16 instantiation
+LAUNCHES_IPE = 0   # the same for the IPE instantiation (mip-NeRF)
 TILE_P = 128      # points per tile of the tile kernel (csrc/mlp_tile_tc.cuh TP)
 MAX_SMEM = 232448  # shared memory one block may use on sm_90
 G_LD = 8          # cotangent tile row: rgb 0-2, alpha 3, alpha 4 (csrc G_LD)
 DX_LD = 6         # the tile's dx sums a point and warpgroup (csrc DX_LD)
 ENC_ROW = 7       # the point-major encoder's floats a point (csrc PointEnc::ROW)
+ENC_ROW_IPE = 9   # the IPE encoder's (csrc IpeEnc::ROW)
 MAX_SLOTS = 8     # the deepest weight ring (csrc tc::MAX_SLOTS)
 
 # The input-gradient GEMMs (csrc BwdDesc): at most the views layer's two,
@@ -341,17 +350,19 @@ def bwd_gemms(cfg: NeRFConfig):
     views layer's direction and feature columns (dz = dhv), the feature
     layer (dz = dfeature); then per trunk layer from the last, its
     embedding columns (layer 0 and the layer after a skip) and its h
-    columns (not layer 0)."""
+    columns (not layer 0). Under IPE the GEMMs into the embedding (dx)
+    are left out."""
     P, V, W, D = cfg.input_ch, cfg.input_ch_views, cfg.W, cfg.D
+    dx = not cfg.ipe
     gemms = []
     if cfg.use_viewdirs:
-        gemms += [("views_linears.0", W, V, BK_DEMB, 1),
-                  ("views_linears.0", 0, W, BK_DFEATURE, 0),
+        gemms += [("views_linears.0", W, V, BK_DEMB, 1)] if dx else []
+        gemms += [("views_linears.0", 0, W, BK_DFEATURE, 0),
                   ("feature_linear", 0, W, BK_DZ_ALPHA, D - 1)]
     for l in reversed(range(D)):
         name = f"pts_linears.{l}"
         from_emb = l == 0 or (l - 1) in cfg.skips
-        if from_emb:
+        if from_emb and dx:
             gemms.append((name, 0, P, BK_DEMB, 0))
         if l > 0:
             gemms.append((name, P if from_emb else 0, W, BK_DZ, l - 1))
@@ -466,7 +477,8 @@ def smem_bytes(cfg: NeRFConfig) -> int:
     memory."""
     HS, _ = tc_strides(cfg)
     _, _, slot = bwd_layout(cfg)
-    floats = TILE_P * (HS + G_LD + ENC_ROW + 2 * DX_LD) + 2 * slot
+    row = ENC_ROW_IPE if cfg.ipe else ENC_ROW
+    floats = TILE_P * (HS + G_LD + row + 2 * DX_LD) + 2 * slot
     return 4 * floats + 8 * (_TC_DESC_WORDS + _BWD_DESC_WORDS + 2 * MAX_SLOTS)
 
 
@@ -479,9 +491,19 @@ _ARGS = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 6
          + [ctypes.c_void_p])
 
 
+def backward_symbol(cfg: NeRFConfig, bf16: bool) -> str:
+    """B2's C entry for ``cfg`` (its IPE instantiation takes fp32 only)."""
+    if cfg.ipe:
+        if bf16:
+            raise ValueError("B2's IPE instantiation (mip-NeRF) computes in fp32 only")
+        return "nstt_mlp_backward_ipe"
+    return "nstt_mlp_backward_bf16" if bf16 else "nstt_mlp_backward"
+
+
 def launch_backward(params, cfg: NeRFConfig, pts, viewdirs, g, compute_dtype=torch.float32):
-    """Kernel B2 (its bf16 instantiation under ``compute_dtype`` bfloat16)
-    on CUDA tensors -> (grads, dpts, ddirs)."""
+    """Kernel B2 (its bf16 instantiation under ``compute_dtype`` bfloat16,
+    its IPE one for an IPE config) on CUDA tensors -> (grads, dpts,
+    ddirs); under IPE dpts and ddirs are None."""
     return launch_backward_h(params, cfg, pts, viewdirs, g, compute_dtype)[:3]
 
 
@@ -496,7 +518,7 @@ def launch_backward_h(params, cfg: NeRFConfig, pts, viewdirs, g, compute_dtype=t
     output too), and one partial copy of the packed gradients per point
     range (``dw_splits`` of them, 2.38 MB each at the lego width). Every
     float of a partial copy is written, padding as zero."""
-    global LAUNCHES, LAUNCHES_BF16
+    global LAUNCHES, LAUNCHES_BF16, LAUNCHES_IPE
     dev = pts.device
     n, S = check_points(cfg, pts, viewdirs)
     common.check_tensor(g, "g", tuple(pts.shape[:-1]) + (out_channels(cfg),), dev)
@@ -506,12 +528,13 @@ def launch_backward_h(params, cfg: NeRFConfig, pts, viewdirs, g, compute_dtype=t
     layout, wsize = packed_layout(cfg)
     dx = torch.empty((n, 6), dtype=torch.float32, device=dev)
     if n == 0:
-        return ({k: torch.zeros_like(params[k]) for k in layout}, pts.new_zeros(pts.shape),
-                None if viewdirs is None else torch.zeros_like(viewdirs), dx[:0, 0], 0)
+        return ({k: torch.zeros_like(params[k]) for k in layout},
+                None if cfg.ipe else pts.new_zeros(pts.shape),
+                None if viewdirs is None or cfg.ipe else torch.zeros_like(viewdirs),
+                dx[:0, 0], 0)
     check_in("B2", compute_dtype, "launch_backward", params, pts=pts, viewdirs=viewdirs, g=g)
     bf16 = is_bf16(compute_dtype)
-    fn = common.load("fused_mlp_bwd", _ARGS,
-                     "nstt_mlp_backward_bf16" if bf16 else "nstt_mlp_backward")
+    fn = common.load("fused_mlp_bwd", _ARGS, backward_symbol(cfg, bf16))
     with torch.cuda.device(dev):
         wbuf, desc, HS, _ = pack_network_tc(params, cfg, dev, compute_dtype)
         wbt, bdesc = pack_backward_tc(params, cfg, dev, compute_dtype)
@@ -534,6 +557,10 @@ def launch_backward_h(params, cfg: NeRFConfig, pts, viewdirs, g, compute_dtype=t
                 zbuf.data_ptr(), n_tiles, dw_desc.data_ptr(), tiles_ptr,
                 part.data_ptr(), grads.data_ptr(), wsize, n, n_pad, S, splits, stream)
     common.check_launch(rc, "fused_mlp_bwd (B2 bf16)" if bf16 else "fused_mlp_bwd (B2)")
+    if cfg.ipe:
+        LAUNCHES_IPE += 1
+        check_out("B2", compute_dtype, "launch_backward", grads=grads)
+        return unpack_grads(grads, cfg), None, None, hbuf, n_pad
     if bf16:
         LAUNCHES_BF16 += 1
     else:
@@ -597,6 +624,9 @@ class _TrainFn(torch.autograd.Function):
             grads, dpts, ddirs = _plain_backward(params, ctx.cfg, pts, viewdirs, g, ctx.dtype,
                                                  "fused_train_op")
         else:
+            if ctx.cfg.ipe and (ctx.needs_input_grad[3] or ctx.needs_input_grad[4]):
+                raise ValueError("B2's IPE instantiation computes no gradient of the "
+                                 "Gaussians or the view directions (mip-NeRF trains no poses)")
             grads, dpts, ddirs = launch_backward(params, ctx.cfg, pts, viewdirs,
                                                  g.contiguous(), ctx.dtype)
         need = ctx.needs_input_grad

@@ -36,6 +36,7 @@ from nerf_shared_tpu_torch.ops.cuda.fused_mlp import (
     _check_rays,
     check_in,
     check_out,
+    check_ray_config,
     entry_sizes,
     is_bf16,
     pack_network_tc,
@@ -149,7 +150,8 @@ def fused_render_rays(params, cfg: NeRFConfig, rays_o, rays_d, z,
                       want_weights: bool = True, compute_dtype=torch.float32):
     """(rgb, disp, acc, weights, depth) of the noise-free composite: the
     plain version for CPU tensors, kernel B4 (its bf16 instantiation under
-    ``compute_dtype`` bfloat16) for CUDA tensors."""
+    ``compute_dtype`` bfloat16) for CUDA tensors; an IPE config raises."""
+    check_ray_config(cfg, "B4")
     if rays_o.device.type == "cpu" and not is_bf16(compute_dtype):
         rgb, disp, acc, w, depth = _plain_render(params, cfg, rays_o, rays_d, z, viewdirs,
                                                  white_bkgd, compute_dtype)

@@ -3,11 +3,37 @@
 Counterpart of ``nerf_shared_tpu/ops/rays.py`` (reference utils.py:33-71).
 Differentiable with respect to ``c2w``. Camera convention (OpenGL): x right,
 y up, the camera looks down -z; dirs = [(i-cx)/fx, -(j-cy)/fy, -1].
+
+``cone_radii`` / ``frame_radii``: the base radius of each pixel's cone in
+mip-NeRF (Barron et al., ICCV 2021; its blender loader's ``radii``): the
+distance dx between the unnormalised world directions of the pixel and
+the pixel one row below, times 2/sqrt(12). The radius rides in the ray
+batch (render/renderer.py).
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
+
+CONE_SCALE = 2.0 / math.sqrt(12.0)
+
+
+def cone_radii(rays_d: torch.Tensor, rays_d_below: torch.Tensor) -> torch.Tensor:
+    """[..., 1]: dx · 2/sqrt(12), dx the distance between each ray's
+    direction and the direction of the pixel one row below."""
+    return torch.linalg.norm(rays_d_below - rays_d, dim=-1, keepdim=True) * CONE_SCALE
+
+
+def frame_radii(rays_d: torch.Tensor) -> torch.Tensor:
+    """[H, W, 1] radii of a frame's rays [H, W, 3]: each row's distance to
+    the next; the last row takes the row two above it (``dx[-2:-1]``, as
+    mip-NeRF's loader pads it; the equal neighbour at two rows)."""
+    if rays_d.shape[0] < 2:
+        raise ValueError("cone radii need frames of two rows or more")
+    dx = torch.linalg.norm(rays_d[:-1] - rays_d[1:], dim=-1, keepdim=True)
+    return torch.cat([dx, dx[-2:-1] if dx.shape[0] > 1 else dx], dim=0) * CONE_SCALE
 
 
 def get_rays(H: int, W: int, K, c2w: torch.Tensor):

@@ -6,6 +6,13 @@ render_utils.py:105-129 and utils.py:74-117). ``torch.searchsorted`` with
 ``right=True`` counts ``cdf <= u`` exactly as the JAX package's compare +
 reduce does; the bin-edge lookups are ``torch.gather``. The ``t_rand=`` and
 ``u=`` arguments override the random draws for deterministic tests.
+
+mip-NeRF's intervals (``--model_type mipnerf``): ``sample_along_rays`` at
+N_samples + 1 gives a ray's stratified edges, and ``resample_intervals``
+its fine edges: the coarse weights blurred by a 2-tap max and a 2-tap
+mean, padded by ``resample_padding``, then as many new edges by
+``sorted_piecewise_constant_pdf`` (mip-NeRF's ``internal/math.py``:
+stratified u, the CDF forced to end at exactly 1).
 """
 
 from __future__ import annotations
@@ -82,3 +89,59 @@ def sample_pdf(
     denom = torch.where(denom < 1e-5, torch.ones_like(denom), denom)
     t = (u - cdf_below) / denom
     return bins_below + t * (bins_above - bins_below)
+
+
+EPS32 = float(torch.finfo(torch.float32).eps)
+
+
+def sorted_piecewise_constant_pdf(bins: torch.Tensor, weights: torch.Tensor, n: int,
+                                  det: bool = False, u: Optional[torch.Tensor] = None,
+                                  generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """n sorted samples [N, n] of the piecewise-constant pdf of ``weights``
+    [N, B - 1] over the edges ``bins`` [N, B]: mip-NeRF's sampler. Weights
+    summing below 1e-5 are padded up to it; u is stratified, k/n plus
+    U(0, 1/n - eps) (``det``: a linspace over [0, 1 - eps]). The interval
+    of each u is the last CDF entry at or below it, found by
+    ``torch.searchsorted`` as mip-NeRF's mask max / min finds it."""
+    eps = 1e-5
+    wsum = torch.sum(weights, dim=-1, keepdim=True)
+    pad = torch.clamp(eps - wsum, min=0.0)
+    weights = weights + pad / weights.shape[-1]
+    wsum = wsum + pad
+    pdf = weights / wsum
+    cdf = torch.clamp(torch.cumsum(pdf[..., :-1], dim=-1), max=1.0)
+    cdf = torch.cat([torch.zeros_like(cdf[..., :1]), cdf, torch.ones_like(cdf[..., :1])], dim=-1)
+    shape = cdf.shape[:-1] + (n,)
+    if u is None:
+        if det:
+            u = torch.linspace(0.0, 1.0 - EPS32, n, device=cdf.device).expand(shape)
+        else:
+            s = 1.0 / n
+            u = torch.arange(n, device=cdf.device) * s + torch.rand(
+                shape, generator=generator, device=cdf.device) * (s - EPS32)
+            u = torch.clamp(u, max=1.0 - EPS32)
+    u = u.contiguous()
+    idx = torch.searchsorted(cdf.contiguous(), u, right=True)
+    below = torch.clamp(idx - 1, min=0)
+    above = torch.clamp(idx, max=cdf.shape[-1] - 1)
+    c0, c1 = torch.gather(cdf, -1, below), torch.gather(cdf, -1, above)
+    b0, b1 = torch.gather(bins, -1, below), torch.gather(bins, -1, above)
+    t = torch.clamp(torch.nan_to_num((u - c0) / (c1 - c0), 0.0), 0.0, 1.0)
+    return b0 + t * (b1 - b0)
+
+
+def blur_weights(weights: torch.Tensor, padding: float) -> torch.Tensor:
+    """mip-NeRF's resampling weights: a 2-tap max over the edge-padded
+    weights, then a 2-tap mean, plus ``padding``."""
+    w = torch.cat([weights[..., :1], weights, weights[..., -1:]], dim=-1)
+    w_max = torch.maximum(w[..., :-1], w[..., 1:])
+    return 0.5 * (w_max[..., :-1] + w_max[..., 1:]) + padding
+
+
+def resample_intervals(t_vals: torch.Tensor, weights: torch.Tensor, padding: float,
+                       det: bool = False, u: Optional[torch.Tensor] = None,
+                       generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """The fine edges [N, S + 1] from the coarse edges ``t_vals`` [N, S + 1]
+    and their intervals' weights [N, S]; callers stop their gradient."""
+    return sorted_piecewise_constant_pdf(t_vals, blur_weights(weights, padding),
+                                         t_vals.shape[-1], det, u, generator)

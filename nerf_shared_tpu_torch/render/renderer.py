@@ -48,6 +48,19 @@ target the 8x256 family); its composite still goes through ``_composite``
 returns no ``rgb0`` / ``disp0`` / ``acc0``, and with ``retweights`` hands
 its histogram out as ``weights0`` / ``z_vals0`` for the interlevel loss.
 
+Under ``RenderConfig.mip`` (``--model_type mipnerf``) ``render_rays``
+takes mip-NeRF's route, ``render_rays_mip``: cones (the ray batch carries
+each ray's base radius, column 8: [o, d, near, far, radius, viewdirs]),
+N_samples intervals between N_samples + 1 stratified edges, each a
+Gaussian (ops/mip.py), one network for both passes (the coarse one:
+there is no fine network), its fine edges resampled from the blurred
+coarse weights under stop-gradient and not merged with the coarse ones,
+and the interval composite (ops/compositing.composite_intervals). The
+network runs through ``_apply_model`` on the Gaussian records: kernels B1
+and B2 with their IPE encoder on the training step, B1 for frames (B3,
+B4 and B5 take no intervals). Under a profiler the Gaussians, the blur
+and the resampling are ``train_step.gauss`` spans.
+
 Models are passed into every call (a field module: ``NeRF``, ``HashGrid``
 or ``Triplane``; a (params, cfg) tuple; or None). A full image is rendered
 by a plain Python loop over ray blocks of ``chunk`` rays; no padding is
@@ -73,7 +86,7 @@ from nerf_shared_tpu_torch.data.images import gif_encode, imwrite_u8
 from nerf_shared_tpu_torch.models.hashgrid import HashGrid, HashGridConfig, apply_hashgrid
 from nerf_shared_tpu_torch.models.nerf import NeRF, NeRFConfig, apply_nerf
 from nerf_shared_tpu_torch.models.triplane import Triplane, TriplaneConfig, apply_triplane
-from nerf_shared_tpu_torch.ops.compositing import raw2outputs
+from nerf_shared_tpu_torch.ops.compositing import composite_intervals, raw2outputs
 from nerf_shared_tpu_torch.ops.cuda.composite import composite_fused
 from nerf_shared_tpu_torch.ops.cuda.fused_mlp import (
     fused_nerf_forward,
@@ -81,8 +94,13 @@ from nerf_shared_tpu_torch.ops.cuda.fused_mlp import (
 )
 from nerf_shared_tpu_torch.ops.cuda.fused_mlp_bwd import fused_train_op
 from nerf_shared_tpu_torch.ops.cuda.fused_render import fused_render_rays
-from nerf_shared_tpu_torch.ops.rays import get_rays, ndc_rays
-from nerf_shared_tpu_torch.ops.sampling import sample_along_rays, sample_pdf
+from nerf_shared_tpu_torch.ops.mip import cast_rays
+from nerf_shared_tpu_torch.ops.rays import frame_radii, get_rays, ndc_rays
+from nerf_shared_tpu_torch.ops.sampling import (
+    resample_intervals,
+    sample_along_rays,
+    sample_pdf,
+)
 from nerf_shared_tpu_torch.utils.metrics import to8b
 from nerf_shared_tpu_torch.utils.profiling import span
 
@@ -198,10 +216,34 @@ class RenderConfig:
     # the MLP family's compute dtype: "fp32", or "bf16" (bf16 operands, fp32
     # accumulation; the kernels' bf16 instantiations, apply_nerf in bf16)
     precision: str = "fp32"
+    # mip-NeRF's cone-traced intervals (render_rays_mip): the ray batch
+    # carries each ray's radius; N_importance is 0 or N_samples (its fine
+    # pass resamples as many edges as the coarse pass has)
+    mip: bool = False
 
     def __post_init__(self):
         if self.precision not in _COMPUTE_DTYPES:
             raise ValueError(f"precision {self.precision!r}: fp32 or bf16")
+        if self.mip:
+            bad = [name for name, on in (
+                ("bf16 (--precision)", self.precision != "fp32"),
+                ("guided sampling (--render_guided)", self.guided > 0),
+                ("the proposal sampler (--proposal)", self.proposal),
+                ("NDC rays", self.ndc), ("lindisp", self.lindisp),
+                ("no view directions (--use_viewdirs False)", not self.use_viewdirs),
+                ("sigma noise (--raw_noise_std)", self.raw_noise_std != 0.0),
+                ("the fused composite (--fused_composite, kernel B4)",
+                 self.fused_composite)) if on]
+            if bad:
+                raise ValueError("mip-NeRF's route (--model_type mipnerf) runs fp32 "
+                                 "cone-traced intervals through kernels B1 / B2; it "
+                                 f"does not take {', '.join(bad)}")
+            if self.N_importance not in (0, self.N_samples):
+                raise ValueError(
+                    f"mip-NeRF (--model_type mipnerf) resamples as many intervals as "
+                    f"its coarse pass has: "
+                    f"N_importance must be 0 or N_samples ({self.N_samples}), got "
+                    f"{self.N_importance}")
         if self.guided > 0 and self.N_importance <= 0:
             raise ValueError(
                 f"guided={self.guided} places the fine samples by the coarse "
@@ -230,7 +272,12 @@ def render_rays(
     """Render a flat ray batch (reference render_utils.py:67-174).
     ``retraw_coarse`` also returns the coarse pass's raw outputs as 'raw0'
     (the density-sparsity regularizer reads them). Under ``rcfg.proposal``
-    the coarse pass is the proposal network's (module docstring)."""
+    the coarse pass is the proposal network's, under ``rcfg.mip`` this is
+    ``render_rays_mip`` (module docstring)."""
+    if rcfg.mip:
+        return render_rays_mip(params_coarse, ray_batch, rcfg, ccfg, retraw=retraw,
+                               retweights=retweights, overrides=overrides,
+                               generator=generator)
     overrides = overrides or {}
     rays_o, rays_d, viewdirs = split_rays(ray_batch)
     near, far = ray_batch[:, 6:7], ray_batch[:, 7:8]
@@ -317,6 +364,52 @@ def render_rays(
     return ret
 
 
+def render_rays_mip(params, ray_batch: torch.Tensor, rcfg: RenderConfig, cfg,
+                    retraw: bool = False, retweights: bool = False,
+                    overrides: Optional[Dict[str, torch.Tensor]] = None,
+                    generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+    """mip-NeRF's two levels over a ray batch [N, 12] ([o, d, near, far,
+    radius, viewdirs]) with one network ``params`` / ``cfg`` (an IPE
+    NeRFConfig): the keys of ``render_rays`` ('z_vals' holds the final
+    pass's edges, [N, N_samples + 1]; 'z_std' the spread of the fine
+    edges). Draws from ``generator``: the stratified jitter, then the
+    resampling positions; ``overrides`` pins them (``t_rand``, ``u``)."""
+    if not (isinstance(cfg, NeRFConfig) and cfg.ipe):
+        raise TypeError("RenderConfig.mip renders mip-NeRF's network (an IPE NeRFConfig)")
+    if ray_batch.shape[-1] != 12:
+        raise ValueError(f"mip-NeRF's ray batch is [N, 12] (o, d, near, far, radius, "
+                         f"viewdirs), got {tuple(ray_batch.shape)}")
+    overrides = overrides or {}
+    rays_o, rays_d, viewdirs = split_rays(ray_batch)
+    near, far, radii = ray_batch[:, 6:7], ray_batch[:, 7:8], ray_batch[:, 8:9]
+    ret: Dict[str, torch.Tensor] = {}
+    for level in range(2 if rcfg.N_importance > 0 else 1):
+        with span("train_step.gauss"):
+            if level == 0:
+                t_vals = sample_along_rays(near, far, rcfg.N_samples + 1, perturb=rcfg.perturb,
+                                           t_rand=overrides.get("t_rand"), generator=generator)
+            else:
+                t_vals = resample_intervals(t_vals, weights, cfg.resample_padding,
+                                            det=rcfg.perturb == 0.0, u=overrides.get("u"),
+                                            generator=generator).detach()
+            t_vals = t_vals.contiguous()
+            gauss = cast_rays(t_vals, rays_o, rays_d, radii)
+        raw = _apply_model(params, cfg, gauss, viewdirs, rcfg)
+        rgb_map, disp_map, acc_map, weights, _ = composite_intervals(
+            raw, t_vals, rays_d, cfg.density_bias, cfg.rgb_padding, rcfg.white_bkgd)
+        if level == 0 and rcfg.N_importance > 0:
+            ret.update(rgb0=rgb_map, disp0=disp_map, acc0=acc_map)
+        elif level == 1:
+            ret["z_std"] = torch.std(t_vals, dim=-1, correction=0)
+    ret.update(rgb_map=rgb_map, disp_map=disp_map, acc_map=acc_map)
+    if retraw:
+        ret["raw"] = raw
+    if retweights:
+        ret["weights"] = weights
+        ret["z_vals"] = t_vals
+    return ret
+
+
 def _model_parts(model):
     """(params, cfg) of a field module, a (params, cfg) tuple, or None."""
     if model is None:
@@ -349,6 +442,12 @@ class Renderer:
             rays_o, rays_d = rays[0], rays[1]
         if device is not None:
             rays_o, rays_d = rays_o.to(device), rays_d.to(device)
+        radii = None
+        if self.cfg.mip:
+            if rays_d.dim() != 3:
+                raise ValueError("mip-NeRF's cone radii come from a frame's rays "
+                                 "[H, W, 3]")
+            radii = frame_radii(rays_d.float()).reshape(-1, 1)
         if self.cfg.use_viewdirs:
             viewdirs = rays_d / torch.linalg.norm(rays_d, dim=-1, keepdim=True)
             viewdirs = viewdirs.reshape(-1, 3).float()
@@ -362,7 +461,8 @@ class Renderer:
         rays_d = rays_d.reshape(-1, 3).float()
         near = self.cfg.near * torch.ones_like(rays_d[..., :1])
         far = self.cfg.far * torch.ones_like(rays_d[..., :1])
-        packed = torch.cat([rays_o, rays_d, near, far], dim=-1)
+        packed = torch.cat([rays_o, rays_d, near, far]
+                           + ([radii] if radii is not None else []), dim=-1)
         if self.cfg.use_viewdirs:
             packed = torch.cat([packed, viewdirs], dim=-1)
         return packed, sh

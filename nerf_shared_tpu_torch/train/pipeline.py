@@ -162,16 +162,26 @@ def pixel_rays(images: torch.Tensor, poses: torch.Tensor, spec: PixelSamplerSpec
     are differentiable in them."""
     dev = images.device
     y, x = y.to(dev, non_blocking=True), x.to(dev, non_blocking=True)
-    dirs = _pixel_dirs(x.to(poses.dtype), y.to(poses.dtype), spec)
+    rays_d = pixel_dirs(poses, spec, img_idx, y, x)
     if img_idx.dim() == 0:
-        pose = poses[int(img_idx)]
-        rays_d = dirs @ pose[:3, :3].t()
-        rays_o = pose[:3, 3].expand(rays_d.shape)
+        rays_o = poses[int(img_idx)][:3, 3].expand(rays_d.shape)
         target = images[int(img_idx)][y, x]
     else:
         img_idx = img_idx.to(dev, non_blocking=True)
-        pose = poses[img_idx]
-        rays_d = torch.einsum("nc,nrc->nr", dirs, pose[:, :3, :3])
-        rays_o = pose[:, :3, 3]
+        rays_o = poses[img_idx][:, :3, 3]
         target = images[img_idx, y, x]
     return rays_o.contiguous(), rays_d.contiguous(), target
+
+
+def pixel_dirs(poses: torch.Tensor, spec: PixelSamplerSpec, img_idx: torch.Tensor,
+               y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """The unnormalised world directions [N, 3] of pixels (y, x) of the
+    drawn images (any y, the row below the image's last included: mip-NeRF's
+    cone radii read it), on the poses' device."""
+    dev = poses.device
+    y, x = y.to(dev, non_blocking=True), x.to(dev, non_blocking=True)
+    dirs = _pixel_dirs(x.to(poses.dtype), y.to(poses.dtype), spec)
+    if img_idx.dim() == 0:
+        return dirs @ poses[int(img_idx)][:3, :3].t()
+    pose = poses[img_idx.to(dev, non_blocking=True)]
+    return torch.einsum("nc,nrc->nr", dirs, pose[:, :3, :3])

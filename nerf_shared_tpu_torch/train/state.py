@@ -17,6 +17,12 @@ schedule of the JAX package evaluated at the same count). optax's Adam and
 torch's compute the same update, m̂ / (sqrt(v̂) + eps), bias-corrected by
 Adam's own count, which torch keeps per parameter (``step``).
 
+Under ``--model_type mipnerf`` the schedule is mip-NeRF's instead
+(``MipSchedule``: log-linear from ``lrate`` to ``lr_final`` over
+``max_steps``, times a delay that rises from ``delay_mult`` to 1 over the
+first ``delay_steps`` along a quarter sine), at step k + 1 as mip-NeRF's
+trainer counts its first update.
+
 ``fresh_state_at`` restarts Adam over new parameters (a triplane upsample)
 while ``count`` continues: the schedule goes on, Adam's own step restarts at
 0 with zeroed moments, so bias correction stays on.
@@ -46,6 +52,7 @@ and Adam state.
 from __future__ import annotations
 
 import collections
+import math
 from typing import Optional
 
 import torch
@@ -64,6 +71,23 @@ AUX_GROUPS = {"pose_twists": "pose", "appearance.gain": "appearance",
 def lr_at(lrate: float, lrate_decay: int, count: int) -> float:
     """Continuous exponential decay at schedule count ``count``."""
     return lrate * 0.1 ** (count / (lrate_decay * 1000))
+
+
+class MipSchedule:
+    """mip-NeRF's ``learning_rate_decay`` (``internal/utils.py``) at its
+    published Blender recipe: the rate at ``step`` from ``lr_init``
+    (``--lrate``)."""
+
+    lr_final = 5e-6
+    max_steps = 1_000_000
+    delay_steps = 2500
+    delay_mult = 0.01
+
+    def lr(self, lr_init: float, step: int) -> float:
+        delay = self.delay_mult + (1 - self.delay_mult) * math.sin(
+            0.5 * math.pi * min(max(step / self.delay_steps, 0.0), 1.0))
+        t = min(max(step / self.max_steps, 0.0), 1.0)
+        return delay * math.exp(math.log(lr_init) * (1 - t) + math.log(self.lr_final) * t)
 
 
 def make_model(cfg, device=None, generator: Optional[torch.Generator] = None):
@@ -97,9 +121,11 @@ class TrainState:
 
     def __init__(self, coarse, fine, lrate: float, lrate_decay: int,
                  grid_lrate: Optional[float] = None, aux=None,
-                 pose_lrate: float = 1e-3, appearance_lrate: float = 1e-3):
+                 pose_lrate: float = 1e-3, appearance_lrate: float = 1e-3,
+                 schedule: Optional[MipSchedule] = None):
         self.coarse, self.fine = coarse, fine
         self.lrate, self.lrate_decay = float(lrate), lrate_decay
+        self.schedule = schedule
         self.grid_lrate = None if grid_lrate is None else float(grid_lrate)
         # name (an AUX_GROUPS key) -> leaf tensor of the per-image groups
         self.aux = collections.OrderedDict(
@@ -175,13 +201,19 @@ class TrainState:
 
     def lr(self) -> float:
         """The net group's rate at the current count."""
-        return lr_at(self.lrate, self.lrate_decay, self.count)
+        return self.group_lr(self.lrate)
+
+    def group_lr(self, base_lr: float) -> float:
+        """A group's rate at the current count (module docstring)."""
+        if self.schedule is None:
+            return lr_at(base_lr, self.lrate_decay, self.count)
+        return self.schedule.lr(base_lr, self.count + 1)
 
     def apply_gradients(self):
         """One Adam update at each group's lr(count) from the parameters'
         .grad."""
         for group in self.optimizer.param_groups:
-            group["lr"] = lr_at(group["base_lr"], self.lrate_decay, self.count)
+            group["lr"] = self.group_lr(group["base_lr"])
         self.optimizer.step()
         self.count += 1
         self.step += 1
@@ -231,12 +263,14 @@ def create_train_state(coarse_cfg, fine_cfg, device, seed: int = 0,
                        grid_lrate: Optional[float] = None,
                        n_refine_poses: int = 0, pose_lrate: float = 1e-3,
                        n_appearance: int = 0,
-                       appearance_lrate: float = 1e-3) -> TrainState:
+                       appearance_lrate: float = 1e-3,
+                       schedule: Optional[MipSchedule] = None) -> TrainState:
     """Seeded fields (one torch.Generator from ``seed``, coarse then fine)
     and a fresh Adam; the grid group's rate defaults to 2e-2 whenever a
     branch is a grid family. ``n_refine_poses`` / ``n_appearance`` > 0 add
     the identity pose twists / appearance corrections of that many images,
-    each group with its own Adam rate."""
+    each group with its own Adam rate; ``schedule`` replaces the decay
+    (``MipSchedule``)."""
     g = torch.Generator().manual_seed(int(seed))
     coarse = make_model(coarse_cfg, device, g)
     fine = make_model(fine_cfg, device, g) if fine_cfg is not None else None
@@ -245,7 +279,8 @@ def create_train_state(coarse_cfg, fine_cfg, device, seed: int = 0,
         grid_lrate = 2e-2
     return TrainState(coarse, fine, lrate, lrate_decay, grid_lrate,
                       aux=init_aux(n_refine_poses, n_appearance, device),
-                      pose_lrate=pose_lrate, appearance_lrate=appearance_lrate)
+                      pose_lrate=pose_lrate, appearance_lrate=appearance_lrate,
+                      schedule=schedule)
 
 
 def fresh_state_at(coarse, fine, step: int, lrate: float = 5e-4,

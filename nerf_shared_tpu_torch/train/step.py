@@ -10,7 +10,11 @@ of the triplane feature planes of both branches (a no-op for the other
 families). Under ``RenderConfig.proposal`` there is no coarse MSE: the
 interlevel loss (ops/compositing.py), weighted by ``prop_reg``, trains the
 proposal network to bound the fine histogram; ``dist_reg`` > 0 adds the
-distortion loss over the final pass's weights.
+distortion loss over the final pass's weights. ``coarse_weight`` scales
+the coarse MSE: 1 in the reference, mip-NeRF's ``coarse_loss_mult`` 0.1
+under ``--model_type mipnerf``, whose rays also carry their cone radii
+(``pack_ray_batch``; ops/rays.cone_radii, from each pixel's direction and
+the direction of the pixel one row below).
 
 PyTorch runs eagerly, so a step is a sequence of launches, not one compiled
 program: there is no superstep scan. Under ``RenderConfig.fused_backward``
@@ -69,7 +73,7 @@ import torch.nn.functional as F
 
 from nerf_shared_tpu_torch.models.nerf import anneal_nerf_params
 from nerf_shared_tpu_torch.ops.compositing import distortion_loss, interlevel_loss
-from nerf_shared_tpu_torch.ops.rays import ndc_rays
+from nerf_shared_tpu_torch.ops.rays import cone_radii, ndc_rays
 from nerf_shared_tpu_torch.parallel.distributed import (
     World,
     all_reduce_grads,
@@ -83,7 +87,12 @@ from nerf_shared_tpu_torch.train.loss_sampling import (
     update_loss_map,
     weighted_tail,
 )
-from nerf_shared_tpu_torch.train.pipeline import PixelSamplerSpec, pixel_rays, sample_pixels
+from nerf_shared_tpu_torch.train.pipeline import (
+    PixelSamplerSpec,
+    pixel_dirs,
+    pixel_rays,
+    sample_pixels,
+)
 from nerf_shared_tpu_torch.train.pose_refine import apply_pose_twists
 from nerf_shared_tpu_torch.train.state import TrainState
 from nerf_shared_tpu_torch.utils.metrics import img2mse, mse2psnr
@@ -91,16 +100,19 @@ from nerf_shared_tpu_torch.utils.profiling import span
 
 
 def pack_ray_batch(rays_o, rays_d, rcfg: RenderConfig, H: int, W: int,
-                   focal: float) -> torch.Tensor:
+                   focal: float, radii: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Flat [N, 8|11] ray tensor [o, d, near, far(, viewdirs)] (reference
-    render_utils.py:205-226)."""
+    render_utils.py:205-226); under ``rcfg.mip`` [N, 12], the cone
+    ``radii`` [N, 1] after far."""
+    if rcfg.mip and radii is None:
+        raise ValueError("mip-NeRF's rays carry their cone radii")
     if rcfg.use_viewdirs:
         viewdirs = rays_d / torch.linalg.norm(rays_d, dim=-1, keepdim=True)
     if rcfg.ndc:
         rays_o, rays_d = ndc_rays(H, W, focal, 1.0, rays_o, rays_d)
     near = torch.full_like(rays_d[..., :1], rcfg.near)
     far = torch.full_like(rays_d[..., :1], rcfg.far)
-    parts = [rays_o, rays_d, near, far]
+    parts = [rays_o, rays_d, near, far] + ([radii] if rcfg.mip else [])
     if rcfg.use_viewdirs:
         parts.append(viewdirs)
     return torch.cat(parts, dim=-1)
@@ -112,8 +124,8 @@ def nerf_loss(params: Dict, ray_batch, target, rcfg: RenderConfig, ccfg, fcfg,
               generator: Optional[torch.Generator] = None,
               appearance: Optional[Dict[str, torch.Tensor]] = None,
               img_idx: Optional[torch.Tensor] = None, prop_reg: float = 1.0,
-              return_ray_err: bool = False):
-    """(loss, aux): loss = mse(fine, target) [+ mse(coarse, target)]
+              return_ray_err: bool = False, coarse_weight: float = 1.0):
+    """(loss, aux): loss = mse(fine, target) [+ coarse_weight * mse(coarse, target)]
     [+ prop_reg * interlevel] [+ dist_reg * distortion] [+ acc_reg *
     sparsity] [+ tv_reg * tv]; ``params`` is {"coarse": state dict, "fine":
     state dict or absent}; ``overrides`` pins the render's draws.
@@ -145,7 +157,7 @@ def nerf_loss(params: Dict, ray_batch, target, rcfg: RenderConfig, ccfg, fcfg,
         aux["dist_loss"] = dist_loss
     if "rgb0" in ret:
         img_loss0 = img2mse(ret["rgb0"], target)
-        loss = loss + img_loss0
+        loss = loss + coarse_weight * img_loss0
         aux["img_loss0"] = img_loss0
         aux["psnr0"] = mse2psnr(img_loss0)
     if acc_reg > 0.0:
@@ -208,7 +220,8 @@ def make_train_step(rcfg: RenderConfig, ccfg, fcfg, spec: PixelSamplerSpec,
                     barf_end: int = 0, barf_start: int = 0, prop_reg: float = 1.0,
                     dist_reg: float = 0.0,
                     loss_sampling: Optional[LossSamplingSpec] = None,
-                    ema_decay: float = 0.0, world: Optional[World] = None):
+                    ema_decay: float = 0.0, world: Optional[World] = None,
+                    coarse_weight: float = 1.0):
     """``train_step(state, images, poses, generator, draws=None,
     overrides=None) -> aux``: one iteration on ``state`` in place.
 
@@ -221,7 +234,8 @@ def make_train_step(rcfg: RenderConfig, ccfg, fcfg, spec: PixelSamplerSpec,
     as the module docstring says; aux then carries ``twist_norm`` /
     ``gain_norm`` (the RMS of the raw twists / gains). ``loss_sampling``
     needs ``state.loss_map`` and ``ema_decay`` > 0 ``state.ema``. With
-    ``world`` the step is data-parallel (module docstring)."""
+    ``world`` the step is data-parallel (module docstring);
+    ``coarse_weight`` scales the coarse MSE."""
     if loss_sampling is not None and not spec.single_image:
         raise ValueError(
             "--loss_sampling targets single-image sampling (no_batching); "
@@ -246,7 +260,11 @@ def make_train_step(rcfg: RenderConfig, ccfg, fcfg, spec: PixelSamplerSpec,
                     poses = refined_poses(state.pose_twists, poses, state.step,
                                           pose_start, pose_anchor)
                 rays_o, rays_d, target = pixel_rays(images, poses, spec, img_idx, y, x)
-                ray_batch = pack_ray_batch(rays_o, rays_d, rcfg, spec.H, spec.W, spec.fx)
+                radii = None
+                if rcfg.mip:
+                    radii = cone_radii(rays_d, pixel_dirs(poses, spec, img_idx, y + 1, x))
+                ray_batch = pack_ray_batch(rays_o, rays_d, rcfg, spec.H, spec.W, spec.fx,
+                                           radii)
                 params = {b: m.params() for b, m in state.branches()}
                 if barf_end > 0:
                     params = anneal_branches(params, ccfg, fcfg,
@@ -260,7 +278,8 @@ def make_train_step(rcfg: RenderConfig, ccfg, fcfg, spec: PixelSamplerSpec,
                                       dist_reg=dist_reg, overrides=overrides,
                                       generator=render_gen, appearance=app,
                                       img_idx=None if app is None else img_idx.to(images.device),
-                                      return_ray_err=loss_sampling is not None)
+                                      return_ray_err=loss_sampling is not None,
+                                      coarse_weight=coarse_weight)
                 if state.appearance is not None:
                     aux["gain_norm"] = torch.sqrt(torch.mean(state.appearance["gain"] ** 2))
                 if state.pose_twists is not None:

@@ -14,6 +14,7 @@
 
 import json
 import threading
+import time
 import urllib.request
 import warnings
 
@@ -236,7 +237,13 @@ def test_a_served_frame_records_the_request(tmp_path):
         post()  # outside a recording
         with _record():
             post()
+        # the handler closes request.encode and request after the response's
+        # last byte is written, which the client may read first
         got = profiling.spans()
+        deadline = time.monotonic() + 30
+        while any(s.end_ns is None for s in got.spans) and time.monotonic() < deadline:
+            time.sleep(0.01)
+            got = profiling.spans()
         with urllib.request.urlopen(url + "/metrics", timeout=60) as r:
             text = r.read().decode()
     finally:
