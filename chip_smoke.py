@@ -15,7 +15,8 @@ Phases (any failure exits non-zero and prints no result line):
             (nerf_points_bf16_kernel, nerf_rays_bf16_kernel,
             nerf_render_bf16_kernel), B1's IPE instantiation
             (nerf_points_ipe_kernel) and B2's tile kernels
-            (nerf_bwd_kernel, nerf_bwd_bf16_kernel, nerf_bwd_ipe_kernel)
+            (nerf_bwd_kernel<true> / <false>, with and without dx,
+            nerf_bwd_bf16_kernel, nerf_bwd_ipe_kernel)
             must have warpgroup MMAs (HGMMA), B2's nerf_dw_kernel and
             nerf_dw_bf16_kernel warp MMAs (HMMA).
 2. kernels  at the lego width (8x256, skip at 4, viewdirs, multires 10/4)
@@ -57,17 +58,20 @@ Phases (any failure exits non-zero and prints no result line):
             max(1, max|plain|), as B3); B1 timed in turns with the plain
             chain (median and min-max of 10 samples) beside both bounds,
             as B3, and its weight pack's time; B2 (within 1e-3 of each
-            gradient's max) timed the same way, with its two kernels' and
-            its reduction's device ms under the profiler, its host packs'
-            ms and both bounds (the design's: all of B2's FLOPs in split
-            fp32 on the tensor cores, 3 TF32 products a multiply-add; all
-            FLOPs on the fp32 CUDA cores), and 20 runs at
-            196,608 points bit-identical to the first. Then one full
-            training step of each recipe (lego: N_rand 1024, 64 + 128
+            gradient's max) timed the same way (fused_mlp_backward: B1's
+            training launch, which writes H, then B2), with B1's training
+            launch's, B2's two kernels' and its reduction's device ms under
+            the profiler, its host packs' ms and both bounds (the design's:
+            all of B2's FLOPs in split fp32 on the tensor cores, 3 TF32
+            products a multiply-add; all FLOPs on the fp32 CUDA cores), and
+            20 runs at 196,608 points bit-identical to the first. Then one
+            full training step of each recipe (lego: N_rand 1024, 64 + 128
             samples; fern: N_rand 1024, 64 + 64 samples, NDC, the batching
             sampler, sigma noise 1.0) through the kernels and through the
             plain path with the same draws (noise included): loss, every
-            gradient and the post-Adam parameters must agree.
+            gradient and the post-Adam parameters must agree; the kernel
+            step makes 2 B1 + 2 B2 launches and its B1 writes H for every
+            point of the step (fused_mlp.SAVED_H_POINTS).
 6. training a 3-D-consistent blender scene (benchmarks/hard_scene.py,
             800x800 frames -> 400x400 under half_res) trained with
             configs/lego.txt through apps/train.main for a few hundred
@@ -396,10 +400,13 @@ TC_DESIGN = ("split fp32 (3xTF32) on wgmma.m64nNk8 tensor cores, 128-point tiles
              "bulk-copy weight ring with mbarriers (csrc/mlp_tile_tc.cuh)")
 B1_DESIGN = (TC_DESIGN + "; point-major encoder (f·x); each 8-row slice summed on the "
              "tensor cores from zero and added in fp32 on the CUDA cores")
-B2_DESIGN = ("tile kernel: B1's 128-point tensor-core tile (csrc/mlp_tile_tc.cuh), forward "
-             "remat + input gradients dh = dz·W in split fp32 (3xTF32) on wgmma.m64nNk8, "
-             "each 8-row slice summed from zero and added in fp32, both sweeps' weights "
-             "through one bulk-copy ring, H and dZ written from the epilogues; "
+B2_DESIGN = ("tile kernel: B1's 128-point tensor-core tile (csrc/mlp_tile_tc.cuh), input "
+             "gradients dh = dz·W in split fp32 (3xTF32) on wgmma.m64nNk8 over the layer "
+             "inputs H that B1's training launch wrote from its epilogues (no forward "
+             "remat; nerf_bwd_kernel<false>, where no input needs a gradient, runs no GEMM "
+             "into the embedding and forms no dx), each 8-row slice summed from zero and "
+             "added in fp32, the weights through a bulk-copy ring, dZ written from the "
+             "epilogues; "
              "nerf_dw_kernel: dW = H^T·dZ in split fp32 (3xTF32) on mma.sync.m16n8k8, "
              "128x128 output tiles over split-K point ranges, 3-stage cp.async ring, "
              "each k8 step summed on the tensor cores from zero and added in fp32 on "
@@ -932,13 +939,13 @@ def camera_held(got, plain, ref):
 def bwd_bounds(cfg, params, n):
     """B2's two bounds on n points, ((ms, by) of the design, (ms, by) on
     the fp32 CUDA cores): operations, all of B2's FLOPs (the tile kernel's
-    two forwards less the narrow heads, the dW products' one) x 3 TF32
+    input gradients, one forward's worth, and the dW products' one) x 3 TF32
     products over the TF32 peak for the design, all of them over the fp32
     peak for the other; vs the bytes of the function (points, directions,
     cotangent and weights in; dx and the gradients out). The H and dZ
     buffers (19,856 bytes a point at the lego width) are the design's own
     traffic, not the function's, and overlap the arithmetic of both
-    kernels."""
+    kernels (B1's training launch writes H, 10,096 bytes a point)."""
     from nerf_shared_tpu_torch.ops.cuda.fused_mlp import network_bytes
     from nerf_shared_tpu_torch.ops.cuda.fused_mlp_bwd import flops_per_point_bwd
 
@@ -1000,7 +1007,7 @@ def check_b2_repeats(params, cfg, pts, vd, g, runs=20):
 
 
 def relu_masks(cfg, hbuf, n_pad, n):
-    """B2's ReLU decisions, read from the H buffer its tile kernel wrote
+    """B2's ReLU decisions, read from the H buffer its tile kernel read
     (fused_mlp_bwd.launch_backward_h; act_layout's segments): h_l > 0
     [n, W] for every trunk layer, then hv > 0 [n, W // 2] with viewdirs."""
     from nerf_shared_tpu_torch.ops.cuda.fused_mlp_bwd import H_HV, act_layout
@@ -1243,46 +1250,59 @@ def train_kernel_cases(cfg, params, n_rays, S, rays, what, device, tol_fwd, tol_
         pack_ms = time_ms(lambda: fused_mlp.pack_network_tc(params, cfg, pts.device), 5)
         packs = (fused_mlp.pack_network_tc, fused_mlp_bwd.pack_backward_tc)
         pack2_ms = time_ms(lambda: [f(params, cfg, pts.device) for f in packs], 5)
-    t2, tp2 = in_turns(lambda: fused_mlp_bwd.fused_mlp_backward(params, cfg, pts, vd, g),
-                       lambda: fused_mlp_bwd.plain_mlp_backward(params, cfg, pts, vd, g),
+    # B1's training launch (it writes H) timed on its own; B2 over that H,
+    # made outside the timed calls, with dx (a pose step) and without (a
+    # step whose points need no gradient: nerf_bwd_kernel<false>)
+    with torch.no_grad():
+        t1h = time_ms(lambda: fused_mlp_bwd.forward_saving_h(params, cfg, pts, vd), 5)
+    saved = fused_mlp_bwd.forward_saving_h(params, cfg, pts, vd)[1]
+
+    def b2(dx=True):
+        return fused_mlp_bwd.launch_backward(params, cfg, pts, vd, g, saved=saved, dx=dx)
+
+    t2, tp2 = in_turns(b2, lambda: fused_mlp_bwd.plain_mlp_backward(params, cfg, pts, vd, g),
                        reps=5)
-    parts = kernels_ms(lambda: fused_mlp_bwd.fused_mlp_backward(params, cfg, pts, vd, g),
-                       3, ("nerf_bwd_kernel", "nerf_dw_kernel", "grad_reduce_kernel"))
+    names = ("nerf_bwd_kernel", "nerf_dw_kernel", "grad_reduce_kernel")
+    parts = kernels_ms(b2, 3, names)
+    tile_nodx = kernels_ms(lambda: b2(dx=False), 3, names[:1])["nerf_bwd_kernel"]
+    del saved
     (b1, by1), (f1, fby1) = points_bounds(cfg, params, n_rays, S)
-    (b2, by2), (f2, fby2) = bwd_bounds(cfg, params, n_rays * S)
+    (b2b, by2), (f2, fby2) = bwd_bounds(cfg, params, n_rays * S)
     verdict = "beats" if t1[2] < tp1[1] else "loses to" if t1[1] > tp1[2] else "ties"
     verdict2 = "beats" if t2[2] < tp2[1] else "loses to" if t2[1] > tp2[2] else "ties"
     log(f"B1 fused_mlp points N={n_rays * S}: {spread(t1)} ms vs plain {spread(tp1)} ms "
         f"({verdict} it; median [min-max] of 10 samples in turns); bound "
         f"{b1:.2f} ms split fp32 on the tensor cores ({by1}), {f1:.2f} ms fp32 on "
         f"the CUDA cores ({fby1}); {100 * b1 / t1[0]:.1f}% of the design's bound; "
-        f"its weight pack (pack_network_tc) {pack_ms:.3f} ms a call")
+        f"its weight pack (pack_network_tc) {pack_ms:.3f} ms a call; its training "
+        f"launch (nerf_points_tc_kernel<true>, writing H) {t1h:.4f} ms")
 
     def fmt(v):
         return "absent" if v is None else f"{v:.4f}"
 
-    log(f"B2 fused_mlp_bwd N={n_rays * S}: {spread(t2)} ms vs plain {spread(tp2)} ms "
-        f"({verdict2} it; median [min-max] of 10 samples in turns); device ms by "
-        f"kernel (profiler, 3 calls): nerf_bwd_kernel (tile) "
-        f"{fmt(parts['nerf_bwd_kernel'])}, nerf_dw_kernel {fmt(parts['nerf_dw_kernel'])}, "
-        f"grad_reduce_kernel {fmt(parts['grad_reduce_kernel'])}; bound {b2:.2f} ms "
+    log(f"B2 fused_mlp_bwd N={n_rays * S}: {spread(t2)} ms over B1's saved H vs plain "
+        f"{spread(tp2)} ms (its own forward included; {verdict2} it; median [min-max] of 10 "
+        f"samples in turns); device ms by kernel (profiler, 3 calls): nerf_bwd_kernel "
+        f"(tile) {fmt(parts['nerf_bwd_kernel'])}, without dx {fmt(tile_nodx)}, "
+        f"nerf_dw_kernel {fmt(parts['nerf_dw_kernel'])}, grad_reduce_kernel "
+        f"{fmt(parts['grad_reduce_kernel'])}; bound {b2b:.2f} ms "
         f"design (all FLOPs split fp32 on the tensor cores; {by2}; the H and dZ "
         f"traffic overlaps both), {f2:.2f} ms fp32 "
-        f"on the CUDA cores ({fby2}); {100 * b2 / t2[0]:.1f}% of the design's bound; "
+        f"on the CUDA cores ({fby2}); {100 * b2b / t2[0]:.1f}% of the design's bound; "
         f"its packs ({' + '.join(f.__name__ for f in packs)}) {pack2_ms:.3f} ms a call")
     cases.append(dict(kernel="fused_mlp_points", S=S, n_points=n_rays * S,
                       max_abs_err=e1, ms=t1[0], ms_min=t1[1], ms_max=t1[2],
                       plain_ms=tp1[0], plain_min=tp1[1], plain_max=tp1[2],
                       bound_ms=b1, bound_by=by1, bound_fp32_cuda_cores_ms=f1,
-                      vs_plain=verdict, pack_ms=pack_ms, design=B1_DESIGN))
+                      vs_plain=verdict, pack_ms=pack_ms, train_ms=t1h, design=B1_DESIGN))
     b2_case = dict(kernel="fused_mlp_bwd", S=S, n_points=n_rays * S,
                    max_abs_err=e2, max_rel_err=max(errs.values()), ms=t2[0],
                    ms_min=t2[1], ms_max=t2[2], plain_ms=tp2[0], plain_min=tp2[1],
-                   plain_max=tp2[2], bound_ms=b2, bound_by=by2,
+                   plain_max=tp2[2], bound_ms=b2b, bound_by=by2,
                    bound_fp32_cuda_cores_ms=f2, vs_plain=verdict2,
-                   tile_ms=parts["nerf_bwd_kernel"], dw_ms=parts["nerf_dw_kernel"],
-                   reduce_ms=parts["grad_reduce_kernel"], pack_ms=pack2_ms,
-                   design=B2_DESIGN)
+                   tile_ms=parts["nerf_bwd_kernel"], tile_nodx_ms=tile_nodx,
+                   dw_ms=parts["nerf_dw_kernel"], reduce_ms=parts["grad_reduce_kernel"],
+                   pack_ms=pack2_ms, design=B2_DESIGN)
     if repeats:
         b2_case["identical_runs"] = check_b2_repeats(params, cfg, pts, vd, g)
     cases.append(b2_case)
@@ -1453,13 +1473,14 @@ def check_train_step(device, recipe="lego"):
     for fused in (True, False):
         state, step, images, poses, ov, draws = train_step_setup(device, fused, recipe)
         params = state.parameters() + list(state.aux.values())
-        before = (fused_mlp.POINT_LAUNCHES, fused_mlp_bwd.LAUNCHES)
+        before = (fused_mlp.POINT_LAUNCHES, fused_mlp_bwd.LAUNCHES, fused_mlp.SAVED_H_POINTS)
         with dec.record() if fused else dec.replay():
             aux = step(state, images, poses, torch.Generator().manual_seed(9), draws=draws,
                        overrides=ov)
         torch.cuda.synchronize()
         launched = (fused_mlp.POINT_LAUNCHES - before[0], fused_mlp_bwd.LAUNCHES - before[1])
         out[fused] = dict(loss=float(aux["loss"]), launched=launched,
+                          saved_h=fused_mlp.SAVED_H_POINTS - before[2],
                           grads=[p.grad.detach().clone() for p in params],
                           params=[p.detach().clone() for p in params],
                           lrs=[g["lr"] for g in state.optimizer.param_groups
@@ -1473,6 +1494,11 @@ def check_train_step(device, recipe="lego"):
     k, p = out[True], out[False]
     if k["launched"] != (2, 2) or p["launched"] != (0, 0):
         raise AssertionError(f"step launches: kernels {k['launched']}, plain {p['launched']}")
+    # B1's training launches wrote H for every point of both passes
+    step_points = 1024 * (64 + (64 + 64 if recipe == "fern" else 64 + 128))
+    if k["saved_h"] != step_points or p["saved_h"] != 0:
+        raise AssertionError(f"step H points: kernels {k['saved_h']} (want {step_points}), "
+                             f"plain {p['saved_h']}")
     loss_err = abs(k["loss"] - p["loss"]) / abs(p["loss"])
     # the pose twists and appearance gains (after the fields) are camera
     # gradients: held against the plain step in float64 (camera_held)
@@ -1504,7 +1530,7 @@ def check_train_step(device, recipe="lego"):
             "refine": "64 + 128 samples, pose twists + appearance + BARF at progress 0.5"
             }[recipe]
     log(f"train step {recipe} (N_rand 1024, {what}): kernels {k['ms']:.2f} ms, plain "
-        f"{p['ms']:.2f} ms; loss rel err {loss_err:.1e} (tol 1e-5), worst field gradient "
+        f"{p['ms']:.2f} ms; 2 B1 + 2 B2, H of {k['saved_h']:,} points; loss rel err {loss_err:.1e} (tol 1e-5), worst field gradient "
         f"{grad_err:.1e} of max|grad| (tol 1e-3){dec.note()}{aux_note}; post-Adam params: "
         f"{param_err:.1e} "
         f"apart (at lr 5e-4) on the {n_sure} of {n_par} entries whose gradient dwarfs eps "
@@ -1516,7 +1542,8 @@ def check_train_step(device, recipe="lego"):
             and adam_err <= 1e-6 and moved <= moved_tol and aux_ok):
         raise AssertionError(f"the kernel training step ({recipe}) disagrees with the "
                              "plain step")
-    return {"kernel_ms": k["ms"], "plain_ms": p["ms"], "loss_rel_err": loss_err,
+    return {"kernel_ms": k["ms"], "plain_ms": p["ms"], "saved_h_points": k["saved_h"],
+            "loss_rel_err": loss_err,
             "grad_rel_err": grad_err, "param_err": param_err, "adam_err": adam_err,
             "moved": moved, "moved_tol": moved_tol, "moved_max_grad": moved_g,
             "sure": n_sure, "n_params": n_par}
@@ -2035,6 +2062,7 @@ def zero_counts():
     fused_mlp.POINT_LAUNCHES_BF16 = fused_mlp.LAUNCHES_BF16 = 0
     fused_render.LAUNCHES_BF16 = fused_mlp_bwd.LAUNCHES_BF16 = 0
     fused_mlp.POINT_LAUNCHES_IPE = fused_mlp.IPE_POINTS = fused_mlp_bwd.LAUNCHES_IPE = 0
+    fused_mlp.SAVED_H_POINTS = 0
     gather.LAUNCHES.update(gather=0, scatter_add=0)
 
 
@@ -3754,9 +3782,10 @@ class ReluDecisions:
         from nerf_shared_tpu_torch.ops.cuda import fused_mlp_bwd
 
         def wrap(orig):
-            def run(params, cfg, pts, viewdirs, g, compute_dtype=torch.float32):
+            def run(params, cfg, pts, viewdirs, g, compute_dtype=torch.float32, saved=None,
+                    dx=True):
                 *out, hbuf, n_pad = fused_mlp_bwd.launch_backward_h(params, cfg, pts, viewdirs,
-                                                                    g, compute_dtype)
+                                                                    g, compute_dtype, saved, dx)
                 n = pts.numel() // 3
                 masks = relu_masks(cfg, hbuf, n_pad, n)
                 self.masks.setdefault((n, cfg), []).append(masks)
@@ -5027,16 +5056,17 @@ def bf16_plain_versions(decisions=None):
     import torch
 
     def forward(orig):
-        def run(params, cfg, pts, viewdirs, compute_dtype=torch.float32):
+        def run(params, cfg, pts, viewdirs, compute_dtype=torch.float32, hout=None):
             if compute_dtype != torch.bfloat16:
-                return orig(params, cfg, pts, viewdirs)
+                return orig(params, cfg, pts, viewdirs, compute_dtype, hout)
             return fused_mlp.plain_nerf_forward(params, cfg, pts, viewdirs, compute_dtype)
         return run
 
     def backward(orig):
-        def run(params, cfg, pts, viewdirs, g, compute_dtype=torch.float32):
+        def run(params, cfg, pts, viewdirs, g, compute_dtype=torch.float32, saved=None,
+                dx=True):
             if compute_dtype != torch.bfloat16:
-                return orig(params, cfg, pts, viewdirs, g)
+                return orig(params, cfg, pts, viewdirs, g, compute_dtype, saved, dx)
             key = (pts.numel() // 3, cfg)
             if decisions is None or key not in decisions.masks:
                 return fused_mlp_bwd.plain_mlp_backward_bf16(params, cfg, pts, viewdirs, g)
@@ -5759,16 +5789,14 @@ def rel_norm(got, want):
 def mip_bounds(cfg, params, n_rays, S):
     """(B1's, B2's) two bounds each, ((ms, by) of the design, (ms, by) on
     the fp32 CUDA cores), on n_rays x S Gaussians: B1 as points_bounds
-    with 6-float records; B2 as bwd_bounds less the GEMMs into the
-    embedding (the IPE instantiation forms no dx) and with no dx out."""
+    with 6-float records; B2 as bwd_bounds (whose tile count leaves out
+    the GEMMs into the embedding under IPE: no dx) and with no dx out."""
     from nerf_shared_tpu_torch.ops.cuda.fused_mlp import flops_per_point, network_bytes
     from nerf_shared_tpu_torch.ops.cuda.fused_mlp_bwd import flops_per_point_bwd
 
     n = n_rays * S
-    P, V, W = cfg.input_ch, cfg.input_ch_views, cfg.W
-    from_emb = 1 + sum(1 for s in cfg.skips if s + 1 < cfg.D)
     f1 = flops_per_point(cfg) * n
-    f2 = (flops_per_point_bwd(cfg) - 2 * (from_emb * P * W + V * (W // 2))) * n
+    f2 = flops_per_point_bwd(cfg) * n
     b1 = 4 * (n_rays * 3 + n * 6 + n * 4) + network_bytes(params, cfg)
     b2 = 4 * (n_rays * 3 + n * 6 + n * 4) + 2 * network_bytes(params, cfg)
     out = []
@@ -5843,28 +5871,37 @@ def mip_kernel_cases(device, cfg, params):
     with torch.no_grad():
         t1, tp1 = in_turns(lambda: fused_mlp.launch_points(params, cfg, gauss, vd),
                            lambda: apply_nerf(params, cfg, gauss, vd), rounds=3, reps=5)
-    t2, tp2 = in_turns(lambda: fused_mlp_bwd.launch_backward(params, cfg, gauss, vd, g),
-                       lambda: mip_grads(params, cfg, gauss, vd, g, torch.float32),
+        # B1's IPE training launch (it writes H) on its own
+        t1h = time_ms(lambda: fused_mlp_bwd.forward_saving_h(params, cfg, gauss, vd), 3)
+    # B2 alone, over an H made outside the timed calls
+    saved = fused_mlp_bwd.forward_saving_h(params, cfg, gauss, vd)[1]
+
+    def b2():
+        return fused_mlp_bwd.launch_backward(params, cfg, gauss, vd, g, saved=saved)
+
+    t2, tp2 = in_turns(b2, lambda: mip_grads(params, cfg, gauss, vd, g, torch.float32),
                        rounds=3, reps=3)
-    parts = kernels_ms(lambda: fused_mlp_bwd.launch_backward(params, cfg, gauss, vd, g),
-                       3, ("nerf_bwd_ipe_kernel", "nerf_dw_kernel", "grad_reduce_kernel"))
+    parts = kernels_ms(b2, 3, ("nerf_bwd_ipe_kernel", "nerf_dw_kernel", "grad_reduce_kernel"))
+    del saved
     ((b1, by1), (f1, fby1)), ((b2, by2), (f2, fby2)) = mip_bounds(cfg, params, n, S)
     cases = []
     for kernel, t, tp, b, by, f, err, extra in (
             ("fused_mlp_points_ipe", t1, tp1, b1, by1, f1, e1,
-             dict(design=MIP_DESIGN, fault_errs=faults1)),
+             dict(design=MIP_DESIGN, fault_errs=faults1, train_ms=t1h)),
             ("fused_mlp_bwd_ipe", t2, tp2, b2, by2, f2, e2,
-             dict(design=B2_DESIGN + "; the tile with the IPE encoder and no dx "
-                  "(nerf_bwd_ipe_kernel)", max_rel_err=errs2[worst],
+             dict(design=B2_DESIGN + "; the tile over H from B1's IPE training launch, no "
+                  "dx (nerf_bwd_ipe_kernel)", max_rel_err=errs2[worst],
                   tile_ms=parts["nerf_bwd_ipe_kernel"], dw_ms=parts["nerf_dw_kernel"],
                   reduce_ms=parts["grad_reduce_kernel"], fault_over_tol=faults2))):
         verdict = "beats" if t[2] < tp[1] else "loses to" if t[1] > tp[2] else "ties"
         log(f"{kernel} N={n * S}: {spread(t)} ms vs plain {spread(tp)} ms ({verdict} it; "
             f"median [min-max] in turns); bound {b:.2f} ms split fp32 on the tensor cores "
             f"({by}), {f:.2f} ms fp32 on the CUDA cores; {100 * b / t[0]:.1f}% of the "
-            f"design's bound" + (f"; tile {parts['nerf_bwd_ipe_kernel']:.3f}, dW "
+            f"design's bound" + (f"; over B1's saved H (the plain route runs its own "
+                                 f"forward): tile {parts['nerf_bwd_ipe_kernel']:.3f}, dW "
                                  f"{parts['nerf_dw_kernel']:.3f} ms (profiler)"
-                                 if kernel == "fused_mlp_bwd_ipe" else ""))
+                                 if kernel == "fused_mlp_bwd_ipe" else
+                                 f"; its training launch (writing H) {t1h:.4f} ms"))
         cases.append(dict(kernel=kernel, S=S, n_points=n * S, max_abs_err=err, ms=t[0],
                           ms_min=t[1], ms_max=t[2], plain_ms=tp[0], plain_min=tp[1],
                           plain_max=tp[2], bound_ms=b, bound_by=by,
@@ -5917,11 +5954,13 @@ def mip_train_step(device, params):
     finally:
         torch.cuda.set_sync_debug_mode(prev)
     torch.cuda.synchronize()
-    launches, points = launch_counts(), fused_mlp.IPE_POINTS
+    launches, points, saved = launch_counts(), fused_mlp.IPE_POINTS, fused_mlp.SAVED_H_POINTS
     want = {"fused_mlp_points_ipe": 2, "fused_mlp_bwd_ipe": 2}
     expect_launches("mip step", launches, want)
-    if points != 2 * MIP_RAYS * MIP_S or not bool(torch.isfinite(aux["loss"])):
-        raise AssertionError(f"mip step: {points} Gaussians encoded, loss {aux['loss']}")
+    if (points != 2 * MIP_RAYS * MIP_S or saved != points
+            or not bool(torch.isfinite(aux["loss"]))):
+        raise AssertionError(f"mip step: {points} Gaussians encoded, H of {saved}, "
+                             f"loss {aux['loss']}")
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     start.record()
     for _ in range(5):
@@ -5929,10 +5968,12 @@ def mip_train_step(device, params):
     end.record()
     torch.cuda.synchronize()
     ms = start.elapsed_time(end) / 5
-    log(f"  mip step: launches {_nonzero(launches)}, {points:,} Gaussians encoded, no host "
+    log(f"  mip step: launches {_nonzero(launches)}, {points:,} Gaussians encoded, H of "
+        f"{saved:,} written by B1 for B2, no host "
         f"sync (set_sync_debug_mode error), loss {float(aux['loss']):.4f}; {ms:.2f} ms a "
         f"step over 5 ({MIP_RAYS * 1e3 / ms:,.0f} rays/s)")
-    return {"mip_train_step": launches}, {"ms_per_step": ms, "ipe_points": points}
+    return {"mip_train_step": launches}, {"ms_per_step": ms, "ipe_points": points,
+                                          "saved_h_points": saved}
 
 
 def phase_mip(device, smi):
@@ -6055,14 +6096,17 @@ TC_KERNELS = {"fused_mlp": [("HGMMA", ("nerf_points_tc_kernel", "nerf_rays_tc_ke
                                        "nerf_points_bf16_kernel", "nerf_rays_bf16_kernel",
                                        "nerf_points_ipe_kernel"))],
               "fused_render": [("HGMMA", ("nerf_render_tc_kernel", "nerf_render_bf16_kernel"))],
-              "fused_mlp_bwd": [("HGMMA", ("nerf_bwd_kernel", "nerf_bwd_bf16_kernel",
-                                           "nerf_bwd_ipe_kernel")),
+              "fused_mlp_bwd": [("HGMMA", ("nerf_bwd_kernel<true>", "nerf_bwd_kernel<false>",
+                                           "nerf_bwd_bf16_kernel", "nerf_bwd_ipe_kernel")),
                                 ("HMMA", ("nerf_dw_kernel", "nerf_dw_bf16_kernel"))]}
 
 
 def demangled(name):
     """The nested name of an Itanium-mangled symbol (nstt::nerf_dw_kernel),
+    with its bool template arguments (nstt::tc::nerf_points_tc_kernel<true>),
     or the symbol as it is."""
+    import re
+
     i = 2 if name.startswith("_Z") else 0
     if name[i:i + 1] == "N":
         i += 1
@@ -6074,7 +6118,10 @@ def demangled(name):
         k = int(name[i:j])
         parts.append(name[j:j + k])
         i = j + k
-    return "::".join(parts) or name
+    m = re.match(r"I((?:Lb[01]E)+)E", name[i:])
+    args = "<" + ", ".join("true" if b == "1" else "false"
+                           for b in re.findall(r"Lb([01])E", m.group(1))) + ">" if m else ""
+    return "::".join(parts) + args if parts else name
 
 
 def check_tensor_cores(parent=False):

@@ -12,7 +12,14 @@ runs itself once in each tree, in a fresh process with that tree first on
 own sources. Each run calls the fp32 entry points (no compute dtype given)
 on the same seeded inputs: B1, B2, B3, B4 and B5 at the lego width and
 shapes, and B1-B4 at phase 2's other architectures of ``chip_smoke.py``
-at odd shapes. It takes the sha256 of every output tensor's bytes, twice,
+at odd shapes; and (fp32) one pass of a training step through
+``fused_train_op`` under autograd, B1's forward then B2's backward: raw,
+every weight gradient and dpts of lego's fine pass (1024 x 192 points) and
+of a small net without viewdirs (each also with points that need no
+gradient, as in every step but a pose step), and mip-NeRF's coarse pass
+(4096 x 128 Gaussians, the IPE instantiations), so that two trees' B2
+routes (B1's saved layer inputs, or the tile's own rerun of the forward;
+with or without dx) are held bit for bit. It takes the sha256 of every output tensor's bytes, twice,
 and fails if the two passes disagree (a kernel that is not deterministic
 cannot be held bit for bit). The parent prints one line per output that
 differs, then ``fp32 digest: N outputs, M differ`` and the card's name and
@@ -104,7 +111,39 @@ def digests(device, bf16=False):
         raw = torch.randn(8192, 192, 4, generator=torch.Generator().manual_seed(7)).to(device)
         for white in (False, True):
             put(f"B5 8192x192 white={white}", composite.composite_fused(raw, z, d, white))
+    for label, cfg, seed, n, S in step_cases():
+        params = {k: v.detach() for k, v in NeRF(
+            cfg, device=device, generator=torch.Generator().manual_seed(seed)).params().items()}
+        o, d, z, vd = rays(n, S, seed, device)
+        pts = (o[:, None] + d[:, None] * z[..., None]).contiguous()
+        if cfg.ipe:   # Gaussians: the mean, then small variances
+            var = 1e-4 * (1 + torch.rand(n, S, 3, generator=torch.Generator().manual_seed(seed)))
+            pts = torch.cat([pts, var.to(device)], -1).contiguous()
+        vd = vd if cfg.use_viewdirs else None
+        # with the points' gradient (a pose step) and without it (every
+        # other step: B2's tile then forms no dx)
+        for need_x in ((False,) if cfg.ipe else (True, False)):
+            leaves = {k: v.clone().requires_grad_(True) for k, v in params.items()}
+            x = pts.clone().requires_grad_(need_x)
+            with torch.enable_grad():
+                raw = fused_mlp_bwd.fused_train_op(leaves, cfg, x, vd)
+                g = torch.randn(raw.shape,
+                                generator=torch.Generator().manual_seed(seed)).to(device)
+                ins = list(leaves.values()) + ([x] if need_x else [])
+                grads = torch.autograd.grad((raw * g).sum(), ins)
+            tag = "" if need_x or cfg.ipe else " (points need no gradient)"
+            put(f"{label} step raw{tag}", raw)
+            put(f"{label} step grads{tag}", dict(zip(list(leaves) + ["dpts"], grads)))
     return out
+
+
+def step_cases():
+    """(label, cfg, seed, rays, samples) of the training-step passes."""
+    from nerf_shared_tpu_torch.models.nerf import MipNeRFConfig, NeRFConfig
+
+    return [("lego fine", NeRFConfig(**LEGO), 0, 1024, 192),
+            ("arch0", NeRFConfig(**OTHER[0]), 1, 37, 65),
+            ("mip coarse", MipNeRFConfig(multires=16), 18, 4096, 128)]
 
 
 def one(tree, bf16=False):

@@ -662,9 +662,9 @@ def config_parser() -> ConfigArgumentParser:
                              'scaling valve for grids above 64^3')
     parser.add_argument("--fused_backward", type=_str2bool, default=None,
                         help='train through the hand-written CUDA kernels: '
-                             'B1 (fused encoder + MLP forward) and B2 (fused '
-                             'backward, forward rematerialised per tile, '
-                             'fp32). Default: auto — ON for the MLP family '
+                             'B1 (fused encoder + MLP forward, which keeps '
+                             'every layer input for the backward) and B2 '
+                             '(fused backward over them, fp32). Default: auto — ON for the MLP family '
                              'on --device cuda; on the CPU the kernels\' '
                              'plain versions (apply_nerf and autograd) run '
                              'whatever the flag says')
@@ -672,8 +672,8 @@ def config_parser() -> ConfigArgumentParser:
                         help='rematerialize the grid families\' encode and '
                              'decoder in backward (torch.utils.checkpoint) '
                              'to train larger ray batches; the MLP '
-                             'family\'s backward kernel B2 rematerialises '
-                             'its forward itself')
+                             'family\'s kernels B1 / B2 keep its layer '
+                             'inputs on the card for the backward')
     parser.add_argument("--debug_nans", type=_str2bool, default=False,
                         help='raise at the source of the first NaN: '
                              'autograd anomaly mode and a finite check on '

@@ -49,6 +49,13 @@
 // (mlp_tile_tc.cuh IpeEnc) over Gaussian records [N, 6] (mean, variances)
 // in place of the points; the same tile, entries and launch.
 //
+// B1's training launch (nerf_points_tc_kernel<true>, nerf_points_ipe_kernel
+// <true>; entries nstt_points_train_tc / _ipe) is the same kernel that also
+// writes every layer input it forms to B2's H buffer (the embedding once a
+// tile, each GEMM's output in its epilogue), which fused_mlp_bwd.cu's tile
+// reads in place of rerunning the forward. Every other launch
+// (<false>: frames, probes, eval) writes no H.
+//
 // bf16 (nerf_points_bf16_kernel, nerf_rays_bf16_kernel; --precision bf16):
 // the TPU kernels' bf16 instantiations (_make_kernel / _make_ray_kernel
 // with compute_dtype bfloat16), on the bf16 tile designed for Hopper
@@ -66,11 +73,13 @@ namespace tc {
 
 // One persistent block an SM walks the flat point tiles (B3: gp = r * S +
 // s), the ring running on from tile to tile; kSliceSums: tile_network's
-// per-slice sums rounded to nearest (B1).
-template <class Enc, bool kSliceSums>
+// per-slice sums rounded to nearest (B1); kSaveH: every layer input of
+// every tile to ho's H buffer as well (B1's training launch).
+template <class Enc, bool kSliceSums, bool kSaveH = false>
 __device__ inline void forward_tiles(const Desc* __restrict__ gdesc,
                                      const float* __restrict__ wb, const Enc& e,
-                                     float* __restrict__ out, long long total, int R) {
+                                     float* __restrict__ out, long long total, int R,
+                                     const HOut& ho = HOut{}) {
   __shared__ Desc d;
   __shared__ unsigned long long bars[2 * MAX_SLOTS];
   extern __shared__ float4 dyn[];
@@ -85,7 +94,7 @@ __device__ inline void forward_tiles(const Desc* __restrict__ gdesc,
   for (long long t = blockIdx.x; t < n_tiles; t += gridDim.x) {
     const long long p0 = t * TP;
     tile_rows(d, e, p0, total, s);
-    tile_network<Enc, kSliceSums>(d, wb, e, s, ring);
+    tile_network<Enc, kSliceSums, kSaveH>(d, wb, e, s, ring, ho, p0, total);
     for (int i = threadIdx.x; i < TP * OUT; i += NTHREADS) {
       const int q = i / OUT, o = i - q * OUT;
       const long long gp = p0 + q;
@@ -124,23 +133,28 @@ __device__ inline void forward_tiles_bf16(const Desc* __restrict__ gdesc,
   }
 }
 
-// B1: points [total][3], directions [total / S][3] (null without viewdirs)
+// B1: points [total][3], directions [total / S][3] (null without viewdirs);
+// kSaveH (the training launch): every layer input to ho's H buffer for B2
+template <bool kSaveH>
 __global__ void __launch_bounds__(NTHREADS, 1)
 nerf_points_tc_kernel(const Desc* __restrict__ gdesc, const float* __restrict__ wb,
                       const float* __restrict__ enc, const float* __restrict__ pts,
                       const float* __restrict__ vd, float* __restrict__ out,
-                      long long total, int S, int R) {
-  forward_tiles<PointEnc, true>(gdesc, wb, PointEnc{pts, vd, enc, S}, out, total, R);
+                      long long total, int S, int R, HOut ho) {
+  forward_tiles<PointEnc, true, kSaveH>(gdesc, wb, PointEnc{pts, vd, enc, S}, out, total, R,
+                                        ho);
 }
 
 // B1 under mip-NeRF: Gaussians [total][6] (mean, variances), directions
 // [total / S][3]
+template <bool kSaveH>
 __global__ void __launch_bounds__(NTHREADS, 1)
 nerf_points_ipe_kernel(const Desc* __restrict__ gdesc, const float* __restrict__ wb,
                        const float* __restrict__ enc, const float* __restrict__ gauss,
                        const float* __restrict__ vd, float* __restrict__ out,
-                       long long total, int S, int R) {
-  forward_tiles<IpeEnc, true>(gdesc, wb, IpeEnc{gauss, vd, enc, S}, out, total, R);
+                       long long total, int S, int R, HOut ho) {
+  forward_tiles<IpeEnc, true, kSaveH>(gdesc, wb, IpeEnc{gauss, vd, enc, S}, out, total, R,
+                                      ho);
 }
 
 // B3: rays' A, B [rays][EMB], depths z [rays][S]
@@ -188,7 +202,8 @@ int setup(const void* kernel, int HS, int SLOT, long long total, int* R, size_t*
 }  // namespace nstt
 
 using PointsKernel = void (*)(const nstt::tc::Desc*, const float*, const float*,
-                              const float*, const float*, float*, long long, int, int);
+                              const float*, const float*, float*, long long, int, int,
+                              nstt::tc::HOut);
 using RaysKernel = void (*)(const nstt::tc::Desc*, const float*, const float*,
                             const float*, const float*, float*, long long, int, int);
 
@@ -196,7 +211,7 @@ template <class Enc>
 static int points_forward(PointsKernel kernel, const void* desc_dev, int HS, int SLOT,
                           const float* wb, const float* enc, const float* pts,
                           const float* vd, float* out, long long total, int S,
-                          void* stream) {
+                          void* stream, nstt::tc::HOut ho = nstt::tc::HOut{}) {
   using namespace nstt::tc;
   if (total <= 0) return 0;
   int R;
@@ -205,7 +220,7 @@ static int points_forward(PointsKernel kernel, const void* desc_dev, int HS, int
   int rc = setup<Enc>((const void*)kernel, HS, SLOT, total, &R, &bytes, &grid);
   if (rc != 0) return rc;
   kernel<<<grid, NTHREADS, bytes, (cudaStream_t)stream>>>(
-      (const Desc*)desc_dev, wb, enc, pts, vd, out, total, S, R);
+      (const Desc*)desc_dev, wb, enc, pts, vd, out, total, S, R, ho);
   return (int)cudaGetLastError();
 }
 
@@ -232,8 +247,8 @@ extern "C" int nstt_points_forward_tc(const void* desc_dev, int HS, int SLOT,
                                       const float* wb, const float* enc,
                                       const float* pts, const float* vd, float* out,
                                       long long total, int S, void* stream) {
-  return points_forward<nstt::tc::PointEnc>(nstt::tc::nerf_points_tc_kernel, desc_dev, HS,
-                                            SLOT, wb, enc, pts, vd, out, total, S, stream);
+  return points_forward<nstt::tc::PointEnc>(nstt::tc::nerf_points_tc_kernel<false>, desc_dev,
+                                            HS, SLOT, wb, enc, pts, vd, out, total, S, stream);
 }
 
 // B1 under mip-NeRF: gauss [total][6] in place of the points, the rest as
@@ -242,8 +257,31 @@ extern "C" int nstt_points_forward_ipe(const void* desc_dev, int HS, int SLOT,
                                        const float* wb, const float* enc,
                                        const float* gauss, const float* vd, float* out,
                                        long long total, int S, void* stream) {
-  return points_forward<nstt::tc::IpeEnc>(nstt::tc::nerf_points_ipe_kernel, desc_dev, HS,
-                                          SLOT, wb, enc, gauss, vd, out, total, S, stream);
+  return points_forward<nstt::tc::IpeEnc>(nstt::tc::nerf_points_ipe_kernel<false>, desc_dev,
+                                          HS, SLOT, wb, enc, gauss, vd, out, total, S, stream);
+}
+
+// B1's training launch (and its IPE one): the arguments of
+// nstt_points_forward_tc (nstt_points_forward_ipe), then B2's H buffer
+// hbuf of n_pad points (total rounded up to the 128-point tile) and its
+// segment table hseg [N_SEG][2] (ops/cuda/fused_mlp_bwd.py act_layout), on
+// the device; every layer input of every point is written there.
+extern "C" int nstt_points_train_tc(const void* desc_dev, int HS, int SLOT, const float* wb,
+                                    const float* enc, const float* pts, const float* vd,
+                                    float* out, long long total, int S, void* stream,
+                                    float* hbuf, const long long* hseg, long long n_pad) {
+  return points_forward<nstt::tc::PointEnc>(nstt::tc::nerf_points_tc_kernel<true>, desc_dev,
+                                            HS, SLOT, wb, enc, pts, vd, out, total, S, stream,
+                                            nstt::tc::HOut{hbuf, hseg, n_pad});
+}
+
+extern "C" int nstt_points_train_ipe(const void* desc_dev, int HS, int SLOT, const float* wb,
+                                     const float* enc, const float* gauss, const float* vd,
+                                     float* out, long long total, int S, void* stream,
+                                     float* hbuf, const long long* hseg, long long n_pad) {
+  return points_forward<nstt::tc::IpeEnc>(nstt::tc::nerf_points_ipe_kernel<true>, desc_dev,
+                                          HS, SLOT, wb, enc, gauss, vd, out, total, S, stream,
+                                          nstt::tc::HOut{hbuf, hseg, n_pad});
 }
 
 // B3 on the tensor cores: HS and SLOT as for B1.

@@ -1,57 +1,64 @@
 // Fused backward of the NeRF MLP (kernel B2): every parameter gradient and
-// the input gradient of the points, the forward rematerialised per tile.
+// the input gradient of the points, from the layer inputs that B1's
+// training launch wrote.
 //
 // Replaces the TPU kernel nerf_shared_tpu/ops/pallas/fused_mlp_bwd.py
 // _make_bwd_kernel_closed (launched by fused_mlp_backward; paired with B1 as
 // fused_train_op, the backward of every training step). Input: points
-// [N, 3], per-ray view directions [N / S, 3] and the cotangent of the raw
-// outputs g [N, C]. Output: the gradient of every weight and bias, in the
-// packed [in][ld] layout of ops/cuda/fused_mlp.py packed_layout, and dx
-// [N, 6] (d/dpts, d/ddirs per point).
+// [N, 3], per-ray view directions [N / S, 3], the cotangent of the raw
+// outputs g [N, C] and the H buffer (below) of the same points. Output:
+// the gradient of every weight and bias, in the packed [in][ld] layout of
+// ops/cuda/fused_mlp.py packed_layout, and dx [N, 6] (d/dpts, d/ddirs per
+// point).
 //
-// What bounds it on an H100: operations. A point costs about three forward
-// passes (rematerialised forward, input gradients through every layer, the
-// weight-gradient products H^T·dZ), ~3.6 MFLOP at the lego width.
+// What bounds it on an H100: operations. A point costs about two forward
+// passes (the input gradients through every layer, the weight-gradient
+// products H^T·dZ), ~2.4 MFLOP at the lego width.
 //
-// The TPU kernel runs its grid in order and carries the weight gradients
-// in revisited VMEM blocks. Hopper's blocks run in no order and carry
-// nothing, so B2 is two kernels and a reduction:
+// The data flow. B1's training launch (fused_mlp.cu nerf_points_tc_kernel
+// <true>, under autograd: ops/cuda/fused_mlp_bwd.py fused_train_op) writes
+// each weight matrix's layer input H to a device buffer as its GEMM
+// epilogues form them: one point-major segment per activation (the
+// embedding, h_l, the feature, hv; BwdDesc hseg, ops/cuda/fused_mlp_bwd.py
+// act_layout, ~10 KB a point at the lego width), kept from the forward to
+// the backward. B2 reads it and reruns no forward. The TPU kernel runs its
+// grid in order and carries the weight gradients in revisited VMEM blocks;
+// Hopper's blocks run in no order and carry nothing, so B2 is two kernels
+// and a reduction:
 //
 // 1. nerf_bwd_kernel, one persistent block per SM walking 128-point tiles
-//    (tc::TP), two thirds of the FLOPs, on the tensor cores through B1's
-//    tile (mlp_tile_tc.cuh): the forward again, then the input gradients
-//    through every layer down to dx. Every GEMM runs on wgmma in split fp32
-//    (3xTF32), each 8-row slice summed on the tensor cores from zero and
-//    added in fp32 on the CUDA cores (mma_slice_rn): the tensor cores'
-//    running sum drifts toward zero, and dx feeds the pose gradients. The
-//    weights of both sweeps stream through one ring of shared-memory slots
-//    (bulk copies, mbarriers): the forward's GEMMs from B1's pack
-//    (pack_network_tc), then the input-gradient GEMMs dh = dz·W from a
-//    pack of their own (ops/cuda/fused_mlp_bwd.py pack_backward_tc: each
-//    weight [out][in] as a [K = out][N = in] matrix in the same K-major
-//    slices, split where the forward concatenates its input: the skip
-//    layer's embedding and h columns, the views layer's feature and
-//    direction columns). A tile's activations (~9.9 KB a point at the lego
-//    width) do not fit shared memory, which holds one [128][HS] tile (the
-//    running activation or gradient, the A operand of every GEMM), the
-//    cotangent tile, the encoder's rows and the ring. Each weight matrix's
-//    layer input H and its post-mask cotangent dZ go to two device
-//    buffers, one point-major segment per activation (BwdDesc hseg / zseg;
-//    ops/cuda/fused_mlp_bwd.py act_layout, ~19.8 KB a point), written from
-//    the accumulators in each GEMM's epilogue; the ReLU mask of dz_l reads
-//    h_l back from H, which the same thread wrote in the forward. The
-//    narrow heads' transposed products (K = 1, 3 or output_ch) run in fp32
-//    on the CUDA cores. dx as the TPU kernel computes it
+//    (tc::TP), half of the FLOPs, on the tensor cores through B1's tile
+//    (mlp_tile_tc.cuh): the input gradients dh = dz·W through every layer
+//    down to dx (nerf_bwd_kernel<true>; where no input needs a gradient,
+//    as in a training step without pose refinement, nerf_bwd_kernel<false>
+//    runs no GEMM into the embedding and writes no dx). Every GEMM runs
+//    on wgmma in split fp32 (3xTF32), each 8-row slice summed on the
+//    tensor cores from zero and added in fp32 on the CUDA cores
+//    (mma_slice_rn): the tensor cores' running sum drifts toward zero,
+//    and dx feeds the pose gradients. The weights stream
+//    through a ring of shared-memory slots (bulk copies, mbarriers) from
+//    the backward pack (ops/cuda/fused_mlp_bwd.py pack_backward_tc: each
+//    weight [out][in] as a [K = out][N = in] matrix in the forward pack's
+//    K-major slices, split where the forward concatenates its input: the
+//    skip layer's embedding and h columns, the views layer's feature and
+//    direction columns). Shared memory holds one [128][HS] tile (the
+//    running gradient, the A operand of every GEMM), the cotangent tile,
+//    the encoder's rows (dx) and the ring. Each post-mask cotangent dZ goes
+//    to a second device buffer (BwdDesc zseg, ~9.9 KB a point), written
+//    from the accumulators in each GEMM's epilogue; the ReLU mask of dz_l
+//    reads h_l from H, and the narrow heads' one reads hv (or h_{D-1}).
+//    The narrow heads' transposed products (K = 1, 3 or output_ch) run in
+//    fp32 on the CUDA cores. dx as the TPU kernel computes it
 //    (fused_mlp_bwd.py:299-300): through identity columns 1, through
 //    sin(f·x) f·cos(f·x), through cos(f·x) -f·sin(f·x), summed per input
 //    coordinate, formed in the epilogue of each GEMM into the embedding
 //    (layer 0, the skip layer, the views layer's directions) and added per
 //    point and coordinate in shared memory in a fixed order.
-// 2. nerf_dw_kernel: dW = H^T·dZ and db = sum dZ for every matrix, one
-//    third of the FLOPs, as a GEMM over the points (K = up to 196,608). A
-//    block owns one 128 x 128 output tile of one product over one range of
-//    points (split K), streams H and dZ chunks of 32 points through a
-//    three-stage cp.async ring in shared memory, and runs
+// 2. nerf_dw_kernel: dW = H^T·dZ and db = sum dZ for every matrix, the
+//    other half of the FLOPs, as a GEMM over the points (K = up to
+//    524,288). A block owns one 128 x 128 output tile of one product over
+//    one range of points (split K), streams H and dZ chunks of 32 points
+//    through a three-stage cp.async ring in shared memory, and runs
 //    mma.sync.m16n8k8 with tf32 operands in split fp32 (3xTF32: both
 //    operands split in registers into big = tf32(x) and small = tf32(x -
 //    big), small·big' + big·small' + big·big'). The tensor cores add into
@@ -64,32 +71,39 @@
 // 3. grad_reduce_kernel sums the ranges' partials in a fixed order, so the
 //    result is the same on every run.
 //
-// mip-NeRF (nerf_bwd_ipe_kernel): the tile kernel with the IPE encoder
-// (mlp_tile_tc.cuh IpeEnc) over Gaussian records [N, 6], fp32; its
-// backward pack has no GEMMs into the embedding (mip-NeRF trains no poses),
-// so it writes no dx. nerf_dw_kernel and the reduction are the same.
+// H is bit for bit what the tile formed when it reran the forward itself
+// (B1's tile, the same slice sums and epilogue), so the gradients are too.
+//
+// mip-NeRF (nerf_bwd_ipe_kernel): the tile kernel over H from B1's IPE
+// launch (nerf_points_ipe_kernel<true>); its backward pack has no GEMMs
+// into the embedding (mip-NeRF trains no poses), so it reads no encoder
+// rows and writes no dx. nerf_dw_kernel and the reduction are the same.
 //
 // bf16 (nerf_bwd_bf16_kernel, nerf_dw_bf16_kernel; --precision bf16): the
 // TPU kernel's bf16 instantiation (_make_bwd_kernel_closed with
-// compute_dtype bfloat16, fused_mlp_bwd.py:176-300). The tile kernel is
-// B1's bf16 tile: one wgmma.m64nNk16 bf16 product a 16-row slice of both
-// packs (rounded to bf16 by the wrappers), its A operand the bf16-rounded
-// activations or dz_c as bf16x2 pairs in registers, fp32 accumulators. The
-// encoding, every layer's output and the cotangent g are rounded as they
-// are stored; each dz (dhv, dfeature, dz_l) goes to the dZ buffer in fp32
-// and is rounded (dz_c) as it is stored in shared memory, the operand of
-// dh = dz_c·Wᵀ, as JAX's _dot_nt(dz_c, W). The ReLU masks read the bf16
+// compute_dtype bfloat16, fused_mlp_bwd.py:176-300). Its B1 runs another
+// tile (mlp_tile_bf16.cuh), so this tile reruns the forward before the
+// backward, as tile_network runs it, and writes H itself: one
+// wgmma.m64nNk16 bf16 product a 16-row slice of both packs (rounded to
+// bf16 by the wrappers), its A operand the bf16-rounded activations or
+// dz_c as bf16x2 pairs in registers, fp32 accumulators. The encoding,
+// every layer's output and the cotangent g are rounded as they are stored;
+// each dz (dhv, dfeature, dz_l) goes to the dZ buffer in fp32 and is
+// rounded (dz_c) as it is stored in shared memory, the operand of dh =
+// dz_c·Wᵀ, as JAX's _dot_nt(dz_c, W). The ReLU masks read the bf16
 // activations. The dW kernel rounds dZ as it loads it and forms dW with
 // one mma.sync.m16n8k16 bf16 product a 16-point step (each summed from
 // zero and added in fp32), while its bias sums read the fp32 dZ (dbout the
 // rounded g), as JAX's do. demb and dx stay fp32. Bound: all FLOPs over
 // the 989 TFLOP/s bf16 rate.
+#include <type_traits>
+
 #include "mlp_tile_tc.cuh"
 
 namespace nstt {
 
 constexpr int NTHREADS = tc::NTHREADS;
-constexpr int MAX_LAYERS = 32;
+using tc::MAX_LAYERS;
 constexpr int G_LD = tc::RAW_LD;  // cotangent tile row: rgb 0-2, alpha 3, alpha 4
 constexpr int DX_LD = 6;          // dx scratch row: d/dpts, d/ddirs
 
@@ -108,10 +122,13 @@ enum { BK_DEMB, BK_DFEATURE, BK_DZ, BK_DZ_ALPHA };
 enum { BH_NB, BH_SLOT };
 // Activation segments of the H and dZ buffers: {floats a point before the
 // segment, row stride}; for n_pad points segment s starts at float
-// n_pad * seg[s][0]. H: the embedding, h_l at 1 + l, the feature, hv;
-// dZ: dz_l at l, dfeature, dhv, the cotangent tile.
-constexpr int N_SEG = MAX_LAYERS + 3;
-enum { HS_EMB = 0, HS_FEATURE = MAX_LAYERS + 1, HS_HV = MAX_LAYERS + 2 };
+// n_pad * seg[s][0]. H (mlp_tile_tc.cuh N_SEG, HS_*): the embedding, h_l
+// at 1 + l, the feature, hv; dZ: dz_l at l, dfeature, dhv, the cotangent
+// tile.
+using tc::N_SEG;
+using tc::HS_EMB;
+using tc::HS_FEATURE;
+using tc::HS_HV;
 enum { ZS_DFEATURE = MAX_LAYERS, ZS_DHV = MAX_LAYERS + 1, ZS_GR = MAX_LAYERS + 2 };
 struct BwdDesc {
   long long hdr[8];
@@ -154,20 +171,22 @@ __device__ __forceinline__ void bar_wait(unsigned long long* bar, unsigned parit
   }
 }
 
-// The ring over B2's sequence: the forward's NG GEMMs of d (weights wb),
-// then the backward's NB of bd (weights wbt), tile after tile.
+// The ring over B2's sequence, tile after tile: the forward's first nf
+// GEMMs of d (weights wb; nf 0 where the tile reads H, the forward's NG
+// where it reruns the forward), then the backward's NB of bd (weights wbt).
 struct Sweep {
   const Desc* d;
   const BwdDesc* bd;
   const float* wb;
   const float* wbt;
+  int nf;
 };
 
 template <bool kBf16>
 __device__ inline void produce(Ring& r, const Sweep& w) {
   if (r.pk >= r.ntiles) return;
   if (r.pissued >= r.R) bar_wait(r.empty + r.pslot, r.pphase ^ 1);
-  const int NF = (int)w.d->hdr[H_NG];
+  const int NF = w.nf;
   const bool fwd = r.pg < NF;
   const long long* G = fwd ? w.d->gemm[r.pg] : w.bd->gemm[r.pg - NF];
   const unsigned floats = slice_floats_per_col<kBf16>() * (unsigned)G[G_NP];
@@ -220,7 +239,9 @@ __device__ __forceinline__ const float* take(Ring& r, const Sweep& w) {
 
 // acc = the GEMM's product over all its slices: A from s.h (src SRC_H) or
 // the encoder, the weights from the ring; as tile_network runs it (fp32:
-// slice sums rounded to nearest; bf16: one k16 product a slice)
+// slice sums rounded to nearest; bf16: one k16 product a slice). The
+// backward passes SRC_H as a run-time value: folded to a constant, it let
+// ptxas spill the fp32 tiles (PERF.md, Findings).
 template <bool kBf16, class Enc>
 __device__ __forceinline__ void sweep_gemm(float (&acc)[2][NACC], const long long* G,
                                            int src0, int src1, const Desc& d,
@@ -446,15 +467,18 @@ __device__ __forceinline__ void demb_to_dx(const float (&acc)[2][NACC], const De
       }
 }
 
-// The narrow heads' transposed products on the CUDA cores, in fp32, at the
-// turn from the forward to the backward (s.h holds hv, or without viewdirs
-// the last trunk output): dhv = (g_rgb·W_rgb) ⊙ 1[hv > 0], or dz_{D-1} =
-// (g·W_out) ⊙ 1[h_{D-1} > 0], a sum of K <= 8 products in order; to its dZ
-// segment (fp32; the row's padding columns 0) and, rounded under kBf16, in
-// place to s.h. Ends with a barrier.
-template <bool kBf16>
+// The narrow heads' transposed products on the CUDA cores, in fp32, the
+// first step of the backward: dhv = (g_rgb·W_rgb) ⊙ 1[hv > 0], or dz_{D-1}
+// = (g·W_out) ⊙ 1[h_{D-1} > 0], a sum of K <= 8 products in order, the
+// mask from hv (h_{D-1}) in s.h where the tile reran the forward (kRerun),
+// else from its H segment, which B1 wrote; to its dZ segment (fp32; the
+// row's padding columns 0) and, rounded under kBf16, in place to s.h (from
+// H: with zeros up to the next multiple of 8 columns, the K rows the first
+// GEMM reads). Ends with a barrier.
+template <bool kBf16, bool kRerun>
 __device__ inline void narrow_bwd(const Desc& d, const BwdDesc& bd, const float* __restrict__ wb,
-                                  const Smem& s, float* zbuf, long long n_pad, long long p0) {
+                                  const Smem& s, const float* hbuf, float* zbuf,
+                                  long long n_pad, long long p0) {
   const int HS = (int)d.hdr[H_HS], D = (int)d.hdr[H_D];
   const bool views = d.hdr[H_VIEWDIRS] != 0;
   const long long* Nh = d.narrow[views ? N_RGB : N_OUTPUT];
@@ -463,27 +487,49 @@ __device__ inline void narrow_bwd(const Desc& d, const BwdDesc& bd, const float*
   const long long(&zs)[2] = bd.zseg[views ? ZS_DHV : D - 1];
   float* z = seg_rows(zbuf, zs, n_pad, p0);
   const int ld = (int)zs[1];
-  for (int i = threadIdx.x; i < TP * ld; i += NTHREADS) {
-    const int p = i / ld, c = i - p * ld;
+  const long long(&hs)[2] = bd.hseg[views ? HS_HV : 1 + (D - 1)];
+  const float* h = hbuf + hs[0] * n_pad + p0 * hs[1];
+  const int ldh = (int)hs[1];
+  const int cols = kRerun ? ld : (ld + SLICE_K - 1) / SLICE_K * SLICE_K;
+  for (int i = threadIdx.x; i < TP * cols; i += NTHREADS) {
+    const int p = i / cols, c = i - p * cols;
     float v = 0.f;
     if (c < K) {
       const float* gp = s.raw + p * G_LD;
       v = gp[0] * __ldg(w + c);
       for (int o = 1; o < N; ++o) v = fmaf(gp[o], __ldg(w + o * K + c), v);
-      if (!(s.h[p * HS + c] > 0.f)) v = 0.f;
+      const float a = kRerun ? s.h[p * HS + c] : __ldcg(h + (size_t)p * ldh + c);
+      if (!(a > 0.f)) v = 0.f;
     }
-    __stcg(z + (size_t)p * ld + c, v);
+    if (kRerun || c < ld) __stcg(z + (size_t)p * ld + c, v);
     s.h[p * HS + c] = kBf16 ? round_bf16(v) : v;
   }
   __syncthreads();
 }
 
+// An encoder that forms nothing, for the backward GEMMs of the fp32 point
+// tile (nerf_bwd_kernel): they read their A operand from s.h alone. Behind
+// a_frag's encoder branch (a run-time source) it left ptxas room to keep
+// that tile at 120-168 B of stack where PointEnc's encoding made it spill
+// 232-272 B, 6.35 against 10.23 ms at 196,608 lego points without dx;
+// the IPE tile keeps its own encoder there, which ptxas allocated better
+// (15.26 against 16.53 ms at 524,288 Gaussians, H100; PERF.md, Findings).
+struct NoEnc {
+  static constexpr int ROW = 0;
+  __device__ __forceinline__ float value(const Desc&, const float*, int, int) const {
+    return 0.f;
+  }
+};
+
 // B2's tile kernel: one persistent block an SM walks the 128-point tiles.
-// Per tile: the encoder's rows, the cotangent tile (to dZ), the embedding
-// (to H); the forward GEMMs, each layer's output to H and s.h; the narrow
-// heads' transposed products; the backward GEMMs with their epilogues
-// (dx sums, dfeature, dz); dx (an encoder without kDx: none).
-template <bool kBf16, class Enc = PointEnc>
+// Per tile: the encoder's rows (where dx needs them), the cotangent tile
+// (to dZ); the narrow heads' transposed products; the backward GEMMs with
+// their epilogues (dx sums, dfeature, dz, each mask from H); dx (without
+// kDx: none, and the backward pack holds no GEMM into the embedding). The
+// layer inputs are in H, which B1's training launch wrote. The bf16 tile
+// (kBf16) reruns the forward first instead: the embedding to H, the
+// forward GEMMs, each layer's output to H and s.h.
+template <bool kBf16, class Enc = PointEnc, bool kDx = Enc::kDx>
 __device__ inline void bwd_tiles(const Desc* __restrict__ gdesc,
                                  const BwdDesc* __restrict__ gbd,
                                  const float* __restrict__ wb, const float* __restrict__ wbt,
@@ -491,6 +537,7 @@ __device__ inline void bwd_tiles(const Desc* __restrict__ gdesc,
                                  const float* __restrict__ vd, const float* __restrict__ g,
                                  int C, float* __restrict__ dx, float* hbuf, float* zbuf,
                                  long long total, long long n_pad, int S, int R) {
+  constexpr bool kRerun = kBf16;
   __shared__ Desc d;
   __shared__ BwdDesc bd;
   __shared__ unsigned long long bars[2 * MAX_SLOTS];
@@ -504,7 +551,8 @@ __device__ inline void bwd_tiles(const Desc* __restrict__ gdesc,
   }
   __syncthreads();
   const int D = (int)d.hdr[H_D], P = (int)d.hdr[H_P], V = (int)d.hdr[H_V];
-  const int HS = (int)d.hdr[H_HS], NF = (int)d.hdr[H_NG], NB = (int)bd.hdr[BH_NB];
+  const int HS = (int)d.hdr[H_HS], NB = (int)bd.hdr[BH_NB];
+  const int NF = kRerun ? (int)d.hdr[H_NG] : 0;
   const bool views = d.hdr[H_VIEWDIRS] != 0;
   Smem s;
   s.h = reinterpret_cast<float*>(dyn);
@@ -513,19 +561,18 @@ __device__ inline void bwd_tiles(const Desc* __restrict__ gdesc,
   float* dxs = s.rows + TP * Enc::ROW;   // [2][TP][DX_LD]
   s.ring = dxs + 2 * TP * DX_LD;
   const Enc e{pts, vd, enc, S};
-  const Sweep sw{&d, &bd, wb, wbt};
+  const Sweep sw{&d, &bd, wb, wbt, NF};
   const long long n_tiles = (total + TP - 1) / TP;
   const long long mine = n_tiles > blockIdx.x
                              ? (n_tiles - blockIdx.x + gridDim.x - 1) / gridDim.x : 0;
   Ring ring = start_sweep<kBf16>(sw, s.ring, bars, R, (int)bd.hdr[BH_SLOT], mine);
   for (int i = threadIdx.x; i < 2 * TP * DX_LD; i += NTHREADS) dxs[i] = 0.f;
-  const int ES = (int)bd.hseg[HS_EMB][1], P4 = (P + 3) / 4 * 4;
   const int wg = threadIdx.x >> 7;
   float acc[2][NACC];
 
   for (long long t = blockIdx.x; t < n_tiles; t += gridDim.x) {
     const long long p0 = t * TP;
-    tile_rows(d, e, p0, total, s);
+    if (kRerun || kDx) tile_rows(d, e, p0, total, s);
     // the cotangent tile, rounded under kBf16, to s.raw and dZ
     float* zg = seg_rows(zbuf, bd.zseg[ZS_GR], n_pad, p0);
     for (int i = threadIdx.x; i < TP * G_LD; i += NTHREADS) {
@@ -545,36 +592,38 @@ __device__ inline void bwd_tiles(const Desc* __restrict__ gdesc,
       __stcg(zg + i, v);
     }
     __syncthreads();   // the rows and the cotangent tile are set
-    // the embedding to H (rounded under kBf16; rows past total 0)
-    float* he = seg_rows(hbuf, bd.hseg[HS_EMB], n_pad, p0);
-    for (int i = threadIdx.x; i < TP * ES; i += NTHREADS) {
-      const int p = i / ES, c = i - p * ES;
-      const int cc = c < P4 ? (c < P ? c : -1) : (c - P4 < V ? P + c - P4 : -1);
-      float v = 0.f;
-      if (cc >= 0 && p0 + p < total) v = e.value(d, s.rows, p, cc);
-      __stcg(he + i, kBf16 ? round_bf16(v) : v);
+    if constexpr (kRerun) {
+      // the embedding to H (rounded; rows past total 0)
+      emb_to_h<true>(d, e, s, seg_rows(hbuf, bd.hseg[HS_EMB], n_pad, p0),
+                     (int)bd.hseg[HS_EMB][1], p0, total);
     }
 
+    if constexpr (!kRerun) narrow_bwd<kBf16, false>(d, bd, wb, s, hbuf, zbuf, n_pad, p0);
     for (int gi = 0; gi < NF + NB; ++gi) {
-      const bool fwd = gi < NF;
-      if (gi == NF) narrow_bwd<kBf16>(d, bd, wb, s, zbuf, n_pad, p0);
-      const long long* G = fwd ? d.gemm[gi] : bd.gemm[gi - NF];
-      const int nh = (int)G[G_NP] >> 1, n0 = wg * nh;
-      if (fwd)
-        sweep_gemm<kBf16>(acc, G, (int)G[G_SRC0], (int)G[G_SRC1], d, e, s, ring, sw);
-      else
-        sweep_gemm<kBf16>(acc, G, SRC_H, -1, d, e, s, ring, sw);
-      if (fwd) {
-        // h_gi, the feature or hv, to H and s.h
-        const int seg = gi < D ? 1 + gi : (gi == D ? HS_FEATURE : HS_HV);
-        bias_act<kBf16>(acc, wb + G[G_B], G[G_RELU] != 0, nh, n0);
-        to_segment(acc, nh, n0, seg_rows(hbuf, bd.hseg[seg], n_pad, p0), (int)bd.hseg[seg][1]);
-        to_tile<false>(acc, nh, n0, s.h, HS);
-        continue;
+      if constexpr (kRerun) {
+        if (gi < NF) {
+          // h_gi, the feature or hv, to H and s.h
+          const long long* G = d.gemm[gi];
+          const int nh = (int)G[G_NP] >> 1, n0 = wg * nh;
+          sweep_gemm<kBf16>(acc, G, (int)G[G_SRC0], (int)G[G_SRC1], d, e, s, ring, sw);
+          const int seg = gi < D ? 1 + gi : (gi == D ? HS_FEATURE : HS_HV);
+          bias_act<kBf16>(acc, wb + G[G_B], G[G_RELU] != 0, nh, n0);
+          to_segment(acc, nh, n0, seg_rows(hbuf, bd.hseg[seg], n_pad, p0),
+                     (int)bd.hseg[seg][1]);
+          to_tile<false>(acc, nh, n0, s.h, HS);
+          if (gi == NF - 1) narrow_bwd<kBf16, true>(d, bd, wb, s, hbuf, zbuf, n_pad, p0);
+          continue;
+        }
       }
+      const long long* G = bd.gemm[gi - NF];
+      const int nh = (int)G[G_NP] >> 1, n0 = wg * nh;
+      if constexpr (kRerun || !std::is_same_v<Enc, PointEnc>)
+        sweep_gemm<kBf16>(acc, G, SRC_H, -1, d, e, s, ring, sw);
+      else
+        sweep_gemm<kBf16>(acc, G, SRC_H, -1, d, NoEnc{}, s, ring, sw);
       const int kind = (int)G[BG_KIND], arg = (int)G[BG_ARG];
       if (kind == BK_DEMB) {
-        if constexpr (Enc::kDx)
+        if constexpr (kDx)
           demb_to_dx(acc, d, enc, s.rows, nh, n0, arg ? P : 0, arg ? V : P, 3 * arg, dxs);
       } else if (kind == BK_DFEATURE) {
         to_segment(acc, nh, n0, seg_rows(zbuf, bd.zseg[ZS_DFEATURE], n_pad, p0),
@@ -591,7 +640,7 @@ __device__ inline void bwd_tiles(const Desc* __restrict__ gdesc,
       }
     }
     __syncthreads();   // every warpgroup's dx sums are in
-    if constexpr (Enc::kDx) {
+    if constexpr (kDx) {
       for (int i = threadIdx.x; i < TP * DX_LD; i += NTHREADS) {
         const long long gp = p0 + i / DX_LD;
         const float v = dxs[i] + dxs[TP * DX_LD + i];
@@ -604,6 +653,9 @@ __device__ inline void bwd_tiles(const Desc* __restrict__ gdesc,
 
 }  // namespace tc
 
+// kDx: dx [total][6] is written; without it (no input needs a gradient)
+// the backward pack holds no GEMM into the embedding and dx is not read
+template <bool kDx>
 __global__ void __launch_bounds__(NTHREADS, 1)
 nerf_bwd_kernel(const tc::Desc* __restrict__ gdesc, const BwdDesc* __restrict__ gbd,
                 const float* __restrict__ wb, const float* __restrict__ wbt,
@@ -611,8 +663,8 @@ nerf_bwd_kernel(const tc::Desc* __restrict__ gdesc, const BwdDesc* __restrict__ 
                 const float* __restrict__ vd, const float* __restrict__ g, int C,
                 float* __restrict__ dx, float* hbuf, float* zbuf, long long total,
                 long long n_pad, int S, int R) {
-  tc::bwd_tiles<false>(gdesc, gbd, wb, wbt, enc, pts, vd, g, C, dx, hbuf, zbuf, total, n_pad,
-                       S, R);
+  tc::bwd_tiles<false, tc::PointEnc, kDx>(gdesc, gbd, wb, wbt, enc, pts, vd, g, C, dx, hbuf,
+                                          zbuf, total, n_pad, S, R);
 }
 
 __global__ void __launch_bounds__(NTHREADS, 1)
@@ -1025,7 +1077,8 @@ static int mlp_backward(BwdKernel bwd_kernel, DwKernel dw_kernel, const void* de
 // HS, SLOT: the activation tile's row stride and the floats of a ring slot
 // (the widest slice of either pack); wb, wbt: the forward and backward
 // packs; hbuf, zbuf: H and dZ for n_pad points (act_layout, n_pad a
-// multiple of the 128-point tile); jobs [n_jobs][J_WORDS] and tiles
+// multiple of the 128-point tile), H as B1's training launch wrote it (the
+// bf16 entry writes H itself); jobs [n_jobs][J_WORDS] and tiles
 // [n_dw_tiles][T_WORDS] of nerf_dw_kernel, run over `splits` point ranges
 // into part [splits][wsize]; grads [wsize] their fixed-order sum.
 extern "C" int nstt_mlp_backward(const void* desc_dev, const void* bdesc_dev,
@@ -1037,8 +1090,26 @@ extern "C" int nstt_mlp_backward(const void* desc_dev, const void* bdesc_dev,
                                  const long long* tiles, float* part, float* grads,
                                  long long wsize, long long total, long long n_pad,
                                  int S, int splits, void* stream) {
-  return mlp_backward(nstt::nerf_bwd_kernel, nstt::nerf_dw_kernel, desc_dev, bdesc_dev, HS,
-                      SLOT, wb, wbt, enc, pts, vd, g, C, dx, hbuf, zbuf, n_dw_tiles, jobs,
+  return mlp_backward(nstt::nerf_bwd_kernel<true>, nstt::nerf_dw_kernel, desc_dev, bdesc_dev,
+                      HS, SLOT, wb, wbt, enc, pts, vd, g, C, dx, hbuf, zbuf, n_dw_tiles, jobs,
+                      tiles, part, grads, wsize, total, n_pad, S, splits, stream);
+}
+
+// B2 with no input gradient (a training step whose points and directions
+// need none): over the backward pack without the GEMMs into the embedding
+// (pack_backward_tc with dx False); dx is not written. The other arguments
+// as for nstt_mlp_backward.
+extern "C" int nstt_mlp_backward_nodx(const void* desc_dev, const void* bdesc_dev,
+                                      int HS, int SLOT, const float* wb,
+                                      const float* wbt, const float* enc,
+                                      const float* pts, const float* vd,
+                                      const float* g, int C, float* dx, float* hbuf,
+                                      float* zbuf, int n_dw_tiles, const long long* jobs,
+                                      const long long* tiles, float* part, float* grads,
+                                      long long wsize, long long total, long long n_pad,
+                                      int S, int splits, void* stream) {
+  return mlp_backward(nstt::nerf_bwd_kernel<false>, nstt::nerf_dw_kernel, desc_dev, bdesc_dev,
+                      HS, SLOT, wb, wbt, enc, pts, vd, g, C, dx, hbuf, zbuf, n_dw_tiles, jobs,
                       tiles, part, grads, wsize, total, n_pad, S, splits, stream);
 }
 
@@ -1058,9 +1129,10 @@ extern "C" int nstt_mlp_backward_bf16(const void* desc_dev, const void* bdesc_de
                       stream);
 }
 
-// B2 under mip-NeRF: gauss [total][6] in place of the points, over the IPE
-// packs (no GEMMs into the embedding); dx is not written. The other
-// arguments as for nstt_mlp_backward.
+// B2 under mip-NeRF: gauss [total][6] in place of the points (not read:
+// no dx), over the IPE packs (no GEMMs into the embedding) and H from B1's
+// IPE training launch; dx is not written. The other arguments as for
+// nstt_mlp_backward.
 extern "C" int nstt_mlp_backward_ipe(const void* desc_dev, const void* bdesc_dev,
                                      int HS, int SLOT, const float* wb,
                                      const float* wbt, const float* enc,

@@ -1,10 +1,11 @@
 // The NeRF MLP on the tensor cores at fp32 accuracy, on one tile of 128
 // sample points: the network of the ray-major kernels B3 (fused_mlp.cu
 // nerf_rays_tc_kernel) and B4 (fused_render.cu nerf_render_tc_kernel), of
-// the point-major kernel B1 (fused_mlp.cu nerf_points_tc_kernel) and of
-// B2's tile kernel (fused_mlp_bwd.cu nerf_bwd_kernel, and in bf16
-// nerf_bwd_bf16_kernel), which runs its forward and then its
-// input-gradient GEMMs through these pieces. The forward kernels in bf16
+// the point-major kernel B1 (fused_mlp.cu nerf_points_tc_kernel, whose
+// training launch also writes every layer input to B2's H buffer: HOut)
+// and of B2's tile kernel (fused_mlp_bwd.cu nerf_bwd_kernel), which runs
+// its input-gradient GEMMs through these pieces (in bf16,
+// nerf_bwd_bf16_kernel, its forward first). The forward kernels in bf16
 // (B1, B3, B4) run their own tile, mlp_tile_bf16.cuh.
 //
 // Split fp32 (3xTF32). Every trunk and head GEMM runs on Hopper's
@@ -88,7 +89,8 @@ namespace tc {
 constexpr int NTHREADS = 256;   // two warpgroups
 constexpr int NWARPS = NTHREADS / 32;
 constexpr int TP = 128;         // points a tile
-constexpr int MAX_GEMMS = 34;   // 32 trunk layers + feature + views
+constexpr int MAX_LAYERS = 32;
+constexpr int MAX_GEMMS = MAX_LAYERS + 2;   // trunk layers + feature + views
 constexpr int MAX_EMB = 256;
 constexpr int RAW_LD = 8;       // raw outputs (and composite scratch) a point
 constexpr int SLICE_K = 8;      // weight rows a ring slot holds (one MMA k)
@@ -111,6 +113,20 @@ struct Desc {
   long long narrow[3][4];
   signed char kind[MAX_EMB];    // per compact embedding column: 0 identity, 1 sin, 2 cos,
                                 // 3 / 4 IPE's attenuated sin / cos (IpeEnc)
+};
+
+// The H buffer of B2 (ops/cuda/fused_mlp_bwd.py act_layout): every layer
+// input of n_pad points, one point-major segment an activation, segment s
+// at float n_pad * seg[s][0] with row stride seg[s][1]; the embedding, h_l
+// at 1 + l, the feature, hv. B1's training launch writes it (HOut, seg in
+// device memory) and B2 reads it.
+constexpr int N_SEG = MAX_LAYERS + 3;
+enum { HS_EMB = 0, HS_FEATURE = MAX_LAYERS + 1, HS_HV = MAX_LAYERS + 2 };
+
+struct HOut {
+  float* buf;
+  const long long* seg;   // [N_SEG][2]
+  long long n_pad;
 };
 
 struct Smem {
@@ -788,10 +804,13 @@ __device__ __forceinline__ void mma_slice_rn(float (&acc)[2][NACC], const Frag& 
 }
 
 // h[row][col] = act(acc + bias[col]) over the thread's accumulators: the
-// warpgroup's nh columns from n0
+// warpgroup's nh columns from n0; kSaveH: the same values of the columns
+// below ld also to the rows of an H segment (row stride ld, a multiple of 4)
+template <bool kSaveH = false>
 __device__ __forceinline__ void epilogue(const float (&acc)[2][NACC],
                                          const float* __restrict__ bias, bool relu,
-                                         int nh, int n0, float* h, int HS) {
+                                         int nh, int n0, float* h, int HS,
+                                         float* hrows = nullptr, int ld = 0) {
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int r0 = 16 * ((threadIdx.x >> 5) & 3) + g;
 #pragma unroll
@@ -810,8 +829,38 @@ __device__ __forceinline__ void epilogue(const float (&acc)[2][NACC],
         }
         *reinterpret_cast<float2*>(h + r * HS + col) = make_float2(v0, v1);
         *reinterpret_cast<float2*>(h + (r + 8) * HS + col) = make_float2(v2, v3);
+        if constexpr (kSaveH) {
+          if (col < ld) {
+            __stcg(reinterpret_cast<float2*>(hrows + (size_t)r * ld + col), make_float2(v0, v1));
+            __stcg(reinterpret_cast<float2*>(hrows + (size_t)(r + 8) * ld + col),
+                   make_float2(v2, v3));
+          }
+        }
       }
     }
+  }
+}
+
+// Row p0 of segment s of the H buffer; ld gets its row stride.
+__device__ __forceinline__ float* h_rows(const HOut& ho, int s, long long p0, int& ld) {
+  ld = (int)__ldg(ho.seg + 2 * s + 1);
+  return ho.buf + __ldg(ho.seg + 2 * s) * ho.n_pad + p0 * ld;
+}
+
+// The tile's encoded inputs to the rows of H's embedding segment (row
+// stride ES: the points' P columns from 0, the directions' V from P
+// rounded up to 4, the rest 0; rows at or past pend 0; kRound: rounded to
+// bf16), from the rows tile_rows set.
+template <bool kRound, class Enc>
+__device__ inline void emb_to_h(const Desc& d, const Enc& e, const Smem& s, float* rows, int ES,
+                                long long p0, long long pend) {
+  const int P = (int)d.hdr[H_P], V = (int)d.hdr[H_V], P4 = (P + 3) / 4 * 4;
+  for (int i = threadIdx.x; i < TP * ES; i += NTHREADS) {
+    const int p = i / ES, c = i - p * ES;
+    const int cc = c < P4 ? (c < P ? c : -1) : (c - P4 < V ? P + c - P4 : -1);
+    float v = 0.f;
+    if (cc >= 0 && p0 + p < pend) v = e.value(d, s.rows, p, cc);
+    __stcg(rows + i, kRound ? round_bf16(v) : v);
   }
 }
 
@@ -844,16 +893,24 @@ __device__ inline void tile_rows(const Desc& d, const Enc& e, long long p0, long
 
 // The whole network on the tile whose rows tile_rows set -> s.raw (cols
 // 0..2 rgb logits, col 3 sigma; or output_ch columns without viewdirs).
-// Starts and ends with a barrier.
-template <class Enc, bool kSliceSums = false>
+// kSaveH (B1's training launch): also the tile's layer inputs (the
+// embedding, each GEMM's output) to the rows p0.. of ho's segments; rows at
+// or past pend hold the empty rows' values. Starts and ends with a barrier.
+template <class Enc, bool kSliceSums = false, bool kSaveH = false>
 __device__ inline void tile_network(const Desc& d, const float* __restrict__ wb, const Enc& e,
-                                    const Smem& s, Ring& r) {
+                                    const Smem& s, Ring& r, const HOut& ho = HOut{},
+                                    long long p0 = 0, long long pend = 0) {
   const int D = (int)d.hdr[H_D], NG = (int)d.hdr[H_NG], HS = (int)d.hdr[H_HS];
   const bool viewdirs = d.hdr[H_VIEWDIRS] != 0;
   const int wg = threadIdx.x >> 7;
   float acc[2][NACC];
 
   __syncthreads();   // the tile's rows are set
+  if constexpr (kSaveH) {
+    int ld;
+    float* rows = h_rows(ho, HS_EMB, p0, ld);
+    emb_to_h<false>(d, e, s, rows, ld, p0, pend);
+  }
   for (int gi = 0; gi < NG; ++gi) {
     const long long* G = d.gemm[gi];
     const int np = (int)G[G_NP], nh = np >> 1, n0 = wg * nh;
@@ -895,7 +952,13 @@ __device__ inline void tile_network(const Desc& d, const float* __restrict__ wb,
       release(r);
     }
     __syncthreads();   // every warp is done reading h before it is overwritten
-    epilogue(acc, wb + G[G_B], G[G_RELU] != 0, nh, n0, s.h, HS);
+    if constexpr (kSaveH) {
+      int ld;
+      float* rows = h_rows(ho, gi < D ? 1 + gi : (gi == D ? HS_FEATURE : HS_HV), p0, ld);
+      epilogue<true>(acc, wb + G[G_B], G[G_RELU] != 0, nh, n0, s.h, HS, rows, ld);
+    } else {
+      epilogue(acc, wb + G[G_B], G[G_RELU] != 0, nh, n0, s.h, HS);
+    }
     __syncthreads();
     if (gi == D - 1) {
       if (viewdirs)

@@ -41,6 +41,13 @@ launches ``nerf_points_ipe_kernel``, the same tile with the IPE encoder
 ``POINT_LAUNCHES_IPE`` and its points in ``IPE_POINTS``. B3 and B4 build
 points from rays and depths, not Gaussians, and decline IPE configs.
 
+B1's training launch (``launch_points(..., hout=...)``, made by
+``fused_mlp_bwd.fused_train_op`` when a gradient is wanted, in fp32 and
+under IPE) also writes every layer input it forms (the embedding, h_l, the
+feature, hv) into B2's H buffer, which B2's tile then reads instead of
+rerunning the forward; it counts those points in ``SAVED_H_POINTS``. Every
+other launch writes no H.
+
 Both entries dispatch on the tensors' device: on the CPU they are the plain
 version, on a CUDA device they launch the kernel or raise. B1's gradient is
 kernel B2 (``fused_mlp_bwd.fused_train_op``); B3's backward recomputes
@@ -75,6 +82,7 @@ LAUNCHES_BF16 = 0        # the same for the bf16 instantiations
 POINT_LAUNCHES_BF16 = 0
 POINT_LAUNCHES_IPE = 0   # B1 launches of the IPE instantiation
 IPE_POINTS = 0           # points encoded by those launches
+SAVED_H_POINTS = 0       # points whose layer inputs B1's training launches wrote for B2
 
 
 def is_bf16(compute_dtype) -> bool:
@@ -738,23 +746,32 @@ def check_points(cfg: NeRFConfig, pts, viewdirs):
 
 _POINT_ARGS = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 5 + [
     ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
+# the training launch's entries: the same, then hbuf, hseg, n_pad
+_POINT_TRAIN_ARGS = _POINT_ARGS + [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong]
 
 
-def point_symbol(cfg: NeRFConfig, bf16: bool) -> str:
-    """B1's C entry for ``cfg`` (its IPE instantiation takes fp32 only)."""
+def point_symbol(cfg: NeRFConfig, bf16: bool, train: bool = False) -> str:
+    """B1's C entry for ``cfg`` (its IPE instantiation takes fp32 only);
+    ``train``: the fp32 training launch's, which also writes B2's H."""
+    if bf16 and (cfg.ipe or train):
+        raise ValueError("B1's IPE instantiation (mip-NeRF) and its training launch "
+                         "compute in fp32 only")
+    if train:
+        return "nstt_points_train_ipe" if cfg.ipe else "nstt_points_train_tc"
     if cfg.ipe:
-        if bf16:
-            raise ValueError("B1's IPE instantiation (mip-NeRF) computes in fp32 only")
         return "nstt_points_forward_ipe"
     return "nstt_points_forward_bf16" if bf16 else "nstt_points_forward_tc"
 
 
 def launch_points(params, cfg: NeRFConfig, pts, viewdirs,
-                  compute_dtype=torch.float32) -> torch.Tensor:
+                  compute_dtype=torch.float32, hout=None) -> torch.Tensor:
     """Kernel B1 (its bf16 instantiation under ``compute_dtype`` bfloat16,
     its IPE one for an IPE config) on CUDA tensors -> raw [..., S, C]; no
-    autograd."""
-    global POINT_LAUNCHES, POINT_LAUNCHES_BF16, POINT_LAUNCHES_IPE, IPE_POINTS
+    autograd. ``hout`` (fp32; ``fused_mlp_bwd.forward_saving_h``): (hbuf,
+    hseg, n_pad), B2's H buffer for n_pad points and its int64 segment
+    table [N_SEG, 2] on the device (``fused_mlp_bwd.act_layout``): the
+    training launch, which also writes every layer input there."""
+    global POINT_LAUNCHES, POINT_LAUNCHES_BF16, POINT_LAUNCHES_IPE, IPE_POINTS, SAVED_H_POINTS
     n, S = check_points(cfg, pts, viewdirs)
     C = out_channels(cfg)
     out = torch.empty(pts.shape[:-1] + (C,), dtype=torch.float32, device=pts.device)
@@ -762,7 +779,13 @@ def launch_points(params, cfg: NeRFConfig, pts, viewdirs,
         return out
     check_in("B1", compute_dtype, "launch_points", params, pts=pts, viewdirs=viewdirs)
     bf16 = is_bf16(compute_dtype)
-    fn = common.load("fused_mlp", _POINT_ARGS, point_symbol(cfg, bf16))
+    train = hout is not None
+    fn = common.load("fused_mlp", _POINT_TRAIN_ARGS if train else _POINT_ARGS,
+                     point_symbol(cfg, bf16, train))
+    extra = ()
+    if train:
+        hbuf, hseg, n_pad = hout
+        extra = (hbuf.data_ptr(), hseg.data_ptr(), n_pad)
     with torch.cuda.device(pts.device):
         wbuf, desc, HS, SLOT = pack_network_tc(params, cfg, pts.device, compute_dtype)
         enc = encoder_buffer(cfg, pts.device)
@@ -770,7 +793,7 @@ def launch_points(params, cfg: NeRFConfig, pts, viewdirs,
         rc = fn(desc.data_ptr(), *entry_sizes(cfg, bf16, HS, SLOT), wbuf.data_ptr(),
                 enc.data_ptr(), pts.data_ptr(),
                 viewdirs.data_ptr() if viewdirs is not None else 0, out.data_ptr(), n, S,
-                stream)
+                stream, *extra)
     common.check_launch(rc, "fused_mlp points (B1 bf16)" if bf16 else "fused_mlp points (B1)")
     if cfg.ipe:
         POINT_LAUNCHES_IPE += 1
@@ -779,6 +802,8 @@ def launch_points(params, cfg: NeRFConfig, pts, viewdirs,
         POINT_LAUNCHES_BF16 += 1
     else:
         POINT_LAUNCHES += 1
+    if train:
+        SAVED_H_POINTS += n
     check_out("B1", compute_dtype, "launch_points", raw=out)
     return out
 

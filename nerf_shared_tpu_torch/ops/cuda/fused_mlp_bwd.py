@@ -8,51 +8,69 @@ Counterpart of ``nerf_shared_tpu/ops/pallas/fused_mlp_bwd.py``:
   parameter (a name -> tensor dict in the state-dict layout), the points
   (``dpts`` [..., S, 3]) and the view directions (``ddirs`` [..., 3],
   summed over the samples of each ray; None without a viewdir head). On a
-  CUDA tensor it launches ``csrc/fused_mlp_bwd.cu``; on a CPU tensor it is
-  ``plain_mlp_backward``, autograd of ``apply_nerf``.
+  CUDA tensor it launches B1's training launch and then
+  ``csrc/fused_mlp_bwd.cu``; on a CPU tensor it is ``plain_mlp_backward``,
+  autograd of ``apply_nerf``.
 - ``fused_train_op(params, cfg, pts, viewdirs)``: an ``autograd.Function``
   whose forward launches B1 and whose backward launches B2, the training
   path's network evaluation (``render/renderer.py`` under
   ``RenderConfig.fused_backward``). On CPU tensors it is ``apply_nerf``.
 
+The data flow. When a gradient is wanted (grad mode on and an input that
+requires one; fp32, IPE included), ``fused_train_op``'s forward is B1's
+training launch (``forward_saving_h``): besides raw it writes every layer
+input H of every point (the embedding, h_l, the feature, hv) into a device
+buffer laid out by ``act_layout`` (one point-major segment per activation,
+10,096 bytes a point at the lego width), counted in
+``fused_mlp.SAVED_H_POINTS``. The buffer stays on the autograd context
+until the backward has used it. Every other B1 launch writes no H.
+
 B2 is two kernels and a reduction, launched by one C entry:
 
 1. the tile kernel walks 128-point tiles on the tensor cores (B1's tile,
-   ``csrc/mlp_tile_tc.cuh``): it reruns the forward over B1's pack
-   (``fused_mlp.pack_network_tc``), takes the input gradients dh = dz·W
-   through every layer over ``pack_backward_tc``'s pack down to dx, and
-   writes each weight matrix's layer input H and post-mask cotangent dZ to
-   two device buffers (``act_layout``: one point-major segment per
-   activation); both in split fp32 with each 8-row slice summed in fp32;
+   ``csrc/mlp_tile_tc.cuh``): from the cotangent it takes the input
+   gradients dh = dz·W through every layer over ``pack_backward_tc``'s
+   pack down to dx, each ReLU mask read from H, and writes each weight
+   matrix's post-mask cotangent dZ to a second device buffer
+   (``act_layout``); split fp32 with each 8-row slice summed in fp32;
 2. ``nerf_dw_kernel`` forms every dW = H^T·dZ on the tensor cores in split
    fp32 and every db = sum dZ in fp32, one output tile (``dw_tiles``) over
    one range of points (``split_ranges``) a block;
 3. a fixed-order sum of the ranges' partial gradients.
+
+``launch_backward`` called with no H (``fused_mlp_backward``, tests and
+benchmarks) makes B1's training launch first, so there is one route.
+``fused_train_op``'s backward forms dx only where the points or the view
+directions need a gradient (pose refinement); otherwise (every benchmark
+step) the fp32 tile is ``nerf_bwd_kernel<false>`` over a backward pack
+without the GEMMs into the embedding (``bwd_gemms(cfg, dx=False)``).
 
 ``pack_backward_tc`` lays out each input-gradient GEMM's weights, W as a
 [K = out, N = in] matrix split where the network concatenates (the skip
 input, the view-direction input), in the tensor-core pack's slices, by one
 gather through a source map made once per architecture; its descriptor
 (``BwdDesc``) carries the GEMM sequence of the backward sweep and the H /
-dZ segments. The wrapper allocates the H, dZ and partial buffers.
+dZ segments. The wrapper allocates the dZ and partial buffers.
 
 Under ``compute_dtype`` bfloat16 B2 has a second instantiation with the
 JAX kernel's roundings (fused_mlp_bwd.py ``_make_bwd_kernel_closed``):
 the rematerialised activations, the weights and the cotangent g are bf16;
 each dz is rounded (dz_c) before it enters a weight gradient or dh =
 dz_c·Wᵀ; the ReLU masks read the bf16 activations; the bias gradients sum
-the fp32 dz (dbout the rounded g); demb and dx stay fp32. The tile kernel
-is B1's bf16 tile (one wgmma k16 bf16 product a 16-row slice of both packs
-in bf16) and writes dZ in fp32; ``nerf_dw_kernel`` rounds dZ as it loads
-it and forms dW with one ``mma.sync.m16n8k16`` bf16 product a 16-point
-step. ``plain_mlp_backward_bf16`` is that arithmetic in plain PyTorch.
+the fp32 dz (dbout the rounded g); demb and dx stay fp32. Its B1 is
+another tile (``csrc/mlp_tile_bf16.cuh``), so its tile kernel reruns the
+forward (B1's bf16 arithmetic on the tensor-core tile: one wgmma k16 bf16
+product a 16-row slice of both packs in bf16), writes H itself and
+writes dZ in fp32; ``nerf_dw_kernel`` rounds dZ as it loads it and forms
+dW with one ``mma.sync.m16n8k16`` bf16 product a 16-point step.
+``plain_mlp_backward_bf16`` is that arithmetic in plain PyTorch.
 
-Under an IPE config (mip-NeRF) the tile kernel is ``nerf_bwd_ipe_kernel``,
-B1's tile with the IPE encoder over the Gaussian records [..., S, 6], in
-fp32, counted in ``LAUNCHES_IPE``; ``nerf_dw_kernel`` and the reduction
-are the same. It computes the weight gradients alone: mip-NeRF trains no
-poses, so its backward pack leaves out the GEMMs into the embedding
-(``bwd_gemms``) and no dx is written.
+Under an IPE config (mip-NeRF) the tile kernel is ``nerf_bwd_ipe_kernel``
+over H from B1's IPE training launch, in fp32, counted in
+``LAUNCHES_IPE``; ``nerf_dw_kernel`` and the reduction are the same. It
+computes the weight gradients alone: mip-NeRF trains no poses, so its
+backward pack leaves out the GEMMs into the embedding (``bwd_gemms``) and
+no dx is written.
 """
 
 from __future__ import annotations
@@ -126,6 +144,7 @@ N_SEG = MAX_LAYERS + 3
 H_EMB, H_FEATURE, H_HV = 0, MAX_LAYERS + 1, MAX_LAYERS + 2
 Z_DFEATURE, Z_DHV, Z_GR = MAX_LAYERS, MAX_LAYERS + 1, MAX_LAYERS + 2
 _BWD_DESC_WORDS = 8 + MAX_BGEMMS * 8 + 4 * N_SEG
+_HSEG_WORD = 8 + MAX_BGEMMS * 8   # where the BwdDesc's H segments start
 
 # nerf_dw_kernel: output tile rows (of the input width) x columns (of the
 # output width), points a staged chunk, chunks in flight, blocks an SM
@@ -343,17 +362,17 @@ def reduce_partials(part: torch.Tensor, splits: int) -> torch.Tensor:
     return out
 
 
-def bwd_gemms(cfg: NeRFConfig):
+def bwd_gemms(cfg: NeRFConfig, dx: bool = True):
     """The tile kernel's input-gradient GEMMs dh = dz·W in the order it
     runs them: (name, col0, N, kind, arg), columns col0 .. col0 + N of
     weight ``name`` [out, in] as a [K = out, N] matrix. With viewdirs the
     views layer's direction and feature columns (dz = dhv), the feature
     layer (dz = dfeature); then per trunk layer from the last, its
     embedding columns (layer 0 and the layer after a skip) and its h
-    columns (not layer 0). Under IPE the GEMMs into the embedding (dx)
-    are left out."""
+    columns (not layer 0). Without ``dx`` (no input needs a gradient) and
+    under IPE the GEMMs into the embedding are left out."""
     P, V, W, D = cfg.input_ch, cfg.input_ch_views, cfg.W, cfg.D
-    dx = not cfg.ipe
+    dx = dx and not cfg.ipe
     gemms = []
     if cfg.use_viewdirs:
         gemms += [("views_linears.0", W, V, BK_DEMB, 1)] if dx else []
@@ -369,9 +388,9 @@ def bwd_gemms(cfg: NeRFConfig):
     return gemms
 
 
-def bwd_layout(cfg: NeRFConfig, bf16: bool = False):
+def bwd_layout(cfg: NeRFConfig, bf16: bool = False, dx: bool = True):
     """(layout, size, SLOT): where ``pack_backward_tc`` puts each of
-    ``bwd_gemms``' GEMMs, (weight offset, Kp, Np) in floats: its [Kp, Np]
+    ``bwd_gemms(cfg, dx)``' GEMMs, (weight offset, Kp, Np) in floats: its [Kp, Np]
     weights (K padded to a multiple of ``slice_rows``, N by
     ``padded_width``) as consecutive slices of ``slice_floats(Np)``, 64-byte
     aligned; SLOT is the floats of the tile kernel's ring slot, the widest
@@ -379,7 +398,7 @@ def bwd_layout(cfg: NeRFConfig, bf16: bool = False):
     shapes = param_shapes(cfg)
     sk = slice_rows(bf16)
     layout, off = [], 0
-    for name, _, N, _, _ in bwd_gemms(cfg):
+    for name, _, N, _, _ in bwd_gemms(cfg, dx):
         Kp, Np = _round(shapes[name + ".weight"][0], sk), padded_width(N)
         layout.append((off, Kp, Np))
         off += _round(Kp // sk * slice_floats(Np, bf16), 16)
@@ -387,7 +406,7 @@ def bwd_layout(cfg: NeRFConfig, bf16: bool = False):
     return layout, off, slot
 
 
-def bwd_tc_sources(cfg: NeRFConfig, bf16: bool = False):
+def bwd_tc_sources(cfg: NeRFConfig, bf16: bool = False, dx: bool = True):
     """(src, plane, src16, bdesc): ``fused_mlp.tc_sources``' source map for
     ``pack_backward_tc``'s buffer (block (k, n) of a GEMM is weight [k, col0
     + n]), and the int64 BwdDesc of csrc/fused_mlp_bwd.cu: its header
@@ -396,14 +415,14 @@ def bwd_tc_sources(cfg: NeRFConfig, bf16: bool = False):
     segments. Both depend on the architecture alone."""
     shapes = param_shapes(cfg)
     start = param_starts(cfg)
-    layout, size, slot = bwd_layout(cfg, bf16)
+    layout, size, slot = bwd_layout(cfg, bf16, dx)
     sk = slice_rows(bf16)
     src = np.zeros(size, np.int64)
     plane = np.zeros(size, np.int8)
     src16 = np.zeros(2 * size, np.int64) if bf16 else None
     desc = np.zeros(_BWD_DESC_WORDS, np.int64)
     gemm = desc[8:8 + MAX_BGEMMS * 8].reshape(MAX_BGEMMS, 8)
-    gems = bwd_gemms(cfg)
+    gems = bwd_gemms(cfg, dx)
     for i, ((name, col0, N, kind, arg), (w_off, Kp, Np)) in enumerate(zip(gems, layout)):
         n_out, n_in = shapes[name + ".weight"]
         block = np.zeros((Kp, Np), np.int64)
@@ -420,14 +439,15 @@ def bwd_tc_sources(cfg: NeRFConfig, bf16: bool = False):
 _BWD_STATIC: Dict[tuple, tuple] = {}
 
 
-def _bwd_static(cfg: NeRFConfig, device: torch.device, bf16: bool = False):
+def _bwd_static(cfg: NeRFConfig, device: torch.device, bf16: bool = False,
+                dx: bool = True):
     """(src, plane, bdesc, dw_desc, n_jobs, n_tiles, src16, in16) on
-    ``device``, made once per architecture, type and device (they hold no
-    parameter value). dw_desc is ``dw_jobs`` then ``dw_tiles``, flattened;
+    ``device``, made once per architecture, type, ``dx`` (``bwd_gemms``)
+    and device (they hold no parameter value). dw_desc is ``dw_jobs`` then ``dw_tiles``, flattened;
     src16 and in16 (its bf16 values' mask) are None in fp32."""
-    key = (cfg, str(device), bf16)
+    key = (cfg, str(device), bf16, dx)
     if key not in _BWD_STATIC:
-        src, plane, src16, bdesc = bwd_tc_sources(cfg, bf16)
+        src, plane, src16, bdesc = bwd_tc_sources(cfg, bf16, dx)
         jobs = dw_jobs(cfg)
         tiles = dw_tiles(jobs)
         dw = np.concatenate([jobs.reshape(-1), tiles.reshape(-1)])
@@ -441,9 +461,10 @@ def _bwd_static(cfg: NeRFConfig, device: torch.device, bf16: bool = False):
     return _BWD_STATIC[key]
 
 
-def pack_backward_tc(params, cfg: NeRFConfig, device, compute_dtype=torch.float32):
-    """(wbt, bdesc): the input-gradient GEMMs' weights laid out by
-    ``bwd_layout`` as the tensor-core pack lays out the forward's
+def pack_backward_tc(params, cfg: NeRFConfig, device, compute_dtype=torch.float32,
+                     dx: bool = True):
+    """(wbt, bdesc): the input-gradient GEMMs' weights (``bwd_gemms(cfg,
+    dx)``) laid out by ``bwd_layout`` as the tensor-core pack lays out the forward's
     (``fused_mlp.pack_network_tc``): fp32, each 8-row slice's big and small
     tf32 planes; under ``compute_dtype`` bfloat16, one plane of 16 rows
     rounded to bf16; padding zero. One gather through ``bwd_tc_sources``'
@@ -453,7 +474,7 @@ def pack_backward_tc(params, cfg: NeRFConfig, device, compute_dtype=torch.float3
     check_config(cfg)
     check_params(params, cfg, device)
     bf16 = is_bf16(compute_dtype)
-    src, plane, bdesc, _, _, _, src16, in16 = _bwd_static(cfg, device, bf16)
+    src, plane, bdesc, _, _, _, src16, in16 = _bwd_static(cfg, device, bf16, dx)
     extra = (src16, in16) if bf16 else ()
     return gather_pack(flat_params(params, cfg, device), src, plane, *extra), bdesc
 
@@ -491,33 +512,64 @@ _ARGS = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 6
          + [ctypes.c_void_p])
 
 
-def backward_symbol(cfg: NeRFConfig, bf16: bool) -> str:
-    """B2's C entry for ``cfg`` (its IPE instantiation takes fp32 only)."""
+def backward_symbol(cfg: NeRFConfig, bf16: bool, dx: bool = True) -> str:
+    """B2's C entry for ``cfg`` (its IPE instantiation takes fp32 only;
+    without ``dx``, fp32, the tile that forms no input gradient)."""
     if cfg.ipe:
         if bf16:
             raise ValueError("B2's IPE instantiation (mip-NeRF) computes in fp32 only")
         return "nstt_mlp_backward_ipe"
-    return "nstt_mlp_backward_bf16" if bf16 else "nstt_mlp_backward"
+    if bf16:
+        return "nstt_mlp_backward_bf16"
+    return "nstt_mlp_backward" if dx else "nstt_mlp_backward_nodx"
 
 
-def launch_backward(params, cfg: NeRFConfig, pts, viewdirs, g, compute_dtype=torch.float32):
+def forward_saving_h(params, cfg: NeRFConfig, pts, viewdirs):
+    """B1's training launch on CUDA tensors (fp32; its IPE instantiation
+    for an IPE config) -> (raw, (hbuf, n_pad)): raw as ``launch_points``
+    gives it, and B2's H buffer, every layer input of the n points for
+    n_pad = n rounded up to the 128-point tile (``act_layout``; the padded
+    rows hold the empty rows' activations, which nerf_dw_kernel reads as
+    zero). ``torch.empty``: 10,096 bytes a point at the lego width, ~2.0
+    GB at 196,608 points."""
+    n, _ = check_points(cfg, pts, viewdirs)
+    n_pad = -(-n // TILE_P) * TILE_P
+    _, _, h_floats, _ = act_layout(cfg)
+    hbuf = torch.empty(n_pad * h_floats, dtype=torch.float32, device=pts.device)
+    bdesc = _bwd_static(cfg, pts.device)[2]
+    hseg = bdesc[_HSEG_WORD:_HSEG_WORD + 2 * N_SEG]
+    raw = launch_points(params, cfg, pts, viewdirs, torch.float32, hout=(hbuf, hseg, n_pad))
+    return raw, (hbuf, n_pad)
+
+
+def launch_backward(params, cfg: NeRFConfig, pts, viewdirs, g, compute_dtype=torch.float32,
+                    saved=None, dx=True):
     """Kernel B2 (its bf16 instantiation under ``compute_dtype`` bfloat16,
     its IPE one for an IPE config) on CUDA tensors -> (grads, dpts,
-    ddirs); under IPE dpts and ddirs are None."""
-    return launch_backward_h(params, cfg, pts, viewdirs, g, compute_dtype)[:3]
+    ddirs); under IPE, and in fp32 without ``dx``, dpts and ddirs are
+    None. ``saved`` and ``dx``: as for ``launch_backward_h``."""
+    return launch_backward_h(params, cfg, pts, viewdirs, g, compute_dtype, saved, dx)[:3]
 
 
-def launch_backward_h(params, cfg: NeRFConfig, pts, viewdirs, g, compute_dtype=torch.float32):
+def launch_backward_h(params, cfg: NeRFConfig, pts, viewdirs, g, compute_dtype=torch.float32,
+                      saved=None, dx=True):
     """``launch_backward`` -> (grads, dpts, ddirs, hbuf, n_pad), with the H
-    buffer the tile kernel wrote (``act_layout``: every layer input of
-    every point, whose signs are the kernel's ReLU decisions).
+    buffer the tile kernel read (``act_layout``: every layer input of every
+    point, whose signs are the kernel's ReLU decisions). ``saved``: (hbuf,
+    n_pad) from ``forward_saving_h`` on these points and weights; None in
+    fp32: that launch is made first (it counts as a B1 launch). The bf16
+    tile reruns the forward and writes H itself (``saved`` must be None).
+    ``dx`` False (fp32; nothing needs the points' or the directions'
+    gradient): the tile runs no GEMM into the embedding and forms no dx
+    (``nstt_mlp_backward_nodx``); the weight gradients are the same bits.
+    The bf16 tile forms dx either way, the IPE tile never.
 
-    Scratch, all ``torch.empty``: H and dZ for n_pad = n rounded up to 128
-    points (``act_layout``: 19,856 bytes a point at the lego width, ~3.9 GB
-    at 196,608 points; the plain path's autograd keeps every layer's
-    output too), and one partial copy of the packed gradients per point
-    range (``dw_splits`` of them, 2.38 MB each at the lego width). Every
-    float of a partial copy is written, padding as zero."""
+    Scratch, all ``torch.empty``: dZ for n_pad = n rounded up to 128 points
+    (``act_layout``: 9,760 bytes a point at the lego width; the plain
+    path's autograd keeps every layer's output too), H under bf16, and
+    one partial copy of the packed gradients per point range
+    (``dw_splits`` of them, 2.38 MB each at the lego width). Every float
+    of a partial copy is written, padding as zero."""
     global LAUNCHES, LAUNCHES_BF16, LAUNCHES_IPE
     dev = pts.device
     n, S = check_points(cfg, pts, viewdirs)
@@ -526,50 +578,61 @@ def launch_backward_h(params, cfg: NeRFConfig, pts, viewdirs, g, compute_dtype=t
         raise ValueError(f"B2 needs {smem_bytes(cfg)} bytes of shared memory "
                          f"per block at this width, more than {MAX_SMEM}")
     layout, wsize = packed_layout(cfg)
-    dx = torch.empty((n, 6), dtype=torch.float32, device=dev)
+    bf16 = is_bf16(compute_dtype)
+    dx = not cfg.ipe and (dx or bf16)
+    dxbuf = torch.empty((n, 6) if dx else (0, 6), dtype=torch.float32, device=dev)
     if n == 0:
         return ({k: torch.zeros_like(params[k]) for k in layout},
-                None if cfg.ipe else pts.new_zeros(pts.shape),
-                None if viewdirs is None or cfg.ipe else torch.zeros_like(viewdirs),
-                dx[:0, 0], 0)
+                pts.new_zeros(pts.shape) if dx else None,
+                torch.zeros_like(viewdirs) if dx and viewdirs is not None else None,
+                dxbuf[:0, 0], 0)
     check_in("B2", compute_dtype, "launch_backward", params, pts=pts, viewdirs=viewdirs, g=g)
-    bf16 = is_bf16(compute_dtype)
-    fn = common.load("fused_mlp_bwd", _ARGS, backward_symbol(cfg, bf16))
+    if bf16 and saved is not None:
+        raise ValueError("B2's bf16 tile reruns the forward: it takes no saved H")
+    fn = common.load("fused_mlp_bwd", _ARGS, backward_symbol(cfg, bf16, dx))
+    n_pad = -(-n // TILE_P) * TILE_P
+    _, _, h_floats, z_floats = act_layout(cfg)
+    if not bf16:
+        hbuf, n_saved = saved if saved is not None else forward_saving_h(
+            params, cfg, pts, viewdirs)[1]
+        if n_saved != n_pad or hbuf.numel() != n_pad * h_floats:
+            raise ValueError(f"the saved H holds {hbuf.numel()} floats for {n_saved} points, "
+                             f"expected {n_pad * h_floats} for {n_pad}")
     with torch.cuda.device(dev):
         wbuf, desc, HS, _ = pack_network_tc(params, cfg, dev, compute_dtype)
-        wbt, bdesc = pack_backward_tc(params, cfg, dev, compute_dtype)
-        _, _, _, dw_desc, n_jobs, n_tiles, _, _ = _bwd_static(cfg, dev, bf16)
+        wbt, bdesc = pack_backward_tc(params, cfg, dev, compute_dtype, dx)
+        _, _, _, dw_desc, n_jobs, n_tiles, _, _ = _bwd_static(cfg, dev, bf16, dx)
         enc = encoder_buffer(cfg, dev)
-        n_pad = -(-n // TILE_P) * TILE_P
         sms = torch.cuda.get_device_properties(dev).multi_processor_count
         splits = dw_splits(n_pad, n_tiles, sms)
-        _, _, h_floats, z_floats = act_layout(cfg)
-        hbuf = torch.empty(n_pad * h_floats, dtype=torch.float32, device=dev)
+        if bf16:
+            hbuf = torch.empty(n_pad * h_floats, dtype=torch.float32, device=dev)
         zbuf = torch.empty(n_pad * z_floats, dtype=torch.float32, device=dev)
         part = torch.empty(splits * wsize, dtype=torch.float32, device=dev)
         grads = torch.empty(wsize, dtype=torch.float32, device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
         tiles_ptr = dw_desc.data_ptr() + 8 * n_jobs * J_WORDS
-        rc = fn(desc.data_ptr(), bdesc.data_ptr(), HS, bwd_layout(cfg, bf16)[2],
+        rc = fn(desc.data_ptr(), bdesc.data_ptr(), HS, bwd_layout(cfg, bf16, dx)[2],
                 wbuf.data_ptr(), wbt.data_ptr(), enc.data_ptr(), pts.data_ptr(),
                 viewdirs.data_ptr() if viewdirs is not None else 0,
-                g.data_ptr(), out_channels(cfg), dx.data_ptr(), hbuf.data_ptr(),
+                g.data_ptr(), out_channels(cfg), dxbuf.data_ptr() if dx else 0, hbuf.data_ptr(),
                 zbuf.data_ptr(), n_tiles, dw_desc.data_ptr(), tiles_ptr,
                 part.data_ptr(), grads.data_ptr(), wsize, n, n_pad, S, splits, stream)
     common.check_launch(rc, "fused_mlp_bwd (B2 bf16)" if bf16 else "fused_mlp_bwd (B2)")
     if cfg.ipe:
         LAUNCHES_IPE += 1
-        check_out("B2", compute_dtype, "launch_backward", grads=grads)
-        return unpack_grads(grads, cfg), None, None, hbuf, n_pad
-    if bf16:
+    elif bf16:
         LAUNCHES_BF16 += 1
     else:
         LAUNCHES += 1
-    check_out("B2", compute_dtype, "launch_backward", grads=grads, dx=dx)
-    dpts = dx[:, :3].reshape(pts.shape)
+    if not dx:
+        check_out("B2", compute_dtype, "launch_backward", grads=grads)
+        return unpack_grads(grads, cfg), None, None, hbuf, n_pad
+    check_out("B2", compute_dtype, "launch_backward", grads=grads, dx=dxbuf)
+    dpts = dxbuf[:, :3].reshape(pts.shape)
     ddirs = None
     if viewdirs is not None:
-        ddirs = dx[:, 3:].reshape(pts.shape).sum(dim=-2)
+        ddirs = dxbuf[:, 3:].reshape(pts.shape).sum(dim=-2)
     return unpack_grads(grads, cfg), dpts, ddirs, hbuf, n_pad
 
 
@@ -602,11 +665,12 @@ def fused_mlp_backward(params, cfg: NeRFConfig, pts, viewdirs: Optional[torch.Te
 
 class _TrainFn(torch.autograd.Function):
     """B1 forward, B2 backward (on the CPU, under bf16, their plain
-    versions)."""
+    versions). ``save_h``: the forward is B1's training launch, whose H
+    stays on the context until the backward has used it."""
 
     @staticmethod
-    def forward(ctx, cfg, names, dtype, pts, viewdirs, *weights):
-        ctx.cfg, ctx.names, ctx.dtype = cfg, names, dtype
+    def forward(ctx, cfg, names, dtype, save_h, pts, viewdirs, *weights):
+        ctx.cfg, ctx.names, ctx.dtype, ctx.saved_h = cfg, names, dtype, None
         ctx.save_for_backward(pts, viewdirs, *weights)
         params = dict(zip(names, weights))
         if pts.device.type == "cpu":
@@ -614,24 +678,39 @@ class _TrainFn(torch.autograd.Function):
             raw = plain_nerf_forward(params, cfg, pts, viewdirs, dtype)
             check_out("B1", dtype, "fused_train_op", raw=raw)
             return raw
+        if save_h:
+            raw, ctx.saved_h = forward_saving_h(params, cfg, pts, viewdirs)
+            return raw
         return launch_points(params, cfg, pts, viewdirs, dtype)
 
     @staticmethod
     def backward(ctx, g):
         pts, viewdirs, *weights = ctx.saved_tensors
         params = dict(zip(ctx.names, weights))
+        need = ctx.needs_input_grad
         if pts.device.type == "cpu":
             grads, dpts, ddirs = _plain_backward(params, ctx.cfg, pts, viewdirs, g, ctx.dtype,
                                                  "fused_train_op")
         else:
-            if ctx.cfg.ipe and (ctx.needs_input_grad[3] or ctx.needs_input_grad[4]):
+            if ctx.cfg.ipe and (need[4] or need[5]):
                 raise ValueError("B2's IPE instantiation computes no gradient of the "
                                  "Gaussians or the view directions (mip-NeRF trains no poses)")
+            saved, ctx.saved_h = ctx.saved_h, None
             grads, dpts, ddirs = launch_backward(params, ctx.cfg, pts, viewdirs,
-                                                 g.contiguous(), ctx.dtype)
-        need = ctx.needs_input_grad
-        return (None, None, None, dpts if need[3] else None,
-                ddirs if need[4] else None, *[grads[k] for k in ctx.names])
+                                                 g.contiguous(), ctx.dtype, saved=saved,
+                                                 dx=need[4] or need[5])
+        return (None, None, None, None, dpts if need[4] else None,
+                ddirs if need[5] else None, *[grads[k] for k in ctx.names])
+
+
+def saves_h(compute_dtype, tensors) -> bool:
+    """Whether ``fused_train_op``'s B1 launch on CUDA tensors is the
+    training launch that writes B2's H: in fp32 (IPE included; the bf16
+    tile reruns its forward), with grad mode on and one of ``tensors``
+    requiring a gradient. No-grad launches (frames, probes, eval) write
+    none."""
+    return (not is_bf16(compute_dtype) and torch.is_grad_enabled()
+            and any(t is not None and t.requires_grad for t in tensors))
 
 
 def fused_train_op(params, cfg: NeRFConfig, pts, viewdirs: Optional[torch.Tensor],
@@ -648,9 +727,10 @@ def fused_train_op(params, cfg: NeRFConfig, pts, viewdirs: Optional[torch.Tensor
     if pts.device.type not in ("cpu", "cuda"):
         raise ValueError(f"fused_train_op: no kernel for {pts.device}")
     names = tuple(torch_param_order(cfg))
-    return _TrainFn.apply(cfg, names, compute_dtype, pts.contiguous(),
-                          None if viewdirs is None else viewdirs.contiguous(),
-                          *[params[k] for k in names])
+    weights = [params[k] for k in names]
+    save_h = pts.device.type == "cuda" and saves_h(compute_dtype, [pts, viewdirs, *weights])
+    return _TrainFn.apply(cfg, names, compute_dtype, save_h, pts.contiguous(),
+                          None if viewdirs is None else viewdirs.contiguous(), *weights)
 
 
 def flops_per_point_dw(cfg: NeRFConfig) -> int:
@@ -660,16 +740,21 @@ def flops_per_point_dw(cfg: NeRFConfig) -> int:
     return flops_per_point(cfg)
 
 
-def flops_per_point_tile(cfg: NeRFConfig) -> int:
-    """Multiply-adds x 2 of the tile kernel for one point: the forward
-    again without the narrow output layers (their outputs are not needed)
-    and the input-gradient product of every layer."""
-    W = cfg.W
-    narrow = W * 1 + (W // 2) * 3 if cfg.use_viewdirs else W * cfg.output_ch
-    return 2 * (2 * (flops_per_point(cfg) // 2) - narrow)
+def flops_per_point_tile(cfg: NeRFConfig, dx: bool = True) -> int:
+    """Multiply-adds x 2 of the tile kernel for one point: the input-
+    gradient product of every layer, one forward's worth (the narrow
+    heads' on the CUDA cores included; the tile reruns no forward); under
+    IPE or without ``dx`` less the GEMMs into the embedding, which it
+    does not run then."""
+    f = flops_per_point(cfg)
+    if cfg.ipe or not dx:
+        P, V, W = cfg.input_ch, cfg.input_ch_views, cfg.W
+        from_emb = 1 + sum(1 for s in cfg.skips if s + 1 < cfg.D)
+        f -= 2 * (from_emb * P * W + (V * (W // 2) if cfg.use_viewdirs else 0))
+    return f
 
 
-def flops_per_point_bwd(cfg: NeRFConfig) -> int:
+def flops_per_point_bwd(cfg: NeRFConfig, dx: bool = True) -> int:
     """Multiply-adds x 2 of B2 for one point, counted from the layer
     shapes: the tile kernel's and nerf_dw_kernel's."""
-    return flops_per_point_tile(cfg) + flops_per_point_dw(cfg)
+    return flops_per_point_tile(cfg, dx) + flops_per_point_dw(cfg)

@@ -285,52 +285,146 @@ def _cosf(a):
     return torch.cos(a.double()).float()
 
 
-def _emulate_tile(params, cfg, pts, vd, g, bf16=False):
-    """Transcription of csrc/fused_mlp_bwd.cu's tile kernel (nerf_bwd_kernel,
-    under ``bf16`` nerf_bwd_bf16_kernel) on pack_network_tc's and
-    pack_backward_tc's buffers and descriptors, over n_pad = n rounded up
-    to the 128-point tile (points past n are zero, as the encoder's empty
-    rows are) -> (hbuf, zbuf, dx [n, 6], n_pad). fp32: every GEMM's
-    products through the split planes with 8-row slice sums (_mm3_rn);
-    bf16: operands rounded, one product a 16-row slice, fp32 sums. H and
-    dZ start NaN, as torch.empty may leave them, so a float the kernel
-    does not write shows."""
+def _expf(a):
+    """expf as _sinf."""
+    return torch.exp(a.double()).float()
+
+
+def _tile_setup(params, cfg, pts, vd, bf16=False, dx=True):
+    """What the tile kernels (B1's training launch, B2's tile) read, on the
+    CPU: the packs and descriptors, and per point of n_pad = n rounded up
+    to the 128-point tile the encoder's record x (the point and its ray's
+    direction, PointEnc; under IPE the Gaussian's mean and variances and
+    the direction, IpeEnc; points past n zero, as the encoder's empty rows
+    are) and the encoded inputs as the encoder forms them (f·x rounded
+    once, then identity, sin or cos; IPE's attenuated kinds times
+    exp(-f²σ²/2)). ``dx``: as for pack_backward_tc."""
     dt = torch.bfloat16 if bf16 else torch.float32
-    rnd = fused_mlp.bf16_round if bf16 else (lambda a: a)  # noqa: E731
-    sk = 16 if bf16 else 8
-    wbuf, desc, HS, _ = fused_mlp.pack_network_tc(params, cfg, "cpu", dt)
-    wbt, bdesc = fused_mlp_bwd.pack_backward_tc(params, cfg, "cpu", dt)
+    wbuf, desc, _, _ = fused_mlp.pack_network_tc(params, cfg, "cpu", dt)
+    wbt, bdesc = fused_mlp_bwd.pack_backward_tc(params, cfg, "cpu", dt, dx)
     enc = fused_mlp.encoder_buffer(cfg, "cpu")
     hdr, gemm, narrow, kind = _tc_desc(desc)
     D, W, P, V, OUT, VD, HS, _, NG = (int(v) for v in hdr[:9])
-    bhdr, bgemm, hseg, zseg = _bwd_desc(bdesc)
-    n = pts.size // 3
+    w = cfg.point_width
+    n = pts.size // w
     n_pad = -(-n // fused_mlp_bwd.TILE_P) * fused_mlp_bwd.TILE_P
     assert fused_mlp_bwd.TILE_P == 128
-    x = torch.zeros(n_pad, 6)
-    x[:n, :3] = torch.from_numpy(pts.reshape(-1, 3))
+    x = torch.zeros(n_pad, w + 3)
+    x[:n, :w] = torch.from_numpy(pts.reshape(-1, w))
     if VD:
-        x[:n, 3:] = torch.from_numpy(np.repeat(vd, pts.shape[-2], axis=0))
-    _, _, h_floats, z_floats = fused_mlp_bwd.act_layout(cfg)
-    hbuf = torch.full((n_pad * h_floats,), float("nan"))
-    zbuf = torch.full((n_pad * z_floats,), float("nan"))
-
-    def rows(buf, table, slot):
-        off, ld = (int(v) for v in table[slot])
-        return buf[off * n_pad:(off + ld) * n_pad].view(n_pad, ld)
-
-    # the point-major encoder: column cc reads x[:, enc[256 + cc]], f·x rounded once
+        x[:n, w:] = torch.from_numpy(np.repeat(vd, pts.shape[-2], axis=0))
     m = fused_mlp.MAX_EMB
     src = enc[m:m + P + V].long()
     f = enc[:P + V]
     k = torch.from_numpy(kind[:P + V].astype(np.int64))
     xs = x[:, src]
-    emb = torch.where(k == 0, xs, torch.where(k == 1, _sinf(f * xs), _cosf(f * xs)))
+    arg = f * xs
+    emb = torch.where(k == 0, xs, torch.where((k == 1) | (k == 3), _sinf(arg), _cosf(arg)))
+    if cfg.ipe:
+        var = x[:, torch.clamp(src + 3, max=w + 2)]
+        emb = torch.where(k >= 3, emb * _expf(-0.5 * (var * (f * f))), emb)
+    return dict(wbuf=wbuf, wbt=wbt, bdesc=bdesc, gemm=gemm, narrow=narrow, D=D, P=P, V=V,
+                OUT=OUT, VD=VD, HS=HS, NG=NG, n=n, n_pad=n_pad, x=x, src=src, f=f, k=k,
+                emb=emb, bf16=bf16)
+
+
+def _rows(buf, table, slot, n_pad):
+    off, ld = (int(v) for v in table[slot])
+    return buf[off * n_pad:(off + ld) * n_pad].view(n_pad, ld)
+
+
+def _prod(st, a, buf, w_off, Kp, Np):
+    """a @ the GEMM's [Kp, Np] weights in a pack, as the tile forms it:
+    fp32 through the split planes with 8-row slice sums (_mm3_rn); bf16
+    operands rounded, one product a 16-row slice, fp32 sums."""
+    planes = _slice_planes(buf, w_off, Kp, Np, st["bf16"])
+    return fused_mlp.bf16_round(a) @ planes[0] if st["bf16"] else _mm3_rn(a, *planes)
+
+
+def _pad(a, width):
+    return torch.nn.functional.pad(a, (0, width - a.shape[1]))
+
+
+def _forward_to_h(st, hbuf):
+    """The forward of tile_network over every tile, as B1's training launch
+    (kSaveH) forms it and as B2's bf16 tile reruns it: the embedding to H's
+    embedding segment (rows past n zero), each GEMM's act(acc + bias) to
+    its H segment and the activation tile s.h (rounded under bf16) ->
+    s.h after the last GEMM [n_pad, HS]."""
+    rnd = fused_mlp.bf16_round if st["bf16"] else (lambda a: a)  # noqa: E731
+    sk = 16 if st["bf16"] else 8
+    n, n_pad, P, V, D = st["n"], st["n_pad"], st["P"], st["V"], st["D"]
+    _, _, hseg, _ = _bwd_desc(st["bdesc"])
+    emb = st["emb"]
     P4 = fused_mlp._round4(P)
-    he = rows(hbuf, hseg, fused_mlp_bwd.H_EMB)
+    he = _rows(hbuf, hseg, fused_mlp_bwd.H_EMB, n_pad)
     he[:] = 0.0
     he[:n, :P] = rnd(emb[:n, :P])
     he[:n, P4:P4 + V] = rnd(emb[:n, P:])
+    srcs = {fused_mlp.SRC_PTS: _pad(emb[:, :P], -(-P // sk) * sk),
+            fused_mlp.SRC_DIRS: _pad(emb[:, P:], -(-V // sk) * sk)}
+    t = torch.zeros(n_pad, st["HS"])   # the activation tile s.h
+    wbuf = st["wbuf"]
+    for gi in range(st["NG"]):
+        w_off, b_off, Np, ns0, src0, ns1, src1, relu = (int(v) for v in st["gemm"][gi])
+        a = torch.cat([t[:, :sk * ns] if s_ == fused_mlp.SRC_H else srcs[s_]
+                       for s_, ns in ((src0, ns0), (src1, ns1)) if ns], -1)
+        out = _prod(st, a, wbuf, w_off, sk * (ns0 + ns1), Np) + wbuf[b_off:b_off + Np]
+        out = rnd(out.clamp_min(0.0) if relu else out)
+        slot = 1 + gi if gi < D else (fused_mlp_bwd.H_FEATURE if gi == D else fused_mlp_bwd.H_HV)
+        hr = _rows(hbuf, hseg, slot, n_pad)
+        hr[:] = out[:, :hr.shape[1]]
+        t[:, :Np] = out
+    return t
+
+
+def _emulate_b1_h(params, cfg, pts, vd):
+    """Transcription of B1's training launch (nerf_points_tc_kernel<true>,
+    nerf_points_ipe_kernel<true>: tile_network with kSaveH) on
+    pack_network_tc's buffer and act_layout's segments -> (hbuf, n_pad):
+    every layer input of every point, each GEMM's through the split planes
+    with 8-row slice sums (_mm3_rn) and the epilogue's act(acc + bias).
+    H starts NaN, as torch.empty may leave it, so a float the launch does
+    not write shows."""
+    st = _tile_setup(params, cfg, pts, vd)
+    _, _, h_floats, _ = fused_mlp_bwd.act_layout(cfg)
+    hbuf = torch.full((st["n_pad"] * h_floats,), float("nan"))
+    _forward_to_h(st, hbuf)
+    return hbuf.numpy(), st["n_pad"]
+
+
+def _emulate_tile(params, cfg, pts, vd, g, bf16=False, rerun=None, dx=True):
+    """Transcription of csrc/fused_mlp_bwd.cu's tile kernel (nerf_bwd_kernel,
+    nerf_bwd_ipe_kernel under IPE, nerf_bwd_bf16_kernel under ``bf16``) on
+    pack_network_tc's and pack_backward_tc's buffers and descriptors, over
+    n_pad = n rounded up to the 128-point tile -> (hbuf, zbuf, dx [n, 6],
+    n_pad). fp32: H from B1's training launch (_emulate_b1_h) and the
+    backward sweep alone, the narrow heads' mask read from H, s.h starting
+    NaN (the tile holds no activation) and padded with zeros to the first
+    GEMM's K; ``rerun`` (the bf16 tile's route, default under bf16): the
+    tile reruns the forward itself first (_forward_to_h), writing H, the
+    narrow heads' mask read from s.h. Every GEMM's products through the
+    split planes with 8-row slice sums (_mm3_rn); bf16: operands rounded,
+    one product a 16-row slice, fp32 sums. H and dZ start NaN, as
+    torch.empty may leave them, so a float the kernels do not write
+    shows. ``dx`` False: nerf_bwd_kernel<false> over the backward pack
+    without the GEMMs into the embedding (dx stays zero)."""
+    rerun = bf16 if rerun is None else rerun
+    rnd = fused_mlp.bf16_round if bf16 else (lambda a: a)  # noqa: E731
+    st = _tile_setup(params, cfg, pts, vd, bf16, dx)
+    n, n_pad, D, P, V, OUT, VD = (st[k] for k in ("n", "n_pad", "D", "P", "V", "OUT", "VD"))
+    wbuf, narrow, x, src, f, k = (st[k] for k in ("wbuf", "narrow", "x", "src", "f", "k"))
+    bhdr, bgemm, hseg, zseg = _bwd_desc(st["bdesc"])
+    _, _, h_floats, z_floats = fused_mlp_bwd.act_layout(cfg)
+    zbuf = torch.full((n_pad * z_floats,), float("nan"))
+    if rerun:
+        hbuf = torch.full((n_pad * h_floats,), float("nan"))
+        t = _forward_to_h(st, hbuf)
+    else:
+        hb, n_b1 = _emulate_b1_h(params, cfg, pts, vd)
+        assert n_b1 == n_pad
+        hbuf = torch.from_numpy(hb)
+        t = torch.full((n_pad, st["HS"]), float("nan"))
     gt = torch.zeros(n_pad, fused_mlp_bwd.G_LD)
     gr = torch.from_numpy(g.reshape(n, -1))
     if VD:
@@ -338,42 +432,25 @@ def _emulate_tile(params, cfg, pts, vd, g, bf16=False):
     else:
         gt[:n, :OUT] = gr
     gt = rnd(gt)
-    rows(zbuf, zseg, fused_mlp_bwd.Z_GR)[:] = gt
-
-    def prod(a, buf, w_off, Kp, Np):
-        planes = _slice_planes(buf, w_off, Kp, Np, bf16)
-        return rnd(a) @ planes[0] if bf16 else _mm3_rn(a, *planes)
-
-    def pad(a, width):
-        return torch.nn.functional.pad(a, (0, width - a.shape[1]))
-
-    srcs = {fused_mlp.SRC_PTS: pad(emb[:, :P], -(-P // sk) * sk),
-            fused_mlp.SRC_DIRS: pad(emb[:, P:], -(-V // sk) * sk)}
-    t = torch.zeros(n_pad, HS)   # the activation tile s.h
-    for gi in range(NG):
-        w_off, b_off, Np, ns0, src0, ns1, src1, relu = (int(v) for v in gemm[gi])
-        a = torch.cat([t[:, :sk * ns] if s_ == fused_mlp.SRC_H else srcs[s_]
-                       for s_, ns in ((src0, ns0), (src1, ns1)) if ns], -1)
-        out = prod(a, wbuf, w_off, sk * (ns0 + ns1), Np) + wbuf[b_off:b_off + Np]
-        out = rnd(out.clamp_min(0.0) if relu else out)
-        slot = 1 + gi if gi < D else (fused_mlp_bwd.H_FEATURE if gi == D else fused_mlp_bwd.H_HV)
-        hr = rows(hbuf, hseg, slot)
-        hr[:] = out[:, :hr.shape[1]]
-        t[:, :Np] = out
-    # the narrow heads' transposed products, fp32 in order, masked by s.h
+    _rows(zbuf, zseg, fused_mlp_bwd.Z_GR, n_pad)[:] = gt
+    # the narrow heads' transposed products, fp32 in order, masked by hv
+    # (h_{D-1}): from s.h after a rerun, else from H
     w_off, _, K, N = (int(v) for v in narrow[1 if VD else 2])
     wn = wbuf[w_off:w_off + N * K].view(N, K)
-    zr = rows(zbuf, zseg, fused_mlp_bwd.Z_DHV if VD else D - 1)
+    zr = _rows(zbuf, zseg, fused_mlp_bwd.Z_DHV if VD else D - 1, n_pad)
     v = gt[:, :1] * wn[0]
     for o in range(1, N):
         v = v + gt[:, o:o + 1] * wn[o]
-    v = torch.where(t[:, :K] > 0, v, torch.zeros(()))
-    zr[:] = pad(v, zr.shape[1])
-    t[:, :zr.shape[1]] = rnd(zr)
+    mask = t[:, :K] if rerun else _rows(hbuf, hseg, fused_mlp_bwd.H_HV if VD else D, n_pad)[:, :K]
+    v = torch.where(mask > 0, v, torch.zeros(()))
+    zr[:] = _pad(v, zr.shape[1])
+    cols = zr.shape[1] if rerun else -(-zr.shape[1] // 8) * 8
+    t[:, :cols] = rnd(_pad(v, cols))
     dx = torch.zeros(n_pad, 6, dtype=torch.float64)
     for w_off, kind_, Np, ns, arg in (tuple(int(v) for v in r[:5])
                                       for r in bgemm[:int(bhdr[0])]):
-        acc = prod(t[:, :sk * ns], wbt, w_off, sk * ns, Np)
+        sk = 16 if bf16 else 8
+        acc = _prod(st, t[:, :sk * ns], st["wbt"], w_off, sk * ns, Np)
         if kind_ == fused_mlp_bwd.BK_DEMB:
             base, width = (P, V) if arg else (0, P)
             for c in range(width):
@@ -386,14 +463,14 @@ def _emulate_tile(params, cfg, pts, vd, g, bf16=False):
                 dx[:, dim] += (acc[:, c] * der).double()
             continue
         if kind_ == fused_mlp_bwd.BK_DFEATURE:
-            zr = rows(zbuf, zseg, fused_mlp_bwd.Z_DFEATURE)
+            zr = _rows(zbuf, zseg, fused_mlp_bwd.Z_DFEATURE, n_pad)
         else:
             if kind_ == fused_mlp_bwd.BK_DZ_ALPHA:
                 wa_off, _, Ka, _ = (int(v) for v in narrow[0])
                 acc[:, :Ka] = acc[:, :Ka] + gt[:, 4:5] * wbuf[wa_off:wa_off + Ka]
-            hm = rows(hbuf, hseg, 1 + arg)
-            acc = torch.where(pad(hm, Np) > 0, acc, torch.zeros(()))
-            zr = rows(zbuf, zseg, arg)
+            hm = _rows(hbuf, hseg, 1 + arg, n_pad)
+            acc = torch.where(_pad(hm, Np) > 0, acc, torch.zeros(()))
+            zr = _rows(zbuf, zseg, arg, n_pad)
         zr[:] = acc[:, :zr.shape[1]]
         t[:, :Np] = rnd(acc)
     return hbuf.numpy(), zbuf.numpy(), dx[:n].numpy(), n_pad
@@ -411,12 +488,15 @@ def _dw_wide_bf16(h, z):
                      dtype=np.float32)[-1]
 
 
-def _emulate_b2(params, cfg, pts, vd, g, sms=132, buffers=None, bf16=False):
-    """Transcription of all of B2 -> (grads, dpts, ddirs):
+def _emulate_b2(params, cfg, pts, vd, g, sms=132, buffers=None, bf16=False, rerun=None,
+                dx=True):
+    """Transcription of all of B2 -> (grads, dpts, ddirs) (under IPE or
+    without ``dx`` dpts and ddirs None):
 
-    - the tile kernel (_emulate_tile), which writes each layer input H and
-      post-mask cotangent dZ (float32) into the two buffers at act_layout's
-      offsets for n_pad points and forms dx;
+    - the tile kernel (_emulate_tile; ``rerun`` as there), which reads each
+      layer input H that B1's training launch wrote, writes each post-mask
+      cotangent dZ (float32) into the dZ buffer at act_layout's offsets for
+      n_pad points and forms dx;
     - nerf_dw_kernel: every dw_jobs product over each split_ranges range
       (rows at or past n zero, as the kernel's staging fills them), split
       fp32 with k8 slice sums (_dw_wide; bf16: _dw_wide_bf16) or fp32 fma
@@ -426,9 +506,10 @@ def _emulate_b2(params, cfg, pts, vd, g, sms=132, buffers=None, bf16=False):
       unpacked by its unpack_grads.
 
     ``buffers``, a dict, receives hbuf, zbuf, part and the split count."""
-    hbuf, zbuf, dx, n_pad = _emulate_tile(params, cfg, pts, vd, g, bf16)
+    with_dx = dx and not cfg.ipe
+    hbuf, zbuf, dx, n_pad = _emulate_tile(params, cfg, pts, vd, g, bf16, rerun, with_dx)
     VD = cfg.use_viewdirs
-    n = pts.size // 3
+    n = pts.size // cfg.point_width
     hseg, zseg, _, _ = fused_mlp_bwd.act_layout(cfg)
 
     def rows(buf, table, slot):
@@ -462,6 +543,8 @@ def _emulate_b2(params, cfg, pts, vd, g, sms=132, buffers=None, bf16=False):
     if buffers is not None:
         buffers.update(hbuf=hbuf, zbuf=zbuf, part=part, splits=splits, n_pad=n_pad)
     tg = fused_mlp_bwd.unpack_grads(grads, cfg)
+    if not with_dx:
+        return tg, None, None
     ddirs = dx[:, 3:].reshape(pts.shape).sum(1) if VD else None
     return tg, dx[:, :3].reshape(pts.shape), ddirs
 
@@ -567,25 +650,140 @@ def test_backward_fits_shared_memory_at_the_supported_widths():
 
 def test_flop_counts_at_the_lego_width():
     """1,186,816 FLOP per point forward (8x256, skip at 4, viewdirs,
-    multires 10/4); the backward is three forwards less the narrow heads'
-    rematerialisation."""
+    multires 10/4); the backward is two forwards' worth: the input
+    gradients and the weight gradients (B1's training launch formed the
+    layer inputs, so B2 reruns no forward)."""
     cfg = tnerf.NeRFConfig()
     f = fused_mlp.flops_per_point(cfg)
     assert f == 1_186_816
-    assert fused_mlp_bwd.flops_per_point_bwd(cfg) == 3 * f - 2 * (256 + 128 * 3)
+    assert fused_mlp_bwd.flops_per_point_bwd(cfg) == 2 * f
 
 
 def test_flop_counts_of_the_two_kernels():
     """nerf_dw_kernel does one forward's multiply-adds (every dW = H^T·dZ,
-    the narrow heads' included), the tile kernel the remaining two forwards
-    less the narrow heads' rematerialisation; together B2's count."""
+    the narrow heads' included), the tile kernel one forward's input-
+    gradient products (the narrow heads' included; under IPE without the
+    GEMMs into the embedding, since it forms no dx); together B2's
+    count."""
     for cfg in (tnerf.NeRFConfig(), tnerf.NeRFConfig(D=3, W=64, skips=(1,),
-                                                     use_viewdirs=False, output_ch=5)):
+                                                     use_viewdirs=False, output_ch=5),
+                tnerf.MipNeRFConfig()):
         f = fused_mlp.flops_per_point(cfg)
         tile, dw = fused_mlp_bwd.flops_per_point_tile(cfg), fused_mlp_bwd.flops_per_point_dw(cfg)
         assert dw == f
         assert tile + dw == fused_mlp_bwd.flops_per_point_bwd(cfg)
-    assert fused_mlp_bwd.flops_per_point_tile(tnerf.NeRFConfig()) == 2 * 1_186_816 - 2 * 640
+    assert fused_mlp_bwd.flops_per_point_tile(tnerf.NeRFConfig()) == 1_186_816
+    mip = tnerf.MipNeRFConfig()
+    assert fused_mlp_bwd.flops_per_point_tile(mip) == fused_mlp.flops_per_point(mip) - 2 * (
+        2 * 96 * 256 + 27 * 128)
+
+
+def test_h_is_written_only_for_a_backward():
+    """fused_train_op's B1 launch writes B2's H (saves_h) only where a
+    backward will read it: fp32 or IPE, grad mode on, an input that needs a
+    gradient; not under torch.no_grad(), not with no input requiring one,
+    not in bf16 (its tile reruns the forward). On CPU tensors (the plain
+    versions) fused_train_op under no_grad and fused_nerf_forward add
+    nothing to SAVED_H_POINTS, nor does a training forward and backward."""
+    _, _, tcfg, tp = _models()
+    pts, vd, g = map(_t, _points(n=3, S=5))
+    leaves = [v.clone().requires_grad_(True) for v in tp.values()]
+    plain = list(tp.values())
+    f32, bf = torch.float32, torch.bfloat16
+    assert fused_mlp_bwd.saves_h(f32, [pts, vd] + leaves)
+    assert not fused_mlp_bwd.saves_h(f32, [pts, vd] + plain)
+    assert not fused_mlp_bwd.saves_h(bf, [pts, vd] + leaves)
+    assert fused_mlp_bwd.saves_h(f32, [pts.requires_grad_(True), None] + plain)
+    with torch.no_grad():
+        assert not fused_mlp_bwd.saves_h(f32, [pts, vd] + leaves)
+    pts = pts.detach()
+    before = fused_mlp.SAVED_H_POINTS
+    params = dict(zip(tp, leaves))
+    with torch.no_grad():
+        fused_mlp_bwd.fused_train_op(params, tcfg, pts, vd)
+    fused_mlp.fused_nerf_forward(tp, tcfg, pts, vd)
+    (fused_mlp_bwd.fused_train_op(params, tcfg, pts, vd) * g).sum().backward()
+    assert fused_mlp.SAVED_H_POINTS == before
+    with pytest.raises(ValueError, match="fp32"):
+        fused_mlp.point_symbol(tcfg, True, train=True)
+    assert fused_mlp.point_symbol(tcfg, False, train=True) == "nstt_points_train_tc"
+    assert fused_mlp.point_symbol(tnerf.MipNeRFConfig(), False, True) == "nstt_points_train_ipe"
+
+
+def _step_net(name):
+    """(cfg, params, pts [n, S, 3 | 6], vd, g) of a training-step pass: the
+    lego net at 150 points (two tiles, the last ragged), a small net with
+    a skip and no viewdirs, and an IPE net (mip-NeRF's encoder at a small
+    width) on Gaussians."""
+    cfg = {"lego": tnerf.NeRFConfig(**LEGO),
+           "skip_no_viewdirs": tnerf.NeRFConfig(D=3, W=64, skips=(1,), use_viewdirs=False,
+                                                output_ch=5),
+           "ipe": tnerf.MipNeRFConfig(D=4, W=64, skips=(1,), multires=4,
+                                      multires_views=2)}[name]
+    params = {k: v.detach() for k, v in tnerf.NeRF(
+        cfg, generator=torch.Generator().manual_seed(7)).params().items()}
+    C = fused_mlp.out_channels(cfg)
+    pts, vd, g = _points(n=3, S=50, C=C, seed=8)
+    if cfg.ipe:
+        var = 1e-3 * np.random.default_rng(9).random(pts.shape).astype(np.float32)
+        pts = np.concatenate([pts, var], -1)
+    return cfg, params, pts, vd if cfg.use_viewdirs else None, g
+
+
+@pytest.mark.parametrize("net", ["lego", "skip_no_viewdirs", "ipe"])
+def test_saved_h_gives_the_rerun_bit_for_bit(net):
+    """B2's tile over the layer inputs that B1's training launch wrote
+    (_emulate_b1_h: tile_network's epilogues with kSaveH) against the tile
+    that reruns the forward itself, as it did before B1 saved them: H, dZ,
+    dx and every weight gradient bit for bit, and every float of H and dZ
+    written. The saved-H tile starts from a NaN activation tile, so a
+    column the backward read before anything wrote it would show."""
+    cfg, params, pts, vd, g = _step_net(net)
+    saved, rerun = {}, {}
+    got = _emulate_b2(params, cfg, pts, vd, g, buffers=saved, rerun=False)
+    want = _emulate_b2(params, cfg, pts, vd, g, buffers=rerun, rerun=True)
+    assert saved["n_pad"] == rerun["n_pad"] == 256
+    for buf in ("hbuf", "zbuf"):
+        assert not np.isnan(saved[buf]).any()
+        assert np.array_equal(saved[buf], rerun[buf]), buf
+    assert list(got[0]) == list(want[0])
+    for k in want[0]:
+        assert torch.equal(got[0][k], want[0][k]), k
+    if cfg.ipe:
+        assert got[1] is None and got[2] is None and want[1] is None
+        return
+    np.testing.assert_array_equal(got[1], want[1])
+    if vd is not None:
+        np.testing.assert_array_equal(got[2], want[2])
+
+
+@pytest.mark.parametrize("net", ["lego", "skip_no_viewdirs"])
+def test_without_dx_the_weight_gradients_are_the_same_bits(net):
+    """A training step whose points and directions need no gradient runs
+    nerf_bwd_kernel<false> over the backward pack without the GEMMs into
+    the embedding (bwd_gemms(cfg, dx=False)): H, dZ and every weight
+    gradient bit for bit those of the tile that forms dx, no dx, and the
+    tile's count less exactly those GEMMs' products."""
+    cfg, params, pts, vd, g = _step_net(net)
+    nodx, withdx = {}, {}
+    got = _emulate_b2(params, cfg, pts, vd, g, buffers=nodx, dx=False)
+    want = _emulate_b2(params, cfg, pts, vd, g, buffers=withdx)
+    for buf in ("hbuf", "zbuf"):
+        assert np.array_equal(nodx[buf], withdx[buf]), buf
+    for k in want[0]:
+        assert torch.equal(got[0][k], want[0][k]), k
+    assert got[1] is None and got[2] is None and want[1] is not None
+    gems = fused_mlp_bwd.bwd_gemms(cfg, dx=False)
+    full = fused_mlp_bwd.bwd_gemms(cfg)
+    assert [r for r in full if r[3] != fused_mlp_bwd.BK_DEMB] == gems
+    assert len(full) - len(gems) == 1 + len(cfg.skips) + cfg.use_viewdirs
+    shapes = fused_mlp.param_shapes(cfg)
+    emb = sum(shapes[name + ".weight"][0] * N for name, _, N, kind, _ in full
+              if kind == fused_mlp_bwd.BK_DEMB)
+    assert (fused_mlp_bwd.flops_per_point_tile(cfg)
+            - fused_mlp_bwd.flops_per_point_tile(cfg, dx=False)) == 2 * emb
+    assert fused_mlp_bwd.backward_symbol(cfg, False, dx=False) == "nstt_mlp_backward_nodx"
+    assert fused_mlp_bwd.backward_symbol(cfg, True, dx=False) == "nstt_mlp_backward_bf16"
 
 
 def test_unpack_grads_inverts_the_packed_layout():
